@@ -1,0 +1,483 @@
+"""Sort-free dense TATP engine in PyTorch: the port of
+`dint_tpu.engines.tatp_dense` on its kernel route (the JAX ``use_pallas``
+route, with the hot tier and the fused megakernels off).
+
+The design is the JAX module's (its docstring has the full argument):
+
+* All five TATP tables live in ONE flat row-id space: rows [0,p1) sub |
+  [p1,2p1) sec | [2p1,6p1) ai | [6p1,10p1) sf | [10p1,22p1) cf, p1 =
+  n_sub+1, and row N is the sentinel every NOP lane gathers from and no
+  lane writes.
+* ``meta[row] = ver << 1 | exists`` is the word OCC validation compares.
+* Locks are step stamps in a separate array, ``arb[row] = step << K_ARB |
+  (2w-1 - slot)``; a row is held iff its step field is ``step - 1``, so
+  locks expire two steps after their grant and releases need no write.
+* One step fuses the commit wave of cohort t-2 (install + log x3), the
+  validate wave of t-1 and the read+lock wave of a new cohort. The fused
+  meta gather and the magic-word gather run the `gather_rows` kernel; the
+  lock pass runs the `lock_arbitrate` kernel (ops/row_kernels.py).
+
+What differs from JAX:
+
+* Tables are int32 tensors holding u32 bit patterns (ops/u32.py), updated
+  in place: the commit wave's installs and the log append are index_put_
+  writes and the lock kernel updates ``arb`` in place.
+* Masked install lanes are filtered out before the index_put_ (JAX routes
+  them out of bounds under ``mode="drop"``). The kept rows are unique by
+  certification (one X-lock holder per row), so no result depends on the
+  order of duplicate writes.
+* The step counter ``DenseDB.step`` is a Python int on the host: the stamp
+  arithmetic and the rebase check need no device sync.
+* Random draws come in from outside the step: ``bits`` [w, 4] u32 for the
+  new cohort (JAX: ``jax.random.bits``) and ``payload`` [w, 2] i32 for the
+  installed values (JAX: ``jax.random.randint(.., 0, 1 << 16)``). The
+  runner's `run` draws them with a `torch.Generator`; its ``run_draws``
+  takes them as given, which is how the tests replay JAX's draws.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..ops import u32
+from ..ops.row_kernels import gather_rows, lock_arbitrate
+from ..tables import log as logring
+from . import tatp
+from .tatp_pipeline import (K, MAGIC, N_SHARDS, CohortTables, classify_wave1,
+                            cohort_tables, draw_bits, gen_cohort_from_bits)
+from .tatp_pipeline import (STAT_ATTEMPTED, STAT_COMMITTED, STAT_AB_LOCK,  # noqa: F401 (re-exported)
+                            STAT_AB_MISSING, STAT_AB_VALIDATE, STAT_MAGIC_BAD,
+                            N_STATS)
+from .types import Op, Reply
+
+I32 = torch.int32
+
+# arb stamp layout: step << K_ARB | (2w-1 - slot). Supports w <= 2^17 and
+# 2^(32-K_ARB) = 16384 steps between rebases.
+K_ARB = 18
+REBASE_AT = (1 << (32 - K_ARB)) - 4096
+
+
+def _bases(p1: int) -> np.ndarray:
+    """Flat row-id base per table id (tatp.SUBSCRIBER..tatp.CALL_FORWARDING)."""
+    return np.cumsum([0, p1, p1, 4 * p1, 4 * p1]).astype(np.int32)
+
+
+def n_rows(n_sub: int) -> int:
+    return 22 * (n_sub + 1)
+
+
+@dataclass
+class DenseDB:
+    """All 5 TATP tables + locks + log x3 in flat dense tensors (row N is
+    the sentinel). ``val`` is interleaved 1-D: row r's words at
+    [r*VW, (r+1)*VW), 40 B/row at VW=10, 6.2 GB at 7M subscribers."""
+    val: torch.Tensor      # i32 [(N+1) * VW]; word0 payload, word1 magic
+    meta: torch.Tensor     # i32 [N+1]  ver<<1 | exists
+    arb: torch.Tensor      # i32 [N+1]  step-stamped lock arbitration word
+    step: int              # host counter, starts at 2 (stamp 0 = never held)
+    log: logring.RepLog    # 3 replica entries packed per slot (log x3)
+    val_words: int = 10
+
+    @property
+    def n_sub(self) -> int:
+        return self.meta.shape[0] // 22 - 1
+
+    @property
+    def ver(self) -> torch.Tensor:
+        return u32.shr(self.meta, 1)
+
+    @property
+    def exists(self) -> torch.Tensor:
+        return (self.meta & 1) != 0
+
+    @property
+    def locked(self) -> torch.Tensor:
+        """Rows X-held right now: stamped by the previous step."""
+        return u32.shr(self.arb, K_ARB) == self.step - 1
+
+
+def create(n_sub: int, val_words: int = 10, log_lanes: int = 16,
+           log_capacity: int = 1 << 16, log_replicas: int = N_SHARDS,
+           device=None) -> DenseDB:
+    dev = resolve_device(device)
+    n1 = n_rows(n_sub) + 1
+    # flat word indices (row * VW + j) are computed in int32 on the device
+    if n1 * val_words >= (1 << 31):
+        raise ValueError(f"n_sub={n_sub} x val_words={val_words} overflows "
+                         f"int32 row*VW indices")
+    return DenseDB(
+        val=torch.zeros((n1 * val_words,), dtype=I32, device=dev),
+        meta=torch.zeros((n1,), dtype=I32, device=dev),
+        arb=torch.zeros((n1,), dtype=I32, device=dev),
+        step=2,
+        log=logring.create_rep(log_lanes, log_capacity, val_words,
+                               replicas=log_replicas, device=dev),
+        val_words=val_words)
+
+
+def populate(rng: np.random.Generator, n_sub: int, val_words: int = 10,
+             device=None, **kw) -> DenseDB:
+    """The JAX `populate` on the host with the same numpy draws, so the same
+    ``rng`` state gives bit-identical tables (reference populate:
+    tatp/caladan/client_ebpf_shard.cc:96-341): all subscribers present,
+    ai/sf types present w.p. 0.625 (>=1 each), CF rows on 25% of present
+    sf rows per start_time; val word0 = row payload, word1 = magic."""
+    p1 = n_sub + 1
+    db = create(n_sub, val_words=val_words, device=device, **kw)
+    n1 = n_rows(n_sub) + 1
+    base = _bases(p1)
+
+    val = np.zeros((n1, val_words), np.uint32)
+    meta = np.zeros(n1, np.uint32)
+
+    def put(rows, payload):
+        val[rows, 0] = payload.astype(np.uint32)
+        val[rows, 1] = MAGIC
+        meta[rows] = (1 << 1) | 1             # ver 1, exists
+
+    s_ids = np.arange(1, p1)
+    put(base[tatp.SUBSCRIBER] + s_ids, s_ids)
+    put(base[tatp.SEC_SUBSCRIBER] + s_ids, s_ids)
+
+    ai_present = rng.random((p1, 4)) < 0.625
+    sf_present = rng.random((p1, 4)) < 0.625
+    ai_present[0] = sf_present[0] = False
+    ai_present[1:][ai_present[1:].sum(1) == 0, 0] = True
+    sf_present[1:][sf_present[1:].sum(1) == 0, 0] = True
+    ai_idx = np.nonzero(ai_present.reshape(-1))[0]
+    sf_idx = np.nonzero(sf_present.reshape(-1))[0]
+    put(base[tatp.ACCESS_INFO] + ai_idx, ai_idx)
+    put(base[tatp.SPECIAL_FACILITY] + sf_idx, sf_idx)
+
+    sfi, sft = np.nonzero(sf_present)
+    cf_keys = []
+    for st in (0, 8, 16):
+        mask = rng.random(len(sfi)) < 0.25
+        cf_keys.append(np.asarray(tatp.cf_key(sfi[mask], sft[mask] + 1, st)))
+    cf_keys = np.unique(np.concatenate(cf_keys)).astype(np.int64)
+    put(base[tatp.CALL_FORWARDING] + cf_keys, cf_keys)
+
+    dev = db.meta.device
+    db.val = u32.from_numpy(val.reshape(-1), dev)
+    db.meta = u32.from_numpy(meta, dev)
+    return db
+
+
+def populate_device(gen: torch.Generator | None, n_sub: int,
+                    val_words: int = 10, device=None, **kw) -> DenseDB:
+    """Populate on the device for reference-scale tables: the population
+    rules of `populate`, drawn with the torch generator ``gen`` (seeded 0
+    when None) where the tables live, so the 6.2 GB val array at n_sub=7e6
+    is made in device memory. Distribution-identical to `populate`, not
+    bit-identical (another random stream)."""
+    db = create(n_sub, val_words=val_words, device=device, **kw)
+    dev = db.meta.device
+    if gen is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+    if torch.device(gen.device).type != dev.type:
+        raise ValueError(f"generator on {gen.device}, tables on {dev}")
+    p1 = n_sub + 1
+    sub_e = torch.arange(p1, device=dev) >= 1                  # [p1]
+
+    def present():
+        pr = torch.rand(p1 * 4, generator=gen, device=dev) < 0.625
+        pr4 = pr.view(p1, 4)                                    # idx = s*4+t
+        pr4[:, 0] |= ~pr4.any(dim=1)                            # >=1 each
+        return pr & sub_e.repeat_interleave(4)
+
+    ai_p = present()                                            # [4*p1]
+    sf_p = present()
+    # cf rows flat [12*p1]: idx = s*12 + (sf_type-1)*3 + start_time/8 (the
+    # cf_key layout); idx // 3 is the covering sf element
+    cf_p = sf_p.repeat_interleave(3) \
+        & (torch.rand(p1 * 12, generator=gen, device=dev) < 0.25)
+    exists = torch.cat([sub_e, sub_e, ai_p, sf_p, cf_p,
+                        torch.zeros(1, dtype=torch.bool, device=dev)])
+    db.meta.copy_(exists.to(I32) * ((1 << 1) | 1))             # ver 1
+
+    # payload = index within the row's table region (populate's `put`)
+    rows = torch.nonzero(exists).squeeze(1)
+    base = torch.as_tensor(_bases(p1).astype(np.int64), device=dev)
+    region = torch.searchsorted(base, rows, right=True) - 1
+    widx = rows * val_words
+    db.val[widx] = (rows - base[region]).to(I32)
+    db.val[widx + 1] = MAGIC
+    return db
+
+
+# ---------------------------------------------------------------- pipeline
+
+
+@dataclass
+class DenseCtx:
+    """An in-flight cohort between pipeline stages (row ids and versions
+    are captured once at wave 1). Bootstrap cohorts have attempted == 0 and
+    all-False masks."""
+    rows: torch.Tensor       # i32 [w, K] flat row ids (sentinel for NOP lanes)
+    is_read: torch.Tensor    # bool [w, K] OCC_READ lanes
+    vv1: torch.Tensor        # i32 [w, K] meta (ver<<1|exists) at wave 1
+    alive: torch.Tensor      # bool [w]
+    ro_commit: torch.Tensor  # bool [w]
+    granted: torch.Tensor    # bool [w, 2]
+    ws_rows: torch.Tensor    # i32 [w, 2] write-slot row ids (sentinel if inactive)
+    ws_vv: torch.Tensor      # i32 [w, 2] write-slot ver:exists at wave 1
+    ws_tbl: torch.Tensor     # i32 [w, 2]
+    ws_key: torch.Tensor     # i32 [w, 2] (logged key)
+    ws_kind: torch.Tensor    # i32 [w, 2] 0 commit / 1 insert / 2 delete
+    ws_active: torch.Tensor  # bool [w, 2]
+    attempted: torch.Tensor  # i32 scalar
+    ab_lock: torch.Tensor    # i32 scalar
+    ab_missing: torch.Tensor  # i32 scalar
+    ab_validate: torch.Tensor  # i32 scalar
+    magic_bad: torch.Tensor  # i32 scalar
+
+
+def empty_ctx(w: int, device) -> DenseCtx:
+    dev = torch.device(device)
+
+    def z(shape, dt=I32):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    b = torch.bool
+    return DenseCtx(
+        rows=z((w, K)), is_read=z((w, K), b), vv1=z((w, K)),
+        alive=z((w,), b), ro_commit=z((w,), b), granted=z((w, 2), b),
+        ws_rows=z((w, 2)), ws_vv=z((w, 2)), ws_tbl=z((w, 2)),
+        ws_key=z((w, 2)), ws_kind=z((w, 2)), ws_active=z((w, 2), b),
+        attempted=z(()), ab_lock=z(()), ab_missing=z(()),
+        ab_validate=z(()), magic_bad=z(()))
+
+
+def _stats_of(c: DenseCtx) -> torch.Tensor:
+    return torch.stack([
+        c.attempted, (c.ro_commit | c.alive).sum(dtype=I32),
+        c.ab_lock, c.ab_missing, c.ab_validate, c.magic_bad])
+
+
+@dataclass
+class StepConsts:
+    """Device constants of a step, made once per runner so that no step
+    copies host data to the device (a copy from pageable host memory
+    synchronises the stream)."""
+    base: torch.Tensor     # i32 [5] flat row-id base per table
+    cohort: CohortTables   # txn-mix thresholds and per-type lane layout
+
+
+def step_consts(n_sub: int, mix, device) -> StepConsts:
+    return StepConsts(
+        base=torch.as_tensor(_bases(n_sub + 1), device=device),
+        cohort=cohort_tables(mix, device))
+
+
+def pipe_step(db: DenseDB, c1: DenseCtx, c2: DenseCtx, bits, payload, *,
+              w: int, n_sub: int, val_words: int, gen_new: bool = True,
+              mix=None, check_magic: bool = True,
+              consts: StepConsts | None = None):
+    """One fused step: commit wave of c2, validate wave of c1, and read+lock
+    wave of a NEW cohort drawn from ``bits`` [w, 4] (unused when
+    ``gen_new`` is False) — commits, then reads, then lock acquires, so
+    cohort t-2's installs are visible to t-1's validation and this step's
+    reads. ``payload`` [w, 2] i32 fills word 0 of c2's installed rows.
+    Updates ``db`` in place and returns (db, new_ctx, c1', stats-of-c2)."""
+    dev = db.meta.device
+    if consts is None:
+        consts = step_consts(n_sub, mix, dev)
+    sent = n_rows(n_sub)   # sentinel row: gathered by NOP lanes, never written
+    base = consts.base
+    t = db.step
+
+    # ---- wave 3 of c2: install + log --------------------------------------
+    # only real writes touch meta: lock releases are implicit (c2's stamps
+    # from step t-2 expire this step). Uniqueness: one X-holder per row,
+    # and a txn's two slots target different tables.
+    do_write = c2.ws_active & c2.alive[:, None]                 # [w, 2]
+    wmask = do_write.reshape(-1)
+    wkind = c2.ws_kind.reshape(-1)
+    newex = (wkind != 2) & wmask
+    vv = u32.to_u64(c2.ws_vv.reshape(-1))   # wave-1 meta (ver<<1|exists):
+    #                                         X-held since, so still current
+    newver64 = (vv >> 1) + 1
+    meta_new = u32.wrap_i32((newver64 << 1) | newex.to(torch.int64))
+    newver = u32.wrap_i32(newver64)
+    newval = torch.zeros((w, 2, val_words), dtype=I32, device=dev)
+    newval[:, :, 0] = payload
+    newval[:, :, 1] = torch.where(do_write & (c2.ws_kind != 2), MAGIC, 0)
+    newval = newval.view(-1, val_words)
+    newval = torch.where((wkind == 2)[:, None], 0, newval)     # delete zeroes
+    keep = torch.nonzero(wmask).squeeze(1)
+    wrows = c2.ws_rows.reshape(-1)[keep].to(torch.int64)
+    db.meta[wrows] = meta_new[keep]
+    wflat = (wrows[:, None] * val_words
+             + torch.arange(val_words, device=dev)).reshape(-1)
+    db.val[wflat] = newval[keep].reshape(-1)
+    log_key = c2.ws_key.reshape(-1)
+    logring.append_rep(db.log, wmask, c2.ws_tbl.reshape(-1),
+                       (wkind == 2).to(I32), torch.zeros_like(log_key),
+                       log_key, newver, newval)
+
+    # ---- wave 1: new cohort read + lock -----------------------------------
+    if gen_new:
+        ttype, ops, tbl, kk, ws = gen_cohort_from_bits(
+            bits, w, n_sub, tables=consts.cohort)
+        ws_active, ws_lane, ws_tbl, ws_key, ws_kind = ws
+    else:
+        ttype = torch.zeros((w,), dtype=I32, device=dev)
+        ops, tbl, kk = (torch.zeros((w, K), dtype=I32, device=dev)
+                        for _ in range(3))
+        ws_active = torch.zeros((w, 2), dtype=torch.bool, device=dev)
+        ws_lane, ws_tbl, ws_key, ws_kind = (
+            torch.zeros((w, 2), dtype=I32, device=dev) for _ in range(4))
+
+    used = ops != Op.NOP
+    rows = torch.where(used, base[tbl] + kk, sent)              # [w, K]
+    is_read = ops == Op.OCC_READ
+
+    # ONE meta gather serves wave 2 (c1's validate re-read) AND wave 1 (the
+    # new cohort's reads)
+    g = gather_rows(db.meta, torch.cat([c1.rows.reshape(-1),
+                                        rows.reshape(-1)]), 1)
+    vvB = g[: w * K].view(w, K)
+    rmeta = g[w * K:].view(w, K)
+
+    # ---- wave 2 of c1: validate read-set version compare ------------------
+    bad = c1.is_read & (vvB != c1.vv1)
+    changed = bad.any(dim=1)
+    c1 = dataclasses.replace(c1, alive=c1.alive & ~changed,
+                             ab_validate=(c1.alive & changed).sum(dtype=I32))
+
+    rex = (rmeta & 1) != 0
+    if check_magic:
+        rmagic = gather_rows(db.val, (rows * val_words + 1).reshape(-1),
+                             1).view(w, K)
+        magic_bad = (is_read & rex & (rmagic != MAGIC)).sum(dtype=I32)
+    else:
+        magic_bad = torch.zeros((), dtype=I32, device=dev)
+
+    # lock arbitration in [w, 2] write-slot space: first slot wins per row
+    # (batched CAS, tatp/ebpf/shard_kern.c:251-297); losers and held rows
+    # REJECT. Candidates on held rows never stamp, so rejected attempts
+    # cannot keep a hot row locked.
+    ws_vv = torch.take_along_dim(rmeta, ws_lane.to(torch.int64), dim=1)
+    ws_rows = torch.where(ws_active, base[ws_tbl] + ws_key, sent)  # [w, 2]
+    _, grant = lock_arbitrate(db.arb, ws_rows.reshape(-1),
+                              ws_active.reshape(-1), t, K_ARB)
+    grant = grant.view(w, 2)
+
+    # reply types: reads from the gather; write-slot GRANT/REJECT direct
+    rt = torch.where(is_read & used,
+                     torch.where(rex, Reply.VAL, Reply.NOT_EXIST), Reply.NONE)
+    ws_rt = torch.where(grant, Reply.GRANT,
+                        torch.where(ws_active, Reply.REJECT, Reply.NONE))
+
+    # ---- wave-1 outcome: shared per-txn-type rules ------------------------
+    is_ro, rw, granted, lock_rejected, missing = classify_wave1(
+        ttype, rt, ops, ws_active, ws_lane, ws_rt=ws_rt)
+
+    new_ctx = DenseCtx(
+        rows=rows, is_read=is_read & used, vv1=rmeta,
+        alive=rw & ~lock_rejected & ~missing,
+        ro_commit=is_ro & ~missing, granted=granted,
+        ws_rows=ws_rows, ws_vv=ws_vv,
+        ws_tbl=ws_tbl, ws_key=ws_key, ws_kind=ws_kind,
+        ws_active=ws_active,
+        attempted=torch.full((), w if gen_new else 0, dtype=I32, device=dev),
+        ab_lock=(rw & lock_rejected).sum(dtype=I32),
+        ab_missing=((rw & ~lock_rejected & missing)
+                    | (is_ro & missing)).sum(dtype=I32),
+        ab_validate=torch.zeros((), dtype=I32, device=dev),
+        magic_bad=magic_bad)
+
+    db.step = t + 1
+    return db, new_ctx, c1, _stats_of(c2)
+
+
+def rebase_stamps(db: DenseDB) -> DenseDB:
+    """Rebase arb stamps so the step field never overflows its budget:
+    live stamps (step-1 -> 2, step-2 -> 1) are kept, everything older is
+    zeroed, and the step counter restarts at 3. One elementwise pass over
+    arb, once per ~12k steps; in place."""
+    t = db.step
+    ts = u32.to_u64(u32.shr(db.arb, K_ARB))
+    keep = ts + 2 >= t
+    new_ts = torch.where(keep, ts - (t - 3), 0)
+    low = u32.to_u64(db.arb) & ((1 << K_ARB) - 1)
+    db.arb.copy_(u32.wrap_i32(torch.where(keep, (new_ts << K_ARB) | low, 0)))
+    db.step = 3
+    return db
+
+
+def build_pipelined_runner(n_sub: int, w: int = 8192, val_words: int = 10,
+                           cohorts_per_block: int = 8, mix=None,
+                           check_magic: bool = True, device=None):
+    """A loop of `pipe_step` over carry (db, c1, c2); the contract of the
+    JAX `build_pipelined_runner`: returns (run, init, drain).
+
+    * ``run(carry, gen)`` draws a block's ``[cpb, w, 4]`` bits and
+      ``[cpb, w, 2]`` payloads with the torch generator ``gen`` on the
+      device and calls ``run.run_draws``;
+    * ``run.run_draws(carry, bits, payload)`` runs ``cohorts_per_block``
+      steps on the given draws (int32 tensors on the runner's device; bits
+      hold u32 patterns) and returns (carry, stats i32 [cpb, N_STATS]);
+      at the start of a block it rebases the arb stamps when the host step
+      counter has reached REBASE_AT;
+    * ``init(db)`` -> carry with two empty in-flight cohorts;
+    * ``drain(carry, payload=None)`` runs the two flush steps and returns
+      (db, stats [2, N_STATS]); ``payload`` [2, w, 2] fills c2's and c1's
+      installs (drawn from a generator seeded 0 when None)."""
+    dev = resolve_device(device)
+    if 2 * w > (1 << K_ARB):
+        raise ValueError(f"w={w} exceeds the arb slot field")
+    cpb = cohorts_per_block
+    kw = dict(w=w, n_sub=n_sub, val_words=val_words, mix=mix,
+              check_magic=check_magic, consts=step_consts(n_sub, mix, dev))
+
+    def run_draws(carry, bits, payload):
+        if tuple(bits.shape) != (cpb, w, 4) or \
+                tuple(payload.shape) != (cpb, w, 2):
+            raise ValueError(f"expected bits [{cpb}, {w}, 4] and payload "
+                             f"[{cpb}, {w}, 2], got {tuple(bits.shape)} and "
+                             f"{tuple(payload.shape)}")
+        db, c1, c2 = carry
+        if db.step >= REBASE_AT:
+            rebase_stamps(db)
+        stats = []
+        for i in range(cpb):
+            db, new_ctx, c1, s = pipe_step(db, c1, c2, bits[i], payload[i],
+                                           **kw)
+            c1, c2 = new_ctx, c1
+            stats.append(s)
+        return (db, c1, c2), torch.stack(stats)
+
+    def run(carry, gen: torch.Generator):
+        bits = draw_bits(gen, (cpb, w, 4), dev)
+        payload = torch.randint(0, 1 << 16, (cpb, w, 2), dtype=I32,
+                                generator=gen, device=dev)
+        return run_draws(carry, bits, payload)
+
+    run.run_draws = run_draws
+
+    def init(db: DenseDB):
+        if db.meta.device.type != dev.type:
+            raise ValueError(f"tables on {db.meta.device}, runner on {dev}")
+        return db, empty_ctx(w, dev), empty_ctx(w, dev)
+
+    def drain(carry, payload=None):
+        db, c1, c2 = carry
+        if payload is None:
+            g = torch.Generator(device=dev)
+            g.manual_seed(0)
+            payload = torch.randint(0, 1 << 16, (2, w, 2), dtype=I32,
+                                    generator=g, device=dev)
+        db, _, c1, s1 = pipe_step(db, c1, c2, None, payload[0],
+                                  gen_new=False, **kw)
+        db, _, _, s2 = pipe_step(db, empty_ctx(w, dev), c1, None,
+                                 payload[1], gen_new=False, **kw)
+        return db, torch.stack([s1, s2])
+
+    return run, init, drain
