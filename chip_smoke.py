@@ -9,18 +9,30 @@ mismatch or error:
 1. The card: name and power limit (nvidia-smi), and the nvcc build of every
    kernel in dint_tpu_torch/csrc (all sources compiled at once).
 2. Each kernel against its plain PyTorch version on the card, at the shapes
-   the main path gives it, exact equality: gather_rows over a meta-sized
-   [154,000,023] table (K = 65,536) and a val-sized table (K = 32,768 word
-   offsets); lock_arbitrate over an [n1] arb array (M = 16,384) prefilled
-   with t-1, t-2 and 0 stamps, with heavy duplicates and inactive lanes.
-   Times: kernel, plain version, yardstick (one torch call where one
-   computes the same function), and the bytes bound at 3.35 TB/s.
-3. The port on the CPU against the port on the card, end to end
-   (n_sub=2000, w=256, 4 cohorts/block, contention mix, the same host-made
-   draws): tables, log and stats bit-identical.
-4. The main path at full width: populate_device at 7,000,000 subscribers,
-   build_pipelined_runner(w=8192, cohorts_per_block=16, val_words=10), one
-   warm block, 8 timed blocks, drain; TATP invariants and launch counts.
+   the main paths give it, exact equality. TATP: gather_rows over a
+   meta-sized [154,000,023] table (K = 65,536) and a val-sized table
+   (K = 32,768 word offsets); lock_arbitrate over an [n1] arb array
+   (M = 16,384) prefilled with t-1, t-2 and 0 stamps, with heavy duplicates
+   and inactive lanes. SmallBank at 24M accounts (K = 3w = 24,576 lanes,
+   90% of them on the 4% hot set): gather_streams over x_step/s_step [2^25]
+   and bal [48,000,001]; scatter_streams into bal, a log-sized
+   [1,048,576 x 18] table and the [1,920,000] mirror with ~30% of lanes
+   masked; gather_rows_hot and scatter_rows_hot over bal with the mirror.
+   Times: kernel, plain version, yardstick (torch calls that compute the
+   same function), and the bytes bound at 3.35 TB/s.
+3. The port on the CPU against the port on the card, end to end, the same
+   host-made draws: TATP (n_sub=2000, w=256, 4 cohorts/block, contention
+   mix) and SmallBank on all four routes (n=300, w=256, 4 cohorts/block):
+   tables, mirrors, log and stats bit-identical.
+4. The TATP main path at full width: populate_device at 7,000,000
+   subscribers, build_pipelined_runner(w=8192, cohorts_per_block=16,
+   val_words=10), one warm block, 8 timed blocks, drain; TATP invariants
+   and launch counts.
+5. The SmallBank main path at full width: create(24,000,000), w=8192, 16
+   cohorts/block, 90/4 skew, on three routes (default, use_hotset,
+   use_fused + use_hotset) from identical tables and generator seeds: one
+   warm block, 8 timed blocks, drain each; SmallBank invariants, launch
+   counts per route, and the three routes identical to each other.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -41,6 +53,9 @@ W = 8192
 CPB = 16
 VW = 10
 TIMED_BLOCKS = 8
+SB_N = 24_000_000
+SB_W = 8192
+SB_CPB = 16
 
 
 class SmokeFailure(RuntimeError):
@@ -341,10 +356,410 @@ def phase_main_path(dev):
     check(abs(observed - expected) < 0.01,
           f"ab_missing rate {observed:.6f} within 0.01 of analytic "
           f"{expected:.6f}")
-    check(launches == {"gather_rows": 2 * steps, "lock_arbitrate": steps},
+    want = dict.fromkeys(launches, 0)
+    want.update(gather_rows=2 * steps, lock_arbitrate=steps)
+    check(launches == want,
           f"launches {launches} == 2 gather_rows + 1 lock_arbitrate per step "
           f"over {steps} steps")
     return launches
+
+
+def rotating(fn, sets):
+    """A no-argument call of ``fn`` on the next input set in turn, so that
+    a timed run of calls meets fresh lanes (64 sets of 24,576 random
+    sectors, 50 MB, are about the L2 size)."""
+    state = {"i": 0}
+
+    def call():
+        i = state["i"]
+        state["i"] = (i + 1) % len(sets)
+        return fn(*sets[i])
+    return call
+
+
+def words_of(idx, vw):
+    """Flat word offsets of rows ``idx`` of ``vw`` words."""
+    idx = idx.to(torch.int64)
+    return (idx[:, None] * vw + torch.arange(vw, device=idx.device)).reshape(-1)
+
+
+def first_only(rows):
+    """True on the first lane of each distinct value: unique writers."""
+    order = torch.argsort(rows, stable=True)
+    srt = rows[order]
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[1:] = srt[1:] != srt[:-1]
+    out = torch.empty_like(first)
+    out[order] = first
+    return out
+
+
+def phase_sb_kernels(dev):
+    print("== phase 2 (SmallBank): stream and hot-tier kernels, 24M accounts")
+    from dint_tpu_torch.engines import smallbank_dense as sd
+    from dint_tpu_torch.ops import row_kernels as rk
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n, m1 = SB_N, 2 * SB_N + 1
+    h = sd.lock_slots_for(m1)
+    hot_n = int(n * 0.04)
+    k = SB_W * 3
+    n_log = 16 * 65536
+    ew3 = 3 * (4 + 2)
+    n_sets = 64
+
+    def rand_words(size):
+        return torch.empty(size, dtype=torch.int32,
+                           device=dev).random_(generator=gen)
+
+    bal = rand_words(m1)
+    x_step, s_step = rand_words(h), rand_words(h)
+    ar = torch.arange(hot_n, device=dev)
+    mirror = bal[torch.cat([ar, n + ar])]               # coherent mirror
+    log = rand_words(n_log * ew3)
+
+    def lane_set():
+        """One step's lanes: 90% of accounts in the hot prefix, both
+        tables; ~70% of lanes masked in as unique writers."""
+        hot = torch.rand(k, generator=gen, device=dev) < 0.9
+        acc = torch.where(hot, torch.randint(0, hot_n, (k,), generator=gen,
+                                             device=dev),
+                          torch.randint(0, n, (k,), generator=gen,
+                                        device=dev))
+        tbl = torch.randint(0, 2, (k,), generator=gen, device=dev)
+        rows = (tbl * n + acc).to(torch.int32)
+        midx = torch.where(acc < hot_n, tbl * hot_n + acc, -1).to(torch.int32)
+        slot = sd._slot_of(rows, m1, h)
+        mask = (torch.rand(k, generator=gen, device=dev) < 0.7) \
+            & first_only(rows)
+        lslot = torch.randperm(n_log, generator=gen, device=dev)[:k]
+        vals = rand_words(k)
+        return dict(rows=rows, midx=midx, slot=slot, mask=mask,
+                    widx=torch.where(mask, rows, -1),
+                    lflat=torch.where(mask, lslot, -1).to(torch.int32),
+                    wmidx=torch.where(mask, midx, -1),
+                    vals=vals, entry=rand_words(k * ew3))
+
+    sets = [lane_set() for _ in range(n_sets)]
+    a = sets[0]
+    rec = {}
+
+    lanes = torch.arange(k, device=dev)
+
+    def mean_bound(nbytes_of):
+        """The bytes bound over the rotating lane sets. A per-lane stream
+        read in full counts 4 bytes a lane; one read on some lanes only
+        counts the 32-byte sectors that hold those lanes."""
+        return bound_ms(sum(nbytes_of(z) for z in sets) / n_sets)
+
+    def report(name, ms, plain, yard, yard_what, bnd):
+        print(f"  {name} K={k}: kernel {ms:.6f} ms, plain {plain:.6f} ms, "
+              f"{yard_what} (yardstick) {yard:.6f} ms, bound {bnd:.6f} ms")
+
+    # -- gather_streams: the fused route's held-stamp and balance reads
+    tabs3, vws3 = (x_step, s_step, bal), (1, 1, 1)
+    got = rk.gather_streams(tabs3, (a["slot"], a["slot"], a["rows"]), vws3)
+    want = rk.gather_streams_ref(tabs3, (a["slot"], a["slot"], a["rows"]),
+                                 vws3)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(g, w_) for g, w_ in zip(got, want))
+    check(all(torch.equal(g, w_) for g, w_ in zip(got, want)) and err == 0,
+          f"gather_streams x_step/s_step [{h}] + bal [{m1}], K={k} each, "
+          f"equals the plain version")
+    sel = [(z["slot"], z["rows"]) for z in sets]
+    ms = device_ms(rotating(lambda sl, r: rk.gather_streams(
+        tabs3, (sl, sl, r), vws3), sel))
+    plain = device_ms(rotating(lambda sl, r: rk.gather_streams_ref(
+        tabs3, (sl, sl, r), vws3), sel))
+    yard = device_ms(rotating(lambda sl, r: (
+        x_step.index_select(0, sl), s_step.index_select(0, sl),
+        bal.index_select(0, r)), sel))
+    bnd = mean_bound(lambda z: 32 * (2 * sectors(z["slot"])
+                                     + sectors(z["rows"])) + 4 * k * 5)
+    report("gather_streams", ms, plain, yard, "3 index_select", bnd)
+    rec["gather_streams"] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                                 yard_ms=yard, bound_ms=bnd, max_abs_err=err)
+
+    # -- scatter_streams: the fused install_log (bal, log x3, mirror)
+    def streams(z):
+        return ((z["widx"], z["lflat"], z["wmidx"]),
+                (z["vals"], z["entry"], z["vals"]))
+    vws_s = (1, ew3, 1)
+    tk = (bal.clone(), log.clone(), mirror.clone())
+    tr = (bal.clone(), log.clone(), mirror.clone())
+    rk.scatter_streams(tk, *streams(a), vws_s)
+    rk.scatter_streams_ref(tr, *streams(a), vws_s)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(x, y) for x, y in zip(tk, tr))
+    check(all(torch.equal(x, y) for x, y in zip(tk, tr)) and err == 0,
+          f"scatter_streams into bal [{m1}], log [{n_log} x {ew3}] and mirror "
+          f"[{2 * hot_n}], K={k} each, {int(a['mask'].sum())} masked in, "
+          f"equals the plain version")
+    ms = device_ms(rotating(lambda i, v: rk.scatter_streams(
+        tk, i, v, vws_s), [streams(z) for z in sets]))
+    plain = device_ms(rotating(lambda i, v: rk.scatter_streams_ref(
+        tr, i, v, vws_s), [streams(z) for z in sets]))
+    log2d = tr[1].view(-1, ew3)
+
+    def kept(z):
+        m, hm = z["mask"], z["mask"] & (z["midx"] >= 0)
+        return (z["rows"][m].long(), z["vals"][m], z["lflat"][m].long(),
+                z["entry"].view(-1, ew3)[m], z["midx"][hm].long(),
+                z["vals"][hm])
+    yard = device_ms(rotating(lambda r, v, li, e, mi, mv: (
+        tr[0].index_copy_(0, r, v), log2d.index_copy_(0, li, e),
+        tr[2].index_copy_(0, mi, mv)), [kept(z) for z in sets]))
+
+    def scat_bytes(z):
+        m = z["mask"]
+        hm = m & (z["midx"] >= 0)
+        # three index streams read in full; the balance and mirror streams
+        # share one value array, read on the masked-in lanes
+        return (32 * (sectors(z["rows"][m]) + sectors(words_of(
+            z["lflat"][m], ew3)) + sectors(z["midx"][hm])
+            + sectors(lanes[m]) + sectors(words_of(lanes[m], ew3)))
+            + 4 * 3 * k)
+    bnd = mean_bound(scat_bytes)
+    report("scatter_streams", ms, plain, yard, "3 index_copy_ of kept rows",
+           bnd)
+    rec["scatter_streams"] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                                  yard_ms=yard, bound_ms=bnd,
+                                  max_abs_err=err)
+    del tk, tr, log2d
+
+    # -- gather_rows_hot: the hot route's balance read
+    got = rk.gather_rows_hot(bal, mirror, a["rows"], a["midx"], 1)
+    want = rk.gather_rows_hot_ref(bal, mirror, a["rows"], a["midx"], 1)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    check(torch.equal(got, want) and err == 0,
+          f"gather_rows_hot over bal [{m1}] + mirror [{2 * hot_n}], K={k}, "
+          f"{int((a['midx'] >= 0).sum())} lanes hot, equals the plain version")
+    check(torch.equal(got, rk.gather_rows(bal, a["rows"], 1)),
+          "gather_rows_hot equals gather_rows over the coherent mirror")
+    sel = [(z["rows"], z["midx"]) for z in sets]
+
+    def xla_chain(r, mi):
+        hot = mi >= 0
+        return torch.where(hot, mirror.index_select(0, mi.clamp(min=0)),
+                           bal.index_select(0, r))
+    # the hot tier against the plain gather on the same lanes, in turns
+    cmp = [device_ms(rotating(lambda r, mi: rk.gather_rows(bal, r, 1), sel)),
+           device_ms(rotating(lambda r, mi: rk.gather_rows_hot(
+               bal, mirror, r, mi, 1), sel)),
+           device_ms(rotating(lambda r, mi: rk.gather_rows_hot(
+               bal, mirror, r, mi, 1), sel)),
+           device_ms(rotating(lambda r, mi: rk.gather_rows(bal, r, 1), sel))]
+    ms = (cmp[1] + cmp[2]) / 2
+    plain = device_ms(rotating(lambda r, mi: rk.gather_rows_hot_ref(
+        bal, mirror, r, mi, 1), sel))
+    yard = device_ms(rotating(xla_chain, sel))
+
+    def hot_bytes(z):
+        # a hot lane's idx is never read: only the cold lanes' sectors count
+        hot = z["midx"] >= 0
+        return (32 * (sectors(z["rows"][~hot]) + sectors(z["midx"][hot])
+                      + sectors(lanes[~hot])) + 4 * 2 * k)
+    bnd = mean_bound(hot_bytes)
+    report("gather_rows_hot", ms, plain, yard, "where/index_select chain", bnd)
+    print(f"  bal read on the same lanes, in turns: gather_rows "
+          f"{cmp[0]:.6f} ms, gather_rows_hot {cmp[1]:.6f} ms, "
+          f"gather_rows_hot {cmp[2]:.6f} ms, gather_rows {cmp[3]:.6f} ms")
+    rec["gather_rows_hot"] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                                  yard_ms=yard, bound_ms=bnd,
+                                  max_abs_err=err, gather_rows_ms=cmp)
+
+    # -- scatter_rows_hot: the hot route's write-through install
+    def hot_in(z):
+        return (z["rows"], z["midx"], z["mask"], z["vals"])
+    bk, mk = bal.clone(), mirror.clone()
+    br, mr = bal.clone(), mirror.clone()
+    rk.scatter_rows_hot(bk, mk, *hot_in(a), 1)
+    rk.scatter_rows_hot_ref(br, mr, *hot_in(a), 1)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(bk, br), max_abs_err(mk, mr))
+    check(torch.equal(bk, br) and torch.equal(mk, mr) and err == 0,
+          f"scatter_rows_hot into bal [{m1}] + mirror [{2 * hot_n}], K={k}, "
+          f"equals the plain version")
+    ms = device_ms(rotating(lambda *z: rk.scatter_rows_hot(bk, mk, *z, 1),
+                            [hot_in(z) for z in sets]))
+    plain = device_ms(rotating(lambda *z: rk.scatter_rows_hot_ref(
+        br, mr, *z, 1), [hot_in(z) for z in sets]))
+    yard = device_ms(rotating(lambda r, v, li, e, mi, mv: (
+        br.index_copy_(0, r, v), mr.index_copy_(0, mi, mv)),
+        [kept(z) for z in sets]))
+
+    def hot_scat_bytes(z):
+        m = z["mask"]
+        hm = m & (z["midx"] >= 0)
+        # idx, midx and vals are read on masked-in lanes only
+        return (32 * (sectors(z["rows"][m]) + sectors(z["midx"][hm])
+                      + 3 * sectors(lanes[m])) + k)
+    bnd = mean_bound(hot_scat_bytes)
+    report("scatter_rows_hot", ms, plain, yard, "2 index_copy_ of kept rows",
+           bnd)
+    rec["scatter_rows_hot"] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                                   yard_ms=yard, bound_ms=bnd,
+                                   max_abs_err=err)
+    del bal, x_step, s_step, mirror, log, sets, bk, mk, br, mr
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_sb_cpu_vs_card(dev):
+    print("== phase 3 (SmallBank): the port on the CPU against the card")
+    from dint_tpu_torch import convert
+    from dint_tpu_torch.engines import smallbank_dense as sd
+    from dint_tpu_torch.ops import u32
+    n, w, cpb, blocks = 300, 256, 4, 3
+    rng = np.random.default_rng(2)
+    draws = [(rng.integers(0, 1 << 32, (cpb, w, 5), dtype=np.uint64)
+              .astype(np.uint32),
+              rng.integers(-20, 21, (cpb, w)).astype(np.int32))
+             for _ in range(blocks)]
+    for route, (hot, fused) in sd.ROUTES.items():
+        out = []
+        for where in ("cpu", dev):
+            run, init, drain = sd.build_pipelined_runner(
+                n, w=w, cohorts_per_block=cpb, use_hotset=hot,
+                use_fused=fused, device=where)
+            carry = init(sd.create(n, log_capacity=1 << 10, device=where))
+            stats = []
+            for bits, amt in draws:
+                carry, st = run.run_draws(carry, u32.from_numpy(bits, where),
+                                          torch.from_numpy(amt).to(where))
+                stats.append(st.cpu())
+            db, tail = drain(carry)
+            stats.append(tail.cpu())
+            out.append((convert.dense_bank_to_numpy(db),
+                        torch.cat(stats).numpy()))
+        (a_db, a_st), (b_db, b_st) = out
+        same = [k for k in a_db
+                if np.array_equal(np.asarray(a_db[k]), np.asarray(b_db[k]))]
+        check(np.array_equal(a_st, b_st) and same == list(a_db)
+              and list(a_db) == list(b_db),
+              f"route {route}: stats and {same} bit-identical")
+        tot = a_st.astype(np.int64).sum(axis=0)
+        check(tot[sd.STAT_AB_LOCK] > 0 and tot[sd.STAT_COMMITTED] > 0,
+              f"route {route}: contention fired (stats total {tot.tolist()})")
+
+
+def phase_smallbank(dev):
+    print(f"== phase 5: SmallBank main path, {SB_N:,} accounts, w={SB_W}, "
+          f"{SB_CPB} cohorts/block, 90/4 skew")
+    from dint_tpu_torch.engines import smallbank_dense as sd
+    from dint_tpu_torch.ops import row_kernels as rk
+    from dint_tpu_torch.tables import log as logring
+    steps = (TIMED_BLOCKS + 1) * SB_CPB + 1
+    per_step = {"default": {"gather_rows": 3},
+                "hotset": {"gather_rows": 2, "gather_rows_hot": 1,
+                           "scatter_rows_hot": 1},
+                "fused+hotset": {"gather_streams": 1, "scatter_streams": 1}}
+    ends, launches_all = {}, {}
+    for route, counts in per_step.items():
+        hot, fused = sd.ROUTES[route]
+        print(f"  -- route {route}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        db = sd.create(SB_N, device=dev)
+        base = int(sd.total_balance(db))
+        check(db.lock_slots == 1 << 25 and db.lock_slots < 2 * SB_N + 1,
+              "the hashed lock regime (2^25 slots for 48,000,001 rows)")
+        run, init, drain = sd.build_pipelined_runner(
+            SB_N, w=SB_W, cohorts_per_block=SB_CPB, use_hotset=hot,
+            use_fused=fused, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(5)
+
+        rk.reset_launches()
+        carry = init(db)
+        t0 = time.perf_counter()
+        carry, s_warm = run(carry, gen)
+        torch.cuda.synchronize()
+        print(f"  warm block: {time.perf_counter() - t0:.3f} s")
+        block_s, timed = [], []
+        for _ in range(TIMED_BLOCKS):
+            t0 = time.perf_counter()
+            carry, st = run(carry, gen)
+            torch.cuda.synchronize()
+            block_s.append(time.perf_counter() - t0)
+            timed.append(st)
+        db, tail = drain(carry)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in rk.WRAPPERS}
+
+        timed = torch.cat(timed).cpu().numpy().astype(np.int64)
+        stats = np.concatenate([s_warm.cpu().numpy(), timed,
+                                tail.cpu().numpy()]).astype(np.int64)
+        total = stats.sum(axis=0)
+        committed_timed = int(timed[:, sd.STAT_COMMITTED].sum())
+        secs = float(sum(block_s))
+        attempted = int(total[sd.STAT_ATTEMPTED])
+        aborts = int(total[sd.STAT_AB_LOCK] + total[sd.STAT_AB_LOGIC])
+        print(f"  committed txn/s: {committed_timed / secs:.1f} "
+              f"({committed_timed} committed in {secs:.6f} s, "
+              f"{TIMED_BLOCKS} blocks x {SB_CPB} steps x w={SB_W})")
+        print(f"  ms/step: {secs / (TIMED_BLOCKS * SB_CPB) * 1e3:.6f}; per "
+              f"block {[round(b * 1e3, 3) for b in block_s]} ms")
+        print(f"  abort rate: {aborts / attempted:.6f} (ab_lock "
+              f"{int(total[sd.STAT_AB_LOCK])}, ab_logic "
+              f"{int(total[sd.STAT_AB_LOGIC])} of {attempted})")
+        print(f"  max_memory_allocated: "
+              f"{torch.cuda.max_memory_allocated(dev)} B")
+        print(f"  stats total (warm+timed+drain): {total.tolist()}")
+
+        check(attempted == (TIMED_BLOCKS + 1) * SB_CPB * SB_W,
+              "every txn attempted")
+        check(int(total[sd.STAT_COMMITTED]) + aborts == attempted,
+              "accounting closes: committed + ab_lock + ab_logic == "
+              "attempted, drain included")
+        delta = (int(sd.total_balance(db)) - base) % (1 << 32)
+        check(delta == int(total[sd.STAT_BAL_DELTA]) % (1 << 32),
+              f"balance conservation mod 2^32 (delta {delta})")
+        check(int(total[sd.STAT_MAGIC_BAD]) == 0, "magic_bad == 0")
+        r0 = logring.replica_entries(db.log, 0)
+        check(all(torch.equal(r0, logring.replica_entries(db.log, r))
+                  for r in (1, 2)), "the three log replicas are identical")
+        check(int(db.bal[-1]) == 0, "sentinel bal[-1] == 0")
+        if hot:
+            ar = torch.arange(db.hot_n, device=dev)
+            idx = torch.cat([ar, SB_N + ar])
+            check(db.hot_n == 960_000 and db.hot_x is None
+                  and torch.equal(db.bal[idx], db.hot_bal),
+                  "mirror coherence: hot_bal == bal[hot rows] (960,000 "
+                  "accounts; no stamp mirror in the hashed regime)")
+        want = dict.fromkeys(launches, 0)
+        want.update({name: c * steps for name, c in counts.items()})
+        check(launches == want,
+              f"launches {launches} == {counts} per step over {steps} steps")
+        launches_all[route] = launches
+        ends[route] = (db, stats)
+
+    (d0, s0), *rest = ends.values()
+    for route, (db, st) in zip(list(ends)[1:], rest):
+        check(np.array_equal(s0, st) and torch.equal(d0.bal, db.bal)
+              and torch.equal(d0.x_step, db.x_step)
+              and torch.equal(d0.s_step, db.s_step) and d0.step == db.step
+              and torch.equal(d0.log.entries, db.log.entries)
+              and torch.equal(d0.log.head, db.log.head),
+              f"route {route}: stats, bal, x_step, s_step, step and log "
+              f"identical to the default route's")
+    del ends
+    torch.cuda.empty_cache()
+    return launches_all
+
+
+KERNELS = {
+    "gather_rows": ("dint_tpu_torch/csrc/gather_rows.cu",
+                    "dint_tpu/ops/pallas_gather.py:212"),
+    "lock_arbitrate": ("dint_tpu_torch/csrc/lock_arbitrate.cu",
+                       "dint_tpu/ops/pallas_gather.py:780"),
+    "gather_streams": ("dint_tpu_torch/csrc/gather_streams.cu",
+                       "dint_tpu/ops/pallas_gather.py:984"),
+    "scatter_streams": ("dint_tpu_torch/csrc/scatter_streams.cu",
+                        "dint_tpu/ops/pallas_gather.py:1089"),
+    "gather_rows_hot": ("dint_tpu_torch/csrc/gather_rows_hot.cu",
+                        "dint_tpu/ops/pallas_gather.py:302"),
+    "scatter_rows_hot": ("dint_tpu_torch/csrc/scatter_rows_hot.cu",
+                         "dint_tpu/ops/pallas_gather.py:553"),
+}
 
 
 def main() -> int:
@@ -359,23 +774,28 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     card = phase_card()
-    rec = phase_kernels(dev)
+    rec = {**phase_kernels(dev), **phase_sb_kernels(dev)}
     phase_cpu_vs_card(dev)
-    launches = phase_main_path(dev)
+    phase_sb_cpu_vs_card(dev)
+    tatp = phase_main_path(dev)
+    sb = phase_smallbank(dev)
 
-    sources = {"gather_rows": ("dint_tpu_torch/csrc/gather_rows.cu",
-                               "dint_tpu/ops/pallas_gather.py:212"),
-               "lock_arbitrate": ("dint_tpu_torch/csrc/lock_arbitrate.cu",
-                                  "dint_tpu/ops/pallas_gather.py:780")}
     kernels = []
-    for name, (src, replaces) in sources.items():
+    for name, (src, replaces) in KERNELS.items():
         r = rec[name]
+        # launches on the main paths: TATP (phase 4) and SmallBank's
+        # routes (phase 5), each counted from 0 just before its run
+        paths = {"tatp": tatp[name], **{f"smallbank {k}": v[name]
+                                        for k, v in sb.items()}}
+        print(f"  {name}: launches {paths}")
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(paths.values()),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes", "library_ms": r["library_ms"]})
+    check(all(k["launches"] > 0 for k in kernels),
+          "every kernel was launched on a main path")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
-"""Op and reply codes of the dense TATP path (the members of
+"""Op and reply codes of the dense TATP and SmallBank paths (the members of
 `dint_tpu.engines.types.Op`/`Reply` that this package uses, same values)."""
 
 
 class Op:
     NOP = 0
+    ACQ_S_READ = 14    # acquire shared + read value in one RTT
+    ACQ_X_READ = 15    # acquire exclusive + read value in one RTT
     OCC_READ = 16      # read value + version (no lock)
     OCC_LOCK = 17      # row lock (write-slot arbitration)
 

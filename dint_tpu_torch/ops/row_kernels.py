@@ -1,5 +1,7 @@
-"""Random-access row kernels of the dense TATP step (the counterpart of
-`dint_tpu/ops/pallas_gather.py`'s `gather_rows` and `lock_arbitrate`).
+"""Random-access row kernels of the dense TATP and SmallBank steps (the
+counterparts of `dint_tpu/ops/pallas_gather.py`'s `gather_rows`,
+`lock_arbitrate`, `gather_streams`, `scatter_streams`, `gather_rows_hot` and
+`scatter_rows_hot`).
 
 Each wrapper launches its hand-written CUDA kernel (``csrc/<name>.cu``,
 built for sm_90a at first use) when given CUDA tensors, and runs its plain
@@ -30,6 +32,18 @@ _SIGNATURES = {
                        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                         ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p]),
+    "gather_streams": ("dint_gather_streams",
+                       [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]),
+    "scatter_streams": ("dint_scatter_streams",
+                        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]),
+    "gather_rows_hot": ("dint_gather_rows_hot",
+                        [ctypes.c_void_p] * 5
+                        + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                           ctypes.c_int, ctypes.c_void_p]),
+    "scatter_rows_hot": ("dint_scatter_rows_hot",
+                         [ctypes.c_void_p] * 6
+                         + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                            ctypes.c_int, ctypes.c_void_p]),
 }
 
 
@@ -67,6 +81,14 @@ def _launched(err: int, what: str):
                            f"(cudaError {err})")
 
 
+def _rows(tab: torch.Tensor, vw: int, what: str) -> int:
+    """Rows of ``vw`` words in the flat table ``tab``."""
+    if vw < 1 or tab.numel() % vw:
+        raise ValueError(f"{what}: table of {tab.numel()} words is not rows "
+                         f"of vw={vw}")
+    return tab.numel() // vw
+
+
 def _same_device(*xs: torch.Tensor) -> torch.device:
     dev = xs[0].device
     if any(x.device != dev for x in xs):
@@ -94,9 +116,7 @@ def gather_rows(tab: torch.Tensor, idx: torch.Tensor, vw: int = 1):
     indices with vw=1 (the magic check's ``rows*VW + 1``)."""
     _check(tab, "gather_rows tab")
     _check(idx, "gather_rows idx")
-    if vw < 1 or tab.numel() % vw:
-        raise ValueError(f"gather_rows: table of {tab.numel()} words is not "
-                         f"rows of vw={vw}")
+    _rows(tab, vw, "gather_rows")
     dev = _same_device(tab, idx)
     if dev.type == "cpu":
         return gather_rows_ref(tab, idx, vw)
@@ -178,7 +198,206 @@ def lock_arbitrate(arb, rows, active, step: int, k_arb: int):
 lock_arbitrate.launches = 0
 
 
-WRAPPERS = (gather_rows, lock_arbitrate)
+# ------------------------------------------------------------ row streams
+
+MAX_STREAMS = 8
+
+
+class _StreamArgs(ctypes.Structure):
+    """The by-value launch argument of csrc/gather_streams.cu and
+    csrc/scatter_streams.cu: per stream the table, the indices, the output
+    (gather) or the values (scatter), K, the table's rows and vw."""
+    _fields_ = [("tab", ctypes.c_void_p * MAX_STREAMS),
+                ("idx", ctypes.c_void_p * MAX_STREAMS),
+                ("data", ctypes.c_void_p * MAX_STREAMS),
+                ("k", ctypes.c_int64 * MAX_STREAMS),
+                ("n_rows", ctypes.c_int64 * MAX_STREAMS),
+                ("vw", ctypes.c_int32 * MAX_STREAMS)]
+
+
+def _check_streams(what, tabs, idxs, vws, vals=None):
+    n = len(vws)
+    if not 1 <= n <= MAX_STREAMS:
+        raise ValueError(f"{what}: {n} streams; 1 to {MAX_STREAMS} allowed")
+    if len(tabs) != n or len(idxs) != n or (vals is not None
+                                            and len(vals) != n):
+        raise ValueError(f"{what}: streams disagree in number")
+    for s in range(n):
+        _check(tabs[s], f"{what} tabs[{s}]")
+        _check(idxs[s], f"{what} idxs[{s}]")
+        _rows(tabs[s], vws[s], f"{what} stream {s}")
+        if vals is not None:
+            _check(vals[s], f"{what} vals[{s}]")
+            if vals[s].numel() != idxs[s].numel() * vws[s]:
+                raise ValueError(
+                    f"{what} stream {s}: {vals[s].numel()} values for "
+                    f"{idxs[s].numel()} lanes of vw={vws[s]}")
+    return _same_device(*tabs, *idxs, *(vals or ()))
+
+
+def _stream_args(tabs, idxs, datas, vws) -> _StreamArgs:
+    a = _StreamArgs()
+    for s, (tab, idx, data, vw) in enumerate(zip(tabs, idxs, datas, vws)):
+        a.tab[s], a.idx[s], a.data[s] = (tab.data_ptr(), idx.data_ptr(),
+                                         data.data_ptr())
+        a.k[s], a.n_rows[s], a.vw[s] = idx.numel(), tab.numel() // vw, vw
+    return a
+
+
+def gather_streams_ref(tabs, idxs, vws):
+    """Plain version: one `gather_rows_ref` per stream."""
+    return tuple(gather_rows_ref(t, i, vw) for t, i, vw in zip(tabs, idxs,
+                                                                vws))
+
+
+def gather_streams(tabs, idxs, vws):
+    """N independent row gathers in one launch: stream s gathers
+    ``idxs[s]`` rows of ``vws[s]`` words from ``tabs[s]``, each stream equal
+    to ``gather_rows(tabs[s], idxs[s], vws[s])``. Returns a tuple of i32
+    [K_s * vws[s]]. At most MAX_STREAMS streams; indices must be in
+    bounds (asserted on the device)."""
+    tabs, idxs, vws = tuple(tabs), tuple(idxs), tuple(int(v) for v in vws)
+    dev = _check_streams("gather_streams", tabs, idxs, vws)
+    if dev.type == "cpu":
+        return gather_streams_ref(tabs, idxs, vws)
+    outs = tuple(torch.empty(i.numel() * vw, dtype=I32, device=dev)
+                 for i, vw in zip(idxs, vws))
+    args = _stream_args(tabs, idxs, outs, vws)
+    fn = _kernel("gather_streams", dev)
+    _launched(fn(ctypes.addressof(args), len(vws), _stream(dev)),
+              "gather_streams")
+    gather_streams.launches += 1
+    return outs
+
+
+gather_streams.launches = 0
+
+
+def scatter_streams_ref(tabs, idxs, vals, vws):
+    """Plain version: per stream, the lanes with ``idx >= 0`` are kept and
+    their rows copied in with ``index_copy_`` (kept indices are unique, so
+    no result depends on the order of duplicate writes)."""
+    for tab, idx, val, vw in zip(tabs, idxs, vals, vws):
+        keep = torch.nonzero(idx >= 0).squeeze(1)
+        tab.view(-1, vw).index_copy_(0, idx[keep].long(),
+                                     val.view(-1, vw)[keep])
+    return tuple(tabs)
+
+
+def scatter_streams(tabs, idxs, vals, vws):
+    """N independent masked row scatters in one launch, tables updated in
+    place: stream s writes ``vals[s]`` row i into row ``idxs[s][i]`` of
+    ``tabs[s]`` wherever that index is >= 0, and lanes with a negative
+    index write nothing. The streams' tables must be distinct arrays, and
+    the masked-in indices of a stream unique (the engines' one-writer-per-
+    row certification). Returns the tuple of tables."""
+    tabs, idxs, vals = tuple(tabs), tuple(idxs), tuple(vals)
+    vws = tuple(int(v) for v in vws)
+    dev = _check_streams("scatter_streams", tabs, idxs, vws, vals)
+    if len({t.untyped_storage().data_ptr() for t in tabs}) != len(tabs):
+        raise ValueError("scatter_streams: the streams' tables must be "
+                         "distinct arrays")
+    if dev.type == "cpu":
+        return scatter_streams_ref(tabs, idxs, vals, vws)
+    args = _stream_args(tabs, idxs, vals, vws)
+    fn = _kernel("scatter_streams", dev)
+    _launched(fn(ctypes.addressof(args), len(vws), _stream(dev)),
+              "scatter_streams")
+    scatter_streams.launches += 1
+    return tabs
+
+
+scatter_streams.launches = 0
+
+
+# ---------------------------------------------------------------- hot tier
+
+
+def _check_hot(what, tab, mirror, idx, midx, vw):
+    _check(tab, f"{what} tab")
+    _check(mirror, f"{what} mirror")
+    _check(idx, f"{what} idx")
+    _check(midx, f"{what} midx")
+    if midx.numel() != idx.numel():
+        raise ValueError(f"{what}: {idx.numel()} idx but {midx.numel()} "
+                         f"midx lanes")
+    return _rows(tab, vw, what), _rows(mirror, vw, f"{what} mirror")
+
+
+def gather_rows_hot_ref(tab, mirror, idx, midx, vw: int = 1):
+    """Plain version: the mirror row where ``midx >= 0``, else the table
+    row (a hot lane's ``idx`` is not read)."""
+    hot = midx >= 0
+    cold = tab.view(-1, vw).index_select(0, torch.where(hot, 0, idx))
+    warm = mirror.view(-1, vw).index_select(0, midx.clamp(min=0))
+    return torch.where(hot[:, None], warm, cold).reshape(-1)
+
+
+def gather_rows_hot(tab, mirror, idx, midx, vw: int = 1):
+    """The hot tier's partitioned gather: row ``midx[i]`` of ``mirror``
+    where ``midx[i] >= 0``, else row ``idx[i]`` of ``tab`` (rows of ``vw``
+    words). Returns i32 [K*vw], equal to ``gather_rows(tab, idx, vw)``
+    whenever the mirror mirrors the table."""
+    n_rows, n_mirror = _check_hot("gather_rows_hot", tab, mirror, idx, midx,
+                                  vw)
+    dev = _same_device(tab, mirror, idx, midx)
+    if dev.type == "cpu":
+        return gather_rows_hot_ref(tab, mirror, idx, midx, vw)
+    k = idx.numel()
+    out = torch.empty(k * vw, dtype=I32, device=dev)
+    fn = _kernel("gather_rows_hot", dev)
+    _launched(fn(tab.data_ptr(), mirror.data_ptr(), idx.data_ptr(),
+                 midx.data_ptr(), out.data_ptr(), k, n_rows, n_mirror, vw,
+                 _stream(dev)), "gather_rows_hot")
+    gather_rows_hot.launches += 1
+    return out
+
+
+gather_rows_hot.launches = 0
+
+
+def scatter_rows_hot_ref(tab, mirror, idx, midx, mask, vals, vw: int = 1):
+    """Plain version: the masked-in lanes' rows copied into ``tab``, and
+    the hot ones among them into ``mirror`` (``index_copy_`` of unique
+    rows); both updated in place."""
+    v = vals.view(-1, vw)
+    keep = torch.nonzero(mask).squeeze(1)
+    tab.view(-1, vw).index_copy_(0, idx[keep].long(), v[keep])
+    hot = torch.nonzero(mask & (midx >= 0)).squeeze(1)
+    mirror.view(-1, vw).index_copy_(0, midx[hot].long(), v[hot])
+    return tab, mirror
+
+
+def scatter_rows_hot(tab, mirror, idx, midx, mask, vals, vw: int = 1):
+    """The hot tier's write-through install, in place: every lane with
+    ``mask`` set writes ``vals`` row i into row ``idx[i]`` of ``tab`` and,
+    where ``midx[i] >= 0``, into row ``midx[i]`` of ``mirror``. Indices
+    among masked-in lanes must be unique. Returns (tab, mirror)."""
+    n_rows, n_mirror = _check_hot("scatter_rows_hot", tab, mirror, idx,
+                                  midx, vw)
+    _check(mask, "scatter_rows_hot mask", torch.bool)
+    _check(vals, "scatter_rows_hot vals")
+    k = idx.numel()
+    if mask.numel() != k or vals.numel() != k * vw:
+        raise ValueError(f"scatter_rows_hot: {k} lanes of vw={vw}, but "
+                         f"{mask.numel()} mask flags and {vals.numel()} "
+                         f"values")
+    dev = _same_device(tab, mirror, idx, midx, mask, vals)
+    if dev.type == "cpu":
+        return scatter_rows_hot_ref(tab, mirror, idx, midx, mask, vals, vw)
+    fn = _kernel("scatter_rows_hot", dev)
+    _launched(fn(tab.data_ptr(), mirror.data_ptr(), idx.data_ptr(),
+                 midx.data_ptr(), mask.data_ptr(), vals.data_ptr(), k,
+                 n_rows, n_mirror, vw, _stream(dev)), "scatter_rows_hot")
+    scatter_rows_hot.launches += 1
+    return tab, mirror
+
+
+scatter_rows_hot.launches = 0
+
+
+WRAPPERS = (gather_rows, lock_arbitrate, gather_streams, scatter_streams,
+            gather_rows_hot, scatter_rows_hot)
 
 
 def reset_launches():

@@ -28,6 +28,13 @@ def wrap_i32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
 
 
+def i32_bits(v: int) -> int:
+    """A Python int -> the signed value of its low 32 bits, the int32
+    pattern a u32 scalar compares and stores as."""
+    v = int(v) & MASK32
+    return v - (1 << 32) if v >= (1 << 31) else v
+
+
 def shr(x: torch.Tensor, k: int) -> torch.Tensor:
     """Logical right shift of int32-carried u32 words; stays int32."""
     return (x >> k) & ((1 << (32 - k)) - 1)

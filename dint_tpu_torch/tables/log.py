@@ -17,6 +17,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..device import resolve_device
 from ..ops.u32 import to_u64, wrap_i32
 
 HDR_WORDS = 4
@@ -39,9 +40,12 @@ class RepLog:
 
 
 def create_rep(lanes: int, capacity: int, val_words: int = 10,
-               replicas: int = 3, device="cpu") -> RepLog:
+               replicas: int = 3, device=None) -> RepLog:
+    """An empty ring of ``lanes`` x ``capacity`` slots on ``device`` (None
+    means CUDA, and raises without one)."""
     if capacity <= 0 or capacity & (capacity - 1):
         raise ValueError(f"log capacity {capacity} is not a power of two")
+    device = resolve_device(device)
     return RepLog(
         entries=torch.zeros((lanes * capacity,
                              replicas * (HDR_WORDS + val_words)),

@@ -59,3 +59,74 @@ def test_lock_arbitrate_kernel_matches_plain(cuda, t):
     torch.cuda.synchronize()
     assert torch.equal(a_k, a_r) and torch.equal(g_k, g_r)
     assert bool(g_k.any())
+
+
+def _lanes(r, n, k, hot, cuda):
+    """K lanes over n rows, ~90% of them in the hot prefix [0, hot)."""
+    rows = np.where(r.random(k) < 0.9, r.integers(0, hot, k),
+                    r.integers(0, n, k)).astype(np.int32)
+    midx = np.where(rows < hot, rows, -1).astype(np.int32)
+    return (torch.from_numpy(rows).to(cuda), torch.from_numpy(midx).to(cuda))
+
+
+def _words(r, n, cuda):
+    return u32.from_numpy(r.integers(0, 1 << 32, n, dtype=np.uint64)
+                          .astype(np.uint32), cuda)
+
+
+@pytest.mark.cuda
+def test_gather_streams_kernel_matches_plain(cuda):
+    r = np.random.default_rng(1)
+    vws = (1, 18, 1)
+    tabs = [_words(r, 4000 * vw, cuda) for vw in vws]
+    idxs = [torch.from_numpy(r.integers(0, 4000, k).astype(np.int32)).to(cuda)
+            for k in (3000, 700, 1)]
+    before = rk.gather_streams.launches
+    got = rk.gather_streams(tabs, idxs, vws)
+    assert rk.gather_streams.launches == before + 1
+    for g, w in zip(got, rk.gather_streams_ref(tabs, idxs, vws)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_scatter_streams_kernel_matches_plain(cuda):
+    r = np.random.default_rng(2)
+    vws = (1, 18)
+    n, k = 5000, 3000
+    idxs = [torch.from_numpy(np.where(r.random(k) < 0.7,
+                                      r.permutation(n)[:k], -1)
+                             .astype(np.int32)).to(cuda) for _ in vws]
+    vals = [_words(r, k * vw, cuda) for vw in vws]
+    tabs = [_words(r, n * vw, cuda) for vw in vws]
+    want = rk.scatter_streams_ref([t.clone() for t in tabs], idxs, vals, vws)
+    before = rk.scatter_streams.launches
+    got = rk.scatter_streams(tabs, idxs, vals, vws)
+    assert rk.scatter_streams.launches == before + 1
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vw", [1, 3])
+def test_hot_kernels_match_plain(cuda, vw):
+    r = np.random.default_rng(vw)
+    n, hot, k = 6000, 240, 3000
+    tab = _words(r, n * vw, cuda)
+    mirror = _words(r, hot * vw, cuda)       # unlike the table on purpose
+    idx, midx = _lanes(r, n, k, hot, cuda)
+    before = rk.gather_rows_hot.launches
+    got = rk.gather_rows_hot(tab, mirror, idx, midx, vw)
+    assert rk.gather_rows_hot.launches == before + 1
+    assert torch.equal(got, rk.gather_rows_hot_ref(tab, mirror, idx, midx,
+                                                   vw))
+    rows = torch.from_numpy(r.permutation(n)[:k].astype(np.int32)).to(cuda)
+    midx = torch.where(rows < hot, rows, -1)
+    mask = torch.from_numpy(r.random(k) < 0.7).to(cuda)
+    vals = _words(r, k * vw, cuda)
+    want = rk.scatter_rows_hot_ref(tab.clone(), mirror.clone(), rows, midx,
+                                   mask, vals, vw)
+    before = rk.scatter_rows_hot.launches
+    got = rk.scatter_rows_hot(tab, mirror, rows, midx, mask, vals, vw)
+    assert rk.scatter_rows_hot.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -69,3 +69,13 @@ def test_append_rep_matches_jax(head0):
 def test_create_rep_rejects_non_power_of_two():
     with pytest.raises(ValueError):
         plog.create_rep(4, 12, 3, device="cpu")
+
+
+def test_create_rep_without_device_raises_without_cuda(monkeypatch):
+    """``device=None`` means CUDA, as for every entry point of the port."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        plog.create_rep(LANES, CAP, VW)
+    ring = plog.create_rep(LANES, CAP, VW, device="cpu")
+    assert ring.entries.device.type == "cpu"
+    assert ring.entries.shape == (LANES * CAP, 3 * (plog.HDR_WORDS + VW))

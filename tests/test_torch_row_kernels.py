@@ -176,3 +176,235 @@ def test_lock_arbitrate_rejects_bad_arguments():
     with pytest.raises(ValueError):
         rk.lock_arbitrate(arb, torch.zeros(8, dtype=torch.int32),
                           torch.ones(8, dtype=torch.bool), 5, 2)
+
+
+# --------------------------------------------------------- gather_streams
+
+
+def _words(r, n):
+    return r.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+
+
+@pytest.mark.parametrize("n,vws,ks", [
+    (64, (1, 4, 3), (40, 24, 8)),       # tests/test_fused_ops.py's case
+    (300, (1, 1, 1), (192, 192, 192)),  # the SmallBank fused read: 3 x vw=1
+    (50, (18, 2), (256, 5)),            # log-width rows; K below the ring
+])
+def test_gather_streams_ref_matches_pallas_and_xla(n, vws, ks):
+    r = np.random.default_rng(n + sum(ks))
+    tabs = [_words(r, n * vw) for vw in vws]
+    idxs = [r.integers(0, n, k).astype(np.int32) for k in ks]
+    idxs[1][:] = 17                     # an all-duplicate stream
+    idxs[0][::5] = n - 1                # sentinel lanes
+    jt = tuple(jnp.asarray(t) for t in tabs)
+    ji = tuple(jnp.asarray(i) for i in idxs)
+    want_p = pg.gather_streams(jt, ji, vws, True)
+    want_x = pg._xla_gather_streams(jt, ji, vws)
+    tt = [u32.from_numpy(t, "cpu") for t in tabs]
+    ti = [torch.from_numpy(i) for i in idxs]
+    got = rk.gather_streams_ref(tt, ti, vws)
+    before = rk.gather_streams.launches
+    got_w = rk.gather_streams(tt, ti, vws)
+    assert rk.gather_streams.launches == before    # CPU: no kernel launched
+    assert len(got) == len(got_w) == len(vws)
+    for s in range(len(vws)):
+        assert np.array_equal(np.asarray(want_p[s]), np.asarray(want_x[s]))
+        assert np.array_equal(u32.to_numpy(got[s]), np.asarray(want_p[s])), s
+        assert torch.equal(got_w[s], got[s])
+
+
+# -------------------------------------------------------- scatter_streams
+
+
+def _masked_unique(r, n, k, keep):
+    """K lanes, unique rows among the masked-in ones, -1 elsewhere."""
+    rows = r.permutation(n)[:k].astype(np.int32)
+    return np.where(keep, rows, -1).astype(np.int32)
+
+
+@pytest.mark.parametrize("n,vws,k", [
+    (64, (4, 1, 3), 40),         # tests/test_fused_ops.py's case
+    (256, (1, 18, 1), 192),      # the SmallBank install_log: bal, log, mirror
+])
+def test_scatter_streams_ref_matches_pallas_and_xla(n, vws, k):
+    r = np.random.default_rng(n + k)
+    tabs = [_words(r, n * vw) for vw in vws]
+    lane = np.arange(k)
+    perm = r.permutation(n)[:k].astype(np.int32)
+    # stream 1 masks IN the rows stream 0 masked OUT (the same row ids in
+    # disjoint tables); stream 2 is masked ~30% at random
+    idxs = [np.where(lane % 3 == 0, perm, -1).astype(np.int32),
+            np.where(lane % 3 != 0, perm, -1).astype(np.int32),
+            _masked_unique(r, n, k, r.random(k) < 0.7)]
+    vals = [_words(r, k * vw) for vw in vws]
+    jt = tuple(jnp.array(t) for t in tabs)
+    ji = tuple(jnp.asarray(i) for i in idxs)
+    jv = tuple(jnp.asarray(v) for v in vals)
+    want_p = pg.scatter_streams(jt, ji, jv, vws, True)
+    want_x = pg._xla_scatter_streams(tuple(jnp.asarray(t) for t in tabs),
+                                     ji, jv, vws)
+    tt = [u32.from_numpy(t, "cpu") for t in tabs]
+    out = rk.scatter_streams_ref(tt, [torch.from_numpy(i) for i in idxs],
+                                 [u32.from_numpy(v, "cpu") for v in vals],
+                                 vws)
+    for s in range(len(vws)):
+        assert out[s] is tt[s]                          # updated in place
+        assert np.array_equal(np.asarray(want_p[s]), np.asarray(want_x[s]))
+        assert np.array_equal(u32.to_numpy(out[s]), np.asarray(want_p[s])), s
+    before = rk.scatter_streams.launches
+    tt2 = [u32.from_numpy(t, "cpu") for t in tabs]
+    rk.scatter_streams(tt2, [torch.from_numpy(i) for i in idxs],
+                       [u32.from_numpy(v, "cpu") for v in vals], vws)
+    assert rk.scatter_streams.launches == before
+    assert all(torch.equal(a, b) for a, b in zip(tt2, out))
+
+
+def test_scatter_streams_all_masked_stream_writes_nothing():
+    tab = torch.arange(12, dtype=torch.int32)
+    other = torch.zeros(4, dtype=torch.int32)
+    rk.scatter_streams([tab, other],
+                       [torch.full((3,), -1, dtype=torch.int32),
+                        torch.tensor([2, -1, 0], dtype=torch.int32)],
+                       [torch.full((6,), 9, dtype=torch.int32),
+                        torch.tensor([5, 6, 7], dtype=torch.int32)], (2, 1))
+    assert torch.equal(tab, torch.arange(12, dtype=torch.int32))
+    assert other.tolist() == [7, 0, 5, 0]
+
+
+def test_stream_kernels_reject_bad_arguments():
+    tab = torch.zeros(16, dtype=torch.int32)
+    idx = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="distinct"):
+        rk.scatter_streams([tab, tab.view(4, 4)[0]], [idx, idx],
+                           [idx, idx], (1, 1))
+    with pytest.raises(ValueError, match="values"):
+        rk.scatter_streams([tab], [idx], [idx[:3]], (1,))
+    with pytest.raises(ValueError, match="streams"):
+        rk.gather_streams([tab] * 9, [idx] * 9, (1,) * 9)
+    with pytest.raises(ValueError, match="number"):
+        rk.gather_streams([tab, tab], [idx], (1, 1))
+    with pytest.raises(TypeError):
+        rk.gather_streams([tab], [idx.to(torch.int64)], (1,))
+    with pytest.raises(ValueError):
+        rk.gather_streams([tab], [idx], (3,))          # 16 % 3 != 0
+
+
+# ------------------------------------------------------- gather_rows_hot
+
+
+@pytest.mark.parametrize("n,hot,vw,k,coherent", [
+    (1000, 40, 10, 250, True),   # tests/test_hotset.py's cases (K <= 256)
+    (512, 300, 1, 256, True),
+    (37, 5, 4, 5, True),
+    (64, 1, 2, 64, True),
+    (200, 8, 1, 192, False),     # mirror unlike the table: hot lanes must
+    (90, 30, 18, 40, False),     # read the mirror, cold lanes the table
+])
+def test_gather_rows_hot_ref_matches_pallas_and_xla(n, hot, vw, k,
+                                                    coherent):
+    r = np.random.default_rng(n + k)
+    tab = _words(r, n * vw)
+    mirror = tab[:hot * vw].copy() if coherent else _words(r, hot * vw)
+    idx = r.integers(0, n, k).astype(np.int32)
+    idx[::6] = hot - 1           # lanes on either side of the boundary
+    idx[1::6] = hot % n
+    midx = np.where(idx < hot, idx, -1).astype(np.int32)
+    args = [jnp.asarray(a) for a in (tab, mirror, idx, midx)]
+    want_p = np.asarray(pg.gather_rows_hot(*args, vw, True))
+    assert np.array_equal(want_p, np.asarray(pg._xla_hot_gather(*args, vw)))
+    if coherent:
+        assert np.array_equal(want_p, np.asarray(
+            pg.gather_rows(args[0], args[2], vw, True)))
+    targs = [u32.from_numpy(tab, "cpu"), u32.from_numpy(mirror, "cpu"),
+             torch.from_numpy(idx), torch.from_numpy(midx)]
+    got = rk.gather_rows_hot_ref(*targs, vw)
+    assert got.dtype == torch.int32 and got.shape == (k * vw,)
+    assert np.array_equal(u32.to_numpy(got), want_p)
+    before = rk.gather_rows_hot.launches
+    assert torch.equal(rk.gather_rows_hot(*targs, vw), got)
+    assert rk.gather_rows_hot.launches == before
+
+
+def test_gather_rows_hot_duplicates_straddle_boundary():
+    """tests/test_hotset.py's adversarial batch: the two rows on either
+    side of hot_n, duplicated and interleaved."""
+    n, hot, vw = 100, 50, 3
+    r = np.random.default_rng(7)
+    tab = _words(r, n * vw)
+    mirror = tab[:hot * vw].copy()
+    idx = np.tile([hot - 1, hot, hot - 1, hot - 1, hot, hot],
+                  32).astype(np.int32)
+    midx = np.where(idx < hot, idx, -1).astype(np.int32)
+    want = pg.gather_rows_hot(*[jnp.asarray(a) for a in (tab, mirror, idx,
+                                                         midx)], vw, True)
+    got = rk.gather_rows_hot(u32.from_numpy(tab, "cpu"),
+                             u32.from_numpy(mirror, "cpu"),
+                             torch.from_numpy(idx), torch.from_numpy(midx),
+                             vw)
+    assert np.array_equal(u32.to_numpy(got), np.asarray(want))
+
+
+def test_gather_rows_hot_does_not_read_hot_lanes_idx():
+    """A hot lane's idx may be anything, as in the TPU kernel."""
+    tab = torch.arange(10, dtype=torch.int32)
+    mirror = torch.tensor([70, 71], dtype=torch.int32)
+    got = rk.gather_rows_hot(tab, mirror,
+                             torch.tensor([10**6, 3], dtype=torch.int32),
+                             torch.tensor([1, -1], dtype=torch.int32), 1)
+    assert got.tolist() == [71, 3]
+
+
+# ------------------------------------------------------ scatter_rows_hot
+
+
+@pytest.mark.parametrize("n,hot,vw,k", [
+    (200, 37, 3, 256),           # tests/test_hotset.py's case (K <= 256)
+    (300, 12, 1, 192),           # the SmallBank install: vw = 1
+])
+def test_scatter_rows_hot_ref_matches_pallas_and_xla(n, hot, vw, k):
+    r = np.random.default_rng(n + k)
+    tab = _words(r, n * vw)
+    mirror = tab[:hot * vw].copy()
+    perm = r.permutation(n)[:min(k, n)]
+    rows = np.zeros(k, np.int32)
+    mask = np.zeros(k, bool)
+    rows[:len(perm)] = perm
+    mask[:len(perm)] = r.random(len(perm)) < 0.6
+    midx = np.where(rows < hot, rows, -1).astype(np.int32)
+    vals = _words(r, k * vw)
+    jargs = [jnp.asarray(a) for a in (rows, midx, mask, vals)]
+    t_p, m_p = pg.scatter_rows_hot(jnp.array(tab), jnp.array(mirror),
+                                   *jargs, vw, True)
+    t_x, m_x = pg.hot_scatter(jnp.array(tab), jnp.array(mirror), *jargs,
+                              vw, use_pallas=False)
+    assert np.array_equal(np.asarray(t_p), np.asarray(t_x))
+    assert np.array_equal(np.asarray(m_p), np.asarray(m_x))
+    targs = [torch.from_numpy(rows), torch.from_numpy(midx),
+             torch.from_numpy(mask), u32.from_numpy(vals, "cpu")]
+    tab_t, mir_t = u32.from_numpy(tab, "cpu"), u32.from_numpy(mirror, "cpu")
+    out_t, out_m = rk.scatter_rows_hot_ref(tab_t, mir_t, *targs, vw)
+    assert out_t is tab_t and out_m is mir_t           # updated in place
+    assert np.array_equal(u32.to_numpy(out_t), np.asarray(t_p))
+    assert np.array_equal(u32.to_numpy(out_m), np.asarray(m_p))
+    # write-through coherence: the mirror is the table prefix afterwards
+    assert torch.equal(out_t[:hot * vw], out_m)
+    before = rk.scatter_rows_hot.launches
+    t2, m2 = rk.scatter_rows_hot(u32.from_numpy(tab, "cpu"),
+                                 u32.from_numpy(mirror, "cpu"), *targs, vw)
+    assert rk.scatter_rows_hot.launches == before
+    assert torch.equal(t2, out_t) and torch.equal(m2, out_m)
+
+
+def test_hot_kernels_reject_bad_arguments():
+    tab = torch.zeros(16, dtype=torch.int32)
+    mirror = torch.zeros(4, dtype=torch.int32)
+    idx = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="midx"):
+        rk.gather_rows_hot(tab, mirror, idx, idx[:3], 1)
+    with pytest.raises(TypeError):
+        rk.scatter_rows_hot(tab, mirror, idx, idx, idx, idx, 1)  # int mask
+    with pytest.raises(ValueError):
+        rk.scatter_rows_hot(tab, mirror, idx, idx,
+                            torch.ones(4, dtype=torch.bool), idx[:2], 1)
+    with pytest.raises(ValueError):
+        rk.gather_rows_hot(tab, mirror[:3], idx, idx, 2)   # 3 % 2 != 0
