@@ -18,21 +18,33 @@ mismatch or error:
    and bal [48,000,001]; scatter_streams into bal, a log-sized
    [1,048,576 x 18] table and the [1,920,000] mirror with ~30% of lanes
    masked; gather_rows_hot and scatter_rows_hot over bal with the mirror.
-   Times: kernel, plain version, yardstick (torch calls that compute the
-   same function), and the bytes bound at 3.35 TB/s.
+   TATP's other routes: lock_validate (V = R = 32,768, M = 16,384) over the
+   meta and arb tables, and at TATP's shapes the hot route's gathers
+   (meta K = 65,536, magic K = 32,768) and installs (meta and val, 16,384
+   lanes) through the 280,000-row mirrors, and the fused install_log
+   scatter_streams (val, meta, log x3 [1,048,576 x 42], and the two
+   mirrors). Times: kernel, plain version, yardstick (torch calls that
+   compute the same function), and the bytes bound at 3.35 TB/s.
 3. The port on the CPU against the port on the card, end to end, the same
-   host-made draws: TATP (n_sub=2000, w=256, 4 cohorts/block, contention
-   mix) and SmallBank on all four routes (n=300, w=256, 4 cohorts/block):
-   tables, mirrors, log and stats bit-identical.
+   host-made draws: TATP on all four routes (n_sub=2000, w=256, 4
+   cohorts/block, contention mix; the routes also equal each other) and
+   SmallBank on all four routes (n=300, w=256, 4 cohorts/block): tables,
+   mirrors, log and stats bit-identical.
 4. The TATP main path at full width: populate_device at 7,000,000
    subscribers, build_pipelined_runner(w=8192, cohorts_per_block=16,
    val_words=10), one warm block, 8 timed blocks, drain; TATP invariants
-   and launch counts.
+   and launch counts. Its final state is kept for phase 6.
 5. The SmallBank main path at full width: create(24,000,000), w=8192, 16
-   cohorts/block, 90/4 skew, on three routes (default, use_hotset,
-   use_fused + use_hotset) from identical tables and generator seeds: one
-   warm block, 8 timed blocks, drain each; SmallBank invariants, launch
-   counts per route, and the three routes identical to each other.
+   cohorts/block, 90/4 skew, on the four routes (default, use_hotset,
+   use_fused, both) from identical tables and generator seeds: one warm
+   block, 8 timed blocks, drain each; SmallBank invariants, launch counts
+   per route, and the routes identical to each other.
+6. TATP's other routes at full width (use_hotset, use_fused, both), each
+   from the same populate_device seed and generator seeds as phase 4: the
+   TATP invariants, mirror coherence, launch counts per route, and the
+   final tables, arb, log and stats identical to phase 4's. Then one serve
+   block (occupancy 8192 - 512*i at step i) with monitor=True on the fused
+   route, whose counters must reconcile with its stats.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -257,43 +269,51 @@ def phase_cpu_vs_card(dev):
     db = td.populate(np.random.default_rng(0), n_sub, val_words=VW,
                      device="cpu", log_capacity=1 << 10)
     arrays = convert.dense_db_to_numpy(db)
-    out = []
     rng = np.random.default_rng(1)
     draws = [(rng.integers(0, 1 << 32, (cpb, w, 4), dtype=np.uint64)
               .astype(np.uint32),
               rng.integers(0, 1 << 16, (cpb, w, 2)).astype(np.int32))
              for _ in range(blocks + 1)]
-    for where in ("cpu", dev):
-        run, init, drain = td.build_pipelined_runner(
-            n_sub, w=w, val_words=VW, cohorts_per_block=cpb, mix=mix,
-            device=where)
-        carry = init(convert.dense_db_from_numpy(arrays, where))
-        stats = []
-        for bits, payload in draws[:blocks]:
-            carry, s = run.run_draws(carry, u32.from_numpy(bits, where),
-                                     torch.from_numpy(payload).to(where))
-            stats.append(s.cpu())
-        db_end, tail = drain(carry, torch.from_numpy(draws[-1][1][:2])
-                             .to(where))
-        stats.append(tail.cpu())
-        out.append((convert.dense_db_to_numpy(db_end),
-                    torch.cat(stats).numpy()))
-    (a_db, a_st), (b_db, b_st) = out
-    check(np.array_equal(a_st, b_st), "per-step stats bit-identical")
-    for k in a_db:
-        check(np.array_equal(np.asarray(a_db[k]), np.asarray(b_db[k])),
-              f"{k} bit-identical")
-    tot = a_st.sum(axis=0)
-    check(tot[td.STAT_AB_LOCK] > 0 and tot[td.STAT_AB_VALIDATE] > 0,
-          f"contention fired (stats total {tot.tolist()})")
+    first = None
+    for route, (hot, fused) in td.ROUTES.items():
+        out = []
+        for where in ("cpu", dev):
+            run, init, drain = td.build_pipelined_runner(
+                n_sub, w=w, val_words=VW, cohorts_per_block=cpb, mix=mix,
+                use_hotset=hot, use_fused=fused, device=where)
+            carry = init(convert.dense_db_from_numpy(arrays, where))
+            stats = []
+            for bits, payload in draws[:blocks]:
+                carry, s = run.run_draws(carry, u32.from_numpy(bits, where),
+                                         torch.from_numpy(payload).to(where))
+                stats.append(s.cpu())
+            db_end, tail = drain(carry, torch.from_numpy(draws[-1][1][:2])
+                                 .to(where))
+            stats.append(tail.cpu())
+            out.append((convert.dense_db_to_numpy(db_end),
+                        torch.cat(stats).numpy()))
+        (a_db, a_st), (b_db, b_st) = out
+        same = [k for k in a_db
+                if np.array_equal(np.asarray(a_db[k]), np.asarray(b_db[k]))]
+        check(np.array_equal(a_st, b_st) and same == list(a_db)
+              and list(a_db) == list(b_db),
+              f"TATP route {route}: stats and {same} bit-identical")
+        tot = a_st.sum(axis=0)
+        check(tot[td.STAT_AB_LOCK] > 0 and tot[td.STAT_AB_VALIDATE] > 0,
+              f"TATP route {route}: contention fired (stats total "
+              f"{tot.tolist()})")
+        if first is None:
+            first = (a_db, a_st)
+        check(np.array_equal(first[1], a_st)
+              and all(np.array_equal(np.asarray(first[0][k]),
+                                     np.asarray(a_db[k])) for k in first[0]),
+              f"TATP route {route}: identical to the default route")
 
 
 def phase_main_path(dev):
     print(f"== phase 4: main path, n_sub={N_SUB:,}, w={W}, "
           f"{CPB} cohorts/block")
     from dint_tpu_torch.engines import tatp_dense as td
-    from dint_tpu_torch.ops import row_kernels as rk
-    from dint_tpu_torch.tables import log as logring
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     db = td.populate_device(torch.Generator(device=dev).manual_seed(0),
@@ -303,8 +323,19 @@ def phase_main_path(dev):
           f"{db.meta.numel()} rows, val {db.val.numel() * 4} B")
     run, init, drain = td.build_pipelined_runner(
         N_SUB, w=W, val_words=VW, cohorts_per_block=CPB, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(1)
+    db, stats, launches = drive_tatp(dev, run, init, drain, db)
+    check_tatp(db, stats, launches, {"gather_rows": 2, "lock_arbitrate": 1})
+    return launches, db, stats
 
+
+def drive_tatp(dev, run, init, drain, db):
+    """One warm block and TIMED_BLOCKS timed blocks of a TATP runner from
+    generator seed 1, then the drain; prints the end-to-end numbers and
+    returns (db, stats of every step [(TIMED_BLOCKS+1)*CPB + 2, N_STATS],
+    kernel launches counted from 0 over the run)."""
+    from dint_tpu_torch.engines import tatp_dense as td
+    from dint_tpu_torch.ops import row_kernels as rk
+    gen = torch.Generator(device=dev).manual_seed(1)
     rk.reset_launches()
     carry = init(db)
     t0 = time.perf_counter()
@@ -322,20 +353,42 @@ def phase_main_path(dev):
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in rk.WRAPPERS}
 
-    timed = torch.cat(timed).cpu().numpy().astype(np.int64)
-    total = (timed.sum(axis=0) + s_warm.cpu().numpy().sum(axis=0)
-             + tail.cpu().numpy().sum(axis=0))
-    steps = (TIMED_BLOCKS + 1) * CPB + 2
+    stats = torch.cat([s_warm] + timed + [tail]).cpu().numpy()
+    timed = stats[CPB:-2].astype(np.int64)
+    total = stats.astype(np.int64).sum(axis=0)
     committed_timed = int(timed[:, td.STAT_COMMITTED].sum())
     secs = float(sum(block_s))
+    attempted = int(total[td.STAT_ATTEMPTED])
     print(f"  committed txn/s: {committed_timed / secs:.1f} "
           f"({committed_timed} committed in {secs:.6f} s, "
           f"{TIMED_BLOCKS} blocks x {CPB} steps x w={W})")
     print(f"  ms/step: {secs / (TIMED_BLOCKS * CPB) * 1e3:.6f}; per block "
           f"{[round(b * 1e3, 3) for b in block_s]} ms")
+    print(f"  abort mix of {attempted}: ab_lock "
+          f"{int(total[td.STAT_AB_LOCK])}, ab_missing "
+          f"{int(total[td.STAT_AB_MISSING])}, ab_validate "
+          f"{int(total[td.STAT_AB_VALIDATE])}")
     print(f"  max_memory_allocated: {torch.cuda.max_memory_allocated(dev)} B")
     print(f"  stats total (warm+timed+drain): {total.tolist()}")
+    return db, stats, launches
 
+
+def ab_missing_analytic():
+    """The TATP mix's missing-row abort rate over populate's presence
+    rules (sf/ai types present w.p. 0.625 with >= 1 each, CF on 25%)."""
+    p_sf = 0.625 + 0.375 ** 4 / 4
+    p_cf = p_sf * 0.25
+    return (0.35 * (1 - p_sf) + 0.10 * (1 - p_cf) + 0.02 * (1 - p_sf)
+            + 0.02 * (1 - p_sf * 0.75) + 0.02 * (1 - p_cf))
+
+
+def check_tatp(db, stats, launches, per_step):
+    """The TATP invariants after a `drive_tatp` run, and its launches:
+    ``per_step`` kernel launches in each of its steps, none of others."""
+    from dint_tpu_torch.engines import tatp_dense as td
+    from dint_tpu_torch.tables import log as logring
+    total = stats.astype(np.int64).sum(axis=0)
+    steps = stats.shape[0]
     attempted = int(total[td.STAT_ATTEMPTED])
     check(attempted == (TIMED_BLOCKS + 1) * CPB * W, "every txn attempted")
     check(int(total[td.STAT_COMMITTED] + total[td.STAT_AB_LOCK]
@@ -348,20 +401,22 @@ def phase_main_path(dev):
               for r in (1, 2)), "the three log replicas are identical")
     check(int(db.meta[-1]) == 0 and int(db.arb[-1]) == 0
           and not bool(db.val[-VW:].any()), "sentinel row untouched")
-    p_sf = 0.625 + 0.375 ** 4 / 4
-    p_cf = p_sf * 0.25
-    expected = (0.35 * (1 - p_sf) + 0.10 * (1 - p_cf) + 0.02 * (1 - p_sf)
-                + 0.02 * (1 - p_sf * 0.75) + 0.02 * (1 - p_cf))
+    expected = ab_missing_analytic()
     observed = int(total[td.STAT_AB_MISSING]) / attempted
     check(abs(observed - expected) < 0.01,
           f"ab_missing rate {observed:.6f} within 0.01 of analytic "
           f"{expected:.6f}")
+    if db.hot_meta is not None:
+        hn = db.hot_n
+        check(hn == int((N_SUB + 1) * 0.04)
+              and torch.equal(db.hot_meta, db.meta[:hn])
+              and torch.equal(db.hot_val, db.val[:hn * VW]),
+              f"mirror coherence: hot_meta, hot_val == the table prefix "
+              f"({hn} rows)")
     want = dict.fromkeys(launches, 0)
-    want.update(gather_rows=2 * steps, lock_arbitrate=steps)
+    want.update({name: c * steps for name, c in per_step.items()})
     check(launches == want,
-          f"launches {launches} == 2 gather_rows + 1 lock_arbitrate per step "
-          f"over {steps} steps")
-    return launches
+          f"launches {launches} == {per_step} per step over {steps} steps")
 
 
 def rotating(fn, sets):
@@ -605,6 +660,306 @@ def phase_sb_kernels(dev):
     return rec
 
 
+def timed_row(label, kernel, plain, yard, yard_what, sets, nbytes_of,
+              yard_sets=None):
+    """Kernel, plain version and yardstick timed over the rotating input
+    ``sets`` (each call takes the next set; the yardstick's own
+    ``yard_sets`` where given), and the bytes bound averaged over them;
+    printed and returned as a record."""
+    ms = device_ms(rotating(kernel, sets))
+    plain_ms = device_ms(rotating(plain, sets))
+    yard_ms = device_ms(rotating(yard, yard_sets or sets))
+    bnd = bound_ms(sum(nbytes_of(*z) for z in sets) / len(sets))
+    print(f"  {label}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+          f"{yard_what} (yardstick) {yard_ms:.6f} ms, bound {bnd:.6f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, yard_ms=yard_ms, bound_ms=bnd)
+
+
+def per_step(parts):
+    """The records of a kernel's calls in one step, as one: times and
+    bounds add up, the error is the largest."""
+    rows = list(parts.values())
+    out = {k: sum(r[k] for r in rows) for k in rows[0] if k != "max_abs_err"}
+    out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    return out
+
+
+def phase_tatp_kernels(dev):
+    print("== phase 2 (TATP routes): lock_validate, and the stream and "
+          "hot-tier kernels at TATP's shapes, 7M subscribers")
+    from dint_tpu_torch.engines import tatp_dense as td
+    from dint_tpu_torch.ops import row_kernels as rk
+    from dint_tpu_torch.ops.u32 import shr, wrap_i32
+    gen = torch.Generator(device=dev).manual_seed(4)
+    n1 = td.n_rows(N_SUB) + 1
+    sent = n1 - 1
+    hot_n = int((N_SUB + 1) * 0.04)          # the hot route's 280,000 rows
+    m, v = 2 * W, W * 4                       # lock lanes; validate = read
+    n_log, ew3 = 16 * 65536, 3 * (4 + VW)
+    n_sets = 32
+    lanes = torch.arange(2 * v, device=dev)
+
+    def rand_words(size):
+        return torch.empty(size, dtype=torch.int32,
+                           device=dev).random_(generator=gen)
+
+    def rand_rows(k, hot_share=16):
+        """Rows over the table, 1/8 on the sentinel, 1/4 duplicates, and
+        1/hot_share in the hot prefix."""
+        r = torch.randint(0, n1 - 1, (k,), generator=gen, device=dev)
+        r[::hot_share] = torch.randint(0, hot_n, (len(r[::hot_share]),),
+                                       generator=gen, device=dev)
+        r[::8] = sent
+        dup = torch.randint(0, 64, (k // 4,), generator=gen, device=dev)
+        r[1::4] = r[dup]
+        return r.to(torch.int32)
+
+    meta = rand_words(n1)
+    rec = {}
+
+    # -- lock_validate: the fused route's lock + validate pass
+    pool = torch.randint(0, n1 - 1, (m // 4,), generator=gen, device=dev)
+    third = pool.numel() // 3
+
+    def stamped(t):
+        """arb with a third of the pool held (t-1) and a third expiring."""
+        arb = torch.zeros(n1, dtype=torch.int32, device=dev)
+        for part, age, low in ((pool[:third], 1, 7),
+                               (pool[third:2 * third], 2, 9)):
+            arb[part] = wrap_i32(torch.full((third,), (t - age) << td.K_ARB,
+                                            device=dev) + low)
+        return arb
+
+    def lv_set():
+        rows = pool[torch.randint(0, pool.numel(), (m,), generator=gen,
+                                  device=dev)]
+        active = torch.rand(m, generator=gen, device=dev) < 0.75
+        rows = torch.where(active, rows, sent).to(torch.int32)
+        vidx, ridx = rand_rows(v), rand_rows(v)
+        vv1 = torch.where(torch.rand(v, generator=gen, device=dev) < 0.5,
+                          meta[vidx], meta[vidx] ^ 2)
+        return vidx, vv1, ridx, rows, active
+
+    sets = [lv_set() for _ in range(n_sets)]
+    err = 0
+    for tt in (5, td.REBASE_AT - 1):      # the second puts stamps >= 2^31
+        got = rk.lock_validate(stamped(tt), meta, *sets[0], tt, td.K_ARB)
+        want = rk.lock_validate_ref(stamped(tt), meta, *sets[0], tt,
+                                    td.K_ARB)
+        torch.cuda.synchronize()
+        e = max(max_abs_err(x.int(), y.int()) for x, y in zip(got, want))
+        check(all(torch.equal(x, y) for x, y in zip(got, want)) and e == 0,
+              f"lock_validate V=R={v} M={m} t={tt} over meta/arb [{n1}] "
+              f"equals the plain version (arb, grant, vbad, rmeta; "
+              f"{int(got[1].sum())} granted, {int(got[2].sum())} stale)")
+        err = max(err, e)
+    t = 5
+    arb0 = stamped(t)
+    arb_k, arb_p, arb_u, arb_c = (arb0.clone() for _ in range(4))
+    lane_m = torch.arange(m, device=dev, dtype=torch.int32)
+    packed = (t << td.K_ARB) | (m - 1 - lane_m)
+
+    def unfused(vi, vv, ri, ro, ac):
+        g = rk.gather_rows(meta, torch.cat([vi, ri]), 1)
+        return g[:v] != vv, rk.lock_arbitrate(arb_u, ro, ac, t, td.K_ARB)
+
+    def torch_chain(vi, vv, ri, ro, ac):
+        # index_select + compare, and the lock pass as three torch calls
+        # (signed amax is right here because t << 18 < 2^31)
+        bad = meta.index_select(0, vi) != vv
+        rmeta = meta.index_select(0, ri)
+        old = arb_c[ro]
+        cand = ac & ((shr(old, td.K_ARB)) != t - 1)
+        arb_c.scatter_reduce_(0, ro.long(), torch.where(cand, packed, 0),
+                              "amax")
+        return bad, rmeta, cand & (arb_c[ro] == packed)
+
+    a_f, g_f, vb_f, rm_f = rk.lock_validate(arb0.clone(), meta, *sets[0], t,
+                                            td.K_ARB)
+    bad_c, rm_c, g_c = torch_chain(*sets[0])
+    bad_u, (a_u, g_u) = unfused(*sets[0])
+    check(torch.equal(bad_c, vb_f) and torch.equal(rm_c, rm_f)
+          and torch.equal(g_c, g_f) and torch.equal(arb_c, a_f)
+          and torch.equal(bad_u, vb_f) and torch.equal(g_u, g_f)
+          and torch.equal(a_u, a_f),
+          "both yardsticks compute the same function (t=5)")
+    del a_f, a_u
+
+    def lv_bytes(vi, vv, ri, ro, ac):
+        held = shr(arb0[ro.long()], td.K_ARB) == t - 1
+        return (32 * (sectors(torch.cat([vi, ri])) + sectors(ro[ac])
+                      + sectors(ro[ac & ~held]))
+                + 4 * v * 2 + 4 * v + 4 * m + m + v + 4 * v + m)
+    r_lv = timed_row(
+        f"lock_validate V=R={v} M={m}",
+        lambda *z: rk.lock_validate(arb_k, meta, *z, t, td.K_ARB),
+        lambda *z: rk.lock_validate_ref(arb_p, meta, *z, t, td.K_ARB),
+        torch_chain, "index_select + compare + 3-call lock chain", sets,
+        lv_bytes)
+    r_lv["unfused_ms"] = device_ms(rotating(unfused, sets))
+    print(f"  lock_validate: the default route's unfused pair (gather_rows "
+          f"+ compare + lock_arbitrate, yardstick) {r_lv['unfused_ms']:.6f} "
+          f"ms")
+    rec["lock_validate"] = dict(r_lv, library_ms=None, max_abs_err=err)
+    del arb_k, arb_p, arb_u, arb_c, arb0, sets
+
+    # -- the hot route's gathers at TATP's shapes: the meta gather (2wK
+    # rows of meta) and the magic gather (wK words of val), each through
+    # its mirror of the hot row prefix
+    val = rand_words(n1 * VW)
+    hot_meta, hot_val = meta[:hot_n].clone(), val[:hot_n * VW].clone()
+    b6 = {}
+    for label, tab, mirror, k, scale in (
+            ("meta", meta, hot_meta, 2 * v, 1),
+            ("magic", val, hot_val, v, VW)):
+        def g_set():
+            rows = rand_rows(k)
+            idx = rows * scale + (1 if scale > 1 else 0)
+            return idx, torch.where(rows < hot_n, idx, -1)
+        sets = [g_set() for _ in range(n_sets)]
+        got = rk.gather_rows_hot(tab, mirror, *sets[0], 1)
+        want = rk.gather_rows_hot_ref(tab, mirror, *sets[0], 1)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        check(torch.equal(got, want) and e == 0
+              and torch.equal(got, rk.gather_rows(tab, sets[0][0], 1)),
+              f"gather_rows_hot[{label}] K={k} over [{tab.numel()}] + mirror "
+              f"[{mirror.numel()}], {int((sets[0][1] >= 0).sum())} lanes hot, "
+              f"equals the plain version and gather_rows")
+
+        def hot_bytes(idx, midx):
+            hot = midx >= 0
+            return (32 * (sectors(idx[~hot]) + sectors(midx[hot])
+                          + sectors(lanes[:k][~hot])) + 4 * 2 * k)
+        b6[label] = timed_row(
+            f"gather_rows_hot[{label}] K={k}",
+            lambda i, mi: rk.gather_rows_hot(tab, mirror, i, mi, 1),
+            lambda i, mi: rk.gather_rows_hot_ref(tab, mirror, i, mi, 1),
+            lambda i, mi: torch.where(mi >= 0, mirror.index_select(
+                0, mi.clamp(min=0)), tab.index_select(0, i)),
+            "where/index_select chain", sets, hot_bytes)
+        b6[label]["max_abs_err"] = e
+    rec["gather_rows_hot"] = per_step(b6)
+
+    # -- the commit wave's installs at TATP's shapes (2w write slots):
+    # scatter_rows_hot (hot route: meta, then val) and scatter_streams
+    # (fused route: val, meta and log x3, plus the two mirrors with the
+    # hot tier); ~60% of lanes masked in as unique writers
+    k = m
+    log = rand_words(n_log * ew3)
+
+    def w_set():
+        rows = rand_rows(k, hot_share=8)
+        mask = (torch.rand(k, generator=gen, device=dev) < 0.6) \
+            & first_only(rows) & (rows != sent)
+        lslot = torch.randperm(n_log, generator=gen, device=dev)[:k]
+        return dict(rows=rows, mask=mask, midx=torch.where(
+            rows < hot_n, rows, -1), widx=torch.where(mask, rows, -1),
+            wmidx=torch.where(mask & (rows < hot_n), rows, -1),
+            lflat=torch.where(mask, lslot, -1).to(torch.int32),
+            nval=rand_words(k * VW), nmeta=rand_words(k),
+            entry=rand_words(k * ew3))
+    zs = [w_set() for _ in range(n_sets)]
+    b7 = {}
+    for label, tab, mirror, vw, vkey in (("meta", meta, hot_meta, 1, "nmeta"),
+                                         ("val", val, hot_val, VW, "nval")):
+        sets = [(z["rows"], z["midx"], z["mask"], z[vkey]) for z in zs]
+        tk, mk = tab.clone(), mirror.clone()
+        rk.scatter_rows_hot(tk, mk, *sets[0], vw)
+        rk.scatter_rows_hot_ref(tab, mirror, *sets[0], vw)
+        torch.cuda.synchronize()
+        e = max(max_abs_err(tk, tab), max_abs_err(mk, mirror))
+        check(torch.equal(tk, tab) and torch.equal(mk, mirror) and e == 0,
+              f"scatter_rows_hot[{label}] K={k} into [{tab.numel()}] + mirror "
+              f"[{mirror.numel()}], {int(sets[0][2].sum())} masked in, equals "
+              f"the plain version")
+        del tk
+
+        def hot_scat_bytes(rows, midx, mask, vals, vw=vw):
+            hm = mask & (midx >= 0)
+            return (32 * (sectors(words_of(rows[mask], vw))
+                          + sectors(words_of(midx[hm], vw))
+                          + 2 * sectors(lanes[:k][mask])
+                          + sectors(words_of(lanes[:k][mask], vw))) + k)
+
+        def kept(rows, midx, mask, vals, vw=vw):
+            """The kept rows and values, filtered outside the timing as in
+            the SmallBank rows."""
+            hm = mask & (midx >= 0)
+            v2 = vals.view(-1, vw)
+            return rows[mask].long(), v2[mask], midx[hm].long(), v2[hm]
+
+        def kept_copy(r, v, mi, mv, tab=tab, mirror=mirror, vw=vw):
+            tab.view(-1, vw).index_copy_(0, r, v)
+            mirror.view(-1, vw).index_copy_(0, mi, mv)
+        b7[label] = timed_row(
+            f"scatter_rows_hot[{label}] K={k}",
+            lambda *z, vw=vw: rk.scatter_rows_hot(tab, mirror, *z, vw),
+            lambda *z, vw=vw: rk.scatter_rows_hot_ref(tab, mirror, *z, vw),
+            kept_copy, "2 index_copy_ of kept rows", sets, hot_scat_bytes,
+            [kept(*z) for z in sets])
+        b7[label]["max_abs_err"] = e
+    rec["scatter_rows_hot"] = per_step(b7)
+
+    b3 = {}
+    for n_streams in (3, 5):
+        tabs = (val, meta, log, hot_val, hot_meta)[:n_streams]
+        vws = (VW, 1, ew3, VW, 1)[:n_streams]
+
+        def streams(z, n=n_streams):
+            return ((z["widx"], z["widx"], z["lflat"], z["wmidx"],
+                     z["wmidx"])[:n],
+                    (z["nval"], z["nmeta"], z["entry"], z["nval"],
+                     z["nmeta"])[:n])
+        sets = [streams(z) for z in zs]
+        tk = tuple(x.clone() for x in tabs)
+        rk.scatter_streams(tk, *sets[0], vws)
+        rk.scatter_streams_ref(tabs, *sets[0], vws)
+        torch.cuda.synchronize()
+        e = max(max_abs_err(x, y) for x, y in zip(tk, tabs))
+        check(all(torch.equal(x, y) for x, y in zip(tk, tabs)) and e == 0,
+              f"scatter_streams install_log, {n_streams} streams (vw "
+              f"{list(vws)}), K={k}, equals the plain version")
+        del tk
+
+        def scat_bytes(idxs, vals, n=n_streams):
+            widx, lflat = idxs[0], idxs[2]
+            mask = widx >= 0
+            nb = (32 * (sectors(words_of(widx[mask], VW))
+                        + sectors(widx[mask])
+                        + sectors(words_of(lflat[mask], ew3))
+                        + sectors(words_of(lanes[:k][mask], VW))
+                        + sectors(lanes[:k][mask])
+                        + sectors(words_of(lanes[:k][mask], ew3)))
+                  + 4 * 2 * k)
+            if n == 5:
+                hm = idxs[3] >= 0
+                nb += 32 * (sectors(words_of(idxs[3][hm], VW))
+                            + sectors(idxs[3][hm])) + 4 * k
+            return nb
+
+        def kept(idxs, vals):
+            """Per stream the kept rows and values, filtered outside the
+            timing as in the SmallBank rows."""
+            return [(idx[idx >= 0].long(), val_.view(-1, vw)[idx >= 0])
+                    for idx, val_, vw in zip(idxs, vals, vws)]
+
+        def kept_copies(*per_stream):
+            for tab, (r, v_), vw in zip(tabs, per_stream, vws):
+                tab.view(-1, vw).index_copy_(0, r, v_)
+        b3[n_streams] = timed_row(
+            f"scatter_streams install_log {n_streams} streams K={k}",
+            lambda i, x: rk.scatter_streams(tabs, i, x, vws),
+            lambda i, x: rk.scatter_streams_ref(tabs, i, x, vws),
+            kept_copies, f"{n_streams} index_copy_ of kept rows", sets,
+            scat_bytes, [kept(*z) for z in sets])
+        b3[n_streams]["max_abs_err"] = e
+    rec["scatter_streams"] = b3
+    del meta, val, log, hot_meta, hot_val, zs, sets
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_sb_cpu_vs_card(dev):
     print("== phase 3 (SmallBank): the port on the CPU against the card")
     from dint_tpu_torch import convert
@@ -645,7 +1000,7 @@ def phase_sb_cpu_vs_card(dev):
 
 def phase_smallbank(dev):
     print(f"== phase 5: SmallBank main path, {SB_N:,} accounts, w={SB_W}, "
-          f"{SB_CPB} cohorts/block, 90/4 skew")
+          f"{SB_CPB} cohorts/block, 90/4 skew, four routes")
     from dint_tpu_torch.engines import smallbank_dense as sd
     from dint_tpu_torch.ops import row_kernels as rk
     from dint_tpu_torch.tables import log as logring
@@ -653,6 +1008,7 @@ def phase_smallbank(dev):
     per_step = {"default": {"gather_rows": 3},
                 "hotset": {"gather_rows": 2, "gather_rows_hot": 1,
                            "scatter_rows_hot": 1},
+                "fused": {"gather_streams": 1, "scatter_streams": 1},
                 "fused+hotset": {"gather_streams": 1, "scatter_streams": 1}}
     ends, launches_all = {}, {}
     for route, counts in per_step.items():
@@ -746,11 +1102,111 @@ def phase_smallbank(dev):
     return launches_all
 
 
+def phase_tatp_routes(dev, ref):
+    print(f"== phase 6: TATP routes, n_sub={N_SUB:,}, w={W}, {CPB} "
+          f"cohorts/block, against phase 4's default route")
+    from dint_tpu_torch.engines import tatp_dense as td
+    ref_db, ref_stats = ref
+    per_step = {"hotset": {"gather_rows_hot": 2, "lock_arbitrate": 1,
+                           "scatter_rows_hot": 2},
+                "fused": {"lock_validate": 1, "gather_rows": 1,
+                          "scatter_streams": 1},
+                "fused+hotset": {"lock_validate": 1, "gather_rows_hot": 1,
+                                 "scatter_streams": 1}}
+    launches_all = {}
+    for route, counts in per_step.items():
+        hot, fused = td.ROUTES[route]
+        print(f"  -- route {route}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        db = td.populate_device(torch.Generator(device=dev).manual_seed(0),
+                                N_SUB, val_words=VW, device=dev)
+        run, init, drain = td.build_pipelined_runner(
+            N_SUB, w=W, val_words=VW, cohorts_per_block=CPB,
+            use_hotset=hot, use_fused=fused, device=dev)
+        db, stats, launches = drive_tatp(dev, run, init, drain, db)
+        check_tatp(db, stats, launches, counts)
+        check(np.array_equal(stats, ref_stats) and db.step == ref_db.step
+              and torch.equal(db.val, ref_db.val)
+              and torch.equal(db.meta, ref_db.meta)
+              and torch.equal(db.arb, ref_db.arb)
+              and torch.equal(db.log.entries, ref_db.log.entries)
+              and torch.equal(db.log.head, ref_db.log.head),
+              f"route {route}: stats, val, meta, arb, step and log identical "
+              f"to the default route's")
+        launches_all[route] = launches
+        if fused and not hot:
+            launches_all["fused serve+monitor"] = serve_block(dev, db)
+        del db
+        torch.cuda.empty_cache()
+    return launches_all
+
+
+def serve_block(dev, db):
+    """One serve block with monitor=True on the fused route from ``db``:
+    occupancy W - (W/CPB)*i at step i (8192 - 512*i), a shed tally, then
+    the drain; the counters must reconcile with the stats."""
+    from dint_tpu_torch.engines import tatp_dense as td
+    from dint_tpu_torch.monitor import counters as mon
+    from dint_tpu_torch.ops import row_kernels as rk
+    print("  -- route fused, serve=True, monitor=True: one block")
+    run, init, drain = td.build_pipelined_runner(
+        N_SUB, w=W, val_words=VW, cohorts_per_block=CPB, use_fused=True,
+        monitor=True, serve=True, device=dev)
+    occ_h = np.array([W - (W // CPB) * i for i in range(CPB)], np.int32)
+    shed_h = np.arange(CPB, dtype=np.int32) % 3
+    occ, shed = (torch.from_numpy(a).to(dev) for a in (occ_h, shed_h))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rk.reset_launches()
+    carry = init(db)
+    t0 = time.perf_counter()
+    carry, s_blk = run(carry, gen, occ, shed)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    db, tail, cnt = drain(carry)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in rk.WRAPPERS}
+    stats = torch.cat([s_blk, tail]).cpu().numpy().astype(np.int64)
+    total = stats.sum(axis=0)
+    snap = mon.snapshot(cnt)
+    print(f"  serve block: {secs / CPB * 1e3:.6f} ms/step (first block of "
+          f"the runner, counters on); occupancy {occ_h.tolist()}")
+    print(f"  counters: {snap}")
+    check(int(total[td.STAT_ATTEMPTED]) == int(occ_h.sum())
+          and stats[0, td.STAT_ATTEMPTED] == 0,
+          f"attempted sums to sum(occ) = {int(occ_h.sum())}")
+    pairs = (("txn_attempted", td.STAT_ATTEMPTED),
+             ("txn_committed", td.STAT_COMMITTED),
+             ("ab_lock", td.STAT_AB_LOCK), ("ab_missing", td.STAT_AB_MISSING),
+             ("ab_validate", td.STAT_AB_VALIDATE),
+             ("magic_bad", td.STAT_MAGIC_BAD))
+    check(all(snap[k] == int(total[c]) for k, c in pairs),
+          "counters reconcile with the stats (txn_attempted, "
+          "txn_committed, ab_lock, ab_missing, ab_validate, magic_bad)")
+    check(snap["serve_padded_lanes"] == CPB * W - int(occ_h.sum())
+          and snap["serve_occupancy_lanes"] == int(occ_h.sum())
+          and snap["serve_shed_lanes"] == int(shed_h.sum()),
+          "serve_padded_lanes == cpb*w - sum(occ); occupancy and shed lanes "
+          "as given")
+    check(snap["steps"] == CPB + 2 and snap["fused_dispatch"] == CPB + 2
+          and snap["dispatch_pallas"] == CPB + 2
+          and snap["lock_requests"] == snap["lock_granted"]
+          + snap["lock_rejected"]
+          and snap["lock_rejected"] == snap["lock_reject_held"]
+          + snap["lock_reject_arb"]
+          and snap["install_writes"] == snap["log_appends"],
+          "steps and the lock ledger close")
+    check(not bool(db.locked.any()) and snap["magic_bad"] == 0,
+          "no row locked after the drain; magic_bad == 0")
+    return launches
+
+
 KERNELS = {
     "gather_rows": ("dint_tpu_torch/csrc/gather_rows.cu",
                     "dint_tpu/ops/pallas_gather.py:212"),
     "lock_arbitrate": ("dint_tpu_torch/csrc/lock_arbitrate.cu",
                        "dint_tpu/ops/pallas_gather.py:780"),
+    "lock_validate": ("dint_tpu_torch/csrc/lock_validate.cu",
+                      "dint_tpu/ops/pallas_gather.py:913"),
     "gather_streams": ("dint_tpu_torch/csrc/gather_streams.cu",
                        "dint_tpu/ops/pallas_gather.py:984"),
     "scatter_streams": ("dint_tpu_torch/csrc/scatter_streams.cu",
@@ -775,27 +1231,48 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = phase_card()
     rec = {**phase_kernels(dev), **phase_sb_kernels(dev)}
+    tatp_rec = phase_tatp_kernels(dev)
+    rec["lock_validate"] = tatp_rec.pop("lock_validate")
     phase_cpu_vs_card(dev)
     phase_sb_cpu_vs_card(dev)
-    tatp = phase_main_path(dev)
+    tatp_default, ref_db, ref_stats = phase_main_path(dev)
+    tatp = {"default": tatp_default,
+            **phase_tatp_routes(dev, (ref_db, ref_stats))}
+    del ref_db
+    torch.cuda.empty_cache()
     sb = phase_smallbank(dev)
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = rec[name]
-        # launches on the main paths: TATP (phase 4) and SmallBank's
-        # routes (phase 5), each counted from 0 just before its run
-        paths = {"tatp": tatp[name], **{f"smallbank {k}": v[name]
-                                        for k, v in sb.items()}}
+        # launches on the main paths: TATP's routes (phases 4 and 6) and
+        # SmallBank's (phase 5), each counted from 0 just before its run
+        paths = {**{f"tatp {k}": v[name] for k, v in tatp.items()},
+                 **{f"smallbank {k}": v[name] for k, v in sb.items()}}
         print(f"  {name}: launches {paths}")
-        kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": sum(paths.values()),
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": "bytes", "library_ms": r["library_ms"]})
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": sum(paths.values()),
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": "bytes", "library_ms": r["library_ms"],
+               "launches_by_path": paths}
+        if name in tatp_rec:     # the same kernel at TATP's shapes
+            row["tatp_shapes"] = tatp_rec[name]
+        if name == "lock_validate":
+            row["unfused_pair_ms"] = r["unfused_ms"]
+            row["torch_chain_ms"] = r["yard_ms"]
+        kernels.append(row)
     check(all(k["launches"] > 0 for k in kernels),
           "every kernel was launched on a main path")
+    by_name = {k["name"]: k["launches_by_path"] for k in kernels}
+    check(all(by_name["lock_validate"][f"tatp {r}"] > 0
+              for r in ("fused", "fused+hotset"))
+          and all(by_name[k][f"tatp {r}"] > 0
+                  for k in ("gather_rows_hot", "scatter_rows_hot")
+                  for r in ("hotset",))
+          and by_name["gather_rows_hot"]["tatp fused+hotset"] > 0,
+          "lock_validate ran on both fused TATP routes, the hot kernels on "
+          "the TATP hot routes")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,11 +6,14 @@ plain dict, so this module needs nothing of JAX:
 
     DenseDB:   {"val", "meta", "arb": u32 arrays, "step": u32 scalar,
                 "log.entries": u32 [L*CAP, S*(HDR+VW)], "log.head": u32 [L],
-                "val_words", "lanes", "replicas": ints}
+                "val_words", "lanes", "replicas": ints, and, only when
+                the hot mirrors are present, "hot_meta", "hot_val": u32
+                arrays and "hot_n": int}
     DenseBank: {"bal", "x_step", "s_step": u32 arrays, "step": u32 scalar,
                 "log.entries", "log.head", "lanes", "replicas" as above,
                 "hot_bal", "hot_x", "hot_s": u32 arrays, each only when
                 present, "hot_n": int}
+    Counters:  the u32 [N_COUNTERS] buffer
 """
 from __future__ import annotations
 
@@ -19,10 +22,12 @@ import numpy as np
 from .device import resolve_device
 from .engines.smallbank_dense import DenseBank
 from .engines.tatp_dense import DenseDB
+from .monitor.counters import Counters
 from .ops.u32 import from_numpy, to_numpy
 from .tables.log import RepLog
 
 HOT_LEAVES = ("hot_bal", "hot_x", "hot_s")
+TATP_HOT_LEAVES = ("hot_meta", "hot_val")
 
 
 def _log_from_numpy(arrays: dict, dev) -> RepLog:
@@ -40,21 +45,26 @@ def _log_to_numpy(log: RepLog) -> dict:
 
 def dense_db_from_numpy(arrays: dict, device=None) -> DenseDB:
     dev = resolve_device(device)
+    hot = {k: from_numpy(arrays[k], dev) for k in TATP_HOT_LEAVES
+           if arrays.get(k) is not None}
     return DenseDB(
         val=from_numpy(arrays["val"], dev),
         meta=from_numpy(arrays["meta"], dev),
         arb=from_numpy(arrays["arb"], dev),
         step=int(arrays["step"]),
         log=_log_from_numpy(arrays, dev),
-        val_words=int(arrays["val_words"]))
+        val_words=int(arrays["val_words"]),
+        hot_n=int(arrays.get("hot_n", 0)), **hot)
 
 
 def dense_db_to_numpy(db: DenseDB) -> dict:
-    return {
-        "val": to_numpy(db.val), "meta": to_numpy(db.meta),
-        "arb": to_numpy(db.arb), "step": np.uint32(db.step),
-        **_log_to_numpy(db.log), "val_words": db.val_words,
-    }
+    out = {"val": to_numpy(db.val), "meta": to_numpy(db.meta),
+           "arb": to_numpy(db.arb), "step": np.uint32(db.step),
+           **_log_to_numpy(db.log), "val_words": db.val_words}
+    if db.hot_meta is not None:
+        out.update(hot_meta=to_numpy(db.hot_meta),
+                   hot_val=to_numpy(db.hot_val), hot_n=db.hot_n)
+    return out
 
 
 def dense_bank_from_numpy(arrays: dict, device=None) -> DenseBank:
@@ -78,3 +88,11 @@ def dense_bank_to_numpy(db: DenseBank) -> dict:
         if getattr(db, k) is not None:
             out[k] = to_numpy(getattr(db, k))
     return out
+
+
+def counters_from_numpy(buf, device=None) -> Counters:
+    return Counters(buf=from_numpy(np.asarray(buf), resolve_device(device)))
+
+
+def counters_to_numpy(c: Counters) -> np.ndarray:
+    return to_numpy(c.buf)

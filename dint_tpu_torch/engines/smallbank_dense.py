@@ -21,6 +21,9 @@ The design is the JAX module's (its docstring has the full argument):
   mirror index ``tbl * hot_n + acc`` for ``acc < hot_n``, that every
   install writes through to. Stamp mirrors exist only in the exact lock
   regime, where a cold account cannot conflate onto a hot slot.
+* The serve plane (``occupancy``/``shed``) erases the lock slots of the
+  lanes past a cohort's admitted occupancy before arbitration; the counter
+  plane (``counters``, monitor/counters.py) bumps the registry in-step.
 
 Routes (static per runner), each bit-identical to the JAX XLA route:
 
@@ -50,6 +53,7 @@ What differs from JAX:
   transact_saving (JAX: ``jax.random.randint(.., -20, 21)``). The runner's
   `run` draws them with a `torch.Generator`; ``run.run_draws`` takes them
   as given, which is how the tests replay JAX's draws.
+* The trace ring is not ported.
 """
 from __future__ import annotations
 
@@ -60,6 +64,7 @@ import torch
 
 from ..clients import workloads as wl
 from ..device import resolve_device
+from ..monitor import counters as mon
 from ..ops import u32
 from ..ops.row_kernels import (gather_rows, gather_rows_hot, gather_streams,
                                scatter_rows_hot, scatter_streams)
@@ -70,15 +75,12 @@ from .smallbank_pipeline import (L, MAGIC, N_SHARDS, VW, compute_phase,
 from .smallbank_pipeline import (STAT_ATTEMPTED, STAT_COMMITTED,  # noqa: F401 (re-exported)
                                  STAT_AB_LOCK, STAT_AB_LOGIC, STAT_MAGIC_BAD,
                                  STAT_BAL_DELTA, N_STATS)
-from .types import Op
+from .types import ROUTES, Op  # noqa: F401 (ROUTES re-exported)
 
 I32 = torch.int32
 
 BIG = 1 << 30
 MAX_LOCK_SLOTS = 1 << 25
-# route name -> (use_hotset, use_fused) of `build_pipelined_runner`
-ROUTES = {"default": (False, False), "hotset": (True, False),
-          "fused": (False, True), "fused+hotset": (True, True)}
 
 
 def lock_slots_for(m1: int) -> int:
@@ -226,12 +228,22 @@ def _stamp(arr: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
 def pipe_step(db: DenseBank, c1: BankCtx, bits, ts_amt, *, w: int,
               n_accounts: int, gen_new: bool = True, hot_frac=None,
               hot_prob=None, mix=None, use_hotset: bool = False,
-              use_fused: bool = False, consts: StepConsts | None = None):
+              use_fused: bool = False, occupancy=None, shed=None,
+              counters: mon.Counters | None = None,
+              consts: StepConsts | None = None):
     """One fused step: wave 1 of a NEW cohort drawn from ``bits`` [w, 5]
     (transact_saving amounts ``ts_amt`` [w]; both unused when ``gen_new``
     is False) acquires against c1's still-held stamps, then wave 2
-    installs c1's writes and appends them to the log x3. Updates ``db`` in
-    place and returns (db, new_ctx, stats-of-c1)."""
+    installs c1's writes and appends them to the log x3.
+
+    ``occupancy``/``shed`` (device i32 scalars, or None = off): the lock
+    slots of lanes >= occupancy are erased before arbitration, so those
+    lanes request, compute and install nothing, and ``attempted`` counts
+    the admitted lanes only; ``shed`` is mirrored onto the counters.
+    ``counters``: bumped in place when given.
+
+    Updates ``db`` in place and returns (db, new_ctx, stats-of-c1), plus
+    the counters when ``counters`` is given."""
     dev = db.bal.device
     if consts is None:
         consts = step_consts(w, mix, dev)
@@ -255,6 +267,15 @@ def pipe_step(db: DenseBank, c1: BankCtx, bits, ts_amt, *, w: int,
         ts_amt = ttype
         l_op, l_tb, l_ac = (torch.zeros((w, L), dtype=I32, device=dev)
                             for _ in range(3))
+
+    if occupancy is not None:
+        # serve plane: the cohort is drawn full-width and the lanes past
+        # the admitted occupancy lose their lock slots.
+        # occ is a copy: ``attempted`` is read when the cohort completes,
+        # after the caller may have refilled its occupancy buffer
+        occ = occupancy.to(I32, copy=True)
+        lane_ok = consts.lane[:w] < occ
+        l_op = torch.where(lane_ok[:, None], l_op, 0)
 
     active = l_op != 0
     rows = torch.where(active, l_tb * n_accounts + l_ac, sent)   # [w, L]
@@ -327,9 +348,14 @@ def pipe_step(db: DenseBank, c1: BankCtx, bits, ts_amt, *, w: int,
     bal_delta = u32.wrap_i32(torch.where(
         do_write, nw.to(torch.int64) - bal.to(torch.int64), 0).sum())
 
+    if occupancy is not None:
+        attempted = occ
+    else:
+        attempted = torch.full((), w if gen_new else 0, dtype=I32,
+                               device=dev)
     new_ctx = BankCtx(
         rows=rows, do_write=do_write, nw=nw, tbl=l_tb, acc=l_ac,
-        attempted=torch.full((), w if gen_new else 0, dtype=I32, device=dev),
+        attempted=attempted,
         committed=committed.sum(dtype=I32),
         ab_lock=(lock_rejected & lead).sum(dtype=I32),
         ab_logic=logic_abort.sum(dtype=I32),
@@ -375,13 +401,55 @@ def pipe_step(db: DenseBank, c1: BankCtx, bits, ts_amt, *, w: int,
                            newval)
 
     db.step = t + 1
-    return db, new_ctx, _stats_of(c1)
+    out = (db, new_ctx, _stats_of(c1))
+    if counters is None:
+        return out
+    grant_l = granted.reshape(-1)
+    held_l = held_x | held_s            # [wL] slot stamped last step
+    rej_l = active.reshape(-1) & ~grant_l
+    upd = {}
+    if use_hotset:
+        # partition accounting: each partitioned gather serves its hot
+        # lanes from the mirror; the fused route reads the main arrays, so
+        # none of its gathers is partitioned. Refresh bytes are what the
+        # JAX kernel route (use_pallas) counts.
+        n_g = 0 if use_fused else 1 + (2 if stamp_hot else 0)
+        hits = (midx >= 0).sum(dtype=I32)
+        upd.update({mon.CTR_HOT_HITS: n_g * hits,
+                    mon.CTR_HOT_COLD_ROWS: n_g * (w * L) - n_g * hits,
+                    mon.CTR_HOT_REFRESH_BYTES: n_g * 2 * hn * 4})
+    if occupancy is not None:
+        upd.update({mon.CTR_SERVE_OCC_LANES: occ,
+                    mon.CTR_SERVE_PAD_LANES: w - occ,
+                    mon.CTR_SERVE_SHED_LANES: 0 if shed is None else shed})
+    n_writes = dwf.sum(dtype=I32)
+    upd.update({
+        mon.CTR_STEPS: 1,
+        mon.CTR_TXN_ATTEMPTED: c1.attempted,
+        mon.CTR_TXN_COMMITTED: c1.committed,
+        mon.CTR_AB_LOCK: c1.ab_lock,
+        mon.CTR_AB_LOGIC: c1.ab_logic,
+        mon.CTR_MAGIC_BAD: c1.magic_bad,
+        mon.CTR_LOCK_REQUESTS: active.sum(dtype=I32),
+        mon.CTR_LOCK_GRANTED: grant_l.sum(dtype=I32),
+        mon.CTR_LOCK_REJECTED: rej_l.sum(dtype=I32),
+        mon.CTR_LOCK_REJECT_HELD: (rej_l & held_l).sum(dtype=I32),
+        mon.CTR_LOCK_REJECT_ARB: (rej_l & ~held_l).sum(dtype=I32),
+        mon.CTR_INSTALL_WRITES: n_writes,
+        mon.CTR_LOG_APPENDS: n_writes,
+        mon.CTR_DISPATCH_PALLAS: 1,       # the port runs the kernel route
+        **({mon.CTR_FUSED_DISPATCH: 1} if use_fused else {}),
+    })
+    mon.bump(counters, upd)
+    mon.gauge_max(counters, {mon.CTR_RING_HWM: u32.to_u64(db.log.head).max()})
+    return out + (counters,)
 
 
 def build_pipelined_runner(n_accounts: int, w: int = 8192,
                            cohorts_per_block: int = 8, hot_frac=None,
                            hot_prob=None, mix=None, use_hotset: bool = False,
-                           use_fused: bool = False, device=None):
+                           use_fused: bool = False, monitor: bool = False,
+                           serve: bool = False, device=None):
     """A loop of `pipe_step` over carry (db, c1); the contract of the JAX
     `build_pipelined_runner`: returns (run, init, drain).
 
@@ -395,7 +463,15 @@ def build_pipelined_runner(n_accounts: int, w: int = 8192,
       ``use_hotset`` it first attaches the mirror of the workload's hot set
       (``hot_frac``, else SB_HOT_FRAC) to a bank that has none;
     * ``drain(carry)`` runs the flush step, which draws nothing, and
-      returns (db, stats [1, N_STATS])."""
+      returns (db, stats [1, N_STATS]).
+
+    ``use_hotset``/``use_fused``: the route (`ROUTES`). ``serve``: the
+    signatures become ``run(carry, gen, occ, shed)`` and
+    ``run.run_draws(carry, bits, ts_amt, occ, shed)``, with ``occ`` and
+    ``shed`` device i32 [cpb]: step i masks lanes >= occ[i] and mirrors
+    shed[i] onto the counters; nothing is read back to the host.
+    ``monitor``: the carry gains a trailing `monitor.counters.Counters`
+    (made by ``init``), and ``drain`` returns (db, stats, counters)."""
     dev = resolve_device(device)
     if w * L >= BIG:
         raise ValueError(f"w={w} exceeds the lane field of the scatter-mins")
@@ -408,21 +484,30 @@ def build_pipelined_runner(n_accounts: int, w: int = 8192,
               hot_prob=hot_prob, mix=mix, use_hotset=use_hotset,
               use_fused=use_fused, consts=step_consts(w, mix, dev))
 
-    def run_draws(carry, bits, ts_amt):
+    def step(carry, bits, ts_amt, occ=None, shed=None, gen_new=True):
+        out = pipe_step(carry[0], carry[1], bits, ts_amt, gen_new=gen_new,
+                        occupancy=occ, shed=shed,
+                        counters=carry[2] if monitor else None, **kw)
+        return out[:2] + out[3:], out[2]
+
+    def run_draws(carry, bits, ts_amt, occ=None, shed=None):
         if tuple(bits.shape) != (cpb, w, 5) or \
                 tuple(ts_amt.shape) != (cpb, w):
             raise ValueError(f"expected bits [{cpb}, {w}, 5] and ts_amt "
                              f"[{cpb}, {w}], got {tuple(bits.shape)} and "
                              f"{tuple(ts_amt.shape)}")
-        db, c1 = carry
+        if serve != (occ is not None and shed is not None):
+            raise ValueError("a serve runner takes occ and shed [cpb]; a "
+                             "closed-loop runner takes neither")
         stats = []
         for i in range(cpb):
-            db, c1, s = pipe_step(db, c1, bits[i], ts_amt[i], **kw)
+            carry, s = step(carry, bits[i], ts_amt[i],
+                            *((occ[i], shed[i]) if serve else ()))
             stats.append(s)
-        return (db, c1), torch.stack(stats)
+        return carry, torch.stack(stats)
 
-    def run(carry, gen: torch.Generator):
-        return run_draws(carry, *draw_step(gen, (cpb, w), dev))
+    def run(carry, gen: torch.Generator, occ=None, shed=None):
+        return run_draws(carry, *draw_step(gen, (cpb, w), dev), occ, shed)
 
     run.run_draws = run_draws
 
@@ -431,11 +516,11 @@ def build_pipelined_runner(n_accounts: int, w: int = 8192,
             raise ValueError(f"tables on {db.bal.device}, runner on {dev}")
         if use_hotset and db.hot_n == 0:
             db = attach_hotset(db, hot_n)
-        return db, empty_ctx(w, dev)
+        return (db, empty_ctx(w, dev)) + ((mon.create(dev),) if monitor
+                                          else ())
 
     def drain(carry):
-        db, c1 = carry
-        db, _, s = pipe_step(db, c1, None, None, gen_new=False, **kw)
-        return db, s[None]
+        carry, s = step(carry, None, None, gen_new=False)
+        return (carry[0], s[None]) + carry[2:]
 
     return run, init, drain

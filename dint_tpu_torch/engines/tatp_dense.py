@@ -1,6 +1,6 @@
 """Sort-free dense TATP engine in PyTorch: the port of
-`dint_tpu.engines.tatp_dense` on its kernel route (the JAX ``use_pallas``
-route, with the hot tier and the fused megakernels off).
+`dint_tpu.engines.tatp_dense` on its kernel routes (the JAX ``use_pallas``
+route, with or without the hot tier and the fused megakernels).
 
 The design is the JAX module's (its docstring has the full argument):
 
@@ -13,19 +13,39 @@ The design is the JAX module's (its docstring has the full argument):
   (2w-1 - slot)``; a row is held iff its step field is ``step - 1``, so
   locks expire two steps after their grant and releases need no write.
 * One step fuses the commit wave of cohort t-2 (install + log x3), the
-  validate wave of t-1 and the read+lock wave of a new cohort. The fused
-  meta gather and the magic-word gather run the `gather_rows` kernel; the
-  lock pass runs the `lock_arbitrate` kernel (ops/row_kernels.py).
+  validate wave of t-1 and the read+lock wave of a new cohort.
+* The hot tier (``use_hotset``) keeps write-through mirrors ``hot_meta``
+  and ``hot_val`` of the flat row prefix [0, hot_n), which covers the
+  subscriber-table prefix (`attach_hotset`).
+
+Routes (static per runner, `ROUTES`), each bit-identical to the JAX XLA
+route:
+
+* default: the fused meta gather and the magic-word gather run the
+  `gather_rows` kernel, the lock pass the `lock_arbitrate` kernel; the
+  install and the log append are plain torch writes.
+* ``use_hotset``: both gathers run `gather_rows_hot` over the mirrors and
+  the install runs `scatter_rows_hot` (meta, then val) to write through.
+* ``use_fused``: the validate re-read, the new cohort's meta read and the
+  lock pass are one `lock_validate` launch (over the main meta table even
+  with the hot tier on); the install, the log x3 append and (hot tier)
+  the mirror write-through are the streams of one `scatter_streams`
+  launch. The magic gather still runs `gather_rows` (`gather_rows_hot`
+  with the hot tier).
+
+The serve plane (``occupancy``/``shed``) masks the lanes of a cohort past
+its admitted occupancy to no-ops before wave 1; the counter plane
+(``counters``, monitor/counters.py) bumps the registry in-step.
 
 What differs from JAX:
 
 * Tables are int32 tensors holding u32 bit patterns (ops/u32.py), updated
-  in place: the commit wave's installs and the log append are index_put_
-  writes and the lock kernel updates ``arb`` in place.
+  in place: the kernels update ``arb`` and the installs the tables; the
+  default route's installs and log append are index_put_ writes.
 * Masked install lanes are filtered out before the index_put_ (JAX routes
-  them out of bounds under ``mode="drop"``). The kept rows are unique by
-  certification (one X-lock holder per row), so no result depends on the
-  order of duplicate writes.
+  them out of bounds under ``mode="drop"``); the kernel routes pass them
+  as index -1. The kept rows are unique by certification (one X-lock
+  holder per row), so no result depends on the order of duplicate writes.
 * The step counter ``DenseDB.step`` is a Python int on the host: the stamp
   arithmetic and the rebase check need no device sync.
 * Random draws come in from outside the step: ``bits`` [w, 4] u32 for the
@@ -33,6 +53,9 @@ What differs from JAX:
   installed values (JAX: ``jax.random.randint(.., 0, 1 << 16)``). The
   runner's `run` draws them with a `torch.Generator`; its ``run_draws``
   takes them as given, which is how the tests replay JAX's draws.
+* `lock_arbitrate` and `lock_validate` take no ``hot_n``: JAX's keeps the
+  arb prefix in VMEM, which changes no output and has no twin on the card.
+* The trace ring and ``emit_installs`` are not ported.
 """
 from __future__ import annotations
 
@@ -44,7 +67,10 @@ import torch
 
 from ..device import resolve_device
 from ..ops import u32
-from ..ops.row_kernels import gather_rows, lock_arbitrate
+from ..monitor import counters as mon
+from ..ops.row_kernels import (gather_rows, gather_rows_hot, lock_arbitrate,
+                               lock_validate, scatter_rows_hot,
+                               scatter_streams)
 from ..tables import log as logring
 from . import tatp
 from .tatp_pipeline import (K, MAGIC, N_SHARDS, CohortTables, classify_wave1,
@@ -52,7 +78,7 @@ from .tatp_pipeline import (K, MAGIC, N_SHARDS, CohortTables, classify_wave1,
 from .tatp_pipeline import (STAT_ATTEMPTED, STAT_COMMITTED, STAT_AB_LOCK,  # noqa: F401 (re-exported)
                             STAT_AB_MISSING, STAT_AB_VALIDATE, STAT_MAGIC_BAD,
                             N_STATS)
-from .types import Op, Reply
+from .types import ROUTES, Op, Reply  # noqa: F401 (ROUTES re-exported)
 
 I32 = torch.int32
 
@@ -75,13 +101,18 @@ def n_rows(n_sub: int) -> int:
 class DenseDB:
     """All 5 TATP tables + locks + log x3 in flat dense tensors (row N is
     the sentinel). ``val`` is interleaved 1-D: row r's words at
-    [r*VW, (r+1)*VW), 40 B/row at VW=10, 6.2 GB at 7M subscribers."""
+    [r*VW, (r+1)*VW), 40 B/row at VW=10, 6.2 GB at 7M subscribers. The
+    ``hot_*`` leaves are the hot tier's mirrors of the row prefix
+    [0, hot_n) (None = no hot tier; see `attach_hotset`)."""
     val: torch.Tensor      # i32 [(N+1) * VW]; word0 payload, word1 magic
     meta: torch.Tensor     # i32 [N+1]  ver<<1 | exists
     arb: torch.Tensor      # i32 [N+1]  step-stamped lock arbitration word
     step: int              # host counter, starts at 2 (stamp 0 = never held)
     log: logring.RepLog    # 3 replica entries packed per slot (log x3)
     val_words: int = 10
+    hot_meta: torch.Tensor | None = None   # i32 [hot_n]
+    hot_val: torch.Tensor | None = None    # i32 [hot_n * VW]
+    hot_n: int = 0
 
     @property
     def n_sub(self) -> int:
@@ -211,6 +242,17 @@ def populate_device(gen: torch.Generator | None, n_sub: int,
     return db
 
 
+def attach_hotset(db: DenseDB, hot_rows: int) -> DenseDB:
+    """The DB with the hot mirrors of the flat row prefix [0, hot_rows)
+    built from its current tables (11.2 MB at 7M subscribers and
+    hot_rows = 280,000). The mirrors are copies, not views of the tables,
+    so the write-through writes two storages."""
+    hot_rows = int(min(max(int(hot_rows), 1), n_rows(db.n_sub)))
+    return dataclasses.replace(
+        db, hot_meta=db.meta[:hot_rows].clone(),
+        hot_val=db.val[:hot_rows * db.val_words].clone(), hot_n=hot_rows)
+
+
 # ---------------------------------------------------------------- pipeline
 
 
@@ -267,30 +309,45 @@ class StepConsts:
     synchronises the stream)."""
     base: torch.Tensor     # i32 [5] flat row-id base per table
     cohort: CohortTables   # txn-mix thresholds and per-type lane layout
+    lane: torch.Tensor     # i32 [w] lane index (the serve plane's mask)
 
 
-def step_consts(n_sub: int, mix, device) -> StepConsts:
+def step_consts(n_sub: int, w: int, mix, device) -> StepConsts:
     return StepConsts(
         base=torch.as_tensor(_bases(n_sub + 1), device=device),
-        cohort=cohort_tables(mix, device))
+        cohort=cohort_tables(mix, device),
+        lane=torch.arange(w, dtype=I32, device=device))
 
 
 def pipe_step(db: DenseDB, c1: DenseCtx, c2: DenseCtx, bits, payload, *,
               w: int, n_sub: int, val_words: int, gen_new: bool = True,
-              mix=None, check_magic: bool = True,
+              mix=None, check_magic: bool = True, use_hotset: bool = False,
+              use_fused: bool = False, occupancy=None, shed=None,
+              counters: mon.Counters | None = None,
               consts: StepConsts | None = None):
     """One fused step: commit wave of c2, validate wave of c1, and read+lock
     wave of a NEW cohort drawn from ``bits`` [w, 4] (unused when
     ``gen_new`` is False) — commits, then reads, then lock acquires, so
     cohort t-2's installs are visible to t-1's validation and this step's
     reads. ``payload`` [w, 2] i32 fills word 0 of c2's installed rows.
-    Updates ``db`` in place and returns (db, new_ctx, c1', stats-of-c2)."""
+
+    ``use_hotset``/``use_fused`` pick the route (module docstring).
+    ``occupancy``/``shed`` (device i32 scalars, or None = off): lanes >=
+    occupancy of the new cohort become no-ops before wave 1 and
+    ``attempted`` counts the admitted lanes only; ``shed`` is mirrored onto
+    the counters. ``counters``: bumped in place when given.
+
+    Updates ``db`` in place and returns (db, new_ctx, c1', stats-of-c2),
+    plus the counters when ``counters`` is given."""
     dev = db.meta.device
     if consts is None:
-        consts = step_consts(n_sub, mix, dev)
+        consts = step_consts(n_sub, w, mix, dev)
+    if use_hotset and db.hot_meta is None:
+        raise ValueError("use_hotset needs the hot mirrors (attach_hotset)")
     sent = n_rows(n_sub)   # sentinel row: gathered by NOP lanes, never written
     base = consts.base
     t = db.step
+    hn = db.hot_n
 
     # ---- wave 3 of c2: install + log --------------------------------------
     # only real writes touch meta: lock releases are implicit (c2's stamps
@@ -310,16 +367,45 @@ def pipe_step(db: DenseDB, c1: DenseCtx, c2: DenseCtx, bits, payload, *,
     newval[:, :, 1] = torch.where(do_write & (c2.ws_kind != 2), MAGIC, 0)
     newval = newval.view(-1, val_words)
     newval = torch.where((wkind == 2)[:, None], 0, newval)     # delete zeroes
-    keep = torch.nonzero(wmask).squeeze(1)
-    wrows = c2.ws_rows.reshape(-1)[keep].to(torch.int64)
-    db.meta[wrows] = meta_new[keep]
-    wflat = (wrows[:, None] * val_words
-             + torch.arange(val_words, device=dev)).reshape(-1)
-    db.val[wflat] = newval[keep].reshape(-1)
-    log_key = c2.ws_key.reshape(-1)
-    logring.append_rep(db.log, wmask, c2.ws_tbl.reshape(-1),
-                       (wkind == 2).to(I32), torch.zeros_like(log_key),
-                       log_key, newver, newval)
+    log_tbl, log_key = c2.ws_tbl.reshape(-1), c2.ws_key.reshape(-1)
+    is_del, zero_hi = (wkind == 2).to(I32), torch.zeros_like(log_key)
+    wsr = c2.ws_rows.reshape(-1)
+    if use_hotset:
+        # the hot set is the row prefix: mirror index == row for hot rows
+        w_midx = torch.where(wmask & (wsr < hn), wsr, -1)
+    if use_fused:
+        # install_log: val and meta installs, the log x3 append and (hot
+        # tier) the mirror write-through as the streams of one launch; the
+        # log plan routes masked lanes to -1 already
+        lflat, entry3, lane_counts = logring.plan_rep(
+            db.log, wmask, log_tbl, is_del, zero_hi, log_key, newver, newval)
+        widx = torch.where(wmask, wsr, -1)
+        tabs = [db.val, db.meta, db.log.entries.view(-1)]
+        idxs = [widx, widx, lflat.to(I32)]
+        vals = [newval.reshape(-1), meta_new, entry3.reshape(-1)]
+        vws = [val_words, 1, db.log.entries.shape[1]]
+        if use_hotset:
+            tabs += [db.hot_val, db.hot_meta]
+            idxs += [w_midx, w_midx]
+            vals += [newval.reshape(-1), meta_new]
+            vws += [val_words, 1]
+        scatter_streams(tabs, idxs, vals, vws)
+        db.log.head = u32.wrap_i32(u32.to_u64(db.log.head) + lane_counts)
+    else:
+        if use_hotset:
+            scatter_rows_hot(db.meta, db.hot_meta, wsr, w_midx, wmask,
+                             meta_new, 1)
+            scatter_rows_hot(db.val, db.hot_val, wsr, w_midx, wmask,
+                             newval.reshape(-1), val_words)
+        else:
+            keep = torch.nonzero(wmask).squeeze(1)
+            wrows = wsr[keep].to(torch.int64)
+            db.meta[wrows] = meta_new[keep]
+            wflat = (wrows[:, None] * val_words
+                     + torch.arange(val_words, device=dev)).reshape(-1)
+            db.val[wflat] = newval[keep].reshape(-1)
+        logring.append_rep(db.log, wmask, log_tbl, is_del, zero_hi, log_key,
+                           newver, newval)
 
     # ---- wave 1: new cohort read + lock -----------------------------------
     if gen_new:
@@ -334,39 +420,79 @@ def pipe_step(db: DenseDB, c1: DenseCtx, c2: DenseCtx, bits, payload, *,
         ws_lane, ws_tbl, ws_key, ws_kind = (
             torch.zeros((w, 2), dtype=I32, device=dev) for _ in range(4))
 
+    if occupancy is not None:
+        # serve plane: the cohort is drawn full-width and the lanes past
+        # the admitted occupancy are erased before any wave sees them.
+        # occ is a copy: ``attempted`` is read when the cohort completes,
+        # after the caller may have refilled its occupancy buffer
+        occ = occupancy.to(I32, copy=True)
+        lane_ok = consts.lane < occ
+        ops = torch.where(lane_ok[:, None], ops, Op.NOP)
+        ws_active = ws_active & lane_ok[:, None]
+
     used = ops != Op.NOP
     rows = torch.where(used, base[tbl] + kk, sent)              # [w, K]
     is_read = ops == Op.OCC_READ
+    ws_rows = torch.where(ws_active, base[ws_tbl] + ws_key, sent)  # [w, 2]
+    flat_ws = ws_rows.reshape(-1)
+    active = ws_active.reshape(-1)
+    if counters is not None:
+        # the won-vs-lost split needs the stamps from before arbitration,
+        # which the lock kernels update in place
+        held = u32.shr(db.arb.index_select(0, flat_ws), K_ARB) == t - 1
 
-    # ONE meta gather serves wave 2 (c1's validate re-read) AND wave 1 (the
-    # new cohort's reads)
-    g = gather_rows(db.meta, torch.cat([c1.rows.reshape(-1),
-                                        rows.reshape(-1)]), 1)
-    vvB = g[: w * K].view(w, K)
-    rmeta = g[w * K:].view(w, K)
+    if use_fused:
+        # c1's validate re-read, the new cohort's meta read and the lock
+        # pass in one launch; it reads meta after the installs above
+        _, grant, vbad, rmeta = lock_validate(
+            db.arb, db.meta, c1.rows.reshape(-1), c1.vv1.reshape(-1),
+            rows.reshape(-1), flat_ws, active, t, K_ARB)
+        rmeta = rmeta.view(w, K)
+        bad = c1.is_read & vbad.view(w, K)
+    else:
+        # ONE meta gather serves wave 2 (c1's validate re-read) AND wave 1
+        # (the new cohort's reads)
+        gidx = torch.cat([c1.rows.reshape(-1), rows.reshape(-1)])
+        if use_hotset:
+            g_midx = torch.where(gidx < hn, gidx, -1)
+            g = gather_rows_hot(db.meta, db.hot_meta, gidx, g_midx, 1)
+        else:
+            g = gather_rows(db.meta, gidx, 1)
+        vvB = g[: w * K].view(w, K)
+        rmeta = g[w * K:].view(w, K)
+        bad = c1.is_read & (vvB != c1.vv1)
 
     # ---- wave 2 of c1: validate read-set version compare ------------------
-    bad = c1.is_read & (vvB != c1.vv1)
     changed = bad.any(dim=1)
+    if counters is not None:
+        v_alive = c1.is_read & c1.alive[:, None]
+        v_lanes = v_alive.sum(dtype=I32)
+        v_failed = (bad & v_alive).sum(dtype=I32)
     c1 = dataclasses.replace(c1, alive=c1.alive & ~changed,
                              ab_validate=(c1.alive & changed).sum(dtype=I32))
 
     rex = (rmeta & 1) != 0
     if check_magic:
-        rmagic = gather_rows(db.val, (rows * val_words + 1).reshape(-1),
-                             1).view(w, K)
-        magic_bad = (is_read & rex & (rmagic != MAGIC)).sum(dtype=I32)
+        midx = (rows * val_words + 1).reshape(-1)
+        if use_hotset:
+            # the mirror is the flat word prefix [0, hn*VW): a hot row's
+            # magic word sits at the same flat offset in it
+            mg_midx = torch.where((rows < hn).reshape(-1), midx, -1)
+            rmagic = gather_rows_hot(db.val, db.hot_val, midx, mg_midx, 1)
+        else:
+            rmagic = gather_rows(db.val, midx, 1)
+        magic_bad = (is_read & rex & (rmagic.view(w, K) != MAGIC)).sum(
+            dtype=I32)
     else:
         magic_bad = torch.zeros((), dtype=I32, device=dev)
 
     # lock arbitration in [w, 2] write-slot space: first slot wins per row
     # (batched CAS, tatp/ebpf/shard_kern.c:251-297); losers and held rows
     # REJECT. Candidates on held rows never stamp, so rejected attempts
-    # cannot keep a hot row locked.
+    # cannot keep a hot row locked. On the fused route it ran above.
     ws_vv = torch.take_along_dim(rmeta, ws_lane.to(torch.int64), dim=1)
-    ws_rows = torch.where(ws_active, base[ws_tbl] + ws_key, sent)  # [w, 2]
-    _, grant = lock_arbitrate(db.arb, ws_rows.reshape(-1),
-                              ws_active.reshape(-1), t, K_ARB)
+    if not use_fused:
+        _, grant = lock_arbitrate(db.arb, flat_ws, active, t, K_ARB)
     grant = grant.view(w, 2)
 
     # reply types: reads from the gather; write-slot GRANT/REJECT direct
@@ -379,14 +505,18 @@ def pipe_step(db: DenseDB, c1: DenseCtx, c2: DenseCtx, bits, payload, *,
     is_ro, rw, granted, lock_rejected, missing = classify_wave1(
         ttype, rt, ops, ws_active, ws_lane, ws_rt=ws_rt)
 
+    if occupancy is not None:
+        attempted = occ
+    else:
+        attempted = torch.full((), w if gen_new else 0, dtype=I32,
+                               device=dev)
     new_ctx = DenseCtx(
         rows=rows, is_read=is_read & used, vv1=rmeta,
         alive=rw & ~lock_rejected & ~missing,
         ro_commit=is_ro & ~missing, granted=granted,
         ws_rows=ws_rows, ws_vv=ws_vv,
         ws_tbl=ws_tbl, ws_key=ws_key, ws_kind=ws_kind,
-        ws_active=ws_active,
-        attempted=torch.full((), w if gen_new else 0, dtype=I32, device=dev),
+        ws_active=ws_active, attempted=attempted,
         ab_lock=(rw & lock_rejected).sum(dtype=I32),
         ab_missing=((rw & ~lock_rejected & missing)
                     | (is_ro & missing)).sum(dtype=I32),
@@ -394,7 +524,56 @@ def pipe_step(db: DenseDB, c1: DenseCtx, c2: DenseCtx, bits, payload, *,
         magic_bad=magic_bad)
 
     db.step = t + 1
-    return db, new_ctx, c1, _stats_of(c2)
+    out = (db, new_ctx, c1, _stats_of(c2))
+    if counters is None:
+        return out
+    grant_l = grant.reshape(-1)
+    upd = {}
+    if use_hotset:
+        # partition accounting over the meta and magic gathers; the fused
+        # route reads meta from the main table, so only the magic gather
+        # is partitioned there. Refresh bytes are what the JAX kernel
+        # route (use_pallas) counts.
+        if use_fused:
+            hits, lanes, refresh = 0, 0, 0
+        else:
+            hits, lanes, refresh = ((g_midx >= 0).sum(dtype=I32),
+                                    2 * w * K, hn * 4)
+        if check_magic:
+            hits = hits + (mg_midx >= 0).sum(dtype=I32)
+            lanes += w * K
+            refresh += hn * val_words * 4
+        upd.update({mon.CTR_HOT_HITS: hits,
+                    mon.CTR_HOT_COLD_ROWS: lanes - hits,
+                    mon.CTR_HOT_REFRESH_BYTES: refresh})
+    if occupancy is not None:
+        upd.update({mon.CTR_SERVE_OCC_LANES: occ,
+                    mon.CTR_SERVE_PAD_LANES: w - occ,
+                    mon.CTR_SERVE_SHED_LANES: 0 if shed is None else shed})
+    n_writes = wmask.sum(dtype=I32)
+    upd.update({
+        mon.CTR_STEPS: 1,
+        mon.CTR_TXN_ATTEMPTED: c2.attempted,
+        mon.CTR_TXN_COMMITTED: (c2.ro_commit | c2.alive).sum(dtype=I32),
+        mon.CTR_AB_LOCK: c2.ab_lock,
+        mon.CTR_AB_MISSING: c2.ab_missing,
+        mon.CTR_AB_VALIDATE: c2.ab_validate,
+        mon.CTR_MAGIC_BAD: c2.magic_bad,
+        mon.CTR_LOCK_REQUESTS: active.sum(dtype=I32),
+        mon.CTR_LOCK_GRANTED: (active & grant_l).sum(dtype=I32),
+        mon.CTR_LOCK_REJECTED: (active & ~grant_l).sum(dtype=I32),
+        mon.CTR_LOCK_REJECT_HELD: (active & held).sum(dtype=I32),
+        mon.CTR_LOCK_REJECT_ARB: (active & ~held & ~grant_l).sum(dtype=I32),
+        mon.CTR_VALIDATE_LANES: v_lanes,
+        mon.CTR_VALIDATE_FAILED: v_failed,
+        mon.CTR_INSTALL_WRITES: n_writes,
+        mon.CTR_LOG_APPENDS: n_writes,
+        mon.CTR_DISPATCH_PALLAS: 1,       # the port runs the kernel route
+        **({mon.CTR_FUSED_DISPATCH: 1} if use_fused else {}),
+    })
+    mon.bump(counters, upd)
+    mon.gauge_max(counters, {mon.CTR_RING_HWM: u32.to_u64(db.log.head).max()})
+    return out + (counters,)
 
 
 def rebase_stamps(db: DenseDB) -> DenseDB:
@@ -414,7 +593,10 @@ def rebase_stamps(db: DenseDB) -> DenseDB:
 
 def build_pipelined_runner(n_sub: int, w: int = 8192, val_words: int = 10,
                            cohorts_per_block: int = 8, mix=None,
-                           check_magic: bool = True, device=None):
+                           check_magic: bool = True, use_hotset: bool = False,
+                           hot_frac=None, use_fused: bool = False,
+                           monitor: bool = False, serve: bool = False,
+                           device=None):
     """A loop of `pipe_step` over carry (db, c1, c2); the contract of the
     JAX `build_pipelined_runner`: returns (run, init, drain).
 
@@ -426,58 +608,84 @@ def build_pipelined_runner(n_sub: int, w: int = 8192, val_words: int = 10,
       hold u32 patterns) and returns (carry, stats i32 [cpb, N_STATS]);
       at the start of a block it rebases the arb stamps when the host step
       counter has reached REBASE_AT;
-    * ``init(db)`` -> carry with two empty in-flight cohorts;
+    * ``init(db)`` -> carry with two empty in-flight cohorts; with
+      ``use_hotset`` it first attaches the mirrors of the row prefix
+      [0, (n_sub+1) * hot_frac) (hot_frac 0.04 when None) to a DB that has
+      none;
     * ``drain(carry, payload=None)`` runs the two flush steps and returns
       (db, stats [2, N_STATS]); ``payload`` [2, w, 2] fills c2's and c1's
-      installs (drawn from a generator seeded 0 when None)."""
+      installs (drawn from a generator seeded 0 when None).
+
+    ``use_hotset``/``use_fused``: the route (`ROUTES`). ``serve``: the
+    signatures become ``run(carry, gen, occ, shed)`` and
+    ``run.run_draws(carry, bits, payload, occ, shed)``, with ``occ`` and
+    ``shed`` device i32 [cpb]: step i masks lanes >= occ[i] to no-ops and
+    mirrors shed[i] onto the counters; nothing is read back to the host.
+    ``monitor``: the carry gains a trailing `monitor.counters.Counters`
+    (made by ``init``), and ``drain`` returns (db, stats, counters)."""
     dev = resolve_device(device)
     if 2 * w > (1 << K_ARB):
         raise ValueError(f"w={w} exceeds the arb slot field")
     cpb = cohorts_per_block
+    hot_rows = 0
+    if use_hotset:
+        frac = 0.04 if hot_frac is None else float(hot_frac)
+        hot_rows = max(1, min(int((n_sub + 1) * frac), n_rows(n_sub)))
     kw = dict(w=w, n_sub=n_sub, val_words=val_words, mix=mix,
-              check_magic=check_magic, consts=step_consts(n_sub, mix, dev))
+              check_magic=check_magic, use_hotset=use_hotset,
+              use_fused=use_fused, consts=step_consts(n_sub, w, mix, dev))
 
-    def run_draws(carry, bits, payload):
+    def step(carry, bits, payload, occ=None, shed=None, gen_new=True):
+        db, c1, c2 = carry[:3]
+        out = pipe_step(db, c1, c2, bits, payload, gen_new=gen_new,
+                        occupancy=occ, shed=shed,
+                        counters=carry[3] if monitor else None, **kw)
+        return out[:3] + out[4:], out[3]
+
+    def run_draws(carry, bits, payload, occ=None, shed=None):
         if tuple(bits.shape) != (cpb, w, 4) or \
                 tuple(payload.shape) != (cpb, w, 2):
             raise ValueError(f"expected bits [{cpb}, {w}, 4] and payload "
                              f"[{cpb}, {w}, 2], got {tuple(bits.shape)} and "
                              f"{tuple(payload.shape)}")
-        db, c1, c2 = carry
-        if db.step >= REBASE_AT:
-            rebase_stamps(db)
+        if serve != (occ is not None and shed is not None):
+            raise ValueError("a serve runner takes occ and shed [cpb]; a "
+                             "closed-loop runner takes neither")
+        if carry[0].step >= REBASE_AT:
+            rebase_stamps(carry[0])
         stats = []
         for i in range(cpb):
-            db, new_ctx, c1, s = pipe_step(db, c1, c2, bits[i], payload[i],
-                                           **kw)
-            c1, c2 = new_ctx, c1
+            # carry (db, c1, c2) -> (db, new cohort, c1')
+            carry, s = step(carry, bits[i], payload[i],
+                            *((occ[i], shed[i]) if serve else ()))
             stats.append(s)
-        return (db, c1, c2), torch.stack(stats)
+        return carry, torch.stack(stats)
 
-    def run(carry, gen: torch.Generator):
+    def run(carry, gen: torch.Generator, occ=None, shed=None):
         bits = draw_bits(gen, (cpb, w, 4), dev)
         payload = torch.randint(0, 1 << 16, (cpb, w, 2), dtype=I32,
                                 generator=gen, device=dev)
-        return run_draws(carry, bits, payload)
+        return run_draws(carry, bits, payload, occ, shed)
 
     run.run_draws = run_draws
 
     def init(db: DenseDB):
         if db.meta.device.type != dev.type:
             raise ValueError(f"tables on {db.meta.device}, runner on {dev}")
-        return db, empty_ctx(w, dev), empty_ctx(w, dev)
+        if use_hotset and db.hot_n == 0:
+            db = attach_hotset(db, hot_rows)
+        return ((db, empty_ctx(w, dev), empty_ctx(w, dev))
+                + ((mon.create(dev),) if monitor else ()))
 
     def drain(carry, payload=None):
-        db, c1, c2 = carry
         if payload is None:
             g = torch.Generator(device=dev)
             g.manual_seed(0)
             payload = torch.randint(0, 1 << 16, (2, w, 2), dtype=I32,
                                     generator=g, device=dev)
-        db, _, c1, s1 = pipe_step(db, c1, c2, None, payload[0],
-                                  gen_new=False, **kw)
-        db, _, _, s2 = pipe_step(db, empty_ctx(w, dev), c1, None,
-                                 payload[1], gen_new=False, **kw)
-        return db, torch.stack([s1, s2])
+        carry, s1 = step(carry, None, payload[0], gen_new=False)
+        carry = (carry[0], empty_ctx(w, dev)) + carry[2:]
+        carry, s2 = step(carry, None, payload[1], gen_new=False)
+        return (carry[0], torch.stack([s1, s2])) + carry[3:]
 
     return run, init, drain

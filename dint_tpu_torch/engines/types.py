@@ -1,5 +1,11 @@
 """Op and reply codes of the dense TATP and SmallBank paths (the members of
-`dint_tpu.engines.types.Op`/`Reply` that this package uses, same values)."""
+`dint_tpu.engines.types.Op`/`Reply` that this package uses, same values),
+and the dense engines' kernel routes."""
+
+# route name -> (use_hotset, use_fused) of both dense engines'
+# `build_pipelined_runner`
+ROUTES = {"default": (False, False), "hotset": (True, False),
+          "fused": (False, True), "fused+hotset": (True, True)}
 
 
 class Op:

@@ -1,7 +1,7 @@
 """Random-access row kernels of the dense TATP and SmallBank steps (the
 counterparts of `dint_tpu/ops/pallas_gather.py`'s `gather_rows`,
-`lock_arbitrate`, `gather_streams`, `scatter_streams`, `gather_rows_hot` and
-`scatter_rows_hot`).
+`lock_arbitrate`, `lock_validate`, `gather_streams`, `scatter_streams`,
+`gather_rows_hot` and `scatter_rows_hot`).
 
 Each wrapper launches its hand-written CUDA kernel (``csrc/<name>.cu``,
 built for sm_90a at first use) when given CUDA tensors, and runs its plain
@@ -32,6 +32,12 @@ _SIGNATURES = {
                        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                         ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p]),
+    "lock_validate": ("dint_lock_validate",
+                      [ctypes.c_void_p] * 5 + [ctypes.c_int64]
+                      + [ctypes.c_void_p] * 2 + [ctypes.c_int64]
+                      + [ctypes.c_void_p] * 3
+                      + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                         ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p]),
     "gather_streams": ("dint_gather_streams",
                        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]),
     "scatter_streams": ("dint_scatter_streams",
@@ -135,19 +141,20 @@ gather_rows.launches = 0
 # ------------------------------------------------------- lock arbitration
 
 
-def _check_lock_args(arb, rows, active, step, k_arb):
-    _check(arb, "lock_arbitrate arb")
-    _check(rows, "lock_arbitrate rows")
-    _check(active, "lock_arbitrate active", torch.bool)
+def _check_lock_args(arb, rows, active, step, k_arb,
+                     what="lock_arbitrate"):
+    _check(arb, f"{what} arb")
+    _check(rows, f"{what} rows")
+    _check(active, f"{what} active", torch.bool)
     m = rows.numel()
     if active.numel() != m:
-        raise ValueError(f"lock_arbitrate: {m} rows but {active.numel()} "
+        raise ValueError(f"{what}: {m} rows but {active.numel()} "
                          f"active flags")
     if m > (1 << k_arb):
-        raise ValueError(f"lock_arbitrate: {m} lanes exceed the "
+        raise ValueError(f"{what}: {m} lanes exceed the "
                          f"{k_arb}-bit slot field")
     if not 0 <= int(step) < (1 << (32 - k_arb)):
-        raise ValueError(f"lock_arbitrate: step {step} exceeds the "
+        raise ValueError(f"{what}: step {step} exceeds the "
                          f"{32 - k_arb}-bit step field")
     return _same_device(arb, rows, active)
 
@@ -196,6 +203,59 @@ def lock_arbitrate(arb, rows, active, step: int, k_arb: int):
 
 
 lock_arbitrate.launches = 0
+
+
+# ------------------------------------------------- lock + validate (fused)
+
+
+def lock_validate_ref(arb, meta, vidx, vv1, ridx, rows, active, step: int,
+                      k_arb: int):
+    """Plain version: the unfused composition, arb updated in place."""
+    vbad = gather_rows_ref(meta, vidx) != vv1
+    rmeta = gather_rows_ref(meta, ridx)
+    arb, grant = lock_arbitrate_ref(arb, rows, active, step, k_arb)
+    return arb, grant, vbad, rmeta
+
+
+def lock_validate(arb, meta, vidx, vv1, ridx, rows, active, step: int,
+                  k_arb: int):
+    """The fused route's lock + validate pass, arb updated in place.
+    Returns (arb, grant bool [M], vbad bool [V], rmeta i32 [R]) with
+
+        (arb, grant) = lock_arbitrate(arb, rows, active, step, k_arb)
+        vbad[i]      = meta[vidx[i]] != vv1[i]
+        rmeta        = meta[ridx]
+
+    ``meta`` and ``arb`` must be distinct arrays, and every index in
+    bounds (asserted on the device)."""
+    dev = _check_lock_args(arb, rows, active, step, k_arb, "lock_validate")
+    for x, what in ((meta, "meta"), (vidx, "vidx"), (vv1, "vv1"),
+                    (ridx, "ridx")):
+        _check(x, f"lock_validate {what}")
+    if vv1.numel() != vidx.numel():
+        raise ValueError(f"lock_validate: {vidx.numel()} vidx but "
+                         f"{vv1.numel()} vv1 lanes")
+    if meta.untyped_storage().data_ptr() == arb.untyped_storage().data_ptr():
+        raise ValueError("lock_validate: meta and arb must be distinct arrays")
+    _same_device(arb, meta, vidx, vv1, ridx)
+    if dev.type == "cpu":
+        return lock_validate_ref(arb, meta, vidx, vv1, ridx, rows, active,
+                                 step, k_arb)
+    v, r, m = vidx.numel(), ridx.numel(), rows.numel()
+    vbad = torch.empty(v, dtype=torch.bool, device=dev)
+    rmeta = torch.empty(r, dtype=I32, device=dev)
+    grant = torch.empty(m, dtype=torch.bool, device=dev)
+    fn = _kernel("lock_validate", dev)
+    _launched(fn(arb.data_ptr(), meta.data_ptr(), vidx.data_ptr(),
+                 vv1.data_ptr(), vbad.data_ptr(), v, ridx.data_ptr(),
+                 rmeta.data_ptr(), r, rows.data_ptr(), active.data_ptr(),
+                 grant.data_ptr(), m, meta.numel(), arb.numel(), int(step),
+                 k_arb, _stream(dev)), "lock_validate")
+    lock_validate.launches += 1
+    return arb, grant, vbad, rmeta
+
+
+lock_validate.launches = 0
 
 
 # ------------------------------------------------------------ row streams
@@ -396,8 +456,8 @@ def scatter_rows_hot(tab, mirror, idx, midx, mask, vals, vw: int = 1):
 scatter_rows_hot.launches = 0
 
 
-WRAPPERS = (gather_rows, lock_arbitrate, gather_streams, scatter_streams,
-            gather_rows_hot, scatter_rows_hot)
+WRAPPERS = (gather_rows, lock_arbitrate, lock_validate, gather_streams,
+            scatter_streams, gather_rows_hot, scatter_rows_hot)
 
 
 def reset_launches():

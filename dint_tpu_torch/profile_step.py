@@ -2,7 +2,8 @@
 under torch.profiler.
 
     python -m dint_tpu_torch.profile_step [--n-sub 7000000] [--w 8192]
-        [--cpb 16] [--trace step_trace.json]
+        [--cpb 16] [--route default|hotset|fused|fused+hotset]
+        [--trace step_trace.json]
     python -m dint_tpu_torch.profile_step --engine smallbank
         [--n-accounts 24000000] [--route default|hotset|fused|fused+hotset]
 
@@ -24,6 +25,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from .engines import smallbank_dense as sd
 from .engines import tatp_dense as td
+from .engines.types import ROUTES
 
 
 def main(argv=None):
@@ -32,8 +34,9 @@ def main(argv=None):
                     default="tatp")
     ap.add_argument("--n-sub", type=int, default=7_000_000)
     ap.add_argument("--n-accounts", type=int, default=24_000_000)
-    ap.add_argument("--route", choices=tuple(sd.ROUTES), default="default",
-                    help="SmallBank kernel route")
+    ap.add_argument("--route", choices=tuple(ROUTES), default="default",
+                    help="kernel route (use_hotset, use_fused) of either "
+                         "engine")
     ap.add_argument("--w", type=int, default=8192)
     ap.add_argument("--cpb", type=int, default=16)
     ap.add_argument("--val-words", type=int, default=10)
@@ -47,16 +50,17 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0])
+    use_hotset, use_fused = ROUTES[args.route]
     if args.engine == "tatp":
         db = td.populate_device(torch.Generator(device=dev).manual_seed(0),
                                 args.n_sub, val_words=args.val_words,
                                 device=dev)
         run, init, drain = td.build_pipelined_runner(
             args.n_sub, w=args.w, val_words=args.val_words,
-            cohorts_per_block=args.cpb, device=dev)
-        size = f"n_sub={args.n_sub}"
+            cohorts_per_block=args.cpb, use_hotset=use_hotset,
+            use_fused=use_fused, device=dev)
+        size = f"n_sub={args.n_sub}, route {args.route}"
     else:
-        use_hotset, use_fused = sd.ROUTES[args.route]
         db = sd.create(args.n_accounts, device=dev)
         run, init, drain = sd.build_pipelined_runner(
             args.n_accounts, w=args.w, cohorts_per_block=args.cpb,

@@ -61,6 +61,34 @@ def test_lock_arbitrate_kernel_matches_plain(cuda, t):
     assert bool(g_k.any())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [5, td.REBASE_AT - 1])
+def test_lock_validate_kernel_matches_plain(cuda, t):
+    r = np.random.default_rng(t + 1)
+    n1, m, v, k = 1000, 4096, 3000, 2500
+    arb0 = np.zeros(n1, np.uint32)
+    for row in r.choice(n1 - 1, 100, replace=False):
+        arb0[row] = np.uint32((int(r.choice([t - 1, t - 2])) << td.K_ARB) | 3)
+    meta = r.integers(0, 1 << 32, n1, dtype=np.uint64).astype(np.uint32)
+    rows = r.integers(0, 300, m).astype(np.int32)      # heavy duplicates
+    act = r.random(m) < 0.75
+    rows[~act] = n1 - 1
+    vidx = r.integers(0, n1, v).astype(np.int32)
+    vv1 = np.where(r.random(v) < 0.5, meta[vidx], meta[vidx] ^ 2)
+    args = [u32.from_numpy(meta, cuda),
+            torch.from_numpy(vidx).to(cuda), u32.from_numpy(vv1, cuda),
+            torch.from_numpy(r.integers(0, n1, k).astype(np.int32)).to(cuda),
+            torch.from_numpy(rows).to(cuda), torch.from_numpy(act).to(cuda)]
+    before = rk.lock_validate.launches
+    got = rk.lock_validate(u32.from_numpy(arb0, cuda), *args, t, td.K_ARB)
+    assert rk.lock_validate.launches == before + 1
+    want = rk.lock_validate_ref(u32.from_numpy(arb0, cuda), *args, t,
+                                td.K_ARB)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert bool(got[1].any()) and bool(got[2].any())
+
+
 def _lanes(r, n, k, hot, cuda):
     """K lanes over n rows, ~90% of them in the hot prefix [0, hot)."""
     rows = np.where(r.random(k) < 0.9, r.integers(0, hot, k),

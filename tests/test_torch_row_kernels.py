@@ -178,6 +178,80 @@ def test_lock_arbitrate_rejects_bad_arguments():
                           torch.ones(8, dtype=torch.bool), 5, 2)
 
 
+# ---------------------------------------------------------- lock_validate
+
+
+@pytest.mark.parametrize("t", [5, jtd.REBASE_AT - 1])   # high t: stamps >= 2^31
+@pytest.mark.parametrize("hot_n", [0, 24])
+def test_lock_validate_ref_matches_pallas(hot_n, t):
+    """tests/test_fused_ops.py's adversarial batch: duplicate lock rows on
+    both sides of JAX's hot_n = 24 arb prefix, duplicate validate indices,
+    inactive lanes, half the validate lanes stale. The port takes no hot_n:
+    the Pallas kernel's outputs are the same with and without it."""
+    n, m, v, r, k_arb = 96, 64, 48, 40, jtd.K_ARB
+    rng = np.random.default_rng(7 + hot_n)
+    meta = _table(rng, n, 1)
+    rows = np.concatenate([rng.integers(0, n, m - 10),
+                           [3, 3, 23, 23, 24, 24, 50, 50, 23, 24]])
+    rows = rows.astype(np.int32)
+    act = rng.integers(0, 2, m).astype(bool)
+    vidx = np.concatenate([rng.integers(0, n, v - 4),
+                           [5, 5, 9, 9]]).astype(np.int32)
+    vv1 = np.where(np.arange(v) % 2 == 0, meta[vidx], meta[vidx] ^ 1)
+    vv1 = vv1.astype(np.uint32)
+    ridx = rng.integers(0, n, r).astype(np.int32)
+    arb0 = np.zeros(n + 1, np.uint32)
+    for row in rng.choice(n, n // 3, replace=False):
+        step = int(rng.choice([t - 1, t - 2, t - 3]))
+        arb0[row] = np.uint32((step << k_arb) | int(rng.integers(0, 100)))
+    ja = [jnp.asarray(a) for a in (meta, vidx, vv1, ridx, rows, act)]
+    a_p, g_p, vb_p, rm_p = pg.lock_validate(
+        jnp.asarray(arb0), *ja, jnp.asarray(t, U32), k_arb, True, hot_n)
+    tt = [u32.from_numpy(meta, "cpu"), torch.from_numpy(vidx),
+          u32.from_numpy(vv1, "cpu"), torch.from_numpy(ridx),
+          torch.from_numpy(rows), torch.from_numpy(act)]
+    arb_t = u32.from_numpy(arb0, "cpu")
+    out = rk.lock_validate_ref(arb_t, *tt, t, k_arb)
+    assert out[0] is arb_t                              # updated in place
+    assert np.array_equal(u32.to_numpy(out[0]), np.asarray(a_p))
+    assert np.array_equal(out[1].numpy(), np.asarray(g_p) != 0)
+    assert np.array_equal(out[2].numpy(), np.asarray(vb_p) != 0)
+    assert np.array_equal(u32.to_numpy(out[3]), np.asarray(rm_p))
+    assert out[1].any() and out[2].any() and not out[2].all()
+    # the wrapper on CPU tensors is the plain version, and counts nothing
+    before = rk.lock_validate.launches
+    got = rk.lock_validate(u32.from_numpy(arb0, "cpu"), *tt, t, k_arb)
+    assert rk.lock_validate.launches == before
+    assert all(torch.equal(a, b) for a, b in zip(got, out))
+    # and equals the unfused pair the default route runs
+    a_u, g_u = rk.lock_arbitrate(u32.from_numpy(arb0, "cpu"), tt[4], tt[5],
+                                 t, k_arb)
+    g = rk.gather_rows(tt[0], torch.cat([tt[1], tt[3]]), 1)
+    assert torch.equal(a_u, out[0]) and torch.equal(g_u, out[1])
+    assert torch.equal(g[:v] != tt[2], out[2]) and torch.equal(g[v:], out[3])
+
+
+def test_lock_validate_rejects_bad_arguments():
+    arb = torch.zeros(16, dtype=torch.int32)
+    meta = torch.zeros(16, dtype=torch.int32)
+    idx = torch.zeros(4, dtype=torch.int32)
+    act = torch.ones(4, dtype=torch.bool)
+    with pytest.raises(ValueError, match="distinct"):
+        rk.lock_validate(arb, arb, idx, idx, idx, idx, act, 5, td.K_ARB)
+    with pytest.raises(ValueError, match="vv1"):
+        rk.lock_validate(arb, meta, idx, idx[:3], idx, idx, act, 5, td.K_ARB)
+    with pytest.raises(TypeError):
+        rk.lock_validate(arb, meta, idx.long(), idx, idx, idx, act, 5,
+                         td.K_ARB)
+    with pytest.raises(ValueError, match="step"):
+        rk.lock_validate(arb, meta, idx, idx, idx, idx, act,
+                         1 << (32 - td.K_ARB), td.K_ARB)
+    with pytest.raises(IndexError):
+        rk.lock_validate(arb, meta, torch.tensor([16], dtype=torch.int32),
+                         torch.zeros(1, dtype=torch.int32), idx, idx, act, 5,
+                         td.K_ARB)
+
+
 # --------------------------------------------------------- gather_streams
 
 
