@@ -24,12 +24,21 @@ mismatch or error:
    lanes) through the 280,000-row mirrors, and the fused install_log
    scatter_streams (val, meta, log x3 [1,048,576 x 42], and the two
    mirrors). Times: kernel, plain version, yardstick (torch calls that
-   compute the same function), and the bytes bound at 3.35 TB/s.
+   compute the same function), and the bytes bound at 3.35 TB/s. The
+   store's scan_rows (K = 4096 windows of lg = 356 rows over the
+   67,108,864-row ordered run, offsets located from the runner's key draws,
+   edge and duplicate windows) runs inside phase 7, which builds that run.
 3. The port on the CPU against the port on the card, end to end, the same
    host-made draws: TATP on all four routes (n_sub=2000, w=256, 4
    cohorts/block, contention mix; the routes also equal each other) and
    SmallBank on all four routes (n=300, w=256, 4 cohorts/block): tables,
-   mirrors, log and stats bit-identical.
+   mirrors, log and stats bit-identical. The store: explicit steps (a
+   same-key GET/SET/INSERT/DELETE chain, maintain_bloom, the hot route, a
+   spill after an alternate-bucket insert, scans over a stale overlay that
+   answer RETRY until the refresh), then the runner (n_keys=2000, w=256, 2
+   cohorts/block, scan_max=16, delta_cap=32) with use_scan off and on:
+   tables, runs, mirrors, replies, scan replies, stats and counters
+   bit-identical.
 4. The TATP main path at full width: populate_device at 7,000,000
    subscribers, build_pipelined_runner(w=8192, cohorts_per_block=16,
    val_words=10), one warm block, 8 timed blocks, drain; TATP invariants
@@ -45,6 +54,16 @@ mismatch or error:
    final tables, arb, log and stats identical to phase 4's. Then one serve
    block (occupancy 8192 - 512*i at step i) with monitor=True on the fused
    route, whose counters must reconcile with its stats.
+7. The store main path: YCSB-E over the reference store's 24,000,000 keys
+   (make_store_table: 2^24 buckets x 4 slots, VW=10), build_serve_runner
+   (w=4096, 2 cohorts/block, 95% scans of 1-100 rows, scan_max=100,
+   delta_cap=256, use_scan, monitor): one warm block and 8 timed blocks;
+   committed == attempted in every step, the scan counters reconcile with
+   the draws, then one explicit step whose every GET, SET and scan lane is
+   checked (scans against the pre-step versions), and refresh(run) ==
+   from_table(table) leaf for leaf, and the drain. Then the point runner
+   (use_scan=False) on a clone of the table, and one serve block at
+   occupancy 4096 - 256*i.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -68,6 +87,16 @@ TIMED_BLOCKS = 8
 SB_N = 24_000_000
 SB_W = 8192
 SB_CPB = 16
+ST_N = 24_000_000                # the reference store's keyspace
+ST_W = 4096
+ST_CPB = 2
+ST_SMAX = 100                    # scan_max = YCSB-E's longest scan
+ST_MAXLEN = 100                  # YCSB-E scan lengths: uniform in [1, 100]
+ST_DCAP = 256
+ST_LG = ST_SMAX + ST_DCAP        # rows in each lane's scan window
+ST_SCAN_FRAC = 0.95
+ST_TIMED = 8
+ST_POINT_TIMED = 4
 
 
 class SmokeFailure(RuntimeError):
@@ -110,6 +139,22 @@ def bound_ms(n_bytes):
 def sectors(word_idx):
     """Distinct 32-byte sectors holding the given int32 word offsets."""
     return int(torch.unique(word_idx.to(torch.int64) // 8).numel())
+
+
+def wrappers():
+    """Every kernel wrapper of the port, each with its launch count."""
+    from dint_tpu_torch.ops import row_kernels as rk
+    from dint_tpu_torch.ops import scan_kernels as sk
+    return rk.WRAPPERS + sk.WRAPPERS
+
+
+def reset_launches():
+    for fn in wrappers():
+        fn.launches = 0
+
+
+def launch_counts():
+    return {fn.__name__: fn.launches for fn in wrappers()}
 
 
 def max_abs_err(a, b):
@@ -334,9 +379,8 @@ def drive_tatp(dev, run, init, drain, db):
     returns (db, stats of every step [(TIMED_BLOCKS+1)*CPB + 2, N_STATS],
     kernel launches counted from 0 over the run)."""
     from dint_tpu_torch.engines import tatp_dense as td
-    from dint_tpu_torch.ops import row_kernels as rk
     gen = torch.Generator(device=dev).manual_seed(1)
-    rk.reset_launches()
+    reset_launches()
     carry = init(db)
     t0 = time.perf_counter()
     carry, s_warm = run(carry, gen)
@@ -351,7 +395,7 @@ def drive_tatp(dev, run, init, drain, db):
         timed.append(s)
     db, tail = drain(carry)
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in rk.WRAPPERS}
+    launches = launch_counts()
 
     stats = torch.cat([s_warm] + timed + [tail]).cpu().numpy()
     timed = stats[CPB:-2].astype(np.int64)
@@ -1002,7 +1046,6 @@ def phase_smallbank(dev):
     print(f"== phase 5: SmallBank main path, {SB_N:,} accounts, w={SB_W}, "
           f"{SB_CPB} cohorts/block, 90/4 skew, four routes")
     from dint_tpu_torch.engines import smallbank_dense as sd
-    from dint_tpu_torch.ops import row_kernels as rk
     from dint_tpu_torch.tables import log as logring
     steps = (TIMED_BLOCKS + 1) * SB_CPB + 1
     per_step = {"default": {"gather_rows": 3},
@@ -1024,7 +1067,7 @@ def phase_smallbank(dev):
             use_fused=fused, device=dev)
         gen = torch.Generator(device=dev).manual_seed(5)
 
-        rk.reset_launches()
+        reset_launches()
         carry = init(db)
         t0 = time.perf_counter()
         carry, s_warm = run(carry, gen)
@@ -1039,7 +1082,7 @@ def phase_smallbank(dev):
             timed.append(st)
         db, tail = drain(carry)
         torch.cuda.synchronize()
-        launches = {fn.__name__: fn.launches for fn in rk.WRAPPERS}
+        launches = launch_counts()
 
         timed = torch.cat(timed).cpu().numpy().astype(np.int64)
         stats = np.concatenate([s_warm.cpu().numpy(), timed,
@@ -1147,7 +1190,6 @@ def serve_block(dev, db):
     the drain; the counters must reconcile with the stats."""
     from dint_tpu_torch.engines import tatp_dense as td
     from dint_tpu_torch.monitor import counters as mon
-    from dint_tpu_torch.ops import row_kernels as rk
     print("  -- route fused, serve=True, monitor=True: one block")
     run, init, drain = td.build_pipelined_runner(
         N_SUB, w=W, val_words=VW, cohorts_per_block=CPB, use_fused=True,
@@ -1156,7 +1198,7 @@ def serve_block(dev, db):
     shed_h = np.arange(CPB, dtype=np.int32) % 3
     occ, shed = (torch.from_numpy(a).to(dev) for a in (occ_h, shed_h))
     gen = torch.Generator(device=dev).manual_seed(2)
-    rk.reset_launches()
+    reset_launches()
     carry = init(db)
     t0 = time.perf_counter()
     carry, s_blk = run(carry, gen, occ, shed)
@@ -1164,7 +1206,7 @@ def serve_block(dev, db):
     secs = time.perf_counter() - t0
     db, tail, cnt = drain(carry)
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in rk.WRAPPERS}
+    launches = launch_counts()
     stats = torch.cat([s_blk, tail]).cpu().numpy().astype(np.int64)
     total = stats.sum(axis=0)
     snap = mon.snapshot(cnt)
@@ -1200,6 +1242,488 @@ def serve_block(dev, db):
     return launches
 
 
+# ------------------------------------------------------------------- store
+
+
+def _store_batch(r, n, n_keys, dev, ops=None, lens=None):
+    """A host-made store batch of n lanes over keys [1, n_keys + 400]
+    (some absent), VW words of random values."""
+    from dint_tpu_torch.engines.types import Op, make_batch
+    if ops is None:
+        ops = r.choice([Op.GET, Op.SET, Op.INSERT, Op.DELETE, Op.NOP], n,
+                       p=[0.35, 0.3, 0.1, 0.15, 0.1]).astype(np.int32)
+    keys = r.integers(1, n_keys + 400, n).astype(np.uint64)
+    keys[:6] = 5                          # one key's GET/SET/INSERT/DELETE
+    ops[:6] = [Op.GET, Op.SET, Op.INSERT, Op.DELETE, Op.GET, Op.SET]
+    keys[6:60] = r.integers(1, 80, 54)    # the hot prefix
+    vals = r.integers(0, 1 << 32, (n, VW), dtype=np.uint64).astype(np.uint32)
+    return make_batch(ops, keys, vals, vers=lens, width=n, val_words=VW,
+                      device=dev)
+
+
+def store_point_steps(dev, hot):
+    """Explicit store steps on the card or the CPU: a 2,000-key table with
+    maintain_bloom=True (and the hot mirror of keys [0, 80) when ``hot``),
+    then a 2-bucket, 1-slot table where an insert takes its alternate
+    bucket and a third spills. Returns every output as numpy arrays."""
+    from dint_tpu_torch import convert
+    from dint_tpu_torch.clients import micro
+    from dint_tpu_torch.engines import store
+    from dint_tpu_torch.engines.types import Op, make_batch
+    from dint_tpu_torch.ops import hashing
+    from dint_tpu_torch.ops.u32 import to_numpy
+    from dint_tpu_torch.tables import kv
+    r = np.random.default_rng(12)
+    table = micro.make_store_table(2000, val_words=VW, device=dev)
+    mirror = store.attach_hot(table, 80) if hot else None
+    out = []
+    for _ in range(3):
+        res = store.step(table, _store_batch(r, 256, 2000, dev),
+                         maintain_bloom=True, hot=mirror)
+        table, rep = res[:2]
+        mirror = res[2] if hot else None
+        out += [to_numpy(x) for x in (rep.rtype, rep.val, rep.ver)]
+    out += [np.asarray(v) for v in convert.kv_table_to_numpy(table).values()]
+    if hot:
+        out += [to_numpy(mirror.val), to_numpy(mirror.ver)]
+        return out
+    ks = np.arange(1, 4000, dtype=np.uint64)
+    b1, b2 = hashing.bucket_pair_np(ks, 2)
+    cands = ks[(b1 == 0) & (b2 == 1)][:3]
+    tiny = kv.create(2, slots=1, val_words=VW, device=dev)
+    for keys in (cands[:2], cands[2:]):
+        tiny, rep = store.step(tiny, make_batch(
+            [Op.INSERT] * len(keys), keys, width=len(keys), val_words=VW,
+            device=dev))
+        out.append(to_numpy(rep.rtype))
+    return out
+
+
+def store_scan_steps(dev):
+    """Explicit scan-route steps: a 2,000-key table, an 8-entry overlay
+    that the first batch overflows (the second batch's scans answer
+    RETRY), the block-end refresh, then scans that answer VAL."""
+    from dint_tpu_torch import convert
+    from dint_tpu_torch.clients import micro
+    from dint_tpu_torch.engines import store
+    from dint_tpu_torch.engines.types import Op
+    from dint_tpu_torch.ops.u32 import to_numpy
+    from dint_tpu_torch.tables import run as run_mod
+    r = np.random.default_rng(13)
+    table = micro.make_store_table(2000, val_words=VW, device=dev)
+    run = run_mod.from_table(table, delta_cap=8)
+    out = []
+    for i in range(3):
+        ops = r.choice([Op.SCAN, Op.GET, Op.SET, Op.DELETE], 128,
+                       p=[0.7, 0.1, 0.15, 0.05]).astype(np.int32)
+        lens = np.where(ops == Op.SCAN, r.integers(0, 24, 128), 0)
+        table, rep, run, srep = store.step(
+            table, _store_batch(r, 128, 2000, dev, ops, lens), run=run,
+            scan_max=16)
+        out += [to_numpy(x) for x in (rep.rtype, rep.val, rep.ver,
+                                      srep.key_hi, srep.key_lo, srep.ver,
+                                      srep.val, srep.count,
+                                      srep.delta_hits)]
+        if i == 1:
+            run = store.rebuild_run(table, run)
+    out += [np.asarray(v) for v in convert.kv_table_to_numpy(table).values()]
+    out += [np.asarray(v) for v in convert.ordered_run_to_numpy(run).values()]
+    return out
+
+
+def store_runner_blocks(dev, use_scan, draws):
+    """The store runner at n_keys=2000, w=256, 2 cohorts a block,
+    scan_max=16, delta_cap=32, monitor=True on host-made draws: final
+    table (and run), stats and counters as numpy arrays."""
+    from dint_tpu_torch import convert
+    from dint_tpu_torch.clients import micro
+    from dint_tpu_torch.engines import store
+    run, init, drain = store.build_serve_runner(
+        2000, w=256, cohorts_per_block=2, val_words=VW, read_frac=0.5,
+        scan_frac=ST_SCAN_FRAC, max_scan_len=20, scan_max=16, delta_cap=32,
+        use_scan=use_scan, monitor=True, device=dev)
+    carry = init(micro.make_store_table(2000, val_words=VW, device=dev))
+    stats = []
+    for d in draws:
+        carry, s = run.run_draws(carry, [torch.from_numpy(a).to(dev)
+                                         for a in d])
+        stats.append(s.cpu().numpy())
+    out = []
+    if use_scan:
+        out += [np.asarray(v) for v in
+                convert.ordered_run_to_numpy(carry[1]).values()]
+    table, tail, cnt = drain(carry)
+    out += [np.asarray(v) for v in convert.kv_table_to_numpy(table).values()]
+    return out + [np.concatenate(stats + [tail.cpu().numpy()]),
+                  convert.counters_to_numpy(cnt)]
+
+
+def phase_store_cpu_vs_card(dev):
+    print("== phase 3 (store): the port on the CPU against the card")
+    from dint_tpu_torch.engines.types import Reply
+    t_phase = time.perf_counter()
+
+    def same(what, fn, *args):
+        a, b = fn("cpu", *args), fn(dev, *args)
+        check(len(a) == len(b) and all(np.array_equal(x, y)
+                                       for x, y in zip(a, b)),
+              f"store {what}: {len(a)} outputs bit-identical")
+        return a
+
+    same("point steps (maintain_bloom, spill to the alternate bucket)",
+         store_point_steps, False)
+    reset_launches()
+    same("hot route (maintain_bloom, mirror of keys [0, 80))",
+         store_point_steps, True)
+    hot_launches = launch_counts()       # the card's run only counts
+    out = same("scan route (stale overlay, refresh)", store_scan_steps)
+    stale_rt, fresh_rt = out[9], out[18]       # rtype of steps 2 and 3
+    check((stale_rt == Reply.RETRY).any() and (fresh_rt == Reply.VAL).any()
+          and not (fresh_rt == Reply.RETRY).any(),
+          "the stale overlay's scans answered RETRY, and VAL after the "
+          "refresh")
+    r = np.random.default_rng(14)
+    draws = [tuple([r.random((2, 256), dtype=np.float32) for _ in range(3)]
+                   + [r.integers(1, 81, (2, 256)).astype(np.int32),
+                      r.integers(1, 2001, (2, 256)).astype(np.int32),
+                      r.integers(1, 21, (2, 256)).astype(np.int32)])
+             for _ in range(3)]
+    for use_scan in (False, True):
+        res = same(f"runner, use_scan={use_scan}, 3 blocks + drain",
+                   store_runner_blocks, use_scan, draws)
+        st = res[-2].astype(np.int64)
+        check((st[:-1, 1] == st[:-1, 0]).all(),
+              f"use_scan={use_scan}: every lane committed")
+    print(f"  phase 3 (store) seconds: {time.perf_counter() - t_phase:.3f}")
+    return hot_launches
+
+
+def phase_store_kernels(dev, run):
+    print(f"== phase 2 (store): scan_rows against its plain version, "
+          f"K={ST_W}, lg={ST_LG}, over the {run.cap:,}-row run")
+    from dint_tpu_torch.engines import store
+    from dint_tpu_torch.ops import scan_kernels as sk
+    from dint_tpu_torch.tables import run as run_mod
+    cap = run.cap
+    hot_n = int(ST_N * 0.04)
+    gen = torch.Generator(device=dev).manual_seed(8)
+
+    def off_set():
+        """The runner's key draws of one cohort, located and clamped as
+        the step clamps them (store.py:287)."""
+        _, _, u_hot, k_hot, k_cold, _ = store.draw_block(
+            gen, 1, ST_W, ST_N, hot_n, ST_MAXLEN, dev)
+        klo = torch.where(u_hot[0] < 0.9, k_hot[0], k_cold[0])
+        off = run_mod.locate(run, torch.zeros_like(klo), klo)
+        return torch.clamp(off, 0, cap - ST_LG).to(torch.int32)
+
+    sets = [off_set() for _ in range(8)]
+    a = sets[0]
+    a[0], a[1] = 0, cap - ST_LG                  # edge windows
+    a[2::97] = a[3]                              # duplicate offsets
+    args = (run.key_hi, run.key_lo, run.ver, run.val)
+    got = sk.scan_rows(*args, a, ST_LG, VW)
+    want = sk.scan_rows_ref(*args, a, ST_LG, VW)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(g, w_) for g, w_ in zip(got, want))
+    check(all(torch.equal(g, w_) for g, w_ in zip(got, want)) and err == 0,
+          f"scan_rows K={ST_W} lg={ST_LG} vw={VW} over [{cap}] equals the "
+          f"plain version (edge windows at 0 and {cap - ST_LG}, duplicates)")
+    unf = [x.unfold(0, ST_LG, 1) for x in args[:3]]
+    unf_val = run.val.view(cap, VW).unfold(0, ST_LG, 1)   # [*, VW, lg]
+
+    def yard(off):
+        return tuple(u.index_select(0, off) for u in unf) + (
+            unf_val.index_select(0, off).permute(0, 2, 1).contiguous(),)
+    check(all(torch.equal(y.reshape(-1), g) for y, g in zip(yard(a), got)),
+          "the index_select yardstick computes the same function")
+    del got, want
+    lg_r = torch.arange(ST_LG, device=dev)
+    lgv_r = torch.arange(ST_LG * VW, device=dev)
+
+    def scan_bytes(off):
+        # each array's window rows read once (the union over lanes: hot
+        # windows overlap), the four slabs written, the offsets read
+        rows = (off.long()[:, None] + lg_r).reshape(-1)
+        words = (off.long()[:, None] * VW + lgv_r).reshape(-1)
+        return (32 * (3 * sectors(rows) + sectors(words))
+                + 4 * ST_W * ST_LG * (3 + VW) + 4 * ST_W)
+    rec = timed_row(
+        f"scan_rows K={ST_W} lg={ST_LG}",
+        lambda o: sk.scan_rows(*args, o, ST_LG, VW),
+        lambda o: sk.scan_rows_ref(*args, o, ST_LG, VW),
+        yard, "4 index_select over unfold views + permute copy",
+        [(o,) for o in sets], scan_bytes)
+    no_overlap = bound_ms(2 * 4 * ST_W * ST_LG * (3 + VW) + 4 * ST_W)
+    print(f"  scan_rows: bound without window overlap {no_overlap:.6f} ms")
+    rec.update(library_ms=None, max_abs_err=err)
+    del unf, unf_val, sets
+    torch.cuda.empty_cache()
+    return rec
+
+
+def store_draw_lanes(gen, dev, n_blocks):
+    """The scan lanes and their expected row counts of ``n_blocks`` of the
+    runner's draws (a twin of the runner's generator): every key 1..N
+    exists and none is deleted, so a scan from ``start`` returns
+    min(slen, scan_max, N - start + 1) rows."""
+    from dint_tpu_torch.engines import store
+    hot_n = int(ST_N * 0.04)
+    lanes = rows = 0
+    for _ in range(n_blocks):
+        u_scan, _, u_hot, k_hot, k_cold, slen = store.draw_block(
+            gen, ST_CPB, ST_W, ST_N, hot_n, ST_MAXLEN, dev)
+        is_scan = u_scan < ST_SCAN_FRAC
+        start = torch.where(u_hot < 0.9, k_hot, k_cold).long()
+        cnt = torch.minimum(slen.clamp(max=ST_SMAX).long(), ST_N - start + 1)
+        lanes += int(is_scan.sum())
+        rows += int(cnt[is_scan].sum())
+    return lanes, rows
+
+
+def store_explicit_step(dev, table, run, gen):
+    """One explicit store.step after the timed blocks, on a host-made
+    YCSB-E batch from the runner's draws: every GET, SET and scan lane is
+    checked, scans against the pre-step versions."""
+    import dataclasses
+    from dint_tpu_torch.engines import store
+    from dint_tpu_torch.engines.types import Op, Reply, make_batch
+    from dint_tpu_torch.ops import hashing
+    from dint_tpu_torch.tables import kv
+    hot_n = int(ST_N * 0.04)
+    u_scan, u_get, u_hot, k_hot, k_cold, slen = (
+        x[0].cpu().numpy() for x in store.draw_block(
+            gen, 1, ST_W, ST_N, hot_n, ST_MAXLEN, dev))
+    is_scan = u_scan < np.float32(ST_SCAN_FRAC)
+    is_get = ~is_scan & (u_get < np.float32(0.5))
+    keys = np.where(u_hot < np.float32(0.9), k_hot, k_cold).astype(np.uint64)
+    ops = np.where(is_scan, Op.SCAN, np.where(is_get, Op.GET, Op.SET))
+    vals = np.zeros((ST_W, VW), np.uint32)
+    vals[:, 0], vals[:, 1] = keys, store.STORE_MAGIC
+    batch = make_batch(ops, keys, vals, vers=np.where(is_scan, slen, 0),
+                       val_words=VW, device=dev)
+    ver_before = table.ver.clone()
+    t0 = time.perf_counter()
+    table, rep, run, srep = store.step(table, batch, run=run,
+                                       scan_max=ST_SMAX)
+    torch.cuda.synchronize()
+    print(f"  explicit step: {(time.perf_counter() - t0) * 1e3:.3f} ms, "
+          f"{int(is_scan.sum())} scans, {int(is_get.sum())} GETs, "
+          f"{int((~is_scan & ~is_get).sum())} SETs")
+    rtype, rver = rep.rtype.cpu().numpy(), rep.ver.cpu().numpy()
+    rval = rep.val.cpu().numpy()
+    check((rtype[is_get] == Reply.VAL).all()
+          and (rval[is_get, 0] == keys[is_get].astype(np.int64)).all()
+          and (rval[is_get, 1] == store.STORE_MAGIC).all(),
+          "every GET answered VAL with val word 0 == key and word 1 == the "
+          "magic")
+    check((rtype[~is_scan & ~is_get] == Reply.ACK).all(),
+          "every SET answered ACK")
+    count = srep.count.cpu().numpy()
+    want = np.minimum(np.minimum(slen, ST_SMAX),
+                      ST_N - keys.astype(np.int64) + 1)
+    check((rtype[is_scan] == Reply.VAL).all()
+          and (count[is_scan] == want[is_scan]).all()
+          and (rver[is_scan] == count[is_scan]).all()
+          and (count[~is_scan] == 0).all(),
+          "every scan answered VAL with count == min(slen, 100, keys >= "
+          "start)")
+    j = np.arange(ST_SMAX)
+    keep = j[None, :] < count[:, None]
+    k_lo = srep.key_lo.cpu().numpy().astype(np.int64)
+    k_hi = srep.key_hi.cpu().numpy()
+    val = srep.val.cpu().numpy()
+    start = keys.astype(np.int64)[:, None]
+    check(((k_lo == start + j[None, :]) | ~keep).all() and (k_hi == 0).all()
+          and ((k_lo == 0) | keep).all(),
+          "scan rows are the consecutive keys start, start+1, ...; rows "
+          "past count are zero")
+    check(((val[:, :, 0] == k_lo) & (val[:, :, 1] == store.STORE_MAGIC)
+           & (val[:, :, 2:] == 0).all(-1) | ~keep).all(),
+          "every scanned row's val is (key, magic, 0, ...)")
+    pre = dataclasses.replace(table, ver=ver_before)
+    kk = torch.from_numpy(k_lo[keep].astype(np.int32)).to(dev)
+    zero = torch.zeros_like(kk)
+    b1, b2 = hashing.bucket_pair(zero, kk, table.n_buckets)
+    hit, _, _, _, ver0, _, _ = kv.probe(pre, zero, kk, b1, b2)
+    sver = torch.from_numpy(srep.ver.cpu().numpy()[keep]).to(dev)
+    check(bool(hit.all()) and torch.equal(ver0, sver),
+          f"each of the {int(keep.sum())} scanned rows carries its key's "
+          f"pre-step version (scans see pre-batch state)")
+    del ver_before, pre
+    return table, run
+
+
+def phase_store(dev):
+    print(f"== phase 7: the store main path, YCSB-E over {ST_N:,} keys, "
+          f"w={ST_W}, {ST_CPB} cohorts/block, scan_max={ST_SMAX}, "
+          f"delta_cap={ST_DCAP}")
+    from dint_tpu_torch import convert
+    from dint_tpu_torch.clients import micro
+    from dint_tpu_torch.engines import store
+    from dint_tpu_torch.monitor import counters as mon
+    from dint_tpu_torch.tables import run as run_mod
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    table = micro.make_store_table(ST_N, val_words=VW, device=dev)
+    torch.cuda.synchronize()
+    populate_s = time.perf_counter() - t0
+    ne = table.key_hi.numel()
+    print(f"  populate_s: {populate_s:.3f} ({table.n_buckets} buckets x "
+          f"{table.slots} slots = {ne} entries, load {ST_N / ne:.4f})")
+    nb = 1 << int(np.ceil(np.log2(ST_N / 2)))
+    check(table.n_buckets == nb and int(table.valid.sum()) == ST_N,
+          f"the table holds all {ST_N:,} keys in {nb} buckets")
+    kw = dict(w=ST_W, cohorts_per_block=ST_CPB, val_words=VW, read_frac=0.5,
+              scan_frac=ST_SCAN_FRAC, max_scan_len=ST_MAXLEN,
+              scan_max=ST_SMAX, delta_cap=ST_DCAP, device=dev)
+    run, init, drain = store.build_serve_runner(ST_N, use_scan=True,
+                                                monitor=True, **kw)
+    t0 = time.perf_counter()
+    carry = init(table)
+    torch.cuda.synchronize()
+    print(f"  init (from_table, cap {carry[1].cap}): "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+    rec = phase_store_kernels(dev, carry[1])
+
+    print("  -- the scan runner (use_scan=True, monitor=True)")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    twin = torch.Generator(device=dev).manual_seed(7)
+    reset_launches()
+    t0 = time.perf_counter()
+    carry, s_warm = run(carry, gen)
+    torch.cuda.synchronize()
+    print(f"  warm block: {time.perf_counter() - t0:.3f} s")
+    block_s, timed = [], []
+    for _ in range(ST_TIMED):
+        t0 = time.perf_counter()
+        carry, st = run(carry, gen)
+        torch.cuda.synchronize()
+        block_s.append(time.perf_counter() - t0)
+        timed.append(st)
+    scan_launches = launch_counts()
+    snap = mon.snapshot(carry[-1])
+    stats = torch.cat([s_warm] + timed).cpu().numpy().astype(np.int64)
+    steps = (1 + ST_TIMED) * ST_CPB
+    secs = float(sum(block_s))
+    committed = int(stats[ST_CPB:, 1].sum())
+    print(f"  ms/step: {secs / (ST_TIMED * ST_CPB) * 1e3:.6f}; per block "
+          f"{[round(b * 1e3, 3) for b in block_s]} ms (block-end rebuild "
+          f"included)")
+    print(f"  committed ops/s: {committed / secs:.1f} ({committed} in "
+          f"{secs:.6f} s, {ST_TIMED} blocks x {ST_CPB} steps x w={ST_W})")
+    print(f"  scan_rows launches per step: "
+          f"{scan_launches['scan_rows'] / steps:.3f}")
+    print(f"  max_memory_allocated: {torch.cuda.max_memory_allocated(dev)} B")
+    print(f"  counters: {snap}")
+    check((stats[:, 0] == ST_W).all() and (stats[:, 1] == stats[:, 0]).all(),
+          "committed == attempted in every step (every GET, SET and scan "
+          "answered VAL or ACK; no overlay overflowed)")
+    lanes, rows = store_draw_lanes(twin, dev, 1 + ST_TIMED)
+    check(snap["steps"] == steps and snap["scan_requests"] == lanes
+          and snap["scan_rows"] == rows
+          and 0 < snap["scan_delta_hits"] <= snap["scan_rows"]
+          and snap["dispatch_pallas"] == steps,
+          f"counters reconcile: scan_requests == {lanes} scan lanes, "
+          f"scan_rows == {rows} (sum of counts), 0 < scan_delta_hits <= "
+          f"scan_rows")
+    want = dict.fromkeys(scan_launches, 0)
+    want["scan_rows"] = steps
+    check(scan_launches == want,
+          f"launches {scan_launches}: scan_rows once a step")
+
+    table, run_ = store_explicit_step(dev, carry[0], carry[1], twin)
+    check(not bool(run_.stale), "the overlay is intact after the step")
+    t0 = time.perf_counter()
+    fresh = store.rebuild_run(table, run_)
+    torch.cuda.synchronize()
+    rebuild_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    snap_run = run_mod.from_table(table, ST_DCAP)
+    torch.cuda.synchronize()
+    from_table_ms = (time.perf_counter() - t0) * 1e3
+    check(all(torch.equal(getattr(fresh, k), getattr(snap_run, k))
+              for k in convert.RUN_LEAVES),
+          f"refresh of run + delta ({int(run_.d_n)} overlay entries) equals "
+          f"from_table(table) leaf for leaf: run ∪ delta == table")
+    t0 = time.perf_counter()
+    store.rebuild_run(table, fresh)
+    torch.cuda.synchronize()
+    print(f"  rebuild_run: {rebuild_ms:.3f} ms with the step's overlay, "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms with an empty one; "
+          f"from_table: {from_table_ms:.3f} ms")
+    table, tail, _ = drain(carry)
+    check(not bool(tail.any()), "the drain returns no in-flight stats")
+    del carry, run_, fresh, snap_run
+    torch.cuda.empty_cache()
+
+    print("  -- the point runner (use_scan=False), on a clone of the table")
+    prun, pinit, _ = store.build_serve_runner(ST_N, use_scan=False, **kw)
+    pc = pinit(table.clone())
+    reset_launches()
+    pc, s_warm = prun(pc, gen)
+    torch.cuda.synchronize()
+    block_s, timed = [], []
+    for _ in range(ST_POINT_TIMED):
+        t0 = time.perf_counter()
+        pc, st = prun(pc, gen)
+        torch.cuda.synchronize()
+        block_s.append(time.perf_counter() - t0)
+        timed.append(st)
+    point_launches = launch_counts()
+    stats = torch.cat([s_warm] + timed).cpu().numpy()
+    secs = float(sum(block_s))
+    print(f"  ms/step: {secs / (ST_POINT_TIMED * ST_CPB) * 1e3:.6f}; "
+          f"committed ops/s: {int(stats[ST_CPB:, 1].sum()) / secs:.1f}")
+    check((stats[:, 1] == stats[:, 0]).all() and (stats[:, 0] == ST_W).all(),
+          "point runner: committed == attempted in every step")
+    check(all(v == 0 for v in point_launches.values()),
+          "the point route launches no hand kernel (its probe and installs "
+          "are plain torch)")
+    del pc
+    torch.cuda.empty_cache()
+
+    print("  -- one serve block (serve=True, monitor=True, scan route)")
+    srun, sinit, sdrain = store.build_serve_runner(
+        ST_N, use_scan=True, monitor=True, serve=True, **kw)
+    occ_h = np.array([ST_W - 256 * i for i in range(ST_CPB)], np.int32)
+    shed_h = np.arange(ST_CPB, dtype=np.int32) % 3 + 1
+    occ, shed = (torch.from_numpy(a).to(dev) for a in (occ_h, shed_h))
+    gen3 = torch.Generator(device=dev).manual_seed(9)
+    twin3 = torch.Generator(device=dev).manual_seed(9)
+    sc = sinit(table)
+    t0 = time.perf_counter()
+    sc, s_blk = srun(sc, gen3, occ, shed)
+    torch.cuda.synchronize()
+    print(f"  serve block: {(time.perf_counter() - t0) / ST_CPB * 1e3:.6f} "
+          f"ms/step; occupancy {occ_h.tolist()}")
+    table, tail, cnt = sdrain(sc)
+    snap = mon.snapshot(cnt)
+    stats = torch.cat([s_blk, tail]).cpu().numpy().astype(np.int64)
+    hot_n = int(ST_N * 0.04)
+    u_scan = store.draw_block(twin3, ST_CPB, ST_W, ST_N, hot_n, ST_MAXLEN,
+                              dev)[0]
+    lane = torch.arange(ST_W, device=dev)
+    lanes = int(((u_scan < ST_SCAN_FRAC) & (lane < occ[:, None])).sum())
+    check((stats[:ST_CPB, 0] == occ_h).all()
+          and (stats[:ST_CPB, 1] == occ_h).all() and (stats[-1] == 0).all(),
+          "attempted == committed == occupancy in each step")
+    check(snap["serve_occupancy_lanes"] == int(occ_h.sum())
+          and snap["serve_padded_lanes"] == ST_CPB * ST_W - int(occ_h.sum())
+          and snap["serve_shed_lanes"] == int(shed_h.sum())
+          and snap["steps"] == ST_CPB and snap["dispatch_pallas"] == ST_CPB
+          and snap["scan_requests"] == lanes,
+          f"serve counters reconcile with the stats: occupancy, padded "
+          f"{ST_CPB * ST_W - int(occ_h.sum())} and shed lanes, steps, "
+          f"{lanes} admitted scan lanes")
+    del table, sc
+    torch.cuda.empty_cache()
+    print(f"  phase 7 seconds: {time.perf_counter() - t_phase:.3f}")
+    return rec, {"store scan": scan_launches, "store point": point_launches}
+
+
+
 KERNELS = {
     "gather_rows": ("dint_tpu_torch/csrc/gather_rows.cu",
                     "dint_tpu/ops/pallas_gather.py:212"),
@@ -1215,6 +1739,8 @@ KERNELS = {
                         "dint_tpu/ops/pallas_gather.py:302"),
     "scatter_rows_hot": ("dint_tpu_torch/csrc/scatter_rows_hot.cu",
                          "dint_tpu/ops/pallas_gather.py:553"),
+    "scan_rows": ("dint_tpu_torch/csrc/scan_rows.cu",
+                  "dint_tpu/ops/pallas_gather.py:421"),
 }
 
 
@@ -1235,20 +1761,27 @@ def main() -> int:
     rec["lock_validate"] = tatp_rec.pop("lock_validate")
     phase_cpu_vs_card(dev)
     phase_sb_cpu_vs_card(dev)
+    store_hot = phase_store_cpu_vs_card(dev)
     tatp_default, ref_db, ref_stats = phase_main_path(dev)
     tatp = {"default": tatp_default,
             **phase_tatp_routes(dev, (ref_db, ref_stats))}
     del ref_db
     torch.cuda.empty_cache()
     sb = phase_smallbank(dev)
+    torch.cuda.empty_cache()
+    rec["scan_rows"], store_paths = phase_store(dev)
+    store_paths["store hot"] = store_hot
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = rec[name]
-        # launches on the main paths: TATP's routes (phases 4 and 6) and
-        # SmallBank's (phase 5), each counted from 0 just before its run
+        # launches on the main paths: TATP's routes (phases 4 and 6),
+        # SmallBank's (phase 5) and the store's (phase 7, and the hot
+        # route's steps on the card in phase 3), each counted from 0 just
+        # before its run
         paths = {**{f"tatp {k}": v[name] for k, v in tatp.items()},
-                 **{f"smallbank {k}": v[name] for k, v in sb.items()}}
+                 **{f"smallbank {k}": v[name] for k, v in sb.items()},
+                 **{k: v[name] for k, v in store_paths.items()}}
         print(f"  {name}: launches {paths}")
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": sum(paths.values()),
@@ -1261,6 +1794,8 @@ def main() -> int:
         if name == "lock_validate":
             row["unfused_pair_ms"] = r["unfused_ms"]
             row["torch_chain_ms"] = r["yard_ms"]
+        if name == "scan_rows":
+            row["index_select_yardstick_ms"] = r["yard_ms"]
         kernels.append(row)
     check(all(k["launches"] > 0 for k in kernels),
           "every kernel was launched on a main path")
@@ -1273,6 +1808,12 @@ def main() -> int:
           and by_name["gather_rows_hot"]["tatp fused+hotset"] > 0,
           "lock_validate ran on both fused TATP routes, the hot kernels on "
           "the TATP hot routes")
+    check(by_name["scan_rows"]["store scan"] > 0
+          and by_name["scan_rows"]["store point"] == 0
+          and by_name["gather_rows_hot"]["store hot"] > 0
+          and by_name["scatter_rows_hot"]["store hot"] > 0,
+          "scan_rows ran on the store's scan path and not on its point path; "
+          "the hot kernels on the store's hot route")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

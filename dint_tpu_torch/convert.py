@@ -1,8 +1,9 @@
-"""Carry dense TATP and SmallBank state between the JAX package and the
-port.
+"""Carry dense TATP, SmallBank and store state between the JAX package and
+the port.
 
-The JAX `DenseDB`'s and `DenseBank`'s leaves travel as numpy arrays in a
-plain dict, so this module needs nothing of JAX:
+The JAX `DenseDB`'s, `DenseBank`'s, `KVTable`'s, `OrderedRun`'s and
+`HotKV`'s leaves travel as numpy arrays in a plain dict, so this module
+needs nothing of JAX:
 
     DenseDB:   {"val", "meta", "arb": u32 arrays, "step": u32 scalar,
                 "log.entries": u32 [L*CAP, S*(HDR+VW)], "log.head": u32 [L],
@@ -14,17 +15,27 @@ plain dict, so this module needs nothing of JAX:
                 "hot_bal", "hot_x", "hot_s": u32 arrays, each only when
                 present, "hot_n": int}
     Counters:  the u32 [N_COUNTERS] buffer
+    KVTable:   KV_LEAVES (u32 arrays, "valid" bool) and "slots",
+               "val_words": ints
+    OrderedRun: RUN_LEAVES (u32 arrays; "n", "d_n", "d_seq_next" scalars;
+               "d_tomb" bool array, "stale" bool scalar) and "delta_cap",
+               "val_words": ints
+    HotKV:     {"val", "ver": u32 arrays}
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .device import resolve_device
 from .engines.smallbank_dense import DenseBank
+from .engines.store import HotKV
 from .engines.tatp_dense import DenseDB
 from .monitor.counters import Counters
 from .ops.u32 import from_numpy, to_numpy
+from .tables.kv import KVTable
 from .tables.log import RepLog
+from .tables.run import OrderedRun
 
 HOT_LEAVES = ("hot_bal", "hot_x", "hot_s")
 TATP_HOT_LEAVES = ("hot_meta", "hot_val")
@@ -96,3 +107,57 @@ def counters_from_numpy(buf, device=None) -> Counters:
 
 def counters_to_numpy(c: Counters) -> np.ndarray:
     return to_numpy(c.buf)
+
+
+KV_LEAVES = ("key_hi", "key_lo", "val", "ver", "valid", "bloom_hi",
+             "bloom_lo")
+RUN_LEAVES = ("key_hi", "key_lo", "ver", "val", "n", "d_key_hi", "d_key_lo",
+              "d_ver", "d_val", "d_tomb", "d_seq", "d_n", "d_seq_next",
+              "stale")
+
+
+def _leaf_from_numpy(a, dev):
+    """A u32/i32 array (or scalar) -> int32 tensor; bool stays bool."""
+    a = np.asarray(a)
+    if a.dtype == np.bool_:
+        return torch.from_numpy(a.copy()).to(dev)
+    return from_numpy(a, dev).reshape(a.shape)
+
+
+def _leaf_to_numpy(x):
+    return x.cpu().numpy() if x.dtype == torch.bool else to_numpy(x)
+
+
+def kv_table_from_numpy(arrays: dict, device=None) -> KVTable:
+    dev = resolve_device(device)
+    return KVTable(**{k: _leaf_from_numpy(arrays[k], dev) for k in KV_LEAVES},
+                   slots=int(arrays["slots"]),
+                   val_words=int(arrays["val_words"]))
+
+
+def kv_table_to_numpy(t: KVTable) -> dict:
+    return {**{k: _leaf_to_numpy(getattr(t, k)) for k in KV_LEAVES},
+            "slots": t.slots, "val_words": t.val_words}
+
+
+def ordered_run_from_numpy(arrays: dict, device=None) -> OrderedRun:
+    dev = resolve_device(device)
+    return OrderedRun(**{k: _leaf_from_numpy(arrays[k], dev)
+                         for k in RUN_LEAVES},
+                      delta_cap=int(arrays["delta_cap"]),
+                      val_words=int(arrays["val_words"]))
+
+
+def ordered_run_to_numpy(run: OrderedRun) -> dict:
+    return {**{k: _leaf_to_numpy(getattr(run, k)) for k in RUN_LEAVES},
+            "delta_cap": run.delta_cap, "val_words": run.val_words}
+
+
+def hot_kv_from_numpy(arrays: dict, device=None) -> HotKV:
+    dev = resolve_device(device)
+    return HotKV(val=from_numpy(arrays["val"], dev),
+                 ver=from_numpy(arrays["ver"], dev))
+
+
+def hot_kv_to_numpy(hot: HotKV) -> dict:
+    return {"val": to_numpy(hot.val), "ver": to_numpy(hot.ver)}

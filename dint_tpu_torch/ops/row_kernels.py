@@ -50,6 +50,10 @@ _SIGNATURES = {
                          [ctypes.c_void_p] * 6
                          + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                             ctypes.c_int, ctypes.c_void_p]),
+    "scan_rows": ("dint_scan_rows",
+                  [ctypes.c_void_p] * 9
+                  + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_void_p]),
 }
 
 

@@ -1,17 +1,25 @@
-"""Where a dense TATP or SmallBank step's time goes on the card: one block
-under torch.profiler.
+"""Where a dense TATP, SmallBank or store step's time goes on the card:
+one block under torch.profiler.
 
     python -m dint_tpu_torch.profile_step [--n-sub 7000000] [--w 8192]
         [--cpb 16] [--route default|hotset|fused|fused+hotset]
         [--trace step_trace.json]
     python -m dint_tpu_torch.profile_step --engine smallbank
         [--n-accounts 24000000] [--route default|hotset|fused|fused+hotset]
+    python -m dint_tpu_torch.profile_step --engine store
+        [--n-keys 24000000] [--scan | --no-scan]
+
+The store runs YCSB-E over the reference store's keyspace: w=4096, 2
+cohorts a block, 95% scans of 1-100 rows (scan_max 100, delta_cap 256),
+the rest half GET, half SET (``--no-scan``: the point runner); its
+profiled block includes the block-end rebuild of the ordered run.
 
 Builds the tables on the device, runs one warm block, then profiles one
 block (CPU and CUDA activity) and prints: wall ms/step, device-busy
 ms/step (the sum of kernel and copy time on the card), the device's idle
-share, torch ops launched and host syncs (``nonzero``) per step, and the
-top operators by host time and by device time. Needs a CUDA device.
+share, torch ops launched and host syncs (``nonzero`` and scalar reads)
+per step, and the top operators by host time and by device time. Needs a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -23,22 +31,31 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from .clients import micro
+from .clients import workloads as wl
 from .engines import smallbank_dense as sd
+from .engines import store
 from .engines import tatp_dense as td
 from .engines.types import ROUTES
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--engine", choices=("tatp", "smallbank"),
+    ap.add_argument("--engine", choices=("tatp", "smallbank", "store"),
                     default="tatp")
     ap.add_argument("--n-sub", type=int, default=7_000_000)
     ap.add_argument("--n-accounts", type=int, default=24_000_000)
+    ap.add_argument("--n-keys", type=int, default=24_000_000)
+    ap.add_argument("--scan", action=argparse.BooleanOptionalAction,
+                    default=True, help="store: the scan runner (default) "
+                    "or the point runner")
     ap.add_argument("--route", choices=tuple(ROUTES), default="default",
                     help="kernel route (use_hotset, use_fused) of either "
                          "engine")
-    ap.add_argument("--w", type=int, default=8192)
-    ap.add_argument("--cpb", type=int, default=16)
+    ap.add_argument("--w", type=int, default=None,
+                    help="lanes a step (8192; the store 4096)")
+    ap.add_argument("--cpb", type=int, default=None,
+                    help="cohorts a block (16; the store 2)")
     ap.add_argument("--val-words", type=int, default=10)
     ap.add_argument("--trace", default=None,
                     help="write the Chrome trace of the profiled block here")
@@ -51,7 +68,22 @@ def main(argv=None):
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0])
     use_hotset, use_fused = ROUTES[args.route]
-    if args.engine == "tatp":
+    store_engine = args.engine == "store"
+    if args.w is None:
+        args.w = 4096 if store_engine else 8192
+    if args.cpb is None:
+        args.cpb = 2 if store_engine else 16
+    if store_engine:
+        db = micro.make_store_table(args.n_keys, val_words=args.val_words,
+                                    device=dev)
+        run, init, drain = store.build_serve_runner(
+            args.n_keys, w=args.w, cohorts_per_block=args.cpb,
+            val_words=args.val_words, read_frac=0.5,
+            scan_frac=wl.YCSB_E_SCAN_FRAC, max_scan_len=wl.YCSB_E_MAX_SCAN,
+            scan_max=wl.YCSB_E_MAX_SCAN, delta_cap=256, use_scan=args.scan,
+            device=dev)
+        size = f"n_keys={args.n_keys}, {'scan' if args.scan else 'point'}"
+    elif args.engine == "tatp":
         db = td.populate_device(torch.Generator(device=dev).manual_seed(0),
                                 args.n_sub, val_words=args.val_words,
                                 device=dev)
@@ -85,7 +117,8 @@ def main(argv=None):
     device_us = sum(e.self_device_time_total for e in ka
                     if e.device_type == DeviceType.CUDA)
     aten_calls = sum(e.count for e in ka if e.key.startswith("aten::"))
-    syncs = sum(e.count for e in ka if e.key == "aten::nonzero")
+    syncs = {k: sum(e.count for e in ka if e.key == k)
+             for k in ("aten::nonzero", "aten::_local_scalar_dense")}
     steps = args.cpb
     print(f"profiled block: {args.engine}, {steps} steps, w={args.w}, "
           f"{size}")
@@ -93,7 +126,8 @@ def main(argv=None):
     print(f"device-busy ms/step: {device_us / steps / 1e3:.6f}")
     print(f"device idle share: {1 - device_us / 1e6 / wall:.6f}")
     print(f"aten ops per step (incl. nested): {aten_calls / steps:.1f}")
-    print(f"host syncs (aten::nonzero) per step: {syncs / steps:.1f}")
+    print("host syncs per step: " + ", ".join(
+        f"{k} {n / steps:.1f}" for k, n in syncs.items()))
     print(ka.table(sort_by="self_cpu_time_total", row_limit=args.rows))
     print(ka.table(sort_by="self_device_time_total", row_limit=args.rows))
     if args.trace:

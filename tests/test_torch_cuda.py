@@ -12,6 +12,7 @@ import torch
 
 from dint_tpu_torch.engines import tatp_dense as td
 from dint_tpu_torch.ops import row_kernels as rk
+from dint_tpu_torch.ops import scan_kernels as sk
 from dint_tpu_torch.ops import u32
 
 
@@ -158,3 +159,21 @@ def test_hot_kernels_match_plain(cuda, vw):
     assert rk.scatter_rows_hot.launches == before + 1
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lg,vw", [(356, 10), (37, 3), (1, 1)])
+def test_scan_rows_kernel_matches_plain(cuda, lg, vw):
+    r = np.random.default_rng(lg)
+    cap, k = 20_000, 1000
+    arrs = [_words(r, n, cuda) for n in (cap, cap, cap, cap * vw)]
+    off = r.integers(0, cap - lg + 1, k).astype(np.int32)
+    off[0], off[-1] = 0, cap - lg                  # edge windows
+    off[1::5] = off[2]                             # duplicate offsets
+    off = torch.from_numpy(off).to(cuda)
+    before = sk.scan_rows.launches
+    got = sk.scan_rows(*arrs, off, lg, vw)
+    assert sk.scan_rows.launches == before + 1
+    torch.cuda.synchronize()
+    for g, w in zip(got, sk.scan_rows_ref(*arrs, off, lg, vw)):
+        assert torch.equal(g, w)
