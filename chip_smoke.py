@@ -28,6 +28,10 @@ mismatch or error:
    store's scan_rows (K = 4096 windows of lg = 356 rows over the
    67,108,864-row ordered run, offsets located from the runner's key draws,
    edge and duplicate windows) runs inside phase 7, which builds that run.
+   The probe's scalar_scatter over its [4297 x 512] table, K = 16,384, on
+   unique and on duplicate indices (the last lane wins), timed beside
+   clone + index_put_; then the probe's entry point
+   (`python -m dint_tpu_torch.profile_scalar_scatter`), counted.
 3. The port on the CPU against the port on the card, end to end, the same
    host-made draws: TATP on all four routes (n_sub=2000, w=256, 4
    cohorts/block, contention mix; the routes also equal each other) and
@@ -38,6 +42,10 @@ mismatch or error:
    answer RETRY until the refresh), then the runner (n_keys=2000, w=256, 2
    cohorts/block, scan_max=16, delta_cap=32) with use_scan off and on:
    tables, runs, mirrors, replies, scan replies, stats and counters
+   bit-identical. The cache tier: CachedStore on every policy, with and
+   without the hot mirror, at tests/test_store_cache.py's sizes (12 rounds
+   of 96 lanes with scans over 60 keys and 8 buckets; 20 rounds over 120
+   keys and 4 buckets): replies, stats, cache and backing store
    bit-identical.
 4. The TATP main path at full width: populate_device at 7,000,000
    subscribers, build_pipelined_runner(w=8192, cohorts_per_block=16,
@@ -64,12 +72,26 @@ mismatch or error:
    from_table(table) leaf for leaf, and the drain. Then the point runner
    (use_scan=False) on a clone of the table, and one serve block at
    occupancy 4096 - 256*i.
+8. The cache tier at full width: CachedStore over a 2^23-bucket x 4-slot
+   device cache (the reference's 9M-entry cache rounded down to a power of
+   two) and a backing store of the reference store's 24,000,000 keys, VW=10,
+   w=4096. One request stream: a GET sweep of the hot prefix [1, 960,000],
+   then one warm block and 8 timed blocks of 16 rounds of 50/50 GET/SET,
+   keys 90% from the prefix and 10% uniform over [1, 26,400,000). It runs
+   on WB_BLOOM, WB_NOBLOOM, WT and WB_BLOOM with the hot mirror of keys
+   [0, 960,001), each from a copy of one populated backing store: ms a
+   round, answered ops/s, hits, misses, bloom negatives, writebacks, the
+   split of a round, launches a round, peak memory. Every round's replies
+   must equal the store engine's replay of the stream (rtype and ver on
+   every lane, val on VAL lanes), the hot run's the WB_BLOOM run's, and
+   after a flush every cached entry the backing store's record.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -1723,6 +1745,465 @@ def phase_store(dev):
     return rec, {"store scan": scan_launches, "store point": point_launches}
 
 
+# ------------------------------------------------------- probe and cache tier
+
+
+def phase_scalar_scatter(dev):
+    """B9 at the probe's shape (tools/profile_pallas.py:29-32), then the
+    probe's own entry point, counted from 0: its main path."""
+    from dint_tpu_torch import profile_scalar_scatter as pss
+    from dint_tpu_torch.ops import row_kernels as rk
+    n, k = pss.N, pss.K
+    print(f"== phase 2 (probe): scalar_scatter against its plain version, "
+          f"[{n // pss.C} x {pss.C}] table, K={k}")
+    tab, idx, val = pss.inputs(dev)
+    tab.random_(generator=torch.Generator(device=dev).manual_seed(10))
+    r = np.random.default_rng(10)
+    dup = idx.cpu().numpy().copy()
+    dup[1::2] = dup[r.integers(0, 64, k // 2)]       # 32 indices, many lanes
+    dup[-3:] = n - 1                                 # the table's last word
+    dup = torch.from_numpy(dup).to(dev)
+    err = 0
+    for label, ix in (("unique", idx), ("duplicate", dup)):
+        got = rk.scalar_scatter(tab, ix, val)
+        want = rk.scalar_scatter_ref(tab, ix, val)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(got.view(-1), want.view(-1)))
+        check(tuple(got.shape) == tuple(tab.shape) and torch.equal(got, want)
+              and err == 0,
+              f"scalar_scatter over [{n}] words, K={k} {label} indices "
+              f"({int(torch.unique(ix).numel())} distinct) equals the plain "
+              f"version (the last lane of a shared index wins)")
+    check(torch.equal(pss.index_put_form(tab, idx, val),
+                      rk.scalar_scatter(tab, idx, val)),
+          "the index_put_ library form computes the same function on the "
+          "probe's unique indices")
+    ms = device_ms(lambda: rk.scalar_scatter(tab, idx, val))
+    plain = device_ms(lambda: rk.scalar_scatter_ref(tab, idx, val))
+    lib = device_ms(lambda: pss.index_put_form(tab, idx, val))
+    # the table read once and the output written once, idx and val read
+    nbytes = 2 * 4 * n + 2 * 4 * k
+    bnd = bound_ms(nbytes)
+    with_sectors = bound_ms(nbytes + 32 * k)
+    print(f"  scalar_scatter K={k}: kernel {ms:.6f} ms, plain {plain:.6f} ms, "
+          f"clone + index_put_ {lib:.6f} ms, bound {bnd:.6f} ms ({nbytes} B; "
+          f"{with_sectors:.6f} ms counting the stores' sectors again)")
+    rec = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+               max_abs_err=err)
+    del tab, dup
+    torch.cuda.empty_cache()
+
+    print("  -- the probe's entry point: python -m "
+          "dint_tpu_torch.profile_scalar_scatter")
+    reset_launches()
+    rc = pss.main([])
+    launches = launch_counts()
+    want = dict.fromkeys(launches, 0)
+    want["scalar_scatter"] = 4 * pss.ITERS     # a warm chain and 3 timed
+    check(rc == 0 and launches == want,
+          f"the probe ran, its tables equal, launches {launches}")
+    return rec, launches
+
+
+CT_N = 24_000_000          # the reference store's keyspace
+CT_NB = 1 << 23            # the reference's 9M-entry cache, a power of two
+CT_REF_NB = 1 << 25        # the replay table's buckets (see cache_reference)
+CT_W = 4096
+CT_HOT = 960_000           # the hot 4% prefix [1, 960,000]
+CT_ROUNDS = 16             # rounds a block
+CT_TIMED = 8
+CT_HOT_KEYS = CT_HOT + 1   # mirror ids key_lo < 960,001 cover keys 1..960,000
+
+
+def cache_serve_rounds(dev, policy, hot_keys, rounds, n, keyspace, buckets,
+                       seed, scan_max):
+    """The CachedStore on ``dev`` (the cases of tests/test_store_cache.py):
+    populate half the keyspace, then ``rounds`` rounds of ``n`` mixed
+    lanes (scans too when ``scan_max``), then the scan barrier's flush.
+    Returns every reply, the stats, the cache and the backing store as
+    numpy arrays."""
+    import dataclasses
+    from dint_tpu_torch import convert
+    from dint_tpu_torch.engines.types import Op
+    from dint_tpu_torch.shim.host_kvs import CachedStore
+    r = np.random.default_rng(seed)
+    srv = CachedStore(buckets, val_words=4, policy=policy, width=128,
+                      hot_keys=hot_keys, device=dev)
+    keys0 = np.arange(1, keyspace // 2, dtype=np.uint64)
+    srv.populate(keys0, r.integers(1, 99, (len(keys0), 4)).astype(np.uint32))
+    choice = [Op.GET, Op.GET, Op.SET, Op.SET, Op.INSERT, Op.DELETE]
+    if scan_max:
+        choice += [Op.SCAN]
+    out = []
+    for _ in range(rounds):
+        ops = r.choice(choice, n).astype(np.int32)
+        lens = np.where(ops == Op.SCAN, r.integers(0, scan_max + 1, n), 0)
+        res = srv.serve(ops, r.integers(1, keyspace, n).astype(np.uint64),
+                        r.integers(1, 99, (n, 4)).astype(np.uint32),
+                        scan_lens=lens, scan_max=scan_max)
+        out += list(res[:3]) + [np.array(repr(res[3:]))]
+    srv._flush_dirty()
+    out.append(np.array(list(dataclasses.asdict(srv.stats).values())))
+    out += [np.asarray(v) for v in
+            convert.cache_table_to_numpy(srv.cache).values()]
+    kvs = srv.kvs
+    out += [kvs._keys, kvs._used, kvs._vals, kvs._vers, kvs._bloom_cnt,
+            np.array(sorted(kvs._spill))]
+    return out
+
+
+def phase_cache_cpu_vs_card(dev):
+    print("== phase 3 (cache tier): the port on the CPU against the card")
+    from dint_tpu_torch.engines import store_cache as sc
+    t_phase = time.perf_counter()
+    for policy in sc.POLICIES:
+        for hot_keys in (0, 40):
+            for rounds, keyspace, buckets, scan_max in ((12, 60, 8, 6),
+                                                        (20, 120, 4, 0)):
+                args = (policy, hot_keys, rounds, 96, keyspace, buckets, 1,
+                        scan_max)
+                a = cache_serve_rounds("cpu", *args)
+                b = cache_serve_rounds(dev, *args)
+                check(len(a) == len(b) and all(np.array_equal(x, y)
+                                               for x, y in zip(a, b)),
+                      f"CachedStore {policy}, hot_keys={hot_keys}, {rounds} "
+                      f"rounds over {keyspace} keys, {buckets} buckets, "
+                      f"scan_max={scan_max}: {len(a)} outputs (replies, "
+                      f"stats {a[4 * rounds].tolist()}, cache, backing "
+                      f"store) bit-identical")
+    print(f"  phase 3 (cache tier) seconds: "
+          f"{time.perf_counter() - t_phase:.3f}")
+
+
+def cache_reference(dev, stream):
+    """The stream replayed in order through the store engine's step over
+    make_store_table(24M) (keys 1..24M at version 1, as the backing store
+    is populated): the replies every cache run must give. The table gets
+    2^25 buckets, not the default 2^24: at load 0.36 some inserts of
+    absent keys find both candidate buckets full and answer SPILL (the
+    engine hands the key to a host tier it does not have), where the
+    cache tier's backing store simply grows. No reply may be SPILL."""
+    from dint_tpu_torch.clients import micro
+    from dint_tpu_torch.engines import store
+    from dint_tpu_torch.engines.types import Reply, make_batch
+    from dint_tpu_torch.ops.u32 import to_numpy
+    t0 = time.perf_counter()
+    table = micro.make_store_table(CT_N, n_buckets=CT_REF_NB, val_words=VW,
+                                   device=dev)
+    torch.cuda.synchronize()
+    populate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = []
+    for ops, keys, vals in stream:
+        n = len(ops)
+        table, rep = store.step(table, make_batch(
+            ops, keys, vals, width=CT_W, val_words=VW, device=dev))
+        ref.append((rep.rtype[:n].cpu().numpy(), to_numpy(rep.val[:n]),
+                    to_numpy(rep.ver[:n])))
+    print(f"  reference: make_store_table {populate_s:.3f} s, "
+          f"{len(stream)} store.step replays {time.perf_counter() - t0:.3f} s")
+    spills = sum(int((rt == Reply.SPILL).sum()) for rt, _, _ in ref)
+    check(spills == 0, f"the reference answered no SPILL over "
+          f"{sum(len(rt) for rt, _, _ in ref)} lanes")
+    del table
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _timed_method(obj, name, acc):
+    """Wrap ``obj.name`` so that its wall seconds add up in acc[name]."""
+    fn = getattr(obj, name)
+
+    def wrapper(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            acc[name] += time.perf_counter() - t0
+    setattr(obj, name, wrapper)
+
+
+def capture_hot_calls(calls):
+    """Record the index, mask and value arguments of the cache tier's hot
+    kernel calls in ``calls`` (keyed by caller, kernel and row width)
+    while they run as usual. Returns the function that undoes it."""
+    from dint_tpu_torch.engines import store_cache as sc
+    orig = sc.gather_rows_hot, sc.scatter_rows_hot
+
+    def gather(tab, mirror, idx, midx, vw):
+        calls.setdefault(("cache_step", "gather_rows_hot", vw), []).append(
+            (idx.clone(), midx.clone()))
+        return orig[0](tab, mirror, idx, midx, vw)
+
+    def scatter(tab, mirror, idx, midx, mask, vals, vw):
+        site = sys._getframe(1).f_code.co_name       # cache_step or refill
+        calls.setdefault((site, "scatter_rows_hot", vw), []).append(
+            (idx.clone(), midx.clone(), mask.clone(), vals.clone()))
+        return orig[1](tab, mirror, idx, midx, mask, vals, vw)
+
+    sc.gather_rows_hot, sc.scatter_rows_hot = gather, scatter
+
+    def undo():
+        sc.gather_rows_hot, sc.scatter_rows_hot = orig
+    return undo
+
+
+def hot_kernels_at_cache_shapes(cache, calls):
+    """B6 and B7 at the hot run's own shapes: for each call site, the
+    wrapper against its plain version bit for bit on one round's arguments
+    (a scatter into two copies of the cache's table and mirror), then
+    kernel, plain version and yardstick timed over the recorded rounds
+    against the bytes bound. Returns a record per kernel: the calls of a
+    round added up, as `per_step` does."""
+    from dint_tpu_torch.ops import row_kernels as rk
+    t = cache.kv
+    tabs = {VW: (t.val, cache.hot_val), 1: (t.ver, cache.hot_ver)}
+    lanes = torch.arange(CT_W, device=t.val.device)
+    parts = {"gather_rows_hot": {}, "scatter_rows_hot": {}}
+    check(sorted(calls) == sorted(
+        [("cache_step", "gather_rows_hot", w) for w in (VW, 1)]
+        + [(s, "scatter_rows_hot", w) for s in ("cache_step", "refill")
+           for w in (VW, 1)])
+          and all(len(v) == CT_ROUNDS for v in calls.values()),
+          f"the warm block ran each hot kernel call site once a round: "
+          f"{ {k: len(v) for k, v in sorted(calls.items())} }")
+    for (site, name, vw), sets in sorted(calls.items()):
+        tab, mirror = tabs[vw]
+        k = sets[0][0].numel()
+        label = f"{name}[{site}, vw={vw}] K={k}"
+        if name == "gather_rows_hot":
+            got = rk.gather_rows_hot(tab, mirror, *sets[0], vw)
+            want = rk.gather_rows_hot_ref(tab, mirror, *sets[0], vw)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            check(torch.equal(got, want) and err == 0,
+                  f"{label} over [{tab.numel()}] + mirror [{mirror.numel()}], "
+                  f"{int((sets[0][1] >= 0).sum())} lanes hot, equals the "
+                  f"plain version")
+
+            def g_bytes(idx, midx, vw=vw):
+                hot = midx >= 0
+                return (32 * (sectors(words_of(idx[~hot], vw))
+                              + sectors(words_of(midx[hot], vw))
+                              + sectors(lanes[:k][~hot])) + 4 * k * (1 + vw))
+
+            def chain(i, mi, tab=tab, mirror=mirror, vw=vw):
+                return torch.where((mi >= 0)[:, None], mirror.view(
+                    -1, vw).index_select(0, mi.clamp(min=0)),
+                    tab.view(-1, vw).index_select(0, i))
+            row = timed_row(
+                label, lambda i, mi, tab=tab, mirror=mirror, vw=vw:
+                rk.gather_rows_hot(tab, mirror, i, mi, vw),
+                lambda i, mi, tab=tab, mirror=mirror, vw=vw:
+                rk.gather_rows_hot_ref(tab, mirror, i, mi, vw),
+                chain, "where/index_select chain", sets, g_bytes)
+        else:
+            tk, mk = tab.clone(), mirror.clone()
+            tr, mr = tab.clone(), mirror.clone()
+            rk.scatter_rows_hot(tk, mk, *sets[0], vw)
+            rk.scatter_rows_hot_ref(tr, mr, *sets[0], vw)
+            torch.cuda.synchronize()
+            err = max(max_abs_err(tk, tr), max_abs_err(mk, mr))
+            check(torch.equal(tk, tr) and torch.equal(mk, mr) and err == 0,
+                  f"{label} into [{tab.numel()}] + mirror [{mirror.numel()}], "
+                  f"{int(sets[0][2].sum())} masked in, equals the plain "
+                  f"version (table and whole mirror)")
+
+            def s_bytes(idx, midx, mask, vals, vw=vw):
+                hm = mask & (midx >= 0)
+                return (32 * (sectors(words_of(idx[mask], vw))
+                              + sectors(words_of(midx[hm], vw))
+                              + 2 * sectors(lanes[:k][mask])
+                              + sectors(words_of(lanes[:k][mask], vw))) + k)
+
+            def kept(idx, midx, mask, vals, vw=vw):
+                hm = mask & (midx >= 0)
+                v2 = vals.view(-1, vw)
+                return idx[mask].long(), v2[mask], midx[hm].long(), v2[hm]
+
+            def kept_copy(r, v, mi, mv, tab=tr, mirror=mr, vw=vw):
+                tab.view(-1, vw).index_copy_(0, r, v)
+                mirror.view(-1, vw).index_copy_(0, mi, mv)
+            row = timed_row(
+                label, lambda *z, vw=vw: rk.scatter_rows_hot(tk, mk, *z, vw),
+                lambda *z, vw=vw: rk.scatter_rows_hot_ref(tr, mr, *z, vw),
+                kept_copy, "2 index_copy_ of kept rows", sets, s_bytes,
+                [kept(*z) for z in sets])
+            del tk, mk, tr, mr
+        row["max_abs_err"] = err
+        parts[name][(site, vw)] = row
+    torch.cuda.empty_cache()
+    return {name: dict(per_step(p), calls={f"{s}, vw={v}": r for (s, v), r
+                                           in p.items()})
+            for name, p in parts.items()}
+
+
+def cache_run(dev, label, policy, hot_keys, base, stream, ref):
+    """One full-width run of the CachedStore from the populated ``base``
+    (backing store, bloom words): the sweep, one warm block, CT_TIMED
+    timed blocks; its replies against ``ref``; the flushed cache against
+    the backing store; with the hot tier, B6 and B7 on the warm block's
+    arguments. Returns (launches over the timed blocks, replies of every
+    round, the B6/B7 records or None)."""
+    import copy
+    import dataclasses
+    from dint_tpu_torch.engines.types import Reply
+    from dint_tpu_torch.ops import u64
+    from dint_tpu_torch.ops.u32 import to_numpy
+    from dint_tpu_torch.shim.host_kvs import CacheStats, CachedStore
+    print(f"  -- {label}: policy {policy}, hot_keys {hot_keys}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    kvs, b_hi, b_lo = base
+    srv = CachedStore(CT_NB, val_words=VW, policy=policy, width=CT_W,
+                      hot_keys=hot_keys, device=dev)
+    t0 = time.perf_counter()
+    srv.kvs = copy.deepcopy(kvs)
+    srv.cache.kv.bloom_hi, srv.cache.kv.bloom_lo = b_hi.clone(), b_lo.clone()
+    print(f"  backing store copied in {time.perf_counter() - t0:.3f} s")
+    n_sweep = len(stream) - (1 + CT_TIMED) * CT_ROUNDS
+    got = []
+    t0 = time.perf_counter()
+    calls = {}
+    for i, (ops, keys, vals) in enumerate(stream[:n_sweep + CT_ROUNDS]):
+        undo = (capture_hot_calls(calls) if hot_keys and i >= n_sweep
+                else (lambda: None))
+        got.append(srv.serve(ops, keys, vals))
+        undo()
+    torch.cuda.synchronize()
+    print(f"  sweep ({n_sweep} rounds) + warm block: "
+          f"{time.perf_counter() - t0:.3f} s")
+    split = {"_do_refills": 0.0, "resolve_batch": 0.0}
+    _timed_method(srv, "_do_refills", split)
+    _timed_method(srv.kvs, "resolve_batch", split)
+    srv.stats = CacheStats()
+    reset_launches()
+    block_s = []
+    for b in range(CT_TIMED):
+        lo = n_sweep + (1 + b) * CT_ROUNDS
+        t0 = time.perf_counter()
+        for ops, keys, vals in stream[lo:lo + CT_ROUNDS]:
+            got.append(srv.serve(ops, keys, vals))
+        torch.cuda.synchronize()
+        block_s.append(time.perf_counter() - t0)
+    launches = launch_counts()
+    st = dataclasses.asdict(srv.stats)
+    secs = float(sum(block_s))
+    rounds = CT_TIMED * CT_ROUNDS
+    ms_round = secs / rounds * 1e3
+    refill_ms = split["_do_refills"] / rounds * 1e3
+    resolve_ms = split["resolve_batch"] / rounds * 1e3
+    hit_rate = st["hits"] / max(st["hits"] + st["misses"], 1)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"  ms/round: {ms_round:.6f}; per block "
+          f"{[round(x * 1e3, 3) for x in block_s]} ms")
+    print(f"  answered ops/s: {rounds * CT_W / secs:.1f} ({rounds * CT_W} "
+          f"lanes in {secs:.6f} s)")
+    print(f"  hits {st['hits']}, misses {st['misses']}, bloom negatives "
+          f"{st['bloom_negatives']}, writebacks {st['writebacks']}, hit "
+          f"rate {hit_rate:.6f}")
+    print(f"  a round: refill {refill_ms:.6f} ms, host resolve "
+          f"{resolve_ms:.6f} ms, device step and the rest (make_batch, "
+          f"cache_step, reading its replies, flush write-backs, the refill "
+          f"queue) {ms_round - refill_ms - resolve_ms:.6f} ms")
+    print(f"  launches per round: "
+          f"{ {k: v / rounds for k, v in launches.items() if v} }")
+    print(f"  max_memory_allocated: {peak} B")
+
+    bad = []
+    for i, ((rt, rv, rr), (wt, wv, wr)) in enumerate(zip(got, ref)):
+        lanes = (rt != wt) | (rr != wr) | ((wt == Reply.VAL)
+                                           & (rv != wv).any(-1))
+        if lanes.any():
+            j = np.nonzero(lanes)[0][:3]
+            bad.append(f"round {i}: {int(lanes.sum())} lanes, e.g. op "
+                       f"{stream[i][0][j]} key {stream[i][1][j]} got "
+                       f"{rt[j]}/{rr[j]} want {wt[j]}/{wr[j]}")
+    check(len(got) == len(ref) and not bad,
+          f"{label}: all {len(ref)} rounds equal the store engine's replay "
+          f"(rtype and ver on every lane, val on VAL lanes)"
+          + (f": {bad[:3]}" if bad else ""))
+    srv._flush_dirty()
+    t = srv.cache.kv
+    e = torch.nonzero(t.valid).squeeze(1)
+    keys = u64.join(to_numpy(t.key_hi[e]), to_numpy(t.key_lo[e]))
+    found, vals, vers = srv.kvs.lookup(keys)
+    check(found.all() and np.array_equal(vals, to_numpy(
+        t.val.view(-1, VW)[e])) and np.array_equal(vers, to_numpy(t.ver[e]))
+          and not bool(srv.cache.dirty.any()),
+          f"{label}: after the flush, each of the {len(e)} cached entries "
+          f"equals the backing store's record")
+    if hot_keys:
+        hot = (to_numpy(t.key_hi[e]) == 0) & (to_numpy(t.key_lo[e])
+                                              < hot_keys)
+        kid = torch.from_numpy(to_numpy(t.key_lo[e])[hot].astype(np.int64))
+        check(np.array_equal(to_numpy(srv.cache.hot_ver)[kid], vers[hot])
+              and np.array_equal(to_numpy(srv.cache.hot_val).reshape(
+                  -1, VW)[kid], vals[hot]),
+              f"{label}: the mirror equals the cache on its {int(hot.sum())} "
+              f"cached hot keys")
+        kern = hot_kernels_at_cache_shapes(srv.cache, calls)
+    del srv, calls
+    gc.collect()          # the timing wrappers hold srv in a cycle
+    torch.cuda.empty_cache()
+    return launches, got, kern if hot_keys else None
+
+
+def phase_cache(dev):
+    print(f"== phase 8: the cache tier at full width, {CT_N:,} keys behind "
+          f"a {CT_NB:,} x 4 cache, w={CT_W}, 50/50 GET/SET, 90% of keys in "
+          f"[1, {CT_HOT:,}]")
+    from dint_tpu_torch.clients import micro
+    from dint_tpu_torch.engines import store_cache as sc
+    from dint_tpu_torch.shim.host_kvs import CachedStore
+    t_phase = time.perf_counter()
+    stream = micro.cache_stream(np.random.default_rng(21), CT_N, CT_W,
+                                (1 + CT_TIMED) * CT_ROUNDS, VW)
+    ref = cache_reference(dev, stream)
+    keys = np.arange(1, CT_N + 1, dtype=np.uint64)
+    vals = np.zeros((CT_N, VW), np.uint32)
+    vals[:, 0] = keys.astype(np.uint32)
+    vals[:, 1] = micro.STORE_MAGIC
+    t0 = time.perf_counter()
+    loader = CachedStore(CT_NB, val_words=VW, width=CT_W, device=dev)
+    loader.populate(keys, vals)
+    torch.cuda.synchronize()
+    print(f"  CachedStore.populate: {time.perf_counter() - t0:.3f} s "
+          f"({loader.kvs.nb} backing buckets x 8 slots, {loader.kvs.n_live} "
+          f"live, {len(loader.kvs._spill)} in the spill dict)")
+    base = (loader.kvs, loader.cache.kv.bloom_hi, loader.cache.kv.bloom_lo)
+    del keys, vals, loader
+    torch.cuda.empty_cache()
+    paths = {}
+    replies = None
+    for label, policy, hot_keys in (("wb_bloom", sc.WB_BLOOM, 0),
+                                    ("wb_nobloom", sc.WB_NOBLOOM, 0),
+                                    ("wt", sc.WT, 0),
+                                    ("wb_bloom+hot", sc.WB_BLOOM,
+                                     CT_HOT_KEYS)):
+        paths[label], got, kern = cache_run(dev, label, policy, hot_keys,
+                                            base, stream, ref)
+        if label == "wb_bloom":
+            replies = got
+        elif label == "wb_bloom+hot":
+            check(all(all(np.array_equal(x, y) for x, y in zip(a, b))
+                      for a, b in zip(replies, got)),
+                  "the hot-tier run's replies equal the wb_bloom run's")
+            hot_rec = kern
+        del got
+    check(all(v == 0 for k in ("wb_bloom", "wb_nobloom", "wt")
+              for v in paths[k].values()),
+          "the runs without the hot tier launch no hand kernel")
+    rounds = CT_TIMED * CT_ROUNDS
+    hot = paths["wb_bloom+hot"]
+    check(hot["gather_rows_hot"] == 2 * rounds
+          and hot["scatter_rows_hot"] == 4 * rounds,
+          f"the hot-tier run launched gather_rows_hot twice a round (val, "
+          f"ver) and scatter_rows_hot four times (write-back and refill, "
+          f"val and ver): {hot}")
+    print(f"  phase 8 seconds: {time.perf_counter() - t_phase:.3f}")
+    return {"cache hot": hot}, hot_rec
+
+
 
 KERNELS = {
     "gather_rows": ("dint_tpu_torch/csrc/gather_rows.cu",
@@ -1741,6 +2222,8 @@ KERNELS = {
                          "dint_tpu/ops/pallas_gather.py:553"),
     "scan_rows": ("dint_tpu_torch/csrc/scan_rows.cu",
                   "dint_tpu/ops/pallas_gather.py:421"),
+    "scalar_scatter": ("dint_tpu_torch/csrc/scalar_scatter.cu",
+                       "tools/profile_pallas.py:48"),
 }
 
 
@@ -1759,9 +2242,11 @@ def main() -> int:
     rec = {**phase_kernels(dev), **phase_sb_kernels(dev)}
     tatp_rec = phase_tatp_kernels(dev)
     rec["lock_validate"] = tatp_rec.pop("lock_validate")
+    rec["scalar_scatter"], probe = phase_scalar_scatter(dev)
     phase_cpu_vs_card(dev)
     phase_sb_cpu_vs_card(dev)
     store_hot = phase_store_cpu_vs_card(dev)
+    phase_cache_cpu_vs_card(dev)
     tatp_default, ref_db, ref_stats = phase_main_path(dev)
     tatp = {"default": tatp_default,
             **phase_tatp_routes(dev, (ref_db, ref_stats))}
@@ -1771,13 +2256,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     rec["scan_rows"], store_paths = phase_store(dev)
     store_paths["store hot"] = store_hot
+    torch.cuda.empty_cache()
+    cache_paths, cache_rec = phase_cache(dev)
+    store_paths.update(cache_paths)
+    store_paths["probe"] = probe
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = rec[name]
         # launches on the main paths: TATP's routes (phases 4 and 6),
-        # SmallBank's (phase 5) and the store's (phase 7, and the hot
-        # route's steps on the card in phase 3), each counted from 0 just
+        # SmallBank's (phase 5), the store's (phase 7, and the hot route's
+        # steps on the card in phase 3), the cache tier's hot run (phase 8)
+        # and the probe's entry point (phase 2), each counted from 0 just
         # before its run
         paths = {**{f"tatp {k}": v[name] for k, v in tatp.items()},
                  **{f"smallbank {k}": v[name] for k, v in sb.items()},
@@ -1791,6 +2281,8 @@ def main() -> int:
                "launches_by_path": paths}
         if name in tatp_rec:     # the same kernel at TATP's shapes
             row["tatp_shapes"] = tatp_rec[name]
+        if name in cache_rec:    # and at the cache tier's (phase 8)
+            row["cache_shapes"] = cache_rec[name]
         if name == "lock_validate":
             row["unfused_pair_ms"] = r["unfused_ms"]
             row["torch_chain_ms"] = r["yard_ms"]
@@ -1814,6 +2306,12 @@ def main() -> int:
           and by_name["scatter_rows_hot"]["store hot"] > 0,
           "scan_rows ran on the store's scan path and not on its point path; "
           "the hot kernels on the store's hot route")
+    check(by_name["gather_rows_hot"]["cache hot"] > 0
+          and by_name["scatter_rows_hot"]["cache hot"] > 0
+          and by_name["scalar_scatter"]["probe"] > 0
+          and len(kernels) == 9,
+          "the hot kernels ran on the cache tier's hot run, scalar_scatter "
+          "on the probe; the kernels line lists nine kernels")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""dint_tpu_torch — the dense TATP engine in PyTorch, with its random-access
+"""dint_tpu_torch — the dense TATP and SmallBank engines, the store engine
+with range scans and its cache tier, in PyTorch, with their random-access
 kernels written by hand in CUDA C++ for Hopper (sm_90a).
 
 The package mirrors `dint_tpu`'s module layout so each function's JAX

@@ -1,9 +1,9 @@
-"""Carry dense TATP, SmallBank and store state between the JAX package and
-the port.
+"""Carry dense TATP, SmallBank, store and cache-tier state between the JAX
+package and the port.
 
-The JAX `DenseDB`'s, `DenseBank`'s, `KVTable`'s, `OrderedRun`'s and
-`HotKV`'s leaves travel as numpy arrays in a plain dict, so this module
-needs nothing of JAX:
+The JAX `DenseDB`'s, `DenseBank`'s, `KVTable`'s, `OrderedRun`'s, `HotKV`'s
+and `CacheTable`'s leaves travel as numpy arrays in a plain dict, so this
+module needs nothing of JAX:
 
     DenseDB:   {"val", "meta", "arb": u32 arrays, "step": u32 scalar,
                 "log.entries": u32 [L*CAP, S*(HDR+VW)], "log.head": u32 [L],
@@ -21,6 +21,9 @@ needs nothing of JAX:
                "d_tomb" bool array, "stale" bool scalar) and "delta_cap",
                "val_words": ints
     HotKV:     {"val", "ver": u32 arrays}
+    CacheTable: the KVTable dict of its ``kv``, plus "dirty" (bool array),
+               "clock" (u32 scalar) and, only when the hot mirrors are
+               present, "hot_val", "hot_ver" (u32 arrays)
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import torch
 
 from .device import resolve_device
 from .engines.smallbank_dense import DenseBank
+from .engines.store_cache import CacheTable
 from .engines.store import HotKV
 from .engines.tatp_dense import DenseDB
 from .monitor.counters import Counters
@@ -161,3 +165,21 @@ def hot_kv_from_numpy(arrays: dict, device=None) -> HotKV:
 
 def hot_kv_to_numpy(hot: HotKV) -> dict:
     return {"val": to_numpy(hot.val), "ver": to_numpy(hot.ver)}
+
+
+def cache_table_from_numpy(arrays: dict, device=None) -> CacheTable:
+    """A CacheTable from the dict; the mirrors are fresh tensors."""
+    dev = resolve_device(device)
+    hot = {k: from_numpy(arrays[k], dev) for k in ("hot_val", "hot_ver")
+           if arrays.get(k) is not None}
+    return CacheTable(kv=kv_table_from_numpy(arrays, dev),
+                      dirty=_leaf_from_numpy(arrays["dirty"], dev),
+                      clock=int(arrays["clock"]), **hot)
+
+
+def cache_table_to_numpy(c: CacheTable) -> dict:
+    out = {**kv_table_to_numpy(c.kv), "dirty": _leaf_to_numpy(c.dirty),
+           "clock": np.uint32(c.clock)}
+    if c.hot_ver is not None:
+        out.update(hot_val=to_numpy(c.hot_val), hot_ver=to_numpy(c.hot_ver))
+    return out

@@ -1,7 +1,8 @@
-"""Random-access row kernels of the dense TATP and SmallBank steps (the
-counterparts of `dint_tpu/ops/pallas_gather.py`'s `gather_rows`,
-`lock_arbitrate`, `lock_validate`, `gather_streams`, `scatter_streams`,
-`gather_rows_hot` and `scatter_rows_hot`).
+"""Random-access row kernels of the dense TATP and SmallBank steps and the
+store's cache tier (the counterparts of `dint_tpu/ops/pallas_gather.py`'s
+`gather_rows`, `lock_arbitrate`, `lock_validate`, `gather_streams`,
+`scatter_streams`, `gather_rows_hot` and `scatter_rows_hot`), and the
+scalar scatter of the feasibility probe `tools/profile_pallas.py`.
 
 Each wrapper launches its hand-written CUDA kernel (``csrc/<name>.cu``,
 built for sm_90a at first use) when given CUDA tensors, and runs its plain
@@ -54,6 +55,10 @@ _SIGNATURES = {
                   [ctypes.c_void_p] * 9
                   + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                      ctypes.c_void_p]),
+    "scalar_scatter": ("dint_scalar_scatter",
+                       [ctypes.c_void_p] * 5
+                       + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                          ctypes.c_void_p]),
 }
 
 
@@ -460,8 +465,74 @@ def scatter_rows_hot(tab, mirror, idx, midx, mask, vals, vw: int = 1):
 scatter_rows_hot.launches = 0
 
 
+# ---------------------------------------------------------- scalar scatter
+
+
+def _check_scalar_scatter(tab, idx, val):
+    for x, what in ((tab, "tab"), (idx, "idx"), (val, "val")):
+        if x.dtype != I32:
+            raise TypeError(f"scalar_scatter {what}: expected {I32}, got "
+                            f"{x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"scalar_scatter {what}: tensor is not "
+                             f"contiguous")
+    if idx.numel() != val.numel():
+        raise ValueError(f"scalar_scatter: {idx.numel()} indices but "
+                         f"{val.numel()} values")
+    if tab.numel() >= (1 << 31):
+        raise ValueError("scalar_scatter: the table exceeds i32 indices")
+    return _same_device(tab, idx, val)
+
+
+def scalar_scatter_ref(tab, idx, val):
+    """Plain version: each index keeps its last lane (a stable sort by
+    index, the last lane of each run), then one indexed write of unique
+    indices into a copy of ``tab``. Raises on an index outside
+    [0, tab.numel())."""
+    i = idx.reshape(-1).to(torch.int64)
+    v = val.reshape(-1)
+    if bool(((i < 0) | (i >= tab.numel())).any()):
+        raise IndexError(f"scalar_scatter: an index lies outside "
+                         f"[0, {tab.numel()})")
+    order = torch.sort(i, stable=True).indices
+    s = i[order]
+    last = torch.ones_like(s, dtype=torch.bool)
+    last[:-1] = s[1:] != s[:-1]
+    keep = order[last]
+    out = tab.clone()
+    out.view(-1)[i[keep]] = v[keep]
+    return out
+
+
+def scalar_scatter(tab, idx, val):
+    """The probe's scalar scatter: a new table of ``tab``'s shape, equal
+    to ``tab`` with ``val[i]`` stored at flat word ``idx[i]`` for i = 0 ..
+    K-1 in order, so that where lanes share an index the last one wins.
+    ``idx`` and ``val`` hold K words in any contiguous shape ([K] or the
+    probe's [K, 1]); indices must lie in [0, tab.numel()) (asserted on the
+    device)."""
+    dev = _check_scalar_scatter(tab, idx, val)
+    if dev.type == "cpu":
+        return scalar_scatter_ref(tab, idx, val)
+    n, k = tab.numel(), idx.numel()
+    n_slots = 1 << max(1, (2 * k - 1).bit_length())      # >= 2K slots
+    out = torch.empty_like(tab)
+    # the kernel's slot keys, last lanes and each lane's slot
+    scratch = torch.empty(2 * n_slots + k, dtype=I32, device=dev)
+    fn = _kernel("scalar_scatter", dev)
+    _launched(fn(tab.data_ptr(), out.data_ptr(), idx.data_ptr(),
+                 val.data_ptr(), scratch.data_ptr(), n, k, n_slots,
+                 _stream(dev)), "scalar_scatter")
+    scalar_scatter.launches += 1
+    return out
+
+
+scalar_scatter.launches = 0
+
+
 WRAPPERS = (gather_rows, lock_arbitrate, lock_validate, gather_streams,
-            scatter_streams, gather_rows_hot, scatter_rows_hot)
+            scatter_streams, gather_rows_hot, scatter_rows_hot,
+            scalar_scatter)
 
 
 def reset_launches():

@@ -8,18 +8,27 @@ one block under torch.profiler.
         [--n-accounts 24000000] [--route default|hotset|fused|fused+hotset]
     python -m dint_tpu_torch.profile_step --engine store
         [--n-keys 24000000] [--scan | --no-scan]
+    python -m dint_tpu_torch.profile_step --engine cache
+        [--n-keys 24000000] [--policy wb_bloom|wb_nobloom|wt] [--hot]
 
 The store runs YCSB-E over the reference store's keyspace: w=4096, 2
 cohorts a block, 95% scans of 1-100 rows (scan_max 100, delta_cap 256),
 the rest half GET, half SET (``--no-scan``: the point runner); its
 profiled block includes the block-end rebuild of the ordered run.
 
+The cache tier runs `CachedStore` (a 2^23 x 4 device cache over a backing
+store of ``--n-keys`` keys, w=4096) on `clients.micro.cache_stream`, the
+traffic of chip_smoke.py phase 8: a GET sweep of the hot 4% prefix, one
+warm block, then one profiled block of 16 rounds of 50/50 GET/SET, 90% of
+keys from the prefix; ``--hot`` attaches the hot mirror of the prefix. A
+round is the step here.
+
 Builds the tables on the device, runs one warm block, then profiles one
 block (CPU and CUDA activity) and prints: wall ms/step, device-busy
 ms/step (the sum of kernel and copy time on the card), the device's idle
-share, torch ops launched and host syncs (``nonzero`` and scalar reads)
-per step, and the top operators by host time and by device time. Needs a
-CUDA device.
+share, torch ops launched and host syncs (``nonzero``, scalar reads and
+device-to-host copies) per step, and the top operators by host time and
+by device time. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ import argparse
 import subprocess
 import time
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -35,27 +45,64 @@ from .clients import micro
 from .clients import workloads as wl
 from .engines import smallbank_dense as sd
 from .engines import store
+from .engines import store_cache
 from .engines import tatp_dense as td
 from .engines.types import ROUTES
+from .shim.host_kvs import CachedStore
+
+
+def _cache_block(args, dev):
+    """A CachedStore warmed by the sweep, and (block, finish, size label):
+    each call of ``block`` serves the next ``args.cpb`` rounds of
+    `micro.cache_stream`."""
+    n = args.n_keys
+    hot_n = int(n * wl.SB_HOT_FRAC)
+    srv = CachedStore(1 << 23, val_words=args.val_words, policy=args.policy,
+                      width=args.w, hot_keys=hot_n + 1 if args.hot else 0,
+                      device=dev)
+    keys = np.arange(1, n + 1, dtype=np.uint64)
+    vals = np.zeros((n, args.val_words), np.uint32)
+    vals[:, 0] = keys.astype(np.uint32)
+    vals[:, 1] = micro.STORE_MAGIC
+    srv.populate(keys, vals)
+    del keys, vals
+    # the sweep, then the warm block and the profiled one
+    rounds = micro.cache_stream(np.random.default_rng(1), n, args.w,
+                                2 * args.cpb, args.val_words)
+    for ops, keys, vals in rounds[:-2 * args.cpb]:
+        srv.serve(ops, keys, vals)
+    stream = iter(rounds[-2 * args.cpb:])
+
+    def block():
+        for _ in range(args.cpb):
+            srv.serve(*next(stream))
+    return block, lambda: None, (f"n_keys={n}, cache 2^23 x 4, policy "
+                                 f"{args.policy}"
+                                 f"{', hot mirror' if args.hot else ''}")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--engine", choices=("tatp", "smallbank", "store"),
-                    default="tatp")
+    ap.add_argument("--engine", choices=("tatp", "smallbank", "store",
+                                         "cache"), default="tatp")
     ap.add_argument("--n-sub", type=int, default=7_000_000)
     ap.add_argument("--n-accounts", type=int, default=24_000_000)
     ap.add_argument("--n-keys", type=int, default=24_000_000)
     ap.add_argument("--scan", action=argparse.BooleanOptionalAction,
                     default=True, help="store: the scan runner (default) "
                     "or the point runner")
+    ap.add_argument("--policy", choices=store_cache.POLICIES,
+                    default=store_cache.WB_BLOOM, help="cache: the policy")
+    ap.add_argument("--hot", action="store_true",
+                    help="cache: attach the hot mirror of the 4%% prefix")
     ap.add_argument("--route", choices=tuple(ROUTES), default="default",
                     help="kernel route (use_hotset, use_fused) of either "
                          "engine")
     ap.add_argument("--w", type=int, default=None,
                     help="lanes a step (8192; the store 4096)")
     ap.add_argument("--cpb", type=int, default=None,
-                    help="cohorts a block (16; the store 2)")
+                    help="cohorts a block (16; the store 2; the cache's "
+                         "rounds a block 16)")
     ap.add_argument("--val-words", type=int, default=10)
     ap.add_argument("--trace", default=None,
                     help="write the Chrome trace of the profiled block here")
@@ -70,10 +117,12 @@ def main(argv=None):
     use_hotset, use_fused = ROUTES[args.route]
     store_engine = args.engine == "store"
     if args.w is None:
-        args.w = 4096 if store_engine else 8192
+        args.w = 4096 if args.engine in ("store", "cache") else 8192
     if args.cpb is None:
         args.cpb = 2 if store_engine else 16
-    if store_engine:
+    if args.engine == "cache":
+        block, finish, size = _cache_block(args, dev)
+    elif store_engine:
         db = micro.make_store_table(args.n_keys, val_words=args.val_words,
                                     device=dev)
         run, init, drain = store.build_serve_runner(
@@ -98,17 +147,25 @@ def main(argv=None):
             args.n_accounts, w=args.w, cohorts_per_block=args.cpb,
             use_hotset=use_hotset, use_fused=use_fused, device=dev)
         size = f"n_accounts={args.n_accounts}, route {args.route}"
-    gen = torch.Generator(device=dev).manual_seed(1)
-    carry, _ = run(init(db), gen)
+    if args.engine != "cache":
+        gen = torch.Generator(device=dev).manual_seed(1)
+        carry = [init(db)]
+
+        def block():
+            carry[0] = run(carry[0], gen)[0]
+
+        def finish():
+            drain(carry[0])
+    block()
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        carry, stats = run(carry, gen)
+        block()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    drain(carry)
+    finish()
     torch.cuda.synchronize()
 
     ka = prof.key_averages()
@@ -119,6 +176,8 @@ def main(argv=None):
     aten_calls = sum(e.count for e in ka if e.key.startswith("aten::"))
     syncs = {k: sum(e.count for e in ka if e.key == k)
              for k in ("aten::nonzero", "aten::_local_scalar_dense")}
+    syncs["DtoH copies"] = sum(e.count for e in ka
+                               if e.key.startswith("Memcpy DtoH"))
     steps = args.cpb
     print(f"profiled block: {args.engine}, {steps} steps, w={args.w}, "
           f"{size}")
@@ -137,3 +196,4 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+

@@ -177,3 +177,25 @@ def test_scan_rows_kernel_matches_plain(cuda, lg, vw):
     torch.cuda.synchronize()
     for g, w in zip(got, sk.scan_rows_ref(*arrs, off, lg, vw)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dup", [False, True])
+def test_scalar_scatter_kernel_matches_plain(cuda, dup):
+    """The probe's shape: a [2,200,064 / 512, 512] table, K = 16,384; with
+    duplicates, the last lane of each shared index must win."""
+    r = np.random.default_rng(int(dup))
+    n, c, k = 2_200_064, 512, 16_384
+    tab = _words(r, n, cuda).view(n // c, c)
+    idx = r.choice(n, k, replace=False)
+    if dup:
+        idx[1::2] = idx[r.integers(0, 64, k // 2)]
+        idx[-3:] = n - 1
+    idx = torch.from_numpy(idx.astype(np.int32).reshape(k, 1)).to(cuda)
+    val = _words(r, k, cuda).view(k, 1)
+    before = rk.scalar_scatter.launches
+    got = rk.scalar_scatter(tab, idx, val)
+    assert rk.scalar_scatter.launches == before + 1
+    want = rk.scalar_scatter_ref(tab, idx, val)
+    torch.cuda.synchronize()
+    assert got.shape == tab.shape and torch.equal(got, want)

@@ -24,11 +24,12 @@ from dint_tpu.tables import kv as jkv
 from dint_tpu.tables import run as jrun
 from dint_tpu_torch import convert
 from dint_tpu_torch.clients import micro
-from dint_tpu_torch.engines import store
+from dint_tpu_torch.engines import store, store_cache
 from dint_tpu_torch.engines.types import Op, Reply, make_batch
 from dint_tpu_torch.monitor import counters as mon
 from dint_tpu_torch.ops import scan_kernels as sk
 from dint_tpu_torch.ops.u32 import to_numpy
+from dint_tpu_torch.shim.host_kvs import CachedStore
 from dint_tpu_torch.tables import kv
 from dint_tpu_torch.tables import run as run_mod
 
@@ -383,7 +384,11 @@ def test_store_entry_points_default_to_cuda(monkeypatch):
              lambda: micro.make_store_table(10),
              lambda: make_batch([Op.GET], [1]),
              lambda: store.build_serve_runner(10, w=8),
-             lambda: convert.kv_table_from_numpy({})]
+             lambda: convert.kv_table_from_numpy({}),
+             lambda: store_cache.create(16),
+             lambda: CachedStore(16),
+             lambda: micro.StoreClient.populated(10, width=8),
+             lambda: convert.cache_table_from_numpy({})]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
