@@ -7,7 +7,8 @@ Phases, each of which fails the run (non-zero exit, no result line) on any
 mismatch or error:
 
 1. The card: name and power limit (nvidia-smi), and the nvcc build of every
-   kernel in dint_tpu_torch/csrc (all sources compiled at once).
+   kernel in dint_tpu_torch/csrc (all sources compiled at once), with what
+   `ptxas -v` reported for each: registers, barriers, spills.
 2. Each kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it, exact equality. TATP: gather_rows over a
    meta-sized [154,000,023] table (K = 65,536) and a val-sized table
@@ -24,7 +25,9 @@ mismatch or error:
    lanes) through the 280,000-row mirrors, and the fused install_log
    scatter_streams (val, meta, log x3 [1,048,576 x 42], and the two
    mirrors). Times: kernel, plain version, yardstick (torch calls that
-   compute the same function), and the bytes bound at 3.35 TB/s. The
+   compute the same function), the bytes bound at 3.35 TB/s, and the
+   kernel's time over the yardstick's, taken in the same call (the
+   figure that compares across calls and cards). The
    store's scan_rows (K = 4096 windows of lg = 356 rows over the
    67,108,864-row ordered run, offsets located from the runner's key draws,
    edge and duplicate windows) runs inside phase 7, which builds that run.
@@ -203,7 +206,7 @@ def phase_card():
     print(f"kernel build: {secs:.3f} s for {_build.sources()}")
     for name, log in sorted(_build.build_log.items()):
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  [{name}] {line.strip()}")
     return card
 
@@ -574,7 +577,8 @@ def phase_sb_kernels(dev):
 
     def report(name, ms, plain, yard, yard_what, bnd):
         print(f"  {name} K={k}: kernel {ms:.6f} ms, plain {plain:.6f} ms, "
-              f"{yard_what} (yardstick) {yard:.6f} ms, bound {bnd:.6f} ms")
+              f"{yard_what} (yardstick) {yard:.6f} ms, bound {bnd:.6f} ms, "
+              f"kernel/yardstick {ms / yard:.6f}")
 
     # -- gather_streams: the fused route's held-stamp and balance reads
     tabs3, vws3 = (x_step, s_step, bal), (1, 1, 1)
@@ -737,7 +741,8 @@ def timed_row(label, kernel, plain, yard, yard_what, sets, nbytes_of,
     yard_ms = device_ms(rotating(yard, yard_sets or sets))
     bnd = bound_ms(sum(nbytes_of(*z) for z in sets) / len(sets))
     print(f"  {label}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-          f"{yard_what} (yardstick) {yard_ms:.6f} ms, bound {bnd:.6f} ms")
+          f"{yard_what} (yardstick) {yard_ms:.6f} ms, bound {bnd:.6f} ms, "
+          f"kernel/yardstick {ms / yard_ms:.6f}")
     return dict(ms=ms, plain_ms=plain_ms, yard_ms=yard_ms, bound_ms=bnd)
 
 
@@ -2283,6 +2288,8 @@ def main() -> int:
             row["tatp_shapes"] = tatp_rec[name]
         if name in cache_rec:    # and at the cache tier's (phase 8)
             row["cache_shapes"] = cache_rec[name]
+        if "yard_ms" in r:     # the same call's yardstick: comparable
+            row["kernel_over_yardstick"] = r["ms"] / r["yard_ms"]
         if name == "lock_validate":
             row["unfused_pair_ms"] = r["unfused_ms"]
             row["torch_chain_ms"] = r["yard_ms"]

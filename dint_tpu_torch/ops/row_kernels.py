@@ -16,6 +16,7 @@ the kernels read them as ``uint32_t``.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -38,11 +39,14 @@ _SIGNATURES = {
                       + [ctypes.c_void_p] * 2 + [ctypes.c_int64]
                       + [ctypes.c_void_p] * 3
                       + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                         ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p]),
+                         ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_void_p]),
+    "lock_validate_grid": ("dint_lock_validate_grid",
+                           [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]),
     "gather_streams": ("dint_gather_streams",
                        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]),
     "scatter_streams": ("dint_scatter_streams",
-                        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]),
+                        [ctypes.c_void_p, ctypes.c_void_p]),
     "gather_rows_hot": ("dint_gather_rows_hot",
                         [ctypes.c_void_p] * 5
                         + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
@@ -62,15 +66,16 @@ _SIGNATURES = {
 }
 
 
-def _kernel(name: str, device: torch.device):
-    """The C entry of ``csrc/<name>.cu``, with its ctypes signature set."""
+def _kernel(name: str, device: torch.device, lib: str | None = None):
+    """The C entry ``name`` of ``csrc/<lib or name>.cu``, with its ctypes
+    signature set."""
     major, minor = torch.cuda.get_device_capability(device)
     if (major, minor) != (9, 0):
         raise RuntimeError(f"dint_tpu_torch kernels are built for sm_90a; "
                            f"{torch.cuda.get_device_name(device)} is "
                            f"sm_{major}{minor}")
     sym, argtypes = _SIGNATURES[name]
-    fn = getattr(_build.load(name), sym)
+    fn = getattr(_build.load(lib or name), sym)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -226,6 +231,35 @@ def lock_validate_ref(arb, meta, vidx, vv1, ridx, rows, active, step: int,
     return arb, grant, vbad, rmeta
 
 
+# the most blocks csrc/lock_validate.cu's cooperative grid may have, per
+# device index
+_lock_validate_grid: dict[int, int] = {}
+
+LOCK_VALIDATE_THREADS = 256
+# lane positions of each job a thread takes before the grid grows: the
+# grid barrier costs ~5 ns a block on the H100, so blocks without lanes
+# only slow the launch (PERF.md §6)
+LOCK_VALIDATE_LANES_PER_THREAD = 1
+# lock lanes one thread can own at most (the bits of its `cand` word)
+LOCK_VALIDATE_MAX_LOCK_LANES = 64
+
+
+def lock_validate_grid(device: torch.device) -> int:
+    """The most blocks lock_validate's cooperative launch may have on
+    ``device``: its SM count times the blocks an SM holds at once.
+    Queried once per device; raises where the device has no cooperative
+    launch."""
+    blocks = _lock_validate_grid.get(device.index)
+    if blocks is None:
+        fn = _kernel("lock_validate_grid", device, "lock_validate")
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            _launched(fn(device.index, ctypes.byref(out)),
+                      "lock_validate grid query")
+        blocks = _lock_validate_grid[device.index] = out.value
+    return blocks
+
+
 def lock_validate(arb, meta, vidx, vv1, ridx, rows, active, step: int,
                   k_arb: int):
     """The fused route's lock + validate pass, arb updated in place.
@@ -236,7 +270,8 @@ def lock_validate(arb, meta, vidx, vv1, ridx, rows, active, step: int,
         rmeta        = meta[ridx]
 
     ``meta`` and ``arb`` must be distinct arrays, and every index in
-    bounds (asserted on the device)."""
+    bounds (asserted on the device). On the card it is one cooperative
+    launch (none when V = R = M = 0); a refused launch raises."""
     dev = _check_lock_args(arb, rows, active, step, k_arb, "lock_validate")
     for x, what in ((meta, "meta"), (vidx, "vidx"), (vv1, "vv1"),
                     (ridx, "ridx")):
@@ -254,12 +289,20 @@ def lock_validate(arb, meta, vidx, vv1, ridx, rows, active, step: int,
     vbad = torch.empty(v, dtype=torch.bool, device=dev)
     rmeta = torch.empty(r, dtype=I32, device=dev)
     grant = torch.empty(m, dtype=torch.bool, device=dev)
+    if v == r == m == 0:
+        return arb, grant, vbad, rmeta
+    per_block = LOCK_VALIDATE_THREADS * LOCK_VALIDATE_LANES_PER_THREAD
+    blocks = min(lock_validate_grid(dev), -(-max(v, r, m) // per_block))
+    most = LOCK_VALIDATE_MAX_LOCK_LANES * blocks * LOCK_VALIDATE_THREADS
+    if m > most:
+        raise ValueError(f"lock_validate: {m} lock lanes exceed the "
+                         f"{most} a {blocks}-block grid holds")
     fn = _kernel("lock_validate", dev)
     _launched(fn(arb.data_ptr(), meta.data_ptr(), vidx.data_ptr(),
                  vv1.data_ptr(), vbad.data_ptr(), v, ridx.data_ptr(),
                  rmeta.data_ptr(), r, rows.data_ptr(), active.data_ptr(),
                  grant.data_ptr(), m, meta.numel(), arb.numel(), int(step),
-                 k_arb, _stream(dev)), "lock_validate")
+                 k_arb, blocks, _stream(dev)), "lock_validate")
     lock_validate.launches += 1
     return arb, grant, vbad, rmeta
 
@@ -273,9 +316,8 @@ MAX_STREAMS = 8
 
 
 class _StreamArgs(ctypes.Structure):
-    """The by-value launch argument of csrc/gather_streams.cu and
-    csrc/scatter_streams.cu: per stream the table, the indices, the output
-    (gather) or the values (scatter), K, the table's rows and vw."""
+    """The by-value launch argument of csrc/gather_streams.cu: per stream
+    the table, the indices, the output, K, the table's rows and vw."""
     _fields_ = [("tab", ctypes.c_void_p * MAX_STREAMS),
                 ("idx", ctypes.c_void_p * MAX_STREAMS),
                 ("data", ctypes.c_void_p * MAX_STREAMS),
@@ -342,6 +384,79 @@ def gather_streams(tabs, idxs, vws):
 gather_streams.launches = 0
 
 
+SCATTER_THREADS = 256       # threads a block of csrc/scatter_streams.cu
+# Most threads that share a row. Measured on the H100 at TATP's install_log
+# (42-word log rows, 21 eight-byte stores): 16 a row ~1% faster than 32,
+# 8 and 4 slower by ~6% and ~20% (PERF.md §6).
+SCATTER_MAX_GROUP = 16
+
+
+class _ScatterPlan(ctypes.Structure):
+    """The by-value launch argument of csrc/scatter_streams.cu (its
+    ScatterPlan, 456 bytes): per stream the table, the indices, the values,
+    K, the table's rows, vw, the words a store moves, log2 of the threads
+    that share a row; the streams' first blocks and their number."""
+    _fields_ = [("tab", ctypes.c_void_p * MAX_STREAMS),
+                ("idx", ctypes.c_void_p * MAX_STREAMS),
+                ("vals", ctypes.c_void_p * MAX_STREAMS),
+                ("k", ctypes.c_int64 * MAX_STREAMS),
+                ("n_rows", ctypes.c_int64 * MAX_STREAMS),
+                ("vw", ctypes.c_int32 * MAX_STREAMS),
+                ("vec", ctypes.c_int32 * MAX_STREAMS),
+                ("tpr_log2", ctypes.c_int32 * MAX_STREAMS),
+                ("first_block", ctypes.c_uint32 * (MAX_STREAMS + 1)),
+                ("n_streams", ctypes.c_int32)]
+
+
+class ScatterPlan(NamedTuple):
+    """The launch plan of csrc/scatter_streams.cu, per stream: ``vec``
+    words a store moves (4, 2 or 1), ``group`` threads that share a row,
+    ``blocks``, and the exclusive prefix ``first_block`` of the blocks
+    (one entry more than the streams; the last is the launch's total)."""
+    vec: tuple
+    group: tuple
+    blocks: tuple
+    first_block: tuple
+
+    @property
+    def total(self) -> int:
+        return self.first_block[-1]
+
+
+def alignment(*ptrs: int) -> int:
+    """The largest of 16, 8 and 4 bytes that divides every pointer (16 for
+    none or for null pointers only)."""
+    bits = 0
+    for p in ptrs:
+        bits |= p
+    return 16 if bits == 0 else min(16, bits & -bits)
+
+
+def scatter_plan(ks, vws, aligns) -> ScatterPlan:
+    """Plan scatter_streams' one launch for streams of ``ks[s]`` lanes of
+    ``vws[s]``-word rows whose table and value pointers are both aligned to
+    ``aligns[s]`` bytes. A store moves 4 words where vw % 4 == 0 and the
+    pointers are 16-byte aligned, 2 where vw is even and they are 8-byte
+    aligned, else 1. A row is taken by the smallest power of two of
+    threads, at most SCATTER_MAX_GROUP, that covers its stores (a group
+    loops over longer rows). Stream s gets ceil(K_s * group_s / 256)
+    blocks; an empty stream none."""
+    vec, group, blocks = [], [], []
+    for k, vw, al in zip(ks, vws, aligns):
+        v = 4 if vw % 4 == 0 and al % 16 == 0 else (
+            2 if vw % 2 == 0 and al % 8 == 0 else 1)
+        stores = vw // v
+        g = 1 << max(0, (stores - 1).bit_length())
+        g = min(g, SCATTER_MAX_GROUP)
+        vec.append(v)
+        group.append(g)
+        blocks.append(-(-k * g // SCATTER_THREADS))
+    first = [0]
+    for b in blocks:
+        first.append(first[-1] + b)
+    return ScatterPlan(tuple(vec), tuple(group), tuple(blocks), tuple(first))
+
+
 def scatter_streams_ref(tabs, idxs, vals, vws):
     """Plain version: per stream, the lanes with ``idx >= 0`` are kept and
     their rows copied in with ``index_copy_`` (kept indices are unique, so
@@ -368,10 +483,22 @@ def scatter_streams(tabs, idxs, vals, vws):
                          "distinct arrays")
     if dev.type == "cpu":
         return scatter_streams_ref(tabs, idxs, vals, vws)
-    args = _stream_args(tabs, idxs, vals, vws)
+    ks = [i.numel() for i in idxs]
+    plan = scatter_plan(ks, vws, [alignment(t.data_ptr(), v.data_ptr())
+                                  for t, v in zip(tabs, vals)])
+    if plan.total == 0:
+        return tabs
+    a = _ScatterPlan()
+    for s, (tab, idx, val, vw) in enumerate(zip(tabs, idxs, vals, vws)):
+        a.tab[s], a.idx[s], a.vals[s] = (tab.data_ptr(), idx.data_ptr(),
+                                         val.data_ptr())
+        a.k[s], a.n_rows[s], a.vw[s] = ks[s], tab.numel() // vw, vw
+        a.vec[s] = plan.vec[s]
+        a.tpr_log2[s] = plan.group[s].bit_length() - 1
+    a.first_block[:len(plan.first_block)] = plan.first_block
+    a.n_streams = len(vws)
     fn = _kernel("scatter_streams", dev)
-    _launched(fn(ctypes.addressof(args), len(vws), _stream(dev)),
-              "scatter_streams")
+    _launched(fn(ctypes.addressof(a), _stream(dev)), "scatter_streams")
     scatter_streams.launches += 1
     return tabs
 

@@ -26,9 +26,9 @@ round is the step here.
 Builds the tables on the device, runs one warm block, then profiles one
 block (CPU and CUDA activity) and prints: wall ms/step, device-busy
 ms/step (the sum of kernel and copy time on the card), the device's idle
-share, torch ops launched and host syncs (``nonzero``, scalar reads and
-device-to-host copies) per step, and the top operators by host time and
-by device time. Needs a CUDA device.
+share, torch ops and kernels launched and host syncs (``nonzero``, scalar
+reads and device-to-host copies) per step, and the top operators by host
+time and by device time. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -174,6 +174,8 @@ def main(argv=None):
     device_us = sum(e.self_device_time_total for e in ka
                     if e.device_type == DeviceType.CUDA)
     aten_calls = sum(e.count for e in ka if e.key.startswith("aten::"))
+    kernels = sum(e.count for e in ka if e.device_type == DeviceType.CUDA
+                  and not e.key.startswith(("Memcpy", "Memset")))
     syncs = {k: sum(e.count for e in ka if e.key == k)
              for k in ("aten::nonzero", "aten::_local_scalar_dense")}
     syncs["DtoH copies"] = sum(e.count for e in ka
@@ -185,6 +187,7 @@ def main(argv=None):
     print(f"device-busy ms/step: {device_us / steps / 1e3:.6f}")
     print(f"device idle share: {1 - device_us / 1e6 / wall:.6f}")
     print(f"aten ops per step (incl. nested): {aten_calls / steps:.1f}")
+    print(f"kernels per step: {kernels / steps:.1f}")
     print("host syncs per step: " + ", ".join(
         f"{k} {n / steps:.1f}" for k, n in syncs.items()))
     print(ka.table(sort_by="self_cpu_time_total", row_limit=args.rows))

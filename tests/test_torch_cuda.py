@@ -135,6 +135,221 @@ def test_scatter_streams_kernel_matches_plain(cuda):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+def _masked_rows(r, n, k, frac, cuda):
+    """K lanes over n rows: unique rows on ~frac of them, -1 elsewhere."""
+    keep = r.random(k) < frac
+    return torch.from_numpy(np.where(keep, r.permutation(n)[:k], -1)
+                            .astype(np.int32)).to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2])
+def test_scatter_streams_kernel_eight_streams(cuda, offset):
+    """Eight streams: odd and even vw up to 42 (uint4, uint2 and 4-byte
+    stores), stream 2 empty, stream 5 all masked, and stream 4's values an
+    offset view of ``offset`` words (16-, 4- and 8-byte aligned)."""
+    r = np.random.default_rng(10 + offset)
+    n = 4000
+    vws = (1, 42, 3, 4, 10, 18, 2, 7)
+    ks = (3000, 1500, 0, 2000, 2500, 800, 1000, 1200)
+    idxs = [_masked_rows(r, n, k, 0.0 if s == 5 else 0.7, cuda)
+            for s, k in enumerate(ks)]
+    vals = [_words(r, k * vw, cuda) for k, vw in zip(ks, vws)]
+    big = _words(r, ks[4] * vws[4] + 8, cuda)
+    vals[4] = big[offset:offset + ks[4] * vws[4]]
+    tabs = [_words(r, n * vw, cuda) for vw in vws]
+    plan = rk.scatter_plan(ks, vws, [rk.alignment(t.data_ptr(), v.data_ptr())
+                                     for t, v in zip(tabs, vals)])
+    assert plan.vec[:4] == (1, 2, 1, 4) and plan.blocks[2] == 0
+    assert plan.vec[4] == {0: 2, 1: 1, 2: 2}[offset]
+    before_tabs = [t.clone() for t in tabs]
+    want = rk.scatter_streams_ref([t.clone() for t in tabs], idxs, vals, vws)
+    before = rk.scatter_streams.launches
+    got = rk.scatter_streams(tabs, idxs, vals, vws)
+    assert rk.scatter_streams.launches == before + 1
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert torch.equal(got[5], before_tabs[5])          # all masked
+    assert not torch.equal(got[1], before_tabs[1])
+
+
+@pytest.mark.cuda
+def test_scatter_streams_all_empty_launches_nothing(cuda):
+    tab = torch.zeros(40, dtype=torch.int32, device=cuda)
+    none = torch.zeros(0, dtype=torch.int32, device=cuda)
+    before = rk.scatter_streams.launches
+    rk.scatter_streams([tab, tab.clone()], [none, none], [none, none], (4, 1))
+    assert rk.scatter_streams.launches == before
+
+
+@pytest.mark.cuda
+def test_scatter_streams_cuda_graph_replay(cuda):
+    """One captured call, replayed on fresh inputs copied into the
+    captured buffers, equals an eager call bit for bit."""
+    r = np.random.default_rng(20)
+    n, k, vws = 5000, 2048, (10, 1, 42)
+    tabs0 = [_words(r, n * vw, cuda) for vw in vws]
+
+    def fresh():
+        return ([_masked_rows(r, n, k, 0.7, cuda) for _ in vws],
+                [_words(r, k * vw, cuda) for vw in vws])
+    tabs = [t.clone() for t in tabs0]
+    idxs, vals = fresh()
+    rk.scatter_streams(tabs, idxs, vals, vws)           # build and warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        rk.scatter_streams(tabs, idxs, vals, vws)
+    idxs2, vals2 = fresh()
+    for dst, src in zip(tabs + idxs + vals, tabs0 + idxs2 + vals2):
+        dst.copy_(src)
+    graph.replay()
+    eager = rk.scatter_streams([t.clone() for t in tabs0], idxs2, vals2, vws)
+    want = rk.scatter_streams_ref([t.clone() for t in tabs0], idxs2, vals2,
+                                  vws)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(tabs, eager))
+    assert all(torch.equal(a, b) for a, b in zip(tabs, want))
+
+
+def _lv_case(r, cuda, t, n1, m, v, rr, k_arb=td.K_ARB, row_space=300):
+    """arb (numpy, a tenth of the rows held at t-1 and a tenth at t-2) and
+    lock_validate's other arguments on the card: M lock lanes over
+    ``row_space`` rows (a quarter inactive, on the sentinel), V validate
+    lanes half of them stale, R read lanes."""
+    arb0 = np.zeros(n1, np.uint32)
+    pick = r.choice(n1 - 1, 2 * (n1 // 10), replace=False)
+    arb0[pick[:n1 // 10]] = np.uint32(((t - 1) << k_arb) | 3)
+    arb0[pick[n1 // 10:]] = np.uint32(((t - 2) << k_arb) | 9)
+    meta = r.integers(0, 1 << 32, n1, dtype=np.uint64).astype(np.uint32)
+    rows = r.integers(0, row_space, m).astype(np.int32)
+    act = r.random(m) < 0.75
+    rows[~act] = n1 - 1
+    vidx = r.integers(0, n1, v).astype(np.int32)
+    vv1 = np.where(r.random(v) < 0.5, meta[vidx], meta[vidx] ^ 2)
+    args = [u32.from_numpy(meta, cuda), torch.from_numpy(vidx).to(cuda),
+            u32.from_numpy(vv1, cuda),
+            torch.from_numpy(r.integers(0, n1, rr).astype(np.int32)).to(cuda),
+            torch.from_numpy(rows).to(cuda), torch.from_numpy(act).to(cuda)]
+    return arb0, args
+
+
+def _lv_check(cuda, arb0, args, t, k_arb=td.K_ARB):
+    """The kernel against the plain version; returns the kernel's outputs."""
+    before = rk.lock_validate.launches
+    got = rk.lock_validate(u32.from_numpy(arb0, cuda), *args, t, k_arb)
+    empty = all(x.numel() == 0 for x in (args[1], args[3], args[4]))
+    assert rk.lock_validate.launches == before + (0 if empty else 1)
+    want = rk.lock_validate_ref(u32.from_numpy(arb0, cuda), *args, t, k_arb)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    return got
+
+
+@pytest.mark.cuda
+def test_lock_validate_kernel_all_lanes_on_one_row(cuda):
+    r = np.random.default_rng(30)
+    arb0, args = _lv_case(r, cuda, 7, 1000, 4096, 100, 100, row_space=1)
+    arb0[0] = 0                                 # the row is free
+    args[5] = torch.ones(4096, dtype=torch.bool, device=cuda)
+    args[4] = torch.zeros(4096, dtype=torch.int32, device=cuda)
+    got = _lv_check(cuda, arb0, args, 7)
+    assert got[1].nonzero().flatten().tolist() == [0]   # the first lane wins
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [5, td.REBASE_AT - 1])
+def test_lock_validate_kernel_held_rows(cuda, t):
+    r = np.random.default_rng(t + 31)
+    arb0, args = _lv_case(r, cuda, t, 600, 8000, 5000, 3000, row_space=599)
+    held = (arb0[args[4].cpu().numpy()] >> td.K_ARB) == t - 1
+    assert held.any()
+    got = _lv_check(cuda, arb0, args, t)
+    assert not bool(got[1][torch.from_numpy(held).to(cuda)].any())
+    assert bool(got[1].any()) and bool(got[2].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,rr,m", [(0, 700, 900), (700, 0, 900),
+                                    (700, 900, 0), (0, 0, 0), (0, 0, 5),
+                                    (1, 0, 0)])
+def test_lock_validate_kernel_empty_jobs(cuda, v, rr, m):
+    r = np.random.default_rng(v + 2 * rr + 3 * m)
+    arb0, args = _lv_case(r, cuda, 9, 1000, m, v, rr)
+    got = _lv_check(cuda, arb0, args, 9)
+    assert [x.numel() for x in got[1:]] == [m, v, rr]
+
+
+@pytest.mark.cuda
+def test_lock_validate_kernel_grid_stride_wraps(cuda):
+    """More lanes of each job than the cooperative grid has threads: every
+    thread takes several lock lanes (past the four kept in registers) and
+    several validate and read lanes."""
+    blocks = rk.lock_validate_grid(torch.device("cuda", 0))
+    g = blocks * rk.LOCK_VALIDATE_THREADS
+    k_arb = 22                      # 4M lock lanes; steps below 2^10
+    m, v = 5 * g + 11, 6 * g + 5
+    assert m <= 1 << k_arb
+    r = np.random.default_rng(32)
+    arb0, args = _lv_case(r, cuda, 5, 200_000, m, v, g + 3, k_arb=k_arb,
+                          row_space=150_000)
+    got = _lv_check(cuda, arb0, args, 5, k_arb)
+    assert bool(got[1].any()) and bool(got[2].any())
+
+
+@pytest.mark.cuda
+def test_lock_validate_refused_launch_raises(cuda, monkeypatch):
+    """A grid the card cannot hold at once is refused and raises, with no
+    retry; the next call runs. Too many lanes for the grid raise first."""
+    r = np.random.default_rng(33)
+    blocks = rk.lock_validate_grid(torch.device("cuda", 0))
+    # validate lanes enough for twice the grid the card holds
+    v = 2 * blocks * rk.LOCK_VALIDATE_THREADS \
+        * rk.LOCK_VALIDATE_LANES_PER_THREAD
+    arb0, args = _lv_case(r, cuda, 5, 1000, 4096, v, 100)
+    idx = args[0].device.index
+    before = rk.lock_validate.launches
+    monkeypatch.setitem(rk._lock_validate_grid, idx, 2 * blocks)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        rk.lock_validate(u32.from_numpy(arb0, cuda), *args, 5, td.K_ARB)
+    # one block: 64 lock lanes a thread, 16,384 in all
+    monkeypatch.setitem(rk._lock_validate_grid, idx, 1)
+    arb1, args1 = _lv_case(r, cuda, 5, 1000, 64 * 256 + 1, 100, 100)
+    with pytest.raises(ValueError, match="exceed"):
+        rk.lock_validate(u32.from_numpy(arb1, cuda), *args1, 5, td.K_ARB)
+    assert rk.lock_validate.launches == before
+    monkeypatch.setitem(rk._lock_validate_grid, idx, blocks)
+    _lv_check(cuda, arb0, args, 5)
+
+
+@pytest.mark.cuda
+def test_lock_validate_cuda_graph_replay(cuda):
+    """One captured call, replayed on fresh inputs copied into the
+    captured buffers, equals an eager call bit for bit."""
+    r = np.random.default_rng(34)
+    t, n1 = 5, 3000
+    arb0, args = _lv_case(r, cuda, t, n1, 4096, 3000, 2000, row_space=900)
+    arb = u32.from_numpy(arb0, cuda)
+    rk.lock_validate(arb.clone(), *args, t, td.K_ARB)   # build and warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rk.lock_validate(arb, *args, t, td.K_ARB)
+    arb1, args1 = _lv_case(r, cuda, t, n1, 4096, 3000, 2000, row_space=900)
+    arb.copy_(u32.from_numpy(arb1, cuda))
+    for dst, src in zip(args, args1):
+        dst.copy_(src)
+    graph.replay()
+    eager = rk.lock_validate(u32.from_numpy(arb1, cuda), *args1, t, td.K_ARB)
+    want = rk.lock_validate_ref(u32.from_numpy(arb1, cuda), *args1, t,
+                                td.K_ARB)
+    torch.cuda.synchronize()
+    assert out[0] is arb
+    assert all(torch.equal(a, b) for a, b in zip(out, eager))
+    assert all(torch.equal(a, b) for a, b in zip(out, want))
+    assert bool(out[1].any()) and bool(out[2].any())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("vw", [1, 3])
 def test_hot_kernels_match_plain(cuda, vw):
