@@ -14,9 +14,10 @@ mismatch or error:
    meta-sized [154,000,023] table (K = 65,536) and a val-sized table
    (K = 32,768 word offsets); lock_arbitrate over an [n1] arb array
    (M = 16,384) prefilled with t-1, t-2 and 0 stamps, with heavy duplicates
-   and inactive lanes. SmallBank at 24M accounts (K = 3w = 24,576 lanes,
-   90% of them on the 4% hot set): gather_streams over x_step/s_step [2^25]
-   and bal [48,000,001]; scatter_streams into bal, a log-sized
+   and inactive lanes, and one call under torch.profiler, which must show
+   one kernel and nothing else on the stream. SmallBank at 24M accounts
+   (K = 3w = 24,576 lanes, 90% of them on the 4% hot set): gather_streams
+   over x_step/s_step [2^25] and bal [48,000,001]; scatter_streams into bal, a log-sized
    [1,048,576 x 18] table and the [1,920,000] mirror with ~30% of lanes
    masked; gather_rows_hot and scatter_rows_hot over bal with the mirror.
    TATP's other routes: lock_validate (V = R = 32,768, M = 16,384) over the
@@ -32,8 +33,9 @@ mismatch or error:
    67,108,864-row ordered run, offsets located from the runner's key draws,
    edge and duplicate windows) runs inside phase 7, which builds that run.
    The probe's scalar_scatter over its [4297 x 512] table, K = 16,384, on
-   unique and on duplicate indices (the last lane wins), timed beside
-   clone + index_put_; then the probe's entry point
+   unique indices and two duplicate patterns in a row (the last lane wins),
+   timed beside clone + index_put_, and one call under torch.profiler (one
+   kernel, no memset or copy); then the probe's entry point
    (`python -m dint_tpu_torch.profile_scalar_scatter`), counted.
 3. The port on the CPU against the port on the card, end to end, the same
    host-made draws: TATP on all four routes (n_sub=2000, w=256, 4
@@ -135,26 +137,18 @@ def check(cond, what):
 
 
 def device_ms(fn, n=20, groups=5):
-    """Median over ``groups`` of the mean device time of ``n`` back-to-back
-    calls of ``fn``, by CUDA events. Each group is queued behind a ~5 ms
-    sleep kernel, so the host has enqueued all ``n`` calls before the card
-    reaches the first event and the span holds no launch latency (a call
-    that synchronises inside, as the plain versions do, is timed with its
-    host gaps, which are part of its cost)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(groups):
-        torch.cuda._sleep(10_000_000)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(n):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / n)
-    return float(np.median(times))
+    """Back-to-back device ms of ``fn`` (`dint_tpu_torch.timing.device_ms`:
+    the median over ``groups`` of ``n`` calls queued behind a sleep kernel,
+    by CUDA events)."""
+    from dint_tpu_torch.timing import device_ms as timed
+    return timed(fn, n, groups)
+
+
+def device_events(fn):
+    """What one call of ``fn`` puts on the card, by torch.profiler
+    (`dint_tpu_torch.timing.device_events`)."""
+    from dint_tpu_torch.timing import device_events as events
+    return events(fn)
 
 
 def bound_ms(n_bytes):
@@ -314,6 +308,12 @@ def phase_kernels(dev):
                                                     td.K_ARB))
     chain_ms = device_ms(chain)
     check(torch.equal(arb, a_k), "repeated passes leave arb unchanged")
+    ev = device_events(lambda: rk.lock_arbitrate(arb, rows, active, t,
+                                                 td.K_ARB))
+    check(ev["kernels"] == 1 and ev["memsets"] == ev["copies"] == 0,
+          f"one lock_arbitrate call is one kernel launch and nothing else "
+          f"on the stream (torch.profiler: {ev['names']}, "
+          f"{ev['kernel_us']:.3f} us)")
     cand_rows = rows[g_k]      # every row a candidate won keeps one stamp
     nbytes = (32 * sectors(rows[active]) + 32 * sectors(cand_rows)
               + m * (4 + 1 + 1))
@@ -323,7 +323,8 @@ def phase_kernels(dev):
           f"{bnd:.6f} ms ({nbytes} B)")
     rec["lock_arbitrate"] = dict(ms=ms, plain_ms=plain, library_ms=None,
                                  chain_ms=chain_ms, bound_ms=bnd,
-                                 max_abs_err=l_err)
+                                 max_abs_err=l_err,
+                                 launches_per_call=ev["kernels"])
     del arb, arb0, a_k
     torch.cuda.empty_cache()
     return rec
@@ -1764,12 +1765,15 @@ def phase_scalar_scatter(dev):
     tab, idx, val = pss.inputs(dev)
     tab.random_(generator=torch.Generator(device=dev).manual_seed(10))
     r = np.random.default_rng(10)
-    dup = idx.cpu().numpy().copy()
-    dup[1::2] = dup[r.integers(0, 64, k // 2)]       # 32 indices, many lanes
-    dup[-3:] = n - 1                                 # the table's last word
-    dup = torch.from_numpy(dup).to(dev)
+    dups = []
+    for first in (1, 0):        # two patterns, called one after the other
+        dup = idx.cpu().numpy().copy()
+        dup[first::2] = dup[r.integers(0, 64, k // 2)]   # 64 indices, many
+        dup[-3:] = n - 1                                 # lanes; last word
+        dups.append(torch.from_numpy(dup).to(dev))
     err = 0
-    for label, ix in (("unique", idx), ("duplicate", dup)):
+    for label, ix in (("unique", idx), ("duplicate", dups[0]),
+                      ("other duplicate", dups[1])):
         got = rk.scalar_scatter(tab, ix, val)
         want = rk.scalar_scatter_ref(tab, ix, val)
         torch.cuda.synchronize()
@@ -1786,6 +1790,11 @@ def phase_scalar_scatter(dev):
     ms = device_ms(lambda: rk.scalar_scatter(tab, idx, val))
     plain = device_ms(lambda: rk.scalar_scatter_ref(tab, idx, val))
     lib = device_ms(lambda: pss.index_put_form(tab, idx, val))
+    ev = device_events(lambda: rk.scalar_scatter(tab, idx, val))
+    check(ev["kernels"] == 1 and ev["memsets"] == ev["copies"] == 0,
+          f"one scalar_scatter call is one kernel launch and nothing else "
+          f"on the stream (torch.profiler: {ev['names']}, "
+          f"{ev['kernel_us']:.3f} us)")
     # the table read once and the output written once, idx and val read
     nbytes = 2 * 4 * n + 2 * 4 * k
     bnd = bound_ms(nbytes)
@@ -1794,8 +1803,8 @@ def phase_scalar_scatter(dev):
           f"clone + index_put_ {lib:.6f} ms, bound {bnd:.6f} ms ({nbytes} B; "
           f"{with_sectors:.6f} ms counting the stores' sectors again)")
     rec = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
-               max_abs_err=err)
-    del tab, dup
+               max_abs_err=err, launches_per_call=ev["kernels"])
+    del tab, dups
     torch.cuda.empty_cache()
 
     print("  -- the probe's entry point: python -m "
@@ -2295,6 +2304,8 @@ def main() -> int:
             row["torch_chain_ms"] = r["yard_ms"]
         if name == "scan_rows":
             row["index_select_yardstick_ms"] = r["yard_ms"]
+        if "launches_per_call" in r:   # torch.profiler over one call
+            row["launches_per_call"] = r["launches_per_call"]
         kernels.append(row)
     check(all(k["launches"] > 0 for k in kernels),
           "every kernel was launched on a main path")

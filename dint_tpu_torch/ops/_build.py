@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels of `dint_tpu_torch/csrc`.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by nvcc
-for Hopper (``sm_90a``) into its own shared library, loaded with ctypes. No
-PyTorch header is included, so a build takes seconds. The libraries go to
+for Hopper (``sm_90a``) into its own shared library, loaded with ctypes;
+``csrc/*.cuh`` are headers they share. No PyTorch header is included, so a
+build takes seconds. The libraries go to
 ``dint_tpu_torch/_build/`` (listed in .gitignore), named by a hash of the
-source and flags, so an unchanged source is not rebuilt. The build runs at
+source, the ``csrc`` headers it includes and the flags, so an unchanged
+source is not rebuilt. The build runs at
 first use, never at import; `build_all` starts one nvcc per source, all at
 once.
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -29,6 +32,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-lineinfo", "-shared",
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}     # name -> nvcc's output (ptxas -v lines)
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def sources() -> list[str]:
@@ -45,9 +49,25 @@ def nvcc_path() -> str:
                        "nvcc on PATH); the CUDA kernels cannot be built")
 
 
+def _local_headers(src: bytes, seen: list[str]) -> list[str]:
+    """The ``csrc/*.cuh`` headers ``src`` includes, directly or through
+    another such header, in the order first met."""
+    for head in _INCLUDE.findall(src):
+        name = head.decode()
+        if name not in seen and (CSRC_DIR / name).exists():
+            seen.append(name)
+            _local_headers((CSRC_DIR / name).read_bytes(), seen)
+    return seen
+
+
 def _target(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # the local headers it includes too: a change to one rebuilds only its
+    # includers
+    heads = b"".join((CSRC_DIR / h).read_bytes()
+                     for h in _local_headers(src, []))
+    tag = hashlib.sha256(src + heads
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 
 

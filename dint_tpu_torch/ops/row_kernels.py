@@ -33,7 +33,10 @@ _SIGNATURES = {
     "lock_arbitrate": ("dint_lock_arbitrate",
                        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                        ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p]),
+                        ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_void_p]),
+    "lock_arbitrate_grid": ("dint_lock_arbitrate_grid",
+                            [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]),
     "lock_validate": ("dint_lock_validate",
                       [ctypes.c_void_p] * 5 + [ctypes.c_int64]
                       + [ctypes.c_void_p] * 2 + [ctypes.c_int64]
@@ -61,8 +64,10 @@ _SIGNATURES = {
                      ctypes.c_void_p]),
     "scalar_scatter": ("dint_scalar_scatter",
                        [ctypes.c_void_p] * 5
-                       + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                       + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
                           ctypes.c_void_p]),
+    "scalar_scatter_grid": ("dint_scalar_scatter_grid",
+                            [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]),
 }
 
 
@@ -117,6 +122,23 @@ def _same_device(*xs: torch.Tensor) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def _cooperative_grid(cache: dict, name: str, lib: str,
+                      device: torch.device) -> int:
+    """The most blocks a cooperative launch of kernel library ``lib`` may
+    have on ``device`` (its SM count times the blocks an SM holds at once),
+    queried through its C entry ``name`` once per device and kept in
+    ``cache``; raises where the device has no cooperative launch."""
+    blocks = cache.get(device.index)
+    if blocks is None:
+        fn = _kernel(name, device, lib)
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            _launched(fn(device.index, ctypes.byref(out)),
+                      f"{lib} grid query")
+        blocks = cache[device.index] = out.value
+    return blocks
 
 
 # ------------------------------------------------------------- row gather
@@ -191,6 +213,59 @@ def lock_arbitrate_ref(arb, rows, active, step: int, k_arb: int):
     return arb, grant
 
 
+# Threads a block of the lock pass (csrc/lock_pass.cuh), shared by
+# lock_arbitrate and lock_validate.
+LOCK_VALIDATE_THREADS = 256
+# lane positions of each job a thread takes before the grid grows: the
+# grid barrier costs ~5 ns a block on the H100, so blocks without lanes
+# only slow the launch (PERF.md §6)
+LOCK_VALIDATE_LANES_PER_THREAD = 1
+# lock lanes one thread can own at most (the bits of its `cand` word)
+LOCK_VALIDATE_MAX_LOCK_LANES = 64
+
+
+class LockPlan(NamedTuple):
+    """The cooperative launch of the lock pass: ``blocks`` of ``threads``
+    (0 blocks: no launch). Thread tid takes lane positions tid, tid + G,
+    ... of each job, G = blocks * threads."""
+    blocks: int
+    threads: int
+
+
+def lock_pass_plan(lanes: int, m: int, k_arb: int, max_blocks: int,
+                   what: str = "lock_arbitrate") -> LockPlan:
+    """Plan the lock pass over jobs of at most ``lanes`` lanes, ``m`` of
+    them lock lanes: the blocks the lanes need at one position a thread,
+    at most ``max_blocks`` (the cooperative grid the card holds at once),
+    none for no lanes. Raises where M exceeds the ``k_arb``-bit slot field
+    or the lock lanes a thread may own."""
+    if m > (1 << k_arb):
+        raise ValueError(f"{what}: {m} lanes exceed the {k_arb}-bit slot "
+                         f"field")
+    if lanes == 0:
+        return LockPlan(0, LOCK_VALIDATE_THREADS)
+    per_block = LOCK_VALIDATE_THREADS * LOCK_VALIDATE_LANES_PER_THREAD
+    blocks = min(max_blocks, -(-lanes // per_block))
+    threads = blocks * LOCK_VALIDATE_THREADS
+    if m > LOCK_VALIDATE_MAX_LOCK_LANES * threads:
+        raise ValueError(f"{what}: {m} lock lanes exceed the "
+                         f"{LOCK_VALIDATE_MAX_LOCK_LANES * threads} a "
+                         f"{blocks}-block grid holds")
+    return LockPlan(blocks, LOCK_VALIDATE_THREADS)
+
+
+# the most blocks csrc/lock_arbitrate.cu's cooperative grid may have, per
+# device index
+_lock_arbitrate_grid: dict[int, int] = {}
+
+
+def lock_arbitrate_grid(device: torch.device) -> int:
+    """The most blocks lock_arbitrate's cooperative launch may have on
+    ``device``, queried once per device."""
+    return _cooperative_grid(_lock_arbitrate_grid, "lock_arbitrate_grid",
+                             "lock_arbitrate", device)
+
+
 def lock_arbitrate(arb, rows, active, step: int, k_arb: int):
     """First-lane-wins lock arbitration over the step-stamped arb array
     (stamp = ``step << k_arb | (M-1 - lane)``), arb updated in place.
@@ -202,16 +277,20 @@ def lock_arbitrate(arb, rows, active, step: int, k_arb: int):
         grant = cand & (arb[rows] == packed)
 
     Rows must lie in [0, len(arb)); inactive lanes carry a valid sentinel
-    row, as the engine's do."""
+    row, as the engine's do. On the card it is one cooperative launch
+    (`lock_pass_plan`; none when M = 0); a refused launch raises."""
     dev = _check_lock_args(arb, rows, active, step, k_arb)
     if dev.type == "cpu":
         return lock_arbitrate_ref(arb, rows, active, step, k_arb)
     m = rows.numel()
     grant = torch.empty(m, dtype=torch.bool, device=dev)
+    plan = lock_pass_plan(m, m, k_arb, lock_arbitrate_grid(dev))
+    if plan.blocks == 0:
+        return arb, grant
     fn = _kernel("lock_arbitrate", dev)
     _launched(fn(arb.data_ptr(), rows.data_ptr(), active.data_ptr(),
                  grant.data_ptr(), m, arb.numel(), int(step), k_arb,
-                 _stream(dev)), "lock_arbitrate")
+                 plan.blocks, _stream(dev)), "lock_arbitrate")
     lock_arbitrate.launches += 1
     return arb, grant
 
@@ -235,29 +314,14 @@ def lock_validate_ref(arb, meta, vidx, vv1, ridx, rows, active, step: int,
 # device index
 _lock_validate_grid: dict[int, int] = {}
 
-LOCK_VALIDATE_THREADS = 256
-# lane positions of each job a thread takes before the grid grows: the
-# grid barrier costs ~5 ns a block on the H100, so blocks without lanes
-# only slow the launch (PERF.md §6)
-LOCK_VALIDATE_LANES_PER_THREAD = 1
-# lock lanes one thread can own at most (the bits of its `cand` word)
-LOCK_VALIDATE_MAX_LOCK_LANES = 64
-
 
 def lock_validate_grid(device: torch.device) -> int:
     """The most blocks lock_validate's cooperative launch may have on
     ``device``: its SM count times the blocks an SM holds at once.
     Queried once per device; raises where the device has no cooperative
     launch."""
-    blocks = _lock_validate_grid.get(device.index)
-    if blocks is None:
-        fn = _kernel("lock_validate_grid", device, "lock_validate")
-        out = ctypes.c_int(0)
-        with torch.cuda.device(device):
-            _launched(fn(device.index, ctypes.byref(out)),
-                      "lock_validate grid query")
-        blocks = _lock_validate_grid[device.index] = out.value
-    return blocks
+    return _cooperative_grid(_lock_validate_grid, "lock_validate_grid",
+                             "lock_validate", device)
 
 
 def lock_validate(arb, meta, vidx, vv1, ridx, rows, active, step: int,
@@ -289,20 +353,16 @@ def lock_validate(arb, meta, vidx, vv1, ridx, rows, active, step: int,
     vbad = torch.empty(v, dtype=torch.bool, device=dev)
     rmeta = torch.empty(r, dtype=I32, device=dev)
     grant = torch.empty(m, dtype=torch.bool, device=dev)
-    if v == r == m == 0:
+    plan = lock_pass_plan(max(v, r, m), m, k_arb, lock_validate_grid(dev),
+                          "lock_validate")
+    if plan.blocks == 0:
         return arb, grant, vbad, rmeta
-    per_block = LOCK_VALIDATE_THREADS * LOCK_VALIDATE_LANES_PER_THREAD
-    blocks = min(lock_validate_grid(dev), -(-max(v, r, m) // per_block))
-    most = LOCK_VALIDATE_MAX_LOCK_LANES * blocks * LOCK_VALIDATE_THREADS
-    if m > most:
-        raise ValueError(f"lock_validate: {m} lock lanes exceed the "
-                         f"{most} a {blocks}-block grid holds")
     fn = _kernel("lock_validate", dev)
     _launched(fn(arb.data_ptr(), meta.data_ptr(), vidx.data_ptr(),
                  vv1.data_ptr(), vbad.data_ptr(), v, ridx.data_ptr(),
                  rmeta.data_ptr(), r, rows.data_ptr(), active.data_ptr(),
                  grant.data_ptr(), m, meta.numel(), arb.numel(), int(step),
-                 k_arb, blocks, _stream(dev)), "lock_validate")
+                 k_arb, plan.blocks, _stream(dev)), "lock_validate")
     lock_validate.launches += 1
     return arb, grant, vbad, rmeta
 
@@ -631,25 +691,110 @@ def scalar_scatter_ref(tab, idx, val):
     return out
 
 
+SCALAR_SCATTER_THREADS = 512     # threads a block of csrc/scalar_scatter.cu
+
+
+class ScalarScatterPlan(NamedTuple):
+    """The launch of csrc/scalar_scatter.cu: ``blocks`` (0: no launch) and
+    the words of the claim table ``win`` it needs (0 when K = 0: no lane
+    claims)."""
+    blocks: int
+    win_words: int
+
+
+def scalar_scatter_plan(n: int, k: int, max_blocks: int) -> ScalarScatterPlan:
+    """Plan scalar_scatter over a table of ``n`` words and ``k`` lanes:
+    ``max_blocks`` (`scalar_scatter_grid`: one block an SM), but no more
+    blocks than one 16-byte word or one lane a thread needs, at least one
+    (none for an empty table); a claim table of one word per table word,
+    rounded up to a power of two so that a stream's table is regrown
+    seldom."""
+    if n == 0:
+        return ScalarScatterPlan(0, 0)
+    work = -(-max(-(-n // 4), k) // SCALAR_SCATTER_THREADS)
+    blocks = max(1, min(max_blocks, work))
+    return ScalarScatterPlan(blocks, 1 << (n - 1).bit_length() if k else 0)
+
+
+# the most blocks csrc/scalar_scatter.cu's cooperative grid may have, per
+# device index (SMs times blocks an SM holds)
+_scalar_scatter_grid: dict[int, int] = {}
+# the claim table of each (device index, stream) that has called
+# scalar_scatter: all -1 between calls (each call leaves it as it found it)
+_claim_tables: dict[tuple[int, int], torch.Tensor] = {}
+# the tables captured CUDA graphs use, by address: kept when their stream's
+# table is outgrown, since a graph replays the table it captured
+_graph_claim_tables: dict[int, torch.Tensor] = {}
+
+
+def scalar_scatter_grid(device: torch.device) -> int:
+    """scalar_scatter's grid on ``device``: one block an SM, at most the
+    blocks its cooperative launch may have (queried once per device).
+    Measured on the H100 at the probe's shape, this beats the cooperative
+    maximum of three blocks an SM, its half and its quarter: the grid
+    barrier costs more the more blocks it joins, and one block of 512
+    threads an SM keeps enough of the copy's loads in flight (PERF.md
+    §6)."""
+    most = _cooperative_grid(_scalar_scatter_grid, "scalar_scatter_grid",
+                             "scalar_scatter", device)
+    return min(most, torch.cuda.get_device_properties(
+        device).multi_processor_count)
+
+
+def _claim_table(dev: torch.device, stream: int, words: int):
+    """The stream's claim table of at least ``words`` words, allocated
+    cleared (-1) at the first call on the stream and when a call needs a
+    larger one (the smaller is then dropped, unless a graph uses it).
+
+    Never allocated while the stream is being captured into a CUDA graph:
+    the fill would run only inside the graph. A capture therefore needs an
+    eager call on the capture stream first, at this size or larger, and
+    raises without one. Every graph captured on a stream uses that stream's
+    one table, as do the stream's eager calls: replay them one at a time,
+    never two at once."""
+    key = (dev.index, stream)
+    table = _claim_tables.get(key)
+    capturing = dev.type == "cuda" and torch.cuda.is_current_stream_capturing()
+    if table is None or table.numel() < words:
+        if capturing:
+            raise RuntimeError(
+                f"scalar_scatter: no claim table of {words} words for the "
+                f"stream being captured; call scalar_scatter once on that "
+                f"stream, outside the capture, at this table size or larger")
+        table = torch.full((words,), -1, dtype=I32, device=dev)
+        _claim_tables[key] = table
+    if capturing:
+        _graph_claim_tables[table.data_ptr()] = table
+    return table
+
+
 def scalar_scatter(tab, idx, val):
     """The probe's scalar scatter: a new table of ``tab``'s shape, equal
     to ``tab`` with ``val[i]`` stored at flat word ``idx[i]`` for i = 0 ..
     K-1 in order, so that where lanes share an index the last one wins.
     ``idx`` and ``val`` hold K words in any contiguous shape ([K] or the
     probe's [K, 1]); indices must lie in [0, tab.numel()) (asserted on the
-    device)."""
+    device). On the card it is one cooperative launch and nothing else on
+    the stream (`scalar_scatter_plan`); a refused launch raises. To capture
+    it in a CUDA graph, call it once on the capture stream first (see
+    `_claim_table`)."""
     dev = _check_scalar_scatter(tab, idx, val)
     if dev.type == "cpu":
         return scalar_scatter_ref(tab, idx, val)
     n, k = tab.numel(), idx.numel()
-    n_slots = 1 << max(1, (2 * k - 1).bit_length())      # >= 2K slots
+    if n == 0:
+        if k:
+            raise IndexError("scalar_scatter: indices into an empty table")
+        return torch.empty_like(tab)
+    stream = _stream(dev)
+    plan = scalar_scatter_plan(n, k, scalar_scatter_grid(dev))
+    win = (_claim_table(dev, stream, plan.win_words).data_ptr()
+           if plan.win_words else None)
     out = torch.empty_like(tab)
-    # the kernel's slot keys, last lanes and each lane's slot
-    scratch = torch.empty(2 * n_slots + k, dtype=I32, device=dev)
     fn = _kernel("scalar_scatter", dev)
     _launched(fn(tab.data_ptr(), out.data_ptr(), idx.data_ptr(),
-                 val.data_ptr(), scratch.data_ptr(), n, k, n_slots,
-                 _stream(dev)), "scalar_scatter")
+                 val.data_ptr(), win, n, k, plan.blocks, stream),
+              "scalar_scatter")
     scalar_scatter.launches += 1
     return out
 

@@ -414,3 +414,235 @@ def test_scalar_scatter_kernel_matches_plain(cuda, dup):
     want = rk.scalar_scatter_ref(tab, idx, val)
     torch.cuda.synchronize()
     assert got.shape == tab.shape and torch.equal(got, want)
+
+
+def _lock_case(r, cuda, t, n1, m, row_space):
+    """arb (a tenth of the rows held at t-1, a tenth expiring at t-2) and
+    M lock lanes over ``row_space`` rows, a quarter inactive on the
+    sentinel."""
+    arb0 = np.zeros(n1, np.uint32)
+    pick = r.choice(n1 - 1, 2 * (n1 // 10), replace=False)
+    arb0[pick[:n1 // 10]] = np.uint32(((t - 1) << td.K_ARB) | 3)
+    arb0[pick[n1 // 10:]] = np.uint32(((t - 2) << td.K_ARB) | 9)
+    rows = r.integers(0, row_space, m).astype(np.int32)
+    act = r.random(m) < 0.75
+    rows[~act] = n1 - 1
+    return (arb0, torch.from_numpy(rows).to(cuda),
+            torch.from_numpy(act).to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [0, 1, 255, 16_384, 16_385, 1 << 18])
+@pytest.mark.parametrize("t", [5, td.REBASE_AT - 1])
+def test_lock_arbitrate_kernel_lane_counts(cuda, m, t):
+    """One cooperative launch a call (none for M = 0), equal to the plain
+    version from one lane to 2^K_ARB lanes (several lanes a thread)."""
+    r = np.random.default_rng(m + t)
+    arb0, rows, act = _lock_case(r, cuda, t, 300_000, m, 200_000)
+    before = rk.lock_arbitrate.launches
+    got = rk.lock_arbitrate(u32.from_numpy(arb0, cuda), rows, act, t,
+                            td.K_ARB)
+    assert rk.lock_arbitrate.launches == before + (1 if m else 0)
+    want = rk.lock_arbitrate_ref(u32.from_numpy(arb0, cuda), rows, act, t,
+                                 td.K_ARB)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[1].numel() == m
+
+
+@pytest.mark.cuda
+def test_lock_arbitrate_kernel_all_lanes_on_one_row(cuda):
+    arb = torch.zeros(100, dtype=torch.int32, device=cuda)
+    rows = torch.zeros(16_384, dtype=torch.int32, device=cuda)
+    act = torch.ones(16_384, dtype=torch.bool, device=cuda)
+    _, grant = rk.lock_arbitrate(arb, rows, act, 7, td.K_ARB)
+    torch.cuda.synchronize()
+    assert grant.nonzero().flatten().tolist() == [0]   # the first lane wins
+    assert int(arb[0]) == (7 << td.K_ARB) | (16_384 - 1)
+
+
+@pytest.mark.cuda
+def test_lock_arbitrate_cuda_graph_replay(cuda):
+    """One captured call, replayed on fresh inputs copied into the
+    captured buffers, equals an eager call bit for bit."""
+    r = np.random.default_rng(40)
+    t, n1, m = 5, 50_000, 16_384
+    arb0, rows, act = _lock_case(r, cuda, t, n1, m, 4096)
+    arb = u32.from_numpy(arb0, cuda)
+    rk.lock_arbitrate(arb.clone(), rows, act, t, td.K_ARB)   # build, warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rk.lock_arbitrate(arb, rows, act, t, td.K_ARB)
+    arb1, rows1, act1 = _lock_case(r, cuda, t, n1, m, 4096)
+    arb.copy_(u32.from_numpy(arb1, cuda))
+    rows.copy_(rows1)
+    act.copy_(act1)
+    graph.replay()
+    eager = rk.lock_arbitrate(u32.from_numpy(arb1, cuda), rows1, act1, t,
+                              td.K_ARB)
+    want = rk.lock_arbitrate_ref(u32.from_numpy(arb1, cuda), rows1, act1, t,
+                                 td.K_ARB)
+    torch.cuda.synchronize()
+    assert out[0] is arb
+    assert all(torch.equal(a, b) for a, b in zip(out, eager))
+    assert all(torch.equal(a, b) for a, b in zip(out, want))
+    assert bool(out[1].any())
+
+
+def _scatter_case(r, cuda, n, k, pattern):
+    """A table of n random words and K lanes: unique indices, or (pattern
+    1 and 2) half the lanes on 64 indices, at odd or even lanes, and the
+    last three on the table's last word."""
+    tab = _words(r, n, cuda)
+    idx = r.choice(n, k, replace=False)
+    if pattern and k > 3:
+        idx[pattern - 1::2] = idx[r.integers(0, min(64, k), k // 2)]
+        idx[-3:] = n - 1
+    return (tab, torch.from_numpy(idx.astype(np.int32)).to(cuda),
+            _words(r, k, cuda))
+
+
+@pytest.mark.cuda
+def test_scalar_scatter_kernel_calls_in_a_row(cuda):
+    """Calls with different duplicate patterns, one after the other on one
+    stream and one claim table, each equal to the plain version: each call
+    leaves the table clean for the next."""
+    r = np.random.default_rng(50)
+    n, k = 2_200_064, 16_384
+    for pattern in (1, 2, 0, 2, 1):
+        tab, idx, val = _scatter_case(r, cuda, n, k, pattern)
+        got = rk.scalar_scatter(tab, idx, val)
+        torch.cuda.synchronize()
+        assert torch.equal(got, rk.scalar_scatter_ref(tab, idx, val))
+    stream = torch.cuda.current_stream().cuda_stream
+    win = rk._claim_tables[(torch.device("cuda", 0).index, stream)]
+    assert bool((win == -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(4096, 0), (4096, 1), (5, 1), (7, 3),
+                                 (1, 1), (0, 0)])
+def test_scalar_scatter_kernel_small(cuda, n, k):
+    """K = 0 (a plain copy, one launch), K = 1, tables shorter than a
+    16-byte word or not a multiple of it, and the empty table (no
+    launch)."""
+    r = np.random.default_rng(n + k)
+    tab = _words(r, n, cuda)
+    idx = torch.from_numpy(r.integers(0, max(n, 1), k).astype(np.int32)).to(
+        cuda)
+    val = _words(r, k, cuda)
+    before = rk.scalar_scatter.launches
+    got = rk.scalar_scatter(tab, idx, val)
+    assert rk.scalar_scatter.launches == before + (1 if n else 0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rk.scalar_scatter_ref(tab, idx, val))
+
+
+@pytest.mark.cuda
+def test_scalar_scatter_kernel_all_lanes_on_one_index(cuda):
+    r = np.random.default_rng(51)
+    n, k = 2_200_064, 16_384
+    tab = _words(r, n, cuda)
+    idx = torch.full((k,), n - 1, dtype=torch.int32, device=cuda)
+    val = _words(r, k, cuda)
+    got = rk.scalar_scatter(tab, idx, val)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:-1], tab[:-1])
+    assert int(got[-1]) == int(val[-1])                # the last lane wins
+
+
+@pytest.mark.cuda
+def test_scalar_scatter_cuda_graph_replay(cuda):
+    """One captured call, replayed on fresh inputs (another duplicate
+    pattern) copied into the captured buffers, equals an eager call bit
+    for bit. The warm-up call runs on the capture stream, which makes its
+    claim table; the captured graph holds one kernel."""
+    r = np.random.default_rng(52)
+    n, k = 100_000, 4096
+    tab, idx, val = _scatter_case(r, cuda, n, k, 1)
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        rk.scalar_scatter(tab, idx, val)                 # build, warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = rk.scalar_scatter(tab, idx, val)
+    assert _graph_kernels(graph) == 1
+    for pattern in (2, 0):
+        tab1, idx1, val1 = _scatter_case(r, cuda, n, k, pattern)
+        for dst, src in ((tab, tab1), (idx, idx1), (val, val1)):
+            dst.copy_(src)
+        graph.replay()
+        eager = rk.scalar_scatter(tab1, idx1, val1)
+        want = rk.scalar_scatter_ref(tab1, idx1, val1)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager) and torch.equal(out, want)
+
+
+def _graph_kernels(graph):
+    """The kernel nodes of a captured graph: its nodes replayed under
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memset", "Memcpy")))
+
+
+@pytest.mark.cuda
+def test_scalar_scatter_two_graphs_replayed_out_of_order(cuda):
+    """Two graphs captured on one stream, after one eager call there, share
+    the stream's claim table: replayed second first, then first, each
+    equals the plain version, and the table is left clean."""
+    r = np.random.default_rng(54)
+    n, k = 100_000, 4096
+    stream = torch.cuda.Stream()
+    cases = [_scatter_case(r, cuda, n, k, p) for p in (1, 2)]
+    with torch.cuda.stream(stream):
+        rk.scalar_scatter(*cases[0])                     # makes the table
+    torch.cuda.synchronize()
+    graphs, outs = [], []
+    for case in cases:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=stream):
+            outs.append(rk.scalar_scatter(*case))
+        graphs.append(g)
+    for i in (1, 0, 1):
+        graphs[i].replay()
+        torch.cuda.synchronize()
+        assert torch.equal(outs[i], rk.scalar_scatter_ref(*cases[i]))
+    win = rk._claim_tables[(cuda.index or 0, stream.cuda_stream)]
+    assert bool((win == -1).all())
+
+
+@pytest.mark.cuda
+def test_scalar_scatter_capture_needs_a_table(cuda):
+    """Capturing on a stream that has made no call raises, and puts
+    nothing into the graph's stream."""
+    r = np.random.default_rng(55)
+    tab, idx, val = _scatter_case(r, cuda, 100_000, 4096, 1)
+    rk.scalar_scatter(tab, idx, val)                     # build
+    stream = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="outside the capture"):
+        with torch.cuda.graph(graph, stream=stream):
+            rk.scalar_scatter(tab, idx, val)
+
+
+@pytest.mark.cuda
+def test_redesigned_kernels_are_one_launch(cuda):
+    """torch.profiler over one call: B2 and B9 each put one kernel on the
+    stream and no memset or copy."""
+    from dint_tpu_torch.timing import device_events
+    r = np.random.default_rng(53)
+    arb0, rows, act = _lock_case(r, cuda, 5, 50_000, 16_384, 4096)
+    arb = u32.from_numpy(arb0, cuda)
+    tab, idx, val = _scatter_case(r, cuda, 2_200_064, 16_384, 1)
+    for fn in (lambda: rk.lock_arbitrate(arb, rows, act, 5, td.K_ARB),
+               lambda: rk.scalar_scatter(tab, idx, val)):
+        ev = device_events(fn)
+        assert (ev["kernels"], ev["memsets"], ev["copies"]) == (1, 0, 0), ev

@@ -150,6 +150,47 @@ def test_lock_arbitrate_ref_matches_pallas(m, row_space, seed, t):
     assert rk.lock_arbitrate.launches == before
 
 
+def _edge_batch(case, t):
+    """The lock pass at its edges: every lane active on one free row; one
+    lane; lanes on the arb array's last row (held at t-1 for half of them
+    to see, then free) beside lanes on row 0."""
+    n1 = 40
+    arb0 = np.zeros(n1, np.uint32)
+    if case == "one_row":
+        rows = np.zeros(64, np.int32)
+        act = np.ones(64, bool)
+    elif case == "one_lane":
+        rows, act = np.array([3], np.int32), np.array([True])
+        arb0[3] = np.uint32(((t - 2) << jtd.K_ARB) | 11)   # expired
+    else:                                              # "last_row"
+        rows = np.where(np.arange(33) % 2, n1 - 1, 0).astype(np.int32)
+        act = np.ones(33, bool)
+        arb0[0] = np.uint32(((t - 1) << jtd.K_ARB) | 2)    # held
+    return arb0, rows, act
+
+
+@pytest.mark.parametrize("t", [5, jtd.REBASE_AT - 1])
+@pytest.mark.parametrize("case", ["one_row", "one_lane", "last_row"])
+def test_lock_arbitrate_ref_matches_pallas_at_edges(case, t):
+    arb0, rows, act = _edge_batch(case, t)
+    a_p, g_p = pg.lock_arbitrate(jnp.asarray(arb0), jnp.asarray(rows),
+                                 jnp.asarray(act), jnp.asarray(t, U32),
+                                 jtd.K_ARB, True)
+    out, grant = rk.lock_arbitrate(u32.from_numpy(arb0, "cpu"),
+                                   torch.from_numpy(rows),
+                                   torch.from_numpy(act), t, td.K_ARB)
+    assert np.array_equal(u32.to_numpy(out), np.asarray(a_p))
+    assert np.array_equal(grant.numpy(), np.asarray(g_p) != 0)
+    # the first active lane of a free row wins; a held row grants nobody
+    first = {}
+    for lane, row in enumerate(rows):
+        first.setdefault(int(row), lane)
+    held = (arb0 >> td.K_ARB) == t - 1
+    want = [lane == first[int(row)] and not held[row]
+            for lane, row in enumerate(rows)]
+    assert grant.tolist() == want
+
+
 def test_lock_arbitrate_held_rows_not_restamped():
     """Candidates on a held row never stamp it: its t-1 stamp survives."""
     t = 9

@@ -82,6 +82,32 @@ def test_scalar_scatter_ref_matches_pallas_interpret(tool, rows, c, k, dup):
         assert want.reshape(-1)[first] == val[last, 0]
 
 
+@pytest.mark.parametrize("case", ["one_index", "one_lane", "last_word",
+                                  "one_lane_last_word"])
+def test_scalar_scatter_ref_matches_pallas_at_edges(tool, case):
+    """Every lane on one index (the last lane wins), K = 1, and lanes on
+    the table's last word."""
+    r = np.random.default_rng(len(case))
+    rows, c = 2, 128
+    n = rows * c
+    tab = r.integers(0, 1 << 32, (rows, c), dtype=np.uint64).astype(np.uint32)
+    k = 1 if case.startswith("one_lane") else 48
+    idx = {"one_index": np.full(k, 77),
+           "one_lane": np.array([5]),
+           "last_word": np.where(np.arange(k) % 3 == 0, n - 1,
+                                 r.integers(0, n, k)),
+           "one_lane_last_word": np.array([n - 1])}[case]
+    idx = idx.astype(np.int32).reshape(k, 1)
+    val = r.integers(0, 1 << 32, (k, 1), dtype=np.uint64).astype(np.uint32)
+    want = _pallas(tool, tab, idx, val)
+    got = rk.scalar_scatter(from_numpy(tab, "cpu").view(rows, c),
+                            torch.from_numpy(idx),
+                            from_numpy(val, "cpu").view(k, 1))
+    assert np.array_equal(to_numpy(got).reshape(rows, c), want)
+    last = max(i for i in range(k) if idx[i, 0] == idx[-1, 0])
+    assert want.reshape(-1)[idx[-1, 0]] == val[last, 0]
+
+
 def test_scalar_scatter_on_cpu_runs_the_plain_version(monkeypatch):
     tab, idx, val = _case(3, 2, 128, 40, True)
     t = from_numpy(tab, "cpu").view(2, 128)
