@@ -12,20 +12,30 @@ mismatch or error:
 2. Each kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it, exact equality. TATP: gather_rows over a
    meta-sized [154,000,023] table (K = 65,536) and a val-sized table
-   (K = 32,768 word offsets); lock_arbitrate over an [n1] arb array
+   (K = 32,768 word offsets), each alone and as the two streams of one
+   launch, the step's call: timed beside the two single-stream launches in
+   turns and beside two index_select, and one call in a CUDA graph
+   capture and under torch.profiler, which must show one kernel and
+   nothing else on the stream (the profiler where its trace holds any
+   device event);
+   lock_arbitrate over an [n1] arb array
    (M = 16,384) prefilled with t-1, t-2 and 0 stamps, with heavy duplicates
-   and inactive lanes, and one call under torch.profiler, which must show
-   one kernel and nothing else on the stream. SmallBank at 24M accounts
+   and inactive lanes, and one call checked the same way. SmallBank at 24M accounts
    (K = 3w = 24,576 lanes, 90% of them on the 4% hot set): gather_streams
-   over x_step/s_step [2^25] and bal [48,000,001]; scatter_streams into bal, a log-sized
+   over x_step/s_step [2^25] and bal [48,000,001], and the default route's
+   three-stream gather_rows on the same inputs, timed in turns beside three
+   single-stream launches and gather_streams (one kernel a call under the
+   profiler); scatter_streams into bal, a log-sized
    [1,048,576 x 18] table and the [1,920,000] mirror with ~30% of lanes
    masked; gather_rows_hot and scatter_rows_hot over bal with the mirror.
    TATP's other routes: lock_validate (V = R = 32,768, M = 16,384) over the
    meta and arb tables, and at TATP's shapes the hot route's gathers
-   (meta K = 65,536, magic K = 32,768) and installs (meta and val, 16,384
-   lanes) through the 280,000-row mirrors, and the fused install_log
-   scatter_streams (val, meta, log x3 [1,048,576 x 42], and the two
-   mirrors). Times: kernel, plain version, yardstick (torch calls that
+   (meta K = 65,536, magic K = 32,768; each alone, beside gather_rows on
+   the same lanes, and the two as the streams of one launch, timed in turns
+   beside two single-stream launches, one kernel a call) and installs
+   (meta and val, 16,384 lanes) through the 280,000-row mirrors, and the
+   fused install_log scatter_streams (val, meta, log x3 [1,048,576 x 42],
+   and the two mirrors). Times: kernel, plain version, yardstick (torch calls that
    compute the same function), the bytes bound at 3.35 TB/s, and the
    kernel's time over the yardstick's, taken in the same call (the
    figure that compares across calls and cards). The
@@ -34,7 +44,7 @@ mismatch or error:
    edge and duplicate windows) runs inside phase 7, which builds that run.
    The probe's scalar_scatter over its [4297 x 512] table, K = 16,384, on
    unique indices and two duplicate patterns in a row (the last lane wins),
-   timed beside clone + index_put_, and one call under torch.profiler (one
+   timed beside clone + index_put_, and one call checked the same way (one
    kernel, no memset or copy); then the probe's entry point
    (`python -m dint_tpu_torch.profile_scalar_scatter`), counted.
 3. The port on the CPU against the port on the card, end to end, the same
@@ -55,7 +65,8 @@ mismatch or error:
 4. The TATP main path at full width: populate_device at 7,000,000
    subscribers, build_pipelined_runner(w=8192, cohorts_per_block=16,
    val_words=10), one warm block, 8 timed blocks, drain; TATP invariants
-   and launch counts. Its final state is kept for phase 6.
+   and launch counts (one gather_rows launch of two streams and one
+   lock_arbitrate a step). Its final state is kept for phase 6.
 5. The SmallBank main path at full width: create(24,000,000), w=8192, 16
    cohorts/block, 90/4 skew, on the four routes (default, use_hotset,
    use_fused, both) from identical tables and generator seeds: one warm
@@ -89,7 +100,11 @@ mismatch or error:
    split of a round, launches a round, peak memory. Every round's replies
    must equal the store engine's replay of the stream (rtype and ver on
    every lane, val on VAL lanes), the hot run's the WB_BLOOM run's, and
-   after a flush every cached entry the backing store's record.
+   after a flush every cached entry the backing store's record. The hot
+   run also holds its kernel calls against their plain versions on its
+   warm block's own arguments and times them: the one two-stream
+   gather_rows_hot call a round (val and ver, beside the two single-stream
+   launches) and the four scatter_rows_hot calls.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -149,6 +164,27 @@ def device_events(fn):
     (`dint_tpu_torch.timing.device_events`)."""
     from dint_tpu_torch.timing import device_events as events
     return events(fn)
+
+
+def check_one_launch(label, fn):
+    """One call of ``fn`` puts one kernel on the stream and nothing else:
+    counted in a CUDA graph capture of the call
+    (`dint_tpu_torch.timing.captured_nodes`), and under torch.profiler,
+    which must agree whenever its trace holds any device event (on the
+    H100 machine a profile sometimes holds none, PERF.md §7). Returns the
+    profiler's record with the capture's counts under "captured"."""
+    from dint_tpu_torch.timing import captured_nodes
+    cap = captured_nodes(fn)
+    ev = device_events(fn)
+    seen = ev["kernels"] + ev["memsets"] + ev["copies"]
+    check(cap == {"kernels": 1, "memsets": 0, "copies": 0, "other": 0}
+          and (seen == 0 or (ev["kernels"] == 1 and seen == 1)),
+          f"one {label} call is one kernel launch and nothing else on the "
+          f"stream (graph capture: {cap}; torch.profiler: {ev['names']}, "
+          f"{ev['kernel_us']:.3f} us"
+          + ("; the profile held no device event" if seen == 0 else "")
+          + ")")
+    return dict(ev, captured=cap)
 
 
 def bound_ms(n_bytes):
@@ -222,9 +258,10 @@ def phase_kernels(dev):
         r[1::4] = r[dup]
         return r.to(torch.int32)
 
-    # -- gather_rows: the meta gather and the magic-word gather of a step
-    g_ms = g_plain = g_lib = g_bound = 0.0
-    g_err = 0
+    # -- gather_rows: the meta gather and the magic-word gather of a step,
+    # the two streams of one launch (the same draws as the single-stream
+    # rows of earlier versions of this phase, so those stay comparable)
+    tabs, idxs, single = [], [], {}
     for label, n_words, k, scale in (("meta", n1, 2 * W * 4, 1),
                                      ("magic", n1 * VW, W * 4, VW)):
         tab = torch.empty(n_words, dtype=torch.int32,
@@ -233,25 +270,53 @@ def phase_kernels(dev):
         got = rk.gather_rows(tab, idx, 1)
         want = rk.gather_rows_ref(tab, idx, 1)
         torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        check(torch.equal(got, want) and err == 0,
+        check(torch.equal(got, want) and max_abs_err(got, want) == 0,
               f"gather_rows[{label}] K={k} over [{n_words}] equals the plain "
               f"version")
         ms = device_ms(lambda: rk.gather_rows(tab, idx, 1))
-        plain = device_ms(lambda: rk.gather_rows_ref(tab, idx, 1))
         lib = device_ms(lambda: torch.index_select(tab, 0, idx))
         nbytes = 32 * sectors(idx) + 4 * k + 4 * k
-        bnd = bound_ms(nbytes)
-        print(f"  gather_rows[{label}] K={k}: kernel {ms:.6f} ms, plain "
-              f"{plain:.6f} ms, index_select {lib:.6f} ms, bound {bnd:.6f} ms "
+        print(f"  gather_rows[{label}] K={k}, one stream: kernel {ms:.6f} ms, "
+              f"index_select {lib:.6f} ms, bound {bound_ms(nbytes):.6f} ms "
               f"({nbytes} B)")
-        g_ms, g_plain, g_lib, g_bound = (g_ms + ms, g_plain + plain,
-                                         g_lib + lib, g_bound + bnd)
-        g_err = max(g_err, err)
-        del tab, got, want
-        torch.cuda.empty_cache()
-    rec["gather_rows"] = dict(ms=g_ms, plain_ms=g_plain, library_ms=g_lib,
-                              bound_ms=g_bound, max_abs_err=g_err)
+        single[label] = dict(ms=ms, library_ms=lib, bytes=nbytes)
+        tabs.append(tab)
+        idxs.append(idx)
+        del got, want
+    vws = (1, 1)
+    got = rk.gather_rows(tabs, idxs, vws)
+    want = rk.gather_rows_ref(tabs, idxs, vws)
+    torch.cuda.synchronize()
+    g_err = max(max_abs_err(x, y) for x, y in zip(got, want))
+    check(all(torch.equal(x, y) for x, y in zip(got, want)) and g_err == 0,
+          f"gather_rows, meta K={idxs[0].numel()} + magic "
+          f"K={idxs[1].numel()} in one launch, equals the plain version")
+    # the one launch beside the step's former two, in turns
+    pair = [device_ms(lambda: rk.gather_rows(tabs, idxs, vws)),
+            device_ms(lambda: (rk.gather_rows(tabs[0], idxs[0], 1),
+                               rk.gather_rows(tabs[1], idxs[1], 1))),
+            device_ms(lambda: (rk.gather_rows(tabs[0], idxs[0], 1),
+                               rk.gather_rows(tabs[1], idxs[1], 1))),
+            device_ms(lambda: rk.gather_rows(tabs, idxs, vws))]
+    ms = (pair[0] + pair[3]) / 2
+    plain = device_ms(lambda: rk.gather_rows_ref(tabs, idxs, vws))
+    lib = device_ms(lambda: (torch.index_select(tabs[0], 0, idxs[0]),
+                             torch.index_select(tabs[1], 0, idxs[1])))
+    ev = check_one_launch("two-stream gather_rows",
+                          lambda: rk.gather_rows(tabs, idxs, vws))
+    g_bound = bound_ms(sum(v["bytes"] for v in single.values()))
+    print(f"  gather_rows meta + magic, one launch: kernel {ms:.6f} ms, plain "
+          f"{plain:.6f} ms, 2 index_select {lib:.6f} ms, bound "
+          f"{g_bound:.6f} ms; in turns: one launch {pair[0]:.6f}, two "
+          f"launches {pair[1]:.6f}, {pair[2]:.6f}, one launch {pair[3]:.6f}")
+    rec["gather_rows"] = dict(
+        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=g_bound,
+        max_abs_err=g_err, launches_per_call=ev["captured"]["kernels"],
+        two_launches_ms=(pair[1] + pair[2]) / 2, in_turns_ms=pair,
+        single_ms={k: v["ms"] for k, v in single.items()},
+        single_library_ms={k: v["library_ms"] for k, v in single.items()})
+    del tabs, idxs, got, want
+    torch.cuda.empty_cache()
 
     # -- lock_arbitrate: the lock pass of a step (M = 2w write slots)
     m = 2 * W
@@ -308,12 +373,8 @@ def phase_kernels(dev):
                                                     td.K_ARB))
     chain_ms = device_ms(chain)
     check(torch.equal(arb, a_k), "repeated passes leave arb unchanged")
-    ev = device_events(lambda: rk.lock_arbitrate(arb, rows, active, t,
-                                                 td.K_ARB))
-    check(ev["kernels"] == 1 and ev["memsets"] == ev["copies"] == 0,
-          f"one lock_arbitrate call is one kernel launch and nothing else "
-          f"on the stream (torch.profiler: {ev['names']}, "
-          f"{ev['kernel_us']:.3f} us)")
+    ev = check_one_launch("lock_arbitrate", lambda: rk.lock_arbitrate(
+        arb, rows, active, t, td.K_ARB))
     cand_rows = rows[g_k]      # every row a candidate won keeps one stamp
     nbytes = (32 * sectors(rows[active]) + 32 * sectors(cand_rows)
               + m * (4 + 1 + 1))
@@ -324,7 +385,7 @@ def phase_kernels(dev):
     rec["lock_arbitrate"] = dict(ms=ms, plain_ms=plain, library_ms=None,
                                  chain_ms=chain_ms, bound_ms=bnd,
                                  max_abs_err=l_err,
-                                 launches_per_call=ev["kernels"])
+                                 launches_per_call=ev["captured"]["kernels"])
     del arb, arb0, a_k
     torch.cuda.empty_cache()
     return rec
@@ -395,7 +456,8 @@ def phase_main_path(dev):
     run, init, drain = td.build_pipelined_runner(
         N_SUB, w=W, val_words=VW, cohorts_per_block=CPB, device=dev)
     db, stats, launches = drive_tatp(dev, run, init, drain, db)
-    check_tatp(db, stats, launches, {"gather_rows": 2, "lock_arbitrate": 1})
+    # the meta and magic gathers are the two streams of one launch
+    check_tatp(db, stats, launches, {"gather_rows": 1, "lock_arbitrate": 1})
     return launches, db, stats
 
 
@@ -604,6 +666,49 @@ def phase_sb_kernels(dev):
     report("gather_streams", ms, plain, yard, "3 index_select", bnd)
     rec["gather_streams"] = dict(ms=ms, plain_ms=plain, library_ms=None,
                                  yard_ms=yard, bound_ms=bnd, max_abs_err=err)
+
+    # -- gather_rows, three streams: the default route's held-stamp and
+    # balance reads in one launch, on the same inputs as gather_streams
+    idx3 = (a["slot"], a["slot"], a["rows"])
+    got = rk.gather_rows(tabs3, idx3, vws3)
+    want = rk.gather_rows_ref(tabs3, idx3, vws3)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(g, w_) for g, w_ in zip(got, want))
+    check(all(torch.equal(g, w_) for g, w_ in zip(got, want)) and err == 0
+          and all(torch.equal(g, w_) for g, w_ in zip(
+              got, rk.gather_streams(tabs3, idx3, vws3))),
+          f"gather_rows x_step/s_step [{h}] + bal [{m1}], K={k} each, in one "
+          f"launch, equals the plain version and gather_streams")
+    ev = check_one_launch("three-stream gather_rows",
+                          lambda: rk.gather_rows(tabs3, idx3, vws3))
+    turns = [device_ms(rotating(lambda sl, r: rk.gather_rows(
+                 tabs3, (sl, sl, r), vws3), sel)),
+             device_ms(rotating(lambda sl, r: (
+                 rk.gather_rows(x_step, sl, 1), rk.gather_rows(s_step, sl, 1),
+                 rk.gather_rows(bal, r, 1)), sel)),
+             device_ms(rotating(lambda sl, r: rk.gather_streams(
+                 tabs3, (sl, sl, r), vws3), sel)),
+             device_ms(rotating(lambda sl, r: rk.gather_streams(
+                 tabs3, (sl, sl, r), vws3), sel)),
+             device_ms(rotating(lambda sl, r: (
+                 rk.gather_rows(x_step, sl, 1), rk.gather_rows(s_step, sl, 1),
+                 rk.gather_rows(bal, r, 1)), sel)),
+             device_ms(rotating(lambda sl, r: rk.gather_rows(
+                 tabs3, (sl, sl, r), vws3), sel))]
+    ms3 = (turns[0] + turns[5]) / 2
+    plain = device_ms(rotating(lambda sl, r: rk.gather_rows_ref(
+        tabs3, (sl, sl, r), vws3), sel))
+    report("gather_rows 3 streams", ms3, plain, yard, "3 index_select", bnd)
+    print(f"  the default route's three reads, in turns: one gather_rows "
+          f"{turns[0]:.6f} ms, three gather_rows {turns[1]:.6f}, "
+          f"gather_streams {turns[2]:.6f}, gather_streams {turns[3]:.6f}, "
+          f"three gather_rows {turns[4]:.6f}, one gather_rows "
+          f"{turns[5]:.6f}")
+    rec["gather_rows_smallbank"] = dict(
+        ms=ms3, plain_ms=plain, yard_ms=yard, bound_ms=bnd, max_abs_err=err,
+        launches_per_call=ev["captured"]["kernels"],
+        three_launches_ms=(turns[1] + turns[4]) / 2,
+        gather_streams_ms=(turns[2] + turns[3]) / 2, in_turns_ms=turns)
 
     # -- scatter_streams: the fused install_log (bal, log x3, mirror)
     def streams(z):
@@ -880,7 +985,7 @@ def phase_tatp_kernels(dev):
     # its mirror of the hot row prefix
     val = rand_words(n1 * VW)
     hot_meta, hot_val = meta[:hot_n].clone(), val[:hot_n * VW].clone()
-    b6 = {}
+    b6, b6_sets = {}, {}
     for label, tab, mirror, k, scale in (
             ("meta", meta, hot_meta, 2 * v, 1),
             ("magic", val, hot_val, v, VW)):
@@ -888,7 +993,7 @@ def phase_tatp_kernels(dev):
             rows = rand_rows(k)
             idx = rows * scale + (1 if scale > 1 else 0)
             return idx, torch.where(rows < hot_n, idx, -1)
-        sets = [g_set() for _ in range(n_sets)]
+        sets = b6_sets[label] = [g_set() for _ in range(n_sets)]
         got = rk.gather_rows_hot(tab, mirror, *sets[0], 1)
         want = rk.gather_rows_hot_ref(tab, mirror, *sets[0], 1)
         torch.cuda.synchronize()
@@ -911,7 +1016,61 @@ def phase_tatp_kernels(dev):
                 0, mi.clamp(min=0)), tab.index_select(0, i)),
             "where/index_select chain", sets, hot_bytes)
         b6[label]["max_abs_err"] = e
+        # the plain gather on the same lanes, for the hot tier's cost
+        b6[label]["gather_rows_ms"] = device_ms(rotating(
+            lambda i, mi: rk.gather_rows(tab, i, 1), sets))
+        print(f"  gather_rows[{label}] on the same lanes: "
+              f"{b6[label]['gather_rows_ms']:.6f} ms")
     rec["gather_rows_hot"] = per_step(b6)
+
+    # ... and the hot step's two gathers as the two streams of one launch,
+    # beside the two single-stream launches, in turns
+    tabs, mirrors = (meta, val), (hot_meta, hot_val)
+    sets = [(mi, mg) for mi, mg in zip(b6_sets["meta"], b6_sets["magic"])]
+
+    def two(m_, g_):
+        return rk.gather_rows_hot(tabs, mirrors, (m_[0], g_[0]),
+                                  (m_[1], g_[1]), (1, 1))
+
+    def singles(m_, g_):
+        return (rk.gather_rows_hot(meta, hot_meta, *m_, 1),
+                rk.gather_rows_hot(val, hot_val, *g_, 1))
+
+    def chain(m_, g_):
+        return tuple(torch.where(mi >= 0, mr.index_select(0, mi.clamp(
+            min=0)), t.index_select(0, i)) for t, mr, (i, mi) in zip(
+                tabs, mirrors, (m_, g_)))
+    got, want = two(*sets[0]), rk.gather_rows_hot_ref(
+        tabs, mirrors, (sets[0][0][0], sets[0][1][0]),
+        (sets[0][0][1], sets[0][1][1]), (1, 1))
+    torch.cuda.synchronize()
+    e = max(max_abs_err(x, y) for x, y in zip(got, want))
+    check(all(torch.equal(x, y) for x, y in zip(got, want)) and e == 0
+          and all(torch.equal(x, y) for x, y in zip(got, singles(*sets[0]))),
+          f"gather_rows_hot meta K={2 * v} + magic K={v} in one launch "
+          f"equals the plain version and the single-stream calls")
+    ev = check_one_launch("two-stream gather_rows_hot",
+                          lambda: two(*sets[0]))
+    turns = [device_ms(rotating(two, sets)),
+             device_ms(rotating(singles, sets)),
+             device_ms(rotating(singles, sets)),
+             device_ms(rotating(two, sets))]
+    r2 = dict(ms=(turns[0] + turns[3]) / 2,
+              plain_ms=device_ms(rotating(lambda m_, g_: (
+                  rk.gather_rows_hot_ref(meta, hot_meta, *m_, 1),
+                  rk.gather_rows_hot_ref(val, hot_val, *g_, 1)), sets)),
+              yard_ms=device_ms(rotating(chain, sets)),
+              bound_ms=rec["gather_rows_hot"]["bound_ms"], max_abs_err=e,
+              launches_per_call=ev["captured"]["kernels"],
+              two_launches_ms=(turns[1] + turns[2]) / 2, in_turns_ms=turns)
+    print(f"  gather_rows_hot meta + magic, one launch: kernel "
+          f"{r2['ms']:.6f} ms, plain {r2['plain_ms']:.6f} ms, "
+          f"where/index_select chains {r2['yard_ms']:.6f} ms, bound "
+          f"{r2['bound_ms']:.6f} ms; in turns: one launch {turns[0]:.6f}, "
+          f"two launches {turns[1]:.6f}, {turns[2]:.6f}, one launch "
+          f"{turns[3]:.6f}")
+    rec["gather_rows_hot"]["one_launch"] = r2
+    del b6_sets
 
     # -- the commit wave's installs at TATP's shapes (2w write slots):
     # scatter_rows_hot (hot route: meta, then val) and scatter_streams
@@ -1076,8 +1235,10 @@ def phase_smallbank(dev):
     from dint_tpu_torch.engines import smallbank_dense as sd
     from dint_tpu_torch.tables import log as logring
     steps = (TIMED_BLOCKS + 1) * SB_CPB + 1
-    per_step = {"default": {"gather_rows": 3},
-                "hotset": {"gather_rows": 2, "gather_rows_hot": 1,
+    # default: x, s and bal in one launch; hotset (hashed lock table, no
+    # stamp mirrors): x + s in one launch, bal through the mirror
+    per_step = {"default": {"gather_rows": 1},
+                "hotset": {"gather_rows": 1, "gather_rows_hot": 1,
                            "scatter_rows_hot": 1},
                 "fused": {"gather_streams": 1, "scatter_streams": 1},
                 "fused+hotset": {"gather_streams": 1, "scatter_streams": 1}}
@@ -1178,7 +1339,7 @@ def phase_tatp_routes(dev, ref):
           f"cohorts/block, against phase 4's default route")
     from dint_tpu_torch.engines import tatp_dense as td
     ref_db, ref_stats = ref
-    per_step = {"hotset": {"gather_rows_hot": 2, "lock_arbitrate": 1,
+    per_step = {"hotset": {"gather_rows_hot": 1, "lock_arbitrate": 1,
                            "scatter_rows_hot": 2},
                 "fused": {"lock_validate": 1, "gather_rows": 1,
                           "scatter_streams": 1},
@@ -1404,6 +1565,12 @@ def phase_store_cpu_vs_card(dev):
     same("hot route (maintain_bloom, mirror of keys [0, 80))",
          store_point_steps, True)
     hot_launches = launch_counts()       # the card's run only counts
+    want = dict.fromkeys(hot_launches, 0)
+    want.update(gather_rows_hot=3, scatter_rows_hot=6)
+    check(hot_launches == want,
+          f"the hot route's 3 steps launched gather_rows_hot once a step "
+          f"(val and ver, two streams) and scatter_rows_hot twice: "
+          f"{hot_launches}")
     out = same("scan route (stale overlay, refresh)", store_scan_steps)
     stale_rt, fresh_rt = out[9], out[18]       # rtype of steps 2 and 3
     check((stale_rt == Reply.RETRY).any() and (fresh_rt == Reply.VAL).any()
@@ -1790,11 +1957,8 @@ def phase_scalar_scatter(dev):
     ms = device_ms(lambda: rk.scalar_scatter(tab, idx, val))
     plain = device_ms(lambda: rk.scalar_scatter_ref(tab, idx, val))
     lib = device_ms(lambda: pss.index_put_form(tab, idx, val))
-    ev = device_events(lambda: rk.scalar_scatter(tab, idx, val))
-    check(ev["kernels"] == 1 and ev["memsets"] == ev["copies"] == 0,
-          f"one scalar_scatter call is one kernel launch and nothing else "
-          f"on the stream (torch.profiler: {ev['names']}, "
-          f"{ev['kernel_us']:.3f} us)")
+    ev = check_one_launch("scalar_scatter",
+                          lambda: rk.scalar_scatter(tab, idx, val))
     # the table read once and the output written once, idx and val read
     nbytes = 2 * 4 * n + 2 * 4 * k
     bnd = bound_ms(nbytes)
@@ -1803,7 +1967,7 @@ def phase_scalar_scatter(dev):
           f"clone + index_put_ {lib:.6f} ms, bound {bnd:.6f} ms ({nbytes} B; "
           f"{with_sectors:.6f} ms counting the stores' sectors again)")
     rec = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
-               max_abs_err=err, launches_per_call=ev["kernels"])
+               max_abs_err=err, launches_per_call=ev["captured"]["kernels"])
     del tab, dups
     torch.cuda.empty_cache()
 
@@ -1944,10 +2108,14 @@ def capture_hot_calls(calls):
     from dint_tpu_torch.engines import store_cache as sc
     orig = sc.gather_rows_hot, sc.scatter_rows_hot
 
-    def gather(tab, mirror, idx, midx, vw):
-        calls.setdefault(("cache_step", "gather_rows_hot", vw), []).append(
-            (idx.clone(), midx.clone()))
-        return orig[0](tab, mirror, idx, midx, vw)
+    def gather(tabs, mirrors, idxs, midxs, vws):
+        if tuple(vws) != (VW, 1):
+            raise SmokeFailure(f"cache_step gathers val and ver in one "
+                               f"call, not vws {vws}")
+        calls.setdefault(("cache_step", "gather_rows_hot", "val+ver"),
+                         []).append((tuple(i.clone() for i in idxs),
+                                     tuple(m.clone() for m in midxs)))
+        return orig[0](tabs, mirrors, idxs, midxs, vws)
 
     def scatter(tab, mirror, idx, midx, mask, vals, vw):
         site = sys._getframe(1).f_code.co_name       # cache_step or refill
@@ -1975,43 +2143,67 @@ def hot_kernels_at_cache_shapes(cache, calls):
     lanes = torch.arange(CT_W, device=t.val.device)
     parts = {"gather_rows_hot": {}, "scatter_rows_hot": {}}
     check(sorted(calls) == sorted(
-        [("cache_step", "gather_rows_hot", w) for w in (VW, 1)]
+        [("cache_step", "gather_rows_hot", "val+ver")]
         + [(s, "scatter_rows_hot", w) for s in ("cache_step", "refill")
            for w in (VW, 1)])
           and all(len(v) == CT_ROUNDS for v in calls.values()),
           f"the warm block ran each hot kernel call site once a round: "
           f"{ {k: len(v) for k, v in sorted(calls.items())} }")
     for (site, name, vw), sets in sorted(calls.items()):
-        tab, mirror = tabs[vw]
-        k = sets[0][0].numel()
-        label = f"{name}[{site}, vw={vw}] K={k}"
         if name == "gather_rows_hot":
-            got = rk.gather_rows_hot(tab, mirror, *sets[0], vw)
-            want = rk.gather_rows_hot_ref(tab, mirror, *sets[0], vw)
+            # val (vw = VW) and ver (vw = 1) of the same lanes, one launch
+            tabs2 = (t.val, t.ver)
+            mirrors2 = (cache.hot_val, cache.hot_ver)
+            vws2 = (VW, 1)
+            k = sets[0][0][0].numel()
+            label = f"{name}[{site}, val + ver] K={k}"
+            got = rk.gather_rows_hot(tabs2, mirrors2, *sets[0], vws2)
+            want = rk.gather_rows_hot_ref(tabs2, mirrors2, *sets[0], vws2)
             torch.cuda.synchronize()
-            err = max_abs_err(got, want)
-            check(torch.equal(got, want) and err == 0,
-                  f"{label} over [{tab.numel()}] + mirror [{mirror.numel()}], "
-                  f"{int((sets[0][1] >= 0).sum())} lanes hot, equals the "
+            err = max(max_abs_err(x, y) for x, y in zip(got, want))
+            check(all(torch.equal(x, y) for x, y in zip(got, want))
+                  and err == 0,
+                  f"{label} over [{t.val.numel()}] + mirror "
+                  f"[{cache.hot_val.numel()}] and [{t.ver.numel()}] + "
+                  f"[{cache.hot_ver.numel()}], "
+                  f"{int((sets[0][1][0] >= 0).sum())} lanes hot, equals the "
                   f"plain version")
+            ev = check_one_launch(label, lambda: rk.gather_rows_hot(
+                tabs2, mirrors2, *sets[0], vws2))
 
-            def g_bytes(idx, midx, vw=vw):
-                hot = midx >= 0
-                return (32 * (sectors(words_of(idx[~hot], vw))
-                              + sectors(words_of(midx[hot], vw))
-                              + sectors(lanes[:k][~hot])) + 4 * k * (1 + vw))
+            def g_bytes(idxs, midxs):
+                # the two streams share their lanes: idx (read on cold
+                # lanes) and midx count once
+                hot = midxs[0] >= 0
+                return 32 * sectors(lanes[:k][~hot]) + 4 * k + sum(
+                    32 * (sectors(words_of(idxs[0][~hot], w))
+                          + sectors(words_of(midxs[0][hot], w))) + 4 * k * w
+                    for w in vws2)
 
-            def chain(i, mi, tab=tab, mirror=mirror, vw=vw):
-                return torch.where((mi >= 0)[:, None], mirror.view(
-                    -1, vw).index_select(0, mi.clamp(min=0)),
-                    tab.view(-1, vw).index_select(0, i))
+            def chain(idxs, midxs):
+                return tuple(torch.where((mi >= 0)[:, None], mr.view(
+                    -1, w).index_select(0, mi.clamp(min=0)), tb.view(
+                        -1, w).index_select(0, i)) for tb, mr, i, mi, w in
+                    zip(tabs2, mirrors2, idxs, midxs, vws2))
+
+            def singles(idxs, midxs):
+                return tuple(rk.gather_rows_hot(tb, mr, i, mi, w) for
+                             tb, mr, i, mi, w in zip(tabs2, mirrors2, idxs,
+                                                     midxs, vws2))
             row = timed_row(
-                label, lambda i, mi, tab=tab, mirror=mirror, vw=vw:
-                rk.gather_rows_hot(tab, mirror, i, mi, vw),
-                lambda i, mi, tab=tab, mirror=mirror, vw=vw:
-                rk.gather_rows_hot_ref(tab, mirror, i, mi, vw),
-                chain, "where/index_select chain", sets, g_bytes)
+                label, lambda i, mi: rk.gather_rows_hot(
+                    tabs2, mirrors2, i, mi, vws2),
+                lambda i, mi: rk.gather_rows_hot_ref(tabs2, mirrors2, i, mi,
+                                                     vws2),
+                chain, "where/index_select chains", sets, g_bytes)
+            row["two_launches_ms"] = device_ms(rotating(singles, sets))
+            row["launches_per_call"] = ev["captured"]["kernels"]
+            print(f"  {label}: the two single-stream launches "
+                  f"{row['two_launches_ms']:.6f} ms")
         else:
+            tab, mirror = tabs[vw]
+            k = sets[0][0].numel()
+            label = f"{name}[{site}, vw={vw}] K={k}"
             tk, mk = tab.clone(), mirror.clone()
             tr, mr = tab.clone(), mirror.clone()
             rk.scatter_rows_hot(tk, mk, *sets[0], vw)
@@ -2209,11 +2401,11 @@ def phase_cache(dev):
           "the runs without the hot tier launch no hand kernel")
     rounds = CT_TIMED * CT_ROUNDS
     hot = paths["wb_bloom+hot"]
-    check(hot["gather_rows_hot"] == 2 * rounds
+    check(hot["gather_rows_hot"] == rounds
           and hot["scatter_rows_hot"] == 4 * rounds,
-          f"the hot-tier run launched gather_rows_hot twice a round (val, "
-          f"ver) and scatter_rows_hot four times (write-back and refill, "
-          f"val and ver): {hot}")
+          f"the hot-tier run launched gather_rows_hot once a round (val and "
+          f"ver, two streams) and scatter_rows_hot four times (write-back "
+          f"and refill, val and ver): {hot}")
     print(f"  phase 8 seconds: {time.perf_counter() - t_phase:.3f}")
     return {"cache hot": hot}, hot_rec
 
@@ -2295,6 +2487,8 @@ def main() -> int:
                "launches_by_path": paths}
         if name in tatp_rec:     # the same kernel at TATP's shapes
             row["tatp_shapes"] = tatp_rec[name]
+        if name == "gather_rows":   # SmallBank's three-stream call
+            row["smallbank_shapes"] = rec["gather_rows_smallbank"]
         if name in cache_rec:    # and at the cache tier's (phase 8)
             row["cache_shapes"] = cache_rec[name]
         if "yard_ms" in r:     # the same call's yardstick: comparable
@@ -2304,7 +2498,7 @@ def main() -> int:
             row["torch_chain_ms"] = r["yard_ms"]
         if name == "scan_rows":
             row["index_select_yardstick_ms"] = r["yard_ms"]
-        if "launches_per_call" in r:   # torch.profiler over one call
+        if "launches_per_call" in r:   # a graph capture of one call
             row["launches_per_call"] = r["launches_per_call"]
         kernels.append(row)
     check(all(k["launches"] > 0 for k in kernels),

@@ -28,11 +28,13 @@ The design is the JAX module's (its docstring has the full argument):
 Routes (static per runner), each bit-identical to the JAX XLA route:
 
 * default: the JAX ``use_pallas`` route. The held-stamp reads and the
-  balance read run the `gather_rows` kernel; the install and the log
-  append are plain torch writes.
+  balance read are the three streams of one `gather_rows` launch; the
+  install and the log append are plain torch writes.
 * ``use_hotset``: the balance read runs `gather_rows_hot` and the install
-  `scatter_rows_hot` (the write-through); in the exact lock regime the
-  held-stamp reads run `gather_rows_hot` over the stamp mirrors too.
+  `scatter_rows_hot` (the write-through). The held-stamp reads are one
+  two-stream `gather_rows` launch; in the exact lock regime they read the
+  stamp mirrors instead, as two streams of the balance read's
+  `gather_rows_hot` launch.
 * ``use_fused``: the held-stamp reads and the balance read are the three
   streams of one `gather_streams` launch, over the main arrays even with
   the hot tier on; the install, the log x3 append and (hot tier) the
@@ -301,11 +303,20 @@ def pipe_step(db: DenseBank, c1: BankCtx, bits, ts_amt, *, w: int,
         hx, hs, raw_bal = gather_streams((db.x_step, db.s_step, db.bal),
                                          (slot, slot, flat_rows), (1, 1, 1))
     elif stamp_hot:
-        hx = gather_rows_hot(db.x_step, db.hot_x, slot, midx, 1)
-        hs = gather_rows_hot(db.s_step, db.hot_s, slot, midx, 1)
+        # the held-stamp reads and the balance read as the three streams
+        # of one launch: only the stamp writes below come between them,
+        # and those write x_step/s_step (and their mirrors), never bal
+        hx, hs, raw_bal = gather_rows_hot(
+            (db.x_step, db.s_step, db.bal), (db.hot_x, db.hot_s, db.hot_bal),
+            (slot, slot, flat_rows), (midx, midx, midx), (1, 1, 1))
+    elif use_hotset:
+        # hashed lock regime: no stamp mirrors, so the stamps come from one
+        # plain launch and the balances from the mirror below
+        hx, hs = gather_rows((db.x_step, db.s_step), (slot, slot), (1, 1))
     else:
-        hx = gather_rows(db.x_step, slot, 1)
-        hs = gather_rows(db.s_step, slot, 1)
+        # the three reads in one launch, as above
+        hx, hs, raw_bal = gather_rows((db.x_step, db.s_step, db.bal),
+                                      (slot, slot, flat_rows), (1, 1, 1))
 
     # per-slot first X / first S lane; lanes without such a request go to
     # the drop slot h
@@ -335,11 +346,8 @@ def pipe_step(db: DenseBank, c1: BankCtx, bits, ts_amt, *, w: int,
     lead = l_op[:, 0] != 0
     alive = ~lock_rejected & lead
 
-    if not use_fused:
-        if use_hotset:
-            raw_bal = gather_rows_hot(db.bal, db.hot_bal, flat_rows, midx, 1)
-        else:
-            raw_bal = gather_rows(db.bal, flat_rows, 1)
+    if use_hotset and not use_fused and not stamp_hot:
+        raw_bal = gather_rows_hot(db.bal, db.hot_bal, flat_rows, midx, 1)
     bal = torch.where(granted, raw_bal.view(w, L), 0)
 
     nw, do, logic_abort, commit, committed = compute_phase(ttype, bal, alive,

@@ -19,8 +19,9 @@ What differs from JAX:
   val and ver back, so the five installs share that one filter. With
   ``maintain_bloom``, the bloom words take two more.
 * The port always takes JAX's ``use_pallas`` route: the scan window runs
-  the `scan_rows` kernel, and with ``hot`` the val/ver reads and installs
-  run `gather_rows_hot` and `scatter_rows_hot`.
+  the `scan_rows` kernel, and with ``hot`` the val/ver reads run as the
+  two streams of one `gather_rows_hot` launch and the installs run
+  `scatter_rows_hot`.
 * `build_serve_runner` takes the cohort draws from outside the step, and
   its ``use_scan`` is a plain boolean (JAX reads DINT_USE_SCAN for None).
   The block-end `refresh` reads ``stale`` on the host: one sync a block.
@@ -116,9 +117,11 @@ def step(table: kv.KVTable, batch: Batch, *, maintain_bloom: bool = False,
             table, sb.key_hi, sb.key_lo, b1, b2)
         eidx0 = fbkt * s + slot0
         kmidx = _hot_idx(sb.key_hi, sb.key_lo, hot.hot_n)
-        val0 = gather_rows_hot(table.val, hot.val, eidx0, kmidx,
-                               vw).view(r, vw)
-        ver0 = gather_rows_hot(table.ver, hot.ver, eidx0, kmidx, 1)
+        # val and ver of the same lanes as the two streams of one launch
+        val0, ver0 = gather_rows_hot((table.val, table.ver),
+                                     (hot.val, hot.ver), (eidx0, eidx0),
+                                     (kmidx, kmidx), (vw, 1))
+        val0 = val0.view(r, vw)
     # insert destination: the emptier of the two candidate buckets
     dest = torch.where(free2 > free1, b2, b1)
     bkt = torch.where(hit0, fbkt, dest)

@@ -32,9 +32,10 @@ What differs from JAX:
   its val and ver back), in `refill` the one lane a bucket that may
   install, whose record-less lanes write the entry back and set only the
   bloom word.
-* With the hot tier the val/ver reads run `gather_rows_hot` and the
-  write-back and refill installs `scatter_rows_hot` (the kernels on a CUDA
-  tensor); JAX's refill takes its XLA form there, with the same output.
+* With the hot tier the val/ver reads are the two streams of one
+  `gather_rows_hot` launch, and the write-back and refill installs run
+  `scatter_rows_hot` (the kernels on a CUDA tensor); JAX's refill takes
+  its XLA form there, with the same output.
   There is no ``use_pallas`` argument.
 """
 from __future__ import annotations
@@ -140,9 +141,11 @@ def cache_step(cache: CacheTable, batch: Batch, *, policy: str = WB_BLOOM):
         # the hot partition: hot keys' val/ver from the mirror
         hit0, slot0, eidx0 = _probe1_loc(t, sb.key_hi, sb.key_lo, bkt)
         kmidx = _hot_idx(sb.key_hi, sb.key_lo, hn)
-        val0 = gather_rows_hot(t.val, cache.hot_val, eidx0, kmidx,
-                               vw).view(r, vw)
-        ver0 = gather_rows_hot(t.ver, cache.hot_ver, eidx0, kmidx, 1)
+        # val and ver of the same lanes as the two streams of one launch
+        val0, ver0 = gather_rows_hot((t.val, t.ver),
+                                     (cache.hot_val, cache.hot_ver),
+                                     (eidx0, eidx0), (kmidx, kmidx), (vw, 1))
+        val0 = val0.view(r, vw)
     else:
         hit0, slot0, val0, ver0 = _probe1(t, sb.key_hi, sb.key_lo, bkt)
 

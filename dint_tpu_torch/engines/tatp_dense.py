@@ -21,11 +21,12 @@ The design is the JAX module's (its docstring has the full argument):
 Routes (static per runner, `ROUTES`), each bit-identical to the JAX XLA
 route:
 
-* default: the fused meta gather and the magic-word gather run the
-  `gather_rows` kernel, the lock pass the `lock_arbitrate` kernel; the
-  install and the log append are plain torch writes.
-* ``use_hotset``: both gathers run `gather_rows_hot` over the mirrors and
-  the install runs `scatter_rows_hot` (meta, then val) to write through.
+* default: the fused meta gather and the magic-word gather are the two
+  streams of one `gather_rows` launch, the lock pass the `lock_arbitrate`
+  kernel; the install and the log append are plain torch writes.
+* ``use_hotset``: both gathers are the two streams of one
+  `gather_rows_hot` launch over the mirrors, and the install runs
+  `scatter_rows_hot` (meta, then val) to write through.
 * ``use_fused``: the validate re-read, the new cohort's meta read and the
   lock pass are one `lock_validate` launch (over the main meta table even
   with the hot tier on); the install, the log x3 append and (hot tier)
@@ -441,6 +442,14 @@ def pipe_step(db: DenseDB, c1: DenseCtx, c2: DenseCtx, bits, payload, *,
         # which the lock kernels update in place
         held = u32.shr(db.arb.index_select(0, flat_ws), K_ARB) == t - 1
 
+    # the magic check reads word 1 of each row the new cohort reads:
+    # pre-scaled flat word offsets, gathered with vw = 1
+    if check_magic:
+        midx = (rows * val_words + 1).reshape(-1)
+        # the mirror is the flat word prefix [0, hn*VW): a hot row's magic
+        # word sits at the same flat offset in it
+        mg_midx = (torch.where((rows < hn).reshape(-1), midx, -1)
+                   if use_hotset else None)
     if use_fused:
         # c1's validate re-read, the new cohort's meta read and the lock
         # pass in one launch; it reads meta after the installs above
@@ -449,15 +458,31 @@ def pipe_step(db: DenseDB, c1: DenseCtx, c2: DenseCtx, bits, payload, *,
             rows.reshape(-1), flat_ws, active, t, K_ARB)
         rmeta = rmeta.view(w, K)
         bad = c1.is_read & vbad.view(w, K)
+        if check_magic:
+            rmagic = (gather_rows_hot(db.val, db.hot_val, midx, mg_midx, 1)
+                      if use_hotset else gather_rows(db.val, midx, 1))
     else:
         # ONE meta gather serves wave 2 (c1's validate re-read) AND wave 1
-        # (the new cohort's reads)
+        # (the new cohort's reads); the magic gather is the second stream
+        # of its launch (both read after the installs above, and nothing
+        # between them writes meta or val)
         gidx = torch.cat([c1.rows.reshape(-1), rows.reshape(-1)])
+        tabs, idxs = [db.meta], [gidx]
+        if check_magic:
+            tabs.append(db.val)
+            idxs.append(midx)
+        vws = (1,) * len(tabs)
         if use_hotset:
             g_midx = torch.where(gidx < hn, gidx, -1)
-            g = gather_rows_hot(db.meta, db.hot_meta, gidx, g_midx, 1)
+            mirrors, midxs = [db.hot_meta], [g_midx]
+            if check_magic:
+                mirrors.append(db.hot_val)
+                midxs.append(mg_midx)
+            g, *rest = gather_rows_hot(tabs, mirrors, idxs, midxs, vws)
         else:
-            g = gather_rows(db.meta, gidx, 1)
+            g, *rest = gather_rows(tabs, idxs, vws)
+        if check_magic:
+            rmagic, = rest
         vvB = g[: w * K].view(w, K)
         rmeta = g[w * K:].view(w, K)
         bad = c1.is_read & (vvB != c1.vv1)
@@ -473,14 +498,6 @@ def pipe_step(db: DenseDB, c1: DenseCtx, c2: DenseCtx, bits, payload, *,
 
     rex = (rmeta & 1) != 0
     if check_magic:
-        midx = (rows * val_words + 1).reshape(-1)
-        if use_hotset:
-            # the mirror is the flat word prefix [0, hn*VW): a hot row's
-            # magic word sits at the same flat offset in it
-            mg_midx = torch.where((rows < hn).reshape(-1), midx, -1)
-            rmagic = gather_rows_hot(db.val, db.hot_val, midx, mg_midx, 1)
-        else:
-            rmagic = gather_rows(db.val, midx, 1)
         magic_bad = (is_read & rex & (rmagic.view(w, K) != MAGIC)).sum(
             dtype=I32)
     else:

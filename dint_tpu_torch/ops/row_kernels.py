@@ -27,9 +27,7 @@ I32 = torch.int32
 
 _SIGNATURES = {
     "gather_rows": ("dint_gather_rows",
-                    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                     ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                     ctypes.c_void_p]),
+                    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]),
     "lock_arbitrate": ("dint_lock_arbitrate",
                        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
@@ -51,9 +49,7 @@ _SIGNATURES = {
     "scatter_streams": ("dint_scatter_streams",
                         [ctypes.c_void_p, ctypes.c_void_p]),
     "gather_rows_hot": ("dint_gather_rows_hot",
-                        [ctypes.c_void_p] * 5
-                        + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                           ctypes.c_int, ctypes.c_void_p]),
+                        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]),
     "scatter_rows_hot": ("dint_scatter_rows_hot",
                          [ctypes.c_void_p] * 6
                          + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
@@ -142,33 +138,226 @@ def _cooperative_grid(cache: dict, name: str, lib: str,
 
 
 # ------------------------------------------------------------- row gather
+#
+# gather_rows (B1) and gather_rows_hot (B6) share one device pass,
+# csrc/gather_pass.cuh, over a launch planned here (`gather_plan`). Each
+# takes one stream (tensors, returns a tensor) or a tuple of up to
+# MAX_STREAMS streams (returns a tuple), one launch either way.
+
+MAX_STREAMS = 8
+# Threads a block of csrc/gather_pass.cuh (its kThreads). With 2 lanes a
+# thread at vw = 1, the fastest of {128, 256} threads x {1, 2, 4} lanes
+# summed over the main paths' calls on the H100 (PERF.md §6).
+GATHER_THREADS = 128
+GATHER_MAX_GROUP = 16       # most threads that share a row at vw > 1
+# The stream capacities of csrc/gather_pass.cuh's launch argument: a call
+# takes the smallest that holds its streams (a smaller parameter block
+# launches faster).
+GATHER_CAPACITIES = (1, 2, 4, MAX_STREAMS)
 
 
-def gather_rows_ref(tab: torch.Tensor, idx: torch.Tensor, vw: int = 1):
-    """Plain version: ``tab.view(-1, vw)[idx].reshape(-1)``; raises on an
-    out-of-range index."""
-    return tab.view(-1, vw).index_select(0, idx).reshape(-1)
+def _make_gather_struct(cap: int):
+    """The by-value launch argument of csrc/gather_pass.cuh for ``cap``
+    streams (its GatherPlan<cap>: 88, 160, 312 or 616 bytes): per stream
+    the table, the mirror (null without), the indices, the mirror indices
+    (null without), the output, the table's and the mirror's rows, K, vw,
+    the vector width, log2 of the threads that share a row; the streams'
+    first blocks and their number."""
+    class _GatherPlan(ctypes.Structure):
+        _fields_ = [("tab", ctypes.c_void_p * cap),
+                    ("mirror", ctypes.c_void_p * cap),
+                    ("idx", ctypes.c_void_p * cap),
+                    ("midx", ctypes.c_void_p * cap),
+                    ("out", ctypes.c_void_p * cap),
+                    ("n_rows", ctypes.c_int64 * cap),
+                    ("n_mirror_rows", ctypes.c_int64 * cap),
+                    ("k", ctypes.c_int32 * cap),
+                    ("vw", ctypes.c_int32 * cap),
+                    ("vec", ctypes.c_int32 * cap),
+                    ("tpr_log2", ctypes.c_int32 * cap),
+                    ("first_block", ctypes.c_uint32 * (cap + 1)),
+                    ("n_streams", ctypes.c_int32)]
+    return _GatherPlan
 
 
-def gather_rows(tab: torch.Tensor, idx: torch.Tensor, vw: int = 1):
+_GATHER_STRUCTS = {cap: _make_gather_struct(cap) for cap in GATHER_CAPACITIES}
+
+
+class GatherPlan(NamedTuple):
+    """The launch plan of csrc/gather_pass.cuh, per stream: ``vec`` (at
+    vw = 1 the lanes a thread takes, 2 or 1, else the words a load moves,
+    4, 2 or 1), ``group`` threads that share a row (1 at vw = 1),
+    ``blocks``, and the exclusive prefix ``first_block`` of the blocks
+    (one entry more than the streams; the last is the launch's total)."""
+    vec: tuple
+    group: tuple
+    blocks: tuple
+    first_block: tuple
+
+    @property
+    def total(self) -> int:
+        return self.first_block[-1]
+
+
+def gather_plan(ks, vws, aligns) -> GatherPlan:
+    """Plan the gather pass's one launch for streams of ``ks[s]`` lanes of
+    ``vws[s]``-word rows. ``aligns[s]``: the bytes to which the pointers
+    the stream's vector accesses touch are aligned (`gather_alignment`).
+
+    vw = 1: a thread takes 2 lanes where the pointers are 8-byte aligned,
+    else 1; stream s gets ceil(ceil(K_s / lanes) / GATHER_THREADS)
+    blocks. vw > 1: a load moves 4 words where vw % 4 == 0 and the
+    pointers are 16-byte aligned, 2 where vw is even and they are 8-byte
+    aligned, else 1; a row is taken by the smallest power of two of
+    threads, at most GATHER_MAX_GROUP, that covers its loads;
+    ceil(K_s * group / GATHER_THREADS) blocks. An empty stream gets none.
+    Raises for no or more than MAX_STREAMS streams, and where K * vw or
+    the stream's threads reach 2^31 (the kernel's 32-bit index
+    arithmetic)."""
+    n = len(ks)
+    if not 1 <= n <= MAX_STREAMS or len(vws) != n or len(aligns) != n:
+        raise ValueError(f"gather_plan: {n} streams ({len(vws)} vws, "
+                         f"{len(aligns)} aligns); 1 to {MAX_STREAMS} "
+                         f"allowed")
+    vec, group, blocks = [], [], []
+    for k, vw, al in zip(ks, vws, aligns):
+        if k * vw >= 1 << 31:
+            raise ValueError(f"gather_plan: {k} lanes of vw={vw} reach "
+                             f"2^31 words")
+        if vw == 1:
+            v = 2 if al % 8 == 0 else 1
+            g = 1
+            threads = -(-k // v)
+        else:
+            v = 4 if vw % 4 == 0 and al % 16 == 0 else (
+                2 if vw % 2 == 0 and al % 8 == 0 else 1)
+            loads = vw // v
+            g = min(1 << max(0, (loads - 1).bit_length()), GATHER_MAX_GROUP)
+            threads = k * g
+        if threads >= 1 << 31:
+            raise ValueError(f"gather_plan: {k} lanes of vw={vw} need "
+                             f"{threads} threads")
+        vec.append(v)
+        group.append(g)
+        blocks.append(-(-threads // GATHER_THREADS))
+    first = [0]
+    for b in blocks:
+        first.append(first[-1] + b)
+    return GatherPlan(tuple(vec), tuple(group), tuple(blocks), tuple(first))
+
+
+def gather_alignment(vw: int, tab, mirror, idx, midx, out) -> int:
+    """The alignment (`alignment`) of the pointers a stream's vector
+    accesses touch: at vw = 1 the index, mirror index and output arrays
+    (a thread's lanes), at vw > 1 the table, mirror and output rows.
+    ``mirror``/``midx`` may be None."""
+    if vw == 1:
+        ts = (idx, midx, out)
+    else:
+        ts = (tab, mirror, out)
+    return alignment(*(t.data_ptr() for t in ts if t is not None))
+
+
+def _check_gather(what, tabs, mirrors, idxs, midxs, vws):
+    """Check the streams of a gather call; returns (device, the tables'
+    rows, the mirrors' rows or None)."""
+    n = len(vws)
+    if not 1 <= n <= MAX_STREAMS:
+        raise ValueError(f"{what}: {n} streams; 1 to {MAX_STREAMS} allowed")
+    if len(tabs) != n or len(idxs) != n or (
+            mirrors is not None and (len(mirrors) != n or len(midxs) != n)):
+        raise ValueError(f"{what}: streams disagree in number")
+    n_rows, n_mirror = [], []
+    for s in range(n):
+        _check(tabs[s], f"{what} tabs[{s}]")
+        _check(idxs[s], f"{what} idxs[{s}]")
+        n_rows.append(_rows(tabs[s], vws[s], f"{what} stream {s}"))
+        if mirrors is not None:
+            _check(mirrors[s], f"{what} mirrors[{s}]")
+            _check(midxs[s], f"{what} midxs[{s}]")
+            if midxs[s].numel() != idxs[s].numel():
+                raise ValueError(f"{what} stream {s}: {idxs[s].numel()} idx "
+                                 f"but {midxs[s].numel()} midx lanes")
+            n_mirror.append(_rows(mirrors[s], vws[s],
+                                  f"{what} stream {s} mirror"))
+    dev = _same_device(*tabs, *idxs, *(mirrors or ()), *(midxs or ()))
+    return dev, n_rows, (n_mirror if mirrors is not None else None)
+
+
+def _gather(fn, tabs, mirrors, idxs, midxs, vws):
+    """The gather pass on the card: one launch of `gather_plan` over the
+    streams (none when every stream is empty), counted on ``fn``. Returns
+    the tuple of outputs."""
+    what = fn.__name__
+    dev, n_rows, n_mirror = _check_gather(what, tabs, mirrors, idxs, midxs,
+                                          vws)
+    if dev.type == "cpu":
+        return _gather_ref(tabs, mirrors, idxs, midxs, vws)
+    ks = [i.numel() for i in idxs]
+    outs = tuple(torch.empty(k * vw, dtype=I32, device=dev)
+                 for k, vw in zip(ks, vws))
+    hot = mirrors is not None
+    plan = gather_plan(ks, vws, [
+        gather_alignment(vw, tab, mirrors[s] if hot else None, idx,
+                         midxs[s] if hot else None, out)
+        for s, (tab, idx, out, vw) in enumerate(zip(tabs, idxs, outs, vws))])
+    if plan.total == 0:
+        return outs
+    cap = next(c for c in GATHER_CAPACITIES if c >= len(vws))
+    a = _GATHER_STRUCTS[cap]()
+    for s, (tab, idx, out, vw) in enumerate(zip(tabs, idxs, outs, vws)):
+        a.tab[s], a.idx[s], a.out[s] = (tab.data_ptr(), idx.data_ptr(),
+                                        out.data_ptr())
+        if hot:
+            a.mirror[s], a.midx[s] = mirrors[s].data_ptr(), midxs[s].data_ptr()
+            a.n_mirror_rows[s] = n_mirror[s]
+        a.n_rows[s], a.k[s], a.vw[s] = n_rows[s], ks[s], vw
+        a.vec[s] = plan.vec[s]
+        a.tpr_log2[s] = plan.group[s].bit_length() - 1
+    a.first_block[:len(plan.first_block)] = plan.first_block
+    a.n_streams = len(vws)
+    _launched(_kernel(what, dev)(ctypes.addressof(a), cap, _stream(dev)),
+              what)
+    fn.launches += 1
+    return outs
+
+
+def _gather_ref(tabs, mirrors, idxs, midxs, vws):
+    if mirrors is None:
+        return tuple(tab.view(-1, vw).index_select(0, idx).reshape(-1)
+                     for tab, idx, vw in zip(tabs, idxs, vws))
+    return tuple(_hot_ref(*z) for z in zip(tabs, mirrors, idxs, midxs, vws))
+
+
+def _streams(tab, idx, vw, *rest):
+    """(single call?, the arguments as tuples of streams)."""
+    if isinstance(tab, torch.Tensor):
+        return True, ((tab,), (idx,), (int(vw),), *((r,) for r in rest))
+    return False, (tuple(tab), tuple(idx), tuple(int(v) for v in vw),
+                   *(tuple(r) for r in rest))
+
+
+def gather_rows_ref(tab, idx, vw=1):
+    """Plain version: ``tab.view(-1, vw)[idx].reshape(-1)`` per stream, in
+    `gather_rows`' forms; raises on an out-of-range index."""
+    single, (tabs, idxs, vws) = _streams(tab, idx, vw)
+    out = _gather_ref(tabs, None, idxs, None, vws)
+    return out[0] if single else out
+
+
+def gather_rows(tab, idx, vw=1):
     """K rows of ``vw`` words from the flat table ``tab`` (row r at
     [r*vw, (r+1)*vw)): returns i32 [K*vw]. Indices must lie in
     [0, len(tab)/vw); the kernel asserts it on the device. Callers that
     need one word at an offset inside wider rows pass pre-scaled flat word
-    indices with vw=1 (the magic check's ``rows*VW + 1``)."""
-    _check(tab, "gather_rows tab")
-    _check(idx, "gather_rows idx")
-    _rows(tab, vw, "gather_rows")
-    dev = _same_device(tab, idx)
-    if dev.type == "cpu":
-        return gather_rows_ref(tab, idx, vw)
-    k = idx.numel()
-    out = torch.empty(k * vw, dtype=I32, device=dev)
-    fn = _kernel("gather_rows", dev)
-    _launched(fn(tab.data_ptr(), idx.data_ptr(), out.data_ptr(), k,
-                 tab.numel() // vw, vw, _stream(dev)), "gather_rows")
-    gather_rows.launches += 1
-    return out
+    indices with vw=1 (the magic check's ``rows*VW + 1``).
+
+    Several streams: ``gather_rows(tabs, idxs, vws)`` with tuples of up to
+    MAX_STREAMS tables, index arrays and row widths returns the tuple of
+    each stream's gather. One kernel launch a call either way."""
+    single, (tabs, idxs, vws) = _streams(tab, idx, vw)
+    out = _gather(gather_rows, tabs, None, idxs, None, vws)
+    return out[0] if single else out
 
 
 gather_rows.launches = 0
@@ -372,8 +561,6 @@ lock_validate.launches = 0
 
 # ------------------------------------------------------------ row streams
 
-MAX_STREAMS = 8
-
 
 class _StreamArgs(ctypes.Structure):
     """The by-value launch argument of csrc/gather_streams.cu: per stream
@@ -416,9 +603,8 @@ def _stream_args(tabs, idxs, datas, vws) -> _StreamArgs:
 
 
 def gather_streams_ref(tabs, idxs, vws):
-    """Plain version: one `gather_rows_ref` per stream."""
-    return tuple(gather_rows_ref(t, i, vw) for t, i, vw in zip(tabs, idxs,
-                                                                vws))
+    """Plain version: `gather_rows_ref`'s tuple form."""
+    return gather_rows_ref(tuple(tabs), tuple(idxs), tuple(vws))
 
 
 def gather_streams(tabs, idxs, vws):
@@ -580,33 +766,36 @@ def _check_hot(what, tab, mirror, idx, midx, vw):
     return _rows(tab, vw, what), _rows(mirror, vw, f"{what} mirror")
 
 
-def gather_rows_hot_ref(tab, mirror, idx, midx, vw: int = 1):
-    """Plain version: the mirror row where ``midx >= 0``, else the table
-    row (a hot lane's ``idx`` is not read)."""
+def _hot_ref(tab, mirror, idx, midx, vw):
     hot = midx >= 0
     cold = tab.view(-1, vw).index_select(0, torch.where(hot, 0, idx))
     warm = mirror.view(-1, vw).index_select(0, midx.clamp(min=0))
     return torch.where(hot[:, None], warm, cold).reshape(-1)
 
 
-def gather_rows_hot(tab, mirror, idx, midx, vw: int = 1):
+def gather_rows_hot_ref(tab, mirror, idx, midx, vw=1):
+    """Plain version, in `gather_rows_hot`'s forms: the mirror row where
+    ``midx >= 0``, else the table row (a hot lane's ``idx`` is not read)."""
+    single, (tabs, idxs, vws, mirrors, midxs) = _streams(tab, idx, vw,
+                                                         mirror, midx)
+    out = _gather_ref(tabs, mirrors, idxs, midxs, vws)
+    return out[0] if single else out
+
+
+def gather_rows_hot(tab, mirror, idx, midx, vw=1):
     """The hot tier's partitioned gather: row ``midx[i]`` of ``mirror``
     where ``midx[i] >= 0``, else row ``idx[i]`` of ``tab`` (rows of ``vw``
     words). Returns i32 [K*vw], equal to ``gather_rows(tab, idx, vw)``
-    whenever the mirror mirrors the table."""
-    n_rows, n_mirror = _check_hot("gather_rows_hot", tab, mirror, idx, midx,
-                                  vw)
-    dev = _same_device(tab, mirror, idx, midx)
-    if dev.type == "cpu":
-        return gather_rows_hot_ref(tab, mirror, idx, midx, vw)
-    k = idx.numel()
-    out = torch.empty(k * vw, dtype=I32, device=dev)
-    fn = _kernel("gather_rows_hot", dev)
-    _launched(fn(tab.data_ptr(), mirror.data_ptr(), idx.data_ptr(),
-                 midx.data_ptr(), out.data_ptr(), k, n_rows, n_mirror, vw,
-                 _stream(dev)), "gather_rows_hot")
-    gather_rows_hot.launches += 1
-    return out
+    whenever the mirror mirrors the table. A hot lane's ``idx`` addresses
+    nothing and may hold anything.
+
+    Several streams: ``gather_rows_hot(tabs, mirrors, idxs, midxs, vws)``
+    with tuples of up to MAX_STREAMS of each returns the tuple of each
+    stream's gather. One kernel launch a call either way."""
+    single, (tabs, idxs, vws, mirrors, midxs) = _streams(tab, idx, vw,
+                                                         mirror, midx)
+    out = _gather(gather_rows_hot, tabs, mirrors, idxs, midxs, vws)
+    return out[0] if single else out
 
 
 gather_rows_hot.launches = 0

@@ -14,6 +14,7 @@ from dint_tpu_torch.engines import tatp_dense as td
 from dint_tpu_torch.ops import row_kernels as rk
 from dint_tpu_torch.ops import scan_kernels as sk
 from dint_tpu_torch.ops import u32
+from dint_tpu_torch.timing import captured_nodes, device_events, graph_nodes
 
 
 @pytest.fixture
@@ -582,15 +583,11 @@ def test_scalar_scatter_cuda_graph_replay(cuda):
 
 def _graph_kernels(graph):
     """The kernel nodes of a captured graph: its nodes replayed under
-    torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    torch.profiler (`timing.profiled_device_events`)."""
+    from dint_tpu_torch.timing import profiled_device_events
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        graph.replay()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not e.name.startswith(("Memset", "Memcpy")))
+    ev = profiled_device_events(graph.replay)
+    return sum(1 for e in ev if not e.name.startswith(("Memset", "Memcpy")))
 
 
 @pytest.mark.cuda
@@ -635,14 +632,163 @@ def test_scalar_scatter_capture_needs_a_table(cuda):
 
 @pytest.mark.cuda
 def test_redesigned_kernels_are_one_launch(cuda):
-    """torch.profiler over one call: B2 and B9 each put one kernel on the
-    stream and no memset or copy."""
-    from dint_tpu_torch.timing import device_events
+    """One call of B2 and of B9 each puts one kernel on the stream and no
+    memset or copy: in a CUDA graph capture of the call, and under
+    torch.profiler whenever its trace holds a device event."""
     r = np.random.default_rng(53)
     arb0, rows, act = _lock_case(r, cuda, 5, 50_000, 16_384, 4096)
     arb = u32.from_numpy(arb0, cuda)
     tab, idx, val = _scatter_case(r, cuda, 2_200_064, 16_384, 1)
     for fn in (lambda: rk.lock_arbitrate(arb, rows, act, 5, td.K_ARB),
                lambda: rk.scalar_scatter(tab, idx, val)):
+        assert captured_nodes(fn) == {"kernels": 1, "memsets": 0,
+                                      "copies": 0, "other": 0}
         ev = device_events(fn)
-        assert (ev["kernels"], ev["memsets"], ev["copies"]) == (1, 0, 0), ev
+        seen = (ev["kernels"], ev["memsets"], ev["copies"])
+        assert seen in ((1, 0, 0), (0, 0, 0)), ev
+
+
+# ------------------------------------------ the gather pass (B1 and B6)
+
+
+def _gather_streams_case(r, cuda, n_streams, offset):
+    """``n_streams`` streams over tables of n rows: vw cycling 1, 10, 1, 3,
+    stream 1 empty (when there are two or more), duplicate indices and the
+    last row on every 7th lane, K not a multiple of 4; stream 0's indices
+    an offset view of ``offset`` words (16-, 4- or 8-byte aligned), and
+    for vw > 1 the last stream's table an offset view too."""
+    n = 3000
+    vws = [(1, 10, 1, 3)[s % 4] for s in range(n_streams)]
+    ks = [0 if s == 1 else 1001 + 97 * s for s in range(n_streams)]
+    tabs, idxs = [], []
+    for s, (vw, k) in enumerate(zip(vws, ks)):
+        big = _words(r, n * vw + 8, cuda)
+        tabs.append(big[offset * (s == n_streams - 1):][:n * vw])
+        i = r.integers(0, n, k + 8).astype(np.int32)
+        i[::7] = n - 1
+        i[1::5] = i[0]
+        i = torch.from_numpy(i).to(cuda)
+        idxs.append(i[offset:offset + k] if s == 0 else i[:k])
+    return tabs, idxs, vws
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2])
+@pytest.mark.parametrize("n_streams", range(1, 9))
+def test_gather_rows_tuple_kernel_matches_plain(cuda, n_streams, offset):
+    r = np.random.default_rng(100 + 3 * n_streams + offset)
+    tabs, idxs, vws = _gather_streams_case(r, cuda, n_streams, offset)
+    before = rk.gather_rows.launches
+    got = rk.gather_rows(tabs, idxs, vws)
+    assert rk.gather_rows.launches == before + 1
+    want = rk.gather_rows_ref(tabs, idxs, vws)
+    torch.cuda.synchronize()
+    assert len(got) == n_streams
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    if n_streams > 1:
+        assert got[1].numel() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2])
+@pytest.mark.parametrize("n_streams", range(1, 9))
+def test_gather_rows_hot_tuple_kernel_matches_plain(cuda, n_streams,
+                                                    offset):
+    """Mirrors unlike their tables (a hot lane must read the mirror), and
+    every hot lane's idx out of range: nothing may read it."""
+    r = np.random.default_rng(200 + 3 * n_streams + offset)
+    tabs, idxs, vws = _gather_streams_case(r, cuda, n_streams, offset)
+    hot = 400
+    mirrors = [_words(r, hot * vw + 4, cuda)[offset:][:hot * vw]
+               for vw in vws]
+    midxs, cold_idxs = [], []
+    for i in idxs:
+        m = torch.where(i < hot, i, -1)
+        midxs.append(m)
+        cold_idxs.append(torch.where(m >= 0, 10**9, i))
+    before = rk.gather_rows_hot.launches
+    got = rk.gather_rows_hot(tabs, mirrors, cold_idxs, midxs, vws)
+    assert rk.gather_rows_hot.launches == before + 1
+    want = rk.gather_rows_hot_ref(tabs, mirrors, cold_idxs, midxs, vws)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert any(bool((m >= 0).any()) for m in midxs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [0, 1, 2, 3, 4, 5, 255, 1023, 1025])
+def test_gather_pass_small_k(cuda, k):
+    """K around the lanes a thread and the rows a block, one stream of
+    each width; K = 0 launches nothing."""
+    r = np.random.default_rng(300 + k)
+    n = 500
+    for vw in (1, 2, 10, 42):
+        tab = _words(r, n * vw, cuda)
+        idx = torch.from_numpy(r.integers(0, n, k).astype(np.int32)).to(cuda)
+        before = rk.gather_rows.launches
+        got = rk.gather_rows(tab, idx, vw)
+        assert rk.gather_rows.launches == before + (1 if k else 0)
+        assert torch.equal(got, rk.gather_rows_ref(tab, idx, vw))
+
+
+@pytest.mark.cuda
+def test_gather_pass_cuda_graph_replay(cuda):
+    """A two-stream gather_rows and gather_rows_hot call captured in one
+    graph and replayed on fresh indices copied into the captured buffers
+    equal eager calls bit for bit."""
+    r = np.random.default_rng(310)
+    n, hot, k = 5000, 300, 4096
+    tabs = (_words(r, n * 10, cuda), _words(r, n, cuda))
+    mirrors = (_words(r, hot * 10, cuda), _words(r, hot, cuda))
+
+    def fresh():
+        i = torch.from_numpy(r.integers(0, n, k).astype(np.int32)).to(cuda)
+        return i, torch.where(i < hot, i, -1)
+    idx, midx = fresh()
+    args = (tabs, (idx, idx), (10, 1))
+    hargs = (tabs, mirrors, (idx, idx), (midx, midx), (10, 1))
+    rk.gather_rows(*args)                               # build and warm up
+    rk.gather_rows_hot(*hargs)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        out = rk.gather_rows(*args)
+        hout = rk.gather_rows_hot(*hargs)
+    idx2, midx2 = fresh()
+    idx.copy_(idx2)
+    midx.copy_(midx2)
+    graph.replay()
+    eager = rk.gather_rows(tabs, (idx2, idx2), (10, 1))
+    heager = rk.gather_rows_hot(tabs, mirrors, (idx2, idx2), (midx2, midx2),
+                                (10, 1))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, eager))
+    assert all(torch.equal(a, b) for a, b in zip(hout, heager))
+    assert all(torch.equal(a, b) for a, b in zip(
+        out, rk.gather_rows_ref(tabs, (idx2, idx2), (10, 1))))
+    assert all(torch.equal(a, b) for a, b in zip(
+        hout, rk.gather_rows_hot_ref(tabs, mirrors, (idx2, idx2),
+                                     (midx2, midx2), (10, 1))))
+    assert graph_nodes(graph) == {"kernels": 2, "memsets": 0, "copies": 0,
+                                  "other": 0}
+
+
+@pytest.mark.cuda
+def test_gather_pass_is_one_launch(cuda):
+    """One tuple call of each form puts one kernel on the stream and no
+    memset or copy: in a CUDA graph capture of the call, and under
+    torch.profiler whenever its trace holds a device event."""
+    r = np.random.default_rng(311)
+    n, hot = 100_000, 4000
+    tabs = (_words(r, n, cuda), _words(r, n * 10, cuda), _words(r, n, cuda))
+    mirrors = tuple(t[:hot * vw] .clone() for t, vw in zip(tabs, (1, 10, 1)))
+    idx = torch.from_numpy(r.integers(0, n, 24_576).astype(np.int32)).to(cuda)
+    midx = torch.where(idx < hot, idx, -1)
+    for fn in (lambda: rk.gather_rows(tabs, (idx,) * 3, (1, 10, 1)),
+               lambda: rk.gather_rows_hot(tabs, mirrors, (idx,) * 3,
+                                          (midx,) * 3, (1, 10, 1))):
+        assert captured_nodes(fn) == {"kernels": 1, "memsets": 0,
+                                      "copies": 0, "other": 0}
+        ev = device_events(fn)
+        seen = (ev["kernels"], ev["memsets"], ev["copies"])
+        assert seen in ((1, 0, 0), (0, 0, 0)), ev

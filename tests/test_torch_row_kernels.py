@@ -82,6 +82,46 @@ def test_gather_rows_rejects_bad_arguments():
         rk.gather_rows(tab, torch.tensor([40], dtype=torch.int32), 1)
 
 
+@pytest.mark.parametrize("case", ["tatp", "smallbank", "mixed", "eight"])
+def test_gather_rows_tuple_matches_pallas(case):
+    """The tuple form: each stream equals the Pallas kernel (interpret
+    mode) on that stream alone, and the plain tuple form; an empty stream
+    gives an empty output."""
+    r = np.random.default_rng(len(case))
+    streams = {
+        # the TATP step: meta rows and pre-scaled magic-word offsets
+        "tatp": [(300, 1, 96), (300 * 10, 1, 48)],
+        # the SmallBank step: x and s stamps by slot, balances by row
+        "smallbank": [(64, 1, 90), (64, 1, 90), (201, 1, 90)],
+        "mixed": [(100, 10, 33), (50, 1, 0), (37, 3, 41), (20, 18, 7)],
+        "eight": [(40 + s, (1, 10, 2, 3)[s % 4], 5 + 11 * s)
+                  for s in range(8)],
+    }[case]
+    tabs = [_table(r, n, vw) for n, vw, _ in streams]
+    idxs = []
+    for n, _, k in streams:
+        i = r.integers(0, n, k).astype(np.int32)
+        i[::7] = n - 1                   # sentinel lanes
+        i[1::5] = i[0] if k else 0       # duplicates
+        idxs.append(i)
+    vws = tuple(vw for _, vw, _ in streams)
+    tt = tuple(u32.from_numpy(t, "cpu") for t in tabs)
+    ti = tuple(torch.from_numpy(i) for i in idxs)
+    before = rk.gather_rows.launches
+    got = rk.gather_rows(tt, ti, vws)
+    assert rk.gather_rows.launches == before     # CPU: no kernel launched
+    ref = rk.gather_rows_ref(tt, ti, vws)
+    assert isinstance(got, tuple) and len(got) == len(ref) == len(streams)
+    for s, (tab, idx, vw) in enumerate(zip(tabs, idxs, vws)):
+        assert torch.equal(got[s], ref[s])
+        if idx.size == 0:
+            assert got[s].numel() == 0
+            continue
+        want = np.asarray(pg.gather_rows(jnp.asarray(tab), jnp.asarray(idx),
+                                         vw, True))
+        assert np.array_equal(u32.to_numpy(got[s]), want), s
+
+
 # --------------------------------------------------------- lock_arbitrate
 
 
@@ -467,6 +507,58 @@ def test_gather_rows_hot_does_not_read_hot_lanes_idx():
                              torch.tensor([10**6, 3], dtype=torch.int32),
                              torch.tensor([1, -1], dtype=torch.int32), 1)
     assert got.tolist() == [71, 3]
+
+
+@pytest.mark.parametrize("case", ["tatp", "smallbank_exact", "store"])
+def test_gather_rows_hot_tuple_matches_pallas(case):
+    """The tuple form of the hot gather: each stream equals the Pallas
+    kernel (interpret mode) on that stream alone, and the plain tuple
+    form. Mirrors unlike their tables, so that a hot lane must read the
+    mirror; one hot lane per stream holds an out-of-range idx, which
+    nothing may read."""
+    r = np.random.default_rng(len(case) + 100)
+    streams = {
+        # meta rows and magic-word offsets through their prefix mirrors
+        "tatp": [(300, 24, 1, 96), (3000, 240, 1, 48)],
+        # the exact lock regime: x and s stamps and balances
+        "smallbank_exact": [(64, 12, 1, 90), (64, 12, 1, 90),
+                            (201, 12, 1, 90)],
+        # the store's val (vw = 10) and ver of the same lanes
+        "store": [(128, 20, 10, 64), (128, 20, 1, 64)],
+    }[case]
+    tabs = [_words(r, n * vw) for n, _, vw, _ in streams]
+    mirrors = [_words(r, hot * vw) for _, hot, vw, _ in streams]
+    idxs, midxs, rows = [], [], []
+    for s, (n, hot, vw, k) in enumerate(streams):
+        i = r.integers(0, n, k).astype(np.int32)
+        if case == "store" and s == 1:
+            i = rows[0]                  # the same lanes as val
+        rows.append(i)
+        m = np.where(i < hot, i, -1).astype(np.int32)
+        i = i.copy()
+        hot_lanes = np.nonzero(m >= 0)[0]
+        assert hot_lanes.size
+        i[hot_lanes[0]] = n + 10**6      # never read: the lane is hot
+        idxs.append(i)
+        midxs.append(m)
+    vws = tuple(vw for _, _, vw, _ in streams)
+    targs = [tuple(u32.from_numpy(a, "cpu") for a in tabs),
+             tuple(u32.from_numpy(a, "cpu") for a in mirrors),
+             tuple(torch.from_numpy(a) for a in idxs),
+             tuple(torch.from_numpy(a) for a in midxs)]
+    before = rk.gather_rows_hot.launches
+    got = rk.gather_rows_hot(*targs, vws)
+    assert rk.gather_rows_hot.launches == before
+    ref = rk.gather_rows_hot_ref(*targs, vws)
+    assert isinstance(got, tuple) and len(got) == len(streams)
+    for s in range(len(streams)):
+        want = np.asarray(pg.gather_rows_hot(
+            *[jnp.asarray(a[s]) for a in (tabs, mirrors, idxs, midxs)],
+            vws[s], True))
+        assert torch.equal(got[s], ref[s])
+        assert np.array_equal(u32.to_numpy(got[s]), want), s
+        single = rk.gather_rows_hot(*(a[s] for a in targs), vws[s])
+        assert torch.equal(single, got[s])
 
 
 # ------------------------------------------------------ scatter_rows_hot
