@@ -20,8 +20,8 @@ What differs from JAX:
   ``maintain_bloom``, the bloom words take two more.
 * The port always takes JAX's ``use_pallas`` route: the scan window runs
   the `scan_rows` kernel, and with ``hot`` the val/ver reads run as the
-  two streams of one `gather_rows_hot` launch and the installs run
-  `scatter_rows_hot`.
+  two streams of one `gather_rows_hot` launch and the installs the two
+  streams of one `scatter_rows_hot` launch.
 * `build_serve_runner` takes the cohort draws from outside the step, and
   its ``use_scan`` is a plain boolean (JAX reads DINT_USE_SCAN for None).
   The block-end `refresh` reads ``stale`` on the host: one sync a block.
@@ -227,9 +227,9 @@ def step(table: kv.KVTable, batch: Batch, *, maintain_bloom: bool = False,
         # write-through: table entry and key-indexed mirror. A deleting
         # lane's e_all is its own slot, so the mask alone filters it
         w_midx = _hot_idx(o_khi, o_klo, hot.hot_n, wv)
-        scatter_rows_hot(table.val, hot.val, e_all, w_midx, wv,
-                         o_val.reshape(-1), vw)
-        scatter_rows_hot(table.ver, hot.ver, e_all, w_midx, wv, o_ver, 1)
+        scatter_rows_hot((table.val, table.ver), (hot.val, hot.ver),
+                         (e_all, e_all), (w_midx, w_midx), (wv, wv),
+                         (o_val.reshape(-1), o_ver), (vw, 1))
     table.key_hi[e] = torch.where(wv_k, o_khi[keep], table.key_hi[e])
     table.key_lo[e] = torch.where(wv_k, o_klo[keep], table.key_lo[e])
     if maintain_bloom:

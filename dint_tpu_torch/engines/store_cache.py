@@ -33,9 +33,9 @@ What differs from JAX:
   install, whose record-less lanes write the entry back and set only the
   bloom word.
 * With the hot tier the val/ver reads are the two streams of one
-  `gather_rows_hot` launch, and the write-back and refill installs run
-  `scatter_rows_hot` (the kernels on a CUDA tensor); JAX's refill takes
-  its XLA form there, with the same output.
+  `gather_rows_hot` launch, and the write-back and refill installs each
+  the two streams of one `scatter_rows_hot` launch (the kernels on a CUDA
+  tensor); JAX's refill takes its XLA form there, with the same output.
   There is no ``use_pallas`` argument.
 """
 from __future__ import annotations
@@ -206,10 +206,9 @@ def cache_step(cache: CacheTable, batch: Batch, *, policy: str = WB_BLOOM):
             # write-through to the mirror: one writer per key segment, so
             # distinct entries and distinct key ids
             w_midx = torch.where(writer & (kmidx >= 0), kmidx, -1)
-            scatter_rows_hot(t.val, cache.hot_val, e0, w_midx, writer,
-                             new_val.reshape(-1), vw)
-            scatter_rows_hot(t.ver, cache.hot_ver, e0, w_midx, writer,
-                             new_ver, 1)
+            scatter_rows_hot((t.val, t.ver), (cache.hot_val, cache.hot_ver),
+                             (e0, e0), (w_midx, w_midx), (writer, writer),
+                             (new_val.reshape(-1), new_ver), (vw, 1))
         else:
             val2d = t.val.view(-1, vw)
             val2d[e] = torch.where(wk[:, None], new_val[keep], val2d[e])
@@ -264,9 +263,9 @@ def refill(cache: CacheTable, key_hi, key_lo, val, ver, bloom_hi, bloom_lo,
         # write-through to the mirror; one install a bucket and host-deduped
         # keys keep both index sets unique
         midx = _hot_idx(key_hi, key_lo, cache.hot_n, has_rec)
-        scatter_rows_hot(t.val, cache.hot_val, e_vic, midx, has_rec,
-                         val.reshape(-1), vw)
-        scatter_rows_hot(t.ver, cache.hot_ver, e_vic, midx, has_rec, ver, 1)
+        scatter_rows_hot((t.val, t.ver), (cache.hot_val, cache.hot_ver),
+                         (e_vic, e_vic), (midx, midx), (has_rec, has_rec),
+                         (val.reshape(-1), ver), (vw, 1))
     else:
         val2d = t.val.view(-1, vw)
         val2d[e] = torch.where(hr[:, None], val[k], val2d[e])

@@ -25,8 +25,8 @@ route:
   streams of one `gather_rows` launch, the lock pass the `lock_arbitrate`
   kernel; the install and the log append are plain torch writes.
 * ``use_hotset``: both gathers are the two streams of one
-  `gather_rows_hot` launch over the mirrors, and the install runs
-  `scatter_rows_hot` (meta, then val) to write through.
+  `gather_rows_hot` launch over the mirrors, and the install writes
+  through with the meta and val streams of one `scatter_rows_hot` launch.
 * ``use_fused``: the validate re-read, the new cohort's meta read and the
   lock pass are one `lock_validate` launch (over the main meta table even
   with the hot tier on); the install, the log x3 append and (hot tier)
@@ -394,10 +394,10 @@ def pipe_step(db: DenseDB, c1: DenseCtx, c2: DenseCtx, bits, payload, *,
         db.log.head = u32.wrap_i32(u32.to_u64(db.log.head) + lane_counts)
     else:
         if use_hotset:
-            scatter_rows_hot(db.meta, db.hot_meta, wsr, w_midx, wmask,
-                             meta_new, 1)
-            scatter_rows_hot(db.val, db.hot_val, wsr, w_midx, wmask,
-                             newval.reshape(-1), val_words)
+            # meta and val: two streams of one launch on the same lanes
+            scatter_rows_hot((db.meta, db.val), (db.hot_meta, db.hot_val),
+                             (wsr, wsr), (w_midx, w_midx), (wmask, wmask),
+                             (meta_new, newval.reshape(-1)), (1, val_words))
         else:
             keep = torch.nonzero(wmask).squeeze(1)
             wrows = wsr[keep].to(torch.int64)

@@ -47,13 +47,11 @@ _SIGNATURES = {
     "gather_streams": ("dint_gather_streams",
                        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]),
     "scatter_streams": ("dint_scatter_streams",
-                        [ctypes.c_void_p, ctypes.c_void_p]),
+                        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]),
     "gather_rows_hot": ("dint_gather_rows_hot",
                         [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]),
     "scatter_rows_hot": ("dint_scatter_rows_hot",
-                         [ctypes.c_void_p] * 6
-                         + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                            ctypes.c_int, ctypes.c_void_p]),
+                         [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]),
     "scan_rows": ("dint_scan_rows",
                   [ctypes.c_void_p] * 9
                   + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
@@ -137,58 +135,65 @@ def _cooperative_grid(cache: dict, name: str, lib: str,
     return blocks
 
 
-# ------------------------------------------------------------- row gather
+# --------------------------------------------------------------- row passes
 #
-# gather_rows (B1) and gather_rows_hot (B6) share one device pass,
-# csrc/gather_pass.cuh, over a launch planned here (`gather_plan`). Each
-# takes one stream (tensors, returns a tensor) or a tuple of up to
-# MAX_STREAMS streams (returns a tuple), one launch either way.
+# gather_rows (B1), gather_rows_hot (B6) and gather_streams (B5) share one
+# device pass, csrc/gather_pass.cuh; scatter_streams (B3) and
+# scatter_rows_hot (B7) share another, csrc/scatter_pass.cuh. Both are
+# launched over a plan made here (`gather_plan`, `scatter_plan`): one flat
+# grid in which each stream owns its own blocks, up to MAX_STREAMS streams
+# a launch. gather_rows, gather_rows_hot and scatter_rows_hot take one
+# stream (tensors) or a tuple of streams, one launch either way.
 
 MAX_STREAMS = 8
+# The stream capacities of both passes' launch arguments: a call takes the
+# smallest that holds its streams (a smaller parameter block launches
+# faster).
+CAPACITIES = (1, 2, 4, MAX_STREAMS)
 # Threads a block of csrc/gather_pass.cuh (its kThreads). With 2 lanes a
 # thread at vw = 1, the fastest of {128, 256} threads x {1, 2, 4} lanes
 # summed over the main paths' calls on the H100 (PERF.md §6).
 GATHER_THREADS = 128
 GATHER_MAX_GROUP = 16       # most threads that share a row at vw > 1
-# The stream capacities of csrc/gather_pass.cuh's launch argument: a call
-# takes the smallest that holds its streams (a smaller parameter block
-# launches faster).
-GATHER_CAPACITIES = (1, 2, 4, MAX_STREAMS)
+SCATTER_THREADS = 128       # threads a block of csrc/scatter_pass.cuh
+# Most threads that share a row. Measured on the H100 at TATP's install_log
+# (42-word log rows, 21 eight-byte stores): 16 a row ~1% faster than 32,
+# 8 and 4 slower by ~6% and ~20% (PERF.md §6).
+SCATTER_MAX_GROUP = 16
 
 
-def _make_gather_struct(cap: int):
-    """The by-value launch argument of csrc/gather_pass.cuh for ``cap``
-    streams (its GatherPlan<cap>: 88, 160, 312 or 616 bytes): per stream
-    the table, the mirror (null without), the indices, the mirror indices
-    (null without), the output, the table's and the mirror's rows, K, vw,
-    the vector width, log2 of the threads that share a row; the streams'
-    first blocks and their number."""
-    class _GatherPlan(ctypes.Structure):
-        _fields_ = [("tab", ctypes.c_void_p * cap),
-                    ("mirror", ctypes.c_void_p * cap),
-                    ("idx", ctypes.c_void_p * cap),
-                    ("midx", ctypes.c_void_p * cap),
-                    ("out", ctypes.c_void_p * cap),
-                    ("n_rows", ctypes.c_int64 * cap),
-                    ("n_mirror_rows", ctypes.c_int64 * cap),
-                    ("k", ctypes.c_int32 * cap),
-                    ("vw", ctypes.c_int32 * cap),
-                    ("vec", ctypes.c_int32 * cap),
-                    ("tpr_log2", ctypes.c_int32 * cap),
-                    ("first_block", ctypes.c_uint32 * (cap + 1)),
-                    ("n_streams", ctypes.c_int32)]
-    return _GatherPlan
+def _plan_struct(cap: int, pointers):
+    """The by-value launch argument of a row pass for ``cap`` streams:
+    per stream the named ``pointers``, the table's and the mirror's rows,
+    K, vw, the vector width, log2 of the threads that share a row; the
+    streams' first blocks and their number."""
+    class _Plan(ctypes.Structure):
+        _fields_ = ([(p, ctypes.c_void_p * cap) for p in pointers]
+                    + [(f, ctypes.c_int64 * cap)
+                       for f in ("n_rows", "n_mirror_rows")]
+                    + [(f, ctypes.c_int32 * cap)
+                       for f in ("k", "vw", "vec", "tpr_log2")]
+                    + [("first_block", ctypes.c_uint32 * (cap + 1)),
+                       ("n_streams", ctypes.c_int32)])
+    return _Plan
 
 
-_GATHER_STRUCTS = {cap: _make_gather_struct(cap) for cap in GATHER_CAPACITIES}
+# csrc/gather_pass.cuh's GatherPlan<cap>: 88, 160, 312 or 616 bytes
+_GATHER_STRUCTS = {cap: _plan_struct(cap, ("tab", "mirror", "idx", "midx",
+                                           "out"))
+                   for cap in CAPACITIES}
+# csrc/scatter_pass.cuh's ScatterPlan<cap>: 96, 176, 344 or 680 bytes
+_SCATTER_STRUCTS = {cap: _plan_struct(cap, ("tab", "mirror", "idx", "midx",
+                                            "mask", "vals"))
+                    for cap in CAPACITIES}
 
 
-class GatherPlan(NamedTuple):
-    """The launch plan of csrc/gather_pass.cuh, per stream: ``vec`` (at
-    vw = 1 the lanes a thread takes, 2 or 1, else the words a load moves,
-    4, 2 or 1), ``group`` threads that share a row (1 at vw = 1),
-    ``blocks``, and the exclusive prefix ``first_block`` of the blocks
-    (one entry more than the streams; the last is the launch's total)."""
+class RowPlan(NamedTuple):
+    """The launch plan of a row pass, per stream: ``vec`` (at vw = 1 the
+    lanes a thread takes, 2 or 1, else the words a load or store moves, 4,
+    2 or 1), ``group`` threads that share a row (1 at vw = 1), ``blocks``,
+    and the exclusive prefix ``first_block`` of the blocks (one entry more
+    than the streams; the last is the launch's total)."""
     vec: tuple
     group: tuple
     blocks: tuple
@@ -199,7 +204,48 @@ class GatherPlan(NamedTuple):
         return self.first_block[-1]
 
 
-def gather_plan(ks, vws, aligns) -> GatherPlan:
+def alignment(*ptrs: int) -> int:
+    """The largest of 16, 8 and 4 bytes that divides every pointer (16 for
+    none or for null pointers only)."""
+    bits = 0
+    for p in ptrs:
+        bits |= p
+    return 16 if bits == 0 else min(16, bits & -bits)
+
+
+def _row_plan(what, ks, vws, aligns, threads_a_block, max_group) -> RowPlan:
+    n = len(ks)
+    if not 1 <= n <= MAX_STREAMS or len(vws) != n or len(aligns) != n:
+        raise ValueError(f"{what}: {n} streams ({len(vws)} vws, "
+                         f"{len(aligns)} aligns); 1 to {MAX_STREAMS} "
+                         f"allowed")
+    vec, group, blocks = [], [], []
+    for k, vw, al in zip(ks, vws, aligns):
+        if k * vw >= 1 << 31:
+            raise ValueError(f"{what}: {k} lanes of vw={vw} reach 2^31 "
+                             f"words")
+        if vw == 1:
+            v = 2 if al % 8 == 0 else 1
+            g = 1
+            threads = -(-k // v)
+        else:
+            v = 4 if vw % 4 == 0 and al % 16 == 0 else (
+                2 if vw % 2 == 0 and al % 8 == 0 else 1)
+            g = min(1 << max(0, (vw // v - 1).bit_length()), max_group)
+            threads = k * g
+        if threads >= 1 << 31:
+            raise ValueError(f"{what}: {k} lanes of vw={vw} need "
+                             f"{threads} threads")
+        vec.append(v)
+        group.append(g)
+        blocks.append(-(-threads // threads_a_block))
+    first = [0]
+    for b in blocks:
+        first.append(first[-1] + b)
+    return RowPlan(tuple(vec), tuple(group), tuple(blocks), tuple(first))
+
+
+def gather_plan(ks, vws, aligns) -> RowPlan:
     """Plan the gather pass's one launch for streams of ``ks[s]`` lanes of
     ``vws[s]``-word rows. ``aligns[s]``: the bytes to which the pointers
     the stream's vector accesses touch are aligned (`gather_alignment`).
@@ -214,36 +260,17 @@ def gather_plan(ks, vws, aligns) -> GatherPlan:
     Raises for no or more than MAX_STREAMS streams, and where K * vw or
     the stream's threads reach 2^31 (the kernel's 32-bit index
     arithmetic)."""
-    n = len(ks)
-    if not 1 <= n <= MAX_STREAMS or len(vws) != n or len(aligns) != n:
-        raise ValueError(f"gather_plan: {n} streams ({len(vws)} vws, "
-                         f"{len(aligns)} aligns); 1 to {MAX_STREAMS} "
-                         f"allowed")
-    vec, group, blocks = [], [], []
-    for k, vw, al in zip(ks, vws, aligns):
-        if k * vw >= 1 << 31:
-            raise ValueError(f"gather_plan: {k} lanes of vw={vw} reach "
-                             f"2^31 words")
-        if vw == 1:
-            v = 2 if al % 8 == 0 else 1
-            g = 1
-            threads = -(-k // v)
-        else:
-            v = 4 if vw % 4 == 0 and al % 16 == 0 else (
-                2 if vw % 2 == 0 and al % 8 == 0 else 1)
-            loads = vw // v
-            g = min(1 << max(0, (loads - 1).bit_length()), GATHER_MAX_GROUP)
-            threads = k * g
-        if threads >= 1 << 31:
-            raise ValueError(f"gather_plan: {k} lanes of vw={vw} need "
-                             f"{threads} threads")
-        vec.append(v)
-        group.append(g)
-        blocks.append(-(-threads // GATHER_THREADS))
-    first = [0]
-    for b in blocks:
-        first.append(first[-1] + b)
-    return GatherPlan(tuple(vec), tuple(group), tuple(blocks), tuple(first))
+    return _row_plan("gather_plan", ks, vws, aligns, GATHER_THREADS,
+                     GATHER_MAX_GROUP)
+
+
+def scatter_plan(ks, vws, aligns) -> RowPlan:
+    """Plan the scatter pass's one launch, as `gather_plan` plans the
+    gather pass's, with SCATTER_THREADS threads a block and at most
+    SCATTER_MAX_GROUP threads a row (a group loops over the stores of a
+    longer row). ``aligns[s]``: see `scatter_alignment`."""
+    return _row_plan("scatter_plan", ks, vws, aligns, SCATTER_THREADS,
+                     SCATTER_MAX_GROUP)
 
 
 def gather_alignment(vw: int, tab, mirror, idx, midx, out) -> int:
@@ -258,9 +285,24 @@ def gather_alignment(vw: int, tab, mirror, idx, midx, out) -> int:
     return alignment(*(t.data_ptr() for t in ts if t is not None))
 
 
-def _check_gather(what, tabs, mirrors, idxs, midxs, vws):
-    """Check the streams of a gather call; returns (device, the tables'
-    rows, the mirrors' rows or None)."""
+def scatter_alignment(vw: int, tab, mirror, idx, midx, mask, vals) -> int:
+    """The alignment of the pointers a scatter stream's vector accesses
+    touch: at vw = 1 a thread's lanes of the index, mirror index and value
+    arrays and of the one-byte mask (a mask aligned to b bytes holds lane
+    pairs as a word array aligned to 4b does), at vw > 1 the table, mirror
+    and value rows. ``mirror``, ``midx`` and ``mask`` may be None."""
+    if vw == 1:
+        ptrs = [t.data_ptr() for t in (idx, midx, vals) if t is not None]
+        if mask is not None:
+            ptrs.append(4 * mask.data_ptr())
+        return alignment(*ptrs)
+    return alignment(*(t.data_ptr() for t in (tab, mirror, vals)
+                       if t is not None))
+
+
+def _check_rows(what, tabs, mirrors, idxs, midxs, vws):
+    """Check the tables, mirrors and indices of a row-pass call; returns
+    (the tables' rows, the mirrors' rows or None)."""
     n = len(vws)
     if not 1 <= n <= MAX_STREAMS:
         raise ValueError(f"{what}: {n} streams; 1 to {MAX_STREAMS} allowed")
@@ -280,17 +322,43 @@ def _check_gather(what, tabs, mirrors, idxs, midxs, vws):
                                  f"but {midxs[s].numel()} midx lanes")
             n_mirror.append(_rows(mirrors[s], vws[s],
                                   f"{what} stream {s} mirror"))
-    dev = _same_device(*tabs, *idxs, *(mirrors or ()), *(midxs or ()))
-    return dev, n_rows, (n_mirror if mirrors is not None else None)
+    return n_rows, (n_mirror if mirrors is not None else None)
+
+
+def _launch_plan(fn, structs, plan, dev, pointers, n_rows, n_mirror, ks,
+                 vws):
+    """Fill the launch argument of ``plan`` (the smallest capacity of
+    ``structs`` that holds the streams; ``pointers``: field -> per-stream
+    tensors, or None for null) and launch ``fn``'s kernel, counted on
+    ``fn``."""
+    n = len(vws)
+    cap = next(c for c in CAPACITIES if c >= n)
+    a = structs[cap]()
+    for field, ts in pointers.items():
+        if ts is not None:
+            getattr(a, field)[:n] = [t.data_ptr() for t in ts]
+    a.n_rows[:n] = n_rows
+    if n_mirror is not None:
+        a.n_mirror_rows[:n] = n_mirror
+    a.k[:n] = ks
+    a.vw[:n] = vws
+    a.vec[:n] = plan.vec
+    a.tpr_log2[:n] = [g.bit_length() - 1 for g in plan.group]
+    a.first_block[:n + 1] = plan.first_block
+    a.n_streams = n
+    what = fn.__name__
+    _launched(_kernel(what, dev)(ctypes.addressof(a), cap, _stream(dev)),
+              what)
+    fn.launches += 1
 
 
 def _gather(fn, tabs, mirrors, idxs, midxs, vws):
     """The gather pass on the card: one launch of `gather_plan` over the
     streams (none when every stream is empty), counted on ``fn``. Returns
     the tuple of outputs."""
-    what = fn.__name__
-    dev, n_rows, n_mirror = _check_gather(what, tabs, mirrors, idxs, midxs,
-                                          vws)
+    n_rows, n_mirror = _check_rows(fn.__name__, tabs, mirrors, idxs, midxs,
+                                   vws)
+    dev = _same_device(*tabs, *idxs, *(mirrors or ()), *(midxs or ()))
     if dev.type == "cpu":
         return _gather_ref(tabs, mirrors, idxs, midxs, vws)
     ks = [i.numel() for i in idxs]
@@ -301,24 +369,11 @@ def _gather(fn, tabs, mirrors, idxs, midxs, vws):
         gather_alignment(vw, tab, mirrors[s] if hot else None, idx,
                          midxs[s] if hot else None, out)
         for s, (tab, idx, out, vw) in enumerate(zip(tabs, idxs, outs, vws))])
-    if plan.total == 0:
-        return outs
-    cap = next(c for c in GATHER_CAPACITIES if c >= len(vws))
-    a = _GATHER_STRUCTS[cap]()
-    for s, (tab, idx, out, vw) in enumerate(zip(tabs, idxs, outs, vws)):
-        a.tab[s], a.idx[s], a.out[s] = (tab.data_ptr(), idx.data_ptr(),
-                                        out.data_ptr())
-        if hot:
-            a.mirror[s], a.midx[s] = mirrors[s].data_ptr(), midxs[s].data_ptr()
-            a.n_mirror_rows[s] = n_mirror[s]
-        a.n_rows[s], a.k[s], a.vw[s] = n_rows[s], ks[s], vw
-        a.vec[s] = plan.vec[s]
-        a.tpr_log2[s] = plan.group[s].bit_length() - 1
-    a.first_block[:len(plan.first_block)] = plan.first_block
-    a.n_streams = len(vws)
-    _launched(_kernel(what, dev)(ctypes.addressof(a), cap, _stream(dev)),
-              what)
-    fn.launches += 1
+    if plan.total:
+        _launch_plan(fn, _GATHER_STRUCTS, plan, dev,
+                     {"tab": tabs, "mirror": mirrors, "idx": idxs,
+                      "midx": midxs, "out": outs},
+                     n_rows, n_mirror, ks, vws)
     return outs
 
 
@@ -327,6 +382,71 @@ def _gather_ref(tabs, mirrors, idxs, midxs, vws):
         return tuple(tab.view(-1, vw).index_select(0, idx).reshape(-1)
                      for tab, idx, vw in zip(tabs, idxs, vws))
     return tuple(_hot_ref(*z) for z in zip(tabs, mirrors, idxs, midxs, vws))
+
+
+def _scatter(fn, tabs, mirrors, idxs, midxs, masks, vals, vws):
+    """The scatter pass on the card: one launch of `scatter_plan` over the
+    streams (none when every stream is empty), counted on ``fn``; tables
+    and mirrors are updated in place."""
+    what = fn.__name__
+    n_rows, n_mirror = _check_rows(what, tabs, mirrors, idxs, midxs, vws)
+    hot = mirrors is not None
+    if len(vals) != len(vws) or (hot and len(masks) != len(vws)):
+        raise ValueError(f"{what}: streams disagree in number")
+    for s, (idx, val, vw) in enumerate(zip(idxs, vals, vws)):
+        _check(val, f"{what} vals[{s}]")
+        k = idx.numel()
+        if val.numel() != k * vw:
+            raise ValueError(f"{what} stream {s}: {val.numel()} values for "
+                             f"{k} lanes of vw={vw}")
+        if hot:
+            _check(masks[s], f"{what} masks[{s}]", torch.bool)
+            if masks[s].numel() != k:
+                raise ValueError(f"{what} stream {s}: {k} lanes but "
+                                 f"{masks[s].numel()} mask flags")
+    written = tabs + (mirrors or ())
+    stores = {t.untyped_storage().data_ptr() for t in written}
+    if len(stores) != len(written):
+        raise ValueError(f"{what}: the streams' tables and mirrors must be "
+                         f"distinct arrays")
+    # the kernel loads values through the read-only path (ld.global.nc),
+    # which may not see the launch's own stores
+    if any(v.numel() and v.untyped_storage().data_ptr() in stores
+           for v in vals):
+        raise ValueError(f"{what}: the values must not share memory with "
+                         f"a table or mirror of the call")
+    dev = _same_device(*written, *idxs, *vals, *(midxs or ()),
+                       *(masks or ()))
+    if dev.type == "cpu":
+        _scatter_ref(tabs, mirrors, idxs, midxs, masks, vals, vws)
+        return
+    ks = [i.numel() for i in idxs]
+    plan = scatter_plan(ks, vws, [
+        scatter_alignment(vw, tabs[s], mirrors[s] if hot else None, idxs[s],
+                          midxs[s] if hot else None, masks[s] if hot else None,
+                          vals[s])
+        for s, vw in enumerate(vws)])
+    if plan.total:
+        _launch_plan(fn, _SCATTER_STRUCTS, plan, dev,
+                     {"tab": tabs, "mirror": mirrors, "idx": idxs,
+                      "midx": midxs, "mask": masks, "vals": vals},
+                     n_rows, n_mirror, ks, vws)
+
+
+def _scatter_ref(tabs, mirrors, idxs, midxs, masks, vals, vws):
+    """Plain version of the scatter pass: per stream, the masked-in lanes'
+    rows copied in with ``index_copy_`` (their indices are unique, so no
+    result depends on the order of duplicate writes); with a mirror, the
+    hot ones among them into the mirror too."""
+    for s, (tab, idx, val, vw) in enumerate(zip(tabs, idxs, vals, vws)):
+        v = val.view(-1, vw)
+        on = idx >= 0 if mirrors is None else masks[s]
+        keep = torch.nonzero(on).squeeze(1)
+        tab.view(-1, vw).index_copy_(0, idx[keep].long(), v[keep])
+        if mirrors is not None:
+            hot = torch.nonzero(on & (midxs[s] >= 0)).squeeze(1)
+            mirrors[s].view(-1, vw).index_copy_(0, midxs[s][hot].long(),
+                                                v[hot])
 
 
 def _streams(tab, idx, vw, *rest):
@@ -562,46 +682,6 @@ lock_validate.launches = 0
 # ------------------------------------------------------------ row streams
 
 
-class _StreamArgs(ctypes.Structure):
-    """The by-value launch argument of csrc/gather_streams.cu: per stream
-    the table, the indices, the output, K, the table's rows and vw."""
-    _fields_ = [("tab", ctypes.c_void_p * MAX_STREAMS),
-                ("idx", ctypes.c_void_p * MAX_STREAMS),
-                ("data", ctypes.c_void_p * MAX_STREAMS),
-                ("k", ctypes.c_int64 * MAX_STREAMS),
-                ("n_rows", ctypes.c_int64 * MAX_STREAMS),
-                ("vw", ctypes.c_int32 * MAX_STREAMS)]
-
-
-def _check_streams(what, tabs, idxs, vws, vals=None):
-    n = len(vws)
-    if not 1 <= n <= MAX_STREAMS:
-        raise ValueError(f"{what}: {n} streams; 1 to {MAX_STREAMS} allowed")
-    if len(tabs) != n or len(idxs) != n or (vals is not None
-                                            and len(vals) != n):
-        raise ValueError(f"{what}: streams disagree in number")
-    for s in range(n):
-        _check(tabs[s], f"{what} tabs[{s}]")
-        _check(idxs[s], f"{what} idxs[{s}]")
-        _rows(tabs[s], vws[s], f"{what} stream {s}")
-        if vals is not None:
-            _check(vals[s], f"{what} vals[{s}]")
-            if vals[s].numel() != idxs[s].numel() * vws[s]:
-                raise ValueError(
-                    f"{what} stream {s}: {vals[s].numel()} values for "
-                    f"{idxs[s].numel()} lanes of vw={vws[s]}")
-    return _same_device(*tabs, *idxs, *(vals or ()))
-
-
-def _stream_args(tabs, idxs, datas, vws) -> _StreamArgs:
-    a = _StreamArgs()
-    for s, (tab, idx, data, vw) in enumerate(zip(tabs, idxs, datas, vws)):
-        a.tab[s], a.idx[s], a.data[s] = (tab.data_ptr(), idx.data_ptr(),
-                                         data.data_ptr())
-        a.k[s], a.n_rows[s], a.vw[s] = idx.numel(), tab.numel() // vw, vw
-    return a
-
-
 def gather_streams_ref(tabs, idxs, vws):
     """Plain version: `gather_rows_ref`'s tuple form."""
     return gather_rows_ref(tuple(tabs), tuple(idxs), tuple(vws))
@@ -612,106 +692,23 @@ def gather_streams(tabs, idxs, vws):
     ``idxs[s]`` rows of ``vws[s]`` words from ``tabs[s]``, each stream equal
     to ``gather_rows(tabs[s], idxs[s], vws[s])``. Returns a tuple of i32
     [K_s * vws[s]]. At most MAX_STREAMS streams; indices must be in
-    bounds (asserted on the device)."""
-    tabs, idxs, vws = tuple(tabs), tuple(idxs), tuple(int(v) for v in vws)
-    dev = _check_streams("gather_streams", tabs, idxs, vws)
-    if dev.type == "cpu":
-        return gather_streams_ref(tabs, idxs, vws)
-    outs = tuple(torch.empty(i.numel() * vw, dtype=I32, device=dev)
-                 for i, vw in zip(idxs, vws))
-    args = _stream_args(tabs, idxs, outs, vws)
-    fn = _kernel("gather_streams", dev)
-    _launched(fn(ctypes.addressof(args), len(vws), _stream(dev)),
-              "gather_streams")
-    gather_streams.launches += 1
-    return outs
+    bounds (asserted on the device). The launch is `gather_rows`' tuple
+    form's, counted here."""
+    return _gather(gather_streams, tuple(tabs), None, tuple(idxs), None,
+                   tuple(int(v) for v in vws))
 
 
 gather_streams.launches = 0
-
-
-SCATTER_THREADS = 256       # threads a block of csrc/scatter_streams.cu
-# Most threads that share a row. Measured on the H100 at TATP's install_log
-# (42-word log rows, 21 eight-byte stores): 16 a row ~1% faster than 32,
-# 8 and 4 slower by ~6% and ~20% (PERF.md §6).
-SCATTER_MAX_GROUP = 16
-
-
-class _ScatterPlan(ctypes.Structure):
-    """The by-value launch argument of csrc/scatter_streams.cu (its
-    ScatterPlan, 456 bytes): per stream the table, the indices, the values,
-    K, the table's rows, vw, the words a store moves, log2 of the threads
-    that share a row; the streams' first blocks and their number."""
-    _fields_ = [("tab", ctypes.c_void_p * MAX_STREAMS),
-                ("idx", ctypes.c_void_p * MAX_STREAMS),
-                ("vals", ctypes.c_void_p * MAX_STREAMS),
-                ("k", ctypes.c_int64 * MAX_STREAMS),
-                ("n_rows", ctypes.c_int64 * MAX_STREAMS),
-                ("vw", ctypes.c_int32 * MAX_STREAMS),
-                ("vec", ctypes.c_int32 * MAX_STREAMS),
-                ("tpr_log2", ctypes.c_int32 * MAX_STREAMS),
-                ("first_block", ctypes.c_uint32 * (MAX_STREAMS + 1)),
-                ("n_streams", ctypes.c_int32)]
-
-
-class ScatterPlan(NamedTuple):
-    """The launch plan of csrc/scatter_streams.cu, per stream: ``vec``
-    words a store moves (4, 2 or 1), ``group`` threads that share a row,
-    ``blocks``, and the exclusive prefix ``first_block`` of the blocks
-    (one entry more than the streams; the last is the launch's total)."""
-    vec: tuple
-    group: tuple
-    blocks: tuple
-    first_block: tuple
-
-    @property
-    def total(self) -> int:
-        return self.first_block[-1]
-
-
-def alignment(*ptrs: int) -> int:
-    """The largest of 16, 8 and 4 bytes that divides every pointer (16 for
-    none or for null pointers only)."""
-    bits = 0
-    for p in ptrs:
-        bits |= p
-    return 16 if bits == 0 else min(16, bits & -bits)
-
-
-def scatter_plan(ks, vws, aligns) -> ScatterPlan:
-    """Plan scatter_streams' one launch for streams of ``ks[s]`` lanes of
-    ``vws[s]``-word rows whose table and value pointers are both aligned to
-    ``aligns[s]`` bytes. A store moves 4 words where vw % 4 == 0 and the
-    pointers are 16-byte aligned, 2 where vw is even and they are 8-byte
-    aligned, else 1. A row is taken by the smallest power of two of
-    threads, at most SCATTER_MAX_GROUP, that covers its stores (a group
-    loops over longer rows). Stream s gets ceil(K_s * group_s / 256)
-    blocks; an empty stream none."""
-    vec, group, blocks = [], [], []
-    for k, vw, al in zip(ks, vws, aligns):
-        v = 4 if vw % 4 == 0 and al % 16 == 0 else (
-            2 if vw % 2 == 0 and al % 8 == 0 else 1)
-        stores = vw // v
-        g = 1 << max(0, (stores - 1).bit_length())
-        g = min(g, SCATTER_MAX_GROUP)
-        vec.append(v)
-        group.append(g)
-        blocks.append(-(-k * g // SCATTER_THREADS))
-    first = [0]
-    for b in blocks:
-        first.append(first[-1] + b)
-    return ScatterPlan(tuple(vec), tuple(group), tuple(blocks), tuple(first))
 
 
 def scatter_streams_ref(tabs, idxs, vals, vws):
     """Plain version: per stream, the lanes with ``idx >= 0`` are kept and
     their rows copied in with ``index_copy_`` (kept indices are unique, so
     no result depends on the order of duplicate writes)."""
-    for tab, idx, val, vw in zip(tabs, idxs, vals, vws):
-        keep = torch.nonzero(idx >= 0).squeeze(1)
-        tab.view(-1, vw).index_copy_(0, idx[keep].long(),
-                                     val.view(-1, vw)[keep])
-    return tuple(tabs)
+    tabs = tuple(tabs)
+    _scatter_ref(tabs, None, tuple(idxs), None, None, tuple(vals),
+                 tuple(int(v) for v in vws))
+    return tabs
 
 
 def scatter_streams(tabs, idxs, vals, vws):
@@ -721,31 +718,9 @@ def scatter_streams(tabs, idxs, vals, vws):
     index write nothing. The streams' tables must be distinct arrays, and
     the masked-in indices of a stream unique (the engines' one-writer-per-
     row certification). Returns the tuple of tables."""
-    tabs, idxs, vals = tuple(tabs), tuple(idxs), tuple(vals)
-    vws = tuple(int(v) for v in vws)
-    dev = _check_streams("scatter_streams", tabs, idxs, vws, vals)
-    if len({t.untyped_storage().data_ptr() for t in tabs}) != len(tabs):
-        raise ValueError("scatter_streams: the streams' tables must be "
-                         "distinct arrays")
-    if dev.type == "cpu":
-        return scatter_streams_ref(tabs, idxs, vals, vws)
-    ks = [i.numel() for i in idxs]
-    plan = scatter_plan(ks, vws, [alignment(t.data_ptr(), v.data_ptr())
-                                  for t, v in zip(tabs, vals)])
-    if plan.total == 0:
-        return tabs
-    a = _ScatterPlan()
-    for s, (tab, idx, val, vw) in enumerate(zip(tabs, idxs, vals, vws)):
-        a.tab[s], a.idx[s], a.vals[s] = (tab.data_ptr(), idx.data_ptr(),
-                                         val.data_ptr())
-        a.k[s], a.n_rows[s], a.vw[s] = ks[s], tab.numel() // vw, vw
-        a.vec[s] = plan.vec[s]
-        a.tpr_log2[s] = plan.group[s].bit_length() - 1
-    a.first_block[:len(plan.first_block)] = plan.first_block
-    a.n_streams = len(vws)
-    fn = _kernel("scatter_streams", dev)
-    _launched(fn(ctypes.addressof(a), _stream(dev)), "scatter_streams")
-    scatter_streams.launches += 1
+    tabs = tuple(tabs)
+    _scatter(scatter_streams, tabs, None, tuple(idxs), None, None,
+             tuple(vals), tuple(int(v) for v in vws))
     return tabs
 
 
@@ -753,17 +728,6 @@ scatter_streams.launches = 0
 
 
 # ---------------------------------------------------------------- hot tier
-
-
-def _check_hot(what, tab, mirror, idx, midx, vw):
-    _check(tab, f"{what} tab")
-    _check(mirror, f"{what} mirror")
-    _check(idx, f"{what} idx")
-    _check(midx, f"{what} midx")
-    if midx.numel() != idx.numel():
-        raise ValueError(f"{what}: {idx.numel()} idx but {midx.numel()} "
-                         f"midx lanes")
-    return _rows(tab, vw, what), _rows(mirror, vw, f"{what} mirror")
 
 
 def _hot_ref(tab, mirror, idx, midx, vw):
@@ -801,41 +765,33 @@ def gather_rows_hot(tab, mirror, idx, midx, vw=1):
 gather_rows_hot.launches = 0
 
 
-def scatter_rows_hot_ref(tab, mirror, idx, midx, mask, vals, vw: int = 1):
-    """Plain version: the masked-in lanes' rows copied into ``tab``, and
-    the hot ones among them into ``mirror`` (``index_copy_`` of unique
-    rows); both updated in place."""
-    v = vals.view(-1, vw)
-    keep = torch.nonzero(mask).squeeze(1)
-    tab.view(-1, vw).index_copy_(0, idx[keep].long(), v[keep])
-    hot = torch.nonzero(mask & (midx >= 0)).squeeze(1)
-    mirror.view(-1, vw).index_copy_(0, midx[hot].long(), v[hot])
-    return tab, mirror
+def scatter_rows_hot_ref(tab, mirror, idx, midx, mask, vals, vw=1):
+    """Plain version, in `scatter_rows_hot`'s forms: the masked-in lanes'
+    rows copied into the table, and the hot ones among them into the
+    mirror (``index_copy_`` of unique rows); both updated in place. A
+    masked-out lane's ``idx`` and ``midx`` are not read."""
+    single, (tabs, idxs, vws, mirrors, midxs, masks, vals) = _streams(
+        tab, idx, vw, mirror, midx, mask, vals)
+    _scatter_ref(tabs, mirrors, idxs, midxs, masks, vals, vws)
+    return (tab, mirror) if single else (tabs, mirrors)
 
 
-def scatter_rows_hot(tab, mirror, idx, midx, mask, vals, vw: int = 1):
+def scatter_rows_hot(tab, mirror, idx, midx, mask, vals, vw=1):
     """The hot tier's write-through install, in place: every lane with
     ``mask`` set writes ``vals`` row i into row ``idx[i]`` of ``tab`` and,
     where ``midx[i] >= 0``, into row ``midx[i]`` of ``mirror``. Indices
-    among masked-in lanes must be unique. Returns (tab, mirror)."""
-    n_rows, n_mirror = _check_hot("scatter_rows_hot", tab, mirror, idx,
-                                  midx, vw)
-    _check(mask, "scatter_rows_hot mask", torch.bool)
-    _check(vals, "scatter_rows_hot vals")
-    k = idx.numel()
-    if mask.numel() != k or vals.numel() != k * vw:
-        raise ValueError(f"scatter_rows_hot: {k} lanes of vw={vw}, but "
-                         f"{mask.numel()} mask flags and {vals.numel()} "
-                         f"values")
-    dev = _same_device(tab, mirror, idx, midx, mask, vals)
-    if dev.type == "cpu":
-        return scatter_rows_hot_ref(tab, mirror, idx, midx, mask, vals, vw)
-    fn = _kernel("scatter_rows_hot", dev)
-    _launched(fn(tab.data_ptr(), mirror.data_ptr(), idx.data_ptr(),
-                 midx.data_ptr(), mask.data_ptr(), vals.data_ptr(), k,
-                 n_rows, n_mirror, vw, _stream(dev)), "scatter_rows_hot")
-    scatter_rows_hot.launches += 1
-    return tab, mirror
+    among masked-in lanes must be unique; a masked-out lane's ``idx`` and
+    ``midx`` address nothing and may hold anything. Returns (tab, mirror).
+
+    Several streams: ``scatter_rows_hot(tabs, mirrors, idxs, midxs, masks,
+    vals, vws)`` with tuples of up to MAX_STREAMS of each returns (tabs,
+    mirrors); streams may share their ``idx``, ``midx`` and ``mask``
+    tensors, and every table and mirror must be a distinct array. One
+    kernel launch a call either way."""
+    single, (tabs, idxs, vws, mirrors, midxs, masks, vals) = _streams(
+        tab, idx, vw, mirror, midx, mask, vals)
+    _scatter(scatter_rows_hot, tabs, mirrors, idxs, midxs, masks, vals, vws)
+    return (tab, mirror) if single else (tabs, mirrors)
 
 
 scatter_rows_hot.launches = 0

@@ -116,6 +116,9 @@ def test_gather_streams_kernel_matches_plain(cuda):
     assert rk.gather_streams.launches == before + 1
     for g, w in zip(got, rk.gather_streams_ref(tabs, idxs, vws)):
         assert torch.equal(g, w)
+    # B5 is the gather pass: bit-identical to gather_rows' tuple form
+    assert all(torch.equal(g, w) for g, w in zip(
+        got, rk.gather_rows(tabs, idxs, vws)))
 
 
 @pytest.mark.cuda
@@ -159,9 +162,10 @@ def test_scatter_streams_kernel_eight_streams(cuda, offset):
     big = _words(r, ks[4] * vws[4] + 8, cuda)
     vals[4] = big[offset:offset + ks[4] * vws[4]]
     tabs = [_words(r, n * vw, cuda) for vw in vws]
-    plan = rk.scatter_plan(ks, vws, [rk.alignment(t.data_ptr(), v.data_ptr())
-                                     for t, v in zip(tabs, vals)])
-    assert plan.vec[:4] == (1, 2, 1, 4) and plan.blocks[2] == 0
+    plan = rk.scatter_plan(ks, vws, [
+        rk.scatter_alignment(vw, t, None, i, None, None, v)
+        for t, i, v, vw in zip(tabs, idxs, vals, vws)])
+    assert plan.vec[:4] == (2, 2, 1, 4) and plan.blocks[2] == 0
     assert plan.vec[4] == {0: 2, 1: 1, 2: 2}[offset]
     before_tabs = [t.clone() for t in tabs]
     want = rk.scatter_streams_ref([t.clone() for t in tabs], idxs, vals, vws)
@@ -173,6 +177,27 @@ def test_scatter_streams_kernel_eight_streams(cuda, offset):
     assert torch.equal(got[5], before_tabs[5])          # all masked
     assert not torch.equal(got[1], before_tabs[1])
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vw,vec", [(42, 2), (130, 2), (200, 4), (263, 1)])
+def test_scatter_streams_rows_longer_than_their_group(cuda, vw, vec):
+    """Rows of more units than the 16 threads of their group, which a
+    thread loads two at a time: 21, 65, 50 and 263 units, so a thread
+    takes one or two of them, or loops over several pairs and a last
+    single one."""
+    r = np.random.default_rng(vw)
+    n, k = 600, 500
+    idx = _masked_rows(r, n, k, 0.7, cuda)
+    val = _words(r, k * vw, cuda)
+    tab = _words(r, n * vw, cuda)
+    plan = rk.scatter_plan((k,), (vw,), (rk.scatter_alignment(
+        vw, tab, None, idx, None, None, val),))
+    assert plan.vec == (vec,) and plan.group == (16,)
+    want = rk.scatter_streams_ref((tab.clone(),), (idx,), (val,), (vw,))
+    before = tab.clone()
+    got = rk.scatter_streams((tab,), (idx,), (val,), (vw,))
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and not torch.equal(got[0], before)
 
 @pytest.mark.cuda
 def test_scatter_streams_all_empty_launches_nothing(cuda):
@@ -787,6 +812,238 @@ def test_gather_pass_is_one_launch(cuda):
     for fn in (lambda: rk.gather_rows(tabs, (idx,) * 3, (1, 10, 1)),
                lambda: rk.gather_rows_hot(tabs, mirrors, (idx,) * 3,
                                           (midx,) * 3, (1, 10, 1))):
+        assert captured_nodes(fn) == {"kernels": 1, "memsets": 0,
+                                      "copies": 0, "other": 0}
+        ev = device_events(fn)
+        seen = (ev["kernels"], ev["memsets"], ev["copies"])
+        assert seen in ((1, 0, 0), (0, 0, 0)), ev
+
+
+# ---------------------------------------- the scatter pass (B3 and B7)
+
+
+def _hot_install(r, cuda, n, hot, k, vws, frac=0.6, offset=0):
+    """One install's streams over tables of n rows with mirrors of their
+    hot prefix (mirrors unlike the tables, so a mirror write shows), all
+    streams on one set of lanes (one idx, midx and mask tensor, as the
+    engines pass): unique rows, ~``frac`` masked in, and every masked-out
+    lane's idx and midx 10^9, which nothing may read. ``offset`` words of
+    offset on the indices, mask and values (16-, 4- or 8-byte aligned)."""
+    rows = r.permutation(n)[:k].astype(np.int32)
+    on = r.random(k) < frac
+    midx = np.where(on & (rows < hot), rows, -1)
+    rows = np.where(on, rows, 10**9)
+    midx = np.where(on, midx, 10**9)
+    pad = np.zeros(offset, np.int32)
+    idx = torch.from_numpy(np.concatenate([pad, rows]).astype(
+        np.int32)).to(cuda)[offset:]
+    mi = torch.from_numpy(np.concatenate([pad, midx]).astype(
+        np.int32)).to(cuda)[offset:]
+    mask = torch.from_numpy(np.concatenate([pad.astype(bool), on])).to(
+        cuda)[offset:]
+    vals = tuple(_words(r, k * vw + offset, cuda)[offset:] for vw in vws)
+    tabs = tuple(_words(r, n * vw, cuda) for vw in vws)
+    mirrors = tuple(_words(r, hot * vw, cuda) for vw in vws)
+    m = len(vws)
+    return tabs, mirrors, (idx,) * m, (mi,) * m, (mask,) * m, vals, vws
+
+
+def _check_install(args, fn=None):
+    """One call of the wrapper ``fn`` (scatter_rows_hot) on copies of the
+    tables and mirrors equals the plain version bit for bit, in one
+    launch. Returns the tables and mirrors it wrote."""
+    fn = fn or rk.scatter_rows_hot
+    tabs, mirrors, *rest = args
+    got = (tuple(t.clone() for t in tabs), tuple(m.clone() for m in mirrors))
+    want = (tuple(t.clone() for t in tabs), tuple(m.clone() for m in mirrors))
+    before = fn.launches
+    fn(*got, *rest)
+    assert fn.launches == before + 1
+    rk.scatter_rows_hot_ref(*want, *rest)
+    torch.cuda.synchronize()
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tatp", "cache", "smallbank"])
+def test_scatter_rows_hot_tuple_kernel_matches_plain(cuda, case):
+    """The main paths' calls: TATP hotset's meta + val (K = 16,384), the
+    cache tier's and the store's val + ver (K = 4,096), SmallBank's
+    balances (K = 24,576, one stream), over tables of 10^6 rows; each
+    equals the plain version and the single-stream calls."""
+    r = np.random.default_rng({"tatp": 400, "cache": 401,
+                               "smallbank": 402}[case])
+    n, hot, k, vws = {"tatp": (1_000_000, 40_000, 16_384, (1, 10)),
+                      "cache": (1_000_000, 40_000, 4096, (10, 1)),
+                      "smallbank": (1_000_000, 40_000, 24_576, (1,))}[case]
+    args = _hot_install(r, cuda, n, hot, k, vws)
+    plan = rk.scatter_plan([k] * len(vws), vws, [16] * len(vws))
+    assert plan.vec == (2,) * len(vws)
+    tabs, mirrors = _check_install(args)
+    for s in range(len(vws)):
+        one = _check_install(tuple((a[s],) for a in args[:6]) + (
+            (vws[s],),))
+        assert torch.equal(one[0][0], tabs[s])
+        assert torch.equal(one[1][0], mirrors[s])
+    assert any(not torch.equal(a, b) for a, b in zip(mirrors, args[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vw", [1, 10])
+def test_scatter_rows_hot_masked_out_lanes_read_nothing(cuda, vw):
+    """Every lane masked out, each with idx = midx = 10^9: no device
+    assert fires and nothing is written; half masked in, the masked-out
+    lanes' rows are left as they were."""
+    r = np.random.default_rng(410 + vw)
+    n, hot, k = 5000, 300, 3001
+    for frac in (0.0, 0.5):
+        args = _hot_install(r, cuda, n, hot, k, (vw, 1), frac)
+        assert bool((args[2][0][~args[4][0]] == 10**9).all())
+        assert bool((args[3][0][~args[4][0]] == 10**9).all())
+        tabs, mirrors = _check_install(args)
+        if frac == 0.0:
+            assert all(torch.equal(a, b) for a, b in zip(
+                tabs + mirrors, args[0] + args[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_scatter_rows_hot_offset_views(cuda, offset):
+    """Indices, mask and values that are offset views: at vw = 1 an odd
+    offset takes one lane a thread (vec = 1), and at vw = 10 an odd
+    offset of the values 4-byte words; the result is the same."""
+    r = np.random.default_rng(420 + offset)
+    args = _hot_install(r, cuda, 6000, 400, 2049, (1, 10), offset=offset)
+    tabs, mirrors, idxs, midxs, masks, vals, vws = args
+    aligns = [rk.scatter_alignment(vw, t, m, i, mi, mk, v) for
+              t, m, i, mi, mk, v, vw in zip(*args)]
+    want = {1: (1, 1), 2: (2, 2), 3: (1, 1)}[offset]
+    assert rk.scatter_plan([2049] * 2, vws, aligns).vec == want
+    _check_install(args)
+    # a mirror that is an offset view alone lowers the vw = 10 store width
+    big = _words(r, 400 * 10 + 1, cuda)
+    view = big[1:]
+    view.copy_(mirrors[1])
+    args2 = (tabs, (mirrors[0], view), idxs, midxs, masks,
+             tuple(v.clone() for v in vals), vws)
+    assert rk.scatter_alignment(10, tabs[1], view, idxs[1], midxs[1],
+                                masks[1], args2[5][1]) == 4
+    _check_install(args2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [0, 1, 2, 3, 4, 5, 255, 1023, 1025])
+def test_scatter_pass_small_k(cuda, k):
+    """K around the lanes a thread and the rows a block, for B7 and B3 at
+    widths 1, 2, 10 and 42; K = 0 launches nothing."""
+    r = np.random.default_rng(430 + k)
+    n = 2000
+    for vw in (1, 2, 10, 42):
+        args = _hot_install(r, cuda, n, 300, k, (vw,))
+        tabs, mirrors, *rest = args
+        t2, m2 = tabs[0].clone(), mirrors[0].clone()
+        before = rk.scatter_rows_hot.launches
+        rk.scatter_rows_hot(t2, m2, *(a[0] for a in rest[:4]), vw)
+        assert rk.scatter_rows_hot.launches == before + (1 if k else 0)
+        want = rk.scatter_rows_hot_ref(tabs[0].clone(), mirrors[0].clone(),
+                                       *(a[0] for a in rest[:4]), vw)
+        idx = _masked_rows(r, n, k, 0.7, cuda)
+        val = _words(r, k * vw, cuda)
+        t3 = tabs[0].clone()
+        before = rk.scatter_streams.launches
+        rk.scatter_streams((t3,), (idx,), (val,), (vw,))
+        assert rk.scatter_streams.launches == before + (1 if k else 0)
+        want3 = rk.scatter_streams_ref((tabs[0].clone(),), (idx,), (val,),
+                                       (vw,))
+        torch.cuda.synchronize()
+        assert torch.equal(t2, want[0]) and torch.equal(m2, want[1])
+        assert torch.equal(t3, want3[0])
+
+
+@pytest.mark.cuda
+def test_scatter_pass_cuda_graph_replay(cuda):
+    """A two-stream scatter_rows_hot call and a three-stream
+    scatter_streams call captured in one graph (two kernels, nothing
+    else) and replayed on fresh inputs copied into the captured buffers
+    equal eager calls and the plain versions bit for bit."""
+    r = np.random.default_rng(440)
+    n, hot, k = 5000, 300, 2048
+    hargs = _hot_install(r, cuda, n, hot, k, (1, 10))
+    htabs0, hmirrors0 = hargs[0], hargs[1]
+    svws = (10, 1, 42)
+    stabs0 = [_words(r, n * vw, cuda) for vw in svws]
+
+    def fresh():
+        h = _hot_install(r, cuda, n, hot, k, (1, 10))
+        return (h[2][0], h[3][0], h[4][0], h[5],
+                [_masked_rows(r, n, k, 0.7, cuda) for _ in svws],
+                [_words(r, k * vw, cuda) for vw in svws])
+    htabs = tuple(t.clone() for t in htabs0)
+    hmirrors = tuple(m.clone() for m in hmirrors0)
+    stabs = [t.clone() for t in stabs0]
+    idx, midx, mask, hvals, sidxs, svals = fresh()
+
+    def calls():
+        rk.scatter_rows_hot(htabs, hmirrors, (idx, idx), (midx, midx),
+                            (mask, mask), hvals, (1, 10))
+        rk.scatter_streams(stabs, sidxs, svals, svws)
+    calls()                                             # build and warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        calls()
+    idx2, midx2, mask2, hvals2, sidxs2, svals2 = fresh()
+    for dst, src in zip(
+            list(htabs + hmirrors) + stabs + [idx, midx, mask] + list(hvals)
+            + sidxs + svals,
+            list(htabs0 + hmirrors0) + stabs0 + [idx2, midx2, mask2]
+            + list(hvals2) + sidxs2 + svals2):
+        dst.copy_(src)
+    graph.replay()
+    hargs2 = ((idx2, idx2), (midx2, midx2), (mask2, mask2), hvals2, (1, 10))
+    eager = rk.scatter_rows_hot(tuple(t.clone() for t in htabs0),
+                                tuple(m.clone() for m in hmirrors0), *hargs2)
+    want = rk.scatter_rows_hot_ref(tuple(t.clone() for t in htabs0),
+                                   tuple(m.clone() for m in hmirrors0),
+                                   *hargs2)
+    seager = rk.scatter_streams([t.clone() for t in stabs0], sidxs2, svals2,
+                                svws)
+    swant = rk.scatter_streams_ref([t.clone() for t in stabs0], sidxs2,
+                                   svals2, svws)
+    torch.cuda.synchronize()
+    got = htabs + hmirrors
+    assert all(torch.equal(a, b) for a, b in zip(got, eager[0] + eager[1]))
+    assert all(torch.equal(a, b) for a, b in zip(got, want[0] + want[1]))
+    assert all(torch.equal(a, b) for a, b in zip(stabs, seager))
+    assert all(torch.equal(a, b) for a, b in zip(stabs, swant))
+    assert graph_nodes(graph) == {"kernels": 2, "memsets": 0, "copies": 0,
+                                  "other": 0}
+
+
+@pytest.mark.cuda
+def test_scatter_pass_and_b5_are_one_launch(cuda):
+    """One tuple call of B7, of B3 and of B5 each puts one kernel on the
+    stream and no memset or copy: in a CUDA graph capture of the call,
+    and under torch.profiler whenever its trace holds a device event."""
+    r = np.random.default_rng(450)
+    n, hot, k = 100_000, 4000, 16_384
+    hargs = _hot_install(r, cuda, n, hot, k, (1, 10))
+    svws = (10, 1, 42, 10, 1)
+    stabs = [_words(r, n * vw, cuda) for vw in svws]
+    sidxs = [_masked_rows(r, n, k, 0.6, cuda) for _ in svws]
+    svals = [_words(r, k * vw, cuda) for vw in svws]
+    gtabs = (_words(r, 1 << 20, cuda), _words(r, 1 << 20, cuda),
+             _words(r, n, cuda))
+    slot = torch.from_numpy(r.integers(0, 1 << 20, 24_576).astype(
+        np.int32)).to(cuda)
+    rows = torch.from_numpy(r.integers(0, n, 24_576).astype(
+        np.int32)).to(cuda)
+    for fn in (lambda: rk.scatter_rows_hot(*hargs),
+               lambda: rk.scatter_streams(stabs, sidxs, svals, svws),
+               lambda: rk.gather_streams(gtabs, (slot, slot, rows),
+                                         (1, 1, 1))):
         assert captured_nodes(fn) == {"kernels": 1, "memsets": 0,
                                       "copies": 0, "other": 0}
         ev = device_events(fn)

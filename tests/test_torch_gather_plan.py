@@ -181,7 +181,7 @@ def test_plan_struct_matches_the_kernel_layout(cap, size):
     offsets["first_block"] = off
     offsets["n_streams"] = off + 4 * (cap + 1)
     assert {f: getattr(p, f).offset for f in offsets} == offsets
-    assert rk.GATHER_CAPACITIES == (1, 2, 4, 8)
+    assert rk.CAPACITIES == (1, 2, 4, 8)
     assert rk._GATHER_STRUCTS[8].first_block.offset == 576
 
 

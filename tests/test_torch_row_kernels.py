@@ -368,6 +368,42 @@ def test_gather_streams_ref_matches_pallas_and_xla(n, vws, ks):
         assert torch.equal(got_w[s], got[s])
 
 
+@pytest.mark.parametrize("case", ["smallbank", "mixed"])
+def test_gather_streams_is_gather_rows_tuple_form(case):
+    """gather_streams is gather_rows' tuple form, counted on its own
+    counter: equal to it and to the Pallas gather_streams (interpret
+    mode) stream by stream, an empty stream included."""
+    r = np.random.default_rng(len(case) + 300)
+    streams = {
+        # the SmallBank fused read: x and s stamps by slot, balances by row
+        "smallbank": [(64, 1, 90), (64, 1, 90), (201, 1, 90)],
+        "mixed": [(100, 10, 33), (50, 1, 0), (37, 3, 41), (20, 18, 7)],
+    }[case]
+    tabs = [_words(r, n * vw) for n, vw, _ in streams]
+    idxs = [r.integers(0, n, k).astype(np.int32) for n, _, k in streams]
+    if case == "smallbank":
+        idxs[1] = idxs[0]               # x and s share the slot indices
+    vws = tuple(vw for _, vw, _ in streams)
+    tt = tuple(u32.from_numpy(t, "cpu") for t in tabs)
+    ti = tuple(torch.from_numpy(i) for i in idxs)
+    before = (rk.gather_streams.launches, rk.gather_rows.launches)
+    got = rk.gather_streams(tt, ti, vws)
+    assert (rk.gather_streams.launches, rk.gather_rows.launches) == before
+    rows = rk.gather_rows(tt, ti, vws)
+    assert len(got) == len(rows) == len(streams)
+    live = [s for s, i in enumerate(idxs) if i.size]
+    want = pg.gather_streams(tuple(jnp.asarray(tabs[s]) for s in live),
+                             tuple(jnp.asarray(idxs[s]) for s in live),
+                             tuple(vws[s] for s in live), True)
+    for s in range(len(streams)):
+        assert torch.equal(got[s], rows[s])
+        if s in live:
+            assert np.array_equal(u32.to_numpy(got[s]),
+                                  np.asarray(want[live.index(s)])), s
+        else:
+            assert got[s].numel() == 0
+
+
 # -------------------------------------------------------- scatter_streams
 
 
@@ -600,6 +636,145 @@ def test_scatter_rows_hot_ref_matches_pallas_and_xla(n, hot, vw, k):
                                  u32.from_numpy(mirror, "cpu"), *targs, vw)
     assert rk.scatter_rows_hot.launches == before
     assert torch.equal(t2, out_t) and torch.equal(m2, out_m)
+
+
+@pytest.mark.parametrize("case", ["tatp", "store", "mixed"])
+def test_scatter_rows_hot_tuple_matches_pallas(case):
+    """The tuple form of the write-through install, stream by stream
+    against the Pallas kernel (interpret mode), the plain tuple form and
+    the single form, bit for bit. "tatp" and "store" pass one idx, midx
+    and mask tensor to both streams, as the engines do; "mixed" has an
+    all-masked stream and an empty one. Every masked-out lane holds an
+    out-of-range idx and midx, which nothing may read."""
+    r = np.random.default_rng(len(case) + 200)
+    streams = {
+        # TATP hotset: meta (vw = 1) and val (vw = 10) on the same lanes
+        "tatp": [(300, 24, 1, 96), (300, 24, 10, 96)],
+        # the store's and the cache tier's val and ver on the same lanes
+        "store": [(128, 20, 10, 64), (128, 20, 1, 64)],
+        "mixed": [(100, 10, 3, 40), (64, 64, 1, 50), (80, 8, 18, 0),
+                  (200, 30, 2, 33)],
+    }[case]
+    shared = case != "mixed"
+    tabs = [_words(r, n * vw) for n, _, vw, _ in streams]
+    mirrors = [_words(r, hot * vw) for _, hot, vw, _ in streams]
+    lanes = []
+    for s, (n, hot, vw, k) in enumerate(streams):
+        if shared and s:
+            lanes.append(lanes[0])
+            continue
+        rows = r.permutation(n)[:k].astype(np.int32)
+        on = r.random(k) < (0.0 if case == "mixed" and s == 1 else 0.6)
+        midx = np.where(rows < hot, rows, -1).astype(np.int32)
+        # a masked-out lane's indices address nothing
+        rows = np.where(on, rows, n + 10**6).astype(np.int32)
+        midx = np.where(on, midx, hot + 10**6).astype(np.int32)
+        lanes.append((rows, midx, on))
+    vals = [_words(r, k * vw) for _, _, vw, k in streams]
+    vws = tuple(vw for _, _, vw, _ in streams)
+    lane_t = [tuple(torch.from_numpy(a) for a in z) for z in lanes]
+    if shared:                          # one tensor of each for both streams
+        lane_t = [lane_t[0]] * len(streams)
+    idxs, midxs, masks = (tuple(z[j] for z in lane_t) for j in range(3))
+    tt = tuple(u32.from_numpy(t, "cpu") for t in tabs)
+    mt = tuple(u32.from_numpy(m, "cpu") for m in mirrors)
+    vt = tuple(u32.from_numpy(v, "cpu") for v in vals)
+    before = rk.scatter_rows_hot.launches
+    got_t, got_m = rk.scatter_rows_hot(tt, mt, idxs, midxs, masks, vt, vws)
+    assert rk.scatter_rows_hot.launches == before   # CPU: no kernel
+    assert got_t == tt and got_m == mt              # updated in place
+    ref_t = tuple(u32.from_numpy(t, "cpu") for t in tabs)
+    ref_m = tuple(u32.from_numpy(m, "cpu") for m in mirrors)
+    rk.scatter_rows_hot_ref(ref_t, ref_m, idxs, midxs, masks, vt, vws)
+    for s, (rows, midx, on) in enumerate(lanes):
+        assert torch.equal(tt[s], ref_t[s]) and torch.equal(mt[s], ref_m[s])
+        one_t = u32.from_numpy(tabs[s], "cpu")
+        one_m = u32.from_numpy(mirrors[s], "cpu")
+        rk.scatter_rows_hot(one_t, one_m, idxs[s], midxs[s], masks[s], vt[s],
+                            vws[s])
+        assert torch.equal(one_t, tt[s]) and torch.equal(one_m, mt[s])
+        if rows.size == 0:
+            assert np.array_equal(u32.to_numpy(tt[s]), tabs[s])
+            continue
+        if not on.any():                # all masked: nothing written
+            assert np.array_equal(u32.to_numpy(tt[s]), tabs[s])
+            assert np.array_equal(u32.to_numpy(mt[s]), mirrors[s])
+        want_t, want_m = pg.scatter_rows_hot(
+            jnp.array(tabs[s]), jnp.array(mirrors[s]), jnp.asarray(rows),
+            jnp.asarray(midx), jnp.asarray(on), jnp.asarray(vals[s]),
+            vws[s], True)
+        assert np.array_equal(u32.to_numpy(tt[s]), np.asarray(want_t)), s
+        assert np.array_equal(u32.to_numpy(mt[s]), np.asarray(want_m)), s
+
+
+def test_scatter_rows_hot_rejects_bad_stream_tuples():
+    """Aliased tables, a mirror that aliases a table, and streams that
+    disagree in number are refused before anything is written."""
+    tab, tab2 = torch.zeros(16, dtype=torch.int32), torch.zeros(
+        16, dtype=torch.int32)
+    mir, mir2 = torch.zeros(4, dtype=torch.int32), torch.zeros(
+        4, dtype=torch.int32)
+    idx = torch.zeros(4, dtype=torch.int32)
+    on = torch.ones(4, dtype=torch.bool)
+    two = ((idx, idx), (idx, idx), (on, on), (idx, idx), (1, 1))
+    with pytest.raises(ValueError, match="distinct"):
+        rk.scatter_rows_hot((tab, tab.view(4, 4)[1]), (mir, mir2), *two)
+    with pytest.raises(ValueError, match="distinct"):
+        rk.scatter_rows_hot((tab, tab2), (mir, tab2[4:8]), *two)
+    with pytest.raises(ValueError, match="distinct"):
+        rk.scatter_rows_hot((tab, tab2), (mir, mir), *two)
+    with pytest.raises(ValueError, match="distinct"):
+        rk.scatter_rows_hot(tab, tab[8:12], idx, idx, on, idx, 1)
+    with pytest.raises(ValueError, match="number"):
+        rk.scatter_rows_hot((tab, tab2), (mir,), *two)
+    with pytest.raises(ValueError, match="number"):
+        rk.scatter_rows_hot((tab, tab2), (mir, mir2), (idx, idx), (idx,),
+                            (on, on), (idx, idx), (1, 1))
+    with pytest.raises(ValueError, match="number"):
+        rk.scatter_rows_hot((tab, tab2), (mir, mir2), (idx, idx),
+                            (idx, idx), (on,), (idx, idx), (1, 1))
+    with pytest.raises(ValueError, match="number"):
+        rk.scatter_rows_hot((tab, tab2), (mir, mir2), (idx, idx),
+                            (idx, idx), (on, on), (idx,), (1, 1))
+    with pytest.raises(ValueError, match="streams"):
+        rk.scatter_rows_hot((tab,) * 9, (mir,) * 9, (idx,) * 9, (idx,) * 9,
+                            (on,) * 9, (idx,) * 9, (1,) * 9)
+    with pytest.raises(ValueError, match="mask flags"):
+        rk.scatter_rows_hot((tab, tab2), (mir, mir2), (idx, idx),
+                            (idx, idx), (on, on[:3]), (idx, idx), (1, 1))
+    assert not tab.any() and not tab2.any() and not mir.any()
+
+
+
+@pytest.mark.parametrize("kernel", ["scatter_streams", "scatter_rows_hot"])
+def test_scatter_kernels_reject_values_that_alias_a_written_array(kernel):
+    """The card's kernel reads values through the read-only path, so values
+    that share memory with a table or mirror of the same call are refused
+    before anything is written; values shared between streams are fine."""
+    tab, tab2 = torch.zeros(16, dtype=torch.int32), torch.zeros(
+        16, dtype=torch.int32)
+    mir, mir2 = torch.zeros(4, dtype=torch.int32), torch.zeros(
+        4, dtype=torch.int32)
+    idx = torch.arange(4, dtype=torch.int32)
+    on = torch.ones(4, dtype=torch.bool)
+    val = torch.arange(1, 5, dtype=torch.int32)
+
+    def call(vals):
+        if kernel == "scatter_streams":
+            rk.scatter_streams((tab, tab2, mir, mir2), (idx,) * 4, vals,
+                               (1,) * 4)
+        else:
+            rk.scatter_rows_hot((tab, tab2), (mir, mir2), (idx, idx),
+                                (idx, idx), (on, on), vals, (1, 1))
+    n = 4 if kernel == "scatter_streams" else 2
+    for aliased in (tab[12:], tab2.view(4, 4)[1], mir, mir2[:]):
+        with pytest.raises(ValueError, match="share memory"):
+            call((val,) * (n - 1) + (aliased,))
+    assert not tab.any() and not tab2.any() and not mir.any() \
+        and not mir2.any()
+    call((val,) * n)
+    assert tab[:4].tolist() == tab2[:4].tolist() == mir.tolist() \
+        == [1, 2, 3, 4]
 
 
 def test_hot_kernels_reject_bad_arguments():

@@ -5,10 +5,11 @@ Every wrapper launches one kernel a call on the card (none on the CPU, so
 the launch counters cannot be read here). The engine modules' imported
 wrappers are wrapped with call counters (monkeypatch), then one block of
 steps runs on each route of both dense engines, one hot store step and one
-hot cache step. Where a step gathers several tables at one point, the
-gathers are the streams of one call: TATP's meta and magic gathers,
+hot cache step, and one refill of the cache's hot tier. Where a step
+gathers or installs several tables at one point, they are the streams of
+one call: TATP's meta and magic gathers and its hot meta and val installs,
 SmallBank's held-stamp and balance reads, the store's and the cache's val
-and ver reads. The engines' parity tests (tests/test_torch_tatp_*.py,
+and ver reads and installs. The engines' parity tests (tests/test_torch_tatp_*.py,
 test_torch_smallbank_dense.py, test_torch_store*.py) hold the results
 against the JAX package bit for bit."""
 import numpy as np
@@ -59,7 +60,7 @@ def _per_step(calls, steps):
 TATP_STEP = {
     "default": {"gather_rows": (1, 2), "lock_arbitrate": (1, 1)},
     "hotset": {"gather_rows_hot": (1, 2), "lock_arbitrate": (1, 1),
-               "scatter_rows_hot": (2, 1)},
+               "scatter_rows_hot": (1, 2)},
     "fused": {"lock_validate": (1, 1), "gather_rows": (1, 1),
               "scatter_streams": (1, 3)},
     "fused+hotset": {"lock_validate": (1, 1), "gather_rows_hot": (1, 1),
@@ -70,7 +71,8 @@ TATP_STEP = {
 @pytest.mark.parametrize("route", list(TATP_STEP))
 def test_tatp_step_calls(monkeypatch, route):
     """TATP default: the meta and magic gathers are one two-stream
-    `gather_rows` call a step (hotset: `gather_rows_hot`); the fused
+    `gather_rows` call a step (hotset: `gather_rows_hot`, and the meta
+    and val installs one two-stream `scatter_rows_hot` call); the fused
     routes gather only the magic words, one stream."""
     use_hotset, use_fused = td.ROUTES[route]
     db = td.populate(np.random.default_rng(0), 200, val_words=VW,
@@ -148,7 +150,8 @@ def _batch(r, n, keys):
 
 def test_store_hot_step_calls(monkeypatch):
     """The store's hot route: val and ver in one two-stream
-    `gather_rows_hot` call; the installs write through val, then ver."""
+    `gather_rows_hot` call, and written through in one two-stream
+    `scatter_rows_hot` call."""
     r = np.random.default_rng(4)
     keys = r.choice(80, 50, replace=False).astype(np.uint64)
     vals = r.integers(0, 1 << 32, (50, VW), dtype=np.uint64).astype(
@@ -158,16 +161,36 @@ def test_store_hot_step_calls(monkeypatch):
     calls = _count_calls(monkeypatch, store)
     store.step(table, _batch(r, 40, np.arange(80)), hot=hot)
     assert _per_step(calls, 1) == {"gather_rows_hot": (1, 2),
-                                   "scatter_rows_hot": (2, 1)}
+                                   "scatter_rows_hot": (1, 2)}
 
 
 def test_cache_hot_step_calls(monkeypatch):
     """The cache tier's hot step: val and ver in one two-stream
-    `gather_rows_hot` call; the write-backs write through val, then ver."""
+    `gather_rows_hot` call; the write-backs write val and ver through in
+    one two-stream `scatter_rows_hot` call."""
     r = np.random.default_rng(5)
     cache = store_cache.create(16, val_words=VW, hot_keys=300, device="cpu")
     calls = _count_calls(monkeypatch, store_cache)
     store_cache.cache_step(cache, _batch(r, 64, np.arange(1, 400)),
                            policy=store_cache.WB_BLOOM)
     assert _per_step(calls, 1) == {"gather_rows_hot": (1, 2),
-                                   "scatter_rows_hot": (2, 1)}
+                                   "scatter_rows_hot": (1, 2)}
+
+
+def test_cache_hot_refill_calls(monkeypatch):
+    """The cache tier's hot refill installs val and ver through the
+    mirror in one two-stream `scatter_rows_hot` call."""
+    r = np.random.default_rng(6)
+    cache = store_cache.create(16, val_words=VW, hot_keys=300, device="cpu")
+    n = 48
+    keys = r.choice(np.arange(1, 400), n, replace=False).astype(np.uint64)
+    vals = r.integers(0, 1 << 32, (n, VW), dtype=np.uint64).astype(np.uint32)
+    b = make_batch(np.full(n, Op.GET, np.int32), keys, vals, width=n,
+                   val_words=VW, device="cpu")
+    mask = torch.from_numpy(r.random(n) < 0.8)
+    ver = torch.from_numpy(r.integers(0, 3, n).astype(np.int32))
+    bloom = torch.zeros(n, dtype=torch.int32)
+    calls = _count_calls(monkeypatch, store_cache)
+    store_cache.refill(cache, b.key_hi, b.key_lo, b.val, ver, bloom, bloom,
+                       mask)
+    assert _per_step(calls, 1) == {"scatter_rows_hot": (1, 2)}
