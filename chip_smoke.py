@@ -112,6 +112,26 @@ mismatch or error:
    gather_rows_hot call a round and the two two-stream scatter_rows_hot
    calls (write-back and refill), each one kernel a call and beside its two
    single-stream launches in turns.
+9. The bench entry (last): `python -m dint_tpu_torch.bench` in a process
+   of its own with 3 s windows (DINT_BENCH_WINDOW_S=3) and its profile
+   block on, after `torch.cuda.empty_cache()`, the kernels already built:
+   TATP at 7,000,000 subscribers, w=8192, then SmallBank at 24,000,000
+   accounts, w=8192 and 16384. Its one stdout line must parse and hold
+   every key of the bench line, with committed txn/s > 0, SmallBank's
+   balance conserved, the route PLAN.json pins and the card's name and
+   power limit; each leg must launch its route's kernels once a step
+   (counted in the bench's process).
+10. Recovery at full size (run after phases 6 and 5). TATP: phase 4's
+   final tables, every log head below the 65,536 slots of a lane, rebuilt
+   from phase 4's base tables (populate_device from the same seed) and
+   each of the three replicas with `replay_tatp_dense` on the card, and
+   from replica 0 with the numpy `recover_tatp_dense`: val, ver and
+   exists equal the live tables on every row, no row locked, and the run
+   changed ver. SmallBank: create(24,000,000), w=8192, one warm block and
+   at most 4 more blocks of 16 cohorts that keep every head below
+   capacity, the drain; each replica replayed and replica 0 recovered:
+   bal and total_balance equal the live tables. The run then goes on until
+   a lane wraps, and recovery must refuse the ring.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -120,6 +140,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -146,6 +167,25 @@ ST_LG = ST_SMAX + ST_DCAP        # rows in each lane's scan window
 ST_SCAN_FRAC = 0.95
 ST_TIMED = 8
 ST_POINT_TIMED = 4
+BENCH_WINDOW_S = 3               # phase 9's window (the bench's default: 10)
+RECOVERY_SB_BLOCKS = 4           # phase 10's SmallBank blocks after the warm one
+
+# kernels launched once a step on each route at the main paths' shapes
+# (SmallBank at 24M accounts: the lock table is hashed, so the hot route
+# mirrors balances only: x + s in one gather_rows launch, bal through the
+# mirror)
+TATP_PER_STEP = {
+    "default": {"gather_rows": 1, "lock_arbitrate": 1},
+    "hotset": {"gather_rows_hot": 1, "lock_arbitrate": 1,
+               "scatter_rows_hot": 1},
+    "fused": {"lock_validate": 1, "gather_rows": 1, "scatter_streams": 1},
+    "fused+hotset": {"lock_validate": 1, "gather_rows_hot": 1,
+                     "scatter_streams": 1}}
+SB_PER_STEP = {
+    "default": {"gather_rows": 1},
+    "hotset": {"gather_rows": 1, "gather_rows_hot": 1, "scatter_rows_hot": 1},
+    "fused": {"gather_streams": 1, "scatter_streams": 1},
+    "fused+hotset": {"gather_streams": 1, "scatter_streams": 1}}
 
 
 class SmokeFailure(RuntimeError):
@@ -464,7 +504,7 @@ def phase_main_path(dev):
         N_SUB, w=W, val_words=VW, cohorts_per_block=CPB, device=dev)
     db, stats, launches = drive_tatp(dev, run, init, drain, db)
     # the meta and magic gathers are the two streams of one launch
-    check_tatp(db, stats, launches, {"gather_rows": 1, "lock_arbitrate": 1})
+    check_tatp(db, stats, launches, TATP_PER_STEP["default"])
     return launches, db, stats
 
 
@@ -1315,15 +1355,8 @@ def phase_smallbank(dev):
     from dint_tpu_torch.engines import smallbank_dense as sd
     from dint_tpu_torch.tables import log as logring
     steps = (TIMED_BLOCKS + 1) * SB_CPB + 1
-    # default: x, s and bal in one launch; hotset (hashed lock table, no
-    # stamp mirrors): x + s in one launch, bal through the mirror
-    per_step = {"default": {"gather_rows": 1},
-                "hotset": {"gather_rows": 1, "gather_rows_hot": 1,
-                           "scatter_rows_hot": 1},
-                "fused": {"gather_streams": 1, "scatter_streams": 1},
-                "fused+hotset": {"gather_streams": 1, "scatter_streams": 1}}
     ends, launches_all = {}, {}
-    for route, counts in per_step.items():
+    for route, counts in SB_PER_STEP.items():
         hot, fused = sd.ROUTES[route]
         print(f"  -- route {route}")
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1419,14 +1452,9 @@ def phase_tatp_routes(dev, ref):
           f"cohorts/block, against phase 4's default route")
     from dint_tpu_torch.engines import tatp_dense as td
     ref_db, ref_stats = ref
-    per_step = {"hotset": {"gather_rows_hot": 1, "lock_arbitrate": 1,
-                           "scatter_rows_hot": 1},
-                "fused": {"lock_validate": 1, "gather_rows": 1,
-                          "scatter_streams": 1},
-                "fused+hotset": {"lock_validate": 1, "gather_rows_hot": 1,
-                                 "scatter_streams": 1}}
     launches_all = {}
-    for route, counts in per_step.items():
+    for route in ("hotset", "fused", "fused+hotset"):
+        counts = TATP_PER_STEP[route]
         hot, fused = td.ROUTES[route]
         print(f"  -- route {route}")
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2524,6 +2552,209 @@ def phase_cache(dev):
 
 
 
+# ------------------------------------------------------- bench and recovery
+
+# the bench line's keys (bench.py:362-453 with the SmallBank leg; route,
+# device and card in place of use_pallas/use_hotset)
+BENCH_KEYS = (
+    "schema", "metric", "value", "unit", "vs_baseline", "mode",
+    "throughput", "abort_rate", "contention_abort_rate", "ab_lock",
+    "ab_missing", "ab_validate", "avg_us", "p50_us", "p99_us", "p999_us",
+    "lat_samples", "lat_hist", "n_subscribers", "width", "blocks",
+    "window_s", "host_ucores", "host_kcores", "proc_ucores", "proc_kcores",
+    "route", "device", "card", "plan", "counters", "dinttrace", "serve",
+    "dintlint", "dintcost", "dintdur", "breakdown",
+    "smallbank_committed_txns_per_sec", "smallbank_abort_rate",
+    "smallbank_width", "smallbank_points", "smallbank_route",
+    "smallbank_balance_conserved", "smallbank_plan")
+
+
+def phase_bench(card):
+    print(f"== phase 9: the bench entry, python -m dint_tpu_torch.bench, "
+          f"{BENCH_WINDOW_S} s windows, TATP at {N_SUB:,} subscribers and "
+          f"SmallBank at {SB_N:,} accounts")
+    from dint_tpu_torch import bench
+    torch.cuda.empty_cache()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("DINT_")}
+    env.update(DINT_BENCH_WINDOW_S=str(BENCH_WINDOW_S),
+               DINT_BENCH_PROFILE="1")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "dint_tpu_torch.bench"],
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    secs = time.perf_counter() - t0
+    check(out.returncode == 0,
+          f"the bench exits 0 in {secs:.3f} s" + (
+              "" if out.returncode == 0 else
+              f" (rc {out.returncode}; stderr: {out.stderr[-2000:]})"))
+    lines = out.stdout.strip().splitlines()
+    line = json.loads(lines[-1])
+    print("  " + json.dumps({k: v for k, v in line.items()
+                             if k != "lat_hist"}))
+    check(len(lines) == 1 and all(k in line for k in BENCH_KEYS),
+          "one JSON line holding every key of the bench line")
+    route, _ = bench.plan_route("tatp_uniform", {})
+    sb_route, _ = bench.plan_route("smallbank_skewed", {})
+    check(line["value"] > 0 and line["smallbank_committed_txns_per_sec"] > 0
+          and line["smallbank_balance_conserved"] is True
+          and line["n_subscribers"] == N_SUB and line["width"] == W
+          and [p["width"] for p in line["smallbank_points"]] == [8192, 16384],
+          f"committed txn/s {line['value']} > 0 at {N_SUB:,} subscribers, "
+          f"w={W}; SmallBank {line['smallbank_committed_txns_per_sec']} > 0 "
+          f"at w=8192 and 16384, balance conserved")
+    check(line["route"] == route and line["smallbank_route"] == sb_route
+          and line["card"] == card
+          and line["device"] == torch.cuda.get_device_name(0),
+          f"the line names the route PLAN.json pins ({route}, {sb_route}) "
+          f"and the card ({line['card']})")
+    launches = line["profile"]["launches"]
+    paths = {"bench tatp": launches["tatp"],
+             "bench smallbank": launches["smallbank"]}
+    for (label, n), want in zip(paths.items(), (TATP_PER_STEP[route],
+                                                SB_PER_STEP[sb_route])):
+        ran = {k for k, c in n.items() if c}
+        check(ran == set(want) and len({n[k] for k in ran}) == 1,
+              f"{label}: {sorted(want)} launched, each once a step "
+              f"({ {k: n[k] for k in sorted(ran)} })")
+    return paths
+
+
+def phase_recovery_tatp(dev, live):
+    print(f"== phase 10 (TATP): phase 4's tables rebuilt from each log "
+          f"replica, n_sub={N_SUB:,}")
+    from dint_tpu_torch import recovery
+    from dint_tpu_torch.engines import tatp_dense as td
+    from dint_tpu_torch.ops.u32 import to_u64
+    from dint_tpu_torch.tables import log as logring
+    t_phase = time.perf_counter()
+    heads = to_u64(live.log.head)
+    cap = live.log.capacity
+    check(int(heads.max()) < cap,
+          f"every head below the capacity of {cap} a lane (max "
+          f"{int(heads.max())}, {int(heads.sum())} entries a replica)")
+    # phase 4's base tables: populate_device is deterministic on one card
+    db0 = td.populate_device(torch.Generator(device=dev).manual_seed(0),
+                             N_SUB, val_words=VW, device=dev)
+    check(not torch.equal(db0.ver, live.ver),
+          "the run changed ver, so recovery is not trivial")
+    meta0 = db0.meta.clone()
+
+    def same(rec, what):
+        check(torch.equal(rec.val, live.val) and torch.equal(rec.ver, live.ver)
+              and torch.equal(rec.exists, live.exists)
+              and not bool(rec.locked.any()),
+              f"{what}: val, ver and exists == the live tables on every row, "
+              f"no row locked")
+
+    for r in range(3):
+        t0 = time.perf_counter()
+        rec = recovery.replay_tatp_dense(
+            db0, logring.replica_entries(live.log, r), live.log.head)
+        torch.cuda.synchronize()
+        same(rec, f"replica {r} replayed on the card in "
+                  f"{time.perf_counter() - t0:.3f} s")
+        del rec
+    t0 = time.perf_counter()
+    rec = recovery.recover_tatp_dense(
+        db0, logring.replica_entries(live.log, 0), live.log.head)
+    torch.cuda.synchronize()
+    same(rec, f"replica 0 recovered on the host (numpy) in "
+              f"{time.perf_counter() - t0:.3f} s")
+    check(torch.equal(db0.meta, meta0), "db0 untouched")
+    del rec, db0, meta0
+    torch.cuda.empty_cache()
+    print(f"  phase 10 (TATP) seconds: {time.perf_counter() - t_phase:.3f}")
+
+
+def phase_recovery_smallbank(dev):
+    print(f"== phase 10 (SmallBank): {SB_N:,} accounts, w={SB_W}, rebuilt "
+          f"from each log replica; a wrapped ring refused")
+    from dint_tpu_torch import recovery
+    from dint_tpu_torch.engines import smallbank_dense as sd
+    from dint_tpu_torch.ops.u32 import to_u64
+    from dint_tpu_torch.tables import log as logring
+    t_phase = time.perf_counter()
+    db = sd.create(SB_N, device=dev)
+    base = int(sd.total_balance(db))
+    cap = db.log.capacity
+    run, init, drain = sd.build_pipelined_runner(
+        SB_N, w=SB_W, cohorts_per_block=SB_CPB, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    reset_launches()
+    carry = init(db)
+    carry, s = run(carry, gen)
+    stats, top = [s], int(to_u64(carry[0].log.head).max())
+    grew = top
+    # at most RECOVERY_SB_BLOCKS more blocks, none that would wrap a lane
+    for _ in range(RECOVERY_SB_BLOCKS):
+        if top + grew + SB_W >= cap:
+            break
+        carry, s = run(carry, gen)
+        stats.append(s)
+        now = int(to_u64(carry[0].log.head).max())
+        grew, top = now - top, now
+    db, tail = drain(carry)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    total = torch.cat(stats + [tail]).cpu().numpy().astype(np.int64).sum(0)
+    heads = to_u64(db.log.head)
+    check(int(heads.max()) < cap,
+          f"{len(stats)} blocks + drain: every head below the capacity of "
+          f"{cap} a lane (max {int(heads.max())}, {int(heads.sum())} "
+          f"entries a replica)")
+    final = int(sd.total_balance(db))
+    check((final - base) % (1 << 32)
+          == int(total[sd.STAT_BAL_DELTA]) % (1 << 32),
+          "balance conservation mod 2^32")
+    db0 = sd.create(SB_N, device=dev)
+
+    def same(rec, what):
+        check(torch.equal(rec.bal, db.bal)
+              and int(sd.total_balance(rec)) == final
+              and rec.step >= db.step - 1 and not bool(rec.x_step.any())
+              and not bool(rec.s_step.any()),
+              f"{what}: bal and total_balance == the live tables, stamps "
+              f"reset, step {rec.step} resumes past {db.step - 1}")
+
+    for r in range(3):
+        t0 = time.perf_counter()
+        rec = recovery.replay_smallbank_dense(
+            db0, logring.replica_entries(db.log, r), db.log.head)
+        same(rec, f"replica {r} replayed on the card in "
+                  f"{time.perf_counter() - t0:.3f} s")
+        del rec
+    t0 = time.perf_counter()
+    rec = recovery.recover_smallbank_dense(
+        db0, logring.replica_entries(db.log, 0), db.log.head)
+    same(rec, f"replica 0 recovered on the host (numpy) in "
+              f"{time.perf_counter() - t0:.3f} s")
+    del rec
+
+    # go on until a lane wraps: recovery must refuse the ring
+    carry = init(db)
+    for _ in range(4 * RECOVERY_SB_BLOCKS):
+        if int(to_u64(carry[0].log.head).max()) > cap:
+            break
+        carry, _ = run(carry, gen)
+    db, _ = drain(carry)
+    heads = to_u64(db.log.head)
+    try:
+        recovery.recover_smallbank_dense(
+            db0, logring.replica_entries(db.log, 0), db.log.head)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    check(int(heads.max()) > cap and "wrapped" in refused,
+          f"a wrapped ring (head max {int(heads.max())} > {cap}) is "
+          f"refused: {refused}")
+    del db, db0, carry
+    torch.cuda.empty_cache()
+    print(f"  phase 10 (SmallBank) seconds: "
+          f"{time.perf_counter() - t_phase:.3f}")
+    return launches
+
+
+
 KERNELS = {
     "gather_rows": ("dint_tpu_torch/csrc/gather_rows.cu",
                     "dint_tpu/ops/pallas_gather.py:212"),
@@ -2569,25 +2800,29 @@ def main() -> int:
     tatp_default, ref_db, ref_stats = phase_main_path(dev)
     tatp = {"default": tatp_default,
             **phase_tatp_routes(dev, (ref_db, ref_stats))}
+    phase_recovery_tatp(dev, ref_db)
     del ref_db
     torch.cuda.empty_cache()
     sb = phase_smallbank(dev)
     torch.cuda.empty_cache()
+    sb["recovery"] = phase_recovery_smallbank(dev)
     rec["scan_rows"], store_paths = phase_store(dev)
     store_paths["store hot"] = store_hot
     torch.cuda.empty_cache()
     cache_paths, cache_rec = phase_cache(dev)
     store_paths.update(cache_paths)
     store_paths["probe"] = probe
+    store_paths.update(phase_bench(card))
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = rec[name]
         # launches on the main paths: TATP's routes (phases 4 and 6),
-        # SmallBank's (phase 5), the store's (phase 7, and the hot route's
-        # steps on the card in phase 3), the cache tier's hot run (phase 8)
-        # and the probe's entry point (phase 2), each counted from 0 just
-        # before its run
+        # SmallBank's (phase 5, and phase 10's run), the store's (phase 7,
+        # and the hot route's steps on the card in phase 3), the cache
+        # tier's hot run (phase 8), the probe's entry point (phase 2) and
+        # the bench's two legs (phase 9, counted in its process), each
+        # counted from 0 just before its run
         paths = {**{f"tatp {k}": v[name] for k, v in tatp.items()},
                  **{f"smallbank {k}": v[name] for k, v in sb.items()},
                  **{k: v[name] for k, v in store_paths.items()}}

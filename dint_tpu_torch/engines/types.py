@@ -28,6 +28,15 @@ class Op:
     SET = 2
     INSERT = 3
     DELETE = 4
+    # lock server (2PL) and OCC version server
+    ACQ_S = 5
+    ACQ_X = 6
+    REL_S = 7
+    REL_X = 8
+    READ_VER = 9
+    LOCK = 10
+    COMMIT_VER = 11
+    ABORT = 12
     ACQ_S_READ = 14    # acquire shared + read value in one RTT
     ACQ_X_READ = 15    # acquire exclusive + read value in one RTT
     OCC_READ = 16      # read value + version (no lock)

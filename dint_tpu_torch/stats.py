@@ -1,18 +1,78 @@
-"""The clients' stat contract: what `Recorder` needs of
-`dint_tpu.stats` (numpy only, the same definitions and numbers).
+"""The clients' stat contract, the port's copy of `dint_tpu.stats`
+(numpy only, the same definitions and numbers).
 
 A client records attempted and committed requests and per-request
 latencies (µs) over a measure window; `Recorder.block` turns them into the
 reference's metric block (throughput, goodput, average/median/99th/99.9th
 latency; tatp/caladan/client_ebpf_shard.cc:368-377), with the log-bucketed
-histogram beside the reservoir's percentiles.
+histogram beside the reservoir's percentiles. The bench's timed window is
+`run_window` (`run_latency_window` for one-step blocks), warm-up to
+measure to done is `StatClock` (store/caladan/stat.h:10-13), and
+`CpuMonitor` is the reference's cpu_util block.
+
+What differs from JAX: the runners take a `torch.Generator`, which each
+call advances, where JAX's take a key and fold in the block index; and a
+block's stats are fetched with ``.cpu()``, the value fetch that closes the
+window as ``np.asarray`` does in JAX.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import time
 
 import numpy as np
+
+
+@dataclasses.dataclass
+class Window:
+    """Warmup/measure/exit schedule (store/caladan/stat.h:10-13)."""
+    warmup_s: float = 5.0
+    measure_s: float = 10.0
+
+    @property
+    def total_s(self):
+        return self.warmup_s + self.measure_s
+
+
+class StatClock:
+    """Drives a client loop through warmup -> measure -> done phases:
+    `tick` each iteration, record only while `measuring`."""
+
+    def __init__(self, window: Window | None = None):
+        self.window = window or Window()
+        self.t0 = time.monotonic()
+        self._measure_t0 = None
+        self._measure_t1 = None
+        self._done = False
+
+    def tick(self) -> str:
+        now = time.monotonic()
+        t = now - self.t0
+        # close the interval over the wave since the previous tick before
+        # classifying this one, so the last measured wave's time counts
+        if self._measure_t0 is not None and not self._done:
+            self._measure_t1 = now
+        if t < self.window.warmup_s:
+            return "warmup"
+        if t < self.window.total_s:
+            if self._measure_t0 is None:
+                self._measure_t0 = self._measure_t1 = now
+            return "measure"
+        self._done = True
+        return "done"
+
+    @property
+    def measuring(self) -> bool:
+        return (not self._done and self._measure_t0 is not None
+                and self._measure_t1 is not None)
+
+    @property
+    def measured_s(self) -> float:
+        if self._measure_t0 is None or self._measure_t1 is None:
+            return 0.0
+        return self._measure_t1 - self._measure_t0
 
 
 class LatencyHistogram:
@@ -50,6 +110,18 @@ class LatencyHistogram:
         self.n += len(arr)
         self.sum_us += float(arr.sum())
 
+    def merge(self, other: "LatencyHistogram"):
+        """Bucket counts add (exact, associative, commutative); returns
+        self, so ``total.merge(a).merge(b)``."""
+        self.counts += other.counts
+        self.n += other.n
+        self.sum_us += other.sum_us
+        self.dropped_nonfinite += other.dropped_nonfinite
+        return self
+
+    def _edge(self, i: int) -> float:
+        return 2.0 ** (self.LO_EXP + i / self.PER_OCTAVE)
+
     def _rep(self, i: int) -> float:
         return 2.0 ** (self.LO_EXP + (i + 0.5) / self.PER_OCTAVE)
 
@@ -78,6 +150,19 @@ class LatencyHistogram:
             **{f"{k}_us": round(v, 2)
                for k, v in self.percentiles().items()},
         }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "LatencyHistogram":
+        if d.get("lo_exp", cls.LO_EXP) != cls.LO_EXP or \
+                d.get("per_octave", cls.PER_OCTAVE) != cls.PER_OCTAVE:
+            raise ValueError("histogram bucket geometry mismatch")
+        h = cls()
+        for i, c in (d.get("buckets") or {}).items():
+            h.counts[int(i)] = int(c)
+        h.n = int(d.get("n", int(h.counts.sum())))
+        h.sum_us = float(d.get("sum_us", 0.0))
+        h.dropped_nonfinite = int(d.get("dropped_nonfinite", 0))
+        return h
 
 
 class LatencyReservoir:
@@ -126,6 +211,156 @@ class LatencyReservoir:
         p50, p99, p999 = np.percentile(s, [50, 99, 99.9])
         return dict(avg=float(s.mean()), p50=float(p50), p99=float(p99),
                     p999=float(p999))
+
+
+class CpuMonitor:
+    """Host core-seconds over a window, the reference's cpu_util service
+    (smallbank/cpu_util.h:37-46): machine-wide user and kernel time from
+    /proc/stat, and this process's (the host loop that feeds the card)."""
+
+    def __init__(self):
+        self._t0 = time.monotonic()
+        self._m0 = self._machine()
+        self._p0 = self._process()
+
+    @staticmethod
+    def _machine():
+        with open("/proc/stat") as f:
+            parts = f.readline().split()
+        # user, nice, system, idle, iowait, irq, softirq
+        user = int(parts[1]) + int(parts[2])
+        kernel = int(parts[3]) + int(parts[6]) + int(parts[7])
+        return user, kernel
+
+    @staticmethod
+    def _process():
+        with open("/proc/self/stat") as f:
+            parts = f.read().rsplit(") ", 1)[1].split()
+        return int(parts[11]), int(parts[12])   # utime, stime
+
+    def cores(self) -> dict:
+        """Core-equivalents busy since construction (jiffies / HZ / wall)."""
+        hz = float(os.sysconf("SC_CLK_TCK"))
+        dt = max(time.monotonic() - self._t0, 1e-9)
+        m1 = self._machine()
+        p1 = self._process()
+        return {
+            "host_ucores": round((m1[0] - self._m0[0]) / hz / dt, 3),
+            "host_kcores": round((m1[1] - self._m0[1]) / hz / dt, 3),
+            "proc_ucores": round((p1[0] - self._p0[0]) / hz / dt, 3),
+            "proc_kcores": round((p1[1] - self._p0[1]) / hz / dt, 3),
+        }
+
+
+def steady_blocks(block_s):
+    """`run_window`'s block times trimmed to steady state: the first block
+    is enqueue only and the last holds the final fetch."""
+    return block_s[1:-1] if len(block_s) > 2 else block_s
+
+
+def cohort_latency_percentiles(block_s, cohorts_per_block: int, depth: int):
+    """Latency percentiles at cohort granularity from per-block wall times.
+
+    A txn completes ``depth`` pipeline steps after its cohort's dispatch.
+    Cohort j of a block spends its first (cpb - j) steps in its own block
+    (a step = that block's wall / cpb) and the rest in the next block's
+    steps, so the samples carry cross-block jitter. Returns the percentile
+    dict with ``n`` (samples) and ``hist`` (the "lat_hist" block)."""
+    bs = np.asarray(steady_blocks(block_s), np.float64)
+    lat = LatencyReservoir()
+    if len(bs):
+        step = bs / cohorts_per_block
+        j = np.arange(cohorts_per_block)
+        spill = np.minimum(np.maximum(j + depth - cohorts_per_block, 0),
+                           depth)
+        for b in range(len(bs)):
+            s_next = step[b + 1] if b + 1 < len(bs) else step[b]
+            lat.add(((depth - spill) * step[b] + spill * s_next) * 1e6)
+    out = lat.percentiles()
+    out["n"] = lat.n_seen
+    out["hist"] = lat.hist.to_dict()
+    return out
+
+
+def fetch_stats(stats) -> np.ndarray:
+    """A block's stats [cpb, n_stats] on the host as int64: the value
+    fetch (``.cpu()``) waits for the block's kernels."""
+    return stats.cpu().numpy().astype(np.int64)
+
+
+def run_latency_window(runner, state, gen, window_s: float, n_stats: int,
+                       depth: int, warmup_blocks: int = 2):
+    """Latency-mode window for runners of one step a block: each call's
+    stats are fetched at once, so the cohort dispatched at call j
+    completes in call j+depth-1 and its latency is t_end[j+depth-1] -
+    t_start[j], measured on the host clock around real device work.
+
+    Returns (state, total, dt, steps, percentiles with ``n`` and
+    ``hist``). ``total`` also holds the warm-up cohorts' outcomes, which
+    surface in the timed fetches."""
+    for _ in range(warmup_blocks):
+        state, stats = runner(state, gen)
+        fetch_stats(stats)
+
+    total = np.zeros(n_stats, np.int64)
+    t_start, t_end = [], []
+    t0 = time.time()
+    i = 0
+    while time.time() - t0 < window_s:
+        t_start.append(time.time())
+        state, stats = runner(state, gen)
+        total += fetch_stats(stats).sum(axis=0)
+        t_end.append(time.time())
+        i += 1
+    dt = time.time() - t0
+    lat = LatencyReservoir()
+    if i > depth:
+        samples = (np.asarray(t_end[depth - 1:]) -
+                   np.asarray(t_start[: i - depth + 1])) * 1e6
+        lat.add(samples)
+    out = lat.percentiles()
+    out["n"] = lat.n_seen
+    out["hist"] = lat.hist.to_dict()
+    return state, total, dt, i, out
+
+
+def run_window(runner, state, gen, window_s: float, n_stats: int,
+               warmup_blocks: int = 1):
+    """The bench's timed loop: ``warmup_blocks`` calls, then calls until
+    ``window_s`` has passed, the fetch of block i-1's stats overlapping
+    block i's device work. The window closes with the fetch of the last
+    block's stats.
+
+    Returns (state, total [n_stats] i64 of the timed blocks, warm_total
+    of the warm-up blocks, elapsed_s, blocks, block_s): ``block_s`` is the
+    wall time of each timed iteration, ~ one block of device time in
+    steady state."""
+    warm_total = np.zeros(n_stats, np.int64)
+    for _ in range(warmup_blocks):
+        state, stats = runner(state, gen)
+        warm_total += fetch_stats(stats).sum(axis=0)
+
+    total = np.zeros(n_stats, np.int64)
+    block_s = []
+    t0 = time.time()
+    blocks = 0
+    pending = None
+    tprev = t0
+    while time.time() - t0 < window_s:
+        state, stats = runner(state, gen)
+        if pending is not None:
+            total += fetch_stats(pending).sum(axis=0)
+        pending = stats
+        blocks += 1
+        now = time.time()
+        block_s.append(now - tprev)
+        tprev = now
+    if pending is not None:
+        total += fetch_stats(pending).sum(axis=0)
+        # the last fetch closes the last block's device time
+        block_s[-1] = time.time() - tprev + block_s[-1]
+    dt = time.time() - t0
+    return state, total, warm_total, dt, blocks, block_s
 
 
 @dataclasses.dataclass

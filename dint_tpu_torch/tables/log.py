@@ -95,6 +95,18 @@ def append_rep(ring: RepLog, do_append, table_id, is_del, key_hi, key_lo,
     return ring
 
 
+def advance_watermark(ring: RepLog, watermark: torch.Tensor,
+                      consumed: torch.Tensor) -> torch.Tensor:
+    """A ring's durability watermark [L] after ``consumed`` entries a lane
+    were checkpointed or replayed downstream: the u32 ``min(head,
+    watermark + consumed)`` on int32 bit patterns, the sum wrapping at
+    2^32. The ring wraps regardless (ls_kern.c:72-73); a caller that keeps
+    a watermark bounds it while head - watermark <= capacity. No engine
+    threads one yet."""
+    want = (to_u64(watermark) + to_u64(consumed)) & 0xFFFFFFFF
+    return wrap_i32(torch.minimum(to_u64(ring.head), want))
+
+
 def replica_entries(ring: RepLog, replica: int = 0) -> torch.Tensor:
     """One replica's slots in LogRing layout [L, CAP, HDR+VW]."""
     ew = ring.entry_words
