@@ -132,6 +132,33 @@ mismatch or error:
    capacity, the drain; each replica replayed and replica 0 recovered:
    bal and total_balance equal the live tables. The run then goes on until
    a lane wraps, and recovery must refuse the ring.
+11. The generic engines (last). First the CPU against the card at a small
+   size, the same inputs: lock2pl, fasst (and step_attr), logsrv,
+   smallbank.step and tatp.step (both CF lock flavours) over 8 contended
+   batches each; one generic TATP pipelined block + drain and one serial
+   block (n_sub=2000, w=64; n_sub=32, w=256 on the US/IC contention mix
+   with the counters); one generic SmallBank block with the counters
+   (n=64, w=128); the three trace clients and the log client: replies,
+   tables, stats and counters bit-identical. Then, at exp.py sweep_micro's
+   settings, each microbenchmark for a 3 s window after a warm round:
+   lock_2pl and lock_fasst (plain and attributed) over 2^26-slot tables
+   (the reference's 36M locks rounded up to a power of two) on a
+   20,000-txn trace of 5-10 keys among 4,800, cohort 512, width 8192;
+   log_server at width 8192 into 16 x 2^20 entries of 10 value words
+   (rounds or waves a second, committed a second, abort rate, p50/p99).
+   lock_2pl's table is checked after one acquire wave (no slot S and X,
+   counts == grants) and after every release (all 0); no OCC lock is held
+   after the window; the ring heads sum to the appends. Then generic TATP
+   at 7,000,000 subscribers, 3 replicas of tatp.create's defaults
+   (populate_shards: numpy draws, the CF table placed once and cloned),
+   w=4096, 8 cohorts a block: build_pipelined_runner, one warm and 3 timed
+   blocks, drain; then build_runner(validate=True), one block; each with
+   accounting closed, magic_bad 0, no lock held and the replicas
+   identical. Then generic SmallBank at 24,000,000 accounts
+   (create_stacked on the card), build_runner, one warm and 3 timed
+   blocks: accounting, each replica's balance delta == the stats', the
+   replicas identical, every lock released. None of the nine kernels is
+   launched: the counts must read 0.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -169,6 +196,22 @@ ST_TIMED = 8
 ST_POINT_TIMED = 4
 BENCH_WINDOW_S = 3               # phase 9's window (the bench's default: 10)
 RECOVERY_SB_BLOCKS = 4           # phase 10's SmallBank blocks after the warm one
+GEN_SLOTS = 1 << 26              # lock tables: 2^26 >= the reference's 36M
+GEN_TRACE_TXNS = 20_000          # exp.py sweep_micro's lock trace
+GEN_COHORT = 512
+GEN_LOCK_W = 8192
+GEN_LOG_LANES = 16
+GEN_LOG_CAP = 1 << 20
+GEN_LOG_VW = 10                  # 40-byte log values
+GEN_LOG_W = 8192
+GEN_WINDOW_S = 3.0               # each microbenchmark's window
+GEN_N_SUB = 7_000_000
+GEN_SB_N = 24_000_000
+GEN_W = 4096                     # the generic runners' default width
+GEN_CPB = 8
+GEN_TATP_BLOCKS = 3              # timed blocks after the warm one
+GEN_SB_BLOCKS = 3
+TATP_CONTENTION_MIX = np.array([0, 0, 0, 50, 0, 50, 0], np.float64) / 100.0
 
 # kernels launched once a step on each route at the main paths' shapes
 # (SmallBank at 24M accounts: the lock table is hashed, so the hot route
@@ -2755,6 +2798,440 @@ def phase_recovery_smallbank(dev):
 
 
 
+# ------------------------------------------------------- the generic engines
+
+
+def _same_tree(a, b):
+    """Two port states (dataclass trees or lists of them) bit-identical,
+    compared on the host."""
+    from dint_tpu_torch import convert
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_same_tree(x, y) for x, y in zip(a, b))
+    da, db = convert.tree_to_numpy(a), convert.tree_to_numpy(b)
+    return da.keys() == db.keys() and all(
+        np.array_equal(v, db[k]) if isinstance(v, np.ndarray) else v == db[k]
+        for k, v in da.items())
+
+
+def _same_replies(a, b):
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in
+               ((a.rtype, b.rtype), (a.val, b.val), (a.ver, b.ver)))
+
+
+def _replicas_identical(shards):
+    """The replicas' every table, on the card."""
+    import dataclasses
+
+    def leaves(x):
+        for f in dataclasses.fields(x):
+            v = getattr(x, f.name)
+            if isinstance(v, torch.Tensor):
+                yield v
+            elif dataclasses.is_dataclass(v):
+                yield from leaves(v)
+    first = list(leaves(shards[0]))
+    return all(all(torch.equal(x, y) for x, y in zip(first, leaves(s)))
+               for s in shards[1:])
+
+
+def phase_generic_cpu_vs_card(dev):
+    print("== phase 11 (CPU against the card): the generic engines at a "
+          "small size, the same inputs")
+    from dint_tpu_torch.clients import micro, tatp_client
+    from dint_tpu_torch.clients import workloads as wl
+    from dint_tpu_torch.engines import (fasst, lock2pl, logsrv, smallbank,
+                                        smallbank_pipeline as sp, tatp,
+                                        tatp_pipeline as tp)
+    from dint_tpu_torch.engines.types import Op, make_batch
+    from dint_tpu_torch.monitor import counters as mon
+    from dint_tpu_torch.tables import locks
+    from dint_tpu_torch.tables import log as logring
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(11)
+
+    def steps(label, step, make_state, make_ops, n_batches, width, vw=2):
+        states = {d: make_state(d) for d in ("cpu", dev)}
+        for _ in range(n_batches):
+            args = make_ops()
+            reps = {}
+            for d in states:
+                b = make_batch(*args[:3], vers=args[3], tables=args[4],
+                               width=width, val_words=vw, device=d)
+                states[d], reps[d] = step(states[d], b)
+            if not _same_replies(reps["cpu"], reps[dev]):
+                check(False, f"{label}: replies differ")
+        check(_same_tree(states["cpu"], states[dev]),
+              f"{label}: {n_batches} contended batches of {width} lanes, "
+              f"replies and state bit-identical")
+
+    nl = 64
+
+    def lock_ops(codes):
+        def make():
+            n = 200
+            ops = np.asarray(codes)[rng.integers(0, len(codes), n)]
+            return (ops, rng.integers(0, 4 * nl, n).astype(np.uint64), None,
+                    None, None)
+        return make
+
+    steps("lock2pl", lock2pl.step, lambda d: locks.create_sx(nl, d),
+          lock_ops([Op.ACQ_S, Op.ACQ_X, Op.REL_S, Op.REL_X, Op.NOP]), 8, 256)
+    occ = lock_ops([Op.READ_VER, Op.LOCK, Op.COMMIT_VER, Op.ABORT, Op.NOP])
+    steps("fasst", fasst.step, lambda d: locks.create_occ(nl, d), occ, 8, 256)
+    steps("fasst step_attr", fasst.step_attr,
+          lambda d: locks.create_occ_attr(nl, d), occ, 8, 256)
+
+    def log_ops():
+        n = 200
+        return (np.where(rng.random(n) < 0.8, Op.LOG_APPEND, Op.NOP),
+                rng.integers(0, 1 << 40, n).astype(np.uint64),
+                rng.integers(0, 1 << 32, (n, 2), dtype=np.uint64),
+                rng.integers(0, 1 << 32, n, dtype=np.uint64),
+                rng.integers(0, 5, n))
+    steps("logsrv", logsrv.step, lambda d: logring.create(4, 64, 2, d),
+          log_ops, 8, 256)
+
+    def sb_ops():
+        n = 200
+        codes = [Op.ACQ_S_READ, Op.ACQ_X_READ, Op.REL_S, Op.REL_X,
+                 Op.COMMIT_PRIM, Op.COMMIT_BCK, Op.COMMIT_LOG, Op.NOP]
+        return (np.asarray(codes)[rng.integers(0, len(codes), n)],
+                rng.integers(0, 40, n).astype(np.uint64),
+                rng.integers(0, 1 << 32, (n, 2), dtype=np.uint64),
+                ((1 << 31) - 8 + rng.integers(0, 16, n)).astype(np.uint64),
+                rng.integers(0, 2, n))
+    steps("smallbank.step", smallbank.step,
+          lambda d: sp.create_stacked(40, log_capacity=64, device=d)[0],
+          sb_ops, 8, 256)
+
+    n_sub = 40
+
+    def tatp_ops():
+        n = 200
+        codes = [Op.OCC_READ, Op.OCC_LOCK, Op.COMMIT_PRIM, Op.COMMIT_BCK,
+                 Op.ABORT, Op.INSERT_PRIM, Op.INSERT_BCK, Op.DELETE_PRIM,
+                 Op.DELETE_BCK, Op.COMMIT_LOG, Op.DELETE_LOG, Op.NOP]
+        tbl = rng.integers(0, 5, n)
+        sid = rng.integers(1, n_sub + 1, n)
+        typ = rng.integers(1, 5, n)
+        keys = np.where(tbl <= tatp.SEC_SUBSCRIBER, sid, sid * 4 + typ - 1)
+        keys = np.where(tbl == tatp.CALL_FORWARDING, tatp.cf_key(
+            rng.integers(1, 4, n), typ, 8 * rng.integers(0, 3, n)), keys)
+        return (np.asarray(codes)[rng.integers(0, len(codes), n)],
+                keys.astype(np.uint64),
+                rng.integers(0, 1 << 32, (n, 4), dtype=np.uint64),
+                rng.integers(0, 1 << 32, n, dtype=np.uint64), tbl)
+    for attr in (False, True):
+        steps(f"tatp.step (attr_locks={attr})", tatp.step,
+              lambda d: tatp_client.populate_shards(
+                  np.random.default_rng(3), n_sub, val_words=4,
+                  log_capacity=64, cf_lock_slots=16, attr_locks=attr,
+                  device=d)[0][0], tatp_ops, 8, 256, vw=4)
+
+    # the pipelines: one block and the drain on the same draws
+    cpb = 2
+    for n_sub, w, mix, monitor in ((2000, 64, None, False),
+                                   (32, 256, TATP_CONTENTION_MIX, True)):
+        g = torch.Generator().manual_seed(12)
+        bits = tp.draw_bits(g, (cpb, w, 4), "cpu")
+        pay = torch.randint(0, 1 << 16, (cpb + 2, w, 2), dtype=torch.int32,
+                            generator=g)
+        out = {}
+        for d in ("cpu", dev):
+            shards, _ = tatp_client.populate_shards(
+                np.random.default_rng(4), n_sub, val_words=4,
+                log_capacity=1 << 12, device=d)
+            run, init, drain = tp.build_pipelined_runner(
+                n_sub, w=w, val_words=4, cohorts_per_block=cpb, mix=mix,
+                monitor=monitor, device=d)
+            carry, s = run.run_draws(init(shards), bits.to(d),
+                                     pay[:cpb].to(d))
+            res = drain(carry, payload=pay[cpb:].to(d))
+            ser = tp.build_runner(n_sub, w=w, val_words=4,
+                                  cohorts_per_block=cpb, device=d)
+            shards, s2 = ser.run_draws(res[0], bits.to(d), pay[:cpb].to(d))
+            out[d] = (shards, torch.cat([s, res[1], s2]).cpu(),
+                      res[2].buf.cpu() if monitor else None)
+        (a, sa, ca), (b, sb, cb) = out["cpu"], out[dev]
+        check(_same_tree(a, b) and torch.equal(sa, sb)
+              and (ca is None or torch.equal(ca, cb)),
+              f"generic TATP n_sub={n_sub}, w={w}: one pipelined block + "
+              f"drain{' (monitor)' if monitor else ''}, then one serial "
+              f"block: replicas, stats{' and counters' if monitor else ''} "
+              f"bit-identical")
+    n, w = 64, 128
+    g = torch.Generator().manual_seed(13)
+    bits, amt = sp.draw_step(g, (cpb, w), "cpu")
+    out = {}
+    for d in ("cpu", dev):
+        run = sp.build_runner(n, w=w, cohorts_per_block=cpb, monitor=True,
+                              device=d)
+        (shards, cnt), s = run.run_draws(
+            (sp.create_stacked(n, log_capacity=1 << 12, device=d),
+             mon.create(d)), bits.to(d), amt.to(d))
+        out[d] = (shards, s.cpu(), cnt.buf.cpu())
+    (a, sa, ca), (b, sb, cb) = out["cpu"], out[dev]
+    check(_same_tree(a, b) and torch.equal(sa, sb) and torch.equal(ca, cb),
+          f"generic SmallBank n={n}, w={w}: one block (monitor): replicas, "
+          f"stats and counters bit-identical")
+
+    trace = wl.lock_trace(np.random.default_rng(3), n_txns=200,
+                          key_range=300)
+    for label, make in (
+            ("Lock2PLClient", lambda d: micro.Lock2PLClient(
+                trace, n_slots=256, cohort=24, width=256, device=d)),
+            ("FasstClient", lambda d: micro.FasstClient(
+                trace, n_slots=256, cohort=24, width=256, device=d)),
+            ("FasstClient(attribute)", lambda d: micro.FasstClient(
+                trace, n_slots=256, cohort=24, width=256, attribute=True,
+                device=d))):
+        c = {d: make(d) for d in ("cpu", dev)}
+        for _ in range(4):
+            for x in c.values():
+                x.run_round()
+        a, b = c["cpu"], c[dev]
+        check((a.rec.attempted, a.rec.committed, a.rec.extra)
+              == (b.rec.attempted, b.rec.committed, b.rec.extra)
+              and _same_tree(a.state, b.state),
+              f"{label}: 4 rounds, stats and lock table bit-identical "
+              f"({b.rec.committed} of {b.rec.attempted} committed)")
+    c = {d: micro.LogClient(width=64, val_words=2, lanes=4, capacity=16,
+                            device=d) for d in ("cpu", dev)}
+    for i in range(4):
+        for x in c.values():
+            x.run_wave(np.random.default_rng(i), 50)
+    check(_same_tree(c["cpu"].state, c[dev].state),
+          "LogClient: 4 waves, the ring bit-identical")
+    print(f"  phase 11 (CPU against the card) seconds: "
+          f"{time.perf_counter() - t_phase:.3f}")
+
+
+def _micro_window(label, client, card, per_round):
+    """``per_round()`` (one round or wave of ``client``) for GEN_WINDOW_S
+    seconds after one warm round; prints and returns the numbers."""
+    per_round()
+    client.rec.reset()
+    rounds, t0 = 0, time.perf_counter()
+    while time.perf_counter() - t0 < GEN_WINDOW_S:
+        per_round()
+        rounds += 1
+    secs = time.perf_counter() - t0
+    blk = client.rec.block(secs)
+    rec = {"rounds": rounds, "seconds": secs, "rounds_per_s": rounds / secs,
+           "committed_per_s": blk.goodput, "attempted_per_s": blk.throughput,
+           "abort_rate": 1 - client.rec.committed / max(client.rec.attempted,
+                                                        1),
+           "p50_us": blk.p50_us, "p99_us": blk.p99_us,
+           **{k: v for k, v in client.rec.extra.items() if k != "lat_hist"}}
+    print(f"  {label}: {rounds} rounds in {secs:.3f} s = "
+          f"{rec['rounds_per_s']:.1f} rounds/s, committed "
+          f"{blk.goodput:.1f}/s, abort rate {rec['abort_rate']:.6f}, p50 "
+          f"{blk.p50_us:.1f} us, p99 {blk.p99_us:.1f} us  [{card}]")
+    return rec
+
+
+def phase_generic(dev, card):
+    print(f"== phase 11: the generic engines: lock_2pl, lock_fasst and "
+          f"log_server at {GEN_SLOTS:,} slots and a {GEN_LOG_LANES} x "
+          f"{GEN_LOG_CAP:,} ring; TATP at {GEN_N_SUB:,} subscribers and "
+          f"SmallBank at {GEN_SB_N:,} accounts, w={GEN_W}, 3 replicas")
+    from dint_tpu_torch.clients import micro, tatp_client
+    from dint_tpu_torch.clients import workloads as wl
+    from dint_tpu_torch.engines import smallbank_pipeline as sp
+    from dint_tpu_torch.engines import tatp_pipeline as tp
+    from dint_tpu_torch.engines.types import Op, Reply
+    from dint_tpu_torch.ops.u32 import to_u64
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    out = {}
+
+    # ---- the three microbenchmarks (exp.py sweep_micro's settings)
+    trace = wl.lock_trace(np.random.default_rng(0), n_txns=GEN_TRACE_TXNS)
+    c = micro.Lock2PLClient(trace, n_slots=GEN_SLOTS, cohort=GEN_COHORT,
+                            width=GEN_LOCK_W, device=dev)
+    # one acquire wave by hand: the closed form's invariants on the table
+    keys, is_read, _ = micro._flatten(c.co.cur)
+    rt = c._wave(np.where(is_read, Op.ACQ_S, Op.ACQ_X).astype(np.int32),
+                 keys)[0]
+    sh, ex = c.state.num_sh, c.state.num_ex
+    granted = rt == Reply.GRANT
+    check(not bool(((sh > 0) & (ex > 0)).any()) and int(ex.max()) <= 1
+          and int(sh.sum() + ex.sum()) == int(granted.sum())
+          and int(sh.sum()) == int((granted & is_read).sum()),
+          f"lock_2pl: after {len(keys)} acquires no slot holds S and X, X "
+          f"at most 1, the counts equal the {int(granted.sum())} grants")
+    rel = np.where(is_read[granted], Op.REL_S, Op.REL_X).astype(np.int32)
+    c._wave(rel, keys[granted])
+    check(int(sh.abs().sum() + ex.abs().sum()) == 0,
+          "lock_2pl: the releases return every count to 0")
+    out["lock_2pl"] = _micro_window("lock_2pl", c, card, c.run_round)
+    check(int(c.state.num_sh.abs().sum() + c.state.num_ex.abs().sum()) == 0
+          and out["lock_2pl"]["committed_per_s"] > 0,
+          "lock_2pl: every count 0 after the window's rounds")
+    del c
+    for label, attr in (("lock_fasst", False), ("lock_fasst_attr", True)):
+        c = micro.FasstClient(trace, n_slots=GEN_SLOTS, cohort=GEN_COHORT,
+                              width=GEN_LOCK_W, attribute=attr, device=dev)
+        out[label] = _micro_window(label, c, card, c.run_round)
+        x = c.rec.extra
+        check(not bool(c.state.locked.any())
+              and out[label]["committed_per_s"] > 0
+              and (not attr or x["lock_cnt"] >= x["reject_sharing_cnt"]
+                   + x["reject_same_key_cnt"] > 0),
+              f"{label}: no lock held after the window's rounds"
+              + (f"; lock_cnt {x['lock_cnt']}, reject_sharing_cnt "
+                 f"{x['reject_sharing_cnt']}, reject_same_key_cnt "
+                 f"{x['reject_same_key_cnt']}" if attr else ""))
+        del c
+    c = micro.LogClient(width=GEN_LOG_W, val_words=GEN_LOG_VW,
+                        lanes=GEN_LOG_LANES, capacity=GEN_LOG_CAP,
+                        device=dev)
+    rng = np.random.default_rng(1)
+    waves = [0]
+
+    def wave():
+        c.run_wave(rng)
+        waves[0] += 1
+    out["log_server"] = _micro_window("log_server", c, card, wave)
+    appended = waves[0] * GEN_LOG_W
+    check(int(to_u64(c.state.head).sum()) == appended
+          and c.rec.committed == c.rec.attempted,
+          f"log_server: every append ACKed, the ring heads sum to the "
+          f"{appended:,} appends")
+    del c
+    torch.cuda.empty_cache()
+
+    # ---- generic TATP: 3 replicas of tatp.create's defaults
+    t0 = time.perf_counter()
+    shards, cf_keys = tatp_client.populate_shards(
+        np.random.default_rng(0), GEN_N_SUB, val_words=VW, device=dev)
+    torch.cuda.synchronize()
+    pop_s = time.perf_counter() - t0
+    print(f"  populate_shards: {pop_s:.3f} s, {len(cf_keys):,} CF keys, "
+          f"{torch.cuda.memory_allocated(dev):,} B on the card")
+    check(_replicas_identical(shards), "the three replicas populate "
+          "identically")
+
+    def tatp_checks(label, stacked, total, blocks):
+        attempted = int(total[tp.STAT_ATTEMPTED])
+        check(attempted == blocks * GEN_CPB * GEN_W and int(
+            total[tp.STAT_COMMITTED] + total[tp.STAT_AB_LOCK]
+            + total[tp.STAT_AB_MISSING] + total[tp.STAT_AB_VALIDATE])
+            == attempted and int(total[tp.STAT_MAGIC_BAD]) == 0,
+            f"{label}: accounting closes (committed + ab_lock + ab_missing "
+            f"+ ab_validate == attempted == {attempted:,}), magic_bad == 0")
+        check(not any(bool(lk.any()) for s in stacked
+                      for _, lk in s.dense_tables())
+              and not any(bool(s.cf_lock.locked.any()) for s in stacked),
+              f"{label}: no lock held")
+        check(_replicas_identical(stacked),
+              f"{label}: the three replicas' tables, CF table, lock words "
+              f"and log rings bit-identical")
+
+    def timed_blocks(run, carry, gen, n):
+        stats, block_s = [], []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            carry, s = run(carry, gen)
+            torch.cuda.synchronize()
+            block_s.append(time.perf_counter() - t0)
+            stats.append(s)
+        return carry, stats, block_s
+
+    def report(label, stats, block_s, committed_col):
+        timed = torch.cat(stats[1:]).cpu().numpy().astype(np.int64)
+        secs = float(sum(block_s[1:]))
+        committed = int(timed[:, committed_col].sum())
+        rec = {"ms_per_block": secs / len(block_s[1:]) * 1e3,
+               "committed_per_s": committed / secs,
+               "block_ms": [b * 1e3 for b in block_s]}
+        print(f"  {label}: {rec['ms_per_block']:.3f} ms/block "
+              f"({GEN_CPB} cohorts x w={GEN_W}), committed "
+              f"{rec['committed_per_s']:.1f} txn/s; blocks (warm first) "
+              f"{[round(b, 3) for b in rec['block_ms']]} ms  [{card}]")
+        return rec
+
+    run, init, drain = tp.build_pipelined_runner(
+        GEN_N_SUB, w=GEN_W, val_words=VW, cohorts_per_block=GEN_CPB,
+        device=dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    carry, stats, block_s = timed_blocks(run, init(shards), gen,
+                                         GEN_TATP_BLOCKS + 1)
+    shards, tail = drain(carry)
+    torch.cuda.synchronize()
+    total = torch.cat(stats + [tail]).cpu().numpy().astype(np.int64).sum(0)
+    print(f"  stats total (blocks + drain): {total.tolist()}")
+    out["tatp pipelined"] = report("TATP build_pipelined_runner", stats,
+                                   block_s, tp.STAT_COMMITTED)
+    tatp_checks("TATP pipelined + drain", shards, total, GEN_TATP_BLOCKS + 1)
+    ser = tp.build_runner(GEN_N_SUB, w=GEN_W, val_words=VW,
+                          cohorts_per_block=GEN_CPB, validate=True,
+                          device=dev)
+    t0 = time.perf_counter()
+    shards, s = ser(shards, gen)
+    torch.cuda.synchronize()
+    ser_s = time.perf_counter() - t0
+    total = s.cpu().numpy().astype(np.int64).sum(0)
+    print(f"  TATP build_runner(validate=True): one block {ser_s * 1e3:.3f} "
+          f"ms, committed {int(total[tp.STAT_COMMITTED]) / ser_s:.1f} txn/s, "
+          f"stats {total.tolist()}  [{card}]")
+    out["tatp serial"] = {"ms_per_block": ser_s * 1e3,
+                          "committed_per_s":
+                          int(total[tp.STAT_COMMITTED]) / ser_s}
+    tatp_checks("TATP build_runner(validate=True)", shards, total, 1)
+    check(int(total[tp.STAT_AB_VALIDATE]) == 0,
+          "serial cohorts: ab_validate == 0")
+    del shards, carry, run, init, drain, ser
+    torch.cuda.empty_cache()
+
+    # ---- generic SmallBank: 3 replicas, built on the card
+    stacked = sp.create_stacked(GEN_SB_N, device=dev)
+    base = [int(sp.total_balance(stacked, r)) for r in range(3)]
+    run = sp.build_runner(GEN_SB_N, w=GEN_W, cohorts_per_block=GEN_CPB,
+                          device=dev)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    stacked, stats, block_s = timed_blocks(run, stacked, gen,
+                                           GEN_SB_BLOCKS + 1)
+    total = torch.cat(stats).cpu().numpy().astype(np.int64).sum(0)
+    out["smallbank"] = report("SmallBank build_runner", stats, block_s,
+                              sp.STAT_COMMITTED)
+    attempted = int(total[sp.STAT_ATTEMPTED])
+    print(f"  stats total: {total.tolist()}; abort rate "
+          f"{1 - int(total[sp.STAT_COMMITTED]) / attempted:.6f}")
+    check(attempted == (GEN_SB_BLOCKS + 1) * GEN_CPB * GEN_W
+          and int(total[sp.STAT_COMMITTED] + total[sp.STAT_AB_LOCK]
+                  + total[sp.STAT_AB_LOGIC]) == attempted
+          and int(total[sp.STAT_MAGIC_BAD]) == 0,
+          "SmallBank: accounting closes, magic_bad == 0")
+    deltas = [(int(sp.total_balance(stacked, r)) - base[r]) % (1 << 32)
+              for r in range(3)]
+    check(all(d == int(total[sp.STAT_BAL_DELTA]) % (1 << 32)
+              for d in deltas),
+          f"SmallBank: each replica's total_balance delta == the stats' "
+          f"balance delta mod 2^32 ({deltas[0]})")
+    check(_replicas_identical(stacked)
+          and not any(bool(lk.any()) for s in stacked for lk in
+                      (s.sav_sh, s.sav_ex, s.chk_sh, s.chk_ex)),
+          "SmallBank: the three replicas identical, every lock released")
+    del stacked, run
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    print(f"  phase 11 kernel launches: {launches}")
+    check(not any(launches.values()),
+          "phase 11 launches none of the nine kernels (the generic engines "
+          "reach no TPU kernel)")
+    print(f"  phase 11 max_memory_allocated: {peak:,} B; seconds: "
+          f"{secs:.3f}; populate {pop_s:.3f} s  [{card}]")
+    out["peak_bytes"] = peak
+    out["seconds"] = secs
+    print("  generic: " + json.dumps(out))
+    return launches
+
+
 KERNELS = {
     "gather_rows": ("dint_tpu_torch/csrc/gather_rows.cu",
                     "dint_tpu/ops/pallas_gather.py:212"),
@@ -2813,6 +3290,10 @@ def main() -> int:
     store_paths.update(cache_paths)
     store_paths["probe"] = probe
     store_paths.update(phase_bench(card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_generic_cpu_vs_card(dev)
+    store_paths["generic engines"] = phase_generic(dev, card)
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():

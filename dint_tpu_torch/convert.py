@@ -24,21 +24,44 @@ module needs nothing of JAX:
     CacheTable: the KVTable dict of its ``kv``, plus "dirty" (bool array),
                "clock" (u32 scalar) and, only when the hot mirrors are
                present, "hot_val", "hot_ver" (u32 arrays)
+
+The generic engines' state travels as the flat dict of its dataclass tree
+(`tree_to_numpy`): each leaf under its dotted path, arrays as numpy
+(32-bit words as uint32, lock bits as bool; `*_from_numpy` also take
+JAX's int32 counters), static ints as ints:
+
+    SXLockTable:  {"num_sh", "num_ex"}
+    OCCTable:     {"locked", "ver"}; OCCAttrTable adds "owner_hi",
+                  "owner_lo"
+    LogRing:      {"entries" [L, CAP, HDR+VW], "head" [L]}
+    DenseTable:   {"val", "ver", "val_words"}
+    tatp.Shard:   "sub.*", "sec.*", "ai.*", "sf.*" (DenseTable),
+                  "sub_lock" ... "sf_lock", "cf.*" (KVTable), "cf_lock.*",
+                  "log.*"
+    smallbank.Shard: "sav.*", "chk.*", "sav_sh", "sav_ex", "chk_sh",
+                  "chk_ex", "log.*"
+    the three replicas: the same keys, each array with a leading [3] axis
+                  (JAX's stacked pytree)
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from .device import resolve_device
+from .engines import smallbank, tatp
 from .engines.smallbank_dense import DenseBank
 from .engines.store_cache import CacheTable
 from .engines.store import HotKV
 from .engines.tatp_dense import DenseDB
 from .monitor.counters import Counters
 from .ops.u32 import from_numpy, to_numpy
+from .tables.dense import DenseTable
 from .tables.kv import KVTable
-from .tables.log import RepLog
+from .tables.locks import OCCAttrTable, OCCTable, SXLockTable
+from .tables.log import LogRing, RepLog
 from .tables.run import OrderedRun
 
 HOT_LEAVES = ("hot_bal", "hot_x", "hot_s")
@@ -132,16 +155,31 @@ def _leaf_to_numpy(x):
     return x.cpu().numpy() if x.dtype == torch.bool else to_numpy(x)
 
 
+def tree_to_numpy(obj) -> dict:
+    """A dataclass tree of tensors -> the flat dict of its leaves under
+    their dotted paths (arrays as numpy, static ints as ints)."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            out[f.name] = _leaf_to_numpy(v)
+        elif dataclasses.is_dataclass(v):
+            out.update({f"{f.name}.{k}": x
+                        for k, x in tree_to_numpy(v).items()})
+        else:
+            out[f.name] = v
+    return out
+
+
+# a KVTable's, OrderedRun's and HotKV's dicts are their trees' leaves
+kv_table_to_numpy = ordered_run_to_numpy = hot_kv_to_numpy = tree_to_numpy
+
+
 def kv_table_from_numpy(arrays: dict, device=None) -> KVTable:
     dev = resolve_device(device)
     return KVTable(**{k: _leaf_from_numpy(arrays[k], dev) for k in KV_LEAVES},
                    slots=int(arrays["slots"]),
                    val_words=int(arrays["val_words"]))
-
-
-def kv_table_to_numpy(t: KVTable) -> dict:
-    return {**{k: _leaf_to_numpy(getattr(t, k)) for k in KV_LEAVES},
-            "slots": t.slots, "val_words": t.val_words}
 
 
 def ordered_run_from_numpy(arrays: dict, device=None) -> OrderedRun:
@@ -152,19 +190,10 @@ def ordered_run_from_numpy(arrays: dict, device=None) -> OrderedRun:
                       val_words=int(arrays["val_words"]))
 
 
-def ordered_run_to_numpy(run: OrderedRun) -> dict:
-    return {**{k: _leaf_to_numpy(getattr(run, k)) for k in RUN_LEAVES},
-            "delta_cap": run.delta_cap, "val_words": run.val_words}
-
-
 def hot_kv_from_numpy(arrays: dict, device=None) -> HotKV:
     dev = resolve_device(device)
     return HotKV(val=from_numpy(arrays["val"], dev),
                  ver=from_numpy(arrays["ver"], dev))
-
-
-def hot_kv_to_numpy(hot: HotKV) -> dict:
-    return {"val": to_numpy(hot.val), "ver": to_numpy(hot.ver)}
 
 
 def cache_table_from_numpy(arrays: dict, device=None) -> CacheTable:
@@ -183,3 +212,94 @@ def cache_table_to_numpy(c: CacheTable) -> dict:
     if c.hot_ver is not None:
         out.update(hot_val=to_numpy(c.hot_val), hot_ver=to_numpy(c.hot_ver))
     return out
+
+
+# ---------------------------------------------------- the generic engines
+
+
+def _sub(arrays: dict, prefix: str) -> dict:
+    p = prefix + "."
+    return {k[len(p):]: v for k, v in arrays.items() if k.startswith(p)}
+
+
+def _leaves(arrays: dict, names, dev) -> dict:
+    return {k: _leaf_from_numpy(arrays[k], dev) for k in names}
+
+
+def sx_lock_table_from_numpy(arrays: dict, device=None) -> SXLockTable:
+    return SXLockTable(**_leaves(arrays, ("num_sh", "num_ex"),
+                                 resolve_device(device)))
+
+
+def occ_table_from_numpy(arrays: dict, device=None):
+    """An OCCAttrTable where the dict has owners, else an OCCTable."""
+    dev = resolve_device(device)
+    if "owner_hi" in arrays:
+        return OCCAttrTable(**_leaves(
+            arrays, ("locked", "ver", "owner_hi", "owner_lo"), dev))
+    return OCCTable(**_leaves(arrays, ("locked", "ver"), dev))
+
+
+def log_ring_from_numpy(arrays: dict, device=None) -> LogRing:
+    return LogRing(**_leaves(arrays, ("entries", "head"),
+                             resolve_device(device)))
+
+
+def dense_table_from_numpy(arrays: dict, device=None) -> DenseTable:
+    return DenseTable(**_leaves(arrays, ("val", "ver"),
+                                resolve_device(device)),
+                      val_words=int(arrays["val_words"]))
+
+
+def tatp_shard_from_numpy(arrays: dict, device=None) -> tatp.Shard:
+    dev = resolve_device(device)
+    return tatp.Shard(
+        **{k: dense_table_from_numpy(_sub(arrays, k), dev)
+           for k in ("sub", "sec", "ai", "sf")},
+        **_leaves(arrays, ("sub_lock", "sec_lock", "ai_lock", "sf_lock"),
+                  dev),
+        cf=kv_table_from_numpy(_sub(arrays, "cf"), dev),
+        cf_lock=occ_table_from_numpy(_sub(arrays, "cf_lock"), dev),
+        log=log_ring_from_numpy(_sub(arrays, "log"), dev))
+
+
+def smallbank_shard_from_numpy(arrays: dict, device=None) -> smallbank.Shard:
+    dev = resolve_device(device)
+    return smallbank.Shard(
+        sav=dense_table_from_numpy(_sub(arrays, "sav"), dev),
+        chk=dense_table_from_numpy(_sub(arrays, "chk"), dev),
+        **_leaves(arrays, ("sav_sh", "sav_ex", "chk_sh", "chk_ex"), dev),
+        log=log_ring_from_numpy(_sub(arrays, "log"), dev))
+
+
+def stacked_to_numpy(shards) -> dict:
+    """The replica list -> one dict, every array stacked on a leading axis
+    (the layout of JAX's stacked Shard pytree)."""
+    dicts = [tree_to_numpy(s) for s in shards]
+    out = {}
+    for k, v in dicts[0].items():
+        if isinstance(v, np.ndarray):
+            out[k] = np.stack([d[k] for d in dicts])
+        else:
+            assert all(d[k] == v for d in dicts), k
+            out[k] = v
+    return out
+
+
+def _replica(arrays: dict, i: int) -> dict:
+    return {k: v[i] if isinstance(v, np.ndarray) else v
+            for k, v in arrays.items()}
+
+
+def tatp_stacked_from_numpy(arrays: dict, device=None) -> list:
+    """JAX's stacked TATP Shard dict -> the port's list of replicas."""
+    n = len(arrays["sub.ver"])
+    return [tatp_shard_from_numpy(_replica(arrays, i), device)
+            for i in range(n)]
+
+
+def smallbank_stacked_from_numpy(arrays: dict, device=None) -> list:
+    """JAX's stacked SmallBank Shard dict -> the port's list of replicas."""
+    n = len(arrays["sav.ver"])
+    return [smallbank_shard_from_numpy(_replica(arrays, i), device)
+            for i in range(n)]

@@ -1,20 +1,37 @@
-"""SmallBank cohort generation, lock sets and balance logic (the dense
-engine's part of `dint_tpu.engines.smallbank_pipeline`).
+"""The SmallBank transaction pipeline over three replicated shard servers
+(the port of `dint_tpu.engines.smallbank_pipeline`): cohort generation,
+lock sets and balance logic, which the dense engine shares, and the
+generic engine's runner over `smallbank.step`.
 
-`gen_cohort_from_bits` is the pure function of one ``[w, 5]`` u32 draw; the
-JAX `gen_cohort` makes that draw itself with `jax.random.bits`. The port
-draws with a `torch.Generator` instead (`draw_step`), so it gives other
-cohorts than JAX from the same seed, and the tests feed both the same bits.
+A cohort of w txns runs two waves against the three replicas, each a
+`smallbank.step` per replica (smallbank/caladan/client_ebpf_shard.cc:
+389-560): wave 1 takes up to three fused X/S lock+reads a txn at each
+account's owner shard (account % 3); after the balance logic, wave 2
+appends the log on all shards, installs at the owner (PRIM) and the
+backups (BCK), and releases every granted lock at its owner. Stats carry
+the signed sum of the committed balance deltas, so a window checks
+balance conservation without reading the tables.
+
+What differs from JAX: draws are fed, not made. A cohort consumes
+``bits`` [w, 5] (`gen_cohort_from_bits`) and ``ts_amt`` [w] (the
+transact_saving amounts); the runner draws both with a `torch.Generator`
+(`draw_step`) or takes them as given (``run.run_draws``), so the tests
+replay JAX's draws. The three replicas are a list of three
+`smallbank.Shard`s with storage of their own (JAX stacks them and vmaps
+`smallbank.step`); a step updates each in place, in turn.
 """
 from __future__ import annotations
 
 import torch
 
 from ..clients import workloads as wl
-from ..ops.u32 import to_u64
+from ..device import resolve_device
+from ..monitor import counters as mon
+from ..ops.u32 import to_u64, wrap_i32
 from . import smallbank
-from .tatp_pipeline import draw_bits
-from .types import Op
+from .tatp_pipeline import (PAD32, _broadcast_batch, _merge, _step_all,
+                            draw_bits)
+from .types import Op, Reply
 
 I32 = torch.int32
 
@@ -153,3 +170,163 @@ def compute_phase(ttype, bal, alive, ts_amt):
     commit = alive & ~logic_abort & (t != wl.SB_BALANCE)
     committed = commit | (alive & (t == wl.SB_BALANCE))
     return nw, do, logic_abort, commit, committed
+
+
+# ------------------------------------------------ the generic engine's runner
+
+
+def create_stacked(n_accounts: int, init_balance: int = 1000,
+                   log_capacity: int = 1 << 20, device=None) -> list:
+    """Three identically populated replicas (the reference populates every
+    record on all 3 servers, smallbank/ebpf/shard_user.c:74-77): balance
+    ``init_balance`` and the magic word in every account, version 1, and
+    16-lane logs of ``log_capacity`` entries a lane (JAX's takes the
+    default 2^20). Built on ``device`` (None = CUDA), each replica with
+    storage of its own."""
+    dev = resolve_device(device)
+
+    def one():
+        s = smallbank.create(n_accounts, val_words=VW,
+                             log_capacity=log_capacity, device=dev)
+        for t in (s.sav, s.chk):
+            val = t.val.view(n_accounts, VW)
+            val[:, 0].fill_(init_balance)
+            val[:, 1].fill_(MAGIC)
+            t.ver.fill_(1)
+        return s
+
+    return [one() for _ in range(N_SHARDS)]
+
+
+def total_balance(stacked, replica: int = 0) -> torch.Tensor:
+    """The balance sum of one replica as an i32 that wraps mod 2^32, as
+    JAX's i32 accumulate does; conservation compares deltas under the same
+    wrap."""
+    s = stacked[replica]
+    vw = s.sav.val_words
+    return wrap_i32(s.sav.val[0::vw].sum(dtype=torch.int64)
+                    + s.chk.val[0::vw].sum(dtype=torch.int64))
+
+
+def cohort_step(stacked, bits, ts_amt, *, w: int, n_accounts: int,
+                counters: mon.Counters | None = None,
+                thresh: torch.Tensor | None = None):
+    """One full cohort of w txns (``bits`` [w, 5], ``ts_amt`` [w]) against
+    the three replicas, in place. Returns (stacked, stats [N_STATS] i32),
+    plus the counters (bumped in place) when ``counters`` is given."""
+    dev = bits.device
+    ttype, a1, a2 = gen_cohort_from_bits(bits, w, n_accounts, thresh=thresh)
+    l_op, l_tb, l_ac = _lock_slots(ttype, a1, a2)       # [w, L]
+    r = w * L
+    lane_op = l_op.reshape(r)
+    lane_tbl = l_tb.reshape(r)
+    lane_acc = l_ac.reshape(r)
+    used = lane_op != Op.NOP
+    lane_key = torch.where(used, lane_acc, PAD32)
+    owner = lane_acc % N_SHARDS
+    sid = torch.arange(N_SHARDS, dtype=I32, device=dev)
+    at_owner = owner[None] == sid[:, None]               # [S, r]
+    zval = torch.zeros((r, VW), dtype=I32, device=dev)
+    zver = torch.zeros((r,), dtype=I32, device=dev)
+
+    # ---- wave 1: fused lock+read at owners
+    op_s = torch.where(at_owner & used[None], lane_op[None], Op.NOP)
+    rep1 = _step_all(smallbank.step, stacked, _broadcast_batch(
+        op_s, lane_tbl, lane_key, zval, zver))
+    rt1 = _merge(owner, rep1.rtype).view(w, L)
+    rv1 = _merge(owner, rep1.val)                       # [r, VW]
+    rver1 = _merge(owner, rep1.ver).view(w, L)
+
+    active = l_op != Op.NOP
+    granted = active & (rt1 == Reply.GRANT)
+    magic_bad = (granted.reshape(r) & (rv1[:, 1] != MAGIC)).sum(dtype=I32)
+    lock_rejected = (active & (rt1 == Reply.REJECT)).any(dim=1)
+    alive = ~lock_rejected
+    bal = torch.where(granted, rv1[:, 0].view(w, L), 0)  # [w, L] i32
+
+    nw, do, logic_abort, commit, committed = compute_phase(
+        ttype, bal, alive, ts_amt)
+    do_write = do & commit[:, None] & active             # [w, L]
+    bal_delta = wrap_i32(torch.where(do_write, nw.long() - bal.long(), 0)
+                         .sum())
+
+    # ---- wave 2: log x3 + role (prim/bck) + release
+    dwf = do_write.reshape(r)
+    c_val = torch.zeros((r, VW), dtype=I32, device=dev)
+    c_val[:, 0] = nw.reshape(r)
+    c_val[:, 1] = torch.where(dwf, MAGIC, 0)
+    c_ver = wrap_i32(torch.where(do_write, to_u64(rver1) + 1, 0)).reshape(r)
+    c_key = torch.where(dwf, lane_acc, PAD32)
+    log_op = torch.where(dwf, Op.COMMIT_LOG, Op.NOP)    # all shards
+    role_s = torch.where(dwf[None], torch.where(at_owner, Op.COMMIT_PRIM,
+                                                Op.COMMIT_BCK), Op.NOP)
+    relf = granted.reshape(r)
+    rel_op = torch.where(lane_op == Op.ACQ_X_READ, Op.REL_X, Op.REL_S)
+    rel_s = torch.where(relf[None] & at_owner, rel_op[None], Op.NOP)
+    rel_key = torch.where(relf, lane_acc, PAD32)
+    op2_s = torch.cat([log_op[None].expand(N_SHARDS, r), role_s, rel_s],
+                      dim=1).to(I32)
+    _step_all(smallbank.step, stacked, _broadcast_batch(
+        op2_s, torch.cat([lane_tbl, lane_tbl, lane_tbl]),
+        torch.cat([c_key, c_key, rel_key]), torch.cat([c_val, c_val, zval]),
+        torch.cat([c_ver, c_ver, zver])))
+
+    stats = torch.stack([
+        torch.full((), w, dtype=I32, device=dev), committed.sum(dtype=I32),
+        lock_rejected.sum(dtype=I32), logic_abort.sum(dtype=I32), magic_bad,
+        bal_delta])
+    if counters is None:
+        return stacked, stats
+    n_writes = do_write.sum(dtype=I32)
+    mon.bump(counters, {
+        mon.CTR_STEPS: 1,
+        mon.CTR_TXN_ATTEMPTED: stats[STAT_ATTEMPTED],
+        mon.CTR_TXN_COMMITTED: stats[STAT_COMMITTED],
+        mon.CTR_AB_LOCK: stats[STAT_AB_LOCK],
+        mon.CTR_AB_LOGIC: stats[STAT_AB_LOGIC],
+        mon.CTR_MAGIC_BAD: magic_bad,
+        mon.CTR_LOCK_REQUESTS: active.sum(dtype=I32),
+        mon.CTR_LOCK_GRANTED: granted.sum(dtype=I32),
+        mon.CTR_LOCK_REJECTED: (active & ~granted).sum(dtype=I32),
+        mon.CTR_INSTALL_WRITES: n_writes,
+        mon.CTR_LOG_APPENDS: n_writes,
+        mon.CTR_DISPATCH_XLA: 1,    # the plain route, JAX's XLA one
+    })
+    return stacked, stats, counters
+
+
+def build_runner(n_accounts: int, w: int = 4096, cohorts_per_block: int = 8,
+                 monitor: bool = False, device=None):
+    """A loop of `cohort_step`: ``run(carry, gen)`` draws a block's bits
+    [cpb, w, 5] and amounts [cpb, w] with the torch generator ``gen`` and
+    runs ``cohorts_per_block`` cohorts, in place; ``run.run_draws(carry,
+    bits, ts_amt)`` takes the draws as given. Both return (carry, stats
+    [cpb, N_STATS]). The carry is the replica list, or (replicas,
+    counters) with ``monitor`` (`monitor.counters.create` on the device)."""
+    dev = resolve_device(device)
+    cpb = cohorts_per_block
+    thresh = mix_thresh(None, dev)
+
+    def run_draws(carry, bits, ts_amt):
+        if tuple(bits.shape) != (cpb, w, 5) or \
+                tuple(ts_amt.shape) != (cpb, w):
+            raise ValueError(f"expected bits [{cpb}, {w}, 5] and ts_amt "
+                             f"[{cpb}, {w}], got {tuple(bits.shape)} and "
+                             f"{tuple(ts_amt.shape)}")
+        stacked, cnt = carry if monitor else (carry, None)
+        if len(stacked) != N_SHARDS or \
+                stacked[0].sav.ver.device.type != dev.type:
+            raise ValueError(f"expected {N_SHARDS} replicas on {dev}")
+        stats = []
+        for i in range(cpb):
+            out = cohort_step(stacked, bits[i], ts_amt[i], w=w,
+                              n_accounts=n_accounts, counters=cnt,
+                              thresh=thresh)
+            stats.append(out[1])
+        return (stacked, cnt) if monitor else stacked, torch.stack(stats)
+
+    def run(carry, gen: torch.Generator):
+        return run_draws(carry, *draw_step(gen, (cpb, w), dev))
+
+    run.run_draws = run_draws
+    return run

@@ -37,10 +37,21 @@ class Op:
     LOCK = 10
     COMMIT_VER = 11
     ABORT = 12
+    # log server
+    LOG_APPEND = 13
+    # txn engines: fused lock+read and the commit pipeline's ops
     ACQ_S_READ = 14    # acquire shared + read value in one RTT
     ACQ_X_READ = 15    # acquire exclusive + read value in one RTT
     OCC_READ = 16      # read value + version (no lock)
     OCC_LOCK = 17      # row lock (write-slot arbitration)
+    COMMIT_PRIM = 18   # install value, ver++, release the row lock
+    COMMIT_BCK = 19    # install value + ver on a backup replica
+    COMMIT_LOG = 20    # append to the replication log
+    INSERT_PRIM = 21
+    DELETE_PRIM = 22
+    INSERT_BCK = 23
+    DELETE_BCK = 24
+    DELETE_LOG = 25
     # range scan over the ordered run: key = start key, ver = row count
     SCAN = 26
 
@@ -50,11 +61,11 @@ class Reply:
     GRANT = 1          # lock granted
     REJECT = 2         # no-wait lock reject
     RETRY = 3          # scan over a stale run: re-send after the rebuild
-    ACK = 4            # set/insert/delete ack
+    ACK = 4            # release/commit/log/set ack
     NOT_EXIST = 5      # missing row
     VAL = 6            # read reply carrying value + version
     SPILL = 7          # bucket overflow: the host takes this key
-    REJECT_SAME_KEY = 8
+    REJECT_SAME_KEY = 8  # lock attribution: the holder has the same key
 
 
 @dataclass

@@ -93,6 +93,15 @@ def seg_any(sb: SortedBatch, pred):
     return seg_sum(sb, pred.to(I32)) > 0
 
 
+NO_RANK = 1 << 30     # first_rank_where's answer where pred holds nowhere
+
+
+def first_rank_where(sb: SortedBatch, pred):
+    """Rank (within its segment) of the segment's earliest element where
+    pred holds, broadcast; NO_RANK where it holds nowhere."""
+    return seg_min_where(sb, pred, sb.rank, NO_RANK)
+
+
 def unsort(sb: SortedBatch, *xs):
     """Arrays computed in sorted order, back in original batch order."""
     out = []
@@ -105,8 +114,8 @@ def unsort(sb: SortedBatch, *xs):
 
 def scatter_rows(table, row_idx, values, mask):
     """``table[row_idx[i]] = values[i]`` where mask[i], in place; masked
-    lanes write nothing. One writer per row, or writers that agree, is the
-    caller's job."""
+    lanes write nothing (any dtype, bool tables included). One writer per
+    row, or writers that agree, is the caller's job."""
     keep = torch.nonzero(mask).squeeze(1)
     table[row_idx[keep].long()] = values[keep]
     return table

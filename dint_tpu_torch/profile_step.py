@@ -10,6 +10,10 @@ one block under torch.profiler.
         [--n-keys 24000000] [--scan | --no-scan]
     python -m dint_tpu_torch.profile_step --engine cache
         [--n-keys 24000000] [--policy wb_bloom|wb_nobloom|wt] [--hot]
+    python -m dint_tpu_torch.profile_step --engine tatp_generic
+        [--n-sub 7000000] [--w 4096] [--cpb 8]
+    python -m dint_tpu_torch.profile_step --engine smallbank_generic
+        [--n-accounts 24000000] [--w 4096] [--cpb 8]
 
 The store runs YCSB-E over the reference store's keyspace: w=4096, 2
 cohorts a block, 95% scans of 1-100 rows (scan_max 100, delta_cap 256),
@@ -22,6 +26,12 @@ traffic of chip_smoke.py phase 8: a GET sweep of the hot 4% prefix, one
 warm block, then one profiled block of 16 rounds of 50/50 GET/SET, 90% of
 keys from the prefix; ``--hot`` attaches the hot mirror of the prefix. A
 round is the step here.
+
+The generic engines run their 3-replica runners (chip_smoke.py phase 11's
+configuration): TATP's `build_pipelined_runner` over `populate_shards`
+(a step is one `pipe_step`, three `tatp.step` calls) and SmallBank's
+`build_runner` over `create_stacked` (a step is one cohort, six
+`smallbank.step` calls), w=4096 and 8 cohorts a block by default.
 
 Builds the tables on the device, runs one warm block, then profiles one
 block (CPU and CUDA activity) and prints: wall ms/step, device-busy
@@ -41,12 +51,14 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from .clients import micro
+from .clients import micro, tatp_client
 from .clients import workloads as wl
 from .engines import smallbank_dense as sd
+from .engines import smallbank_pipeline as sp
 from .engines import store
 from .engines import store_cache
 from .engines import tatp_dense as td
+from .engines import tatp_pipeline as tp
 from .engines.types import ROUTES
 from .shim.host_kvs import CachedStore
 
@@ -84,7 +96,9 @@ def _cache_block(args, dev):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--engine", choices=("tatp", "smallbank", "store",
-                                         "cache"), default="tatp")
+                                         "cache", "tatp_generic",
+                                         "smallbank_generic"),
+                    default="tatp")
     ap.add_argument("--n-sub", type=int, default=7_000_000)
     ap.add_argument("--n-accounts", type=int, default=24_000_000)
     ap.add_argument("--n-keys", type=int, default=24_000_000)
@@ -99,10 +113,11 @@ def main(argv=None):
                     help="kernel route (use_hotset, use_fused) of either "
                          "engine")
     ap.add_argument("--w", type=int, default=None,
-                    help="lanes a step (8192; the store 4096)")
+                    help="lanes a step (8192; the store and the generic "
+                         "engines 4096)")
     ap.add_argument("--cpb", type=int, default=None,
-                    help="cohorts a block (16; the store 2; the cache's "
-                         "rounds a block 16)")
+                    help="cohorts a block (16; the store 2; the generic "
+                         "engines 8; the cache's rounds a block 16)")
     ap.add_argument("--val-words", type=int, default=10)
     ap.add_argument("--trace", default=None,
                     help="write the Chrome trace of the profiled block here")
@@ -116,10 +131,12 @@ def main(argv=None):
     print(smi.stdout.strip().splitlines()[0])
     use_hotset, use_fused = ROUTES[args.route]
     store_engine = args.engine == "store"
+    generic = args.engine.endswith("_generic")
     if args.w is None:
-        args.w = 4096 if args.engine in ("store", "cache") else 8192
+        args.w = 4096 if args.engine in ("store", "cache") or generic \
+            else 8192
     if args.cpb is None:
-        args.cpb = 2 if store_engine else 16
+        args.cpb = 2 if store_engine else 8 if generic else 16
     if args.engine == "cache":
         block, finish, size = _cache_block(args, dev)
     elif store_engine:
@@ -132,6 +149,25 @@ def main(argv=None):
             scan_max=wl.YCSB_E_MAX_SCAN, delta_cap=256, use_scan=args.scan,
             device=dev)
         size = f"n_keys={args.n_keys}, {'scan' if args.scan else 'point'}"
+    elif args.engine == "tatp_generic":
+        db, _ = tatp_client.populate_shards(
+            np.random.default_rng(0), args.n_sub, val_words=args.val_words,
+            device=dev)
+        run, init, drain = tp.build_pipelined_runner(
+            args.n_sub, w=args.w, val_words=args.val_words,
+            cohorts_per_block=args.cpb, device=dev)
+        size = f"n_sub={args.n_sub}, 3 replicas"
+    elif args.engine == "smallbank_generic":
+        db = sp.create_stacked(args.n_accounts, device=dev)
+        run = sp.build_runner(args.n_accounts, w=args.w,
+                              cohorts_per_block=args.cpb, device=dev)
+
+        def init(stacked):
+            return stacked
+
+        def drain(carry):
+            return carry
+        size = f"n_accounts={args.n_accounts}, 3 replicas"
     elif args.engine == "tatp":
         db = td.populate_device(torch.Generator(device=dev).manual_seed(0),
                                 args.n_sub, val_words=args.val_words,

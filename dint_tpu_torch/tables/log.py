@@ -1,9 +1,11 @@
-"""Replicated flat log ring: the dense engine's log x3
-(`dint_tpu.tables.log.RepLog`).
+"""Replication log rings (the port of `dint_tpu.tables.log`): the generic
+engines' multi-lane `LogRing` and the dense engines' replicated flat
+`RepLog`.
 
 Lanes replace the reference's per-CPU rings (log_server/ebpf/ls_kern.c:
 63-77): append i goes to lane ``i % L``, its slot is ``head[lane]`` plus its
-arrival rank within the lane, and rings wrap (ls_kern.c:72-73). The three
+arrival rank within the lane, and rings wrap (ls_kern.c:72-73). A
+`LogRing` holds one replica, [L, CAP, HDR+VW]; in a `RepLog` the three
 replica entries of a slot sit side by side in the word axis, so one row
 scatter installs all replicas.
 
@@ -21,6 +23,78 @@ from ..device import resolve_device
 from ..ops.u32 import to_u64, wrap_i32
 
 HDR_WORDS = 4
+
+
+@dataclass
+class LogRing:
+    entries: torch.Tensor   # i32 [L, CAP, HDR_WORDS + VW]
+    head: torch.Tensor      # i32 [L] u32 bits (monotonic; slot = head % CAP)
+
+    @property
+    def lanes(self) -> int:
+        return self.entries.shape[0]
+
+    @property
+    def capacity(self) -> int:
+        return self.entries.shape[1]
+
+
+def _check_capacity(capacity: int):
+    if capacity <= 0 or capacity & (capacity - 1):
+        raise ValueError(f"log capacity {capacity} is not a power of two")
+
+
+def create(lanes: int, capacity: int, val_words: int = 10,
+           device=None) -> LogRing:
+    """An empty ring of ``lanes`` x ``capacity`` entries on ``device``
+    (None means CUDA, and raises without one)."""
+    _check_capacity(capacity)
+    device = resolve_device(device)
+    return LogRing(
+        entries=torch.zeros((lanes, capacity, HDR_WORDS + val_words),
+                            dtype=torch.int32, device=device),
+        head=torch.zeros((lanes,), dtype=torch.int32, device=device))
+
+
+def _lane_slots(head, do_append, lanes: int, cap: int):
+    """Round-robin lanes, u32 ``head[lane] + rank`` slots mod ``cap`` and
+    per-lane append counts of a batch: (lane, slot, lane_counts), int64.
+    Lane l's appends sit at positions l, l+L, ..., so a cumulative sum per
+    residue class gives each append its arrival rank within its lane."""
+    r = do_append.shape[0]
+    lane = torch.arange(r, device=do_append.device) % lanes
+    one = do_append.to(torch.int64)
+    pad = (-r) % lanes
+    one_p = torch.nn.functional.pad(one, (0, pad)).view(-1, lanes)
+    excl = torch.cumsum(one_p, 0) - one_p
+    rank = excl.reshape(-1)[:r]
+    pos = (to_u64(head)[lane] + rank) & 0xFFFFFFFF   # u32 head + rank
+    return lane, pos % cap, one_p.sum(0)
+
+
+def _entry(table_id, is_del, key_hi, key_lo, ver, val):
+    """[R, HDR+VW] entries: [flags(is_del|table<<8), key_hi, key_lo, ver,
+    val...]."""
+    flags = wrap_i32(is_del.to(torch.int64) | (to_u64(table_id) << 8))
+    return torch.cat([flags[:, None], key_hi[:, None], key_lo[:, None],
+                      ver[:, None], val], dim=1)
+
+
+def append(ring: LogRing, do_append, table_id, is_del, key_hi, key_lo, ver,
+           val):
+    """Batched append, in place. do_append: bool [R]; the others [R] or
+    [R, VW]. Returns (ring, lane [R], slot [R]) with int32 lane and slot
+    for every lane, as JAX's. Masked lanes write nothing: they are
+    filtered out before the scatter (JAX routes them to the lane past the
+    last and drops them). The kept (lane, slot) pairs are distinct while a
+    batch appends fewer than ``capacity`` entries a lane."""
+    lane, slot, lane_counts = _lane_slots(ring.head, do_append, ring.lanes,
+                                          ring.capacity)
+    entry = _entry(table_id, is_del, key_hi, key_lo, ver, val)
+    keep = torch.nonzero(do_append).squeeze(1)
+    ring.entries[lane[keep], slot[keep]] = entry[keep]
+    ring.head = wrap_i32(to_u64(ring.head) + lane_counts)
+    return ring, lane.to(torch.int32), slot.to(torch.int32)
 
 
 @dataclass
@@ -43,8 +117,7 @@ def create_rep(lanes: int, capacity: int, val_words: int = 10,
                replicas: int = 3, device=None) -> RepLog:
     """An empty ring of ``lanes`` x ``capacity`` slots on ``device`` (None
     means CUDA, and raises without one)."""
-    if capacity <= 0 or capacity & (capacity - 1):
-        raise ValueError(f"log capacity {capacity} is not a power of two")
+    _check_capacity(capacity)
     device = resolve_device(device)
     return RepLog(
         entries=torch.zeros((lanes * capacity,
@@ -59,24 +132,11 @@ def plan_rep(ring: RepLog, do_append, table_id, is_del, key_hi, key_lo,
     """Plan a replicated append without writing: returns (flat [R] int64
     row ids, -1 for masked lanes; entry3 [R, S*(HDR+VW)] i32 replica-packed
     rows; lane_counts [L] int64)."""
-    r = do_append.shape[0]
-    lanes = ring.lanes
     cap = ring.capacity
-    lane = torch.arange(r, device=do_append.device) % lanes
-    one = do_append.to(torch.int64)
-    pad = (-r) % lanes
-    one_p = torch.nn.functional.pad(one, (0, pad)).view(-1, lanes)
-    excl = torch.cumsum(one_p, 0) - one_p
-    rank = excl.reshape(-1)[:r]
-    lane_counts = one_p.sum(0)
-    pos = (to_u64(ring.head)[lane] + rank) & 0xFFFFFFFF   # u32 head + rank
-    slot = pos % cap
+    lane, slot, lane_counts = _lane_slots(ring.head, do_append, ring.lanes,
+                                          cap)
     flat = torch.where(do_append, lane * cap + slot, -1)
-
-    flags = wrap_i32(is_del.to(torch.int64)
-                     | (to_u64(table_id) << 8))
-    entry = torch.cat([flags[:, None], key_hi[:, None], key_lo[:, None],
-                       ver[:, None], val], dim=1)          # [R, HDR+VW]
+    entry = _entry(table_id, is_del, key_hi, key_lo, ver, val)
     entry3 = entry.repeat(1, ring.replicas)                # [R, S*(HDR+VW)]
     return flat, entry3, lane_counts
 
@@ -95,7 +155,7 @@ def append_rep(ring: RepLog, do_append, table_id, is_del, key_hi, key_lo,
     return ring
 
 
-def advance_watermark(ring: RepLog, watermark: torch.Tensor,
+def advance_watermark(ring: LogRing | RepLog, watermark: torch.Tensor,
                       consumed: torch.Tensor) -> torch.Tensor:
     """A ring's durability watermark [L] after ``consumed`` entries a lane
     were checkpointed or replayed downstream: the u32 ``min(head,
