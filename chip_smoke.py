@@ -112,7 +112,7 @@ mismatch or error:
    gather_rows_hot call a round and the two two-stream scatter_rows_hot
    calls (write-back and refill), each one kernel a call and beside its two
    single-stream launches in turns.
-9. The bench entry (last): `python -m dint_tpu_torch.bench` in a process
+9. The bench entry: `python -m dint_tpu_torch.bench` in a process
    of its own with 3 s windows (DINT_BENCH_WINDOW_S=3) and its profile
    block on, after `torch.cuda.empty_cache()`, the kernels already built:
    TATP at 7,000,000 subscribers, w=8192, then SmallBank at 24,000,000
@@ -132,7 +132,7 @@ mismatch or error:
    capacity, the drain; each replica replayed and replica 0 recovered:
    bal and total_balance equal the live tables. The run then goes on until
    a lane wraps, and recovery must refuse the ring.
-11. The generic engines (last). First the CPU against the card at a small
+11. The generic engines. First the CPU against the card at a small
    size, the same inputs: lock2pl, fasst (and step_attr), logsrv,
    smallbank.step and tatp.step (both CF lock flavours) over 8 contended
    batches each; one generic TATP pipelined block + drain and one serial
@@ -158,7 +158,41 @@ mismatch or error:
    (create_stacked on the card), build_runner, one warm and 3 timed
    blocks: accounting, each replica's balance delta == the stats', the
    replicas identical, every lock released. None of the nine kernels is
-   launched: the counts must read 0.
+   launched: the counts must read 0. The TATP replicas go on to phase 12.
+12. The host coordinators. TATP: `tatp_client.Coordinator` over phase 11's
+   three replicas (populate_shards at 7,000,000 subscribers, VW=10),
+   width 8192, cohorts of 2048 txns (at most 4 lanes a txn, so no wave
+   passes the width) for at least 8 cohorts and 3 s; then each replica's
+   CF lock table replaced by an empty attributing one (the plain table
+   holds no lock and no version) and one cohort on it. SmallBank:
+   `init_shards` at 24,000,000 accounts, width 8192, cohorts of 4096 from
+   `sb_make_txns` at the 90/4 skew, at least 8 cohorts and 3 s. Checks:
+   accounting closes on the phase's own deltas; no lock held and the log
+   heads equal after every cohort; the replicas bit-identical (an
+   attributed CF lock's owner words apart); SmallBank's total_balance
+   moves by exactly each cohort's committed deltas; the attribution
+   counters 0 on plain shards and consistent on attr shards; none of the
+   nine kernels launched. Prints committed txn/s, the abort mix and ms a
+   cohort.
+13. The serving plane. `ServeEngine` over tatp_dense (7,000,000
+   subscribers, VW=10), smallbank_dense (24,000,000 accounts) and the
+   store (24,000,000 keys, YCSB-E: 95% scans of 1-100 rows, scan_max 100,
+   delta_cap 512), each with plan='auto' (PLAN.json's serve priors, which
+   were calibrated for a TPU: the width menu 256-8192, the SLO and the
+   first service estimates; the store has none and takes the defaults),
+   monitor=True, a RealClock and 2 cohorts a block: the populate, warmup
+   (which must leave the live tables bit-identical), then a 1.5 s Poisson
+   schedule at half the closed-loop rate phases 9 and 7 measured, with a
+   burst of 4x the top width at its middle. Checks: admitted + shed ==
+   offered; serve_shed_lanes == shed; padded lanes == sum(cpb * w) -
+   sum(occ); the counters equal the stats' columns and the steps;
+   memory_allocated constant over the steady blocks at one width; each
+   route's kernels once a step (gather_rows + lock_arbitrate, gather_rows,
+   scan_rows); the burst forced a width switch and shedding. Then the
+   bench's serve probe (`bench.serve_probe`) at the bench's shapes (7M, w
+   = 8192, 16 cohorts a block): its eleven keys. Prints each family's
+   achieved and offered rate, queue and service p50/p99, widths, shed
+   count, and the warmup and populate seconds.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -212,6 +246,19 @@ GEN_CPB = 8
 GEN_TATP_BLOCKS = 3              # timed blocks after the warm one
 GEN_SB_BLOCKS = 3
 TATP_CONTENTION_MIX = np.array([0, 0, 0, 50, 0, 50, 0], np.float64) / 100.0
+CO_W = 8192                      # the coordinators' batch width
+CO_TATP_COHORT = 2048            # <= 4 lanes a txn: no wave passes CO_W
+CO_SB_N = 24_000_000
+CO_SB_COHORT = 4096
+CO_COHORTS = 8                   # at least, and at least CO_WINDOW_S
+CO_WINDOW_S = 3.0
+SV_CPB = 2                       # the serving plane's cohorts a block
+SV_WINDOW_S = 1.5                # each family's schedule
+SV_STORE_KW = dict(use_scan=True, scan_frac=ST_SCAN_FRAC,
+                   max_scan_len=ST_MAXLEN, scan_max=ST_SMAX, delta_cap=512)
+# closed-loop offered rates (lanes/s) phases 7 and 9 measured; phase 13
+# offers half of each
+CLOSED_LOOP_RATE = {}
 
 # kernels launched once a step on each route at the main paths' shapes
 # (SmallBank at 24M accounts: the lock table is hashed, so the hot route
@@ -235,10 +282,13 @@ class SmokeFailure(RuntimeError):
     pass
 
 
-def check(cond, what):
+def check(cond, what, quiet=False):
+    """Fail the run unless ``cond``; print the check unless ``quiet`` (a
+    check repeated in a loop prints its first pass)."""
     if not cond:
         raise SmokeFailure(what)
-    print(f"  ok: {what}")
+    if not quiet:
+        print(f"  ok: {what}")
 
 
 def device_ms(fn, n=20, groups=5):
@@ -1959,6 +2009,7 @@ def phase_store(dev):
           f"included)")
     print(f"  committed ops/s: {committed / secs:.1f} ({committed} in "
           f"{secs:.6f} s, {ST_TIMED} blocks x {ST_CPB} steps x w={ST_W})")
+    CLOSED_LOOP_RATE["store"] = committed / secs
     print(f"  scan_rows launches per step: "
           f"{scan_launches['scan_rows'] / steps:.3f}")
     print(f"  max_memory_allocated: {torch.cuda.max_memory_allocated(dev)} B")
@@ -2650,6 +2701,9 @@ def phase_bench(card):
           and line["device"] == torch.cuda.get_device_name(0),
           f"the line names the route PLAN.json pins ({route}, {sb_route}) "
           f"and the card ({line['card']})")
+    CLOSED_LOOP_RATE["tatp_dense"] = line["throughput"]
+    CLOSED_LOOP_RATE["smallbank_dense"] = \
+        line["smallbank_committed_txns_per_sec"]
     launches = line["profile"]["launches"]
     paths = {"bench tatp": launches["tatp"],
              "bench smallbank": launches["smallbank"]}
@@ -2819,18 +2873,21 @@ def _same_replies(a, b):
 
 
 def _replicas_identical(shards):
-    """The replicas' every table, on the card."""
+    """The replicas' (or any dataclass trees') every leaf, on the card;
+    an attributed CF lock word's owner apart (only the primary locks, so
+    its last holder is per replica)."""
     import dataclasses
 
-    def leaves(x):
+    def leaves(x, path=""):
         for f in dataclasses.fields(x):
-            v = getattr(x, f.name)
-            if isinstance(v, torch.Tensor):
+            v, name = getattr(x, f.name), path + f.name
+            if dataclasses.is_dataclass(v):
+                yield from leaves(v, name + ".")
+            elif name not in ("cf_lock.owner_hi", "cf_lock.owner_lo"):
                 yield v
-            elif dataclasses.is_dataclass(v):
-                yield from leaves(v)
     first = list(leaves(shards[0]))
-    return all(all(torch.equal(x, y) for x, y in zip(first, leaves(s)))
+    return all(all(torch.equal(x, y) if isinstance(x, torch.Tensor)
+                   else x == y for x, y in zip(first, leaves(s)))
                for s in shards[1:])
 
 
@@ -3182,7 +3239,7 @@ def phase_generic(dev, card):
     tatp_checks("TATP build_runner(validate=True)", shards, total, 1)
     check(int(total[tp.STAT_AB_VALIDATE]) == 0,
           "serial cohorts: ab_validate == 0")
-    del shards, carry, run, init, drain, ser
+    del carry, run, init, drain, ser     # the replicas go on to phase 12
     torch.cuda.empty_cache()
 
     # ---- generic SmallBank: 3 replicas, built on the card
@@ -3229,7 +3286,381 @@ def phase_generic(dev, card):
     out["peak_bytes"] = peak
     out["seconds"] = secs
     print("  generic: " + json.dumps(out))
-    return launches
+    return launches, shards, pop_s
+
+
+# ------------------------------------------------- coordinators and serving
+
+
+def _heads(shards):
+    from dint_tpu_torch.ops.u32 import to_u64
+    return [int(to_u64(s.log.head).sum()) for s in shards]
+
+
+def _cohorts(label, co, step, card, min_cohorts=CO_COHORTS,
+             window_s=CO_WINDOW_S, after=None):
+    """Cohorts of ``step()`` until at least ``min_cohorts`` ran and
+    ``window_s`` passed; ``after(i)`` checks each. Returns (stats delta,
+    seconds, per-cohort ms)."""
+    import dataclasses
+    s0 = dataclasses.asdict(co.stats)
+    ms = []
+    t_all = time.perf_counter()
+    while len(ms) < min_cohorts or time.perf_counter() - t_all < window_s:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if after is not None:
+            after(len(ms) - 1)
+    secs = sum(ms) / 1e3
+    d = {k: v - s0[k] for k, v in dataclasses.asdict(co.stats).items()}
+    aborts = {k: v for k, v in d.items() if k.startswith("aborted_")}
+    print(f"  {label}: {len(ms)} cohorts, committed "
+          f"{d['committed'] / secs:.1f} txn/s ({d['committed']:,} of "
+          f"{d['attempted']:,}), abort mix {aborts}; ms a cohort "
+          f"{[round(m, 3) for m in ms]}  [{card}]")
+    return d, secs, ms
+
+
+def phase_coordinators(dev, card, shards, pop_s):
+    print(f"== phase 12: the host coordinators: TATP over phase 11's three "
+          f"replicas ({GEN_N_SUB:,} subscribers, VW={VW}), cohorts of "
+          f"{CO_TATP_COHORT}, and SmallBank over init_shards at "
+          f"{CO_SB_N:,} accounts, cohorts of {CO_SB_COHORT} at 90/4 skew; "
+          f"width {CO_W}")
+    from dint_tpu_torch.clients import smallbank_client as sbc
+    from dint_tpu_torch.clients import tatp_client as tc
+    from dint_tpu_torch.clients import workloads as wl
+    from dint_tpu_torch.engines import smallbank
+    from dint_tpu_torch.engines.types import Op
+    from dint_tpu_torch.tables import locks
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    out = {}
+
+    def tatp_locks_free(ss):
+        return not any(bool(lk.any()) for s in ss
+                       for _, lk in s.dense_tables()) \
+            and not any(bool(s.cf_lock.locked.any()) for s in ss)
+
+    # ---- TATP: the plain CF lock table, then an attributing one
+    check(_replicas_identical(shards) and tatp_locks_free(shards),
+          "phase 11's three replicas identical, no lock held")
+    print(f"  populate_shards: {pop_s:.3f} s (phase 11's)")
+    co = tc.Coordinator(shards, GEN_N_SUB, width=CO_W, val_words=VW,
+                        device=dev)
+    rng = np.random.default_rng(12)
+
+    def tatp_after(i):
+        h = _heads(co.shards)
+        check(h[0] == h[1] == h[2] and tatp_locks_free(co.shards),
+              f"TATP cohort {i}: no lock held, log heads equal ({h[0]:,})",
+              quiet=i > 0)
+    d, secs, ms = _cohorts("TATP Coordinator", co,
+                           lambda: co.run_cohort(rng, CO_TATP_COHORT), card,
+                           after=tatp_after)
+    check(d["committed"] + d["aborted_lock"] + d["aborted_validate"]
+          + d["aborted_missing"] + d["aborted_timeout"] == d["attempted"]
+          == len(ms) * CO_TATP_COHORT and d["committed"] > 0
+          and d["aborted_timeout"] == 0,
+          "TATP: accounting closes on this phase's deltas (committed + "
+          "aborted_* == attempted)")
+    check(d["lock_cnt"] == d["reject_sharing_cnt"]
+          == d["reject_same_key_cnt"] == 0,
+          "TATP: the attribution counters stay 0 on plain shards")
+    check(_replicas_identical(co.shards),
+          "TATP: the three replicas' tables, locks and log rings "
+          "bit-identical")
+    out["tatp"] = {"committed_per_s": d["committed"] / secs,
+                   "ms_per_cohort": secs * 1e3 / len(ms),
+                   "cohorts": len(ms), "stats": d}
+    # an attributing CF lock table in place of the plain one: no lock is
+    # held and the plain table's versions are all 0 (no TATP op sends
+    # COMMIT_VER), so each replica is what populate_shards(attr_locks=True)
+    # gives with this history
+    check(all(int(s.cf_lock.ver.abs().sum()) == 0 for s in co.shards),
+          "TATP: the plain CF lock versions are all 0")
+    for s in co.shards:
+        s.cf_lock = locks.create_occ_attr(s.cf_lock.n_slots, dev)
+    ca = tc.Coordinator(co.shards, GEN_N_SUB, width=CO_W, val_words=VW,
+                        device=dev)
+    check(ca.attr, "the attr coordinator sees OCCAttrTable shards")
+    d, secs, ms = _cohorts("TATP Coordinator, attr shards", ca,
+                           lambda: ca.run_cohort(rng, CO_TATP_COHORT), card,
+                           min_cohorts=1, window_s=0.0)
+    check(d["committed"] + d["aborted_lock"] + d["aborted_validate"]
+          + d["aborted_missing"] == d["attempted"] == CO_TATP_COHORT
+          and d["lock_cnt"] > 0 and d["reject_same_key_cnt"]
+          + d["reject_sharing_cnt"] <= d["lock_cnt"]
+          and tatp_locks_free(ca.shards) and _replicas_identical(ca.shards),
+          f"TATP attr cohort: accounting closes, lock_cnt {d['lock_cnt']} "
+          f">= same-key {d['reject_same_key_cnt']} + sharing "
+          f"{d['reject_sharing_cnt']}, no lock held, replicas identical")
+    out["tatp_attr"] = {"stats": d, "ms": ms[0]}
+    del co, ca, shards
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- SmallBank
+    t0 = time.perf_counter()
+    sb = sbc.init_shards(CO_SB_N, device=dev)
+    torch.cuda.synchronize()
+    sb_pop_s = time.perf_counter() - t0
+    print(f"  init_shards: {sb_pop_s:.3f} s")
+    check(_replicas_identical(sb), "SmallBank: the three replicas populate "
+          "identically")
+    co = sbc.Coordinator(sb, width=CO_W, device=dev)
+    # the committed deltas: each cohort's new balances less the balances
+    # replica 0 held before its first commit wave (one write a
+    # (table, account) a cohort, under its X lock)
+    deltas = []
+    wave = co._run_wave_explicit
+
+    def spy(ops, tbls, accts, shard_of, vals=None, vers=None):
+        if len(ops) and int(ops[0]) == Op.COMMIT_LOG and \
+                int(shard_of[0]) == 0:
+            s0 = co.shards[0]
+            a = torch.from_numpy(accts.astype(np.int64)).to(dev) * sbc.VW
+            is_sav = torch.from_numpy(tbls == smallbank.SAVINGS).to(dev)
+            old = torch.where(is_sav, s0.sav.val[a], s0.chk.val[a])
+            new = vals[:, 0].astype(np.uint32).view(np.int32)
+            deltas.append(int(new.astype(np.int64).sum())
+                          - int(old.to(torch.int64).sum()))
+        return wave(ops, tbls, accts, shard_of, vals, vers)
+    co._run_wave_explicit = spy
+    rng = np.random.default_rng(13)
+    bal = [sbc.total_balance(co.shards)]
+
+    def sb_cohort():
+        deltas.append(0)
+        co.run_cohort(*wl.sb_make_txns(rng, CO_SB_COHORT, CO_SB_N))
+
+    def sb_after(i):
+        bal.append(sbc.total_balance(co.shards))
+        h = _heads(co.shards)
+        free = all(int(x.abs().sum()) == 0 for s in co.shards
+                   for x in (s.sav_sh, s.sav_ex, s.chk_sh, s.chk_ex))
+        check(bal[-1] - bal[-2] == sum(deltas) and free
+              and h[0] == h[1] == h[2],
+              f"SmallBank cohort {i}: total_balance moved by the committed "
+              f"deltas ({bal[-1] - bal[-2]:+,}), every lock released, log "
+              f"heads equal", quiet=i > 0)
+        deltas.clear()
+    d, secs, ms = _cohorts("SmallBank Coordinator", co, sb_cohort, card,
+                           after=sb_after)
+    check(d["committed"] + d["aborted_lock"] + d["aborted_logic"]
+          == d["attempted"] == len(ms) * CO_SB_COHORT
+          and d["committed"] > 0,
+          "SmallBank: accounting closes on this phase's deltas (committed "
+          "+ aborted_lock + aborted_logic == attempted)")
+    check(_replicas_identical(co.shards),
+          "SmallBank: the three replicas' tables, locks and log rings "
+          "bit-identical")
+    out["smallbank"] = {"committed_per_s": d["committed"] / secs,
+                        "ms_per_cohort": secs * 1e3 / len(ms),
+                        "cohorts": len(ms), "stats": d,
+                        "init_shards_s": sb_pop_s,
+                        "balance_moved": bal[-1] - bal[0]}
+    del co, sb
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = launch_counts()
+    secs = time.perf_counter() - t_phase
+    print(f"  phase 12 kernel launches: {launches}")
+    check(not any(launches.values()),
+          "phase 12 launches none of the nine kernels")
+    print(f"  phase 12 max_memory_allocated: "
+          f"{torch.cuda.max_memory_allocated(dev):,} B; seconds: "
+          f"{secs:.3f}  [{card}]")
+    out["seconds"] = secs
+    print("  coordinators: " + json.dumps(out))
+    return {"coordinators": launches}
+
+
+# per family: (size, engine kw, kernels a step, drain steps)
+SERVE_FAMILIES = {
+    "tatp_dense": (N_SUB, {"val_words": VW}, TATP_PER_STEP["default"], 2),
+    "smallbank_dense": (SB_N, {}, SB_PER_STEP["default"], 1),
+    "store": (ST_N, {"val_words": VW, "runner_kw": SV_STORE_KW},
+              {"scan_rows": 1}, 0),
+}
+# the counters that mirror each family's stats columns (tatp_dense and
+# smallbank_dense STAT_* layout)
+SERVE_STAT_COUNTERS = {
+    "tatp_dense": ("txn_attempted", "txn_committed", "ab_lock",
+                   "ab_missing", "ab_validate", "magic_bad"),
+    "smallbank_dense": ("txn_attempted", "txn_committed", "ab_lock",
+                        "ab_logic", "magic_bad"),
+    "store": (),
+}
+
+
+def phase_serve(dev, card):
+    print(f"== phase 13: the serving plane: ServeEngine over tatp_dense "
+          f"({N_SUB:,} subscribers, VW={VW}), smallbank_dense ({SB_N:,} "
+          f"accounts) and the store ({ST_N:,} keys, YCSB-E scans), "
+          f"plan='auto', {SV_CPB} cohorts a block, a RealClock; then the "
+          f"bench's serve probe")
+    from dint_tpu_torch import bench, serve
+    from dint_tpu_torch.clients.tatp_client import clone_tree
+    t_phase = time.perf_counter()
+    paths, out = {}, {}
+
+    class Probe(serve.ServeEngine):
+        """A ServeEngine that times its populate and notes the memory
+        held after each dispatch and its drains."""
+
+        def __init__(self, *a, **kw):
+            self.mem, self.detaches = [], 0
+            super().__init__(*a, **kw)
+
+        def _fresh_db(self, seed):
+            t0 = time.perf_counter()
+            db = super()._fresh_db(seed)
+            torch.cuda.synchronize()
+            self.fresh_db_s = time.perf_counter() - t0
+            return db
+
+        def _dispatch(self, occ, shed0):
+            super()._dispatch(occ, shed0)
+            self.mem.append((self._cur_w,
+                             torch.cuda.memory_allocated(dev)))
+
+        def _detach(self):
+            self.detaches += 1
+            super()._detach()
+
+    for fam, (size, kw, per_step, drain_steps) in SERVE_FAMILIES.items():
+        torch.cuda.empty_cache()
+        eng = Probe(fam, size, cohorts_per_block=SV_CPB,
+                    clock=serve.RealClock(), monitor=True, plan="auto",
+                    device=dev, **kw)
+        before = clone_tree(eng._db)
+        t0 = time.perf_counter()
+        eng.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        check(_replicas_identical([before, eng._db]),
+              f"{fam}: the live tables bit-identical before and after "
+              f"warmup ({len(eng.cfg.widths)} widths)")
+        del before
+        torch.cuda.empty_cache()
+        rate = 0.5 * CLOSED_LOOP_RATE[fam]
+        top = eng.cfg.widths[-1]
+        sched = np.sort(np.concatenate([
+            serve.poisson_schedule(rate, SV_WINDOW_S, seed=13),
+            np.full(4 * top, SV_WINDOW_S / 2)]))
+        reset_launches()
+        t0 = time.perf_counter()
+        eng.run(sched)
+        eng.close()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = launch_counts()
+        rep = eng.snapshot()
+        c = rep["counters"]
+        serve_steps = sum(rep["steps_by_width"].values())
+        steps = serve_steps + drain_steps * eng.detaches
+        served = sum(int(w) * n for w, n in rep["steps_by_width"].items())
+        visited = sorted(int(w) for w, n in rep["steps_by_width"].items()
+                         if n)
+        print(f"  {fam}: offered {rep['offered_rate']:.1f}/s (Poisson at "
+              f"{rate:.1f}/s for {SV_WINDOW_S} s + a burst of {4 * top}), "
+              f"achieved {rep['achieved_rate']:.1f} committed/s; queue p50 "
+              f"{rep['queue']['p50']:.1f} p99 {rep['queue']['p99']:.1f} us; "
+              f"service p50 {rep['service']['p50']:.1f} p99 "
+              f"{rep['service']['p99']:.1f} us a block; widths "
+              f"{rep['steps_by_width']} (steps), switches "
+              f"{rep['controller']['switches']}; shed {rep['shed']:,} of "
+              f"{rep['offered']:,}; blocks {rep['blocks']}, run {secs:.3f} "
+              f"s; warmup {warm_s:.3f} s, _fresh_db {eng.fresh_db_s:.3f} s "
+              f"[{card}]")
+        svc = {w: round(v, 3)
+               for w, v in rep["controller"]["service_us"].items()}
+        print(f"    observed service us a step by width: {svc}; slo_met "
+              f"{rep['slo_met']}")
+        check(rep["offered"] == len(sched) == rep["admitted"] + rep["shed"]
+              and c["serve_shed_lanes"] == rep["shed"]
+              and c["serve_occupancy_lanes"] == rep["admitted"]
+              == rep["attempted"]
+              and c["serve_padded_lanes"] == served - rep["admitted"],
+              f"{fam}: admitted + shed == offered, serve_shed_lanes == shed, "
+              f"padded lanes == sum(cpb * w) - sum(occ) "
+              f"({c['serve_padded_lanes']:,})")
+        st = eng.stats_total
+        check(all(c[name] == int(st[col]) for col, name in
+                  enumerate(SERVE_STAT_COUNTERS[fam]))
+              and c["steps"] == steps and c["dispatch_xla"] == 0
+              and c["dispatch_pallas"] == (serve_steps if fam == "store"
+                                           else steps),
+              f"{fam}: the counters equal the stats' columns "
+              f"{SERVE_STAT_COUNTERS[fam]} and the steps ({steps})")
+        if fam != "store":
+            check(int(st[SERVE_STAT_COUNTERS[fam].index("magic_bad")]) == 0,
+                  f"{fam}: magic_bad == 0")
+        stints, steady = [], []
+        for w, m in eng.mem:
+            if stints and stints[-1][0] == w:
+                stints[-1][1].append(m)
+            else:
+                stints.append((w, [m]))
+        for w, ms in stints:
+            if len(ms) >= 3:
+                steady.append((w, ms[2:]))
+        check(steady and all(len(set(ms)) == 1 for _, ms in steady),
+              f"{fam}: memory_allocated constant over the steady blocks at "
+              f"one width ({[(w, len(ms), ms[0]) for w, ms in steady]})")
+        want = dict.fromkeys(launches, 0)
+        want.update({k: n * steps for k, n in per_step.items()})
+        check(launches == want,
+              f"{fam}: {per_step} a step over {steps} steps "
+              f"({ {k: v for k, v in launches.items() if v} })")
+        check(len(visited) >= 2 and rep["shed"] > 0,
+              f"{fam}: the burst forced a width switch ({visited}) and "
+              f"shedding")
+        paths[f"serve {fam}"] = launches
+        out[fam] = {k: rep[k] for k in (
+            "offered", "admitted", "shed", "attempted", "committed",
+            "blocks", "steps_by_width", "offered_rate", "achieved_rate",
+            "slo_met", "elapsed_s")}
+        out[fam].update(queue={k: rep["queue"][k] for k in ("p50", "p99")},
+                        service={k: rep["service"][k]
+                                 for k in ("p50", "p99")},
+                        service_us=rep["controller"]["service_us"],
+                        warmup_s=warm_s, fresh_db_s=eng.fresh_db_s,
+                        run_s=secs)
+        del eng
+        gc.collect()
+
+    # the bench's serve probe at the bench's shapes
+    torch.cuda.empty_cache()
+    k = bench.Knobs()
+    t0 = time.perf_counter()
+    probe = bench.serve_probe(k, dev)
+    secs = time.perf_counter() - t0
+    print("  bench serve probe: " + json.dumps(
+        {key: v for key, v in probe.items()
+         if key not in ("queue", "service", "controller")}, default=str)
+        + f"; queue p99 {probe['queue']['p99']:.1f} us, service p99 "
+        f"{probe['service']['p99']:.1f} us; {secs:.3f} s  [{card}]")
+    check(tuple(probe) == bench.SERVE_KEYS and len(probe) == 11
+          and probe["offered"] == probe["admitted"] + probe["shed"]
+          == k.width * k.block * 8 and probe["blocks"] > 0
+          and probe["controller"]["width"] == k.width,
+          f"the bench's serve probe ({k.n_subscribers:,} subscribers, "
+          f"w={k.width}, {k.block} cohorts a block): its eleven keys, "
+          f"admitted + shed == offered")
+    out["bench_probe"] = {"admitted": probe["admitted"],
+                          "shed": probe["shed"], "blocks": probe["blocks"],
+                          "achieved_rate": probe["achieved_rate"],
+                          "seconds": secs}
+    secs = time.perf_counter() - t_phase
+    print(f"  phase 13 seconds: {secs:.3f}  [{card}]")
+    out["seconds"] = secs
+    print("  serving: " + json.dumps(out, default=str))
+    return paths
 
 
 KERNELS = {
@@ -3293,7 +3724,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_generic_cpu_vs_card(dev)
-    store_paths["generic engines"] = phase_generic(dev, card)
+    store_paths["generic engines"], shards, pop_s = phase_generic(dev, card)
+    store_paths.update(phase_coordinators(dev, card, shards, pop_s))
+    del shards
+    gc.collect()
+    torch.cuda.empty_cache()
+    store_paths.update(phase_serve(dev, card))
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():

@@ -21,11 +21,11 @@ What differs from bench.py's line:
   and power limit as `nvidia-smi --query-gpu=name,power.limit
   --format=csv,noheader` gives them (null on the CPU).
 * Keys of modules not ported yet are explicit nulls: ``dinttrace``,
-  ``serve``, ``dintlint``, ``dintcost``, ``dintdur``, ``breakdown``.
-* No parent/child retry, no stale line, no fallback to another path and
-  no caught SmallBank leg: any failure, a magic-word or balance fault of
-  either leg included, raises, and the process exits non-zero with no
-  result line.
+  ``dintlint``, ``dintcost``, ``dintdur``, ``breakdown``.
+* No parent/child retry, no stale line, no fallback to another path, no
+  caught SmallBank leg and no caught serve probe: any failure, a
+  magic-word or balance fault of either leg included, raises, and the
+  process exits non-zero with no result line.
 
 Knobs, the environment variables bench.py reads:
 
@@ -42,8 +42,9 @@ Knobs, the environment variables bench.py reads:
 * the route: PLAN.json's pinned ``use_hotset``/``use_fused`` for
   ``tatp_uniform`` and ``smallbank_skewed``, which ``DINT_USE_HOTSET`` and
   ``DINT_USE_FUSED`` change only under ``DINT_PLAN_OVERRIDE=1``
-  (`dint_tpu/analysis/plan.py` ``resolve_for``); ``plan`` records
-  {source, hash, overridden}.
+  (`plan.resolve_for`); ``plan`` records {source, hash, overridden};
+* ``DINT_BENCH_SERVE=1``: ``serve`` holds the serving plane's probe
+  (`serve_probe`), an explicit null otherwise.
 """
 from __future__ import annotations
 
@@ -53,11 +54,11 @@ import os
 import subprocess
 import sys
 import time
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from . import plan
 from . import stats as st
 from .clients import bench_smallbank
 from .device import resolve_device
@@ -65,12 +66,12 @@ from .engines import tatp_dense as td
 from .engines.types import ROUTES
 from .monitor import counters as mon
 from .ops import row_kernels, scan_kernels
+from .serve import ControllerCfg, ServeEngine
 
 ASSUMED_BASELINE = 3.0e6   # committed txn/s, tatp/ebpf single-server estimate
 ARTIFACT_SCHEMA = 2        # dint_tpu/monitor/attrib.py:41
 VAL_WORDS = 10
 DEPTH = 3                  # pipeline steps from a cohort's dispatch to commit
-PLAN_PATH = Path(__file__).resolve().parents[1] / "PLAN.json"
 _ROUTE_OF = {flags: name for name, flags in ROUTES.items()}
 
 
@@ -87,6 +88,7 @@ class Knobs:
     profile: bool = False
     skip_sb: bool = False
     monitor: bool = False
+    serve: bool = False
 
     @classmethod
     def from_env(cls, env) -> "Knobs":
@@ -108,29 +110,18 @@ class Knobs:
             hot_prob=opt("DINT_BENCH_HOT_PROB", float),
             profile=env.get("DINT_BENCH_PROFILE") == "1",
             skip_sb=env.get("DINT_BENCH_SKIP_SB") == "1",
-            monitor=env.get("DINT_MONITOR") == "1")
+            monitor=env.get("DINT_MONITOR") == "1",
+            serve=env.get("DINT_BENCH_SERVE") == "1")
 
 
 def plan_route(workload: str, env) -> tuple[str, dict]:
-    """The route PLAN.json pins for ``workload``, and the plan record
-    {source, hash, overridden}. Under ``DINT_PLAN_OVERRIDE=1`` a set
-    ``DINT_USE_HOTSET``/``DINT_USE_FUSED`` (true unless "" or "0") that
-    contradicts its pin wins, and ``overridden`` names it."""
-    plan = json.loads(PLAN_PATH.read_text())
-    pinned = plan["workloads"][workload]["pinned"]
-    knobs = {k: bool(v) for k, v in pinned.items()
-             if k in ("use_hotset", "use_fused")}
-    overridden = []
-    if env.get("DINT_PLAN_OVERRIDE", "0") == "1":
-        for name in knobs:
-            raw = env.get("DINT_" + name.upper())
-            if raw is not None and (raw not in ("", "0")) != knobs[name]:
-                knobs[name] = not knobs[name]
-                overridden.append(name)
-    route = _ROUTE_OF[(knobs["use_hotset"], knobs["use_fused"])]
-    return route, {"source": str(PLAN_PATH),
-                   "hash": plan.get("provenance", {}).get("cost_model_hash"),
-                   "overridden": overridden}
+    """The route PLAN.json pins for ``workload`` as `plan.resolve_for`
+    resolves it under ``env``, and the plan record {source, hash,
+    overridden}: bench.py's record, since the line's ``route`` already
+    says that the port has no ``use_pallas``."""
+    knobs, meta = plan.resolve_for(workload, environ=env)
+    route = _ROUTE_OF[(bool(knobs["use_hotset"]), bool(knobs["use_fused"]))]
+    return route, {k: meta[k] for k in ("source", "hash", "overridden")}
 
 
 def card_of(dev: torch.device) -> str | None:
@@ -202,6 +193,27 @@ def _tatp_leg(k: Knobs, route: str, dev) -> dict:
                 compile_s=compile_s, launches=_launches())
 
 
+SERVE_KEYS = ("offered", "admitted", "shed", "blocks", "achieved_rate",
+              "slo_us", "slo_met", "queue", "service", "controller", "plan")
+
+
+def serve_probe(k: Knobs, dev) -> dict:
+    """The serving plane's saturation probe (bench.py:335-360): a burst of
+    ``width * block * 8`` arrivals at t = 0 through a `ServeEngine` of the
+    one bench width, after its warmup; bench.py's eleven keys of the
+    snapshot. The closed-loop headline and the probe should agree at full
+    occupancy; the gap is the serving plane's ingestion cost."""
+    eng = ServeEngine("tatp_dense", k.n_subscribers,
+                      cfg=ControllerCfg(widths=(k.width,)),
+                      cohorts_per_block=k.block, val_words=VAL_WORDS,
+                      monitor=True, device=dev)
+    eng.warmup()
+    eng.run(np.zeros(k.width * k.block * 8))
+    eng.close()
+    rep = eng.snapshot()
+    return {key: rep[key] for key in SERVE_KEYS}
+
+
 def measure(env=None, device=None) -> dict:
     """Both legs; returns the bench line. ``env`` (default os.environ)
     holds the knobs; ``device`` None means CUDA."""
@@ -212,6 +224,7 @@ def measure(env=None, device=None) -> dict:
     card = card_of(dev)
     leg = _tatp_leg(k, route, dev)
     total, dt = leg["total"], leg["dt"]
+    serve_out = serve_probe(k, dev) if k.serve else None
 
     committed = int(total[td.STAT_COMMITTED])
     attempted = int(total[td.STAT_ATTEMPTED])
@@ -254,7 +267,7 @@ def measure(env=None, device=None) -> dict:
         "plan": plan_meta,
         "counters": leg["counters"],
         "dinttrace": None,
-        "serve": None,
+        "serve": serve_out,
         "dintlint": None,
         "breakdown": None,
         "blocks": leg["blocks"],

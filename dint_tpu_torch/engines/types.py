@@ -66,6 +66,7 @@ class Reply:
     VAL = 6            # read reply carrying value + version
     SPILL = 7          # bucket overflow: the host takes this key
     REJECT_SAME_KEY = 8  # lock attribution: the holder has the same key
+    TIMEOUT = 9        # a wire client's resends ran out (no engine sends it)
 
 
 @dataclass

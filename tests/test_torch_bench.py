@@ -279,6 +279,76 @@ def test_route_is_plan_json_pins_as_plan_resolves_them(env):
         assert bench.plan_route("tatp_uniform", env)[0] == "default"
 
 
+def _old_plan_route(workload, env):
+    """The bench's route rule before it read PLAN.json through
+    `dint_tpu_torch.plan`, kept here to hold the new one to it."""
+    plan = json.loads((REPO / "PLAN.json").read_text())
+    knobs = {k: bool(v) for k, v in plan["workloads"][workload]["pinned"]
+             .items() if k in ("use_hotset", "use_fused")}
+    overridden = []
+    if env.get("DINT_PLAN_OVERRIDE", "0") == "1":
+        for name in knobs:
+            raw = env.get("DINT_" + name.upper())
+            if raw is not None and (raw not in ("", "0")) != knobs[name]:
+                knobs[name] = not knobs[name]
+                overridden.append(name)
+    route = {v: k for k, v in ROUTES.items()}[(knobs["use_hotset"],
+                                               knobs["use_fused"])]
+    return route, {"source": str(REPO / "PLAN.json"),
+                   "hash": plan.get("provenance", {}).get("cost_model_hash"),
+                   "overridden": overridden}
+
+
+@pytest.mark.parametrize("override", ["0", "1"])
+def test_plan_route_is_unchanged_for_every_workload_it_reads(override):
+    """The bench's plan record and route through `dint_tpu_torch.plan` are
+    what they were, for each PLAN.json workload the bench reads, under
+    every combination of the two route flags."""
+    for hot in (None, "", "0", "1"):
+        for fused in (None, "0", "1", "true"):
+            env = {"DINT_PLAN_OVERRIDE": override}
+            if hot is not None:
+                env["DINT_USE_HOTSET"] = hot
+            if fused is not None:
+                env["DINT_USE_FUSED"] = fused
+            for wl in ("tatp_uniform", "smallbank_skewed"):
+                assert bench.plan_route(wl, env) == _old_plan_route(wl, env)
+
+
+def _reference_serve_keys():
+    """The keys bench.py's serve probe copies from the snapshot
+    (bench.py:353-356): the tuple the comprehension iterates."""
+    tree = ast.parse((REPO / "bench.py").read_text())
+    for n in ast.walk(tree):
+        if isinstance(n, ast.DictComp) and \
+                isinstance(n.generators[0].iter, ast.Tuple):
+            keys = tuple(e.value for e in n.generators[0].iter.elts)
+            if "achieved_rate" in keys:
+                return keys
+    raise AssertionError("no serve probe keys in bench.py")
+
+
+def test_bench_serve_probe_fills_the_reference_keys():
+    """DINT_BENCH_SERVE=1: ``serve`` holds the eleven keys bench.py's probe
+    keeps, from a ServeEngine of the bench width on the bench's own path
+    (8 blocks' worth of arrivals at t = 0, after the warmup)."""
+    keys = _reference_serve_keys()
+    assert len(keys) == 11 and bench.SERVE_KEYS == keys
+    line = bench.measure(env=dict(TINY, DINT_BENCH_SERVE="1",
+                                  DINT_BENCH_SKIP_SB="1"), device="cpu")
+    s = line["serve"]
+    assert tuple(s) == keys
+    assert s["offered"] == s["admitted"] + s["shed"] == 256 * 4 * 8
+    assert s["blocks"] > 0 and s["achieved_rate"] > 0
+    assert s["controller"]["width"] == 256
+    assert s["plan"] == dplan.resolve_for("tatp_serve", environ={})[1]
+    assert s["slo_us"] == 5000.0 and isinstance(s["slo_met"], bool)
+    assert set(s["queue"]) == {"avg", "p50", "p99", "p999", "hist"}
+    assert s["service"]["hist"]["n"] == s["blocks"]
+    assert s["queue"]["hist"]["n"] == s["admitted"]
+    assert json.loads(json.dumps(line))["serve"]["offered"] == 256 * 4 * 8
+
+
 def test_bench_needs_a_card(monkeypatch):
     """Without a card the module exits non-zero and prints no line; the
     entry points raise."""

@@ -23,7 +23,8 @@ import torch
 
 from dint_tpu.engines import tatp_dense as jtd
 from dint_tpu.engines import tatp_pipeline as jtp
-from dint_tpu_torch import convert
+from dint_tpu_torch import convert, serve
+from dint_tpu_torch.clients import smallbank_client, tatp_client
 from dint_tpu_torch.engines import tatp_dense as td
 from dint_tpu_torch.engines import tatp_pipeline as tp
 from dint_tpu_torch.ops import u32
@@ -258,7 +259,13 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
              lambda: td.populate(rng, 4),
              lambda: td.populate_device(None, 4),
              lambda: td.build_pipelined_runner(4, w=8),
-             lambda: convert.dense_db_from_numpy({})]
+             lambda: convert.dense_db_from_numpy({}),
+             lambda: tatp_client.Coordinator([], 4),
+             lambda: smallbank_client.Coordinator([]),
+             lambda: smallbank_client.init_shards(4),
+             lambda: serve.ServeEngine("tatp_dense", 4, plan=None),
+             lambda: serve.ServeEngine("store", 4, plan=None),
+             lambda: serve.cached_runner("tatp_dense", 4, w=8)]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
