@@ -193,17 +193,53 @@ mismatch or error:
    = 8192, 16 cohorts a block): its eleven keys. Prints each family's
    achieved and offered rate, queue and service p50/p99, widths, shed
    count, and the warmup and populate seconds.
+14. The wire plane (run after phase 12, before phase 13). (a) Each of the
+   six wire profiles (store, lock_2pl, lock_fasst, log_server, smallbank,
+   tatp) on a small state: a CPU EnginePump, a card one and a card one at
+   depth 2 (serve_forever) take the same scripted batches (full-width
+   ones, unknown wire codes, same-key lanes, and a read followed by a
+   batch that writes what it read) through a stub in place of the C++
+   server, which scribbles over a slot once it is replied: wire replies
+   (type, val bytes, ver), final state and lane counts bit-identical; then
+   one loopback ShimClient round trip a profile on distinct keys, the card
+   pump's replies equal to the CPU pump's. (b) TATP over the wire at
+   7,000,000 subscribers: three card pumps (tatp.step, w=8192, flush 500
+   us) over phase 12's replicas (attributing CF lock tables) and a
+   WireCoordinator with 8 sockets a shard, cohorts of 2048: one warm
+   cohort, then at least 3 cohorts and 3 s; the taxonomy closes,
+   timeout_lanes == 0, no lock held and the log heads equal after every
+   cohort, the replicas' tables, lock words and CF tables identical
+   (cf_lock's owner words apart) and their logs holding the same new
+   entries, each replica in its own arrival order (ROADMAP §C.8); prints
+   committed txn/s, ms a cohort and each pump's batches, occupancy
+   against padded lanes and queue and service p50/p99. (c) The store over
+   the wire: phase 7's table of 24,000,000 keys behind a card pump
+   (w=4096), two loopback clients at 50/50 GET/SET for 3 s, every SET
+   carrying STORE_MAGIC in word 1: every reply that comes back answers
+   its key, VAL with the magic word for a GET, ACK for a SET; replies the
+   C++ ring shed (a 2 s timeout, no re-send) are counted; prints answered
+   pkt/s, p50/p99 us and the losses. (d)
+   `exp.sweep_micro` in-process with 2 s windows and use_hotset=True over
+   store_zipf_w4096, store_scan_f95, lock_2pl, lock_fasst, log_server,
+   store_wire, tatp_wire, tatp_wire_txn, tatp_colocate_c1 and
+   store_cached_wb_bloom, launches counted from 0 around each point:
+   store_zipf_w4096 must launch gather_rows_hot and scatter_rows_hot
+   ("micro store_zipf"), store_scan_f95 scan_rows ("micro store_scan");
+   then `python -m dint_tpu_torch.exp --quick --only store_wire` in a
+   process of its own must exit 0 and write store_wire.json.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -2872,18 +2908,19 @@ def _same_replies(a, b):
                ((a.rtype, b.rtype), (a.val, b.val), (a.ver, b.ver)))
 
 
-def _replicas_identical(shards):
+def _replicas_identical(shards, skip=()):
     """The replicas' (or any dataclass trees') every leaf, on the card;
     an attributed CF lock word's owner apart (only the primary locks, so
-    its last holder is per replica)."""
+    its last holder is per replica), and the leaves ``skip`` names."""
     import dataclasses
+    skip = ("cf_lock.owner_hi", "cf_lock.owner_lo", *skip)
 
     def leaves(x, path=""):
         for f in dataclasses.fields(x):
             v, name = getattr(x, f.name), path + f.name
             if dataclasses.is_dataclass(v):
                 yield from leaves(v, name + ".")
-            elif name not in ("cf_lock.owner_hi", "cf_lock.owner_lo"):
+            elif name not in skip:
                 yield v
     first = list(leaves(shards[0]))
     return all(all(torch.equal(x, y) if isinstance(x, torch.Tensor)
@@ -3399,6 +3436,7 @@ def phase_coordinators(dev, card, shards, pop_s):
           f">= same-key {d['reject_same_key_cnt']} + sharing "
           f"{d['reject_sharing_cnt']}, no lock held, replicas identical")
     out["tatp_attr"] = {"stats": d, "ms": ms[0]}
+    replicas = list(ca.shards)      # phase 14 (b) serves them
     del co, ca, shards
     gc.collect()
     torch.cuda.empty_cache()
@@ -3476,7 +3514,7 @@ def phase_coordinators(dev, card, shards, pop_s):
           f"{secs:.3f}  [{card}]")
     out["seconds"] = secs
     print("  coordinators: " + json.dumps(out))
-    return {"coordinators": launches}
+    return {"coordinators": launches}, replicas
 
 
 # per family: (size, engine kw, kernels a step, drain steps)
@@ -3663,6 +3701,582 @@ def phase_serve(dev, card):
     return paths
 
 
+# ------------------------------------------------------------ the wire plane
+
+
+WIRE_W = 64                  # (a): the stub pumps' width
+WIRE_SIZES = (WIRE_W, 1, 23, 40, WIRE_W - 1, 17, WIRE_W)
+WT_W = 8192                  # (b): the TATP pumps' width
+WT_FLUSH_US = 500
+WT_SOCKS = 8                 # sockets a shard (exp.py's tatp_wire_txn)
+WT_COHORT = 2048             # tatp/caladan/tatp.h:28's scale, as phase 12
+WT_COHORTS = 3               # at least, and at least WT_WINDOW_S
+WT_WINDOW_S = 3.0
+WS_N = 24_000_000            # (c): the reference store's keyspace
+WS_W = 4096
+WS_CLIENTS = 2
+WS_WINDOW_S = 3.0
+WS_TIMEOUT_MS = 2000         # a lost reply costs one exchange this much
+MICRO_WINDOW_S = 2.0         # (d): sweep_micro's window
+MICRO_POINTS = ("store_zipf_w4096", "store_scan_f95", "lock_2pl",
+                "lock_fasst", "log_server", "store_wire", "tatp_wire",
+                "tatp_wire_txn", "tatp_colocate_c1", "store_cached_wb_bloom")
+
+
+class StubServer:
+    """ShimServer's stand-in for phase 14 (a): `poll` hands out scripted
+    batches as views of a ring slot, `reply` records the replies and then
+    scribbles over the slot, as the C++ ring reuses it; an empty script
+    stops the pump."""
+
+    def __init__(self, port=0, width=4096, flush_us=200, nrings=8, fmt=0,
+                 ip="127.0.0.1"):
+        self.width, self.port = width, 0
+        self.script, self.replies = [], []
+        self.pump, self._slots, self._next = None, {}, 0
+
+    def poll(self, timeout_us=100_000):
+        if not self.script:
+            if self.pump is not None:
+                self.pump._stop.set()
+            return None
+        b = self.script.pop(0)
+        slot = self._next % 8
+        self._next += 1
+        if len(b["key"]) > self.width or slot in self._slots:
+            raise SmokeFailure("stub server: a batch wider than the pump, "
+                               "or a ring slot reused before its reply")
+        self._slots[slot] = {k: v.copy() for k, v in b.items()}
+        return slot, dict(self._slots[slot])
+
+    def reply(self, slot, rtype, rval=None, rver=None):
+        ring = self._slots.pop(slot)
+        n = len(ring["key"])
+        if len(rtype) != n or np.shape(rval) != (n, 40) or len(rver) != n:
+            raise SmokeFailure(f"stub server: {len(rtype)} replies for a "
+                               f"batch of {n}")
+        self.replies.append((np.array(rtype, np.uint8),
+                             np.array(rval, np.uint8),
+                             np.array(rver, np.uint32)))
+        for v in ring.values():
+            v.view(np.uint8)[...] = 0xA5
+        return len(rtype)
+
+    def stats(self):
+        return {"pkts_rx": 0, "pkts_tx": 0, "batches": 0, "dropped": 0}
+
+
+def _wire_batch(rng, fmt, types, keys, tables=None, vers=None, ver_hi=8):
+    """A polled batch as the C++ pump fills it for ``fmt``."""
+    from dint_tpu_torch.shim import native
+    n = len(types)
+    b = {"ord": np.arange(n, dtype=np.uint8),
+         "type": np.asarray(types, np.uint8),
+         "table": np.zeros(n, np.uint8) if tables is None
+         else np.asarray(tables, np.uint8),
+         "key": np.asarray(keys, np.uint64),
+         "val": rng.integers(0, 256, (n, native.VAL_SIZE)).astype(np.uint8),
+         "ver": (rng.integers(0, ver_hi, n) if vers is None
+                 else np.asarray(vers)).astype(np.uint32)}
+    if fmt in (native.FMT_LOCK6, native.FMT_FASST9):
+        b["val"][:] = 0
+        b["table" if fmt == native.FMT_FASST9 else "ver"][:] = 0
+    if fmt != native.FMT_MSG55:
+        b["ord"][:] = 0
+        if fmt == native.FMT_LOG53:
+            b["table"][:] = 0
+    return b
+
+
+def wire_script(name, fmt, seed):
+    """Batches of the profile's codes and unknown ones (63, 200, ...) over
+    few keys (same-key lanes), full-width ones among them, then a read
+    followed at once by a batch that writes what it read."""
+    from dint_tpu_torch.engines import tatp
+    rng = np.random.default_rng(seed)
+    codes = {"store": [0, 1, 2, 0, 1, 3, 63, 200],
+             "lock_2pl": [0, 0, 1, 1, 5, 77],
+             "lock_fasst": [0, 1, 2, 3, 1, 9],
+             "log_server": [0, 0, 0, 1, 250],
+             "smallbank": [0, 1, 2, 3, 4, 5, 6, 7, 40],
+             "tatp": [0, 0, 1, 2, 12, 13, 14, 18, 19, 22, 23, 24, 3, 60,
+                      255]}[name]
+    out = []
+    for n in WIRE_SIZES:
+        t = rng.choice(codes, n)
+        if name == "tatp":
+            tbl = rng.integers(0, 5, n)
+            sid, typ = rng.integers(1, 21, n), rng.integers(1, 5, n)
+            keys = np.where(tbl <= tatp.SEC_SUBSCRIBER, sid,
+                            sid * 4 + typ - 1)
+            keys = np.where(tbl == tatp.CALL_FORWARDING,
+                            tatp.cf_key(rng.integers(1, 9, n), typ,
+                                        8 * rng.integers(0, 3, n)), keys)
+        elif name == "log_server":
+            tbl, keys = None, rng.integers(0, 1 << 63, n)
+        else:
+            tbl = rng.integers(0, 2 if name != "store" else 3, n)
+            keys = rng.integers(1 if name == "store" else 0,
+                                25 if name == "store" else 16, n)
+        out.append(_wire_batch(rng, fmt, t, keys, tbl))
+    k, z, o = np.arange(100, 108), np.zeros(8), np.ones(8)
+    one = functools.partial(_wire_batch, rng, fmt)
+    deps = {"store": [(np.full(8, 2), k), (z, k), (o, k)],
+            "lock_2pl": [(z, k, o), (o, k, o)],
+            "lock_fasst": [(o, k), (z, k), (np.full(8, 3), k)],
+            "log_server": [(z, k), (z, k)],
+            "smallbank": [(o, k - 60, z),
+                          (np.full(8, 4), k - 60, z, np.full(8, 9))],
+            "tatp": [(o, k - 70, z), (z, k - 70, z),
+                     (np.full(8, 12), k - 70, z, np.full(8, 9))]}[name]
+    return out + [one(*d) for d in deps]
+
+
+def wire_states(name, dev):
+    """The profile's step, value words and a small starting state on the
+    CPU and its copy on ``dev``."""
+    from dint_tpu_torch import convert
+    from dint_tpu_torch.clients import tatp_client as tc
+    from dint_tpu_torch.engines import (fasst, lock2pl, logsrv, smallbank,
+                                        store, tatp)
+    from dint_tpu_torch.ops.u32 import from_numpy
+    from dint_tpu_torch.tables import kv, locks
+    from dint_tpu_torch.tables import log as plog
+    rng = np.random.default_rng(7)
+    cpu = torch.device("cpu")
+    if name == "store":
+        vals = rng.integers(0, 1 << 32, (40, 10), dtype=np.uint64)
+        s = kv.populate(kv.create(1 << 5, val_words=10, device=cpu),
+                        np.arange(1, 41, dtype=np.uint64),
+                        vals.astype(np.uint32))
+        step, vw, back = store.step, 10, convert.kv_table_from_numpy
+    elif name == "lock_2pl":
+        s, step, vw = locks.create_sx(1 << 4, cpu), lock2pl.step, 10
+        back = convert.sx_lock_table_from_numpy
+    elif name == "lock_fasst":
+        s, step, vw = locks.create_occ(1 << 6, cpu), fasst.step, 10
+        back = convert.occ_table_from_numpy
+    elif name == "log_server":
+        s, step, vw = plog.create(4, 1 << 6, 10, cpu), logsrv.step, 10
+        back = convert.log_ring_from_numpy
+    elif name == "smallbank":
+        s = smallbank.create(64, val_words=2, log_lanes=4,
+                             log_capacity=1 << 8, device=cpu)
+        s.sav.val = from_numpy(rng.integers(0, 1 << 32, 128,
+                                            dtype=np.uint64)
+                               .astype(np.uint32), cpu)
+        s.sav.ver.fill_(1)
+        s.chk.ver.fill_(1)
+        step, vw, back = smallbank.step, 2, convert.smallbank_shard_from_numpy
+    else:
+        s = tc.populate_shards(np.random.default_rng(0), 40, val_words=10,
+                               log_lanes=4, log_capacity=1 << 8,
+                               device=cpu)[0][0]
+        step, vw, back = tatp.step, 10, convert.tatp_shard_from_numpy
+    return step, vw, s, back(convert.tree_to_numpy(s), dev)
+
+
+def stub_pump(profile, step, state, vw, device, depth=1):
+    """An EnginePump whose server is a StubServer."""
+    from dint_tpu_torch.shim import pump as pump_mod
+    real = pump_mod.ShimServer
+    pump_mod.ShimServer = StubServer
+    try:
+        p = pump_mod.EnginePump(profile, step, state, width=WIRE_W,
+                                val_words=vw, depth=depth, device=device)
+    finally:
+        pump_mod.ShimServer = real
+    p.server.pump = p
+    return p
+
+
+def _same_wire(a, b):
+    return len(a) == len(b) and all(
+        np.array_equal(u, v) for x, y in zip(a, b) for u, v in zip(x, y))
+
+
+def phase_wire_cpu_vs_card(dev, card):
+    print(f"== phase 14 (a): the wire plane, CPU pump against card pump on "
+          f"the six profiles, stub server, w={WIRE_W}, "
+          f"{len(WIRE_SIZES) + 2}-{len(WIRE_SIZES) + 3} batches each; then "
+          f"one loopback round "
+          f"trip a profile")
+    from dint_tpu_torch.shim import PROFILES, EnginePump, ShimClient
+    t_phase = time.perf_counter()
+    reset_launches()
+    for name, prof in PROFILES.items():
+        step, vw, cpu_state, card_state = wire_states(name, dev)
+        script = wire_script(name, prof.fmt, seed=len(name))
+        runs = {}
+        for label, state, device, depth in (
+                ("cpu", cpu_state, "cpu", None),
+                ("card", card_state, dev, None),
+                ("card depth 2", wire_states(name, dev)[3], dev, 2)):
+            p = stub_pump(prof, step, state, vw, device, depth or 1)
+            p.server.script = list(script)
+            if depth is None:
+                while p.server.script:
+                    p.serve_one(0)
+            else:
+                p.serve_forever()
+            torch.cuda.synchronize()
+            runs[label] = p
+        ref = runs["cpu"]
+        snap = ref.latency_snapshot()
+        check(all(_same_wire(ref.server.replies, r.server.replies)
+                  and _same_tree(ref.state, r.state)
+                  for r in runs.values())
+              and snap["batches"] == len(script)
+              and snap["occupancy_lanes"] + snap["padded_lanes"]
+              == WIRE_W * len(script)
+              and all(r.latency_snapshot()["occupancy_lanes"]
+                      == snap["occupancy_lanes"] for r in runs.values()),
+              f"{name}: {len(script)} batches ({snap['occupancy_lanes']} "
+              f"lanes), wire replies (type, val bytes, ver) and final state "
+              f"bit-identical on the CPU, the card and the card at depth 2 "
+              f"(batch i+1 writes what batch i read)")
+        # one loopback round trip a profile: distinct keys, the CPU and
+        # card pumps from their (equal) states after the script
+        rng = np.random.default_rng(3)
+        n = 16
+        keys = np.arange(200, 200 + n, dtype=np.uint64)
+        if name in ("smallbank", "tatp"):
+            keys = np.arange(48, 48 + n, dtype=np.uint64) % (
+                64 if name == "smallbank" else 41)
+            keys = np.unique(keys)
+            n = len(keys)
+        types = np.zeros(n, np.uint8)
+        got = {}
+        for label in ("cpu", "card"):
+            r = runs[label]
+            with EnginePump(prof, step, r.state, width=WIRE_W, val_words=vw,
+                            flush_us=2000, device=r.device).start() as p:
+                with ShimClient("127.0.0.1", p.port, fmt=prof.fmt) as c:
+                    out = c.exchange(types, keys,
+                                     vals=rng.integers(0, 256, (n, 40)),
+                                     timeout_ms=20_000)
+            order = np.argsort(out["key"], kind="stable")
+            got[label] = {k: out[k][order] for k in ("type", "val", "ver",
+                                                      "key")}
+            got[label]["n"] = out["n"]
+        check(got["card"]["n"] == n and all(
+                  np.array_equal(got["cpu"][k], got["card"][k])
+                  for k in ("type", "val", "ver", "key"))
+              and not (got["card"]["type"] == 255).any(),
+              f"{name}: a loopback round trip of {n} requests on the card "
+              f"pump, every reply defined and equal to the CPU pump's",
+              quiet=False)
+    launches = launch_counts()
+    print(f"  phase 14 (a) kernel launches: {launches}; seconds: "
+          f"{time.perf_counter() - t_phase:.3f}  [{card}]")
+    return launches
+
+
+def _pump_report(pumps):
+    out = []
+    for p in pumps:
+        s = p.latency_snapshot()
+        out.append({k: s[k] for k in ("batches", "width", "depth",
+                                      "occupancy_lanes", "padded_lanes",
+                                      "shed")}
+                   | {side: {k: s[side][k] for k in ("p50_us", "p99_us")}
+                      for side in ("queue", "service")})
+    return out
+
+
+def _log_since(shard, heads):
+    """The log entries a shard appended since its per-lane ``heads``, as
+    rows sorted on the host (the order of arrival taken out)."""
+    from dint_tpu_torch.ops.u32 import to_u64
+    ring = shard.log
+    rows = [ring.entries[lane, torch.arange(h0, h1, device=ring.head.device)
+                         % ring.capacity]
+            for lane, (h0, h1) in enumerate(zip(heads,
+                                                to_u64(ring.head).tolist()))]
+    a = torch.cat(rows).cpu().numpy()
+    return a[np.lexsort(a.T[::-1])]
+
+
+def phase_wire_tatp(dev, card, shards):
+    print(f"== phase 14 (b): TATP over the wire at {GEN_N_SUB:,} "
+          f"subscribers: three card pumps (tatp.step, w={WT_W}, flush "
+          f"{WT_FLUSH_US} us) over phase 11's replicas after phase 12, a "
+          f"WireCoordinator with {WT_SOCKS} sockets a shard, cohorts of "
+          f"{WT_COHORT}")
+    import dataclasses
+    from dint_tpu_torch.clients import tatp_wire as tw
+    from dint_tpu_torch.engines import tatp
+    from dint_tpu_torch.ops.u32 import to_u64
+    from dint_tpu_torch.shim import TATP, EnginePump
+    t_phase = time.perf_counter()
+    reset_launches()
+
+    def locks_free(ss):
+        return not any(bool(lk.any()) for s in ss
+                       for _, lk in s.dense_tables()) \
+            and not any(bool(s.cf_lock.locked.any()) for s in ss)
+
+    check(_replicas_identical(shards) and locks_free(shards),
+          "phase 12's three replicas identical, no lock held")
+    heads0 = [to_u64(s.log.head).tolist() for s in shards]
+    pumps = []
+    try:
+        for s in shards:
+            pumps.append(EnginePump(TATP, tatp.step, s, width=WT_W,
+                                    flush_us=WT_FLUSH_US, val_words=VW,
+                                    device=dev).start())
+        with tw.WireCoordinator([p.port for p in pumps], GEN_N_SUB,
+                                width=WT_W, val_words=VW,
+                                n_socks=WT_SOCKS) as co:
+            rng = np.random.default_rng(14)
+            t0 = time.perf_counter()
+            co.run_cohort(rng, WT_COHORT)
+            warm_ms = (time.perf_counter() - t0) * 1e3
+            print(f"  warm cohort: {warm_ms:.3f} ms, stats "
+                  f"{dataclasses.asdict(co.stats)}")
+            warm_batches = [p.batches_served for p in pumps]
+
+            def after(i):
+                ss = [p.state for p in pumps]
+                h = _heads(ss)
+                check(h[0] == h[1] == h[2] and locks_free(ss),
+                      f"wire cohort {i}: no lock held, log heads equal "
+                      f"({h[0]:,})", quiet=i > 0)
+            d, secs, ms = _cohorts("TATP WireCoordinator", co,
+                                   lambda: co.run_cohort(rng, WT_COHORT),
+                                   card, min_cohorts=WT_COHORTS,
+                                   window_s=WT_WINDOW_S, after=after)
+            timeout_lanes = co.stats.timeout_lanes
+        check(d["committed"] + d["aborted_lock"] + d["aborted_validate"]
+              + d["aborted_missing"] + d["aborted_timeout"]
+              == d["attempted"] == len(ms) * WT_COHORT
+              and d["committed"] > 0 and d["aborted_timeout"] == 0
+              and timeout_lanes == 0,
+              f"wire TATP: the taxonomy closes (committed + aborted_* == "
+              f"attempted == {d['attempted']:,}), timeout_lanes == 0")
+        for p in pumps:
+            p.stop()      # the last batch's tally lands before the report
+        report = _pump_report(pumps)
+        batches = [p.batches_served - b for p, b in zip(pumps, warm_batches)]
+    finally:
+        for p in pumps:
+            p.close()
+    ss = [p.state for p in pumps]
+    logs = [_log_since(s, h) for s, h in zip(ss, heads0)]
+    lane_heads = [to_u64(s.log.head).tolist() for s in ss]
+    print(f"  replicas after the run: every leaf identical "
+          f"{_replicas_identical(ss)}; per-lane log heads identical "
+          f"{lane_heads[0] == lane_heads[1] == lane_heads[2]}; "
+          f"{len(logs[0]):,} new log entries a replica")
+    check(locks_free(ss)
+          and _replicas_identical(ss, skip=("log.entries", "log.head"))
+          and len(set(_heads(ss))) == 1
+          and all(np.array_equal(logs[0], x) for x in logs[1:]),
+          "wire TATP: no lock held after the last cohort; the three "
+          "replicas' tables, lock words and CF tables identical (cf_lock's "
+          "owner words apart); their logs took the same entries (each "
+          "in its own arrival order, which sets the lanes) and the log "
+          "heads' sums are equal")
+    for i, r in enumerate(report):
+        print(f"  pump {i}: {r['batches']} batches ({batches[i]} after the "
+              f"warm cohort), occupancy {r['occupancy_lanes']:,} of "
+              f"{r['occupancy_lanes'] + r['padded_lanes']:,} lanes "
+              f"({r['occupancy_lanes'] / max(r['occupancy_lanes'] + r['padded_lanes'], 1):.4f}), "
+              f"shed {r['shed']}; queue p50/p99 {r['queue']['p50_us']}/"
+              f"{r['queue']['p99_us']} us, service p50/p99 "
+              f"{r['service']['p50_us']}/{r['service']['p99_us']} us  "
+              f"[{card}]")
+    launches = launch_counts()
+    secs_all = time.perf_counter() - t_phase
+    out = {"committed_per_s": d["committed"] / secs,
+           "ms_per_cohort": secs * 1e3 / len(ms), "cohorts": len(ms),
+           "warm_ms": warm_ms, "stats": d, "pumps": report,
+           "seconds": secs_all}
+    print(f"  phase 14 (b) kernel launches: {launches}; seconds: "
+          f"{secs_all:.3f}  [{card}]")
+    print("  wire tatp: " + json.dumps(out))
+    return launches
+
+
+def phase_wire_store(dev, card):
+    print(f"== phase 14 (c): the store over the wire at {WS_N:,} keys, "
+          f"w={WS_W}, {WS_CLIENTS} loopback clients at 50/50 GET/SET, "
+          f"{WS_WINDOW_S} s")
+    from dint_tpu_torch import exp
+    from dint_tpu_torch.clients import micro
+    from dint_tpu_torch.engines import store
+    from dint_tpu_torch.shim import STORE, EnginePump
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    table = micro.make_store_table(WS_N, val_words=VW, device=dev)
+    torch.cuda.synchronize()
+    pop_s = time.perf_counter() - t0
+    check(int(table.valid.sum()) == WS_N,
+          f"the table holds all {WS_N:,} keys ({pop_s:.3f} s)")
+    wave = WS_W // WS_CLIENTS
+    bad = []
+    # GET lanes, SET lanes, VAL replies, ACK replies, lost replies,
+    # exchanges that lost any
+    counts = np.zeros(6, np.int64)
+    lock = threading.Lock()
+
+    def waves(i, c, rng, stop_at, sent, answered, lat):
+        vals = np.zeros((wave, 10), np.uint32)
+        vals[:, 1] = micro.STORE_MAGIC
+        while time.time() < stop_at:
+            k = rng.integers(1, WS_N + 1, size=wave).astype(np.uint64)
+            is_get = rng.random(wave) < 0.5
+            vals[:, 0] = rng.integers(0, 1 << 30, wave)
+            t0 = time.monotonic()
+            r = c.exchange(np.where(is_get, 0, 1).astype(np.uint8), k,
+                           vals=vals.view(np.uint8).reshape(wave, 40),
+                           timeout_ms=WS_TIMEOUT_MS)
+            dt = time.monotonic() - t0
+            sent[i] += wave
+            answered[i] += r["n"]
+            lat.add(np.full(r["n"], dt * 1e6))
+            # a reply answers the key it echoes: VAL for a GET (with the
+            # magic word), ACK for a SET
+            is_val, is_ack = r["type"] == 3, r["type"] == 5
+            magic = r["val"][:, 4:8].copy().view(np.uint32)[:, 0]
+            ok = ((is_val | is_ack).all()
+                  and np.isin(r["key"][is_val], k[is_get]).all()
+                  and np.isin(r["key"][is_ack], k[~is_get]).all()
+                  and (magic[is_val] == micro.STORE_MAGIC).all())
+            with lock:
+                counts[:] += [int(is_get.sum()), int((~is_get).sum()),
+                              int(is_val.sum()), int(is_ack.sum()),
+                              wave - r["n"], int(r["n"] < wave)]
+                if not ok:
+                    bad.append(np.unique(r["type"]).tolist())
+
+    reset_launches()
+    with EnginePump(STORE, store.step, table, width=WS_W, flush_us=500,
+                    device=dev).start() as pump:
+        exp._warm_pump(pump, "wire store")
+        sent, answered, lats, dt = exp._wire_clients(pump, WS_CLIENTS,
+                                                     WS_WINDOW_S, waves)
+        pump.stop()
+        snap = _pump_report([pump])[0]
+    blk = exp._wire_block(sent, answered, lats, dt, {})
+    launches = launch_counts()
+    print(f"  wire store: {counts[0]:,} GET and {counts[1]:,} SET lanes "
+          f"sent; {counts[2]:,} VAL and {counts[3]:,} ACK replies; "
+          f"{counts[4]:,} replies lost in {counts[5]} of "
+          f"{int(sent.sum()) // wave} exchanges ({WS_TIMEOUT_MS} ms "
+          f"timeout, no re-send)")
+    check(not bad and answered.sum() > 0 and counts[2] <= counts[0]
+          and counts[3] <= counts[1]
+          and counts[2] + counts[3] == answered.sum(),
+          f"wire store: every reply that came back answers its key: VAL "
+          f"with the STORE_MAGIC word for a GET of a populated key "
+          f"({counts[2]:,}), ACK for a SET ({counts[3]:,})"
+          + (f"; wrong replies {bad[:5]}" if bad else ""))
+    out = {"pkt_per_s": blk["goodput"], "sent_per_s": blk["throughput"],
+           "p50_us": blk["p50_us"], "p99_us": blk["p99_us"],
+           "sent": int(sent.sum()), "lost": int(counts[4]),
+           "lossy_exchanges": int(counts[5]), "window_s": dt,
+           "populate_s": pop_s, "pump": snap,
+           "seconds": time.perf_counter() - t_phase}
+    print(f"  wire store: {blk['goodput']:.1f} answered pkt/s "
+          f"({blk['throughput']:.1f} sent), p50 {blk['p50_us']:.1f} us, p99 "
+          f"{blk['p99_us']:.1f} us; pump {snap}  [{card}]")
+    print(f"  phase 14 (c) kernel launches: {launches}; seconds: "
+          f"{out['seconds']:.3f}")
+    print("  wire store: " + json.dumps(out))
+    del table
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+class _PointLaunches(dict):
+    """sweep_micro's results: each point's kernel launches, counted from 0
+    at the previous point's end (or the sweep's start)."""
+
+    def __init__(self):
+        super().__init__()
+        self.launches = {}
+        reset_launches()
+
+    def __setitem__(self, name, block):
+        torch.cuda.synchronize()
+        self.launches[name] = launch_counts()
+        reset_launches()
+        super().__setitem__(name, block)
+
+
+def phase_micro(dev, card):
+    print(f"== phase 14 (d): exp.sweep_micro in-process, "
+          f"{MICRO_WINDOW_S} s windows, use_hotset=True: "
+          f"{', '.join(MICRO_POINTS)}")
+    import tempfile
+    from dint_tpu_torch import exp
+    t_phase = time.perf_counter()
+    res = _PointLaunches()
+    exp.sweep_micro(MICRO_WINDOW_S, False, res,
+                    want=lambda n: n in MICRO_POINTS, use_hotset=True,
+                    device=dev)
+    check(sorted(res) == sorted(MICRO_POINTS),
+          f"sweep_micro ran the {len(MICRO_POINTS)} points")
+    for name in MICRO_POINTS:
+        r = res[name]
+        ran = {k: v for k, v in res.launches[name].items() if v}
+        print(f"  {name}: throughput {r['throughput']}, goodput "
+              f"{r['goodput']}, p50 {r['p50_us']} us, p99 {r['p99_us']} us"
+              + (f", unit {r['unit']}" if "unit" in r else "")
+              + f"; launches {ran}  [{card}]")
+        check(r["goodput"] > 0, f"{name}: goodput > 0", quiet=True)
+    zipf, scan = res.launches["store_zipf_w4096"], \
+        res.launches["store_scan_f95"]
+    check(res["store_zipf_w4096"]["use_hotset"] is True
+          and zipf["gather_rows_hot"] > 0 and zipf["scatter_rows_hot"] > 0
+          and scan["scan_rows"] > 0,
+          f"micro store_zipf ran the hot kernels (gather_rows_hot "
+          f"{zipf['gather_rows_hot']}, scatter_rows_hot "
+          f"{zipf['scatter_rows_hot']}), micro store_scan ran scan_rows "
+          f"({scan['scan_rows']})")
+    wt = res["tatp_wire_txn"]
+    check(wt["ab_timeout"] == wt["timeout_lanes"] == 0,
+          "tatp_wire_txn: no timeout")
+    print("  micro: " + json.dumps(
+        {n: {k: v for k, v in r.items() if k not in ("lat_hist", "pump")}
+         for n, r in res.items()}, default=str))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "dint_tpu_torch.exp",
+                              "--quick", "--only", "store_wire", "--out",
+                              tmp], capture_output=True, text=True,
+                             timeout=300)
+        secs = time.perf_counter() - t0
+        ok = out.returncode == 0 and os.path.exists(
+            os.path.join(tmp, "store_wire.json"))
+        check(ok, f"python -m dint_tpu_torch.exp --quick --only store_wire "
+              f"exits 0 and writes store_wire.json ({secs:.3f} s)" + (
+                  "" if ok else f" (rc {out.returncode}; stderr: "
+                  f"{out.stderr[-2000:]})"))
+        print("  " + out.stdout.strip().replace("\n", "\n  "))
+    print(f"  phase 14 (d) seconds: {time.perf_counter() - t_phase:.3f}  "
+          f"[{card}]")
+    return {"micro store_zipf": zipf, "micro store_scan": scan}
+
+
+def phase_wire(dev, card, replicas):
+    """Phase 14. (b) serves phase 12's TATP replicas, which ``replicas``
+    (a list) holds; it is emptied after (b), so the tables are freed."""
+    t_phase = time.perf_counter()
+    paths = {"wire stub": phase_wire_cpu_vs_card(dev, card)}
+    paths["wire tatp"] = phase_wire_tatp(dev, card, replicas)
+    replicas.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["wire store"] = phase_wire_store(dev, card)
+    paths.update(phase_micro(dev, card))
+    print(f"  phase 14 seconds: {time.perf_counter() - t_phase:.3f}  "
+          f"[{card}]")
+    return paths
+
+
 KERNELS = {
     "gather_rows": ("dint_tpu_torch/csrc/gather_rows.cu",
                     "dint_tpu/ops/pallas_gather.py:212"),
@@ -3725,8 +4339,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_generic_cpu_vs_card(dev)
     store_paths["generic engines"], shards, pop_s = phase_generic(dev, card)
-    store_paths.update(phase_coordinators(dev, card, shards, pop_s))
+    coord_paths, replicas = phase_coordinators(dev, card, shards, pop_s)
+    store_paths.update(coord_paths)
     del shards
+    store_paths.update(phase_wire(dev, card, replicas))
     gc.collect()
     torch.cuda.empty_cache()
     store_paths.update(phase_serve(dev, card))
@@ -3738,8 +4354,9 @@ def main() -> int:
         # SmallBank's (phase 5, and phase 10's run), the store's (phase 7,
         # and the hot route's steps on the card in phase 3), the cache
         # tier's hot run (phase 8), the probe's entry point (phase 2) and
-        # the bench's two legs (phase 9, counted in its process), each
-        # counted from 0 just before its run
+        # the bench's two legs (phase 9, counted in its process) and
+        # sweep_micro's store points (phase 14 (d)), each counted from 0
+        # just before its run
         paths = {**{f"tatp {k}": v[name] for k, v in tatp.items()},
                  **{f"smallbank {k}": v[name] for k, v in sb.items()},
                  **{k: v[name] for k, v in store_paths.items()}}
@@ -3783,6 +4400,11 @@ def main() -> int:
           and by_name["scatter_rows_hot"]["store hot"] > 0,
           "scan_rows ran on the store's scan path and not on its point path; "
           "the hot kernels on the store's hot route")
+    check(by_name["gather_rows_hot"]["micro store_zipf"] > 0
+          and by_name["scatter_rows_hot"]["micro store_zipf"] > 0
+          and by_name["scan_rows"]["micro store_scan"] > 0,
+          "sweep_micro's store_zipf_w4096 (use_hotset) ran the hot kernels, "
+          "its store_scan_f95 scan_rows")
     check(by_name["gather_rows_hot"]["cache hot"] > 0
           and by_name["scatter_rows_hot"]["cache hot"] > 0
           and by_name["scalar_scatter"]["probe"] > 0
