@@ -227,6 +227,34 @@ mismatch or error:
    ("micro store_zipf"), store_scan_f95 scan_rows ("micro store_scan");
    then `python -m dint_tpu_torch.exp --quick --only store_wire` in a
    process of its own must exit 0 and write store_wire.json.
+15. The observability plane (after phase 13). (a) The traced runners
+   (trace=True, monitor=True) of TATP (n_sub=2000, w=256, 4 cohorts a
+   block, contention mix) and SmallBank (300 accounts, w=256) on each of
+   the four routes, on the CPU and the card from the same host-made
+   draws: every block's decoded events and head, the stats, counters and
+   tables identical; the same runs with trace off give the same tables,
+   stats and counters. (b) Full rate at full width: TATP at 7,000,000
+   subscribers (populate_device, one table through the default, fused,
+   hotset and fused+hotset routes), w=8192, 16 cohorts a block,
+   trace_rate 1.0 with the counters: 3 blocks and the drain a route, each
+   window's ring decoded on the host, the events reconciling exactly with
+   the counters and stats (lock == lock_requests, validate ==
+   validate_lanes, install == install_writes, outcome == txn_attempted,
+   each cause == its counter) and nothing dropped; then SmallBank at
+   24,000,000 accounts, w=8192, default route, the same way, balance
+   conserved. (c) After each of those runs, one block under
+   monitor.profiler_session (host-padded and taken again when the profile
+   holds no device event), attributed by monitor.attrib: every kernel
+   slice linked to its launch through its correlation id and charged to
+   its route's wave, as many slices of each kernel as the block launched;
+   prints each wave's ms/step, host_ms and GB/s and the attributed share.
+   (d) `python -m dint_tpu_torch.bench` (TATP leg, 3 s window) with
+   DINT_TRACE=1, DINT_BENCH_PROFILE=1 and DINT_BENCH_TRACE_DIR: its
+   dinttrace and breakdown objects hold their schemas, and the dinttrace
+   and dintscope CLIs read what it wrote; `python -m
+   dint_tpu_torch.profile_step --route fused --trace` read by
+   `attrib.report`; then the untraced TATP leg in-process with 2 s
+   windows and DINT_SCOPE=0, 1, 1, 0.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -4277,6 +4305,449 @@ def phase_wire(dev, card, replicas):
     return paths
 
 
+# ------------------------------------------------- the observability plane
+
+# the wrapper of each kernel slice phase 15 profiles, by the kernel's
+# name in the trace (gather_rows and gather_streams share
+# gather_pass_kernel<false>, which only SmallBank's fused routes launch as
+# gather_streams; phase 15 profiles SmallBank's default route), and the
+# wave each wrapper's launches are charged to, per route
+OBS_KERNEL_OF = (("gather_pass_kernel<false", "gather_rows"),
+                 ("gather_pass_kernel<true", "gather_rows_hot"),
+                 ("scatter_pass_kernel<false", "scatter_streams"),
+                 ("scatter_pass_kernel<true", "scatter_rows_hot"),
+                 ("lock_arbitrate_kernel", "lock_arbitrate"),
+                 ("lock_validate_kernel", "lock_validate"))
+OBS_WAVES = {
+    "tatp default": {"gather_rows": "dint.tatp_dense.meta_gather",
+                     "lock_arbitrate": "dint.tatp_dense.lock"},
+    "tatp hotset": {"gather_rows_hot": "dint.tatp_dense.meta_gather",
+                    "lock_arbitrate": "dint.tatp_dense.lock",
+                    "scatter_rows_hot": "dint.tatp_dense.install"},
+    "tatp fused": {"lock_validate": "dint.tatp_dense.lock_validate",
+                   "gather_rows": "dint.tatp_dense.magic_gather",
+                   "scatter_streams": "dint.tatp_dense.install_log"},
+    "tatp fused+hotset": {
+        "lock_validate": "dint.tatp_dense.lock_validate",
+        "gather_rows_hot": "dint.tatp_dense.magic_gather",
+        "scatter_streams": "dint.tatp_dense.install_log"},
+    "smallbank default": {"gather_rows": "dint.smallbank_dense.read"},
+}
+OBS_BLOCKS = 3                   # phase 15 (b)'s blocks a route
+OBS_SMALL = dict(tatp=(2000, 256, 4), smallbank=(300, 256, 4))
+OBS_AB_WINDOW_S = 2              # phase 15 (d)'s DINT_SCOPE A/B windows
+
+
+def _obs_kernel_name(slice_name):
+    for prefix, name in OBS_KERNEL_OF:
+        if prefix in slice_name:
+            return name
+    return None
+
+
+def _obs_counts(events):
+    """Kinds and outcome causes of decoded events (numpy u32 [n, 4])."""
+    from dint_tpu_torch.monitor import txnevents as txe
+    kind = (events[:, 1] >> 24) & 0xFF
+    aux = events[:, 1] & 0xFF
+    kinds = {txe.KIND_NAMES[k]: int((kind == k).sum())
+             for k in txe.KIND_NAMES}
+    out = kind == txe.EV_OUTCOME
+    causes = {txe.CAUSE_NAMES[c]: int((out & (aux == c)).sum())
+              for c in txe.CAUSE_NAMES}
+    return kinds, causes
+
+
+def _obs_small_runs(dev, engine, trace):
+    """(a): one small runner of ``engine`` with the counters on each
+    route, on the CPU and the card, from one host-made state and draw set;
+    returns {route: [(tables, stats, [(events, head)] of each block and
+    the drain, counter snapshot) on the CPU, the same on the card]}."""
+    from dint_tpu_torch import convert
+    from dint_tpu_torch.engines import smallbank_dense as sd
+    from dint_tpu_torch.engines import tatp_dense as td
+    from dint_tpu_torch.monitor import txnevents as txe
+    from dint_tpu_torch.ops import u32
+    n, w, cpb = OBS_SMALL[engine]
+    rng = np.random.default_rng(15)
+    tatp = engine == "tatp"
+    ring_ix = 3 if tatp else 2
+    words = 4 if tatp else 5
+    draws = [(rng.integers(0, 1 << 32, (cpb, w, words), dtype=np.uint64)
+              .astype(np.uint32),
+              (rng.integers(0, 1 << 16, (cpb, w, 2)) if tatp
+               else rng.integers(-20, 21, (cpb, w))).astype(np.int32))
+             for _ in range(3)]
+    pay = rng.integers(0, 1 << 16, (2, w, 2)).astype(np.int32)
+    arrays = convert.dense_db_to_numpy(td.populate(
+        np.random.default_rng(0), n, val_words=VW, device="cpu",
+        log_capacity=1 << 10)) if tatp else None
+
+    def ring_of(ring, cap):
+        return txe.decode(ring.buf, ring.head, cap), int(
+            u32.to_u64(ring.head))
+
+    out = {}
+    for route, (hot, fused) in td.ROUTES.items():
+        out[route] = []
+        for where in ("cpu", dev):
+            kw = dict(use_hotset=hot, use_fused=fused, monitor=True,
+                      trace=trace, device=where)
+            if tatp:
+                run, init, drain = td.build_pipelined_runner(
+                    n, w=w, val_words=VW, cohorts_per_block=cpb,
+                    mix=TATP_CONTENTION_MIX, **kw)
+                carry = init(convert.dense_db_from_numpy(arrays, where))
+            else:
+                run, init, drain = sd.build_pipelined_runner(
+                    n, w=w, cohorts_per_block=cpb, **kw)
+                carry = init(sd.create(n, log_capacity=1 << 10,
+                                       device=where))
+            cap = init.trace_cfg.cap if trace else 0
+            rings, stats = [], []
+            for a, b in draws:
+                carry, s = run.run_draws(carry, u32.from_numpy(a, where),
+                                         torch.from_numpy(b).to(where))
+                stats.append(s.cpu())
+                if trace:
+                    rings.append(ring_of(carry[ring_ix], cap))
+            outs = (drain(carry, torch.from_numpy(pay).to(where)) if tatp
+                    else drain(carry))
+            stats.append(outs[1].cpu())
+            if trace:
+                rings.append(ring_of(outs[2], cap))
+            tables = (convert.dense_db_to_numpy(outs[0]) if tatp
+                      else convert.dense_bank_to_numpy(outs[0]))
+            out[route].append((tables, torch.cat(stats).numpy(), rings,
+                               _obs_snapshot(outs[-1])))
+    return out
+
+
+def _obs_snapshot(c):
+    from dint_tpu_torch.monitor import counters as mon
+    return mon.snapshot(c)
+
+
+def _same_tables(a, b):
+    return list(a) == list(b) and all(
+        np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in a)
+
+
+def phase_obs_cpu_vs_card(dev):
+    print("== phase 15 (a): the traced runners on the CPU against the card, "
+          "four routes each, trace on and off")
+    for engine in ("tatp", "smallbank"):
+        on = _obs_small_runs(dev, engine, True)
+        off = _obs_small_runs(dev, engine, False)
+        for route, ((c_tab, c_st, c_rings, c_ctr),
+                    (g_tab, g_st, g_rings, g_ctr)) in on.items():
+            check(_same_tables(c_tab, g_tab) and np.array_equal(c_st, g_st)
+                  and c_ctr == g_ctr and len(c_rings) == len(g_rings)
+                  and all(np.array_equal(a[0], b[0]) and a[1] == b[1]
+                          for a, b in zip(c_rings, g_rings)),
+                  f"{engine} {route}: decoded events, heads, stats, counters "
+                  f"and tables identical on the CPU and the card "
+                  f"({sum(len(r[0]) for r in g_rings)} events)")
+            check(all(r[0].shape[0] == r[1] > 0 for r in g_rings[:-1]),
+                  f"{engine} {route}: every block's ring holds its events, "
+                  f"none dropped")
+            o_tab, o_st, _, o_ctr = off[route][1]
+            del o_ctr["trace_dropped"], g_ctr["trace_dropped"]
+            check(_same_tables(o_tab, g_tab) and np.array_equal(o_st, g_st)
+                  and o_ctr == g_ctr,
+                  f"{engine} {route}: trace off gives the tables, stats and "
+                  f"counters of trace on")
+
+
+def _obs_reconcile(label, events, snap, total, stat, engine):
+    kinds, causes = _obs_counts(events)
+    want = {"lock": snap["lock_requests"],
+            "install": snap["install_writes"],
+            "outcome": snap["txn_attempted"]}
+    if engine == "tatp":
+        want["validate"] = snap["validate_lanes"]
+    ok = (all(kinds[k] == v for k, v in want.items())
+          and snap["txn_attempted"] == int(total[stat.STAT_ATTEMPTED])
+          and causes["commit"] == snap["txn_committed"]
+          == int(total[stat.STAT_COMMITTED])
+          and causes["ab_lock"] == snap["ab_lock"]
+          and snap["trace_dropped"] == 0 and snap["lock_requests"] > 0)
+    if engine == "tatp":
+        ok = ok and causes["ab_missing"] == snap["ab_missing"] \
+            and causes["ab_validate"] == snap["ab_validate"]
+    else:
+        ok = ok and causes["ab_logic"] == snap["ab_logic"]
+    check(ok, f"{label}: events reconcile with the counters and stats "
+          f"exactly, none dropped (kinds {kinds}, outcomes {causes})")
+
+
+def _obs_drive(dev, label, run, init, drain, state, engine, stat):
+    """(b): OBS_BLOCKS blocks and the drain at rate 1.0 with the counters,
+    each window's ring decoded on the host; reconciles. Returns the
+    drained state and the stats total."""
+    from dint_tpu_torch.monitor import txnevents as txe
+    ring_ix = 3 if engine == "tatp" else 2
+    cap = init.trace_cfg.cap
+    carry = init(state)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    events, dropped = [], []
+    total = np.zeros(stat.N_STATS, np.int64)
+    t0 = time.perf_counter()
+    for _ in range(OBS_BLOCKS):
+        carry, s = run(carry, gen)
+        total += s.cpu().numpy().astype(np.int64).sum(axis=0)
+        ring = carry[ring_ix]
+        events.append(txe.decode(ring.buf, ring.head, cap))
+        dropped.append(txe.dropped_of(ring.head, cap))
+    outs = drain(carry)
+    total += outs[1].cpu().numpy().astype(np.int64).sum(axis=0)
+    events.append(txe.decode(outs[2].buf, outs[2].head, cap))
+    dropped.append(txe.dropped_of(outs[2].head, cap))
+    secs = time.perf_counter() - t0
+    ev = np.concatenate(events)
+    print(f"  {label}: {len(ev)} events over {OBS_BLOCKS} blocks + drain "
+          f"(cap {cap} a window), {secs:.3f} s with the host decode")
+    _obs_reconcile(label, ev, _obs_snapshot(outs[-1]), total, stat, engine)
+    check(dropped == [0] * (OBS_BLOCKS + 1),
+          f"{label}: no window dropped an event")
+    return outs[0], total
+
+
+def _obs_profiled_block(dev, label, run, init, drain, state, trace_dir,
+                        geometry, steps):
+    """(c): one block from ``state`` under `profiler_session` (padded with
+    host sleep, and taken again with twice the padding when the profile
+    holds no device event, at most 3 times), then the drain; returns the
+    drained state, the breakdown, each kernel's slices by the wave they
+    are charged to, the count of unlinked device slices and the block's
+    kernel launches."""
+    from dint_tpu_torch.monitor import attrib, profiler_session
+    carry = init(state)
+    gen = torch.Generator(device=dev).manual_seed(151)
+    for i in range(3):
+        reset_launches()
+        with profiler_session(os.path.join(trace_dir, f"{label}_{i}")) as p:
+            time.sleep(0.2 * 2 ** i)
+            carry, _ = run(carry, gen)
+            torch.cuda.synchronize()
+            time.sleep(0.2 * 2 ** i)
+        launches = launch_counts()
+        events, _ = attrib.load_trace_events(p["trace"])
+        if any(e.get("cat") in attrib.DEVICE_CATS for e in events):
+            break
+        print(f"  {label}: profile {i} held no device event; taken again")
+    bd = attrib.attribute(events, steps=steps, geometry=geometry,
+                          trace_path=p["trace"])
+    by_kernel, unlinked = {}, 0
+    for e, wave, linked in attrib.charge(events):
+        unlinked += not linked
+        name = _obs_kernel_name(e["name"])
+        if name is not None:
+            by_kernel.setdefault(name, {}).setdefault(wave, 0)
+            by_kernel[name][wave] += 1
+    return drain(carry)[0], bd, by_kernel, unlinked, launches
+
+
+def _obs_check_breakdown(label, bd, by_kernel, unlinked, launches):
+    want = OBS_WAVES[label]
+    ran = {k: c for k, c in launches.items() if c}
+    check(set(ran) == set(want) and unlinked == 0
+          and by_kernel == {k: {want[k]: ran[k]} for k in ran},
+          f"{label}: every kernel slice linked to its launch and charged to "
+          f"its wave, as many as the block launched ({by_kernel} vs "
+          f"launches {ran})")
+    share = bd["attributed_ms"] / bd["total_ms"]
+    print(f"  {label}: attributed {bd['attributed_ms']:.6f} of "
+          f"{bd['total_ms']:.6f} device ms ({share:.6f}), steps "
+          f"{bd['steps']}, step_ms {bd['step_ms']:.6f}")
+    for name, r in bd["waves"].items():
+        if r["slices"] or r["host_ms"]:
+            gbps = "-" if r["gbps"] is None else f"{r['gbps']:.3f}"
+            print(f"    {name:34s} ms/step {r['ms_per_step']:.6f} host_ms "
+                  f"{r['host_ms']:.6f} slices {r['slices']} GB/s {gbps}")
+    return {"attributed_share": share, "total_ms": bd["total_ms"],
+            "step_ms": bd["step_ms"],
+            "waves": {n: {k: r[k] for k in ("ms_per_step", "host_ms",
+                                             "slices", "gbps")}
+                      for n, r in bd["waves"].items()
+                      if r["slices"] or r["host_ms"]}}
+
+
+def phase_obs_full(dev, trace_dir):
+    print(f"== phase 15 (b, c): full-rate dinttrace reconciliation and one "
+          f"profiled block a route: TATP at {N_SUB:,} subscribers, w={W}, "
+          f"{CPB} cohorts/block, four routes; SmallBank at {SB_N:,} "
+          f"accounts, w={SB_W}, default route")
+    from dint_tpu_torch.engines import smallbank_dense as sd
+    from dint_tpu_torch.engines import tatp_dense as td
+    paths, report = {}, {}
+    # one table through the four routes, the hot ones last: the first of
+    # them attaches the mirrors, and both write through to them
+    db = td.populate_device(torch.Generator(device=dev).manual_seed(0),
+                            N_SUB, val_words=VW, device=dev)
+    for route in ("default", "fused", "hotset", "fused+hotset"):
+        hot, fused = td.ROUTES[route]
+        label = f"tatp {route}"
+        run, init, drain = td.build_pipelined_runner(
+            N_SUB, w=W, val_words=VW, cohorts_per_block=CPB,
+            use_hotset=hot, use_fused=fused, monitor=True, trace=True,
+            trace_rate=1.0, device=dev)
+        check(init.trace_cfg.cap == W * (td.K + 6) * CPB,
+              f"{label}: the ring holds a full block at rate 1.0 "
+              f"({init.trace_cfg.cap} records)", quiet=route != "default")
+        reset_launches()
+        db, _ = _obs_drive(dev, label, run, init, drain, db, "tatp", td)
+        paths[f"traced {label}"] = launches = launch_counts()
+        steps = OBS_BLOCKS * CPB + 2
+        want = dict.fromkeys(launches, 0)
+        want.update({k: c * steps for k, c in TATP_PER_STEP[route].items()})
+        check(launches == want, f"{label}: launches {launches} == "
+              f"{TATP_PER_STEP[route]} per step over {steps} steps")
+        check(not bool(db.locked.any()),
+              f"{label}: no row locked after the drain")
+        db, bd, by_kernel, unlinked, launches = _obs_profiled_block(
+            dev, label, run, init, drain, db, trace_dir,
+            {"w": W, "k": td.K, "vw": VW}, CPB)
+        paths[f"profiled {label}"] = launches
+        report[label] = _obs_check_breakdown(label, bd, by_kernel, unlinked,
+                                             launches)
+    del db
+    torch.cuda.empty_cache()
+
+    label = "smallbank default"
+    bank = sd.create(SB_N, device=dev)
+    base = int(sd.total_balance(bank))
+    run, init, drain = sd.build_pipelined_runner(
+        SB_N, w=SB_W, cohorts_per_block=SB_CPB, monitor=True, trace=True,
+        trace_rate=1.0, device=dev)
+    reset_launches()
+    bank, total = _obs_drive(dev, label, run, init, drain, bank,
+                             "smallbank", sd)
+    paths[f"traced {label}"] = launches = launch_counts()
+    steps = OBS_BLOCKS * SB_CPB + 1
+    check(launches == {**dict.fromkeys(launches, 0), "gather_rows": steps},
+          f"{label}: one gather_rows launch a step over {steps} steps")
+    delta = (int(sd.total_balance(bank)) - base) % (1 << 32)
+    check(delta == int(total[sd.STAT_BAL_DELTA]) % (1 << 32),
+          f"{label}: balance conserved mod 2^32 (delta {delta})")
+    bank, bd, by_kernel, unlinked, launches = _obs_profiled_block(
+        dev, label, run, init, drain, bank, trace_dir,
+        {"w": SB_W, "l": sd.L, "vw": sd.VW}, SB_CPB)
+    paths[f"profiled {label}"] = launches
+    report[label] = _obs_check_breakdown(label, bd, by_kernel, unlinked,
+                                         launches)
+    del bank
+    torch.cuda.empty_cache()
+    return paths, report
+
+
+def phase_obs_bench(card, trace_dir):
+    print("== phase 15 (d): the bench with DINT_TRACE=1, DINT_BENCH_PROFILE=1 "
+          "and DINT_BENCH_TRACE_DIR (TATP leg, 3 s window); the dintscope "
+          "and dinttrace CLIs on what it wrote; profile_step --trace read by "
+          "dintscope report; then the TATP leg with DINT_SCOPE=0 and 1 in "
+          "turns (0, 1, 1, 0)")
+    from dint_tpu_torch import bench, dintscope, dinttrace
+    from dint_tpu_torch.monitor import attrib, waves
+    torch.cuda.empty_cache()
+    jsonl = os.path.join(trace_dir, "bench_trace.jsonl")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("DINT_")}
+    env.update(DINT_BENCH_WINDOW_S=str(BENCH_WINDOW_S),
+               DINT_BENCH_SKIP_SB="1", DINT_TRACE="1",
+               DINT_TRACE_JSONL=jsonl, DINT_BENCH_PROFILE="1",
+               DINT_BENCH_TRACE_DIR=os.path.join(trace_dir, "bench"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "dint_tpu_torch.bench"],
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    secs = time.perf_counter() - t0
+    check(out.returncode == 0,
+          f"the traced and profiled bench exits 0 in {secs:.3f} s" + (
+              "" if out.returncode == 0 else
+              f" (rc {out.returncode}; stderr: {out.stderr[-2000:]})"))
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    d, bd = line["dinttrace"], line["breakdown"]
+    print("  dinttrace: " + json.dumps(d))
+    print(f"  traced bench: {line['value']} committed txn/s, "
+          f"{line['blocks']} blocks in {line['window_s']} s")
+    check(isinstance(d, dict) and set(d) == {
+        "schema", "rate", "cap", "windows", "events", "dropped",
+        "dropped_windows"} and d["schema"] == 1 and d["rate"] == 1.0
+          and d["cap"] == W * 10 * CPB and d["events"] > 0
+          and d["dropped"] == 0 and d["dropped_windows"] == []
+          and d["windows"] == line["blocks"] + 1,
+          "the line's dinttrace object holds its schema: every window of the "
+          "timed and profiled blocks drained, none dropped")
+    check(isinstance(bd, dict) and bd["kind"] == "dintscope_breakdown"
+          and bd["schema"] == 1 and bd["steps"] == CPB
+          and list(bd["waves"]) == list(waves.ALL_WAVES)
+          and all(set(r) == {"ms", "slices", "ms_per_step", "pct",
+                             "bytes_per_step", "gbps", "host_ms"}
+                  for r in bd["waves"].values())
+          and bd["geometry"] == {"w": W, "k": 4, "vw": VW}
+          and 0 < bd["attributed_ms"] <= bd["total_ms"]
+          and bd["waves"]["dint.tatp_dense.meta_gather"]["slices"] > 0
+          and bd["waves"]["dint.tatp_dense.trace"]["host_ms"] > 0,
+          f"the line's breakdown object holds its schema (attributed "
+          f"{bd['attributed_ms']:.6f} of {bd['total_ms']:.6f} device ms, "
+          f"step_ms {bd['step_ms']:.6f})")
+    check(dinttrace.main(["summarize", jsonl]) == 0
+          and dintscope.main(["report", env["DINT_BENCH_TRACE_DIR"],
+                              "--steps", str(CPB)]) == 0,
+          "dinttrace summarize and dintscope report read what the bench "
+          "wrote")
+    prof_trace = os.path.join(trace_dir, "profile_step.pt.trace.json")
+    out = subprocess.run(
+        [sys.executable, "-m", "dint_tpu_torch.profile_step", "--route",
+         "fused", "--trace", prof_trace, "--rows", "3"],
+        env={k: v for k, v in os.environ.items()
+             if not k.startswith("DINT_")},
+        capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, "profile_step --route fused --trace exits 0"
+          + ("" if out.returncode == 0 else f": {out.stderr[-2000:]}"))
+    rep = attrib.report(prof_trace)
+    check(all(rep["waves"][f"dint.tatp_dense.{w}"]["slices"] > 0
+              for w in ("lock_validate", "magic_gather", "install_log")),
+          f"dintscope report reads profile_step's trace: lock_validate, "
+          f"magic_gather and install_log charged ({rep['attributed_ms']:.6f} "
+          f"of {rep['total_ms']:.6f} device ms)")
+    ab = {"0": [], "1": []}
+    prev = os.environ.get("DINT_SCOPE")
+    try:
+        for flag in ("0", "1", "1", "0"):
+            os.environ["DINT_SCOPE"] = flag
+            leg = bench.measure(env={
+                "DINT_BENCH_WINDOW_S": str(OBS_AB_WINDOW_S),
+                "DINT_BENCH_SKIP_SB": "1"})
+            ab[flag].append(leg["value"])
+    finally:
+        if prev is None:
+            os.environ.pop("DINT_SCOPE", None)
+        else:
+            os.environ["DINT_SCOPE"] = prev
+    print(f"  DINT_SCOPE A/B, untraced TATP leg ({card}), committed txn/s "
+          f"in turns 0, 1, 1, 0: {ab['0'][0]}, {ab['1'][0]}, {ab['1'][1]}, "
+          f"{ab['0'][1]}; means 0: {np.mean(ab['0']):.1f}, 1: "
+          f"{np.mean(ab['1']):.1f}")
+    check(all(v > 0 for v in ab["0"] + ab["1"]),
+          "the DINT_SCOPE A/B's four legs committed")
+    return {"dinttrace": d, "traced_value": line["value"],
+            "breakdown_step_ms": bd["step_ms"], "scope_ab": ab}
+
+
+def phase_observability(dev, card):
+    import tempfile
+    t0 = time.perf_counter()
+    phase_obs_cpu_vs_card(dev)
+    with tempfile.TemporaryDirectory(prefix="dint_obs_") as trace_dir:
+        paths, report = phase_obs_full(dev, trace_dir)
+        bench_rec = phase_obs_bench(card, trace_dir)
+    print("  phase 15 record: " + json.dumps(
+        {"breakdowns": report, **bench_rec}))
+    print(f"  phase 15: {time.perf_counter() - t0:.3f} s")
+    return paths
+
+
 KERNELS = {
     "gather_rows": ("dint_tpu_torch/csrc/gather_rows.cu",
                     "dint_tpu/ops/pallas_gather.py:212"),
@@ -4346,6 +4817,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     store_paths.update(phase_serve(dev, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    store_paths.update(phase_observability(dev, card))
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -4354,9 +4828,9 @@ def main() -> int:
         # SmallBank's (phase 5, and phase 10's run), the store's (phase 7,
         # and the hot route's steps on the card in phase 3), the cache
         # tier's hot run (phase 8), the probe's entry point (phase 2) and
-        # the bench's two legs (phase 9, counted in its process) and
-        # sweep_micro's store points (phase 14 (d)), each counted from 0
-        # just before its run
+        # the bench's two legs (phase 9, counted in its process),
+        # sweep_micro's store points (phase 14 (d)) and phase 15's traced
+        # runs and profiled blocks, each counted from 0 just before its run
         paths = {**{f"tatp {k}": v[name] for k, v in tatp.items()},
                  **{f"smallbank {k}": v[name] for k, v in sb.items()},
                  **{k: v[name] for k, v in store_paths.items()}}

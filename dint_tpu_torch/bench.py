@@ -20,12 +20,14 @@ What differs from bench.py's line:
 * ``device`` and ``card``: the torch device's name, and the card's name
   and power limit as `nvidia-smi --query-gpu=name,power.limit
   --format=csv,noheader` gives them (null on the CPU).
-* Keys of modules not ported yet are explicit nulls: ``dinttrace``,
-  ``dintlint``, ``dintcost``, ``dintdur``, ``breakdown``.
+* Keys of modules not ported yet are explicit nulls: ``dintlint``,
+  ``dintcost``, ``dintdur``.
+* ``breakdown`` is `monitor.attrib`'s: device time charged to each wave
+  through the kernels' launches, plus each wave's ``host_ms``.
 * No parent/child retry, no stale line, no fallback to another path, no
-  caught SmallBank leg and no caught serve probe: any failure, a
-  magic-word or balance fault of either leg included, raises, and the
-  process exits non-zero with no result line.
+  caught SmallBank leg, serve probe, profiler session or attribution: any
+  failure, a magic-word or balance fault of either leg included, raises,
+  and the process exits non-zero with no result line.
 
 Knobs, the environment variables bench.py reads:
 
@@ -39,6 +41,16 @@ Knobs, the environment variables bench.py reads:
   seconds, the steady block times, and each leg's kernel launches;
 * ``DINT_MONITOR=1``: the counter plane rides the TATP carry and
   ``counters`` holds its end-of-run snapshot (null otherwise);
+  ``DINT_MONITOR_JSONL=path`` adds a `monitor.Monitor` over a
+  `monitor.TraceWriter` there, one wave event a block (deferred reads);
+* ``DINT_TRACE=1``: the dinttrace ring rides the TATP carry, sampled at
+  ``DINT_TRACE_RATE`` (1.0), drained each block (deferred) by a
+  `TxnMonitor` that streams to ``DINT_TRACE_JSONL`` when set;
+  ``dinttrace`` holds its summary (null otherwise);
+* ``DINT_BENCH_TRACE_DIR=dir`` with ``DINT_BENCH_PROFILE=1``: one more
+  TATP block after the window under `monitor.profiler_session`, and
+  ``breakdown`` holds `monitor.attrib.report` of its trace with geometry
+  w, k = K, vw (null otherwise);
 * the route: PLAN.json's pinned ``use_hotset``/``use_fused`` for
   ``tatp_uniform`` and ``smallbank_skewed``, which ``DINT_USE_HOTSET`` and
   ``DINT_USE_FUSED`` change only under ``DINT_PLAN_OVERRIDE=1``
@@ -64,12 +76,13 @@ from .clients import bench_smallbank
 from .device import resolve_device
 from .engines import tatp_dense as td
 from .engines.types import ROUTES
+from .monitor import Monitor, TraceWriter, attrib, profiler_session
 from .monitor import counters as mon
+from .monitor import txnevents as txe
 from .ops import row_kernels, scan_kernels
 from .serve import ControllerCfg, ServeEngine
 
 ASSUMED_BASELINE = 3.0e6   # committed txn/s, tatp/ebpf single-server estimate
-ARTIFACT_SCHEMA = 2        # dint_tpu/monitor/attrib.py:41
 VAL_WORDS = 10
 DEPTH = 3                  # pipeline steps from a cohort's dispatch to commit
 _ROUTE_OF = {flags: name for name, flags in ROUTES.items()}
@@ -88,6 +101,11 @@ class Knobs:
     profile: bool = False
     skip_sb: bool = False
     monitor: bool = False
+    monitor_jsonl: str | None = None
+    trace: bool = False
+    trace_rate: float = 1.0
+    trace_jsonl: str | None = None
+    trace_dir: str | None = None
     serve: bool = False
 
     @classmethod
@@ -111,6 +129,12 @@ class Knobs:
             profile=env.get("DINT_BENCH_PROFILE") == "1",
             skip_sb=env.get("DINT_BENCH_SKIP_SB") == "1",
             monitor=env.get("DINT_MONITOR") == "1",
+            monitor_jsonl=env.get("DINT_MONITOR_JSONL") or None,
+            trace=env.get("DINT_TRACE") == "1",
+            trace_rate=float(env.get("DINT_TRACE_RATE", k.trace_rate)),
+            trace_jsonl=env.get("DINT_TRACE_JSONL") or None,
+            trace_dir=(env.get("DINT_BENCH_TRACE_DIR") or None
+                       if env.get("DINT_BENCH_PROFILE") == "1" else None),
             serve=env.get("DINT_BENCH_SERVE") == "1")
 
 
@@ -149,9 +173,41 @@ def _launches() -> dict:
     return {fn.__name__: fn.launches for fn in _WRAPPERS}
 
 
+def _observed(run, k: Knobs, trace_cfg, monitor_ix: int, ring_ix: int):
+    """``run`` wrapped with the per-block drains the knobs ask for: the
+    counter plane's wave events (DINT_MONITOR_JSONL) and the dinttrace
+    ring (DINT_TRACE), both deferred so the host reads block i-1's bytes
+    after dispatching block i. Returns (run, monitor or None, txn monitor
+    or None)."""
+    meta = {"name": "bench_tatp", "width": k.width, "block": k.block,
+            "n_subscribers": k.n_subscribers}
+    monitor = None
+    if k.monitor and k.monitor_jsonl:
+        monitor = Monitor(TraceWriter(k.monitor_jsonl, meta=meta))
+    tmon = (txe.TxnMonitor(trace_cfg, path=k.trace_jsonl, meta=meta)
+            if k.trace else None)
+    if monitor is None and tmon is None:
+        return run, None, None
+    t_prev = [time.time()]
+
+    def observed(carry, gen):
+        carry, stats = run(carry, gen)
+        if monitor is not None:
+            now = time.time()
+            monitor.observe(carry[monitor_ix], batch=k.width * k.block,
+                            dur_s=now - t_prev[0], defer=True)
+            t_prev[0] = now
+        if tmon is not None:
+            tmon.observe(carry[ring_ix], defer=True)
+        return carry, stats
+
+    return observed, monitor, tmon
+
+
 def _tatp_leg(k: Knobs, route: str, dev) -> dict:
     """The TATP window: populate on the device, two warm blocks, the timed
-    window, the drain. Returns the leg's totals and timings."""
+    window, the profiled block when asked, the drain. Returns the leg's
+    totals and timings."""
     use_hotset, use_fused = ROUTES[route]
     _reset_launches()
     t0 = time.time()
@@ -160,7 +216,8 @@ def _tatp_leg(k: Knobs, route: str, dev) -> dict:
     run, init, drain = td.build_pipelined_runner(
         k.n_subscribers, w=k.width, val_words=VAL_WORDS,
         cohorts_per_block=k.block, use_hotset=use_hotset,
-        use_fused=use_fused, monitor=k.monitor, device=dev)
+        use_fused=use_fused, monitor=k.monitor, trace=k.trace,
+        trace_rate=k.trace_rate, device=dev)
     carry = init(db)
     populate_s = time.time() - t0
 
@@ -172,6 +229,7 @@ def _tatp_leg(k: Knobs, route: str, dev) -> dict:
         carry, s = run(carry, torch.Generator(device=dev).manual_seed(seed))
         warm += st.fetch_stats(s).sum(axis=0)
     compile_s = time.time() - t0
+    run, monitor, tmon = _observed(run, k, init.trace_cfg, -1, 3)
 
     # host core-seconds strictly over the timed window
     cpu = st.CpuMonitor()
@@ -179,17 +237,36 @@ def _tatp_leg(k: Knobs, route: str, dev) -> dict:
         run, carry, torch.Generator(device=dev).manual_seed(0), k.window_s,
         td.N_STATS, warmup_blocks=0)
     cores = cpu.cores()
+    breakdown = None
+    if k.trace_dir:
+        # one block after the window under the profiler
+        with profiler_session(k.trace_dir) as prof:
+            carry, s = run(carry,
+                           torch.Generator(device=dev).manual_seed(1234))
+            st.fetch_stats(s)
+        breakdown = attrib.report(
+            prof["trace"], steps=k.block, jsonl=k.monitor_jsonl,
+            geometry={"w": k.width, "k": td.K, "vw": VAL_WORDS})
+    if monitor is not None:
+        monitor.flush()         # the deferred last block
+        monitor.writer.close()
+    dinttrace = None
+    if tmon is not None:
+        tmon.flush()
+        tmon.close()
+        dinttrace = tmon.summary()
     outs = drain(carry)
     # in-flight cohorts at the window's end emit their stats in the drain
     total = total + st.fetch_stats(outs[1]).sum(axis=0)
-    counters = mon.snapshot(outs[2]) if k.monitor else None
+    counters = mon.snapshot(outs[-1]) if k.monitor else None
     bad = int(total[td.STAT_MAGIC_BAD] + warm_w[td.STAT_MAGIC_BAD]
               + warm[td.STAT_MAGIC_BAD])
     if bad != 0:
         raise RuntimeError(f"magic-byte integrity violated: {bad} "
                            "bad VAL replies (table corruption)")
     return dict(total=total, dt=dt, blocks=blocks, block_s=block_s,
-                cores=cores, counters=counters, populate_s=populate_s,
+                cores=cores, counters=counters, dinttrace=dinttrace,
+                breakdown=breakdown, populate_s=populate_s,
                 compile_s=compile_s, launches=_launches())
 
 
@@ -231,7 +308,7 @@ def measure(env=None, device=None) -> dict:
     tps = committed / dt
     p = st.cohort_latency_percentiles(leg["block_s"], k.block, depth=DEPTH)
     out = {
-        "schema": ARTIFACT_SCHEMA,
+        "schema": attrib.ARTIFACT_SCHEMA,
         "metric": "tatp_committed_txns_per_sec",
         "value": round(tps, 1),
         "unit": "txn/s",
@@ -266,10 +343,10 @@ def measure(env=None, device=None) -> dict:
         "hot_prob": k.hot_prob,
         "plan": plan_meta,
         "counters": leg["counters"],
-        "dinttrace": None,
+        "dinttrace": leg["dinttrace"],
         "serve": serve_out,
         "dintlint": None,
-        "breakdown": None,
+        "breakdown": leg["breakdown"],
         "blocks": leg["blocks"],
         "window_s": round(dt, 2),
         **leg["cores"],

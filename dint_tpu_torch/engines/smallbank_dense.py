@@ -55,7 +55,6 @@ What differs from JAX:
   transact_saving (JAX: ``jax.random.randint(.., -20, 21)``). The runner's
   `run` draws them with a `torch.Generator`; ``run.run_draws`` takes them
   as given, which is how the tests replay JAX's draws.
-* The trace ring is not ported.
 """
 from __future__ import annotations
 
@@ -67,6 +66,8 @@ import torch
 from ..clients import workloads as wl
 from ..device import resolve_device
 from ..monitor import counters as mon
+from ..monitor import txnevents as txe
+from ..monitor import waves
 from ..ops import u32
 from ..ops.row_kernels import (gather_rows, gather_rows_hot, gather_streams,
                                scatter_rows_hot, scatter_streams)
@@ -232,6 +233,8 @@ def pipe_step(db: DenseBank, c1: BankCtx, bits, ts_amt, *, w: int,
               hot_prob=None, mix=None, use_hotset: bool = False,
               use_fused: bool = False, occupancy=None, shed=None,
               counters: mon.Counters | None = None,
+              ring: txe.TxnRing | None = None,
+              tcfg: txe.TraceCfg | None = None,
               consts: StepConsts | None = None):
     """One fused step: wave 1 of a NEW cohort drawn from ``bits`` [w, 5]
     (transact_saving amounts ``ts_amt`` [w]; both unused when ``gen_new``
@@ -242,10 +245,20 @@ def pipe_step(db: DenseBank, c1: BankCtx, bits, ts_amt, *, w: int,
     slots of lanes >= occupancy are erased before arbitration, so those
     lanes request, compute and install nothing, and ``attempted`` counts
     the admitted lanes only; ``shed`` is mirrored onto the counters.
-    ``counters``: bumped in place when given.
+    ``counters``: bumped in place when given. ``ring``/``tcfg``
+    (monitor.txnevents): the flight recorder — the new cohort's lock
+    verdicts and outcomes and c1's installs of the sampled txn ids land in
+    the ring with one write, in place.
+
+    Each wave runs under its `waves.scope`, once a step. The held-stamp
+    reads and the balance read that share one launch sit in the ``read``
+    scope (in ``lock_validate`` on the fused routes, which have no
+    ``read``); with the hot tier in the hashed lock regime the stamps'
+    own launch opens the ``lock`` scope and the balances' the ``read``.
 
     Updates ``db`` in place and returns (db, new_ctx, stats-of-c1), plus
-    the counters when ``counters`` is given."""
+    the counters when ``counters`` is given, plus the ring when ``ring``
+    is given."""
     dev = db.bal.device
     if consts is None:
         consts = step_consts(w, mix, dev)
@@ -261,9 +274,11 @@ def pipe_step(db: DenseBank, c1: BankCtx, bits, ts_amt, *, w: int,
     if gen_new:
         skew = {k: v for k, v in (("hot_frac", hot_frac),
                                   ("hot_prob", hot_prob)) if v is not None}
-        ttype, a1, a2 = gen_cohort_from_bits(bits, w, n_accounts,
-                                             thresh=consts.thresh, **skew)
-        l_op, l_tb, l_ac = _lock_slots(ttype, a1, a2)          # [w, L]
+        with waves.scope("smallbank_dense", "gen"):
+            ttype, a1, a2 = gen_cohort_from_bits(bits, w, n_accounts,
+                                                 thresh=consts.thresh,
+                                                 **skew)
+            l_op, l_tb, l_ac = _lock_slots(ttype, a1, a2)      # [w, L]
     else:
         ttype = torch.zeros((w,), dtype=I32, device=dev)
         ts_amt = ttype
@@ -275,9 +290,10 @@ def pipe_step(db: DenseBank, c1: BankCtx, bits, ts_amt, *, w: int,
         # the admitted occupancy lose their lock slots.
         # occ is a copy: ``attempted`` is read when the cohort completes,
         # after the caller may have refilled its occupancy buffer
-        occ = occupancy.to(I32, copy=True)
-        lane_ok = consts.lane[:w] < occ
-        l_op = torch.where(lane_ok[:, None], l_op, 0)
+        with waves.scope("smallbank_dense", "serve"):
+            occ = occupancy.to(I32, copy=True)
+            lane_ok = consts.lane[:w] < occ
+            l_op = torch.where(lane_ok[:, None], l_op, 0)
 
     active = l_op != 0
     rows = torch.where(active, l_tb * n_accounts + l_ac, sent)   # [w, L]
@@ -300,61 +316,71 @@ def pipe_step(db: DenseBank, c1: BankCtx, bits, ts_amt, *, w: int,
         # both held-stamp reads AND the balance read in one launch, from
         # the main arrays: the rows c1 installs below were X-stamped by c1,
         # so this cohort is never granted (or consumes) them
-        hx, hs, raw_bal = gather_streams((db.x_step, db.s_step, db.bal),
-                                         (slot, slot, flat_rows), (1, 1, 1))
+        with waves.scope("smallbank_dense", "lock_validate"):
+            hx, hs, raw_bal = gather_streams(
+                (db.x_step, db.s_step, db.bal), (slot, slot, flat_rows),
+                (1, 1, 1))
     elif stamp_hot:
         # the held-stamp reads and the balance read as the three streams
         # of one launch: only the stamp writes below come between them,
         # and those write x_step/s_step (and their mirrors), never bal
-        hx, hs, raw_bal = gather_rows_hot(
-            (db.x_step, db.s_step, db.bal), (db.hot_x, db.hot_s, db.hot_bal),
-            (slot, slot, flat_rows), (midx, midx, midx), (1, 1, 1))
-    elif use_hotset:
-        # hashed lock regime: no stamp mirrors, so the stamps come from one
-        # plain launch and the balances from the mirror below
-        hx, hs = gather_rows((db.x_step, db.s_step), (slot, slot), (1, 1))
-    else:
+        with waves.scope("smallbank_dense", "read"):
+            hx, hs, raw_bal = gather_rows_hot(
+                (db.x_step, db.s_step, db.bal),
+                (db.hot_x, db.hot_s, db.hot_bal), (slot, slot, flat_rows),
+                (midx, midx, midx), (1, 1, 1))
+    elif not use_hotset:
         # the three reads in one launch, as above
-        hx, hs, raw_bal = gather_rows((db.x_step, db.s_step, db.bal),
-                                      (slot, slot, flat_rows), (1, 1, 1))
+        with waves.scope("smallbank_dense", "read"):
+            hx, hs, raw_bal = gather_rows((db.x_step, db.s_step, db.bal),
+                                          (slot, slot, flat_rows),
+                                          (1, 1, 1))
 
-    # per-slot first X / first S lane; lanes without such a request go to
-    # the drop slot h
-    first_x = torch.full((h + 1,), BIG, dtype=I32, device=dev)
-    first_x.scatter_reduce_(0, torch.where(is_x, slot, h).long(), lane,
-                            "amin")
-    first_s = torch.full((h + 1,), BIG, dtype=I32, device=dev)
-    first_s.scatter_reduce_(0, torch.where(is_s, slot, h).long(), lane,
-                            "amin")
-    fx, fs = first_x[slot_l], first_s[slot_l]
-    # held = stamped by the previous step's cohort
-    held_x, held_s = hx == t_held, hs == t_held
-    x_wins = (fx < fs) & ~held_x & ~held_s
-    grant_x = is_x & x_wins & (fx == lane)
-    grant_s = is_s & ~held_x & ~x_wins
-    s_writer = grant_s & (fs == lane)   # the first S lane stamps for all
-    _stamp(db.x_step, slot, grant_x, t_now)
-    _stamp(db.s_step, slot, s_writer, t_now)
-    if stamp_hot:
-        # grant masks are one-writer-per-slot, so their hot subsets are
-        # one-writer-per-mirror-index
-        _stamp(db.hot_x, midx, grant_x & (midx >= 0), t_now)
-        _stamp(db.hot_s, midx, s_writer & (midx >= 0), t_now)
+    with waves.scope("smallbank_dense", "lock"):
+        if use_hotset and not use_fused and not stamp_hot:
+            # hashed lock regime: no stamp mirrors, so the stamps come from
+            # one plain launch and the balances from the mirror below
+            hx, hs = gather_rows((db.x_step, db.s_step), (slot, slot),
+                                 (1, 1))
+        # per-slot first X / first S lane; lanes without such a request go
+        # to the drop slot h
+        first_x = torch.full((h + 1,), BIG, dtype=I32, device=dev)
+        first_x.scatter_reduce_(0, torch.where(is_x, slot, h).long(), lane,
+                                "amin")
+        first_s = torch.full((h + 1,), BIG, dtype=I32, device=dev)
+        first_s.scatter_reduce_(0, torch.where(is_s, slot, h).long(), lane,
+                                "amin")
+        fx, fs = first_x[slot_l], first_s[slot_l]
+        # held = stamped by the previous step's cohort
+        held_x, held_s = hx == t_held, hs == t_held
+        x_wins = (fx < fs) & ~held_x & ~held_s
+        grant_x = is_x & x_wins & (fx == lane)
+        grant_s = is_s & ~held_x & ~x_wins
+        s_writer = grant_s & (fs == lane)   # the first S lane stamps for all
+        _stamp(db.x_step, slot, grant_x, t_now)
+        _stamp(db.s_step, slot, s_writer, t_now)
+        if stamp_hot:
+            # grant masks are one-writer-per-slot, so their hot subsets are
+            # one-writer-per-mirror-index
+            _stamp(db.hot_x, midx, grant_x & (midx >= 0), t_now)
+            _stamp(db.hot_s, midx, s_writer & (midx >= 0), t_now)
 
-    granted = (grant_x | grant_s).view(w, L)
-    lock_rejected = (active & ~granted).any(dim=1)
-    lead = l_op[:, 0] != 0
-    alive = ~lock_rejected & lead
+        granted = (grant_x | grant_s).view(w, L)
+        lock_rejected = (active & ~granted).any(dim=1)
+        lead = l_op[:, 0] != 0
+        alive = ~lock_rejected & lead
 
     if use_hotset and not use_fused and not stamp_hot:
-        raw_bal = gather_rows_hot(db.bal, db.hot_bal, flat_rows, midx, 1)
-    bal = torch.where(granted, raw_bal.view(w, L), 0)
+        with waves.scope("smallbank_dense", "read"):
+            raw_bal = gather_rows_hot(db.bal, db.hot_bal, flat_rows, midx, 1)
 
-    nw, do, logic_abort, commit, committed = compute_phase(ttype, bal, alive,
-                                                           ts_amt)
-    do_write = do & commit[:, None] & active
-    bal_delta = u32.wrap_i32(torch.where(
-        do_write, nw.to(torch.int64) - bal.to(torch.int64), 0).sum())
+    with waves.scope("smallbank_dense", "compute"):
+        bal = torch.where(granted, raw_bal.view(w, L), 0)
+        nw, do, logic_abort, commit, committed = compute_phase(
+            ttype, bal, alive, ts_amt)
+        do_write = do & commit[:, None] & active
+        bal_delta = u32.wrap_i32(torch.where(
+            do_write, nw.to(torch.int64) - bal.to(torch.int64), 0).sum())
 
     if occupancy is not None:
         attempted = occ
@@ -371,99 +397,136 @@ def pipe_step(db: DenseBank, c1: BankCtx, bits, ts_amt, *, w: int,
         bal_delta=bal_delta)
 
     # ---- wave 2 of c1: install + log x3 (locks expire by stamp) -----------
-    dwf = c1.do_write.reshape(-1)
-    c1_rows, c1_tbl, c1_acc = (c1.rows.reshape(-1), c1.tbl.reshape(-1),
-                               c1.acc.reshape(-1))
-    newbal = c1.nw.reshape(-1)
-    newval = torch.stack([newbal, torch.where(dwf, MAGIC, 0).to(I32)], dim=1)
-    zero = torch.zeros_like(newbal)
-    # log ver = step index: monotonic per row (one X writer per row a step)
-    stepv = torch.full_like(newbal, t_now)
-    if use_hotset:
-        w_midx = torch.where(dwf & (c1_acc < hn), c1_tbl * hn + c1_acc, -1)
-    if use_fused:
-        # install_log: balance install, log x3 append and (hot tier) the
-        # mirror write-through as the streams of one launch; the log plan
-        # routes masked lanes to -1 already
-        lflat, entry3, lane_counts = logring.plan_rep(
-            db.log, dwf, c1_tbl, zero, zero, c1_acc, stepv, newval)
-        tabs = [db.bal, db.log.entries.view(-1)]
-        idxs = [torch.where(dwf, c1_rows, -1), lflat.to(I32)]
-        vals = [newbal, entry3.reshape(-1)]
-        vws = [1, db.log.entries.shape[1]]
+    with waves.scope("smallbank_dense",
+                     "install_log" if use_fused else "install"):
+        dwf = c1.do_write.reshape(-1)
+        c1_rows, c1_tbl, c1_acc = (c1.rows.reshape(-1), c1.tbl.reshape(-1),
+                                   c1.acc.reshape(-1))
+        newbal = c1.nw.reshape(-1)
+        newval = torch.stack([newbal, torch.where(dwf, MAGIC, 0).to(I32)],
+                             dim=1)
+        zero = torch.zeros_like(newbal)
+        # log ver = step index: monotonic per row (one X writer per row a
+        # step)
+        stepv = torch.full_like(newbal, t_now)
         if use_hotset:
-            tabs.append(db.hot_bal)
-            idxs.append(w_midx)
-            vals.append(newbal)
-            vws.append(1)
-        scatter_streams(tabs, idxs, vals, vws)
-        db.log.head = u32.wrap_i32(u32.to_u64(db.log.head) + lane_counts)
-    else:
-        if use_hotset:
+            w_midx = torch.where(dwf & (c1_acc < hn), c1_tbl * hn + c1_acc,
+                                 -1)
+        if use_fused:
+            # install_log: balance install, log x3 append and (hot tier)
+            # the mirror write-through as the streams of one launch; the log
+            # plan routes masked lanes to -1 already
+            lflat, entry3, lane_counts = logring.plan_rep(
+                db.log, dwf, c1_tbl, zero, zero, c1_acc, stepv, newval)
+            tabs = [db.bal, db.log.entries.view(-1)]
+            idxs = [torch.where(dwf, c1_rows, -1), lflat.to(I32)]
+            vals = [newbal, entry3.reshape(-1)]
+            vws = [1, db.log.entries.shape[1]]
+            if use_hotset:
+                tabs.append(db.hot_bal)
+                idxs.append(w_midx)
+                vals.append(newbal)
+                vws.append(1)
+            scatter_streams(tabs, idxs, vals, vws)
+            db.log.head = u32.wrap_i32(u32.to_u64(db.log.head) + lane_counts)
+        elif use_hotset:
             scatter_rows_hot(db.bal, db.hot_bal, c1_rows, w_midx, dwf,
                              newbal, 1)
         else:
             keep = torch.nonzero(dwf).squeeze(1)
             db.bal[c1_rows[keep].long()] = newbal[keep]
-        logring.append_rep(db.log, dwf, c1_tbl, zero, zero, c1_acc, stepv,
-                           newval)
+    if not use_fused:
+        with waves.scope("smallbank_dense", "log_append"):
+            logring.append_rep(db.log, dwf, c1_tbl, zero, zero, c1_acc,
+                               stepv, newval)
 
     db.step = t + 1
     out = (db, new_ctx, _stats_of(c1))
-    if counters is None:
-        return out
     grant_l = granted.reshape(-1)
     held_l = held_x | held_s            # [wL] slot stamped last step
-    rej_l = active.reshape(-1) & ~grant_l
-    upd = {}
-    if use_hotset:
-        # partition accounting: each partitioned gather serves its hot
-        # lanes from the mirror; the fused route reads the main arrays, so
-        # none of its gathers is partitioned. Refresh bytes are what the
-        # JAX kernel route (use_pallas) counts.
-        n_g = 0 if use_fused else 1 + (2 if stamp_hot else 0)
-        hits = (midx >= 0).sum(dtype=I32)
-        upd.update({mon.CTR_HOT_HITS: n_g * hits,
-                    mon.CTR_HOT_COLD_ROWS: n_g * (w * L) - n_g * hits,
-                    mon.CTR_HOT_REFRESH_BYTES: n_g * 2 * hn * 4})
-    if occupancy is not None:
-        upd.update({mon.CTR_SERVE_OCC_LANES: occ,
-                    mon.CTR_SERVE_PAD_LANES: w - occ,
-                    mon.CTR_SERVE_SHED_LANES: 0 if shed is None else shed})
-    n_writes = dwf.sum(dtype=I32)
-    upd.update({
-        mon.CTR_STEPS: 1,
-        mon.CTR_TXN_ATTEMPTED: c1.attempted,
-        mon.CTR_TXN_COMMITTED: c1.committed,
-        mon.CTR_AB_LOCK: c1.ab_lock,
-        mon.CTR_AB_LOGIC: c1.ab_logic,
-        mon.CTR_MAGIC_BAD: c1.magic_bad,
-        mon.CTR_LOCK_REQUESTS: active.sum(dtype=I32),
-        mon.CTR_LOCK_GRANTED: grant_l.sum(dtype=I32),
-        mon.CTR_LOCK_REJECTED: rej_l.sum(dtype=I32),
-        mon.CTR_LOCK_REJECT_HELD: (rej_l & held_l).sum(dtype=I32),
-        mon.CTR_LOCK_REJECT_ARB: (rej_l & ~held_l).sum(dtype=I32),
-        mon.CTR_INSTALL_WRITES: n_writes,
-        mon.CTR_LOG_APPENDS: n_writes,
-        mon.CTR_DISPATCH_PALLAS: 1,       # the port runs the kernel route
-        **({mon.CTR_FUSED_DISPATCH: 1} if use_fused else {}),
-    })
-    mon.bump(counters, upd)
-    mon.gauge_max(counters, {mon.CTR_RING_HWM: u32.to_u64(db.log.head).max()})
-    return out + (counters,)
+    act_l = active.reshape(-1)
+    if counters is not None:
+        rej_l = act_l & ~grant_l
+        upd = {}
+        if use_hotset:
+            # partition accounting: each partitioned gather serves its hot
+            # lanes from the mirror; the fused route reads the main arrays,
+            # so none of its gathers is partitioned. Refresh bytes are what
+            # the JAX kernel route (use_pallas) counts.
+            n_g = 0 if use_fused else 1 + (2 if stamp_hot else 0)
+            hits = (midx >= 0).sum(dtype=I32)
+            upd.update({mon.CTR_HOT_HITS: n_g * hits,
+                        mon.CTR_HOT_COLD_ROWS: n_g * (w * L) - n_g * hits,
+                        mon.CTR_HOT_REFRESH_BYTES: n_g * 2 * hn * 4})
+        if occupancy is not None:
+            upd.update({mon.CTR_SERVE_OCC_LANES: occ,
+                        mon.CTR_SERVE_PAD_LANES: w - occ,
+                        mon.CTR_SERVE_SHED_LANES: 0 if shed is None
+                        else shed})
+        n_writes = dwf.sum(dtype=I32)
+        upd.update({
+            mon.CTR_STEPS: 1,
+            mon.CTR_TXN_ATTEMPTED: c1.attempted,
+            mon.CTR_TXN_COMMITTED: c1.committed,
+            mon.CTR_AB_LOCK: c1.ab_lock,
+            mon.CTR_AB_LOGIC: c1.ab_logic,
+            mon.CTR_MAGIC_BAD: c1.magic_bad,
+            mon.CTR_LOCK_REQUESTS: act_l.sum(dtype=I32),
+            mon.CTR_LOCK_GRANTED: grant_l.sum(dtype=I32),
+            mon.CTR_LOCK_REJECTED: rej_l.sum(dtype=I32),
+            mon.CTR_LOCK_REJECT_HELD: (rej_l & held_l).sum(dtype=I32),
+            mon.CTR_LOCK_REJECT_ARB: (rej_l & ~held_l).sum(dtype=I32),
+            mon.CTR_INSTALL_WRITES: n_writes,
+            mon.CTR_LOG_APPENDS: n_writes,
+            mon.CTR_DISPATCH_PALLAS: 1,       # the port runs the kernel route
+            **({mon.CTR_FUSED_DISPATCH: 1} if use_fused else {}),
+        })
+        mon.bump(counters, upd)
+        mon.gauge_max(counters,
+                      {mon.CTR_RING_HWM: u32.to_u64(db.log.head).max()})
+        out += (counters,)
+    if ring is not None:
+        # dinttrace: the new cohort's lock verdicts and outcome (txn id =
+        # gen_step*w + lane, stable across waves) and c1's installs
+        with waves.scope("smallbank_dense", "trace"):
+            txn_new, txn_c1 = (txe.txn_ids(t - d, w, lane[:w])
+                               for d in range(2))
+            lock_aux = (torch.where(grant_l, txe.LOCK_GRANTED, 0)
+                        | torch.where(held_l, txe.LOCK_HELD, 0))
+            ab_lock_m = lock_rejected & lead
+            cause = torch.where(
+                ab_lock_m, txe.CAUSE_LOCK,
+                torch.where(logic_abort, txe.CAUSE_LOGIC, txe.CAUSE_COMMIT))
+            groups = (
+                txe.ev(act_l, txn_new.repeat_interleave(L), txe.EV_LOCK,
+                       waves.full_name("smallbank_dense", "lock"),
+                       aux=lock_aux, step=t),
+                txe.ev(committed | ab_lock_m | logic_abort, txn_new,
+                       txe.EV_OUTCOME,
+                       waves.full_name("smallbank_dense", "compute"),
+                       aux=cause, step=t),
+                txe.ev(dwf, txn_c1.repeat_interleave(L), txe.EV_INSTALL,
+                       waves.full_name("smallbank_dense", "install"),
+                       step=t),
+            )
+            txe.emit(ring, tcfg, groups, counters)
+        out += (ring,)
+    return out
 
 
 def build_pipelined_runner(n_accounts: int, w: int = 8192,
                            cohorts_per_block: int = 8, hot_frac=None,
                            hot_prob=None, mix=None, use_hotset: bool = False,
                            use_fused: bool = False, monitor: bool = False,
+                           trace=None, trace_rate=None, trace_cap=None,
                            serve: bool = False, device=None):
     """A loop of `pipe_step` over carry (db, c1); the contract of the JAX
     `build_pipelined_runner`: returns (run, init, drain).
 
     * ``run(carry, gen)`` draws a block's ``[cpb, w, 5]`` bits and
       ``[cpb, w]`` transact_saving amounts with the torch generator ``gen``
-      on the device and calls ``run.run_draws``;
+      on the device (in the ``gen`` wave's scope) and calls
+      ``run.run_draws``;
     * ``run.run_draws(carry, bits, ts_amt)`` runs ``cohorts_per_block``
       steps on the given draws (int32 tensors on the runner's device; bits
       hold u32 patterns) and returns (carry, stats i32 [cpb, N_STATS]);
@@ -479,7 +542,13 @@ def build_pipelined_runner(n_accounts: int, w: int = 8192,
     ``shed`` device i32 [cpb]: step i masks lanes >= occ[i] and mirrors
     shed[i] onto the counters; nothing is read back to the host.
     ``monitor``: the carry gains a trailing `monitor.counters.Counters`
-    (made by ``init``), and ``drain`` returns (db, stats, counters)."""
+    (made by ``init``), and ``drain`` returns (db, stats, counters).
+    ``trace``/``trace_rate``/``trace_cap``: the dinttrace flight recorder
+    (None = DINT_TRACE / DINT_TRACE_RATE). On, the carry gains a
+    `monitor.txnevents.TxnRing` BEFORE the counters, zeroed at each block
+    and drain entry; ``trace_cap`` defaults to a full block of candidates
+    (w*(2L+1) a step); ``init.trace_cfg`` is the resolved `TraceCfg` (None
+    when off), and ``drain`` returns (db, stats, ring[, counters])."""
     dev = resolve_device(device)
     if w * L >= BIG:
         raise ValueError(f"w={w} exceeds the lane field of the scatter-mins")
@@ -488,15 +557,28 @@ def build_pipelined_runner(n_accounts: int, w: int = 8192,
     if use_hotset:
         frac = wl.SB_HOT_FRAC if hot_frac is None else float(hot_frac)
         hot_n = max(1, min(int(n_accounts * frac), n_accounts))
+    trace_on = txe.trace_enabled(trace)
+    tcfg = None
+    n_step = w * (2 * L + 1)   # candidate events a step: lock wL +
+    #                            outcome w + install wL
+    if trace_on:
+        cap = int(trace_cap) if trace_cap is not None else n_step * cpb
+        tcfg = txe.TraceCfg(rate=txe.trace_rate(trace_rate), cap=cap,
+                            wave=waves.full_name("smallbank_dense",
+                                                 "trace"))
     kw = dict(w=w, n_accounts=n_accounts, hot_frac=hot_frac,
               hot_prob=hot_prob, mix=mix, use_hotset=use_hotset,
-              use_fused=use_fused, consts=step_consts(w, mix, dev))
+              use_fused=use_fused, tcfg=tcfg,
+              consts=step_consts(w, mix, dev))
 
     def step(carry, bits, ts_amt, occ=None, shed=None, gen_new=True):
+        # the ring and the counters are updated in place: carry[2:] holds
+        # them after the step as before it
         out = pipe_step(carry[0], carry[1], bits, ts_amt, gen_new=gen_new,
                         occupancy=occ, shed=shed,
-                        counters=carry[2] if monitor else None, **kw)
-        return out[:2] + out[3:], out[2]
+                        counters=carry[-1] if monitor else None,
+                        ring=carry[2] if trace_on else None, **kw)
+        return out[:2] + carry[2:], out[2]
 
     def run_draws(carry, bits, ts_amt, occ=None, shed=None):
         if tuple(bits.shape) != (cpb, w, 5) or \
@@ -507,6 +589,8 @@ def build_pipelined_runner(n_accounts: int, w: int = 8192,
         if serve != (occ is not None and shed is not None):
             raise ValueError("a serve runner takes occ and shed [cpb]; a "
                              "closed-loop runner takes neither")
+        if trace_on:        # each drained window is self-contained
+            txe.reset(carry[2])
         stats = []
         for i in range(cpb):
             carry, s = step(carry, bits[i], ts_amt[i],
@@ -515,7 +599,9 @@ def build_pipelined_runner(n_accounts: int, w: int = 8192,
         return carry, torch.stack(stats)
 
     def run(carry, gen: torch.Generator, occ=None, shed=None):
-        return run_draws(carry, *draw_step(gen, (cpb, w), dev), occ, shed)
+        with waves.scope("smallbank_dense", "gen"):
+            draws = draw_step(gen, (cpb, w), dev)
+        return run_draws(carry, *draws, occ, shed)
 
     run.run_draws = run_draws
 
@@ -524,10 +610,16 @@ def build_pipelined_runner(n_accounts: int, w: int = 8192,
             raise ValueError(f"tables on {db.bal.device}, runner on {dev}")
         if use_hotset and db.hot_n == 0:
             db = attach_hotset(db, hot_n)
-        return (db, empty_ctx(w, dev)) + ((mon.create(dev),) if monitor
-                                          else ())
+        return ((db, empty_ctx(w, dev))
+                + ((txe.create_ring(tcfg.cap, dev, spill=n_step),)
+                   if trace_on else ())
+                + ((mon.create(dev),) if monitor else ()))
+
+    init.trace_cfg = tcfg
 
     def drain(carry):
+        if trace_on:
+            txe.reset(carry[2])
         carry, s = step(carry, None, None, gen_new=False)
         return (carry[0], s[None]) + carry[2:]
 

@@ -27,6 +27,7 @@ import torch
 from ..clients import workloads as wl
 from ..device import resolve_device
 from ..monitor import counters as mon
+from ..monitor import waves
 from ..ops.u32 import to_u64, wrap_i32
 from . import smallbank
 from .tatp_pipeline import (PAD32, _broadcast_batch, _merge, _step_all,
@@ -215,8 +216,10 @@ def cohort_step(stacked, bits, ts_amt, *, w: int, n_accounts: int,
     the three replicas, in place. Returns (stacked, stats [N_STATS] i32),
     plus the counters (bumped in place) when ``counters`` is given."""
     dev = bits.device
-    ttype, a1, a2 = gen_cohort_from_bits(bits, w, n_accounts, thresh=thresh)
-    l_op, l_tb, l_ac = _lock_slots(ttype, a1, a2)       # [w, L]
+    with waves.scope("smallbank_pipeline", "gen"):
+        ttype, a1, a2 = gen_cohort_from_bits(bits, w, n_accounts,
+                                             thresh=thresh)
+        l_op, l_tb, l_ac = _lock_slots(ttype, a1, a2)       # [w, L]
     r = w * L
     lane_op = l_op.reshape(r)
     lane_tbl = l_tb.reshape(r)
@@ -230,46 +233,51 @@ def cohort_step(stacked, bits, ts_amt, *, w: int, n_accounts: int,
     zver = torch.zeros((r,), dtype=I32, device=dev)
 
     # ---- wave 1: fused lock+read at owners
-    op_s = torch.where(at_owner & used[None], lane_op[None], Op.NOP)
-    rep1 = _step_all(smallbank.step, stacked, _broadcast_batch(
-        op_s, lane_tbl, lane_key, zval, zver))
-    rt1 = _merge(owner, rep1.rtype).view(w, L)
-    rv1 = _merge(owner, rep1.val)                       # [r, VW]
-    rver1 = _merge(owner, rep1.ver).view(w, L)
+    with waves.scope("smallbank_pipeline", "wave1"):
+        op_s = torch.where(at_owner & used[None], lane_op[None], Op.NOP)
+        rep1 = _step_all(smallbank.step, stacked, _broadcast_batch(
+            op_s, lane_tbl, lane_key, zval, zver))
+        rt1 = _merge(owner, rep1.rtype).view(w, L)
+        rv1 = _merge(owner, rep1.val)                       # [r, VW]
+        rver1 = _merge(owner, rep1.ver).view(w, L)
 
-    active = l_op != Op.NOP
-    granted = active & (rt1 == Reply.GRANT)
-    magic_bad = (granted.reshape(r) & (rv1[:, 1] != MAGIC)).sum(dtype=I32)
-    lock_rejected = (active & (rt1 == Reply.REJECT)).any(dim=1)
-    alive = ~lock_rejected
-    bal = torch.where(granted, rv1[:, 0].view(w, L), 0)  # [w, L] i32
+        active = l_op != Op.NOP
+        granted = active & (rt1 == Reply.GRANT)
+        magic_bad = (granted.reshape(r) & (rv1[:, 1] != MAGIC)).sum(dtype=I32)
+        lock_rejected = (active & (rt1 == Reply.REJECT)).any(dim=1)
+        alive = ~lock_rejected
+        bal = torch.where(granted, rv1[:, 0].view(w, L), 0)  # [w, L] i32
 
-    nw, do, logic_abort, commit, committed = compute_phase(
-        ttype, bal, alive, ts_amt)
-    do_write = do & commit[:, None] & active             # [w, L]
-    bal_delta = wrap_i32(torch.where(do_write, nw.long() - bal.long(), 0)
-                         .sum())
+    with waves.scope("smallbank_pipeline", "compute"):
+        nw, do, logic_abort, commit, committed = compute_phase(
+            ttype, bal, alive, ts_amt)
+        do_write = do & commit[:, None] & active             # [w, L]
+        bal_delta = wrap_i32(torch.where(do_write, nw.long() - bal.long(), 0)
+                             .sum())
 
     # ---- wave 2: log x3 + role (prim/bck) + release
-    dwf = do_write.reshape(r)
-    c_val = torch.zeros((r, VW), dtype=I32, device=dev)
-    c_val[:, 0] = nw.reshape(r)
-    c_val[:, 1] = torch.where(dwf, MAGIC, 0)
-    c_ver = wrap_i32(torch.where(do_write, to_u64(rver1) + 1, 0)).reshape(r)
-    c_key = torch.where(dwf, lane_acc, PAD32)
-    log_op = torch.where(dwf, Op.COMMIT_LOG, Op.NOP)    # all shards
-    role_s = torch.where(dwf[None], torch.where(at_owner, Op.COMMIT_PRIM,
-                                                Op.COMMIT_BCK), Op.NOP)
-    relf = granted.reshape(r)
-    rel_op = torch.where(lane_op == Op.ACQ_X_READ, Op.REL_X, Op.REL_S)
-    rel_s = torch.where(relf[None] & at_owner, rel_op[None], Op.NOP)
-    rel_key = torch.where(relf, lane_acc, PAD32)
-    op2_s = torch.cat([log_op[None].expand(N_SHARDS, r), role_s, rel_s],
-                      dim=1).to(I32)
-    _step_all(smallbank.step, stacked, _broadcast_batch(
-        op2_s, torch.cat([lane_tbl, lane_tbl, lane_tbl]),
-        torch.cat([c_key, c_key, rel_key]), torch.cat([c_val, c_val, zval]),
-        torch.cat([c_ver, c_ver, zver])))
+    with waves.scope("smallbank_pipeline", "wave2"):
+        dwf = do_write.reshape(r)
+        c_val = torch.zeros((r, VW), dtype=I32, device=dev)
+        c_val[:, 0] = nw.reshape(r)
+        c_val[:, 1] = torch.where(dwf, MAGIC, 0)
+        c_ver = wrap_i32(torch.where(do_write, to_u64(rver1) + 1,
+                                     0)).reshape(r)
+        c_key = torch.where(dwf, lane_acc, PAD32)
+        log_op = torch.where(dwf, Op.COMMIT_LOG, Op.NOP)    # all shards
+        role_s = torch.where(dwf[None], torch.where(at_owner, Op.COMMIT_PRIM,
+                                                    Op.COMMIT_BCK), Op.NOP)
+        relf = granted.reshape(r)
+        rel_op = torch.where(lane_op == Op.ACQ_X_READ, Op.REL_X, Op.REL_S)
+        rel_s = torch.where(relf[None] & at_owner, rel_op[None], Op.NOP)
+        rel_key = torch.where(relf, lane_acc, PAD32)
+        op2_s = torch.cat([log_op[None].expand(N_SHARDS, r), role_s, rel_s],
+                          dim=1).to(I32)
+        _step_all(smallbank.step, stacked, _broadcast_batch(
+            op2_s, torch.cat([lane_tbl, lane_tbl, lane_tbl]),
+            torch.cat([c_key, c_key, rel_key]),
+            torch.cat([c_val, c_val, zval]),
+            torch.cat([c_ver, c_ver, zver])))
 
     stats = torch.stack([
         torch.full((), w, dtype=I32, device=dev), committed.sum(dtype=I32),

@@ -35,6 +35,7 @@ import torch
 from ..clients import workloads as wl
 from ..device import resolve_device
 from ..monitor import counters as mon
+from ..monitor import waves
 from ..ops import hashing, segments
 from ..ops.row_kernels import gather_rows_hot, scatter_rows_hot
 from ..ops.scan_kernels import scan_slab
@@ -109,19 +110,20 @@ def step(table: kv.KVTable, batch: Batch, *, maintain_bloom: bool = False,
     val_in = batch.val[sb.perm]
 
     b1, b2 = hashing.bucket_pair(sb.key_hi, sb.key_lo, table.n_buckets)
-    if hot is None:
-        hit0, fbkt, slot0, val0, ver0, free1, free2 = kv.probe(
-            table, sb.key_hi, sb.key_lo, b1, b2)
-    else:
-        hit0, fbkt, slot0, free1, free2 = kv.probe_loc(
-            table, sb.key_hi, sb.key_lo, b1, b2)
-        eidx0 = fbkt * s + slot0
-        kmidx = _hot_idx(sb.key_hi, sb.key_lo, hot.hot_n)
-        # val and ver of the same lanes as the two streams of one launch
-        val0, ver0 = gather_rows_hot((table.val, table.ver),
-                                     (hot.val, hot.ver), (eidx0, eidx0),
-                                     (kmidx, kmidx), (vw, 1))
-        val0 = val0.view(r, vw)
+    with waves.scope("store", "probe"):
+        if hot is None:
+            hit0, fbkt, slot0, val0, ver0, free1, free2 = kv.probe(
+                table, sb.key_hi, sb.key_lo, b1, b2)
+        else:
+            hit0, fbkt, slot0, free1, free2 = kv.probe_loc(
+                table, sb.key_hi, sb.key_lo, b1, b2)
+            eidx0 = fbkt * s + slot0
+            kmidx = _hot_idx(sb.key_hi, sb.key_lo, hot.hot_n)
+            # val and ver of the same lanes as the two streams of one launch
+            val0, ver0 = gather_rows_hot((table.val, table.ver),
+                                         (hot.val, hot.ver), (eidx0, eidx0),
+                                         (kmidx, kmidx), (vw, 1))
+            val0 = val0.view(r, vw)
     # insert destination: the emptier of the two candidate buckets
     dest = torch.where(free2 > free1, b2, b1)
     bkt = torch.where(hit0, fbkt, dest)
@@ -212,26 +214,27 @@ def step(table: kv.KVTable, batch: Batch, *, maintain_bloom: bool = False,
     rver = torch.where(seg_spill & is_install, 0, rver)
 
     # ---- installs: one writer per entry ----------------------------------
-    w_any = o_upd | ok | o_del
-    wv = o_upd | ok
-    e_all = o_bkt * s + torch.where(o_upd | o_del, o_slot0, slot_new)
-    keep = torch.nonzero(w_any).squeeze(1)   # the step's one host sync
-    e = e_all[keep].long()
-    wv_k = wv[keep]
-    table.valid[e] = ~o_del[keep]
-    if hot is None:
-        val2d = table.val.view(-1, vw)
-        val2d[e] = torch.where(wv_k[:, None], o_val[keep], val2d[e])
-        table.ver[e] = torch.where(wv_k, o_ver[keep], table.ver[e])
-    else:
-        # write-through: table entry and key-indexed mirror. A deleting
-        # lane's e_all is its own slot, so the mask alone filters it
-        w_midx = _hot_idx(o_khi, o_klo, hot.hot_n, wv)
-        scatter_rows_hot((table.val, table.ver), (hot.val, hot.ver),
-                         (e_all, e_all), (w_midx, w_midx), (wv, wv),
-                         (o_val.reshape(-1), o_ver), (vw, 1))
-    table.key_hi[e] = torch.where(wv_k, o_khi[keep], table.key_hi[e])
-    table.key_lo[e] = torch.where(wv_k, o_klo[keep], table.key_lo[e])
+    with waves.scope("store", "install"):
+        w_any = o_upd | ok | o_del
+        wv = o_upd | ok
+        e_all = o_bkt * s + torch.where(o_upd | o_del, o_slot0, slot_new)
+        keep = torch.nonzero(w_any).squeeze(1)   # the step's one host sync
+        e = e_all[keep].long()
+        wv_k = wv[keep]
+        table.valid[e] = ~o_del[keep]
+        if hot is None:
+            val2d = table.val.view(-1, vw)
+            val2d[e] = torch.where(wv_k[:, None], o_val[keep], val2d[e])
+            table.ver[e] = torch.where(wv_k, o_ver[keep], table.ver[e])
+        else:
+            # write-through: table entry and key-indexed mirror. A deleting
+            # lane's e_all is its own slot, so the mask alone filters it
+            w_midx = _hot_idx(o_khi, o_klo, hot.hot_n, wv)
+            scatter_rows_hot((table.val, table.ver), (hot.val, hot.ver),
+                             (e_all, e_all), (w_midx, w_midx), (wv, wv),
+                             (o_val.reshape(-1), o_ver), (vw, 1))
+        table.key_hi[e] = torch.where(wv_k, o_khi[keep], table.key_hi[e])
+        table.key_lo[e] = torch.where(wv_k, o_klo[keep], table.key_lo[e])
     if maintain_bloom:
         kv.recompute_bloom(table, o_bkt, ok | o_del)
 
@@ -249,26 +252,29 @@ def step(table: kv.KVTable, batch: Batch, *, maintain_bloom: bool = False,
         lg_win = scan_max + run.delta_cap
         assert ne >= lg_win, "table too small for scan_max + delta_cap"
         is_scan = batch.op == Op.SCAN
-        off = run_mod.locate(run, batch.key_hi, batch.key_lo)
+        with waves.scope("store", "scan_locate"):
+            off = run_mod.locate(run, batch.key_hi, batch.key_lo)
         # clamped so every window is in bounds: clamping only moves a
         # window's start down, and the >= start check filters rows below
         off_c = torch.clamp(off, 0, ne - lg_win)
-        s_hi, s_lo, s_ver, s_val = scan_slab(
-            run.key_hi, run.key_lo, run.ver, run.val, off_c, lg_win, vw)
-        # a stale overlay may miss writes: no rows, reply RETRY
-        slen = torch.where(is_scan & ~run.stale,
-                           torch.clamp(batch.ver, 0, scan_max), 0)
-        count, k_hi, k_lo, k_ver, k_val, d_hits = run_mod.merge_scan(
-            run, s_hi, s_lo, s_ver, s_val, off_c, batch.key_hi,
-            batch.key_lo, slen, scan_max)
+        with waves.scope("store", "scan"):
+            s_hi, s_lo, s_ver, s_val = scan_slab(
+                run.key_hi, run.key_lo, run.ver, run.val, off_c, lg_win, vw)
+            # a stale overlay may miss writes: no rows, reply RETRY
+            slen = torch.where(is_scan & ~run.stale,
+                               torch.clamp(batch.ver, 0, scan_max), 0)
+            count, k_hi, k_lo, k_ver, k_val, d_hits = run_mod.merge_scan(
+                run, s_hi, s_lo, s_ver, s_val, off_c, batch.key_hi,
+                batch.key_lo, slen, scan_max)
         scan_rep = ScanReplies(key_hi=k_hi, key_lo=k_lo, ver=k_ver,
                                val=k_val, count=count, delta_hits=d_hits)
         o_rtype = torch.where(is_scan, torch.where(run.stale, Reply.RETRY,
                                                    Reply.VAL), o_rtype)
         o_rver = torch.where(is_scan, count, o_rver)
         o_rval = torch.where(is_scan[:, None], 0, o_rval)
-        run = run_mod.delta_append(run, o_khi, o_klo, o_ver,
-                                   o_val.reshape(-1), o_del, w_any)
+        with waves.scope("store", "delta_append"):
+            run = run_mod.delta_append(run, o_khi, o_klo, o_ver,
+                                       o_val.reshape(-1), o_del, w_any)
 
     out = (table, Replies(rtype=o_rtype.to(I32), val=o_rval, ver=o_rver))
     if hot is not None:
@@ -281,7 +287,8 @@ def step(table: kv.KVTable, batch: Batch, *, maintain_bloom: bool = False,
 def rebuild_run(table: kv.KVTable, run: run_mod.OrderedRun):
     """Block-end run maintenance: merge-compact the overlay into the run,
     or re-snapshot from the table when the overlay went stale."""
-    return run_mod.refresh(table, run)
+    with waves.scope("store", "run_rebuild"):
+        return run_mod.refresh(table, run)
 
 
 # ------------------------------------------------------------- serve plane

@@ -56,7 +56,7 @@ What differs from JAX:
   takes them as given, which is how the tests replay JAX's draws.
 * `lock_arbitrate` and `lock_validate` take no ``hot_n``: JAX's keeps the
   arb prefix in VMEM, which changes no output and has no twin on the card.
-* The trace ring and ``emit_installs`` are not ported.
+* ``emit_installs`` is not ported.
 """
 from __future__ import annotations
 
@@ -69,6 +69,8 @@ import torch
 from ..device import resolve_device
 from ..ops import u32
 from ..monitor import counters as mon
+from ..monitor import txnevents as txe
+from ..monitor import waves
 from ..ops.row_kernels import (gather_rows, gather_rows_hot, lock_arbitrate,
                                lock_validate, scatter_rows_hot,
                                scatter_streams)
@@ -325,6 +327,8 @@ def pipe_step(db: DenseDB, c1: DenseCtx, c2: DenseCtx, bits, payload, *,
               mix=None, check_magic: bool = True, use_hotset: bool = False,
               use_fused: bool = False, occupancy=None, shed=None,
               counters: mon.Counters | None = None,
+              ring: txe.TxnRing | None = None,
+              tcfg: txe.TraceCfg | None = None,
               consts: StepConsts | None = None):
     """One fused step: commit wave of c2, validate wave of c1, and read+lock
     wave of a NEW cohort drawn from ``bits`` [w, 4] (unused when
@@ -337,9 +341,18 @@ def pipe_step(db: DenseDB, c1: DenseCtx, c2: DenseCtx, bits, payload, *,
     occupancy of the new cohort become no-ops before wave 1 and
     ``attempted`` counts the admitted lanes only; ``shed`` is mirrored onto
     the counters. ``counters``: bumped in place when given.
+    ``ring``/``tcfg`` (monitor.txnevents): the flight recorder — the new
+    cohort's lock verdicts and wave-1 outcomes, c1's validate verdicts and
+    wave-2 outcomes, and c2's installs of the sampled txn ids land in the
+    ring with one write, in place.
+
+    Each wave runs under its `waves.scope`; the meta and magic gathers
+    are the two streams of one launch in the ``meta_gather`` scope on the
+    unfused routes, so ``magic_gather`` holds the magic compare alone there.
 
     Updates ``db`` in place and returns (db, new_ctx, c1', stats-of-c2),
-    plus the counters when ``counters`` is given."""
+    plus the counters when ``counters`` is given, plus the ring when
+    ``ring`` is given."""
     dev = db.meta.device
     if consts is None:
         consts = step_consts(n_sub, w, mix, dev)
@@ -349,51 +362,53 @@ def pipe_step(db: DenseDB, c1: DenseCtx, c2: DenseCtx, bits, payload, *,
     base = consts.base
     t = db.step
     hn = db.hot_n
+    observed = counters is not None or ring is not None
 
     # ---- wave 3 of c2: install + log --------------------------------------
     # only real writes touch meta: lock releases are implicit (c2's stamps
     # from step t-2 expire this step). Uniqueness: one X-holder per row,
     # and a txn's two slots target different tables.
-    do_write = c2.ws_active & c2.alive[:, None]                 # [w, 2]
-    wmask = do_write.reshape(-1)
-    wkind = c2.ws_kind.reshape(-1)
-    newex = (wkind != 2) & wmask
-    vv = u32.to_u64(c2.ws_vv.reshape(-1))   # wave-1 meta (ver<<1|exists):
-    #                                         X-held since, so still current
-    newver64 = (vv >> 1) + 1
-    meta_new = u32.wrap_i32((newver64 << 1) | newex.to(torch.int64))
-    newver = u32.wrap_i32(newver64)
-    newval = torch.zeros((w, 2, val_words), dtype=I32, device=dev)
-    newval[:, :, 0] = payload
-    newval[:, :, 1] = torch.where(do_write & (c2.ws_kind != 2), MAGIC, 0)
-    newval = newval.view(-1, val_words)
-    newval = torch.where((wkind == 2)[:, None], 0, newval)     # delete zeroes
-    log_tbl, log_key = c2.ws_tbl.reshape(-1), c2.ws_key.reshape(-1)
-    is_del, zero_hi = (wkind == 2).to(I32), torch.zeros_like(log_key)
-    wsr = c2.ws_rows.reshape(-1)
-    if use_hotset:
-        # the hot set is the row prefix: mirror index == row for hot rows
-        w_midx = torch.where(wmask & (wsr < hn), wsr, -1)
-    if use_fused:
-        # install_log: val and meta installs, the log x3 append and (hot
-        # tier) the mirror write-through as the streams of one launch; the
-        # log plan routes masked lanes to -1 already
-        lflat, entry3, lane_counts = logring.plan_rep(
-            db.log, wmask, log_tbl, is_del, zero_hi, log_key, newver, newval)
-        widx = torch.where(wmask, wsr, -1)
-        tabs = [db.val, db.meta, db.log.entries.view(-1)]
-        idxs = [widx, widx, lflat.to(I32)]
-        vals = [newval.reshape(-1), meta_new, entry3.reshape(-1)]
-        vws = [val_words, 1, db.log.entries.shape[1]]
+    with waves.scope("tatp_dense", "install_log" if use_fused else "install"):
+        do_write = c2.ws_active & c2.alive[:, None]             # [w, 2]
+        wmask = do_write.reshape(-1)
+        wkind = c2.ws_kind.reshape(-1)
+        newex = (wkind != 2) & wmask
+        vv = u32.to_u64(c2.ws_vv.reshape(-1))   # wave-1 meta: X-held since,
+        #                                         so still current
+        newver64 = (vv >> 1) + 1
+        meta_new = u32.wrap_i32((newver64 << 1) | newex.to(torch.int64))
+        newver = u32.wrap_i32(newver64)
+        newval = torch.zeros((w, 2, val_words), dtype=I32, device=dev)
+        newval[:, :, 0] = payload
+        newval[:, :, 1] = torch.where(do_write & (c2.ws_kind != 2), MAGIC, 0)
+        newval = newval.view(-1, val_words)
+        newval = torch.where((wkind == 2)[:, None], 0, newval)  # delete zeroes
+        log_tbl, log_key = c2.ws_tbl.reshape(-1), c2.ws_key.reshape(-1)
+        is_del, zero_hi = (wkind == 2).to(I32), torch.zeros_like(log_key)
+        wsr = c2.ws_rows.reshape(-1)
         if use_hotset:
-            tabs += [db.hot_val, db.hot_meta]
-            idxs += [w_midx, w_midx]
-            vals += [newval.reshape(-1), meta_new]
-            vws += [val_words, 1]
-        scatter_streams(tabs, idxs, vals, vws)
-        db.log.head = u32.wrap_i32(u32.to_u64(db.log.head) + lane_counts)
-    else:
-        if use_hotset:
+            # the hot set is the row prefix: mirror index == row for hot rows
+            w_midx = torch.where(wmask & (wsr < hn), wsr, -1)
+        if use_fused:
+            # install_log: val and meta installs, the log x3 append and (hot
+            # tier) the mirror write-through as the streams of one launch;
+            # the log plan routes masked lanes to -1 already
+            lflat, entry3, lane_counts = logring.plan_rep(
+                db.log, wmask, log_tbl, is_del, zero_hi, log_key, newver,
+                newval)
+            widx = torch.where(wmask, wsr, -1)
+            tabs = [db.val, db.meta, db.log.entries.view(-1)]
+            idxs = [widx, widx, lflat.to(I32)]
+            vals = [newval.reshape(-1), meta_new, entry3.reshape(-1)]
+            vws = [val_words, 1, db.log.entries.shape[1]]
+            if use_hotset:
+                tabs += [db.hot_val, db.hot_meta]
+                idxs += [w_midx, w_midx]
+                vals += [newval.reshape(-1), meta_new]
+                vws += [val_words, 1]
+            scatter_streams(tabs, idxs, vals, vws)
+            db.log.head = u32.wrap_i32(u32.to_u64(db.log.head) + lane_counts)
+        elif use_hotset:
             # meta and val: two streams of one launch on the same lanes
             scatter_rows_hot((db.meta, db.val), (db.hot_meta, db.hot_val),
                              (wsr, wsr), (w_midx, w_midx), (wmask, wmask),
@@ -405,13 +420,16 @@ def pipe_step(db: DenseDB, c1: DenseCtx, c2: DenseCtx, bits, payload, *,
             wflat = (wrows[:, None] * val_words
                      + torch.arange(val_words, device=dev)).reshape(-1)
             db.val[wflat] = newval[keep].reshape(-1)
-        logring.append_rep(db.log, wmask, log_tbl, is_del, zero_hi, log_key,
-                           newver, newval)
+    if not use_fused:
+        with waves.scope("tatp_dense", "log_append"):
+            logring.append_rep(db.log, wmask, log_tbl, is_del, zero_hi,
+                               log_key, newver, newval)
 
     # ---- wave 1: new cohort read + lock -----------------------------------
     if gen_new:
-        ttype, ops, tbl, kk, ws = gen_cohort_from_bits(
-            bits, w, n_sub, tables=consts.cohort)
+        with waves.scope("tatp_dense", "gen"):
+            ttype, ops, tbl, kk, ws = gen_cohort_from_bits(
+                bits, w, n_sub, tables=consts.cohort)
         ws_active, ws_lane, ws_tbl, ws_key, ws_kind = ws
     else:
         ttype = torch.zeros((w,), dtype=I32, device=dev)
@@ -426,81 +444,99 @@ def pipe_step(db: DenseDB, c1: DenseCtx, c2: DenseCtx, bits, payload, *,
         # the admitted occupancy are erased before any wave sees them.
         # occ is a copy: ``attempted`` is read when the cohort completes,
         # after the caller may have refilled its occupancy buffer
-        occ = occupancy.to(I32, copy=True)
-        lane_ok = consts.lane < occ
-        ops = torch.where(lane_ok[:, None], ops, Op.NOP)
-        ws_active = ws_active & lane_ok[:, None]
+        with waves.scope("tatp_dense", "serve"):
+            occ = occupancy.to(I32, copy=True)
+            lane_ok = consts.lane < occ
+            ops = torch.where(lane_ok[:, None], ops, Op.NOP)
+            ws_active = ws_active & lane_ok[:, None]
 
     used = ops != Op.NOP
     rows = torch.where(used, base[tbl] + kk, sent)              # [w, K]
     is_read = ops == Op.OCC_READ
-    ws_rows = torch.where(ws_active, base[ws_tbl] + ws_key, sent)  # [w, 2]
-    flat_ws = ws_rows.reshape(-1)
-    active = ws_active.reshape(-1)
-    if counters is not None:
+
+    def lock_lanes():
+        ws_rows = torch.where(ws_active, base[ws_tbl] + ws_key, sent)
+        flat_ws = ws_rows.reshape(-1)
         # the won-vs-lost split needs the stamps from before arbitration,
         # which the lock kernels update in place
-        held = u32.shr(db.arb.index_select(0, flat_ws), K_ARB) == t - 1
+        held = (u32.shr(db.arb.index_select(0, flat_ws), K_ARB) == t - 1
+                if observed else None)
+        return ws_rows, flat_ws, ws_active.reshape(-1), held
 
-    # the magic check reads word 1 of each row the new cohort reads:
-    # pre-scaled flat word offsets, gathered with vw = 1
-    if check_magic:
+    def magic_lanes():
+        # word 1 of each row the new cohort reads: pre-scaled flat word
+        # offsets, gathered with vw = 1; the mirror is the flat word prefix
+        # [0, hn*VW), so a hot row's magic word sits at the same offset
         midx = (rows * val_words + 1).reshape(-1)
-        # the mirror is the flat word prefix [0, hn*VW): a hot row's magic
-        # word sits at the same flat offset in it
         mg_midx = (torch.where((rows < hn).reshape(-1), midx, -1)
                    if use_hotset else None)
+        return midx, mg_midx
+
+    def magic_count(rmagic):
+        # reads of present rows whose magic word is not the populate magic
+        rex = (rmeta & 1) != 0
+        return (is_read & rex & (rmagic.view(w, K) != MAGIC)).sum(dtype=I32)
+
     if use_fused:
         # c1's validate re-read, the new cohort's meta read and the lock
         # pass in one launch; it reads meta after the installs above
-        _, grant, vbad, rmeta = lock_validate(
-            db.arb, db.meta, c1.rows.reshape(-1), c1.vv1.reshape(-1),
-            rows.reshape(-1), flat_ws, active, t, K_ARB)
-        rmeta = rmeta.view(w, K)
+        with waves.scope("tatp_dense", "lock_validate"):
+            ws_rows, flat_ws, active, held = lock_lanes()
+            _, grant, vbad, rmeta = lock_validate(
+                db.arb, db.meta, c1.rows.reshape(-1), c1.vv1.reshape(-1),
+                rows.reshape(-1), flat_ws, active, t, K_ARB)
+            rmeta = rmeta.view(w, K)
         bad = c1.is_read & vbad.view(w, K)
         if check_magic:
-            rmagic = (gather_rows_hot(db.val, db.hot_val, midx, mg_midx, 1)
-                      if use_hotset else gather_rows(db.val, midx, 1))
+            with waves.scope("tatp_dense", "magic_gather"):
+                midx, mg_midx = magic_lanes()
+                rmagic = (gather_rows_hot(db.val, db.hot_val, midx, mg_midx,
+                                          1)
+                          if use_hotset else gather_rows(db.val, midx, 1))
+                magic_bad = magic_count(rmagic)
     else:
         # ONE meta gather serves wave 2 (c1's validate re-read) AND wave 1
         # (the new cohort's reads); the magic gather is the second stream
         # of its launch (both read after the installs above, and nothing
         # between them writes meta or val)
-        gidx = torch.cat([c1.rows.reshape(-1), rows.reshape(-1)])
-        tabs, idxs = [db.meta], [gidx]
-        if check_magic:
-            tabs.append(db.val)
-            idxs.append(midx)
-        vws = (1,) * len(tabs)
-        if use_hotset:
-            g_midx = torch.where(gidx < hn, gidx, -1)
-            mirrors, midxs = [db.hot_meta], [g_midx]
+        with waves.scope("tatp_dense", "meta_gather"):
+            gidx = torch.cat([c1.rows.reshape(-1), rows.reshape(-1)])
+            tabs, idxs = [db.meta], [gidx]
             if check_magic:
-                mirrors.append(db.hot_val)
-                midxs.append(mg_midx)
-            g, *rest = gather_rows_hot(tabs, mirrors, idxs, midxs, vws)
-        else:
-            g, *rest = gather_rows(tabs, idxs, vws)
-        if check_magic:
-            rmagic, = rest
-        vvB = g[: w * K].view(w, K)
-        rmeta = g[w * K:].view(w, K)
+                midx, mg_midx = magic_lanes()
+                tabs.append(db.val)
+                idxs.append(midx)
+            vws = (1,) * len(tabs)
+            if use_hotset:
+                g_midx = torch.where(gidx < hn, gidx, -1)
+                mirrors, midxs = [db.hot_meta], [g_midx]
+                if check_magic:
+                    mirrors.append(db.hot_val)
+                    midxs.append(mg_midx)
+                g, *rest = gather_rows_hot(tabs, mirrors, idxs, midxs, vws)
+            else:
+                g, *rest = gather_rows(tabs, idxs, vws)
+            vvB = g[: w * K].view(w, K)
+            rmeta = g[w * K:].view(w, K)
         bad = c1.is_read & (vvB != c1.vv1)
+        if check_magic:
+            # the magic words came with the meta gather's launch
+            with waves.scope("tatp_dense", "magic_gather"):
+                magic_bad = magic_count(rest[0])
 
     # ---- wave 2 of c1: validate read-set version compare ------------------
     changed = bad.any(dim=1)
-    if counters is not None:
+    if observed:
+        # lanes of surviving RW txns checked / failed; c1's alive before
+        # the verdict is the wave-2 outcome events' mask
         v_alive = c1.is_read & c1.alive[:, None]
-        v_lanes = v_alive.sum(dtype=I32)
-        v_failed = (bad & v_alive).sum(dtype=I32)
+        v_bad = bad & v_alive
+        c1_alive_pre = c1.alive
     c1 = dataclasses.replace(c1, alive=c1.alive & ~changed,
                              ab_validate=(c1.alive & changed).sum(dtype=I32))
 
     rex = (rmeta & 1) != 0
-    if check_magic:
-        magic_bad = (is_read & rex & (rmagic.view(w, K) != MAGIC)).sum(
-            dtype=I32)
-    else:
+    if not check_magic:
         magic_bad = torch.zeros((), dtype=I32, device=dev)
 
     # lock arbitration in [w, 2] write-slot space: first slot wins per row
@@ -509,7 +545,9 @@ def pipe_step(db: DenseDB, c1: DenseCtx, c2: DenseCtx, bits, payload, *,
     # cannot keep a hot row locked. On the fused route it ran above.
     ws_vv = torch.take_along_dim(rmeta, ws_lane.to(torch.int64), dim=1)
     if not use_fused:
-        _, grant = lock_arbitrate(db.arb, flat_ws, active, t, K_ARB)
+        with waves.scope("tatp_dense", "lock"):
+            ws_rows, flat_ws, active, held = lock_lanes()
+            _, grant = lock_arbitrate(db.arb, flat_ws, active, t, K_ARB)
     grant = grant.view(w, 2)
 
     # reply types: reads from the gather; write-slot GRANT/REJECT direct
@@ -542,55 +580,94 @@ def pipe_step(db: DenseDB, c1: DenseCtx, c2: DenseCtx, bits, payload, *,
 
     db.step = t + 1
     out = (db, new_ctx, c1, _stats_of(c2))
-    if counters is None:
-        return out
     grant_l = grant.reshape(-1)
-    upd = {}
-    if use_hotset:
-        # partition accounting over the meta and magic gathers; the fused
-        # route reads meta from the main table, so only the magic gather
-        # is partitioned there. Refresh bytes are what the JAX kernel
-        # route (use_pallas) counts.
-        if use_fused:
-            hits, lanes, refresh = 0, 0, 0
-        else:
-            hits, lanes, refresh = ((g_midx >= 0).sum(dtype=I32),
-                                    2 * w * K, hn * 4)
-        if check_magic:
-            hits = hits + (mg_midx >= 0).sum(dtype=I32)
-            lanes += w * K
-            refresh += hn * val_words * 4
-        upd.update({mon.CTR_HOT_HITS: hits,
-                    mon.CTR_HOT_COLD_ROWS: lanes - hits,
-                    mon.CTR_HOT_REFRESH_BYTES: refresh})
-    if occupancy is not None:
-        upd.update({mon.CTR_SERVE_OCC_LANES: occ,
-                    mon.CTR_SERVE_PAD_LANES: w - occ,
-                    mon.CTR_SERVE_SHED_LANES: 0 if shed is None else shed})
-    n_writes = wmask.sum(dtype=I32)
-    upd.update({
-        mon.CTR_STEPS: 1,
-        mon.CTR_TXN_ATTEMPTED: c2.attempted,
-        mon.CTR_TXN_COMMITTED: (c2.ro_commit | c2.alive).sum(dtype=I32),
-        mon.CTR_AB_LOCK: c2.ab_lock,
-        mon.CTR_AB_MISSING: c2.ab_missing,
-        mon.CTR_AB_VALIDATE: c2.ab_validate,
-        mon.CTR_MAGIC_BAD: c2.magic_bad,
-        mon.CTR_LOCK_REQUESTS: active.sum(dtype=I32),
-        mon.CTR_LOCK_GRANTED: (active & grant_l).sum(dtype=I32),
-        mon.CTR_LOCK_REJECTED: (active & ~grant_l).sum(dtype=I32),
-        mon.CTR_LOCK_REJECT_HELD: (active & held).sum(dtype=I32),
-        mon.CTR_LOCK_REJECT_ARB: (active & ~held & ~grant_l).sum(dtype=I32),
-        mon.CTR_VALIDATE_LANES: v_lanes,
-        mon.CTR_VALIDATE_FAILED: v_failed,
-        mon.CTR_INSTALL_WRITES: n_writes,
-        mon.CTR_LOG_APPENDS: n_writes,
-        mon.CTR_DISPATCH_PALLAS: 1,       # the port runs the kernel route
-        **({mon.CTR_FUSED_DISPATCH: 1} if use_fused else {}),
-    })
-    mon.bump(counters, upd)
-    mon.gauge_max(counters, {mon.CTR_RING_HWM: u32.to_u64(db.log.head).max()})
-    return out + (counters,)
+    if counters is not None:
+        upd = {}
+        if use_hotset:
+            # partition accounting over the meta and magic gathers; the
+            # fused route reads meta from the main table, so only the magic
+            # gather is partitioned there. Refresh bytes are what the JAX
+            # kernel route (use_pallas) counts.
+            if use_fused:
+                hits, lanes, refresh = 0, 0, 0
+            else:
+                hits, lanes, refresh = ((g_midx >= 0).sum(dtype=I32),
+                                        2 * w * K, hn * 4)
+            if check_magic:
+                hits = hits + (mg_midx >= 0).sum(dtype=I32)
+                lanes += w * K
+                refresh += hn * val_words * 4
+            upd.update({mon.CTR_HOT_HITS: hits,
+                        mon.CTR_HOT_COLD_ROWS: lanes - hits,
+                        mon.CTR_HOT_REFRESH_BYTES: refresh})
+        if occupancy is not None:
+            upd.update({mon.CTR_SERVE_OCC_LANES: occ,
+                        mon.CTR_SERVE_PAD_LANES: w - occ,
+                        mon.CTR_SERVE_SHED_LANES: 0 if shed is None
+                        else shed})
+        n_writes = wmask.sum(dtype=I32)
+        upd.update({
+            mon.CTR_STEPS: 1,
+            mon.CTR_TXN_ATTEMPTED: c2.attempted,
+            mon.CTR_TXN_COMMITTED: (c2.ro_commit | c2.alive).sum(dtype=I32),
+            mon.CTR_AB_LOCK: c2.ab_lock,
+            mon.CTR_AB_MISSING: c2.ab_missing,
+            mon.CTR_AB_VALIDATE: c2.ab_validate,
+            mon.CTR_MAGIC_BAD: c2.magic_bad,
+            mon.CTR_LOCK_REQUESTS: active.sum(dtype=I32),
+            mon.CTR_LOCK_GRANTED: (active & grant_l).sum(dtype=I32),
+            mon.CTR_LOCK_REJECTED: (active & ~grant_l).sum(dtype=I32),
+            mon.CTR_LOCK_REJECT_HELD: (active & held).sum(dtype=I32),
+            mon.CTR_LOCK_REJECT_ARB: (active & ~held & ~grant_l).sum(
+                dtype=I32),
+            mon.CTR_VALIDATE_LANES: v_alive.sum(dtype=I32),
+            mon.CTR_VALIDATE_FAILED: v_bad.sum(dtype=I32),
+            mon.CTR_INSTALL_WRITES: n_writes,
+            mon.CTR_LOG_APPENDS: n_writes,
+            mon.CTR_DISPATCH_PALLAS: 1,       # the port runs the kernel route
+            **({mon.CTR_FUSED_DISPATCH: 1} if use_fused else {}),
+        })
+        mon.bump(counters, upd)
+        mon.gauge_max(counters,
+                      {mon.CTR_RING_HWM: u32.to_u64(db.log.head).max()})
+        out += (counters,)
+    if ring is not None:
+        # dinttrace: a txn id is gen_step*w + lane (c1 generated at t-1, c2
+        # at t-2), so a txn's events join with no id in the carry. The
+        # outcome masks mirror the counters: ro commits and lock/missing
+        # aborts classify at wave 1, rw commits and validate aborts at
+        # wave 2, so full-rate event counts reconcile with the ledger.
+        with waves.scope("tatp_dense", "trace"):
+            txn_new, txn_c1, txn_c2 = (txe.txn_ids(t - d, w, consts.lane)
+                                       for d in range(3))
+            lock_aux = (torch.where(grant_l, txe.LOCK_GRANTED, 0)
+                        | torch.where(held, txe.LOCK_HELD, 0))
+            lock_ab = rw & lock_rejected
+            miss_m = (rw & ~lock_rejected & missing) | (is_ro & missing)
+            out1_cause = torch.where(
+                lock_ab, txe.CAUSE_LOCK,
+                torch.where(miss_m, txe.CAUSE_MISSING, txe.CAUSE_COMMIT))
+            out2_cause = torch.where(changed, txe.CAUSE_VALIDATE,
+                                     txe.CAUSE_COMMIT)
+            lock_w, val_w, inst_w = (waves.full_name("tatp_dense", n)
+                                     for n in ("lock", "meta_gather",
+                                               "install"))
+            groups = (
+                txe.ev(active, txn_new.repeat_interleave(2), txe.EV_LOCK,
+                       lock_w, aux=lock_aux, step=t),
+                txe.ev(v_alive.reshape(-1), txn_c1.repeat_interleave(K),
+                       txe.EV_VALIDATE, val_w, aux=v_bad.reshape(-1),
+                       step=t),
+                txe.ev(wmask, txn_c2.repeat_interleave(2), txe.EV_INSTALL,
+                       inst_w, step=t),
+                txe.ev(lock_ab | miss_m | new_ctx.ro_commit, txn_new,
+                       txe.EV_OUTCOME, lock_w, aux=out1_cause, step=t),
+                txe.ev(c1_alive_pre, txn_c1, txe.EV_OUTCOME, val_w,
+                       aux=out2_cause, step=t),
+            )
+            txe.emit(ring, tcfg, groups, counters)
+        out += (ring,)
+    return out
 
 
 def rebase_stamps(db: DenseDB) -> DenseDB:
@@ -598,12 +675,14 @@ def rebase_stamps(db: DenseDB) -> DenseDB:
     live stamps (step-1 -> 2, step-2 -> 1) are kept, everything older is
     zeroed, and the step counter restarts at 3. One elementwise pass over
     arb, once per ~12k steps; in place."""
-    t = db.step
-    ts = u32.to_u64(u32.shr(db.arb, K_ARB))
-    keep = ts + 2 >= t
-    new_ts = torch.where(keep, ts - (t - 3), 0)
-    low = u32.to_u64(db.arb) & ((1 << K_ARB) - 1)
-    db.arb.copy_(u32.wrap_i32(torch.where(keep, (new_ts << K_ARB) | low, 0)))
+    with waves.scope("tatp_dense", "rebase"):
+        t = db.step
+        ts = u32.to_u64(u32.shr(db.arb, K_ARB))
+        keep = ts + 2 >= t
+        new_ts = torch.where(keep, ts - (t - 3), 0)
+        low = u32.to_u64(db.arb) & ((1 << K_ARB) - 1)
+        db.arb.copy_(u32.wrap_i32(torch.where(keep, (new_ts << K_ARB) | low,
+                                              0)))
     db.step = 3
     return db
 
@@ -612,14 +691,15 @@ def build_pipelined_runner(n_sub: int, w: int = 8192, val_words: int = 10,
                            cohorts_per_block: int = 8, mix=None,
                            check_magic: bool = True, use_hotset: bool = False,
                            hot_frac=None, use_fused: bool = False,
-                           monitor: bool = False, serve: bool = False,
-                           device=None):
+                           monitor: bool = False, trace=None,
+                           trace_rate=None, trace_cap=None,
+                           serve: bool = False, device=None):
     """A loop of `pipe_step` over carry (db, c1, c2); the contract of the
     JAX `build_pipelined_runner`: returns (run, init, drain).
 
     * ``run(carry, gen)`` draws a block's ``[cpb, w, 4]`` bits and
       ``[cpb, w, 2]`` payloads with the torch generator ``gen`` on the
-      device and calls ``run.run_draws``;
+      device (in the ``gen`` wave's scope) and calls ``run.run_draws``;
     * ``run.run_draws(carry, bits, payload)`` runs ``cohorts_per_block``
       steps on the given draws (int32 tensors on the runner's device; bits
       hold u32 patterns) and returns (carry, stats i32 [cpb, N_STATS]);
@@ -639,7 +719,14 @@ def build_pipelined_runner(n_sub: int, w: int = 8192, val_words: int = 10,
     ``shed`` device i32 [cpb]: step i masks lanes >= occ[i] to no-ops and
     mirrors shed[i] onto the counters; nothing is read back to the host.
     ``monitor``: the carry gains a trailing `monitor.counters.Counters`
-    (made by ``init``), and ``drain`` returns (db, stats, counters)."""
+    (made by ``init``), and ``drain`` returns (db, stats, counters).
+    ``trace``/``trace_rate``/``trace_cap``: the dinttrace flight recorder
+    (None = DINT_TRACE / DINT_TRACE_RATE). On, the carry gains a
+    `monitor.txnevents.TxnRing` BEFORE the counters, zeroed at each block
+    and drain entry; ``trace_cap`` defaults to a full block of candidates
+    (w*(K+6) a step), so nothing drops at rate 1.0; ``init.trace_cfg`` is
+    the resolved `TraceCfg` (None when off), and ``drain`` returns (db,
+    stats, ring[, counters])."""
     dev = resolve_device(device)
     if 2 * w > (1 << K_ARB):
         raise ValueError(f"w={w} exceeds the arb slot field")
@@ -648,16 +735,28 @@ def build_pipelined_runner(n_sub: int, w: int = 8192, val_words: int = 10,
     if use_hotset:
         frac = 0.04 if hot_frac is None else float(hot_frac)
         hot_rows = max(1, min(int((n_sub + 1) * frac), n_rows(n_sub)))
+    trace_on = txe.trace_enabled(trace)
+    tcfg = None
+    n_step = w * (K + 6)   # candidate events a step: lock 2w + validate wK
+    #                        + install 2w + outcome x2 (2w)
+    if trace_on:
+        cap = int(trace_cap) if trace_cap else n_step * cpb
+        tcfg = txe.TraceCfg(rate=txe.trace_rate(trace_rate), cap=cap,
+                            wave=waves.full_name("tatp_dense", "trace"))
     kw = dict(w=w, n_sub=n_sub, val_words=val_words, mix=mix,
               check_magic=check_magic, use_hotset=use_hotset,
-              use_fused=use_fused, consts=step_consts(n_sub, w, mix, dev))
+              use_fused=use_fused, tcfg=tcfg,
+              consts=step_consts(n_sub, w, mix, dev))
 
     def step(carry, bits, payload, occ=None, shed=None, gen_new=True):
+        # the ring and the counters are updated in place: carry[3:] holds
+        # them after the step as before it
         db, c1, c2 = carry[:3]
         out = pipe_step(db, c1, c2, bits, payload, gen_new=gen_new,
                         occupancy=occ, shed=shed,
-                        counters=carry[3] if monitor else None, **kw)
-        return out[:3] + out[4:], out[3]
+                        counters=carry[-1] if monitor else None,
+                        ring=carry[3] if trace_on else None, **kw)
+        return out[:3] + carry[3:], out[3]
 
     def run_draws(carry, bits, payload, occ=None, shed=None):
         if tuple(bits.shape) != (cpb, w, 4) or \
@@ -670,6 +769,8 @@ def build_pipelined_runner(n_sub: int, w: int = 8192, val_words: int = 10,
                              "closed-loop runner takes neither")
         if carry[0].step >= REBASE_AT:
             rebase_stamps(carry[0])
+        if trace_on:        # each drained window is self-contained
+            txe.reset(carry[3])
         stats = []
         for i in range(cpb):
             # carry (db, c1, c2) -> (db, new cohort, c1')
@@ -679,9 +780,10 @@ def build_pipelined_runner(n_sub: int, w: int = 8192, val_words: int = 10,
         return carry, torch.stack(stats)
 
     def run(carry, gen: torch.Generator, occ=None, shed=None):
-        bits = draw_bits(gen, (cpb, w, 4), dev)
-        payload = torch.randint(0, 1 << 16, (cpb, w, 2), dtype=I32,
-                                generator=gen, device=dev)
+        with waves.scope("tatp_dense", "gen"):
+            bits = draw_bits(gen, (cpb, w, 4), dev)
+            payload = torch.randint(0, 1 << 16, (cpb, w, 2), dtype=I32,
+                                    generator=gen, device=dev)
         return run_draws(carry, bits, payload, occ, shed)
 
     run.run_draws = run_draws
@@ -692,7 +794,11 @@ def build_pipelined_runner(n_sub: int, w: int = 8192, val_words: int = 10,
         if use_hotset and db.hot_n == 0:
             db = attach_hotset(db, hot_rows)
         return ((db, empty_ctx(w, dev), empty_ctx(w, dev))
+                + ((txe.create_ring(tcfg.cap, dev, spill=n_step),)
+                   if trace_on else ())
                 + ((mon.create(dev),) if monitor else ()))
+
+    init.trace_cfg = tcfg
 
     def drain(carry, payload=None):
         if payload is None:
@@ -700,6 +806,8 @@ def build_pipelined_runner(n_sub: int, w: int = 8192, val_words: int = 10,
             g.manual_seed(0)
             payload = torch.randint(0, 1 << 16, (2, w, 2), dtype=I32,
                                     generator=g, device=dev)
+        if trace_on:
+            txe.reset(carry[3])
         carry, s1 = step(carry, None, payload[0], gen_new=False)
         carry = (carry[0], empty_ctx(w, dev)) + carry[2:]
         carry, s2 = step(carry, None, payload[1], gen_new=False)

@@ -37,6 +37,7 @@ import torch
 from ..clients import workloads as wl
 from ..device import resolve_device
 from ..monitor import counters as mon
+from ..monitor import waves
 from ..ops.u32 import i32_bits, to_u64, wrap_i32
 from . import tatp
 from .types import PAD_KEY, Batch, Op, Replies, Reply
@@ -451,8 +452,10 @@ def pipe_step(stacked, c1: PipeCtx, c2: PipeCtx, bits, payload, *, w: int,
     dev = payload.device
     r = w * K
     if gen_new:
-        ttype, ops, tbl, kk, ws = gen_cohort_from_bits(bits, w, n_sub,
-                                                       mix=mix, tables=tables)
+        with waves.scope("tatp_pipeline", "gen"):
+            ttype, ops, tbl, kk, ws = gen_cohort_from_bits(bits, w, n_sub,
+                                                           mix=mix,
+                                                           tables=tables)
         ws_active, ws_lane, ws_tbl, ws_key, ws_kind = ws
     else:
         e = empty_ctx(w, dev)
@@ -462,52 +465,59 @@ def pipe_step(stacked, c1: PipeCtx, c2: PipeCtx, bits, payload, *, w: int,
         ws_tbl, ws_key, ws_kind = e.ws_tbl, e.ws_key, e.ws_kind
 
     # ---- assemble the combined batch [12w lanes]
-    a_op, a_tbl, a_key, a_owner, a_used = _wave1_lanes(ops, tbl, kk)
-    b_op, b_tbl, b_key, b_owner, b_used, is_read_lane = _validate_lanes(
-        c1.ops, c1.tbl, c1.kk, c1.alive)
-    c_op_s, c_tbl, c_key, c_val = _wave3_lanes(
-        c2.ws_active, c2.ws_tbl, c2.ws_key, c2.ws_kind, c2.granted, c2.alive,
-        payload, val_words)
-    lane_tbl = torch.cat([a_tbl, b_tbl, c_tbl])
-    lane_key = torch.cat([a_key, b_key, c_key])
-    lane_val = torch.cat([torch.zeros((2 * r, val_words), dtype=I32,
-                                      device=dev), c_val])
-    op_s = torch.cat([_owner_ops(a_owner, a_used, a_op),
-                      _owner_ops(b_owner, b_used, b_op), c_op_s], dim=1)
-    rep = _step_all(tatp.step, stacked, _broadcast_batch(
-        op_s, lane_tbl, lane_key, lane_val, torch.zeros_like(lane_key)))
+    with waves.scope("tatp_pipeline", "assemble"):
+        a_op, a_tbl, a_key, a_owner, a_used = _wave1_lanes(ops, tbl, kk)
+        b_op, b_tbl, b_key, b_owner, b_used, is_read_lane = _validate_lanes(
+            c1.ops, c1.tbl, c1.kk, c1.alive)
+        c_op_s, c_tbl, c_key, c_val = _wave3_lanes(
+            c2.ws_active, c2.ws_tbl, c2.ws_key, c2.ws_kind, c2.granted,
+            c2.alive,
+            payload, val_words)
+        lane_tbl = torch.cat([a_tbl, b_tbl, c_tbl])
+        lane_key = torch.cat([a_key, b_key, c_key])
+        lane_val = torch.cat([torch.zeros((2 * r, val_words), dtype=I32,
+                                          device=dev), c_val])
+        op_s = torch.cat([_owner_ops(a_owner, a_used, a_op),
+                          _owner_ops(b_owner, b_used, b_op), c_op_s], dim=1)
+    with waves.scope("tatp_pipeline", "engine_step"):
+        rep = _step_all(tatp.step, stacked, _broadcast_batch(
+            op_s, lane_tbl, lane_key, lane_val, torch.zeros_like(lane_key)))
 
     # ---- wave-1 outcome for the new cohort
-    rtA = _merge(a_owner, rep.rtype[:, :r]).view(w, K)
-    rvA = _merge(a_owner, rep.val[:, :r])
-    rverA = _merge(a_owner, rep.ver[:, :r]).view(w, K)
-    magic_bad = _count((rtA.reshape(r) == Reply.VAL) & (rvA[:, 1] != MAGIC))
-    is_ro, rw, granted, lock_rejected, missing = classify_wave1(
-        ttype, rtA, ops, ws_active, ws_lane)
-    new_ctx = PipeCtx(
-        ops=ops, tbl=tbl, kk=kk, rver1=rverA, rt1_val=rtA == Reply.VAL,
-        granted=granted, alive=rw & ~lock_rejected & ~missing,
-        ro_commit=is_ro & ~missing, ws_active=ws_active, ws_tbl=ws_tbl,
-        ws_key=ws_key, ws_kind=ws_kind,
-        attempted=torch.full((), w if gen_new else 0, dtype=I32, device=dev),
-        ab_lock=_count(rw & lock_rejected),
-        ab_missing=_count((rw & ~lock_rejected & missing) | (is_ro & missing)),
-        ab_validate=torch.zeros((), dtype=I32, device=dev),
-        magic_bad=magic_bad)
+    with waves.scope("tatp_pipeline", "classify"):
+        rtA = _merge(a_owner, rep.rtype[:, :r]).view(w, K)
+        rvA = _merge(a_owner, rep.val[:, :r])
+        rverA = _merge(a_owner, rep.ver[:, :r]).view(w, K)
+        magic_bad = _count((rtA.reshape(r) == Reply.VAL)
+                           & (rvA[:, 1] != MAGIC))
+        is_ro, rw, granted, lock_rejected, missing = classify_wave1(
+            ttype, rtA, ops, ws_active, ws_lane)
+        new_ctx = PipeCtx(
+            ops=ops, tbl=tbl, kk=kk, rver1=rverA, rt1_val=rtA == Reply.VAL,
+            granted=granted, alive=rw & ~lock_rejected & ~missing,
+            ro_commit=is_ro & ~missing, ws_active=ws_active, ws_tbl=ws_tbl,
+            ws_key=ws_key, ws_kind=ws_kind,
+            attempted=torch.full((), w if gen_new else 0, dtype=I32,
+                                 device=dev),
+            ab_lock=_count(rw & lock_rejected),
+            ab_missing=_count((rw & ~lock_rejected & missing)
+                              | (is_ro & missing)),
+            ab_validate=torch.zeros((), dtype=I32, device=dev),
+            magic_bad=magic_bad)
 
-    # ---- validate outcome for c1
-    rtB = _merge(b_owner, rep.rtype[:, r:2 * r]).view(w, K)
-    rverB = _merge(b_owner, rep.ver[:, r:2 * r]).view(w, K)
-    bad_lane = is_read_lane & ((rverB != c1.rver1)
-                               | ((rtB != Reply.VAL) & c1.rt1_val))
-    changed = bad_lane.any(dim=1)
-    c1 = dataclasses.replace(c1, alive=c1.alive & ~changed,
-                             ab_validate=_count(c1.alive & changed))
+        # ---- validate outcome for c1
+        rtB = _merge(b_owner, rep.rtype[:, r:2 * r]).view(w, K)
+        rverB = _merge(b_owner, rep.ver[:, r:2 * r]).view(w, K)
+        bad_lane = is_read_lane & ((rverB != c1.rver1)
+                                   | ((rtB != Reply.VAL) & c1.rt1_val))
+        changed = bad_lane.any(dim=1)
+        c1 = dataclasses.replace(c1, alive=c1.alive & ~changed,
+                                 ab_validate=_count(c1.alive & changed))
 
-    # ---- c2 completed: its stats
-    stats = torch.stack([c2.attempted, _count(c2.ro_commit | c2.alive),
-                         c2.ab_lock, c2.ab_missing, c2.ab_validate,
-                         c2.magic_bad])
+        # ---- c2 completed: its stats
+        stats = torch.stack([c2.attempted, _count(c2.ro_commit | c2.alive),
+                             c2.ab_lock, c2.ab_missing, c2.ab_validate,
+                             c2.magic_bad])
     if counters is None:
         return stacked, new_ctx, c1, stats
     n_writes = _count(c2.ws_active & c2.alive[:, None])  # wave-3 do_write
