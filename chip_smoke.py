@@ -255,6 +255,32 @@ mismatch or error:
    dint_tpu_torch.profile_step --route fused --trace` read by
    `attrib.report`; then the untraced TATP leg in-process with 2 s
    windows and DINT_SCOPE=0, 1, 1, 0.
+16. The sweeps and the calibration plane (after phase 15). (a)
+   `exp.sweep_pipeline` over TATP at 7,000,000 subscribers, 4 cohorts a
+   block, 2 s windows, the plan's route: closed w=8192, open at 0.5 and
+   0.9 of its peak, latency w=256; then a closed point under
+   DINT_PLAN_OVERRIDE=1 DINT_USE_FUSED=1. Every point has exp.py's
+   artifact keys, committed + aborts == attempted, magic_bad 0, and the
+   route's kernels launched. (b) SmallBank at 24,000,000 accounts: closed
+   w=8192, open 0.5; the skew preset at hot_frac 0.16 with the hot tier.
+   (c) a closed TATP point with DINT_TRACE=1 (its events reconcile with
+   the stats of every block observed, none dropped; its goodput over
+   (a)'s), then a 0.5 s closed point under DINT_EXP_TRACE_DIR: every
+   device slice linked to its launch, every hand-kernel slice charged to
+   a wave; the trace's size and parse time. (d) `exp.sweep_serve` over
+   tatp_dense at 7M, widths 256-8192, the _sat probe and rates 0.5 and
+   1.1 of it, 1.5 s windows: offered == admitted + shed, occupancy +
+   padded lanes == width x serving steps, each point's peak memory. (e)
+   `dintserve run --journal` at 7M, `dintcal audit` of its journal clean.
+   (f) four single-width serve runs at 7M (256, 1024, 4096, 8192; 1 s at
+   half the width's closed-loop rate, tables from `populate_device`),
+   `dintcal gather` + `fit`, the refit of the calibration's samples equal
+   to its coefficients, `check_calib` of the committed CALIB_H100.json
+   against this evidence (printed), `dintserve simulate` reading the fresh
+   calibration. The evidence, the calibration and their committed forms
+   (CALIB_H100.evidence.json, CALIB_H100.json) go to $DINT_SMOKE_OUT when
+   set. (g) `python -m dint_tpu_torch.drive`: every check passes, scan_rows
+   launched.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -4748,6 +4774,618 @@ def phase_observability(dev, card):
     return paths
 
 
+# ------------------------------------------ the sweeps and the calibration
+
+P16_CPB = 4                      # exp.py's cohorts a block
+P16_WINDOW_S = 2.0               # (a), (b), (c): each pipeline window
+P16_PROF_WINDOW_S = 0.5          # (c): the profiled window
+P16_SERVE_WINDOW_S = 1.5         # (d): each rate point's schedule
+P16_SERVE_RATES = (0.5, 1.1)
+P16_CAL_WIDTHS = (256, 1024, 4096, 8192)
+P16_CAL_WINDOW_S = 1.0
+P16_SKEW_FRAC = 0.16
+# exp.py's artifact keys (its points at n_sub 2000, w 256, read off the
+# JAX package's sweep), by point kind
+P16_BASE = {"throughput", "goodput", "abort_rate", "avg_us", "p50_us",
+            "p99_us", "p999_us", "device_duty", "schema", "lat_hist",
+            "breakdown", "plan", "mode", "width"}
+P16_KEYS = {
+    "closed": P16_BASE | {"host_ucores", "host_kcores", "proc_ucores",
+                          "proc_kcores", "counters", "dinttrace"},
+    "open": P16_BASE | {"target_rate", "offered_rate", "load_frac", "queue",
+                        "service"},
+    "latency": P16_BASE | {"cpb", "steps", "lat_samples"},
+}
+P16_AB = {"tatp": {"ab_lock", "ab_missing", "ab_validate"},
+          "smallbank": {"ab_lock", "ab_logic"}}
+P16_SKEW_KEYS = {"hot_frac", "hot_prob", "use_hotset"}
+P16_SERVE_KEYS = {"throughput", "goodput", "abort_rate", "avg_us", "p50_us",
+                  "p99_us", "p999_us", "device_duty", "load", "mode",
+                  "engine", "widths", "offered", "admitted", "shed",
+                  "blocks", "offered_rate", "achieved_rate", "slo_us",
+                  "slo_met", "service", "controller", "serve_counters",
+                  "schema", "lat_hist", "breakdown", "plan"}
+
+
+class _Env:
+    """Set environment variables for a ``with`` block (None unsets), and
+    put back what was there."""
+
+    def __init__(self, **kv):
+        self.kv, self.old = kv, {}
+
+    def __enter__(self):
+        for k, v in self.kv.items():
+            self.old[k] = os.environ.get(k)
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+P16_ENV = dict(DINT_TRACE=None, DINT_MONITOR=None, DINT_EXP_TRACE_DIR=None,
+               DINT_PLAN_OVERRIDE=None, DINT_USE_FUSED=None,
+               DINT_USE_HOTSET=None, DINT_CALIB_PATH=None)
+
+
+class PointSink(dict):
+    """exp's results: as each point lands, its kernel launches and the
+    peak device memory since the previous point landed (or since the sink
+    was made) are kept beside it and both are reset."""
+
+    def __init__(self):
+        super().__init__()
+        self.launches, self.peak = {}, {}
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+
+    def __setitem__(self, name, block):
+        super().__setitem__(name, block)
+        self.launches[name] = launch_counts()
+        self.peak[name] = torch.cuda.max_memory_allocated()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _p16_counted(runner_fn, rec):
+    """``runner_fn`` whose runs and drains keep every block's stats in
+    ``rec`` (warm blocks included) and hand on the traced runner's
+    ``txn_monitor``."""
+    def fn(w, b):
+        run, carry, drain = runner_fn(w, b)
+
+        def counted(carry, gen):
+            carry, s = run(carry, gen)
+            rec["stats"].append(s)
+            return carry, s
+
+        def drained(carry):
+            out = drain(carry)
+            rec["stats"].append(out[1])
+            return out
+
+        counted.txn_monitor = getattr(run, "txn_monitor", None)
+        rec["tmon"] = counted.txn_monitor
+        return counted, carry, drained
+    return fn
+
+
+def _p16_extras(engine, extras_fn):
+    """exp's extras with the accounting checked: committed plus the abort
+    counts equals attempted, magic_bad 0."""
+    from dint_tpu_torch.engines import smallbank_dense as sd
+    from dint_tpu_torch.engines import tatp_dense as td
+    stat = td if engine == "tatp" else sd
+
+    def fn(total):
+        att, com, extra = extras_fn(total)
+        aborts = sum(extra[k] for k in P16_AB[engine])
+        check(com + aborts == att > 0
+              and int(total[stat.STAT_MAGIC_BAD]) == 0,
+              f"{engine}: committed {com:,} + aborts {aborts:,} == attempted "
+              f"{att:,}, magic_bad 0", quiet=True)
+        return att, com, extra
+    return fn
+
+
+def _p16_point(card, res, name, kind, engine, extra_keys=()):
+    blk = res[name]
+    want = P16_KEYS[kind] | P16_AB[engine] | set(extra_keys)
+    check(set(blk) == want, f"{name}: exp.py's artifact keys"
+          + ("" if set(blk) == want else
+             f" (extra {set(blk) - want}, missing {want - set(blk)})"))
+    line = (f"  {name}: goodput {blk['goodput']:,.1f} txn/s, throughput "
+            f"{blk['throughput']:,.1f}, abort {blk['abort_rate']}, p50 "
+            f"{blk['p50_us']} p99 {blk['p99_us']} us")
+    if kind == "open":
+        check(blk["offered_rate"] > 0 and isinstance(blk["queue"], dict)
+              and isinstance(blk["service"], dict)
+              and "p99_us" in blk["queue"] and "p99_us" in blk["service"],
+              f"{name}: offered_rate, queue and service present")
+        line += (f"; target {blk['target_rate']:,.1f}/s offered "
+                 f"{blk['offered_rate']:,.1f}/s; queue p99 "
+                 f"{blk['queue']['p99_us']} service p99 "
+                 f"{blk['service']['p99_us']} us")
+    if kind == "latency":
+        line += f"; {blk['steps']} steps, {blk['lat_samples']} samples"
+    launches = {k: v for k, v in res.launches[name].items() if v}
+    print(line + f"; launches {launches}; peak {res.peak[name]:,} B  "
+          f"[{card}]")
+    return blk
+
+
+def phase_p16_pipeline(dev, card, trace_dir):
+    """(a)-(c): the TATP and SmallBank sweeps, the traced and profiled
+    points. Returns (paths, record)."""
+    from dint_tpu_torch import exp
+    from dint_tpu_torch.engines import smallbank_dense as sd
+    from dint_tpu_torch.engines import tatp_dense as td
+    from dint_tpu_torch.monitor import attrib
+    paths, out = {}, {}
+
+    def tatp_fn(n_sub):
+        return lambda w, b: exp._tatp_runner(n_sub, w, b, device=dev)
+
+    def sb_fn(w, b):
+        return exp._sb_runner(SB_N, w, b, device=dev)
+
+    print(f"== phase 16 (a): exp.sweep_pipeline, TATP at {N_SUB:,} "
+          f"subscribers: closed w={W}, open {P16_SERVE_RATES[0]} and 0.9 of "
+          f"its peak, latency w=256, {P16_CPB} cohorts a block, "
+          f"{P16_WINDOW_S} s windows, the plan's route; then a closed point "
+          f"on the fused route")
+    res = PointSink()
+    t0 = time.perf_counter()
+    exp.sweep_pipeline(
+        "tatp", tatp_fn(N_SUB), _p16_extras("tatp", exp._tatp_extras),
+        td.N_STATS, widths=[W], cpb=P16_CPB, depth=3,
+        magic_idx=td.STAT_MAGIC_BAD, window_s=P16_WINDOW_S,
+        open_rates=(0.5, 0.9), results=res, lat_widths=[256],
+        geom={"k": td.K, "vw": exp.TATP_VW}, device=dev)
+    kinds = {f"tatp_closed_w{W}": "closed", "tatp_open_50pct": "open",
+             "tatp_open_90pct": "open", "tatp_latency_w256": "latency"}
+    check(sorted(res) == sorted(kinds), f"(a) ran {sorted(res)}")
+    for name, kind in kinds.items():
+        blk = _p16_point(card, res, name, kind, "tatp")
+        out[name] = {k: blk[k] for k in ("goodput", "throughput", "p50_us",
+                                          "p99_us", "abort_rate")}
+        if kind == "open":
+            out[name].update(queue_p99_us=blk["queue"]["p99_us"],
+                             service_p99_us=blk["service"]["p99_us"],
+                             offered_rate=blk["offered_rate"])
+        paths[f"p16 {name}"] = res.launches[name]
+    for name in kinds:
+        check(res.launches[name]["gather_rows"] > 0
+              and res.launches[name]["lock_arbitrate"] > 0,
+              f"{name}: gather_rows and lock_arbitrate launched (the "
+              f"default route)", quiet=name != f"tatp_closed_w{W}")
+    untraced = res[f"tatp_closed_w{W}"]["goodput"]
+    with _Env(DINT_PLAN_OVERRIDE="1", DINT_USE_FUSED="1"):
+        res = PointSink()
+        exp.sweep_pipeline(
+            "tatp_fused", tatp_fn(N_SUB),
+            _p16_extras("tatp", exp._tatp_extras), td.N_STATS,
+            widths=[W], cpb=P16_CPB, depth=3, magic_idx=td.STAT_MAGIC_BAD,
+            window_s=P16_WINDOW_S, open_rates=(), results=res,
+            geom={"k": td.K, "vw": exp.TATP_VW}, device=dev)
+    name = f"tatp_fused_closed_w{W}"
+    blk = _p16_point(card, res, name, "closed", "tatp")
+    check(blk["plan"]["overridden"] == ["use_fused"]
+          and res.launches[name]["lock_validate"] > 0
+          and res.launches[name]["scatter_streams"] > 0
+          and res.launches[name]["lock_arbitrate"] == 0,
+          f"{name}: the override recorded, lock_validate and "
+          f"scatter_streams launched, lock_arbitrate not")
+    paths[f"p16 {name}"] = res.launches[name]
+    out[name] = {"goodput": blk["goodput"], "p99_us": blk["p99_us"]}
+    print(f"  (a) {time.perf_counter() - t0:.3f} s")
+
+    print(f"== phase 16 (b): SmallBank at {SB_N:,} accounts: closed w={SB_W}, "
+          f"open 0.5; the skew preset at hot_frac {P16_SKEW_FRAC} with the "
+          f"hot tier (DINT_PLAN_OVERRIDE=1 DINT_USE_HOTSET=1)")
+    t0 = time.perf_counter()
+    res = PointSink()
+    exp.sweep_pipeline(
+        "smallbank", sb_fn, _p16_extras("smallbank", exp._sb_extras),
+        sd.N_STATS, widths=[SB_W], cpb=P16_CPB, depth=2,
+        magic_idx=sd.STAT_MAGIC_BAD, window_s=P16_WINDOW_S,
+        open_rates=(0.5,), results=res,
+        point_extra=exp._sb_skew_extra(None, None, 0.9),
+        geom={"l": sd.L, "vw": sd.VW}, device=dev)
+    for name, kind in ((f"smallbank_closed_w{SB_W}", "closed"),
+                       ("smallbank_open_50pct", "open")):
+        # exp.py records the skew on the closed points only
+        blk = _p16_point(card, res, name, kind, "smallbank",
+                         P16_SKEW_KEYS if kind == "closed" else ())
+        check(res.launches[name]["gather_rows"] > 0,
+              f"{name}: gather_rows launched (the default route)")
+        paths[f"p16 {name}"] = res.launches[name]
+        out[name] = {"goodput": blk["goodput"], "p99_us": blk["p99_us"],
+                     "abort_rate": blk["abort_rate"]}
+    with _Env(DINT_PLAN_OVERRIDE="1", DINT_USE_HOTSET="1"):
+        res = PointSink()
+        exp.sweep_skew(SB_N, width=SB_W, cpb=P16_CPB, window_s=P16_WINDOW_S,
+                       results=res, fracs=(P16_SKEW_FRAC,), device=dev)
+    name = f"smallbank_skew_h{int(P16_SKEW_FRAC * 100):02d}_closed_w{SB_W}"
+    blk = _p16_point(card, res, name, "closed", "smallbank", P16_SKEW_KEYS)
+    check(blk["use_hotset"] is True and blk["hot_frac"] == P16_SKEW_FRAC
+          and res.launches[name]["gather_rows_hot"] > 0
+          and res.launches[name]["scatter_rows_hot"] > 0,
+          f"{name}: the hot tier built, gather_rows_hot and "
+          f"scatter_rows_hot launched")
+    paths[f"p16 {name}"] = res.launches[name]
+    out[name] = {"goodput": blk["goodput"], "p99_us": blk["p99_us"],
+                 "abort_rate": blk["abort_rate"]}
+    print(f"  (b) {time.perf_counter() - t0:.3f} s")
+
+    print(f"== phase 16 (c): a closed TATP point with DINT_TRACE=1 "
+          f"({P16_WINDOW_S} s), then one under DINT_EXP_TRACE_DIR "
+          f"({P16_PROF_WINDOW_S} s)")
+    t0 = time.perf_counter()
+    rec = {"stats": []}
+    with _Env(DINT_TRACE="1"):
+        res = PointSink()
+        exp.sweep_pipeline(
+            "tatp_traced", _p16_counted(tatp_fn(N_SUB), rec),
+            _p16_extras("tatp", exp._tatp_extras), td.N_STATS,
+            widths=[W], cpb=P16_CPB, depth=3, magic_idx=td.STAT_MAGIC_BAD,
+            window_s=P16_WINDOW_S, open_rates=(), results=res,
+            geom={"k": td.K, "vw": exp.TATP_VW}, device=dev)
+    name = f"tatp_traced_closed_w{W}"
+    blk = _p16_point(card, res, name, "closed", "tatp")
+    d = blk["dinttrace"]
+    tmon = rec.pop("tmon")
+    events = np.concatenate([np.asarray(r["events"], np.int64).reshape(-1, 4)
+                             for win in tmon.windows for r in win])
+    events = events.astype(np.uint32)
+    total = sum(s.cpu().numpy().astype(np.int64).sum(axis=0)
+                for s in rec["stats"])
+    kinds, causes = _obs_counts(events)
+    check(isinstance(d, dict) and d["dropped"] == 0
+          and d["dropped_windows"] == [] and d["events"] == len(events) > 0
+          and kinds["outcome"] == int(total[td.STAT_ATTEMPTED])
+          and causes["commit"] == int(total[td.STAT_COMMITTED])
+          and causes["ab_lock"] == int(total[td.STAT_AB_LOCK])
+          and causes["ab_missing"] == int(total[td.STAT_AB_MISSING])
+          and causes["ab_validate"] == int(total[td.STAT_AB_VALIDATE]),
+          f"{name}: the dinttrace summary ({d['events']:,} events, "
+          f"{d['windows']} windows) reconciles with the stats of every "
+          f"block it observed (outcomes {causes}), none dropped")
+    traced = blk["goodput"]
+    print(f"  traced / untraced closed goodput: {traced:,.1f} / "
+          f"{untraced:,.1f} = {traced / untraced:.4f}  [{card}]")
+    paths[f"p16 {name}"] = res.launches[name]
+    out[name] = {"goodput": traced, "ratio_to_untraced": traced / untraced,
+                 "events": d["events"], "windows": d["windows"]}
+    del tmon, events, rec
+    gc.collect()
+
+    tdir = os.path.join(trace_dir, "exp")
+    with _Env(DINT_EXP_TRACE_DIR=tdir):
+        res = PointSink()
+        exp.sweep_pipeline(
+            "tatp_profiled", tatp_fn(N_SUB),
+            _p16_extras("tatp", exp._tatp_extras), td.N_STATS,
+            widths=[W], cpb=P16_CPB, depth=3, magic_idx=td.STAT_MAGIC_BAD,
+            window_s=P16_PROF_WINDOW_S, open_rates=(), results=res,
+            geom={"k": td.K, "vw": exp.TATP_VW}, device=dev)
+    name = f"tatp_profiled_closed_w{W}"
+    blk = _p16_point(card, res, name, "closed", "tatp")
+    bd = blk["breakdown"]
+    path = attrib.find_trace_file(tdir)
+    t1 = time.perf_counter()
+    ev, _ = attrib.load_trace_events(path)
+    parse_s = time.perf_counter() - t1
+    charged = attrib.charge(ev)
+    unlinked = sum(not linked for _, _, linked in charged)
+    hand = [(_obs_kernel_name(e["name"]), wave) for e, wave, _ in charged
+            if _obs_kernel_name(e["name"]) is not None]
+    bad = sorted({k for k, wave in hand if wave is None})
+    by_wave = {}
+    for k, wave in hand:
+        by_wave.setdefault(k, {}).setdefault(wave, 0)
+        by_wave[k][wave] += 1
+    check(isinstance(bd, dict) and bd["kind"] == "dintscope_breakdown"
+          and bd["geometry"] == {"k": td.K, "vw": exp.TATP_VW, "w": W}
+          and unlinked == 0 and hand and not bad,
+          f"{name}: the breakdown is an object; all {len(charged):,} device "
+          f"slices are linked to their launch, and every slice of the hand "
+          f"kernels is charged to a wave ({by_wave})"
+          + ("" if not bad else f"; uncharged: {bad}"))
+    size = os.path.getsize(path)
+    print(f"  the window's trace: {size:,} bytes, {len(ev):,} events, "
+          f"parsed in {parse_s:.3f} s; attributed {bd['attributed_ms']:.3f} "
+          f"of {bd['total_ms']:.3f} device ms over {bd['steps']} steps "
+          f"(step_ms {bd['step_ms']})  [{card}]")
+    paths[f"p16 {name}"] = res.launches[name]
+    out[name] = {"goodput": blk["goodput"], "trace_bytes": size,
+                 "trace_events": len(ev), "parse_s": parse_s,
+                 "attributed_ms": bd["attributed_ms"],
+                 "total_ms": bd["total_ms"], "steps": bd["steps"]}
+    del ev, charged, hand
+    gc.collect()
+    print(f"  (c) {time.perf_counter() - t0:.3f} s")
+    return paths, out
+
+
+def _serve_identity(label, snap):
+    c = snap["counters"]
+    served = sum(int(w) * n for w, n in snap["steps_by_width"].items())
+    check(snap["offered"] == snap["admitted"] + snap["shed"]
+          and c["serve_occupancy_lanes"] + c["serve_padded_lanes"] == served
+          and c["serve_occupancy_lanes"] == snap["admitted"]
+          and c["serve_shed_lanes"] == snap["shed"],
+          f"{label}: offered {snap['offered']:,} == admitted "
+          f"{snap['admitted']:,} + shed {snap['shed']:,}; occupancy + padded "
+          f"lanes == width x serving steps ({served:,})")
+
+
+def phase_p16_serve(dev, card, out_dir):
+    """(d)-(f): sweep_serve, dintserve run + dintcal audit, and the
+    calibration. Returns (paths, record)."""
+    import contextlib
+    import io
+    from dint_tpu_torch import dintcal, dintserve, exp, serve
+    from dint_tpu_torch.engines import tatp_dense as td
+    from dint_tpu_torch.monitor import calib as CAL
+    paths, out = {}, {}
+
+    class Recorded(serve.ServeEngine):
+        """exp's ServeEngine, each engine's last snapshot kept for the
+        lane identity."""
+        snaps = []
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self._slot = len(Recorded.snaps)
+            Recorded.snaps.append(None)
+
+        def snapshot(self):
+            snap = super().snapshot()
+            Recorded.snaps[self._slot] = snap
+            return snap
+
+    print(f"== phase 16 (d): exp.sweep_serve('serve_tatp', 'tatp_dense', "
+          f"{N_SUB:,}): widths (256, 1024, 4096, 8192), the _sat probe, "
+          f"rates {P16_SERVE_RATES} of it, {P16_SERVE_WINDOW_S} s windows")
+    t0 = time.perf_counter()
+    res = PointSink()
+    real = exp.ServeEngine
+    exp.ServeEngine = Recorded
+    try:
+        exp.sweep_serve("serve_tatp", "tatp_dense", N_SUB,
+                        window_s=P16_SERVE_WINDOW_S,
+                        open_rates=P16_SERVE_RATES, results=res, quick=False,
+                        cpb=P16_CPB, device=dev)
+    finally:
+        exp.ServeEngine = real
+    names = ["serve_tatp_sat"] + [f"serve_tatp_r{int(f * 100)}pct"
+                                  for f in P16_SERVE_RATES]
+    check(sorted(res) == sorted(names) and len(Recorded.snaps) == 3,
+          f"(d) ran {sorted(res)}")
+    peaks = []
+    for name, snap in zip(names, Recorded.snaps):
+        blk = res[name]
+        want = P16_SERVE_KEYS | ({"target_rate"} if name != names[0]
+                                 else set())
+        check(set(blk) == want, f"{name}: exp.py's artifact keys")
+        _serve_identity(name, snap)
+        check(blk["serve_counters"]["serve_occupancy_lanes"]
+              == blk["admitted"]
+              and res.launches[name]["gather_rows"] > 0
+              and res.launches[name]["lock_arbitrate"] > 0,
+              f"{name}: serve_counters agree, gather_rows and "
+              f"lock_arbitrate launched")
+        peaks.append(res.peak[name])
+        print(f"  {name}: offered {blk['offered']:,} "
+              f"({blk['offered_rate']:,.1f}/s), admitted {blk['admitted']:,}, shed {blk['shed']:,}; "
+              f"achieved {blk['achieved_rate']:,.1f} committed/s; queue p50 "
+              f"{blk['p50_us']} p99 {blk['p99_us']} us; service p99 "
+              f"{blk['service']['p99']:.1f} us; steps by width "
+              f"{snap['steps_by_width']}; slo_met {blk['slo_met']}; peak "
+              f"max_memory_allocated {res.peak[name]:,} B  [{card}]")
+        paths[f"p16 {name}"] = res.launches[name]
+        out[name] = {k: blk[k] for k in ("offered", "admitted", "shed",
+                                          "achieved_rate", "offered_rate",
+                                          "p50_us", "p99_us", "slo_met")}
+        out[name]["service_p99_us"] = blk["service"]["p99"]
+        out[name]["peak_bytes"] = res.peak[name]
+    check(max(peaks) - min(peaks) < 2 ** 30,
+          f"(d) the peak memory of the three points within 1 GiB of each "
+          f"other ({peaks}): no point keeps an earlier point's tables")
+    print(f"  (d) {time.perf_counter() - t0:.3f} s")
+
+    print(f"== phase 16 (e): dintserve run --engine tatp_dense --size "
+          f"{N_SUB:,} --journal, then dintcal audit of the journal")
+    t0 = time.perf_counter()
+    journal = os.path.join(out_dir, "dintserve_journal.jsonl")
+    rate = 0.5 * res["serve_tatp_sat"]["achieved_rate"]
+    reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = dintserve.main([
+            "run", "--engine", "tatp_dense", "--size", str(N_SUB),
+            "--rate", f"{rate:.1f}", "--window", "1", "--journal", journal,
+            "--json", "--no-gate"])
+    launches = launch_counts()
+    rep = json.loads(buf.getvalue().strip().splitlines()[-1])
+    _serve_identity("dintserve run", rep)
+    check(rc == 0 and launches["gather_rows"] > 0,
+          f"dintserve run exits 0 (slo_met {rep['slo_met']}; queue p99 "
+          f"{rep['queue']['p99']:.1f} us at {rate:,.1f}/s offered; "
+          f"achieved {rep['achieved_rate']:,.1f}/s)  [{card}]")
+    paths["p16 dintserve run"] = launches
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = dintcal.main(["audit", journal, "--json"])
+    aud = json.loads(buf.getvalue())
+    check(rc == 0 and aud["n_violations"] == 0 and aud["n_entries"] > 0,
+          f"dintcal audit: {aud['n_entries']} entries replayed, 0 "
+          f"violations")
+    out["dintserve"] = {"slo_met": rep["slo_met"],
+                        "achieved_rate": rep["achieved_rate"],
+                        "journal_entries": aud["n_entries"]}
+    print(f"  (e) {time.perf_counter() - t0:.3f} s")
+
+    print(f"== phase 16 (f): the calibration: one serve run a width "
+          f"{P16_CAL_WIDTHS} at {N_SUB:,} subscribers, {P16_CAL_WINDOW_S} s "
+          f"at half the width's closed-loop rate; dintcal gather + fit")
+    t0 = time.perf_counter()
+    res = PointSink()
+    exp.sweep_pipeline(
+        "cal_tatp", lambda w, b: exp._tatp_runner(N_SUB, w, b, device=dev),
+        exp._tatp_extras, td.N_STATS, widths=list(P16_CAL_WIDTHS),
+        cpb=P16_CPB, depth=3, magic_idx=td.STAT_MAGIC_BAD,
+        window_s=P16_CAL_WINDOW_S, open_rates=(), results=res, device=dev)
+    closed = {w: res[f"cal_tatp_closed_w{w}"]["throughput"]
+              for w in P16_CAL_WIDTHS}
+    print(f"  closed-loop attempted txn/s by width: {closed}  [{card}]")
+
+    class DeviceFilled(serve.ServeEngine):
+        """A ServeEngine whose TATP tables are filled on the card
+        (`populate_device`, the population rules of `populate`)."""
+
+        def _fresh_db(self, seed):
+            gen = torch.Generator(device=self.dev).manual_seed(seed)
+            return td.populate_device(gen, self.size,
+                                      val_words=self.val_words,
+                                      device=self.dev)
+
+    arts, names = [], []
+    for w in P16_CAL_WIDTHS:
+        eng = DeviceFilled("tatp_dense", N_SUB,
+                           cfg=serve.ControllerCfg(widths=(w,)),
+                           cohorts_per_block=P16_CPB, monitor=True,
+                           device=dev)
+        eng.warmup()
+        reset_launches()
+        eng.run(serve.poisson_schedule(0.5 * closed[w], P16_CAL_WINDOW_S,
+                                       seed=17))
+        eng.close()
+        paths[f"p16 calibration w{w}"] = launch_counts()
+        snap = eng.snapshot()
+        del eng
+        gc.collect()
+        _serve_identity(f"calibration w{w}", snap)
+        n = snap["controller"]["service_samples"]["n"]
+        print(f"  w={w}: {snap['blocks']} blocks, {n} service samples, "
+              f"observed service {snap['controller']['service_us']} us a "
+              f"step; queue p99 {snap['queue']['p99']:.1f} us  [{card}]")
+        name = f"serve_tatp_w{w}"
+        p = os.path.join(out_dir, f"{name}.json")
+        with open(p, "w") as f:
+            json.dump(snap, f)
+        arts.append(p)
+        names.append(name)
+    evidence = os.path.join(out_dir, "evidence.json")
+    fresh = os.path.join(out_dir, "calib.json")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc_g = dintcal.main(["gather", *arts, "-o", evidence, "--json"])
+        rc_f = dintcal.main(["fit", evidence, "-o", fresh, "--json"])
+    g, fit = (json.loads(x) for x in buf.getvalue().strip().splitlines())
+    check(rc_g == 0 and rc_f == 0 and g["n_samples"] > 0,
+          f"dintcal gather ({g['n_samples']} samples) and fit exit 0")
+    doc = CAL.load_calib(fresh)
+    refit = CAL.fit_service_model(doc["samples"])
+    check(refit["base_us"] == doc["model"]["base_us"]
+          and refit["per_lane_ns"] == doc["model"]["per_lane_ns"]
+          and doc["fit"]["widths"] == list(P16_CAL_WIDTHS),
+          f"refitting the calibration's {doc['fit']['n']} samples gives its "
+          f"coefficients bit for bit: base_us {doc['model']['base_us']}, "
+          f"per_lane_ns {doc['model']['per_lane_ns']} (rms_us "
+          f"{doc['fit']['rms_us']}, max_abs_us {doc['fit']['max_abs_us']}) "
+          f"[{card}]")
+    # the committed form: sources naming this phase and the card
+    docs = []
+    for p in arts:
+        with open(p) as f:
+            docs.append(json.load(f))
+    ev = CAL.gather_evidence(
+        docs, sources=[f"chip_smoke phase 16 (f), {card}: {n}"
+                       for n in names])
+    CAL.save_calib(CAL.fit_calib(ev, source="CALIB_H100.evidence.json"),
+                   os.path.join(out_dir, "CALIB_H100.json"))
+    with open(os.path.join(out_dir, "CALIB_H100.evidence.json"), "w") as f:
+        f.write(json.dumps(ev, indent=1, sort_keys=True) + "\n")
+    committed = CAL.calib_path()
+    if committed.is_file():
+        drift = CAL.check_calib(CAL.load_calib(committed),
+                                CAL.load_evidence(evidence))
+        print(f"  check_calib of the committed {committed.name} against this "
+              f"evidence: {len(drift)} drift record(s)"
+              + "".join(f"\n    {d['message']}" for d in drift))
+    else:
+        print(f"  no committed {committed.name}: nothing to check")
+    buf = io.StringIO()
+    with _Env(DINT_CALIB_PATH=fresh), contextlib.redirect_stdout(buf):
+        rc = dintserve.main(["simulate", "--rate", "200000", "--window",
+                             "0.5", "--json"])
+    sim = json.loads(buf.getvalue())
+    check(rc == 0 and sim["model"]["source"] == "calib"
+          and sim["model"]["base_us"] == doc["model"]["base_us"],
+          f"dintserve simulate under DINT_CALIB_PATH reads the fresh "
+          f"calibration (source {sim['model']['source']}, final width "
+          f"{sim['final_width']})")
+    out["calibration"] = {"closed_rate": closed, "model": doc["model"],
+                          "fit": doc["fit"],
+                          "provenance": doc["provenance"]}
+    print(f"  (f) {time.perf_counter() - t0:.3f} s")
+    return paths, out
+
+
+def phase_p16_drive(card):
+    print("== phase 16 (g): python -m dint_tpu_torch.drive on the card")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "dint_tpu_torch.drive"],
+                         capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    fails = [ln for ln in lines if ln.startswith("FAIL")]
+    passes = sum(ln.startswith("PASS") for ln in lines)
+    check(out.returncode == 0 and not fails
+          and lines[-1].startswith("ALL CHECKS PASSED"),
+          f"drive: every check passes ({passes} PASS) in {secs:.3f} s  "
+          f"[{card}]" + (
+              "" if out.returncode == 0 else
+              f" (rc {out.returncode}; {fails}; stderr "
+              f"{out.stderr[-2000:]})"))
+    launches = json.loads(lines[-2])["launches"]
+    check(launches["scan_rows"] > 0,
+          f"drive's scan section launched scan_rows ({launches})")
+    return {"p16 drive": launches}
+
+
+def phase_sweeps(dev, card):
+    import tempfile
+    t0 = time.perf_counter()
+    with _Env(**P16_ENV), \
+            tempfile.TemporaryDirectory(prefix="dint_p16_") as tmp:
+        out_dir = os.environ.get("DINT_SMOKE_OUT") or tmp
+        os.makedirs(out_dir, exist_ok=True)
+        paths, rec = phase_p16_pipeline(dev, card, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        p, r = phase_p16_serve(dev, card, out_dir)
+        paths.update(p)
+        rec.update(r)
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths.update(phase_p16_drive(card))
+    secs = time.perf_counter() - t0
+    rec["seconds"] = secs
+    print("  phase 16 record: " + json.dumps(rec, default=str))
+    print(f"  phase 16: {secs:.3f} s  [{card}]")
+    return paths
+
+
 KERNELS = {
     "gather_rows": ("dint_tpu_torch/csrc/gather_rows.cu",
                     "dint_tpu/ops/pallas_gather.py:212"),
@@ -4820,6 +5458,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     store_paths.update(phase_observability(dev, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    store_paths.update(phase_sweeps(dev, card))
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -4829,8 +5470,10 @@ def main() -> int:
         # and the hot route's steps on the card in phase 3), the cache
         # tier's hot run (phase 8), the probe's entry point (phase 2) and
         # the bench's two legs (phase 9, counted in its process),
-        # sweep_micro's store points (phase 14 (d)) and phase 15's traced
-        # runs and profiled blocks, each counted from 0 just before its run
+        # sweep_micro's store points (phase 14 (d)), phase 15's traced
+        # runs and profiled blocks and phase 16's sweep, serve and
+        # calibration points and drive, each counted from 0 just before
+        # its run
         paths = {**{f"tatp {k}": v[name] for k, v in tatp.items()},
                  **{f"smallbank {k}": v[name] for k, v in sb.items()},
                  **{k: v[name] for k, v in store_paths.items()}}
@@ -4885,6 +5528,16 @@ def main() -> int:
           and len(kernels) == 9,
           "the hot kernels ran on the cache tier's hot run, scalar_scatter "
           "on the probe; the kernels line lists nine kernels")
+    check(all(by_name[k][f"p16 tatp_closed_w{W}"] > 0
+              for k in ("gather_rows", "lock_arbitrate"))
+          and all(by_name[k][f"p16 tatp_fused_closed_w{W}"] > 0
+                  for k in ("scatter_streams", "lock_validate"))
+          and all(by_name[k]["p16 smallbank_skew_h16_closed_w8192"] > 0
+                  for k in ("gather_rows_hot", "scatter_rows_hot"))
+          and by_name["scan_rows"]["p16 drive"] > 0,
+          "phase 16: gather_rows and lock_arbitrate ran on the default TATP "
+          "points, scatter_streams and lock_validate on the fused one, the "
+          "hot kernels on the hot-tier skew point, scan_rows in drive")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,43 +1,67 @@
-"""The microbenchmark sweep (the port of exp.py's `sweep_micro` and the
-benches it runs): each point writes a JSON metric block to
-``<out>/<name>.json`` and the run ends with ``<out>/summary.json``.
+"""The experiment sweep of the port (the port of exp.py): each point writes
+a JSON metric block to ``<out>/<name>.json`` and the run ends with
+``<out>/summary.json``.
 
     python -m dint_tpu_torch.exp                  # needs one CUDA card
     python -m dint_tpu_torch.exp --quick          # small sizes, 1 s windows
-    python -m dint_tpu_torch.exp --only store_wire --out DIR --window 5
+    python -m dint_tpu_torch.exp --only tatp --out DIR --window 5
+    python -m dint_tpu_torch.exp --only smallbank_skew --hot-prob 0.9
 
-The points, with exp.py's names, sizes and artifact keys:
+The legs, in exp.py's order, with its names, sizes and artifact keys:
 
-* ``store_{contention,parallel}_w{1024,4096,16384}``: `StoreClient` over 1M
-  keys, 50/50 GET/SET or all GET;
-* ``store_zipf_w*``: the same under Zipfian keys;
-* ``store_scan_f{0,5,50,95}``: YCSB-B to YCSB-E, the scan share of the mix
-  over the ordered run, w=4096, scans of up to 100 rows;
-* ``lock_2pl``, ``lock_fasst``, ``lock_fasst_attr``: the trace clients on
-  a 20,000-txn trace, cohorts of 512; ``log_server``: appends, w=8192;
-* ``store_wire``, ``tatp_wire``: the store and one TATP shard served over
-  loopback UDP through the native shim, pkt/s from two clients;
-  ``tatp_wire_txn``: whole TATP transactions from `WireCoordinator` over
-  three shard servers, txn/s; ``tatp_colocate_c{1,2,4}``: ``tatp_wire``
-  with the process pinned to 1, 2 or 4 cores;
-* ``store_cached_{wb_bloom,wb_nobloom,wt}``: `CachedStore` on each policy.
+* ``tatp_*``: `sweep_pipeline` over the dense TATP engine at 7,000,000
+  subscribers (``DINT_EXP_SUBSCRIBERS``), VW = 10, 4 cohorts a block: the
+  closed-loop width ladder ``tatp_closed_w{8192,256,1024,2048,32768}``,
+  open-loop points ``tatp_open_{25,50,75,90,110}pct`` at those fractions
+  of the ladder's peak (queueing delay and service time split), then
+  ``tatp_latency_w{256,1024,8192}`` (one cohort a call, timed per step);
+* ``smallbank_*``: the same over dense SmallBank at 24,000,000 accounts
+  (``DINT_EXP_SB_ACCOUNTS``), ``--hot-frac``/``--hot-prob`` setting the
+  skew; ``--only smallbank_skew`` is a preset: one width, hot_frac 0.01,
+  0.04, 0.16 and 0.5 (``smallbank_skew_h{01,04,16,50}_closed_w8192``);
+* ``serve_tatp_*``, ``serve_smallbank_*``: `sweep_serve`, the serving
+  plane's saturation probe ``_sat`` and Poisson rate points ``_r{N}pct``
+  at fractions of it;
+* the points of `sweep_micro` (store, Zipf, scan ladder, lock traces, log,
+  wire, colocate, cached store).
 
-Every artifact carries ``plan``: {source, hash, overridden} of PLAN.json
-(`dint_tpu_torch.plan`), null where no plan is readable or
-``DINT_BENCH_PLAN=0``. ``--skip-done`` skips points whose artifact is
-already in ``--out``.
+Build knobs (the route) come from PLAN.json's pins (`plan.resolve_for`;
+``DINT_USE_HOTSET``/``DINT_USE_FUSED`` win only under
+``DINT_PLAN_OVERRIDE=1``, ``DINT_BENCH_PLAN=0`` reads no plan); every
+artifact carries ``plan``: {source, hash, overridden}, null without a
+readable plan. ``DINT_MONITOR=1`` embeds each pipeline point's counter
+snapshot in ``counters``, ``DINT_TRACE=1`` each closed point's dinttrace
+summary in ``dinttrace`` (explicit nulls otherwise).
+``DINT_EXP_TRACE_DIR=dir`` brackets each closed window with a
+torch.profiler session in ``dir`` and ``breakdown`` holds
+`monitor.attrib.report` of it. ``--skip-done`` skips points whose artifact
+is already in ``--out`` (the open points still anchor on the loaded
+closed peak).
 
-What differs from exp.py: only `sweep_micro` is here (the pipeline, serve
-and mesh sweeps are not ported). A point that raises ends the run: there is
-no retry, no error artifact and no summary. ``use_hotset`` (None:
-``DINT_USE_HOTSET``, as JAX's `StoreClient` reads it) is an argument of
-`sweep_micro`, since the port's `StoreClient` reads no environment; the
-point-op rows take no ordered run (JAX's reads ``DINT_USE_SCAN``). The
-port has no ``use_pallas``: its kernels are its only route, so that key
-is null. A wire bench snapshots its pump after stopping it, so the last
-batch's tally is in (occupancy + padded == width * batches). Entry points
-run on the card (``device`` None) unless the caller passes
-``device="cpu"``.
+What differs from exp.py:
+
+* No fault tolerance: a point that raises (an integrity fault, a failed
+  profiler session or attribution, any error) ends the run, with no
+  retry, no error artifact and no summary. There is no Pallas probe and
+  no degrade build: the CUDA kernels are the port's only route, so
+  ``use_pallas`` is null where exp.py records it.
+* Draws: where exp.py folds the block index into a JAX key, the port
+  seeds a `torch.Generator` on the device with
+  `serve.engine.block_seed(seed, i)`; the closed window's blocks draw in
+  turn from one generator, as `stats.run_window` does. TATP populates
+  with `tatp_dense.populate_device` on a generator seeded 0.
+* A profiled point's ``breakdown`` is the port's (ROADMAP §C.13): each
+  wave also carries ``host_ms``.
+* The ``multihost_sb`` and ``serve_mesh`` legs need a mesh of devices
+  (the multi-device port, not done yet): they print exp.py's "skipped"
+  line when the devices are too few, as they always are on one card, and
+  raise where a mesh could be formed. ``use_hotset`` (None:
+  ``DINT_USE_HOTSET``) is an argument of `sweep_micro`, whose point-op
+  rows take no ordered run. A wire bench snapshots its pump after
+  stopping it, so the last batch's tally is in (occupancy + padded ==
+  width * batches).
+* ``device`` (None = CUDA) places every table; ``device="cpu"`` runs the
+  plain path.
 """
 from __future__ import annotations
 
@@ -48,35 +72,302 @@ import threading
 import time
 
 import numpy as np
+import torch
 
 from . import plan as dplan
+from . import stats as st
 from .clients import micro
 from .clients import tatp_client as tc
 from .clients import tatp_wire as tw
 from .clients import workloads as wl
 from .device import resolve_device
+from .engines import smallbank_dense as sd
 from .engines import store, store_cache, tatp
+from .engines import tatp_dense as td
 from .engines.types import Op
+from .monitor import attrib, profiler_session
+from .monitor import counters as mon
+from .monitor import txnevents as txe
+from .serve import ControllerCfg, ServeEngine
+from .serve import arrivals as arr
+from .serve.engine import block_seed
 from .shim import STORE, TATP, EnginePump, ShimClient
 from .shim.host_kvs import CachedStore
 from .stats import CpuMonitor, LatencyReservoir, MetricBlock, Recorder
 
 WIRE_WARM_TRIES = 8
+OPEN_RATES = (0.25, 0.5, 0.75, 0.9, 1.1)
+SKEW_FRACS = (0.01, 0.04, 0.16, 0.5)
+TATP_VW = 10
+# where the dinttrace ring sits in each dense runner's carry: after the
+# in-flight cohorts, before the counters (TATP (db, c1, c2, ring[, ctr]),
+# SmallBank (db, c1, ring[, ctr]))
+TATP_RING = 3
+SB_RING = 2
+
+# ---------------------------------------------------------------- helpers
+
+
+def _percentiles(samples_us):
+    lat = LatencyReservoir()
+    for s in samples_us:
+        lat.add(s)
+    p = lat.percentiles()
+    p["hist"] = lat.hist.to_dict()
+    return p
+
+
+def _monitor_on() -> bool:
+    """DINT_MONITOR=1: the counter plane rides every pipeline point and
+    its artifact embeds the end-of-point snapshot (null otherwise)."""
+    return os.environ.get("DINT_MONITOR") == "1"
+
+
+def _trace_on() -> bool:
+    """DINT_TRACE=1: the dinttrace ring rides every pipeline point and
+    each closed point embeds its summary (null otherwise); DINT_TRACE_RATE
+    sets the sampling. The sweep writes no JSONL."""
+    return os.environ.get("DINT_TRACE") == "1"
+
+
+# the knobs DINT_PLAN_OVERRIDE=1 changed, over the whole process: every
+# artifact's "plan" record names them
+_PLAN_OVERRIDDEN: set = set()
+
+
+def _plan_doc():
+    """PLAN.json, or None without a readable one or under
+    DINT_BENCH_PLAN=0."""
+    if os.environ.get("DINT_BENCH_PLAN", "1") == "0":
+        return None
+    try:
+        return dplan.load_plan()
+    except (OSError, ValueError):
+        return None
+
+
+def _plan_knobs(workload: str) -> dict:
+    """The route knobs of ``workload``: the plan's pins (env flags under
+    DINT_PLAN_OVERRIDE=1), or the env flags without a readable plan."""
+    knobs, meta = dplan.resolve_for(workload, plan=_plan_doc() or {})
+    _PLAN_OVERRIDDEN.update(meta["overridden"])
+    return knobs
 
 
 def plan_meta():
     """The artifact's ``plan`` field: {source, hash, overridden} of the
-    readable PLAN.json, None without one or under ``DINT_BENCH_PLAN=0``.
-    The sweep resolves no planned knob, so nothing is overridden."""
-    if os.environ.get("DINT_BENCH_PLAN", "1") == "0":
-        return None
-    try:
-        doc = dplan.load_plan()
-    except (OSError, ValueError):
+    readable PLAN.json, None without one or under ``DINT_BENCH_PLAN=0``."""
+    doc = _plan_doc()
+    if doc is None:
         return None
     return {"source": str(dplan.plan_path()),
             "hash": doc.get("provenance", {}).get("cost_model_hash"),
-            "overridden": []}
+            "overridden": sorted(_PLAN_OVERRIDDEN)}
+
+
+def _gen(dev, seed: int, i: int) -> torch.Generator:
+    """The generator of block ``i`` of a point seeded ``seed``."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(block_seed(seed, i))
+    return g
+
+
+def _drain(drain, carry):
+    """Drain a runner built under the current flags. The port's drains
+    return (db, stats) + ((ring,) if DINT_TRACE) + ((counters,) if
+    DINT_MONITOR): unpacked by the flags, never by length. Returns
+    (tail_stats [n, n_stats] i64, counter snapshot or None, ring or
+    None)."""
+    out = drain(carry)
+    rest = list(out[2:])
+    if len(rest) != int(_trace_on()) + int(_monitor_on()):
+        raise ValueError(f"the drain returned {len(out)} items; DINT_TRACE "
+                         f"and DINT_MONITOR account for 2 + "
+                         f"{int(_trace_on()) + int(_monitor_on())}")
+    ring = rest.pop(0) if _trace_on() else None
+    counters = mon.snapshot(rest.pop(0)) if _monitor_on() else None
+    return st.fetch_stats(out[1]), counters, ring
+
+
+def _wrap_trace(run, init, ring_ix: int):
+    """DINT_TRACE=1: ``run`` wrapped so each block's event ring (at
+    ``carry[ring_ix]``) is drained, deferred, into a per-point
+    `TxnMonitor`, which hangs off the wrapper as ``txn_monitor`` for the
+    closed window to summarize. The runner zeroes the ring at each block,
+    so the drain rides every call."""
+    if not _trace_on() or init.trace_cfg is None:
+        return run
+    tmon = txe.TxnMonitor(init.trace_cfg)
+
+    def traced(carry, gen):
+        carry, stats = run(carry, gen)
+        ring = carry[ring_ix]
+        if not isinstance(ring, txe.TxnRing):
+            raise TypeError(f"carry[{ring_ix}] is {type(ring).__name__}, "
+                            f"not the event ring")
+        tmon.observe(ring, defer=True)
+        return carry, stats
+
+    traced.txn_monitor = tmon
+    return traced
+
+
+def pipeline_closed(run, carry, drain, n_stats, *, window_s, cpb, depth,
+                    magic_idx, key_seed=0, device=None):
+    """Closed-loop window over a pipelined runner: two warm blocks, the
+    timed `stats.run_window`, the drain. Latency is cohort-granularity (a
+    txn completes ``depth`` steps after its cohort's dispatch). The
+    magic-word check covers the warm blocks, the window and the drain.
+    ``DINT_EXP_TRACE_DIR`` brackets the window with a profiler session
+    there. Returns (totals [n_stats], dt, percentiles, host cores,
+    counters or None, dinttrace summary or None)."""
+    dev = resolve_device(device)
+    s0 = np.zeros(n_stats, np.int64)
+    for warm in (999_999, 999_998):
+        carry, s = run(carry, _gen(dev, key_seed, warm))
+        s0 += st.fetch_stats(s).sum(axis=0)     # the fetch waits
+    cpu = CpuMonitor()           # strictly over the timed window
+    with profiler_session(os.environ.get("DINT_EXP_TRACE_DIR")):
+        carry, total, warm_t, dt, _blocks, block_s = st.run_window(
+            run, carry, _gen(dev, key_seed, 0), window_s, n_stats,
+            warmup_blocks=0)
+    cores = cpu.cores()
+    tail, counters, ring = _drain(drain, carry)
+    total = total + tail.sum(axis=0)
+    if int(s0[magic_idx] + warm_t[magic_idx] + total[magic_idx]) != 0:
+        raise RuntimeError("magic-byte integrity violated (incl. warmup)")
+    p = st.cohort_latency_percentiles(block_s, cpb, depth)
+    trace_sum = None
+    tmon = getattr(run, "txn_monitor", None)
+    if tmon is not None:
+        tmon.flush()
+        if ring is not None:     # the drained boundary cohorts' events
+            tmon.observe(ring)
+        trace_sum = tmon.summary()
+    return total, dt, p, cores, counters, trace_sum
+
+
+def pipeline_open(make_runner, n_stats, *, rate, window_s, w, cpb, depth,
+                  key_seed=0, device=None):
+    """Open-loop window: block i of cpb cohorts is dispatched at t0 + i *
+    cpb * w / rate (or at once when late) and its stats are fetched at
+    once, so the fetch marks its completion; a cohort's latency is its
+    completion minus its scheduled arrival. ``split`` separates the
+    QUEUEING delay (dispatch past the schedule) from the SERVICE time
+    (dispatch to completion), each a percentile dict with its histogram.
+
+    make_runner() -> (run, carry, drain): fresh state. Returns (totals,
+    dt, percentiles, offered_rate, blocks dispatched, split)."""
+    dev = resolve_device(device)
+    run, carry, drain = make_runner()
+    for warm in (999_999, 999_998):
+        carry, s0 = run(carry, _gen(dev, key_seed, warm))
+        st.fetch_stats(s0)
+
+    period = cpb * w / rate            # seconds a block
+    total = np.zeros(n_stats, np.int64)
+    lat_blocks = []
+    queue_lat = LatencyReservoir()
+    service_lat = LatencyReservoir()
+    t0 = time.time()
+    i = 0
+    while time.time() - t0 < window_s:
+        sched = t0 + i * period
+        now = time.time()
+        if sched > now:
+            time.sleep(sched - now)
+        t_disp = time.time()
+        carry, s = run(carry, _gen(dev, key_seed, i))
+        total += st.fetch_stats(s).sum(axis=0)   # the fetch = completion
+        done = time.time()
+        # the block's cohorts arrive across its schedule slot
+        arrive = sched + np.arange(cpb) * (w / rate)
+        lat_blocks.append(np.maximum(done - arrive, 0.0) * 1e6)
+        queue_lat.add(max(t_disp - sched, 0.0) * 1e6)
+        service_lat.add((done - t_disp) * 1e6)
+        i += 1
+    dt = time.time() - t0
+    tail, _, _ = _drain(drain, carry)
+    total += tail.sum(axis=0)
+    p = _percentiles(lat_blocks)
+    offered = i * cpb * w / dt
+
+    def _side(lat):
+        d = {f"{k}_us": round(v, 2) for k, v in lat.percentiles().items()}
+        d["hist"] = lat.hist.to_dict()
+        return d
+
+    split = {"queue": _side(queue_lat), "service": _side(service_lat)}
+    return total, dt, p, offered, i, split
+
+
+# ---------------------------------------------------------------- workloads
+
+
+def _tatp_runner(n_sub, w, cpb, seed=0, device=None):
+    """(run, carry, drain) of dense TATP at ``n_sub`` subscribers on the
+    plan's route, the tables populated on the device."""
+    dev = resolve_device(device)
+    knobs = _plan_knobs("tatp_uniform")
+    db = td.populate_device(torch.Generator(device=dev).manual_seed(seed),
+                            n_sub, val_words=TATP_VW, device=dev)
+    run, init, drain = td.build_pipelined_runner(
+        n_sub, w=w, val_words=TATP_VW, cohorts_per_block=cpb,
+        use_hotset=bool(knobs.get("use_hotset")),
+        use_fused=bool(knobs.get("use_fused")), monitor=_monitor_on(),
+        trace=_trace_on(), device=dev)
+    run = _wrap_trace(run, init, TATP_RING)
+    return run, init(db), drain
+
+
+def _tatp_extras(total):
+    att = int(total[td.STAT_ATTEMPTED])
+    com = int(total[td.STAT_COMMITTED])
+    if int(total[td.STAT_MAGIC_BAD]) != 0:
+        raise RuntimeError("tatp magic-byte integrity violated")
+    return att, com, {
+        "ab_lock": int(total[td.STAT_AB_LOCK]),
+        "ab_missing": int(total[td.STAT_AB_MISSING]),
+        "ab_validate": int(total[td.STAT_AB_VALIDATE]),
+    }
+
+
+def _sb_runner(n_acc, w, cpb, hot_frac=None, hot_prob=None, device=None):
+    """(run, carry, drain) of dense SmallBank at ``n_acc`` accounts on the
+    plan's route."""
+    dev = resolve_device(device)
+    knobs = _plan_knobs("smallbank_skewed")
+    db = sd.create(n_acc, device=dev)
+    run, init, drain = sd.build_pipelined_runner(
+        n_acc, w=w, cohorts_per_block=cpb, hot_frac=hot_frac,
+        hot_prob=hot_prob, use_hotset=bool(knobs.get("use_hotset")),
+        use_fused=bool(knobs.get("use_fused")), monitor=_monitor_on(),
+        trace=_trace_on(), device=dev)
+    run = _wrap_trace(run, init, SB_RING)
+    return run, init(db), drain
+
+
+def _sb_extras(total):
+    att = int(total[sd.STAT_ATTEMPTED])
+    com = int(total[sd.STAT_COMMITTED])
+    if int(total[sd.STAT_MAGIC_BAD]) != 0:
+        raise RuntimeError("smallbank magic-byte integrity violated")
+    return att, com, {
+        "ab_lock": int(total[sd.STAT_AB_LOCK]),
+        "ab_logic": int(total[sd.STAT_AB_LOGIC]),
+    }
+
+
+def _sb_skew_extra(hot_frac, hot_prob, default_prob):
+    """A SmallBank point's skew record: the skew and the use_hotset that
+    actually built (the plan's pin, else the env flag)."""
+    env_hot = os.environ.get("DINT_USE_HOTSET", "0") not in ("", "0")
+    return {"hot_frac": (wl.SB_HOT_FRAC if hot_frac is None
+                         else float(hot_frac)),
+            "hot_prob": (default_prob if hot_prob is None
+                         else float(hot_prob)),
+            "use_hotset": _plan_knobs("smallbank_skewed").get("use_hotset",
+                                                               env_hot)}
 
 
 def run_point(results, name, fn):
@@ -88,6 +379,214 @@ def run_point(results, name, fn):
     out = fn()
     out.setdefault("plan", plan_meta())
     results[name] = out
+
+
+def _metric_json(att, com, dt, p, extra, breakdown=None):
+    """The point's metric block, with exp.py's schema keys: ``schema``,
+    ``lat_hist`` beside the percentiles, and ``breakdown`` (an object
+    exactly when attribution ran, null otherwise)."""
+    d = MetricBlock(
+        throughput=att / dt, goodput=com / dt,
+        avg_us=p["avg"], p50_us=p["p50"], p99_us=p["p99"],
+        p999_us=p["p999"], extra=extra).to_dict()
+    d["schema"] = attrib.ARTIFACT_SCHEMA
+    d["lat_hist"] = p.get("hist")
+    d["breakdown"] = breakdown
+    return d
+
+
+def sweep_pipeline(name, runner_fn, extras_fn, n_stats, *, widths, cpb,
+                   depth, magic_idx, window_s, open_rates, results,
+                   lat_widths=(), point_extra=None, geom=None, device=None):
+    """The closed-loop width ladder, then open-loop points at
+    ``open_rates`` fractions of the ladder's peak (read from ``results``,
+    so points loaded under ``--skip-done`` anchor it too), at the peak's
+    width, then latency points (one cohort a call, each call's stats
+    fetched at once: percentiles from measured timestamps).
+    ``runner_fn(w, cpb)`` -> (run, carry, drain), fresh state.
+    ``point_extra`` is recorded in every point's extras; ``geom`` (k/l/vw)
+    feeds the breakdown's bytes formulas under DINT_EXP_TRACE_DIR, whose
+    attribution raises when it fails."""
+    dev = resolve_device(device)
+
+    def _breakdown(w):
+        tdir = os.environ.get("DINT_EXP_TRACE_DIR")
+        if not tdir:
+            return None
+        return attrib.report(tdir, geometry=dict(geom or {}, w=w))
+
+    def closed_point(w):
+        def fn():
+            run, carry, drain = runner_fn(w, cpb)
+            total, dt, p, cores, counters, trace_sum = pipeline_closed(
+                run, carry, drain, n_stats, window_s=window_s, cpb=cpb,
+                depth=depth, magic_idx=magic_idx, device=dev)
+            del run, carry, drain
+            att, com, extra = extras_fn(total)
+            extra.update(cores)
+            extra["mode"] = "closed"
+            extra["width"] = w
+            extra.update(point_extra or {})
+            extra["counters"] = counters
+            extra["dinttrace"] = trace_sum
+            return _metric_json(att, com, dt, p, extra,
+                                breakdown=_breakdown(w))
+
+        return fn
+
+    peak = peak_w = None
+    for w in widths:
+        nm = f"{name}_closed_w{w}"
+        run_point(results, nm, closed_point(w))
+        blk = results.get(nm) or {}
+        if "throughput" in blk and (peak is None or blk["throughput"] > peak):
+            peak, peak_w = blk["throughput"], blk.get("width", w)
+    if peak is None:
+        return
+
+    def open_point(frac):
+        def fn():
+            rate = max(peak * frac, 1.0)
+            total, dt, p, offered, _, split = pipeline_open(
+                lambda: runner_fn(peak_w, cpb), n_stats, rate=rate,
+                window_s=window_s, w=peak_w, cpb=cpb, depth=depth,
+                device=dev)
+            att, com, extra = extras_fn(total)
+            extra.update(mode="open", width=peak_w,
+                         target_rate=round(rate, 1),
+                         offered_rate=round(offered, 1), load_frac=frac,
+                         queue=split["queue"], service=split["service"])
+            return _metric_json(att, com, dt, p, extra)
+
+        return fn
+
+    for frac in open_rates:
+        run_point(results, f"{name}_open_{int(frac * 100)}pct",
+                  open_point(frac))
+
+    def latency_point(w):
+        def fn():
+            run, carry, drain = runner_fn(w, 1)     # one cohort a call
+            carry, total, dt, steps, p = st.run_latency_window(
+                run, carry, _gen(dev, 7, 0), window_s, n_stats, depth=depth)
+            tail, _, _ = _drain(drain, carry)
+            total = total + tail.sum(axis=0)
+            att, com, extra = extras_fn(total)
+            extra.update(mode="latency_measured", width=w, cpb=1,
+                         steps=steps, lat_samples=int(p["n"]))
+            return _metric_json(att, com, dt, p, extra)
+
+        return fn
+
+    for w in lat_widths:
+        run_point(results, f"{name}_latency_w{w}", latency_point(w))
+
+
+def sweep_skew(n_acc, *, width, cpb, window_s, results, fracs=SKEW_FRACS,
+               hot_prob=None, device=None):
+    """The skew preset (``--only smallbank_skew``): one closed point a
+    hot_frac at one width over the 90%-hot workload, the hot tier's
+    decision curve (DINT_PLAN_OVERRIDE=1 DINT_USE_HOTSET=0/1 runs A/B the
+    tier at each skew)."""
+    dev = resolve_device(device)
+    for frac in fracs:
+        sweep_pipeline(
+            f"smallbank_skew_h{int(frac * 100):02d}",
+            lambda w, b, f=frac: _sb_runner(n_acc, w, b, f, hot_prob, dev),
+            _sb_extras, sd.N_STATS, widths=[width], cpb=cpb, depth=2,
+            magic_idx=sd.STAT_MAGIC_BAD, window_s=window_s, open_rates=(),
+            results=results,
+            point_extra=_sb_skew_extra(frac, hot_prob, 0.9),
+            geom={"l": sd.L, "vw": sd.VW}, device=dev)
+
+
+def sweep_serve(name, engine, size, *, window_s, open_rates, results,
+                quick, cpb=4, depth=2, slo_us=5_000.0, device=None):
+    """The serving plane's latency-vs-offered-load curve: point ``_sat``
+    offers a block of arrivals all at t = 0 (the controller parks at its
+    knee width and sheds past the SLO-feasible backlog; the achieved rate
+    is the capacity), then Poisson schedules at ``open_rates`` fractions of
+    it. Each artifact: offered vs achieved rate, the queue (the percentile
+    block, what the SLO is written against) and service split, shed, the
+    controller's trajectory and samples, the serve counters, the SLO
+    verdict. One `ServeEngine` a point, closed before the next."""
+    dev = resolve_device(device)
+    widths = (64, 256) if quick else (256, 1024, 4096, 8192)
+    max_arrivals = 50_000 if quick else 2_000_000
+
+    def point(schedule_fn, extra_static):
+        def fn():
+            eng = ServeEngine(engine, size,
+                              cfg=ControllerCfg(widths=widths, slo_us=slo_us),
+                              cohorts_per_block=cpb, depth=depth,
+                              monitor=True, seed=0, device=dev)
+            eng.warmup()          # build the kernels outside the window
+            eng.run(schedule_fn())
+            eng.close()
+            rep = eng.snapshot()
+            p = {**eng.queue_hist.percentiles(),
+                 "hist": eng.queue_hist.to_dict()}
+            service = {**eng.service_hist.percentiles(),
+                       "hist": eng.service_hist.to_dict()}
+            del eng
+            extra = dict(extra_static)
+            extra.update(
+                mode="serve", engine=engine, widths=list(widths),
+                offered=rep["offered"], admitted=rep["admitted"],
+                shed=rep["shed"], blocks=rep["blocks"],
+                offered_rate=round(rep["offered_rate"], 1),
+                achieved_rate=round(rep["achieved_rate"], 1),
+                slo_us=slo_us, slo_met=rep["slo_met"], service=service,
+                controller=rep["controller"],
+                serve_counters={
+                    k: rep["counters"].get(k, 0)
+                    for k in ("serve_occupancy_lanes", "serve_padded_lanes",
+                              "serve_shed_lanes")})
+            return _metric_json(rep["attempted"], rep["committed"],
+                                rep["elapsed_s"], p, extra)
+
+        return fn
+
+    n_probe = min(widths[-1] * cpb * 32, max_arrivals)
+    nm = f"{name}_sat"
+    run_point(results, nm, point(lambda: np.zeros(n_probe), {"load": "sat"}))
+    peak = (results.get(nm) or {}).get("achieved_rate")
+    if not peak:
+        return
+    for frac in open_rates:
+        rate = max(peak * frac, 1.0)
+        win = min(window_s, max_arrivals / rate)
+        run_point(
+            results, f"{name}_r{int(frac * 100)}pct",
+            point(lambda r=rate, w=win: arr.poisson_schedule(r, w, seed=11),
+                  {"load": frac, "target_rate": round(rate, 1)}))
+
+
+def mesh_shape_from_env(default: str = "4x2",
+                        env: str = "DINT_BENCH_MESH") -> tuple[int, int]:
+    """The mesh knob exp.py reads: DINT_BENCH_MESH="HxC" (hosts x
+    chips)."""
+    spec = os.environ.get(env) or default
+    try:
+        h, c = (int(p) for p in spec.lower().replace("*", "x").split("x"))
+    except ValueError as e:
+        raise ValueError(f"{env}={spec!r}: expected 'HxC', e.g. '4x2'") \
+            from e
+    return h, c
+
+
+def _mesh_leg(name, dev):
+    """A mesh leg: exp.py's "skipped" line when the devices cannot form
+    the mesh; where they could, the leg raises, since the multi-device
+    engines are not ported."""
+    n_hosts, n_ici = mesh_shape_from_env()
+    have = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if have < n_hosts * n_ici or n_hosts < 3:
+        print(f"{name}: skipped ({n_hosts}x{n_ici} mesh needs "
+              f"{n_hosts * n_ici} devices and >= 3 hosts; have "
+              f"{have} devices)", flush=True)
+        return
+    raise NotImplementedError(f"{name}: the mesh engines are not ported")
 
 
 def _timed_client(client, go, window_s):
@@ -533,18 +1032,73 @@ class _ResultSink(dict):
 
 def run(out: str, window_s: float = 10.0, quick: bool = False,
         only: str | None = None, skip_done: bool = False,
+        hot_frac: float | None = None, hot_prob: float | None = None,
         use_hotset=None, device=None) -> dict:
-    """`sweep_micro` into ``out``, then ``out/summary.json``."""
+    """exp.py's `run_all`: the TATP and SmallBank pipeline legs, the mesh
+    leg's skip line, the skew preset, the serve legs, then `sweep_micro`,
+    into ``out``; then ``out/summary.json``. ``only`` is a name substring
+    filter both ways (``--only tatp`` runs tatp_closed_w256,
+    ``--only tatp_closed`` passes the coarse ``tatp`` gate)."""
+    dev = resolve_device(device)
     os.makedirs(out, exist_ok=True)
     results = _ResultSink(out, skip_done=skip_done)
 
+    # the reference's scale: 7M subscribers (tatp/caladan/tatp.h:28), 24M
+    # accounts (smallbank.h:16); the peak width first, then the latency
+    # floor's small widths
+    n_sub = 2_000 if quick else int(os.environ.get(
+        "DINT_EXP_SUBSCRIBERS", 7_000_000))
+    n_acc = 20_000 if quick else int(os.environ.get(
+        "DINT_EXP_SB_ACCOUNTS", 24_000_000))
+    widths = [256] if quick else [8192, 256, 1024, 2048, 32768]
+    lat_widths = [256] if quick else [256, 1024, 8192]
+    cpb = 4
+    rates = OPEN_RATES[1::2] if quick else OPEN_RATES
+
     def want(name):
-        # both ways: --only store matches store_zipf_w1024, and
-        # --only store_zipf_w1024 passes a coarser gate
         return only is None or only in name or name in only
 
+    if want("tatp"):
+        sweep_pipeline("tatp", lambda w, b: _tatp_runner(n_sub, w, b,
+                                                         device=dev),
+                       _tatp_extras, td.N_STATS, widths=widths, cpb=cpb,
+                       depth=3, magic_idx=td.STAT_MAGIC_BAD,
+                       window_s=window_s, open_rates=rates, results=results,
+                       lat_widths=lat_widths,
+                       geom={"k": td.K, "vw": TATP_VW}, device=dev)
+    skew_preset = only is not None and "skew" in only
+    if want("smallbank") and not skew_preset:
+        sweep_pipeline("smallbank",
+                       lambda w, b: _sb_runner(n_acc, w, b, hot_frac,
+                                               hot_prob, dev),
+                       _sb_extras, sd.N_STATS, widths=widths, cpb=cpb,
+                       depth=2, magic_idx=sd.STAT_MAGIC_BAD,
+                       window_s=window_s, open_rates=rates, results=results,
+                       lat_widths=lat_widths,
+                       point_extra=_sb_skew_extra(hot_frac, hot_prob,
+                                                  wl.SB_HOT_PROB),
+                       geom={"l": sd.L, "vw": sd.VW}, device=dev)
+    if want("multihost_sb") and not skew_preset:
+        _mesh_leg("multihost_sb", dev)
+    if skew_preset:
+        sweep_skew(n_acc, width=256 if quick else 8192, cpb=cpb,
+                   window_s=window_s, results=results, hot_prob=hot_prob,
+                   device=dev)
+    # --only serve_mesh is a preset: the two-way filter would also fire
+    # the single-device serve legs
+    mesh_preset = only is not None and "mesh" in only
+    if want("serve") and not mesh_preset:
+        sweep_serve("serve_tatp", "tatp_dense", n_sub, window_s=window_s,
+                    open_rates=rates, results=results, quick=quick, cpb=cpb,
+                    device=dev)
+        sweep_serve("serve_smallbank", "smallbank_dense", n_acc,
+                    window_s=window_s, open_rates=rates, results=results,
+                    quick=quick, cpb=cpb, device=dev)
+    if want("serve_mesh") and not skew_preset:
+        _mesh_leg("serve_mesh", dev)
+
     sweep_micro(window_s, quick, results, want=want, use_hotset=use_hotset,
-                device=device)
+                device=dev)
     summary = {"configs": sorted(results), "window_s": window_s,
                "quick": quick}
     with open(os.path.join(out, "summary.json"), "w") as f:
@@ -554,18 +1108,25 @@ def run(out: str, window_s: float = 10.0, quick: bool = False,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        description="The microbenchmark sweep of the PyTorch port.")
+        description="The experiment sweep of the PyTorch port.")
     ap.add_argument("--out", default="exp_results")
     ap.add_argument("--window", type=float, default=10.0)
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--only", default=None)
     ap.add_argument("--skip-done", action="store_true",
                     help="skip points whose artifact already exists")
+    ap.add_argument("--hot-frac", type=float, default=None,
+                    help="SmallBank hot-set fraction (default: the "
+                         "reference's 4%%)")
+    ap.add_argument("--hot-prob", type=float, default=None,
+                    help="SmallBank hot-set probability (default: the "
+                         "reference's 90%%)")
     args = ap.parse_args(argv)
     if args.quick and args.window == 10.0:
         args.window = 1.0
     results = run(args.out, window_s=args.window, quick=args.quick,
-                  only=args.only, skip_done=args.skip_done)
+                  only=args.only, skip_done=args.skip_done,
+                  hot_frac=args.hot_frac, hot_prob=args.hot_prob)
     for name in sorted(results):
         r = results[name]
         print(f"{name}: goodput={r['goodput']:.0f}/s "
