@@ -281,6 +281,28 @@ mismatch or error:
    (CALIB_H100.evidence.json, CALIB_H100.json) go to $DINT_SMOKE_OUT when
    set. (g) `python -m dint_tpu_torch.drive`: every check passes, scan_rows
    launched.
+17. The mesh on one card (after phase 16): the partitions of
+   `dint_tpu_torch.parallel` are a list on the card, so this measures
+   their work and their replication, and no link between devices. (a) The
+   sharded runner (default and fused routes) at 4 shards and the 3x2
+   multihost runner, 800 subscribers, w=32, 2 cohorts/block, on the CPU
+   and the card from the same host-made draws: tables, backups, logs,
+   heads and the stats of every step bit-identical. (b) Sharded TATP at
+   7,000,000 subscribers over 3 shards (the reference's three servers),
+   w=8192 a shard, 4 cohorts/block, one warm and 8 timed blocks and the
+   drain, on the default and fused routes, each from `populate_device`
+   tables (seeds 0-2) and generator seed 1: committed txn/s summed over
+   the shards, ms a step, the abort mix, peak memory; accounting closes,
+   magic_bad 0, no lock after the drain, every backup slot equal to the
+   shard it mirrors, log heads 3x the version bumps, the route's kernels
+   once a shard a step, the fused route's stats equal the default's; shard
+   1 rebuilt from its own ring and from shard 2's (numpy
+   `recover_tatp_dense`, key_hi filter); then one profiled block a route:
+   device and host ms a step of the local waves and of `replicate`. (c)
+   The same over a 3x2 (host, chip) mesh (`build_multihost_runner`), 4 timed
+   blocks: the three copies of every row on three hosts; partition (1, 0)
+   rebuilt from host 2's ring. (d) `entry.dryrun_multichip(4)` on the
+   card.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -4545,8 +4567,8 @@ def _obs_profiled_block(dev, label, run, init, drain, state, trace_dir,
     host sleep, and taken again with twice the padding when the profile
     holds no device event, at most 3 times), then the drain; returns the
     drained state, the breakdown, each kernel's slices by the wave they
-    are charged to, the count of unlinked device slices and the block's
-    kernel launches."""
+    are charged to, the count of unlinked device slices, the block's
+    kernel launches and the profile's events."""
     from dint_tpu_torch.monitor import attrib, profiler_session
     carry = init(state)
     gen = torch.Generator(device=dev).manual_seed(151)
@@ -4571,7 +4593,7 @@ def _obs_profiled_block(dev, label, run, init, drain, state, trace_dir,
         if name is not None:
             by_kernel.setdefault(name, {}).setdefault(wave, 0)
             by_kernel[name][wave] += 1
-    return drain(carry)[0], bd, by_kernel, unlinked, launches
+    return drain(carry)[0], bd, by_kernel, unlinked, launches, events
 
 
 def _obs_check_breakdown(label, bd, by_kernel, unlinked, launches):
@@ -4631,7 +4653,7 @@ def phase_obs_full(dev, trace_dir):
               f"{TATP_PER_STEP[route]} per step over {steps} steps")
         check(not bool(db.locked.any()),
               f"{label}: no row locked after the drain")
-        db, bd, by_kernel, unlinked, launches = _obs_profiled_block(
+        db, bd, by_kernel, unlinked, launches, _ = _obs_profiled_block(
             dev, label, run, init, drain, db, trace_dir,
             {"w": W, "k": td.K, "vw": VW}, CPB)
         paths[f"profiled {label}"] = launches
@@ -4656,7 +4678,7 @@ def phase_obs_full(dev, trace_dir):
     delta = (int(sd.total_balance(bank)) - base) % (1 << 32)
     check(delta == int(total[sd.STAT_BAL_DELTA]) % (1 << 32),
           f"{label}: balance conserved mod 2^32 (delta {delta})")
-    bank, bd, by_kernel, unlinked, launches = _obs_profiled_block(
+    bank, bd, by_kernel, unlinked, launches, _ = _obs_profiled_block(
         dev, label, run, init, drain, bank, trace_dir,
         {"w": SB_W, "l": sd.L, "vw": sd.VW}, SB_CPB)
     paths[f"profiled {label}"] = launches
@@ -5386,6 +5408,361 @@ def phase_sweeps(dev, card):
     return paths
 
 
+# ------------------------------------------------------- the mesh on one card
+
+MESH_D = 3                       # the reference's three servers
+MESH_2D = (3, 2)                 # three hosts of two chips
+MESH_W = 8192                    # each shard's cohort width
+MESH_CPB = 4
+MESH_BLOCKS = 8                  # timed blocks after the warm one (1-D)
+MESH_2D_BLOCKS = 4               # (2-D)
+MESH_TEST = dict(n=4, n_sub=4 * 200, w=32, cpb=2, vw=4, log_cap=128)
+
+
+def _mesh_states(dev, mesh, axis, n_sub_global, seed0=0):
+    """The partitions' states at full size: `populate_device` a partition
+    (generator seeds seed0 + p, the population rules of `populate`), the
+    backups assembled by dense_sharded's helper; and each partition's
+    populated ver sum."""
+    from dint_tpu_torch.engines import tatp_dense as td
+    from dint_tpu_torch.ops import u32
+    from dint_tpu_torch.parallel import dense_sharded as ds
+    n_loc = ds.n_sub_local(n_sub_global, mesh.size)
+    t0 = time.perf_counter()
+    dbs = [td.populate_device(torch.Generator(device=dev).manual_seed(
+        seed0 + p), n_loc, val_words=VW, log_replicas=1, device=dev)
+        for p in range(mesh.size)]
+    states = ds._with_backups(mesh, axis, dbs)
+    base = [int((u32.to_u64(st.db.meta) >> 1).sum()) for st in states]
+    torch.cuda.synchronize()
+    print(f"  {mesh.size} partitions of {n_loc:,} subscribers "
+          f"({dbs[0].meta.numel():,} rows each) populated on the card with "
+          f"their backups: {time.perf_counter() - t0:.3f} s")
+    return states, base
+
+
+def _mesh_drive(dev, card, label, run, init, drain, states, n_parts, blocks):
+    """One warm block and ``blocks`` timed blocks from generator seed 1,
+    then the drain, launches counted from 0 over them; prints committed
+    txn/s summed over the partitions, ms a step, the abort mix and the peak
+    memory. Returns (states, stats of every step, launches)."""
+    from dint_tpu_torch.engines import tatp_dense as td
+    gen = torch.Generator(device=dev).manual_seed(1)
+    reset_launches()
+    carry = init(states)
+    t0 = time.perf_counter()
+    carry, s_warm = run(carry, gen)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    block_s, timed = [], []
+    for _ in range(blocks):
+        t0 = time.perf_counter()
+        carry, s = run(carry, gen)
+        torch.cuda.synchronize()
+        block_s.append(time.perf_counter() - t0)
+        timed.append(s)
+    states, tail = drain(carry)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    stats = torch.cat([s_warm] + timed + [tail]).cpu().numpy()
+    total = stats.astype(np.int64).sum(axis=0)
+    committed = int(stats[MESH_CPB:-2, td.STAT_COMMITTED].astype(
+        np.int64).sum())
+    secs = float(sum(block_s))
+    att = int(total[td.STAT_ATTEMPTED])
+    print(f"  {label}: warm block {warm:.3f} s; committed txn/s "
+          f"{committed / secs:.1f} summed over {n_parts} partitions "
+          f"({committed} in {secs:.6f} s, {blocks} blocks x {MESH_CPB} "
+          f"steps x w={MESH_W} a partition); ms/step "
+          f"{secs / (blocks * MESH_CPB) * 1e3:.6f}  [{card}]")
+    print(f"  {label}: abort mix of {att}: ab_lock "
+          f"{int(total[td.STAT_AB_LOCK])}, ab_missing "
+          f"{int(total[td.STAT_AB_MISSING])}, ab_validate "
+          f"{int(total[td.STAT_AB_VALIDATE])}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated(dev):,} B")
+    return states, stats, launches
+
+
+def _mesh_check(label, mesh, axis, states, base, stats, launches, per_step,
+                n_blocks):
+    """The sharded invariants after a `_mesh_drive` run: accounting,
+    magic_bad, no lock held, each backup slot equal to the partition it
+    mirrors (whose sentinel row, like the slot's, is zero), log heads three
+    times the version bumps, and the route's launches a shard a step."""
+    from dint_tpu_torch.engines import tatp_dense as td
+    from dint_tpu_torch.ops import u32
+    total = stats.astype(np.int64).sum(axis=0)
+    att = int(total[td.STAT_ATTEMPTED])
+    check(att == (n_blocks + 1) * MESH_CPB * MESH_W * mesh.size
+          and int(total[td.STAT_COMMITTED] + total[td.STAT_AB_LOCK]
+                  + total[td.STAT_AB_MISSING] + total[td.STAT_AB_VALIDATE])
+          == att and int(total[td.STAT_MAGIC_BAD]) == 0
+          and total[td.STAT_COMMITTED] > 0,
+          f"{label}: every txn attempted, accounting closes (drain "
+          f"included), magic_bad == 0")
+    check(not any(bool(st.db.locked.any()) for st in states),
+          f"{label}: no row locked after the drain")
+    n1 = states[0].db.meta.numel()
+    for p, st in enumerate(states):
+        for off in (1, 2):
+            q = mesh.shift(p, axis, off)       # the partition that backs p up
+            slot = off - 1
+            check(torch.equal(states[q].bck_meta[slot * n1:(slot + 1) * n1],
+                              st.db.meta)
+                  and torch.equal(
+                      states[q].bck_val[slot * n1 * VW:(slot + 1) * n1 * VW],
+                      st.db.val),
+                  f"{label}: partition {mesh.coords(p)}'s tables == backup "
+                  f"slot {slot} of partition {mesh.coords(q)}", quiet=p > 0)
+    bumps = sum(int((u32.to_u64(st.db.meta) >> 1).sum()) - b
+                for st, b in zip(states, base))
+    heads = sum(int(u32.to_u64(st.db.log.head).sum()) for st in states)
+    check(bumps > 0 and heads == 3 * bumps,
+          f"{label}: log heads {heads} == 3 x {bumps} version bumps (each "
+          f"write logged on three partitions)")
+    steps = stats.shape[0]
+    want = dict.fromkeys(launches, 0)
+    want.update({k: c * steps * mesh.size for k, c in per_step.items()})
+    check(launches == want,
+          f"{label}: launches {launches} == {per_step} a partition a step "
+          f"over {steps} steps x {mesh.size} partitions")
+
+
+def _mesh_recover(dev, label, mesh, states, dead, sources, n_loc, seed0=0):
+    """Partition ``dead`` rebuilt from its populate (`populate_device` from
+    the same seed) and each (holder, tag) ring of ``sources`` with the
+    numpy `recover_tatp_dense`: val and meta equal the live tables."""
+    from dint_tpu_torch import recovery
+    from dint_tpu_torch.engines import tatp_dense as td
+    from dint_tpu_torch.tables import log as logring
+    snap = td.populate_device(torch.Generator(device=dev).manual_seed(
+        seed0 + dead), n_loc, val_words=VW, log_replicas=1, device=dev)
+    for holder, tag in sources:
+        t0 = time.perf_counter()
+        log = states[holder].db.log
+        rec = recovery.recover_tatp_dense(
+            snap, logring.replica_entries(log, 0), log.head,
+            key_hi_filter=tag)
+        check(torch.equal(rec.val, states[dead].db.val)
+              and torch.equal(rec.meta, states[dead].db.meta),
+              f"{label}: lost partition {mesh.coords(dead)} rebuilt from "
+              f"partition {mesh.coords(holder)}'s ring (key_hi tag {tag}, "
+              f"max head {int(log.head.max())} of {log.capacity} slots a "
+              f"lane) in {time.perf_counter() - t0:.3f} s")
+        del rec
+
+
+def _mesh_wave_split(dev, card, label, run, init, drain, states,
+                     trace_dir):
+    """One profiled block (`_obs_profiled_block`): device ms and host ms a
+    step of the shards' local steps (the tatp_dense waves) and of the
+    ``dense_sharded.replicate`` wave, and the device kernels that carry
+    most of replicate's time."""
+    from dint_tpu_torch.monitor import attrib
+    states, bd, _, unlinked, _, events = _obs_profiled_block(
+        dev, label, run, init, drain, states, trace_dir, {}, MESH_CPB)
+    by_name = {}
+    for e, wave, _ in attrib.charge(events):
+        if wave == "dint.dense_sharded.replicate":
+            n, ms = by_name.get(e["name"], (0, 0.0))
+            by_name[e["name"]] = (n + 1, ms + float(e.get("dur", 0)) / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:4]
+    print(f"  {label}: replicate's top kernels (launches, device ms a step): "
+          + "; ".join(f"{name[:72]} ({n / MESH_CPB:g}, {ms / MESH_CPB:.6f})"
+                      for name, (n, ms) in top))
+    split = {}
+    for part, pre in (("local", "dint.tatp_dense."),
+                      ("replicate", "dint.dense_sharded.replicate")):
+        rows = [r for n, r in bd["waves"].items() if n.startswith(pre)]
+        split[part] = {"ms_per_step": sum(r["ms_per_step"] or 0
+                                          for r in rows),
+                       "host_ms_per_step": sum(r["host_ms"] for r in rows)
+                       / MESH_CPB}
+    dev_ms = split["local"]["ms_per_step"] + split["replicate"]["ms_per_step"]
+    check(split["replicate"]["ms_per_step"] > 0 and unlinked == 0,
+          f"{label}: the profiled block charged device time to both parts "
+          f"of a step: "
+          f"local {split['local']['ms_per_step']:.6f} ms/step, replicate "
+          f"{split['replicate']['ms_per_step']:.6f} ms/step (replicate's "
+          f"share {split['replicate']['ms_per_step'] / dev_ms:.6f}); host "
+          f"ms/step in their ranges {split['local']['host_ms_per_step']:.6f} "
+          f"and {split['replicate']['host_ms_per_step']:.6f}  [{card}]")
+    return states, split
+
+
+def phase_mesh_cpu_vs_card(dev, card):
+    c = MESH_TEST
+    print(f"== phase 17 (a): the mesh, CPU against the card: "
+          f"{c['n']} shards (default and fused) and 3x2 (multihost), "
+          f"{c['n_sub']} subscribers, w={c['w']}, {c['cpb']} cohorts/block, "
+          f"the same host-made draws")
+    from dint_tpu_torch import convert
+    from dint_tpu_torch.ops import u32
+    from dint_tpu_torch.parallel import dense_sharded as ds
+    from dint_tpu_torch.parallel import multihost as mh
+    t0 = time.perf_counter()
+    for label, shape in (("default", (c["n"],)), ("fused", (c["n"],)),
+                         ("multihost 3x2", MESH_2D)):
+        n = int(np.prod(shape))
+        rng = np.random.default_rng(17)
+        draws = [(rng.integers(0, 1 << 32, (c["cpb"], n, c["w"], 4),
+                               dtype=np.uint64).astype(np.uint32),
+                  rng.integers(0, 1 << 16, (c["cpb"], n, c["w"], 2))
+                  .astype(np.int32)) for _ in range(3)]
+        out = []
+        for where in ("cpu", dev):
+            kw = dict(w=c["w"], val_words=c["vw"],
+                      cohorts_per_block=c["cpb"])
+            if len(shape) == 2:
+                mesh = mh.make_mesh_2d(*shape, device=where)
+                states = mh.create_multihost(mesh, c["n_sub"],
+                                             val_words=c["vw"],
+                                             log_capacity=c["log_cap"])
+                run, init, drain = mh.build_multihost_runner(
+                    mesh, c["n_sub"], **kw)
+            else:
+                mesh = ds.make_mesh(n, device=where)
+                states = ds.create_sharded(mesh, n, c["n_sub"],
+                                           val_words=c["vw"],
+                                           log_capacity=c["log_cap"])
+                run, init, drain = ds.build_sharded_pipelined_runner(
+                    mesh, n, c["n_sub"], use_fused=label == "fused", **kw)
+            carry = init(states)
+            stats = []
+            for bits, payload in draws[:2]:
+                carry, s = run.run_draws(carry, u32.from_numpy(bits, where),
+                                         torch.from_numpy(payload).to(where))
+                stats.append(s.cpu())
+            states, tail = drain(carry, torch.from_numpy(draws[2][1][:2])
+                                 .to(where))
+            stats.append(tail.cpu())
+            out.append((convert.sharded_state_to_numpy(states, shape),
+                        torch.cat(stats).numpy()))
+        (a, a_st), (b, b_st) = out
+        same = [k for k in a if np.array_equal(np.asarray(a[k]),
+                                               np.asarray(b[k]))]
+        check(np.array_equal(a_st, b_st) and same == list(a),
+              f"{label}: stats of every step and {same} bit-identical "
+              f"(stats total {a_st.sum(axis=0).tolist()})")
+    print(f"  phase 17 (a) seconds: {time.perf_counter() - t0:.3f}")
+
+
+def phase_mesh_1d(dev, card, trace_dir):
+    from dint_tpu_torch.parallel import dense_sharded as ds
+    print(f"== phase 17 (b): sharded TATP at {N_SUB:,} subscribers over "
+          f"{MESH_D} shards on one card, w={MESH_W} a shard, VW={VW}, "
+          f"{MESH_CPB} cohorts/block, 1 warm + {MESH_BLOCKS} timed blocks, "
+          f"default and fused routes")
+    t_phase = time.perf_counter()
+    mesh = ds.make_mesh(MESH_D, dev)
+    n_loc = ds.n_sub_local(N_SUB, MESH_D)
+    paths, rec, ref = {}, {}, None
+    for route, fused in (("default", False), ("fused", True)):
+        label = f"tatp sharded{' fused' if fused else ''}"
+        torch.cuda.reset_peak_memory_stats(dev)
+        states, base = _mesh_states(dev, mesh, ds.SHARD_AXIS, N_SUB)
+        run, init, drain = ds.build_sharded_pipelined_runner(
+            mesh, MESH_D, N_SUB, w=MESH_W, val_words=VW,
+            cohorts_per_block=MESH_CPB, use_fused=fused)
+        states, stats, launches = _mesh_drive(
+            dev, card, label, run, init, drain, states, MESH_D, MESH_BLOCKS)
+        rec[route] = {"peak_bytes": torch.cuda.max_memory_allocated(dev)}
+        paths[label] = launches
+        _mesh_check(label, mesh, ds.SHARD_AXIS, states, base, stats,
+                    launches, TATP_PER_STEP[route], MESH_BLOCKS)
+        if ref is None:
+            ref = stats
+            dead = 1
+            _mesh_recover(dev, label, mesh, states, dead,
+                          ((dead, 0), ((dead + 1) % MESH_D, dead + 1)),
+                          n_loc)
+        else:
+            check(np.array_equal(ref, stats),
+                  f"{label}: the stats of every step equal the default "
+                  f"route's (same tables, same draws)")
+        states, rec[route]["wave_split"] = _mesh_wave_split(
+            dev, card, label, run, init, drain, states, trace_dir)
+        del states, run, init, drain
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"  phase 17 (b) seconds: {time.perf_counter() - t_phase:.3f}  "
+          f"[{card}]")
+    return paths, rec
+
+
+def phase_mesh_2d(dev, card):
+    from dint_tpu_torch.parallel import multihost as mh
+    h, c = MESH_2D
+    print(f"== phase 17 (c): multihost TATP at {N_SUB:,} subscribers over a "
+          f"{h}x{c} (host, chip) mesh on one card, w={MESH_W} a partition, "
+          f"{MESH_CPB} cohorts/block, 1 warm + {MESH_2D_BLOCKS} timed blocks")
+    t_phase = time.perf_counter()
+    mesh = mh.make_mesh_2d(h, c, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    states, base = _mesh_states(dev, mesh, mh.DCN_AXIS, N_SUB)
+    run, init, drain = mh.build_multihost_runner(
+        mesh, N_SUB, w=MESH_W, val_words=VW, cohorts_per_block=MESH_CPB)
+    states, stats, launches = _mesh_drive(
+        dev, card, "tatp multihost", run, init, drain, states, mesh.size,
+        MESH_2D_BLOCKS)
+    peak = torch.cuda.max_memory_allocated(dev)
+    _mesh_check("tatp multihost", mesh, mh.DCN_AXIS, states, base, stats,
+                launches, TATP_PER_STEP["default"], MESH_2D_BLOCKS)
+    hosts = {p: {mesh.coords(mesh.shift(p, mh.DCN_AXIS, off))[0]
+                 for off in (0, 1, 2)} for p in range(mesh.size)}
+    check(all(len(v) == 3 for v in hosts.values())
+          and all(mesh.coords(mesh.shift(p, mh.DCN_AXIS, 1))[1]
+                  == mesh.coords(p)[1] for p in range(mesh.size)),
+          "fault domains: the three copies of every partition's rows sit on "
+          "three hosts, at the same chip")
+    dead = mesh.flat((1, 0))
+    holder = mesh.flat((2, 0))
+    _mesh_recover(dev, "tatp multihost", mesh, states, dead,
+                  ((holder, dead + 1),), mh.n_sub_local(N_SUB, mesh.size))
+    del states, run, init, drain
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 17 (c) seconds: {time.perf_counter() - t_phase:.3f}  "
+          f"[{card}]")
+    return {"tatp multihost": launches}, {"peak_bytes": peak}
+
+
+def phase_mesh_dryrun(dev, card):
+    import contextlib
+    import io
+    from dint_tpu_torch import entry
+    print("== phase 17 (d): entry.dryrun_multichip(4) on the card")
+    buf = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stdout(buf):
+        entry.dryrun_multichip(4, device=dev)
+    launches = launch_counts()
+    line = buf.getvalue().strip().splitlines()[-1]
+    print(f"  {line}")
+    check(line.startswith("dryrun_multichip ok: devices=4 ")
+          and launches["gather_rows"] > 0,
+          f"the dry run passes its checks on the card, its dense runner "
+          f"through the kernels ({launches})  [{card}]")
+    return {"p17 dryrun": launches}
+
+
+def phase_mesh(dev, card):
+    """Phase 17: the mesh on one card."""
+    import tempfile
+    t0 = time.perf_counter()
+    phase_mesh_cpu_vs_card(dev, card)
+    with tempfile.TemporaryDirectory(prefix="dint_p17_") as tmp:
+        paths, rec = phase_mesh_1d(dev, card, tmp)
+    p, rec["multihost"] = phase_mesh_2d(dev, card)
+    paths.update(p)
+    paths.update(phase_mesh_dryrun(dev, card))
+    secs = time.perf_counter() - t0
+    rec["seconds"] = secs
+    print("  phase 17 record: " + json.dumps(rec, default=str))
+    print(f"  phase 17: {secs:.3f} s  [{card}]")
+    return paths
+
+
 KERNELS = {
     "gather_rows": ("dint_tpu_torch/csrc/gather_rows.cu",
                     "dint_tpu/ops/pallas_gather.py:212"),
@@ -5461,6 +5838,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     store_paths.update(phase_sweeps(dev, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    store_paths.update(phase_mesh(dev, card))
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -5471,9 +5851,9 @@ def main() -> int:
         # tier's hot run (phase 8), the probe's entry point (phase 2) and
         # the bench's two legs (phase 9, counted in its process),
         # sweep_micro's store points (phase 14 (d)), phase 15's traced
-        # runs and profiled blocks and phase 16's sweep, serve and
-        # calibration points and drive, each counted from 0 just before
-        # its run
+        # runs and profiled blocks, phase 16's sweep, serve and
+        # calibration points and drive, and phase 17's sharded, multihost
+        # and dry runs, each counted from 0 just before its run
         paths = {**{f"tatp {k}": v[name] for k, v in tatp.items()},
                  **{f"smallbank {k}": v[name] for k, v in sb.items()},
                  **{k: v[name] for k, v in store_paths.items()}}
@@ -5538,6 +5918,13 @@ def main() -> int:
           "phase 16: gather_rows and lock_arbitrate ran on the default TATP "
           "points, scatter_streams and lock_validate on the fused one, the "
           "hot kernels on the hot-tier skew point, scan_rows in drive")
+    check(all(by_name[k][p] > 0 for k in ("gather_rows", "lock_arbitrate")
+              for p in ("tatp sharded", "tatp multihost"))
+          and all(by_name[k]["tatp sharded fused"] > 0
+                  for k in ("scatter_streams", "lock_validate")),
+          "phase 17: gather_rows and lock_arbitrate ran on the sharded and "
+          "multihost default routes, scatter_streams and lock_validate on "
+          "the sharded fused route")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -41,7 +41,15 @@ JAX's int32 counters), static ints as ints:
     smallbank.Shard: "sav.*", "chk.*", "sav_sh", "sav_ex", "chk_sh",
                   "chk_ex", "log.*"
     the three replicas: the same keys, each array with a leading [3] axis
-                  (JAX's stacked pytree)
+                  (JAX's stacked pytree); JAX's sharded generic state
+                  (`parallel.sharded.create_sharded_state`,
+                  `create_sharded_smallbank`) the same with a leading [D]
+
+The sharded dense TATP state (`parallel.dense_sharded.ShardState`, JAX's
+stacked over a leading [D] or [H, C] mesh axis) travels as the DenseDB
+dict of its ``db`` under the prefix ``db.`` plus "bck_val" and
+"bck_meta", every array stacked over the mesh's shape and the static
+ints ("db.val_words", "db.lanes", "db.replicas") as ints.
 """
 from __future__ import annotations
 
@@ -303,3 +311,55 @@ def smallbank_stacked_from_numpy(arrays: dict, device=None) -> list:
     n = len(arrays["sav.ver"])
     return [smallbank_shard_from_numpy(_replica(arrays, i), device)
             for i in range(n)]
+
+
+def tatp_sharded_from_numpy(arrays: dict, device=None) -> list:
+    """JAX's `sharded.create_sharded_state` state (stacked [D]) -> the
+    port's list of D shards."""
+    return tatp_stacked_from_numpy(arrays, device)
+
+
+def smallbank_sharded_from_numpy(arrays: dict, device=None) -> list:
+    """JAX's `sharded.create_sharded_smallbank` state (stacked [D]) -> the
+    port's list of D shards."""
+    return smallbank_stacked_from_numpy(arrays, device)
+
+
+# ------------------------------------------------- sharded dense TATP
+
+
+def sharded_state_from_numpy(arrays: dict, device=None) -> list:
+    """JAX's stacked `ShardState` dict (leading [D] or [H, C]) -> the
+    port's list of `ShardState`, in flat partition order (h * C + c)."""
+    from .parallel.dense_sharded import ShardState
+    dev = resolve_device(device)
+    lead = np.asarray(arrays["bck_meta"]).shape[:-1]
+    n = int(np.prod(lead))
+    flat = {k: (np.asarray(v).reshape((n,) + np.shape(v)[len(lead):])
+                if isinstance(v, (np.ndarray, np.generic)) else v)
+            for k, v in arrays.items()}
+    out = []
+    for i in range(n):
+        a = _replica(flat, i)
+        out.append(ShardState(db=dense_db_from_numpy(_sub(a, "db"), dev),
+                              bck_val=from_numpy(a["bck_val"], dev),
+                              bck_meta=from_numpy(a["bck_meta"], dev)))
+    return out
+
+
+def sharded_state_to_numpy(states, mesh_shape) -> dict:
+    """The port's list of `ShardState` -> the stacked dict, every array
+    with the leading mesh shape (JAX's layout)."""
+    mesh_shape = tuple(mesh_shape)
+    dicts = [{**{f"db.{k}": v for k, v in dense_db_to_numpy(s.db).items()},
+              "bck_val": to_numpy(s.bck_val),
+              "bck_meta": to_numpy(s.bck_meta)} for s in states]
+    out = {}
+    for k, v in dicts[0].items():
+        if isinstance(v, (np.ndarray, np.generic)):
+            st = np.stack([d[k] for d in dicts])
+            out[k] = st.reshape(mesh_shape + st.shape[1:])
+        else:
+            assert all(d[k] == v for d in dicts), k
+            out[k] = v
+    return out

@@ -56,7 +56,12 @@ What differs from JAX:
   takes them as given, which is how the tests replay JAX's draws.
 * `lock_arbitrate` and `lock_validate` take no ``hot_n``: JAX's keeps the
   arb prefix in VMEM, which changes no output and has no twin on the card.
-* ``emit_installs`` is not ported.
+
+``emit_installs`` adds the step's wave-3 record (`Installs`: what a backup
+replica applies, parallel/dense_sharded.py) after the stats, in JAX's
+position: (db, new_ctx, c1, stats, inst[, counters][, ring]). Its tensors
+are fresh or views of c2's, so the step's in-place writes leave it as it
+was built.
 """
 from __future__ import annotations
 
@@ -322,10 +327,28 @@ def step_consts(n_sub: int, w: int, mix, device) -> StepConsts:
         lane=torch.arange(w, dtype=I32, device=device))
 
 
+@dataclass
+class Installs:
+    """The wave-3 install record of one step: what a backup replica
+    applies (the reference's CommitBck x2 + CommitLog fan-out,
+    client_ebpf_shard.cc:779-900). Rows are the emitting shard's local ids;
+    ``wmask`` marks real writes (releases are lock-only and stay local).
+    Words are int32-carried u32."""
+    wmask: torch.Tensor    # bool [2w]
+    rows: torch.Tensor     # i32 [2w]
+    meta: torch.Tensor     # i32 [2w]  new ver<<1|exists, 0 where masked
+    val: torch.Tensor      # i32 [2w, VW]
+    tbl: torch.Tensor      # i32 [2w]  (for the log)
+    key: torch.Tensor      # i32 [2w]
+    is_del: torch.Tensor   # i32 [2w]
+    ver: torch.Tensor      # i32 [2w]
+
+
 def pipe_step(db: DenseDB, c1: DenseCtx, c2: DenseCtx, bits, payload, *,
               w: int, n_sub: int, val_words: int, gen_new: bool = True,
               mix=None, check_magic: bool = True, use_hotset: bool = False,
-              use_fused: bool = False, occupancy=None, shed=None,
+              use_fused: bool = False, emit_installs: bool = False,
+              occupancy=None, shed=None,
               counters: mon.Counters | None = None,
               ring: txe.TxnRing | None = None,
               tcfg: txe.TraceCfg | None = None,
@@ -351,8 +374,8 @@ def pipe_step(db: DenseDB, c1: DenseCtx, c2: DenseCtx, bits, payload, *,
     unfused routes, so ``magic_gather`` holds the magic compare alone there.
 
     Updates ``db`` in place and returns (db, new_ctx, c1', stats-of-c2),
-    plus the counters when ``counters`` is given, plus the ring when
-    ``ring`` is given."""
+    plus c2's `Installs` when ``emit_installs``, plus the counters when
+    ``counters`` is given, plus the ring when ``ring`` is given."""
     dev = db.meta.device
     if consts is None:
         consts = step_consts(n_sub, w, mix, dev)
@@ -580,6 +603,11 @@ def pipe_step(db: DenseDB, c1: DenseCtx, c2: DenseCtx, bits, payload, *,
 
     db.step = t + 1
     out = (db, new_ctx, c1, _stats_of(c2))
+    if emit_installs:
+        out += (Installs(wmask=wmask, rows=wsr,
+                         meta=torch.where(wmask, meta_new, 0), val=newval,
+                         tbl=log_tbl, key=log_key, is_del=is_del,
+                         ver=newver),)
     grant_l = grant.reshape(-1)
     if counters is not None:
         upd = {}

@@ -1,8 +1,10 @@
-"""The port's twin of `__graft_entry__.entry()`: one dense TATP pipeline
-step with example arguments, for a quick check that the step runs."""
+"""The port's twins of `__graft_entry__`: `entry()`, one dense TATP
+pipeline step with example arguments, and `dryrun_multichip`, one run of
+the sharded paths on tiny shapes."""
 from __future__ import annotations
 
 import functools
+import time
 
 import numpy as np
 import torch
@@ -31,3 +33,97 @@ def entry(device=None):
                             generator=gen, device=dev)
     return fn, (db, td.empty_ctx(w, dev), td.empty_ctx(w, dev), bits,
                 payload)
+
+
+def dryrun_multichip(n_devices: int, device=None) -> None:
+    """The sharded TATP paths over an in-process mesh of ``n_devices``
+    partitions on ``device`` (None means CUDA), on tiny shapes, each
+    checked; prints one ``dryrun_multichip ok:`` line.
+
+    * the generic TATP shards (64 subscribers, VW 4): COMMIT_PRIM waves
+      from `sharded.route_batches` through `build_sharded_step`, the
+      psummed vote == the requests;
+    * the generic SmallBank shards (65 accounts) the same way;
+    * the dense sharded TATP runner (64 subscribers a shard, w = 32, 2
+      cohorts a block, 2 blocks drawn from torch generators seeded 0 and
+      1, then the drain): attempted == 2 * 2 * 32 * n, 0 < committed <=
+      attempted.
+
+    The generic shards' rings hold 2^12 entries a lane where
+    `tatp.create` and `smallbank.create` default to 2^20: no wave here
+    logs, so only the allocation differs. The reference's line also
+    carries ``dense_sb_committed`` and ``conservation_ok``, from the
+    sharded dense SmallBank runner, which the port does not have yet;
+    this line leaves both out."""
+    from .engines import smallbank, tatp
+    from .engines.types import Op
+    from .parallel import dense_sharded as ds
+    from .parallel import sharded
+
+    dev = resolve_device(device)
+    t0 = time.time()
+    mesh = sharded.make_mesh(n_devices, dev)
+    vw = 4
+    state = sharded.create_sharded_state(mesh, n_devices, 64, val_words=vw,
+                                         cf_buckets=256, cf_lock_slots=256,
+                                         log_capacity=1 << 12)
+    step = sharded.build_sharded_step(mesh, n_devices)
+    rng = np.random.default_rng(0)
+    m = 4 * n_devices
+    keys = rng.integers(1, 65, size=m).astype(np.int64)
+    ops = np.full(m, Op.COMMIT_PRIM, np.int32)
+    tbls = np.full(m, tatp.SUBSCRIBER, np.int32)
+    waves, _ = sharded.route_batches(ops, tbls, keys, None, None, n_devices,
+                                     width=8, val_words=vw, device=dev)
+    committed_total = 0
+    for batch in waves:
+        state, _, committed = step(state, batch)
+        committed_total += int(committed[0])
+    if committed_total != m:
+        raise RuntimeError(f"tatp committed {committed_total} of {m}")
+
+    # SmallBank over the same mesh machinery, sized 65 because the reused
+    # TATP keys are 1-based and SmallBank accounts 0-based
+    sb_state = sharded.create_sharded_smallbank(mesh, n_devices, 65,
+                                                log_capacity=1 << 12)
+    sb_step = sharded.build_sharded_step(mesh, n_devices, engine="smallbank")
+    sb_tbls = np.full(m, smallbank.SAVINGS, np.int32)
+    sb_vers = np.ones(m, np.uint32)     # client-supplied version
+    sb_waves, _ = sharded.route_batches(ops, sb_tbls, keys, None, sb_vers,
+                                        n_devices, width=8, val_words=2,
+                                        device=dev)
+    sb_committed = 0
+    for batch in sb_waves:
+        sb_state, _, committed = sb_step(sb_state, batch)
+        sb_committed += int(committed[0])
+    if sb_committed != m:
+        raise RuntimeError(f"smallbank committed {sb_committed} of {m}")
+
+    # the flagship sharded path: dense pipelined TATP, installs forwarded
+    # to the +1/+2 backups, stats summed over the mesh
+    dstate = ds.create_sharded(mesh, n_devices, n_devices * 64,
+                               val_words=vw)
+    drun, dinit, ddrain = ds.build_sharded_pipelined_runner(
+        mesh, n_devices, n_devices * 64, w=32, val_words=vw,
+        cohorts_per_block=2)
+    dcarry = dinit(dstate)
+    total = torch.zeros(td.N_STATS, dtype=torch.int64, device=dev)
+    for i in range(2):
+        gen = torch.Generator(device=dev).manual_seed(i)
+        dcarry, stats = drun(dcarry, gen)
+        total += stats.sum(0)
+    _, tail = ddrain(dcarry)
+    total = (total + tail.sum(0)).tolist()
+    att, com = total[td.STAT_ATTEMPTED], total[td.STAT_COMMITTED]
+    if att != 2 * 2 * 32 * n_devices or not 0 < com <= att:
+        raise RuntimeError(f"dense sharded TATP: attempted {att}, "
+                           f"committed {com}")
+    rows = sharded.local_rows(65, n_devices)
+    print(f"dryrun_multichip ok: devices={n_devices} "
+          f"tatp_local_rows={rows} tatp_committed={committed_total} "
+          f"smallbank_committed={sb_committed} "
+          f"dense_tatp_attempted={att} dense_tatp_committed={com} "
+          f"dense_tatp_ab_lock={total[td.STAT_AB_LOCK]} "
+          f"dense_tatp_ab_missing={total[td.STAT_AB_MISSING]} "
+          f"dense_tatp_ab_validate={total[td.STAT_AB_VALIDATE]} "
+          f"wall_s={time.time() - t0:.1f}", flush=True)

@@ -1,0 +1,84 @@
+"""An in-process device mesh: the counterpart of `jax.sharding.Mesh` plus
+the two collectives the sharded TATP paths use, for partitions kept as a
+Python list on one device.
+
+One card has no peers, and NCCL puts one rank on a card, so the port runs
+the reference's mesh in one process: partition ``p`` of a mesh of shape
+``(D,)`` or ``(H, C)`` is entry ``p`` of a list, its flat index ``h * C +
+c`` (the order `dint_tpu.parallel.multihost` derives a partition id in).
+A collective is then list work on the host:
+
+* `Mesh.ppermute` re-indexes the list along one axis (JAX's ``perm =
+  [(i, (i + off) % n)]``): the receiver reads the sender's tensors, and
+  no byte moves;
+* `Mesh.psum` sums equal-shape tensors over the whole list.
+
+So a run on such a mesh measures the work of every partition, replication
+included, and no link between devices. The same code runs on the CPU,
+where the tests hold it against JAX's runners on virtual devices.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..device import resolve_device
+
+
+class Mesh:
+    """``shape`` partitions named by ``axis_names`` (one name an axis), all
+    on ``device`` (None means CUDA, and raises without one)."""
+
+    def __init__(self, shape, axis_names, device=None):
+        self.shape = tuple(int(n) for n in shape)
+        self.axis_names = tuple(axis_names)
+        if len(self.shape) != len(self.axis_names) or \
+                min(self.shape, default=0) < 1:
+            raise ValueError(f"mesh shape {self.shape} and axes "
+                             f"{self.axis_names} do not match")
+        self.device = resolve_device(device)
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    def coords(self, p: int) -> tuple:
+        """The coordinates of flat partition ``p``, major axis first."""
+        out = []
+        for n in reversed(self.shape):
+            p, c = divmod(p, n)
+            out.append(c)
+        return tuple(reversed(out))
+
+    def flat(self, coords) -> int:
+        p = 0
+        for c, n in zip(coords, self.shape):
+            p = p * n + c
+        return p
+
+    def axis_index(self, p: int, axis: str) -> int:
+        """``jax.lax.axis_index(axis)`` as partition ``p`` sees it."""
+        return self.coords(p)[self.axis_names.index(axis)]
+
+    def shift(self, p: int, axis: str, off: int) -> int:
+        """The partition ``off`` steps from ``p`` along ``axis``, wrapping."""
+        c = list(self.coords(p))
+        i = self.axis_names.index(axis)
+        c[i] = (c[i] + off) % self.shape[i]
+        return self.flat(c)
+
+    def ppermute(self, xs: list, axis: str, off: int) -> list:
+        """``jax.lax.ppermute`` with ``perm = [(i, (i + off) % n)]`` along
+        ``axis``: partition ``p`` receives what partition ``p - off`` along
+        the axis holds. ``xs`` has one entry (any object) a partition."""
+        if len(xs) != self.size:
+            raise ValueError(f"{len(xs)} entries for {self.size} partitions")
+        return [xs[self.shift(p, axis, -off)] for p in range(self.size)]
+
+    def psum(self, xs: list) -> torch.Tensor:
+        """``jax.lax.psum`` over every axis: the sum of the partitions'
+        equal-shape tensors, in their dtype (int32 wraps, as JAX's)."""
+        if len(xs) != self.size:
+            raise ValueError(f"{len(xs)} entries for {self.size} partitions")
+        return torch.stack(list(xs)).sum(0, dtype=xs[0].dtype)

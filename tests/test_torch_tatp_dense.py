@@ -23,11 +23,12 @@ import torch
 
 from dint_tpu.engines import tatp_dense as jtd
 from dint_tpu.engines import tatp_pipeline as jtp
-from dint_tpu_torch import convert, serve
+from dint_tpu_torch import convert, entry, serve
 from dint_tpu_torch.clients import smallbank_client, tatp_client
 from dint_tpu_torch.engines import tatp_dense as td
 from dint_tpu_torch.engines import tatp_pipeline as tp
 from dint_tpu_torch.ops import u32
+from dint_tpu_torch.parallel import dense_sharded, multihost, sharded
 
 REPO = Path(__file__).resolve().parent.parent
 VW = 4
@@ -265,7 +266,18 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
              lambda: smallbank_client.init_shards(4),
              lambda: serve.ServeEngine("tatp_dense", 4, plan=None),
              lambda: serve.ServeEngine("store", 4, plan=None),
-             lambda: serve.cached_runner("tatp_dense", 4, w=8)]
+             lambda: serve.cached_runner("tatp_dense", 4, w=8),
+             lambda: sharded.make_mesh(4),
+             lambda: multihost.make_mesh_2d(3, 2),
+             lambda: dense_sharded.create_sharded(sharded.make_mesh(4), 4,
+                                                  64),
+             lambda: multihost.create_multihost(
+                 multihost.make_mesh_2d(3, 2), 64),
+             lambda: dense_sharded.build_sharded_pipelined_runner(
+                 sharded.make_mesh(4), 4, 64, w=8),
+             lambda: multihost.build_multihost_runner(
+                 multihost.make_mesh_2d(3, 2), 64, w=8),
+             lambda: entry.dryrun_multichip(4)]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
