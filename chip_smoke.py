@@ -303,6 +303,34 @@ mismatch or error:
    blocks: the three copies of every row on three hosts; partition (1, 0)
    rebuilt from host 2's ring. (d) `entry.dryrun_multichip(4)` on the
    card.
+18. Sharded SmallBank on the card (after phase 17): cross-device
+   transactions, each partition's lock requests, replies and installs
+   exchanged with `Mesh.all_to_all` (a stack and a transposed copy on the
+   one card: no byte crosses a link). (a) The default, hot, fused and
+   fused+hot routes with monitor and trace at 4 partitions, 512 accounts,
+   w=32, 2 cohorts/block, on the CPU and the card from the same host-made
+   draws: tables, mirrors, backups, logs, heads, the stats of every step,
+   counters and event rings bit-identical (gather_rows, gather_rows_hot,
+   scatter_rows_hot, gather_streams and scatter_streams against their
+   plain versions inside the sharded step). (b) SmallBank at 24,000,000
+   accounts over 3 partitions (the reference's three servers), w=8192 a
+   partition, 4 cohorts/block, 90/4 skew, one warm and 8 timed blocks and
+   the drain, on the default, hot and fused routes from one generator
+   seed: committed txn/s summed, ms a step, the abort mix, overflow, peak
+   memory; accounting closes, global balance conservation mod 2^32,
+   overflow 0, no stamp of step - 1 after the drain, every backup slot
+   equal to the partition it mirrors, the hot mirrors equal to the
+   prefix, every ring's heads its own installs plus both hops (counted by
+   source tag), head < capacity on every lane, the route's kernels once a
+   partition a step, the routes' stats and tables identical; partition 1
+   rebuilt from its own ring and from partition 2's (numpy
+   `recover_sb_shard` with the ring_owner check, and `replay_sb_shard` on
+   the card); one profiled block on the default and fused routes: device
+   and host ms a step of each `dense_sharded_sb` wave. (c) One block and
+   the drain on the default route with monitor and trace at rate 1.0:
+   the events reconcile with the counters and the counters with the
+   stats, nothing dropped. (d) `entry.dryrun_multichip(3)` on the card,
+   its SmallBank fields included.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -5763,6 +5791,467 @@ def phase_mesh(dev, card):
     return paths
 
 
+# ------------------------------------------------- sharded SmallBank (mesh)
+
+MESH_SB_N = 24_000_000           # bench_smallbank.py:24-32's accounts
+MESH_SB_BLOCKS = 8               # timed blocks after the warm one
+# ring slots a lane: every ring gets every committed write of the mesh
+# (own installs and both hops), ~1,900 a lane a step at this size
+MESH_SB_LOG_CAP = 1 << 17
+MESH_SB_TEST = dict(n=4, n_acc=512, w=32, cpb=2, log_cap=256)
+SB_MESH_PER_STEP = {
+    "default": {"gather_rows": 1},
+    "hotset": {"gather_rows_hot": 1, "scatter_rows_hot": 1},
+    "fused": {"gather_streams": 1, "scatter_streams": 1},
+    "fused+hotset": {"gather_streams": 1, "scatter_streams": 1}}
+
+
+def _sb_mesh_rings(rings, cap):
+    """Each partition's recorded ring words (u32, a copy: the runner zeroes
+    the ring in place at the next block) and head."""
+    from dint_tpu_torch.ops import u32
+    return [(u32.to_numpy(r.buf[:cap * 4]).copy(), int(r.head) & 0xFFFFFFFF)
+            for r in rings]
+
+
+def phase_sb_mesh_cpu_vs_card(dev, card):
+    c = MESH_SB_TEST
+    n, cpb, w = c["n"], c["cpb"], c["w"]
+    print(f"== phase 18 (a): sharded SmallBank, CPU against the card: {n} "
+          f"partitions, {c['n_acc']} accounts, w={w}, {cpb} cohorts/block, "
+          f"four routes with monitor and trace, the same host-made draws")
+    from dint_tpu_torch import convert
+    from dint_tpu_torch.engines.types import ROUTES
+    from dint_tpu_torch.ops import u32
+    from dint_tpu_torch.parallel import dense_sharded_sb as dsb
+    t0 = time.perf_counter()
+    for route in SB_MESH_PER_STEP:
+        hot, fused = ROUTES[route]
+        rng = np.random.default_rng(18)
+        draws = [(rng.integers(0, 1 << 32, (cpb, n, w, 5), dtype=np.uint64)
+                  .astype(np.uint32),
+                  rng.integers(-20, 21, (cpb, n, w)).astype(np.int32))
+                 for _ in range(2)]
+        out = []
+        for where in ("cpu", dev):
+            mesh = dsb.make_mesh(n, device=where)
+            states = dsb.create_sharded_sb(mesh, n, c["n_acc"],
+                                           log_capacity=c["log_cap"])
+            run, init, drain = dsb.build_sharded_sb_runner(
+                mesh, n, c["n_acc"], w=w, cohorts_per_block=cpb,
+                use_hotset=hot, use_fused=fused, monitor=True, trace=True,
+                trace_rate=1.0)
+            cap = init.trace_cfg.cap
+            carry = init(states)
+            stats, rings = [], []
+            for bits, amt in draws:
+                carry, s = run.run_draws(carry, u32.from_numpy(bits, where),
+                                         torch.from_numpy(amt).to(where))
+                stats.append(s.cpu())
+                rings.append(_sb_mesh_rings(carry[2], cap))
+            states, tail, rs, cnts = drain(carry)
+            stats.append(tail.cpu())
+            rings.append(_sb_mesh_rings(rs, cap))
+            out.append((convert.sharded_sb_to_numpy(states),
+                        torch.cat(stats).numpy(), rings,
+                        np.stack([u32.to_numpy(k.buf) for k in cnts])))
+        (a, a_st, a_r, a_c), (b, b_st, b_r, b_c) = out
+        same = [k for k in a if np.array_equal(np.asarray(a[k]),
+                                               np.asarray(b[k]))]
+        rings_same = all(np.array_equal(x[0], y[0]) and x[1] == y[1]
+                         for wa, wb in zip(a_r, b_r) for x, y in zip(wa, wb))
+        check(np.array_equal(a_st, b_st) and same == list(a) and rings_same
+              and np.array_equal(a_c, b_c) and ("hot_bal" in a) == hot,
+              f"{route}: stats of every step, {same}, the counters and "
+              f"every window's event rings bit-identical (stats total "
+              f"{a_st.astype(np.int64).sum(axis=0).tolist()})")
+    print(f"  phase 18 (a) seconds: {time.perf_counter() - t0:.3f}  "
+          f"[{card}]")
+
+
+def _sb_mesh_states(dev, mesh):
+    from dint_tpu_torch.parallel import dense_sharded_sb as dsb
+    t0 = time.perf_counter()
+    states = dsb.create_sharded_sb(mesh, mesh.size, MESH_SB_N,
+                                   log_capacity=MESH_SB_LOG_CAP)
+    torch.cuda.synchronize()
+    print(f"  {mesh.size} partitions of "
+          f"{dsb.n_acct_local(MESH_SB_N, mesh.size):,} accounts "
+          f"({states[0].bal.numel():,} rows each) made on the card: "
+          f"{time.perf_counter() - t0:.3f} s")
+    return states
+
+
+def _sb_mesh_drive(dev, card, label, run, init, drain, states, n_parts):
+    """One warm block and MESH_SB_BLOCKS timed blocks from generator seed
+    18, then the drain, launches counted from 0 over them; prints
+    committed txn/s summed over the partitions, ms a step, the abort mix,
+    the overflow and the peak memory. Returns (states, stats of every
+    step, launches, record)."""
+    from dint_tpu_torch.parallel import dense_sharded_sb as dsb
+    gen = torch.Generator(device=dev).manual_seed(18)
+    reset_launches()
+    carry = init(states)
+    t0 = time.perf_counter()
+    carry, s_warm = run(carry, gen)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    block_s, timed = [], []
+    for _ in range(MESH_SB_BLOCKS):
+        t0 = time.perf_counter()
+        carry, s = run(carry, gen)
+        torch.cuda.synchronize()
+        block_s.append(time.perf_counter() - t0)
+        timed.append(s)
+    states, tail = drain(carry)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    stats = torch.cat([s_warm] + timed + [tail]).cpu().numpy()
+    total = stats.astype(np.int64).sum(axis=0)
+    # the timed blocks' steps complete the warm block's last cohort and
+    # their own but the last: rows MESH_CPB .. the drain's
+    committed = int(stats[MESH_CPB:-1, dsb.STAT_COMMITTED].astype(
+        np.int64).sum())
+    secs = float(sum(block_s))
+    att = int(total[dsb.STAT_ATTEMPTED])
+    rec = {"txn_s": committed / secs,
+           "ms_step": secs / (MESH_SB_BLOCKS * MESH_CPB) * 1e3,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev),
+           "ab_lock": int(total[dsb.STAT_AB_LOCK]),
+           "ab_logic": int(total[dsb.STAT_AB_LOGIC]),
+           "overflow": int(total[dsb.STAT_OVERFLOW]), "attempted": att}
+    print(f"  {label}: warm block {warm:.3f} s; committed txn/s "
+          f"{rec['txn_s']:.1f} summed over {n_parts} partitions "
+          f"({committed} in {secs:.6f} s, {MESH_SB_BLOCKS} blocks x "
+          f"{MESH_CPB} steps x w={MESH_W} a partition); ms/step "
+          f"{rec['ms_step']:.6f}; per block "
+          f"{[round(b * 1e3, 3) for b in block_s]} ms  [{card}]")
+    print(f"  {label}: abort mix of {att}: ab_lock {rec['ab_lock']}, "
+          f"ab_logic {rec['ab_logic']}; overflow {rec['overflow']}; "
+          f"max_memory_allocated {rec['peak_bytes']:,} B")
+    return states, stats, launches, rec
+
+
+def _sb_ring_tags(st, n_parts):
+    """Live entries of one partition's ring by key_hi source tag (0 = its
+    own installs, src + 1 = forwarded from src), counted on the card."""
+    from dint_tpu_torch.ops import u32
+    from dint_tpu_torch.tables import log as logring
+    ents = logring.replica_entries(st.log, 0)
+    cap = st.log.capacity
+    live = (torch.arange(cap, device=ents.device)[None, :]
+            < u32.to_u64(st.log.head)[:, None])
+    tags = torch.where(live, ents[:, :, 1].to(torch.int64), -1)
+    return [int((tags == t).sum()) for t in range(n_parts + 1)]
+
+
+def _sb_mesh_check(label, mesh, states, base, stats, launches, per_step):
+    """The sharded SmallBank invariants after a `_sb_mesh_drive` run."""
+    from dint_tpu_torch.ops import u32
+    from dint_tpu_torch.parallel import dense_sharded_sb as dsb
+    d = mesh.size
+    total = stats.astype(np.int64).sum(axis=0)
+    att = int(total[dsb.STAT_ATTEMPTED])
+    check(att == (MESH_SB_BLOCKS + 1) * MESH_CPB * MESH_W * d
+          and int(total[dsb.STAT_COMMITTED] + total[dsb.STAT_AB_LOCK]
+                  + total[dsb.STAT_AB_LOGIC]) == att
+          and int(total[dsb.STAT_MAGIC_BAD]) == 0
+          and total[dsb.STAT_COMMITTED] > 0,
+          f"{label}: every txn attempted, accounting closes (drain "
+          f"included), magic_bad == 0")
+    delta = (dsb.total_balance_global(states) - base) % (1 << 32)
+    check(delta == int(total[dsb.STAT_BAL_DELTA]) % (1 << 32),
+          f"{label}: global balance conservation mod 2^32 (delta {delta})")
+    check(int(total[dsb.STAT_OVERFLOW]) == 0,
+          f"{label}: no routed lane overflowed its destination bucket")
+    t = states[0].step
+    held = u32.i32_bits(t - 1)
+    check(all(st.step == t for st in states)
+          and not any(bool(((st.x_step == held) | (st.s_step == held)).any())
+                      for st in states),
+          f"{label}: every partition at step {t}, no stamp of step {t - 1} "
+          f"after the drain")
+    m1 = states[0].bal.numel()
+    for p, st in enumerate(states):
+        for off in (1, 2):
+            q = mesh.shift(p, dsb.AXIS, off)
+            check(torch.equal(states[q].bck_bal[(off - 1) * m1:off * m1],
+                              st.bal),
+                  f"{label}: partition {p}'s balances == backup slot "
+                  f"{off - 1} of partition {q}", quiet=p > 0)
+    if states[0].hot_bal is not None:
+        h = states[0].hot_loc
+        n_loc = dsb.n_acct_local(MESH_SB_N, d)
+        ar = torch.arange(h, device=states[0].bal.device)
+        idx = torch.cat([ar, n_loc + ar])
+        check(all(torch.equal(st.bal[idx], st.hot_bal)
+                  and torch.equal(st.x_step[idx], st.hot_x)
+                  and torch.equal(st.s_step[idx], st.hot_s)
+                  for st in states),
+              f"{label}: the mirrors == the tables' local hot prefix "
+              f"({h:,} accounts a partition, stamps and balances)")
+    tags = [_sb_ring_tags(st, d) for st in states]
+    own = [tg[0] for tg in tags]
+    heads = [int(u32.to_u64(st.log.head).sum()) for st in states]
+    check(all(heads[p] == own[p] + own[mesh.shift(p, dsb.AXIS, -1)]
+              + own[mesh.shift(p, dsb.AXIS, -2)]
+              and tags[p][mesh.shift(p, dsb.AXIS, -1) + 1]
+              == own[mesh.shift(p, dsb.AXIS, -1)]
+              and tags[p][mesh.shift(p, dsb.AXIS, -2) + 1]
+              == own[mesh.shift(p, dsb.AXIS, -2)] for p in range(d))
+          and min(own) > 0,
+          f"{label}: every ring's heads ({heads}) == its own installs + "
+          f"both hops (own installs {own}, counted by source tag)")
+    hwm = max(int(u32.to_u64(st.log.head).max()) for st in states)
+    check(hwm < states[0].log.capacity,
+          f"{label}: head < capacity on every lane ({hwm} of "
+          f"{states[0].log.capacity})")
+    steps = stats.shape[0]
+    want = dict.fromkeys(launches, 0)
+    want.update({k: v * steps * d for k, v in per_step.items()})
+    check(launches == want,
+          f"{label}: launches {launches} == {per_step} a partition a step "
+          f"over {steps} steps x {d} partitions")
+
+
+def _sb_mesh_recover(dev, label, mesh, states, dead):
+    """Partition ``dead``'s balances rebuilt from its own ring and from its
+    first backup holder's: numpy `recover_sb_shard` (with the ring_owner
+    check) and `replay_sb_shard` on the card."""
+    from dint_tpu_torch import recovery
+    from dint_tpu_torch.ops import u32
+    from dint_tpu_torch.parallel import dense_sharded_sb as dsb
+    from dint_tpu_torch.tables import log as logring
+    want = states[dead].bal
+    bal0 = torch.full_like(want, 1000)     # create_sharded_sb's balances
+    bal0[-1] = 0
+    for holder in (dead, mesh.shift(dead, dsb.AXIS, 1)):
+        log = states[holder].log
+        ents = logring.replica_entries(log, 0)
+        t0 = time.perf_counter()
+        rec = recovery.recover_sb_shard(MESH_SB_N, dead, mesh.size, ents,
+                                        log.head, ring_owner=holder)
+        t_np = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rep = recovery.replay_sb_shard(bal0, ents, log.head, dead=dead,
+                                       n_shards=mesh.size)
+        torch.cuda.synchronize()
+        t_dev = time.perf_counter() - t0
+        check(np.array_equal(rec, u32.to_numpy(want))
+              and torch.equal(rep, want),
+              f"{label}: lost partition {dead}'s {want.numel():,} balances "
+              f"rebuilt from partition {holder}'s ring (max head "
+              f"{int(u32.to_u64(log.head).max())} of {log.capacity} a lane): "
+              f"numpy {t_np:.3f} s, on the card {t_dev:.3f} s")
+        del rec, rep
+
+
+SB_MESH_WAVES = ("gen", "route", "arbitrate", "lock_validate", "reply",
+                 "install_route", "install_log", "replicate")
+
+
+def _sb_mesh_wave_split(dev, card, label, run, init, drain, states,
+                        trace_dir, ms_step):
+    """One profiled block (`_obs_profiled_block`): device and host ms a
+    step of each `dense_sharded_sb` wave, the device kernels that carry
+    most of `replicate`'s and the owners' install waves' time, and the
+    card's idle share of an unprofiled step of ``ms_step`` ms."""
+    from dint_tpu_torch.monitor import attrib
+    states, bd, _, unlinked, _, events = _obs_profiled_block(
+        dev, label.replace(" ", "_"), run, init, drain, states, trace_dir,
+        {}, MESH_CPB)
+    for wave in ("replicate", "install_route", "install_log"):
+        by_name = {}
+        for e, charged, _ in attrib.charge(events):
+            if charged == f"dint.dense_sharded_sb.{wave}":
+                n, ms = by_name.get(e["name"], (0, 0.0))
+                by_name[e["name"]] = (n + 1,
+                                      ms + float(e.get("dur", 0)) / 1e3)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:3]
+        if top:
+            print(f"  {label}: {wave}'s top kernels (launches, device ms a "
+                  f"step): " + "; ".join(
+                      f"{name[:72]} ({n / MESH_CPB:g}, {ms / MESH_CPB:.6f})"
+                      for name, (n, ms) in top))
+    split = {}
+    for wave in SB_MESH_WAVES:
+        r = bd["waves"].get(f"dint.dense_sharded_sb.{wave}")
+        if r is not None and (r["slices"] or r["host_ms"]):
+            split[wave] = {"ms_per_step": r["ms_per_step"] or 0.0,
+                           "host_ms_per_step": r["host_ms"] / MESH_CPB}
+    dev_ms = sum(v["ms_per_step"] for v in split.values())
+    host_ms = sum(v["host_ms_per_step"] for v in split.values())
+    print(f"  {label}: wave split a step (device ms, host ms): "
+          + "; ".join(f"{k} {v['ms_per_step']:.6f}, "
+                      f"{v['host_ms_per_step']:.6f}"
+                      for k, v in split.items())
+          + f"  [{card}]")
+    busy = bd["total_ms"] / MESH_CPB
+    check(unlinked == 0 and dev_ms > 0
+          and split.get("replicate", {}).get("ms_per_step", 0) > 0,
+          f"{label}: every device slice linked; {dev_ms:.6f} device ms a "
+          f"step in the waves ({busy:.6f} in all) against {host_ms:.6f} host "
+          f"ms; the card idle {1 - busy / ms_step:.6f} of an unprofiled "
+          f"{ms_step:.6f} ms step")
+    return states, {"waves": split, "device_ms": dev_ms, "host_ms": host_ms,
+                    "busy_ms": busy, "idle": 1 - busy / ms_step}
+
+
+def phase_sb_mesh_full(dev, card, trace_dir):
+    from dint_tpu_torch.engines.types import ROUTES
+    from dint_tpu_torch.parallel import dense_sharded_sb as dsb
+    print(f"== phase 18 (b): sharded SmallBank at {MESH_SB_N:,} accounts "
+          f"over {MESH_D} partitions on one card, w={MESH_W} a partition, "
+          f"{MESH_CPB} cohorts/block, 90/4 skew, 1 warm + {MESH_SB_BLOCKS} "
+          f"timed blocks, default, hot and fused routes")
+    t_phase = time.perf_counter()
+    mesh = dsb.make_mesh(MESH_D, dev)
+    paths, rec, ref = {}, {}, None
+    for route in ("default", "hotset", "fused"):
+        hot, fused = ROUTES[route]
+        label = ("smallbank sharded" if route == "default"
+                 else f"smallbank sharded {route}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        states = _sb_mesh_states(dev, mesh)
+        base = dsb.total_balance_global(states)
+        run, init, drain = dsb.build_sharded_sb_runner(
+            mesh, MESH_D, MESH_SB_N, w=MESH_W, cohorts_per_block=MESH_CPB,
+            use_hotset=hot, use_fused=fused)
+        states, stats, launches, rec[route] = _sb_mesh_drive(
+            dev, card, label, run, init, drain, states, MESH_D)
+        paths[label] = launches
+        _sb_mesh_check(label, mesh, states, base, stats, launches,
+                       SB_MESH_PER_STEP[route])
+        if ref is None:
+            ref = (stats, [st.bal.clone() for st in states],
+                   [st.log.head.clone() for st in states])
+            _sb_mesh_recover(dev, label, mesh, states, 1)
+        else:
+            check(np.array_equal(ref[0], stats)
+                  and all(torch.equal(a, st.bal)
+                          and torch.equal(h, st.log.head)
+                          for a, h, st in zip(ref[1], ref[2], states)),
+                  f"{label}: the stats of every step, the balances and the "
+                  f"log heads equal the default route's")
+        if route != "hotset":
+            states, rec[route]["wave_split"] = _sb_mesh_wave_split(
+                dev, card, label, run, init, drain, states, trace_dir,
+                rec[route]["ms_step"])
+        del states, run, init, drain
+        gc.collect()
+        torch.cuda.empty_cache()
+    del ref
+    print(f"  phase 18 (b) seconds: {time.perf_counter() - t_phase:.3f}  "
+          f"[{card}]")
+    return paths, rec
+
+
+def phase_sb_mesh_traced(dev, card):
+    from dint_tpu_torch.monitor import counters as mon
+    from dint_tpu_torch.monitor import txnevents as txe
+    from dint_tpu_torch.ops import u32
+    from dint_tpu_torch.parallel import dense_sharded_sb as dsb
+    print(f"== phase 18 (c): sharded SmallBank at {MESH_SB_N:,} accounts "
+          f"over {MESH_D} partitions, default route, monitor and trace at "
+          f"rate 1.0: one block and the drain")
+    t0 = time.perf_counter()
+    mesh = dsb.make_mesh(MESH_D, dev)
+    states = _sb_mesh_states(dev, mesh)
+    run, init, drain = dsb.build_sharded_sb_runner(
+        mesh, MESH_D, MESH_SB_N, w=MESH_W, cohorts_per_block=MESH_CPB,
+        monitor=True, trace=True, trace_rate=1.0)
+    cap = init.trace_cfg.cap
+    carry = init(states)
+    gen = torch.Generator(device=dev).manual_seed(181)
+    carry, s = run(carry, gen)
+    windows = [[txe.decode(r.buf, r.head, cap) for r in carry[2]]]
+    dropped = [txe.dropped_of(r.head, cap) for r in carry[2]]
+    states, tail, rings, cnts = drain(carry)
+    windows.append([txe.decode(r.buf, r.head, cap) for r in rings])
+    dropped += [txe.dropped_of(r.head, cap) for r in rings]
+    total = (torch.cat([s, tail]).cpu().numpy().astype(np.int64)
+             .sum(axis=0))
+    snap = mon.snapshot(np.stack([u32.to_numpy(k.buf) for k in cnts]))
+    ev = np.concatenate([e for win in windows for e in win])
+    kind = (ev[:, 1] >> 24) & 0xFF
+    aux = ev[:, 1] & 0xFF
+    kinds = {n: int((kind == k).sum()) for k, n in txe.KIND_NAMES.items()}
+    out = kind == txe.EV_OUTCOME
+    causes = {n: int((out & (aux == c)).sum())
+              for c, n in txe.CAUSE_NAMES.items()}
+    print(f"  {len(ev):,} events (cap {cap:,} a window a partition), "
+          f"kinds {kinds}, {time.perf_counter() - t0:.3f} s with the host "
+          f"decode  [{card}]")
+    check(snap["txn_attempted"] == total[dsb.STAT_ATTEMPTED]
+          and snap["txn_committed"] == total[dsb.STAT_COMMITTED]
+          and snap["ab_lock"] == total[dsb.STAT_AB_LOCK]
+          and snap["ab_logic"] == total[dsb.STAT_AB_LOGIC]
+          and snap["route_overflow"] == total[dsb.STAT_OVERFLOW] == 0
+          and snap["repl_push_hop1"] == snap["repl_push_hop2"]
+          == snap["install_writes"] == snap["log_appends"] > 0
+          and snap["lock_requests"] == snap["lock_granted"]
+          + snap["lock_rejected"],
+          f"the counters reconcile with the stats "
+          f"({total.tolist()}; installs {snap['install_writes']}, each "
+          f"pushed over both hops)")
+    check(kinds["route"] == kinds["lock"] == snap["lock_requests"] > 0
+          and kinds["vote"] == kinds["outcome"] == snap["txn_attempted"]
+          and kinds["install"] == snap["install_writes"]
+          and kinds["repl"] == snap["repl_push_hop1"]
+          + snap["repl_push_hop2"]
+          and causes["commit"] == snap["txn_committed"]
+          and causes["ab_lock"] == snap["ab_lock"]
+          and causes["ab_logic"] == snap["ab_logic"],
+          "the events reconcile with the counters (route == lock == "
+          "lock_requests, vote == outcome == attempted, install, repl, each "
+          "cause)")
+    check(dropped == [0] * len(dropped) and snap["trace_dropped"] == 0,
+          "no window of any partition dropped an event")
+    del states, carry, rings, cnts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"events": len(ev), "seconds": time.perf_counter() - t0}
+
+
+def phase_sb_mesh_dryrun(dev, card):
+    import contextlib
+    import io
+    from dint_tpu_torch import entry
+    print(f"== phase 18 (d): entry.dryrun_multichip({MESH_D}) on the card")
+    buf = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stdout(buf):
+        entry.dryrun_multichip(MESH_D, device=dev)
+    launches = launch_counts()
+    line = buf.getvalue().strip().splitlines()[-1]
+    print(f"  {line}")
+    fields = dict(kv.split("=") for kv in line.split(": ", 1)[1].split())
+    check(line.startswith(f"dryrun_multichip ok: devices={MESH_D} ")
+          and int(fields["dense_sb_committed"]) > 0
+          and fields["conservation_ok"] == "True"
+          and launches["gather_rows"] > 0,
+          f"the dry run passes its checks on the card with its SmallBank "
+          f"fields, its dense runners through the kernels ({launches})  "
+          f"[{card}]")
+    return {"p18 dryrun": launches}
+
+
+def phase_sb_mesh(dev, card):
+    """Phase 18: sharded SmallBank on one card."""
+    import tempfile
+    t0 = time.perf_counter()
+    phase_sb_mesh_cpu_vs_card(dev, card)
+    with tempfile.TemporaryDirectory(prefix="dint_p18_") as tmp:
+        paths, rec = phase_sb_mesh_full(dev, card, tmp)
+    rec["traced"] = phase_sb_mesh_traced(dev, card)
+    paths.update(phase_sb_mesh_dryrun(dev, card))
+    secs = time.perf_counter() - t0
+    rec["seconds"] = secs
+    print("  phase 18 record: " + json.dumps(rec, default=str))
+    print(f"  phase 18: {secs:.3f} s  [{card}]")
+    return paths
+
+
 KERNELS = {
     "gather_rows": ("dint_tpu_torch/csrc/gather_rows.cu",
                     "dint_tpu/ops/pallas_gather.py:212"),
@@ -5841,6 +6330,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     store_paths.update(phase_mesh(dev, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    store_paths.update(phase_sb_mesh(dev, card))
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -5852,8 +6344,9 @@ def main() -> int:
         # the bench's two legs (phase 9, counted in its process),
         # sweep_micro's store points (phase 14 (d)), phase 15's traced
         # runs and profiled blocks, phase 16's sweep, serve and
-        # calibration points and drive, and phase 17's sharded, multihost
-        # and dry runs, each counted from 0 just before its run
+        # calibration points and drive, phase 17's sharded, multihost
+        # and dry runs, and phase 18's sharded SmallBank runs and dry run,
+        # each counted from 0 just before its run
         paths = {**{f"tatp {k}": v[name] for k, v in tatp.items()},
                  **{f"smallbank {k}": v[name] for k, v in sb.items()},
                  **{k: v[name] for k, v in store_paths.items()}}
@@ -5925,6 +6418,14 @@ def main() -> int:
           "phase 17: gather_rows and lock_arbitrate ran on the sharded and "
           "multihost default routes, scatter_streams and lock_validate on "
           "the sharded fused route")
+    check(by_name["gather_rows"]["smallbank sharded"] > 0
+          and all(by_name[k]["smallbank sharded hotset"] > 0
+                  for k in ("gather_rows_hot", "scatter_rows_hot"))
+          and all(by_name[k]["smallbank sharded fused"] > 0
+                  for k in ("gather_streams", "scatter_streams")),
+          "phase 18: gather_rows ran on sharded SmallBank's default route, "
+          "gather_rows_hot and scatter_rows_hot on its hot route, "
+          "gather_streams and scatter_streams on its fused route")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

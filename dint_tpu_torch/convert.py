@@ -50,6 +50,15 @@ stacked over a leading [D] or [H, C] mesh axis) travels as the DenseDB
 dict of its ``db`` under the prefix ``db.`` plus "bck_val" and
 "bck_meta", every array stacked over the mesh's shape and the static
 ints ("db.val_words", "db.lanes", "db.replicas") as ints.
+
+The sharded dense SmallBank state (`parallel.dense_sharded_sb.SBShard`,
+JAX's stacked over a leading [D]) travels as
+
+    {"bal", "bck_bal", "x_step", "s_step": u32 [D, ...], "step": u32 [D],
+     "log.entries": u32 [D, L*CAP, HDR+VW], "log.head": u32 [D, L],
+     "lanes", "replicas": ints, and, only when the hot mirrors are
+     present, "hot_bal", "hot_x", "hot_s": u32 [D, 2*hot_loc] and
+     "hot_loc": int}
 """
 from __future__ import annotations
 
@@ -359,6 +368,51 @@ def sharded_state_to_numpy(states, mesh_shape) -> dict:
         if isinstance(v, (np.ndarray, np.generic)):
             st = np.stack([d[k] for d in dicts])
             out[k] = st.reshape(mesh_shape + st.shape[1:])
+        else:
+            assert all(d[k] == v for d in dicts), k
+            out[k] = v
+    return out
+
+
+# ------------------------------------------------- sharded dense SmallBank
+
+
+def sharded_sb_from_numpy(arrays: dict, device=None) -> list:
+    """JAX's stacked `SBShard` dict (leading [D]) -> the port's list of
+    `SBShard`, each with storage of its own."""
+    from .parallel.dense_sharded_sb import SBShard
+    dev = resolve_device(device)
+    n = len(arrays["bal"])
+    out = []
+    for i in range(n):
+        a = _replica(arrays, i)
+        hot = {k: from_numpy(a[k], dev) for k in HOT_LEAVES
+               if a.get(k) is not None}
+        out.append(SBShard(
+            bal=from_numpy(a["bal"], dev),
+            bck_bal=from_numpy(a["bck_bal"], dev),
+            x_step=from_numpy(a["x_step"], dev),
+            s_step=from_numpy(a["s_step"], dev),
+            step=int(a["step"]), log=_log_from_numpy(a, dev),
+            hot_loc=int(a.get("hot_loc", 0)), **hot))
+    return out
+
+
+def sharded_sb_to_numpy(states) -> dict:
+    """The port's list of `SBShard` -> the stacked dict (JAX's layout)."""
+    dicts = []
+    for s in states:
+        d = {"bal": to_numpy(s.bal), "bck_bal": to_numpy(s.bck_bal),
+             "x_step": to_numpy(s.x_step), "s_step": to_numpy(s.s_step),
+             "step": np.uint32(s.step), **_log_to_numpy(s.log)}
+        if s.hot_bal is not None:
+            d.update({k: to_numpy(getattr(s, k)) for k in HOT_LEAVES},
+                     hot_loc=s.hot_loc)
+        dicts.append(d)
+    out = {}
+    for k, v in dicts[0].items():
+        if isinstance(v, (np.ndarray, np.generic)):
+            out[k] = np.stack([d[k] for d in dicts])
         else:
             assert all(d[k] == v for d in dicts), k
             out[k] = v

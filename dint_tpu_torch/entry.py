@@ -1,6 +1,6 @@
 """The port's twins of `__graft_entry__`: `entry()`, one dense TATP
 pipeline step with example arguments, and `dryrun_multichip`, one run of
-the sharded paths on tiny shapes."""
+the sharded paths (TATP and SmallBank) on tiny shapes."""
 from __future__ import annotations
 
 import functools
@@ -47,17 +47,20 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     * the dense sharded TATP runner (64 subscribers a shard, w = 32, 2
       cohorts a block, 2 blocks drawn from torch generators seeded 0 and
       1, then the drain): attempted == 2 * 2 * 32 * n, 0 < committed <=
-      attempted.
+      attempted;
+    * the sharded dense SmallBank runner, cross-device transactions over
+      `Mesh.all_to_all` (1024 accounts, w = 16, 2 cohorts a block, 2
+      blocks drawn from torch generators seeded 10 and 11, then the
+      drain): attempted == 2 * 2 * 16 * n, 0 < committed <= attempted,
+      and the global balance moved by the summed STAT_BAL_DELTA mod 2^32.
 
     The generic shards' rings hold 2^12 entries a lane where
     `tatp.create` and `smallbank.create` default to 2^20: no wave here
-    logs, so only the allocation differs. The reference's line also
-    carries ``dense_sb_committed`` and ``conservation_ok``, from the
-    sharded dense SmallBank runner, which the port does not have yet;
-    this line leaves both out."""
+    logs, so only the allocation differs."""
     from .engines import smallbank, tatp
     from .engines.types import Op
     from .parallel import dense_sharded as ds
+    from .parallel import dense_sharded_sb as dsb
     from .parallel import sharded
 
     dev = resolve_device(device)
@@ -118,6 +121,29 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     if att != 2 * 2 * 32 * n_devices or not 0 < com <= att:
         raise RuntimeError(f"dense sharded TATP: attempted {att}, "
                            f"committed {com}")
+    # cross-device transactions: dense SmallBank over all_to_all routing
+    sbs = dsb.create_sharded_sb(mesh, n_devices, 1024)
+    base = dsb.total_balance_global(sbs)
+    srun, sinit, sdrain = dsb.build_sharded_sb_runner(
+        mesh, n_devices, 1024, w=16, cohorts_per_block=2)
+    scarry = sinit(sbs)
+    stot = torch.zeros(dsb.N_STATS, dtype=torch.int64, device=dev)
+    for i in range(2):
+        gen = torch.Generator(device=dev).manual_seed(10 + i)
+        scarry, stats = srun(scarry, gen)
+        stot += stats.sum(0)
+    sbs, tail = sdrain(scarry)
+    stot = (stot + tail.sum(0)).tolist()
+    sb_att, sb_com = stot[dsb.STAT_ATTEMPTED], stot[dsb.STAT_COMMITTED]
+    if sb_att != 2 * 2 * 16 * n_devices or not 0 < sb_com <= sb_att:
+        raise RuntimeError(f"dense sharded SmallBank: attempted {sb_att}, "
+                           f"committed {sb_com}")
+    final = dsb.total_balance_global(sbs)
+    if (final - base) % (1 << 32) != stot[dsb.STAT_BAL_DELTA] % (1 << 32):
+        raise RuntimeError(f"dense sharded SmallBank: balance moved by "
+                           f"{final - base}, the stats say "
+                           f"{stot[dsb.STAT_BAL_DELTA]}")
+
     rows = sharded.local_rows(65, n_devices)
     print(f"dryrun_multichip ok: devices={n_devices} "
           f"tatp_local_rows={rows} tatp_committed={committed_total} "
@@ -126,4 +152,5 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
           f"dense_tatp_ab_lock={total[td.STAT_AB_LOCK]} "
           f"dense_tatp_ab_missing={total[td.STAT_AB_MISSING]} "
           f"dense_tatp_ab_validate={total[td.STAT_AB_VALIDATE]} "
+          f"dense_sb_committed={sb_com} conservation_ok=True "
           f"wall_s={time.time() - t0:.1f}", flush=True)

@@ -1,6 +1,6 @@
 """An in-process device mesh: the counterpart of `jax.sharding.Mesh` plus
-the two collectives the sharded TATP paths use, for partitions kept as a
-Python list on one device.
+the three collectives the sharded TATP and SmallBank paths use, for
+partitions kept as a Python list on one device.
 
 One card has no peers, and NCCL puts one rank on a card, so the port runs
 the reference's mesh in one process: partition ``p`` of a mesh of shape
@@ -11,6 +11,10 @@ A collective is then list work on the host:
 * `Mesh.ppermute` re-indexes the list along one axis (JAX's ``perm =
   [(i, (i + off) % n)]``): the receiver reads the sender's tensors, and
   no byte moves;
+* `Mesh.all_to_all` exchanges buckets along one axis (JAX's
+  ``all_to_all(x.reshape(n, cap), axis, 0, 0, tiled=False)``): bucket d
+  of partition s lands in slot s of partition d, with one stack and one
+  transposed copy on the device, and no link;
 * `Mesh.psum` sums equal-shape tensors over the whole list.
 
 So a run on such a mesh measures the work of every partition, replication
@@ -75,6 +79,26 @@ class Mesh:
         if len(xs) != self.size:
             raise ValueError(f"{len(xs)} entries for {self.size} partitions")
         return [xs[self.shift(p, axis, -off)] for p in range(self.size)]
+
+    def all_to_all(self, xs: list, axis: str) -> list:
+        """``jax.lax.all_to_all(x.reshape(n, cap, ...), axis, 0, 0,
+        tiled=False)`` along ``axis`` of length n: each entry of ``xs`` is
+        one tensor a partition, of n buckets of ``cap`` rows along its
+        first dim (the same shape on every partition), and partition p
+        receives, in its slot s, bucket ``p``'s coordinate along the axis
+        of the partition at coordinate s. Returns one tensor a partition,
+        of ``xs[0]``'s shape."""
+        if len(xs) != self.size:
+            raise ValueError(f"{len(xs)} entries for {self.size} partitions")
+        i = self.axis_names.index(axis)
+        n = self.shape[i]
+        rows, *rest = xs[0].shape
+        if rows % n:
+            raise ValueError(f"{rows} rows do not split into {n} buckets")
+        x = torch.stack(list(xs)).reshape(*self.shape, n, rows // n, *rest)
+        # swap the sender's coordinate along the axis with its bucket
+        x = x.transpose(i, len(self.shape)).reshape(self.size, rows, *rest)
+        return list(x.unbind(0))
 
     def psum(self, xs: list) -> torch.Tensor:
         """``jax.lax.psum`` over every axis: the sum of the partitions'

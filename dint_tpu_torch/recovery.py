@@ -34,8 +34,11 @@ What differs from JAX:
   never written and running the result leaves db0 as it was. The result
   carries no hot mirrors: a hot-route runner's ``init`` attaches them
   from the rebuilt tables. The step counter is a host int.
-* `recover_sb_shard` and `replay_sb_shard` (the sharded SmallBank path)
-  wait for the multi-device port.
+* `recover_sb_shard` and `replay_sb_shard` rebuild one partition of the
+  sharded SmallBank path (`parallel.dense_sharded_sb`) from any of the
+  three rings that carry its stream; as in JAX they return its balance
+  array (numpy u32, and an int32 tensor on the ring's device), not a
+  state.
 """
 from __future__ import annotations
 
@@ -46,6 +49,8 @@ import torch
 
 from .ops import u32
 from .tables.log import HDR_WORDS, RepLog
+
+SB_VW = 2      # SmallBank's log value words (balance, magic)
 
 
 def _u32(x) -> np.ndarray:
@@ -177,6 +182,48 @@ def recover_smallbank_dense(db0, log_entries, log_heads):
     return _rebuilt_bank(db0, _to_device(bal, db0.bal.device), next_step)
 
 
+def recover_sb_shard(n_accounts: int, dead: int, n_shards: int,
+                     log_entries, log_heads, init_balance: int = 1000,
+                     ring_owner: int | None = None) -> np.ndarray:
+    """Partition ``dead``'s primary balances (u32 [m1_loc], sentinel last)
+    rebuilt from ANY ring that carries its stream: its own or a backup
+    holder's (`tables.log.replica_entries` of the ring, and its heads).
+    Entries log GLOBAL account ids, so ``dead``'s stream is the entries
+    with ``acct % n_shards == dead``; rows no entry names keep
+    ``init_balance``.
+
+    ``ring_owner``: the partition whose ring this is; when given, every
+    entry's key_hi source tag (0 = the owner's own install, src + 1 =
+    forwarded from src) is checked against ``acct % n_shards``, so a ring
+    written under another shard geometry raises instead of rebuilding the
+    wrong accounts."""
+    from .parallel.dense_sharded_sb import m1_local, n_acct_local
+
+    flags, key_hi, key_lo, vers, vals = _flat_entries(log_entries, log_heads)
+    table = (flags >> 8).astype(np.int64)
+    acct = key_lo.astype(np.int64)
+    if ring_owner is not None:
+        src = np.where(key_hi == 0, ring_owner, key_hi.astype(np.int64) - 1)
+        if not ((acct % n_shards) == src).all():
+            raise ValueError(
+                "log stream mismatch: entry source tags disagree with "
+                "acct % n_shards — the ring was written under a different "
+                "shard geometry")
+    mine = (acct % n_shards) == dead
+    table, acct, vers, vals = (table[mine], acct[mine], vers[mine],
+                               vals[mine])
+    if not ((table < 2) & (acct < n_accounts)).all():
+        raise ValueError("log key out of its table's range: the log "
+                         "belongs to a different-geometry database")
+    n_loc = n_acct_local(n_accounts, n_shards)
+    rows = table * n_loc + acct // n_shards
+    urows, idx = latest_per_row(rows, vers)
+    bal = np.full(m1_local(n_accounts, n_shards), init_balance, np.uint32)
+    bal[-1] = 0
+    bal[urows] = vals[idx][:, 0]
+    return bal
+
+
 def _replay_columns(entries: torch.Tensor, heads: torch.Tensor,
                     val_words: int):
     """Live-slot mask, header words and value words of a [L, CAP, HDR+VW]
@@ -241,7 +288,7 @@ def replay_smallbank_dense(db0, entries: torch.Tensor, heads: torch.Tensor):
     """The torch twin of `recover_smallbank_dense` on db0's device: the
     step resumes at the u32 ``max(live ver) + 2``, at least 2."""
     n = db0.n_accounts
-    live, flags, key_lo, ver, vals = _replay_columns(entries, heads, 2)
+    live, flags, key_lo, ver, vals = _replay_columns(entries, heads, SB_VW)
     table = u32.shr(flags, 8).to(torch.int64)
     key = u32.to_u64(key_lo)
     rows = table * n + key
@@ -252,3 +299,24 @@ def replay_smallbank_dense(db0, entries: torch.Tensor, heads: torch.Tensor):
     bal[rows[keep]] = vals[keep, 0]
     top = int(torch.where(live, u32.to_u64(ver), 0).max())
     return _rebuilt_bank(db0, bal, max((top + 2) & u32.MASK32, 2))
+
+
+def replay_sb_shard(bal0: torch.Tensor, entries: torch.Tensor,
+                    heads: torch.Tensor, *, dead: int,
+                    n_shards: int) -> torch.Tensor:
+    """The torch twin of `recover_sb_shard` on the ring's device: partition
+    ``dead``'s balances rebuilt from one ring that carries its stream over
+    ``bal0``, the init-balance local array (``m1_local`` words, sentinel
+    last), which is not written. Returns a fresh int32 tensor."""
+    live, flags, key_lo, ver, vals = _replay_columns(entries, heads, SB_VW)
+    table = u32.shr(flags, 8).to(torch.int64)
+    acct = u32.to_u64(key_lo)
+    n_loc = (bal0.shape[0] - 1) // 2
+    live = (live & (acct % n_shards == dead) & (table < 2)
+            & (acct // n_shards < n_loc))
+    rows = table * n_loc + acct // n_shards
+    keep = torch.nonzero(
+        _replay_winners(rows, ver, live, bal0.shape[0])).squeeze(1)
+    bal = bal0.clone()
+    bal[rows[keep]] = vals[keep, 0]
+    return bal

@@ -170,4 +170,12 @@ def test_dryrun_multichip_prints_its_line(capsys):
     assert fields["tatp_local_rows"] == "51"
     assert int(fields["dense_tatp_attempted"]) == 2 * 2 * 32 * 4
     assert 0 < int(fields["dense_tatp_committed"]) <= 512
-    assert "dense_sb_committed" not in fields
+    # the reference's whole line, in its order, the SmallBank fields too
+    assert list(fields) == [
+        "devices", "tatp_local_rows", "tatp_committed",
+        "smallbank_committed", "dense_tatp_attempted",
+        "dense_tatp_committed", "dense_tatp_ab_lock", "dense_tatp_ab_missing",
+        "dense_tatp_ab_validate", "dense_sb_committed", "conservation_ok",
+        "wall_s"]
+    assert 0 < int(fields["dense_sb_committed"]) <= 2 * 2 * 16 * 4
+    assert fields["conservation_ok"] == "True"

@@ -28,7 +28,8 @@ from dint_tpu_torch.clients import smallbank_client, tatp_client
 from dint_tpu_torch.engines import tatp_dense as td
 from dint_tpu_torch.engines import tatp_pipeline as tp
 from dint_tpu_torch.ops import u32
-from dint_tpu_torch.parallel import dense_sharded, multihost, sharded
+from dint_tpu_torch.parallel import (dense_sharded, dense_sharded_sb, multihost,
+                                     sharded)
 
 REPO = Path(__file__).resolve().parent.parent
 VW = 4
@@ -277,6 +278,10 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
                  sharded.make_mesh(4), 4, 64, w=8),
              lambda: multihost.build_multihost_runner(
                  multihost.make_mesh_2d(3, 2), 64, w=8),
+             lambda: dense_sharded_sb.create_sharded_sb(
+                 sharded.make_mesh(4), 4, 64),
+             lambda: dense_sharded_sb.build_sharded_sb_runner(
+                 sharded.make_mesh(4), 4, 64, w=8),
              lambda: entry.dryrun_multichip(4)]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
