@@ -331,6 +331,33 @@ mismatch or error:
    the events reconcile with the counters and the counters with the
    stats, nothing dropped. (d) `entry.dryrun_multichip(3)` on the card,
    its SmallBank fields included.
+19. SmallBank on the 2-D (host, chip) mesh and the mesh serving plane
+   (after phase 18). (a) The hierarchical, flat, serve (random
+   occupancies), overlap and traced routes with monitor at 3x2, 512
+   accounts, w=32, 2 cohorts/block, on the CPU and the card from the
+   same host-made draws: tables, backups, logs, heads, the stats of
+   every step, counters and event rings bit-identical. (b) SmallBank at
+   24,000,000 accounts over 3 hosts x 2 chips (PLAN.json's
+   multihost_3x2), w=8192 a partition, 4 cohorts/block, log 16 x 2^17 a
+   partition, monitored, one warm and 8 timed blocks and the drain on
+   the hierarchical and the flat exchange: committed txn/s summed, ms a
+   step, the abort mix, overflow, peak memory, the ICI/DCN lane split;
+   accounting closes, global conservation mod 2^32, overflow 0, no stamp
+   of step - 1 after the drain, the backups at (h+1, c) and (h+2, c)
+   equal the primaries, every ring's heads its own installs plus both
+   hops by source tag, head < capacity, gather_rows once a partition a
+   step, the two routes' stats and tables identical; partition (1, 0)
+   rebuilt from its own ring and host 2's; one profiled block a route:
+   device and host ms a step of each `multihost_sb` wave; then the two
+   exchanges in turns (flat, hier, hier, flat), unmonitored, 1 warm + 4
+   timed blocks each: ms a step. (c) `MeshServeEngine` at the same size,
+   widths 256/1024/4096/8192, cpb 2, depth 2, monitor, wall clock: 2 s
+   Poisson windows at 0.5 and 1.2 of (b)'s committed txn/s, overlap off
+   and on: achieved rate, queue and service p50/p99, shed share,
+   per-host admitted/shed, widths; the mesh ledger closes. (d) exp's mesh
+   legs (`sweep_multihost_sb`, `sweep_serve_mesh` with one open rate) at
+   DINT_BENCH_MESH=3x2 and full size, 2 s windows: exp.py's keys and the
+   ledger.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -5177,19 +5204,11 @@ def _serve_identity(label, snap):
           f"lanes == width x serving steps ({served:,})")
 
 
-def phase_p16_serve(dev, card, out_dir):
-    """(d)-(f): sweep_serve, dintserve run + dintcal audit, and the
-    calibration. Returns (paths, record)."""
-    import contextlib
-    import io
-    from dint_tpu_torch import dintcal, dintserve, exp, serve
-    from dint_tpu_torch.engines import tatp_dense as td
-    from dint_tpu_torch.monitor import calib as CAL
-    paths, out = {}, {}
-
-    class Recorded(serve.ServeEngine):
-        """exp's ServeEngine, each engine's last snapshot kept for the
-        lane identity."""
+def _recorded(base):
+    """A subclass of the serving-plane engine ``base`` for exp's sweeps:
+    each engine made keeps its last snapshot in ``snaps``, in the order
+    they were made, for the lane identities."""
+    class Recorded(base):
         snaps = []
 
         def __init__(self, *a, **kw):
@@ -5202,6 +5221,20 @@ def phase_p16_serve(dev, card, out_dir):
             Recorded.snaps[self._slot] = snap
             return snap
 
+    return Recorded
+
+
+def phase_p16_serve(dev, card, out_dir):
+    """(d)-(f): sweep_serve, dintserve run + dintcal audit, and the
+    calibration. Returns (paths, record)."""
+    import contextlib
+    import io
+    from dint_tpu_torch import dintcal, dintserve, exp, serve
+    from dint_tpu_torch.engines import tatp_dense as td
+    from dint_tpu_torch.monitor import calib as CAL
+    paths, out = {}, {}
+
+    Recorded = _recorded(serve.ServeEngine)
     print(f"== phase 16 (d): exp.sweep_serve('serve_tatp', 'tatp_dense', "
           f"{N_SUB:,}): widths (256, 1024, 4096, 8192), the _sat probe, "
           f"rates {P16_SERVE_RATES} of it, {P16_SERVE_WINDOW_S} s windows")
@@ -5489,7 +5522,7 @@ def _mesh_drive(dev, card, label, run, init, drain, states, n_parts, blocks):
         torch.cuda.synchronize()
         block_s.append(time.perf_counter() - t0)
         timed.append(s)
-    states, tail = drain(carry)
+    states, tail, *rest = drain(carry)
     torch.cuda.synchronize()
     launches = launch_counts()
     stats = torch.cat([s_warm] + timed + [tail]).cpu().numpy()
@@ -5887,7 +5920,8 @@ def _sb_mesh_drive(dev, card, label, run, init, drain, states, n_parts):
     18, then the drain, launches counted from 0 over them; prints
     committed txn/s summed over the partitions, ms a step, the abort mix,
     the overflow and the peak memory. Returns (states, stats of every
-    step, launches, record)."""
+    step, launches, record; with a monitored runner the record holds the
+    counters' snapshot)."""
     from dint_tpu_torch.parallel import dense_sharded_sb as dsb
     gen = torch.Generator(device=dev).manual_seed(18)
     reset_launches()
@@ -5903,7 +5937,7 @@ def _sb_mesh_drive(dev, card, label, run, init, drain, states, n_parts):
         torch.cuda.synchronize()
         block_s.append(time.perf_counter() - t0)
         timed.append(s)
-    states, tail = drain(carry)
+    states, tail, *rest = drain(carry)
     torch.cuda.synchronize()
     launches = launch_counts()
     stats = torch.cat([s_warm] + timed + [tail]).cpu().numpy()
@@ -5920,6 +5954,9 @@ def _sb_mesh_drive(dev, card, label, run, init, drain, states, n_parts):
            "ab_lock": int(total[dsb.STAT_AB_LOCK]),
            "ab_logic": int(total[dsb.STAT_AB_LOGIC]),
            "overflow": int(total[dsb.STAT_OVERFLOW]), "attempted": att}
+    if rest:                     # a monitored runner: its counters
+        from dint_tpu_torch.monitor import counters as mon
+        rec["counters"] = mon.snapshot(rest[-1])
     print(f"  {label}: warm block {warm:.3f} s; committed txn/s "
           f"{rec['txn_s']:.1f} summed over {n_parts} partitions "
           f"({committed} in {secs:.6f} s, {MESH_SB_BLOCKS} blocks x "
@@ -5945,8 +5982,10 @@ def _sb_ring_tags(st, n_parts):
     return [int((tags == t).sum()) for t in range(n_parts + 1)]
 
 
-def _sb_mesh_check(label, mesh, states, base, stats, launches, per_step):
-    """The sharded SmallBank invariants after a `_sb_mesh_drive` run."""
+def _sb_mesh_check(label, mesh, states, base, stats, launches, per_step,
+                   axis="shard"):
+    """The sharded SmallBank invariants after a `_sb_mesh_drive` run; the
+    backups of partition p sit at ``mesh.shift(p, axis, 1)`` and ``2``."""
     from dint_tpu_torch.ops import u32
     from dint_tpu_torch.parallel import dense_sharded_sb as dsb
     d = mesh.size
@@ -5974,7 +6013,7 @@ def _sb_mesh_check(label, mesh, states, base, stats, launches, per_step):
     m1 = states[0].bal.numel()
     for p, st in enumerate(states):
         for off in (1, 2):
-            q = mesh.shift(p, dsb.AXIS, off)
+            q = mesh.shift(p, axis, off)
             check(torch.equal(states[q].bck_bal[(off - 1) * m1:off * m1],
                               st.bal),
                   f"{label}: partition {p}'s balances == backup slot "
@@ -5993,12 +6032,12 @@ def _sb_mesh_check(label, mesh, states, base, stats, launches, per_step):
     tags = [_sb_ring_tags(st, d) for st in states]
     own = [tg[0] for tg in tags]
     heads = [int(u32.to_u64(st.log.head).sum()) for st in states]
-    check(all(heads[p] == own[p] + own[mesh.shift(p, dsb.AXIS, -1)]
-              + own[mesh.shift(p, dsb.AXIS, -2)]
-              and tags[p][mesh.shift(p, dsb.AXIS, -1) + 1]
-              == own[mesh.shift(p, dsb.AXIS, -1)]
-              and tags[p][mesh.shift(p, dsb.AXIS, -2) + 1]
-              == own[mesh.shift(p, dsb.AXIS, -2)] for p in range(d))
+    check(all(heads[p] == own[p] + own[mesh.shift(p, axis, -1)]
+              + own[mesh.shift(p, axis, -2)]
+              and tags[p][mesh.shift(p, axis, -1) + 1]
+              == own[mesh.shift(p, axis, -1)]
+              and tags[p][mesh.shift(p, axis, -2) + 1]
+              == own[mesh.shift(p, axis, -2)] for p in range(d))
           and min(own) > 0,
           f"{label}: every ring's heads ({heads}) == its own installs + "
           f"both hops (own installs {own}, counted by source tag)")
@@ -6014,10 +6053,11 @@ def _sb_mesh_check(label, mesh, states, base, stats, launches, per_step):
           f"over {steps} steps x {d} partitions")
 
 
-def _sb_mesh_recover(dev, label, mesh, states, dead):
+def _sb_mesh_recover(dev, label, mesh, states, dead, axis="shard"):
     """Partition ``dead``'s balances rebuilt from its own ring and from its
-    first backup holder's: numpy `recover_sb_shard` (with the ring_owner
-    check) and `replay_sb_shard` on the card."""
+    first backup holder's (``mesh.shift(dead, axis, 1)``): numpy
+    `recover_sb_shard` (with the ring_owner check) and `replay_sb_shard`
+    on the card."""
     from dint_tpu_torch import recovery
     from dint_tpu_torch.ops import u32
     from dint_tpu_torch.parallel import dense_sharded_sb as dsb
@@ -6025,7 +6065,7 @@ def _sb_mesh_recover(dev, label, mesh, states, dead):
     want = states[dead].bal
     bal0 = torch.full_like(want, 1000)     # create_sharded_sb's balances
     bal0[-1] = 0
-    for holder in (dead, mesh.shift(dead, dsb.AXIS, 1)):
+    for holder in (dead, mesh.shift(dead, axis, 1)):
         log = states[holder].log
         ents = logring.replica_entries(log, 0)
         t0 = time.perf_counter()
@@ -6051,11 +6091,12 @@ SB_MESH_WAVES = ("gen", "route", "arbitrate", "lock_validate", "reply",
 
 
 def _sb_mesh_wave_split(dev, card, label, run, init, drain, states,
-                        trace_dir, ms_step):
+                        trace_dir, ms_step, engine="dense_sharded_sb",
+                        wave_names=SB_MESH_WAVES):
     """One profiled block (`_obs_profiled_block`): device and host ms a
-    step of each `dense_sharded_sb` wave, the device kernels that carry
-    most of `replicate`'s and the owners' install waves' time, and the
-    card's idle share of an unprofiled step of ``ms_step`` ms."""
+    step of each ``engine`` wave, the device kernels that carry most of
+    `replicate`'s and the owners' install waves' time, and the card's
+    idle share of an unprofiled step of ``ms_step`` ms."""
     from dint_tpu_torch.monitor import attrib
     states, bd, _, unlinked, _, events = _obs_profiled_block(
         dev, label.replace(" ", "_"), run, init, drain, states, trace_dir,
@@ -6063,7 +6104,7 @@ def _sb_mesh_wave_split(dev, card, label, run, init, drain, states,
     for wave in ("replicate", "install_route", "install_log"):
         by_name = {}
         for e, charged, _ in attrib.charge(events):
-            if charged == f"dint.dense_sharded_sb.{wave}":
+            if charged == f"dint.{engine}.{wave}":
                 n, ms = by_name.get(e["name"], (0, 0.0))
                 by_name[e["name"]] = (n + 1,
                                       ms + float(e.get("dur", 0)) / 1e3)
@@ -6074,8 +6115,8 @@ def _sb_mesh_wave_split(dev, card, label, run, init, drain, states,
                       f"{name[:72]} ({n / MESH_CPB:g}, {ms / MESH_CPB:.6f})"
                       for name, (n, ms) in top))
     split = {}
-    for wave in SB_MESH_WAVES:
-        r = bd["waves"].get(f"dint.dense_sharded_sb.{wave}")
+    for wave in wave_names:
+        r = bd["waves"].get(f"dint.{engine}.{wave}")
         if r is not None and (r["slices"] or r["host_ms"]):
             split[wave] = {"ms_per_step": r["ms_per_step"] or 0.0,
                            "host_ms_per_step": r["host_ms"] / MESH_CPB}
@@ -6252,6 +6293,391 @@ def phase_sb_mesh(dev, card):
     return paths
 
 
+# ----------------------------------- SmallBank on the 2-D mesh and serving
+
+MH_SHAPE = (3, 2)                # PLAN.json's multihost_3x2: three hosts
+MH_TEST = dict(shape=(3, 2), n_acc=512, w=32, cpb=2, log_cap=256)
+# the routes of phase 19 (a), every one monitored
+MH_ROUTES = {
+    "hier": dict(hierarchical=True),
+    "flat": dict(hierarchical=False),
+    "serve": dict(hierarchical=True, serve=True),
+    "overlap": dict(hierarchical=True, serve=True, overlap=True),
+    "trace": dict(hierarchical=True, trace=True, trace_rate=1.0),
+}
+MH_WAVES = ("gen", "route", "arbitrate", "reply", "install_route",
+            "replicate")
+MH_SERVE_WIDTHS = (256, 1024, 4096, 8192)
+MH_SERVE_WINDOW_S = 2.0
+MH_SERVE_LOADS = (0.5, 1.2)      # of (b)'s committed txn/s
+MH_EXP_RATES = (0.5,)            # (d)'s open-rate ladder: one rung
+MH_AB_BLOCKS = 4                 # (b)'s exchange A/B: timed blocks a turn
+
+
+def _mh_identities(label, rep, d):
+    """The mesh serving plane's ledger (tests/test_dintmesh.py's
+    `_identities`)."""
+    c = rep["counters"]
+    served = sum(int(w) * n for w, n in rep["steps_by_width"].items())
+    check(rep["offered"] == rep["admitted"] + rep["shed"]
+          and c["serve_occupancy_lanes"] == rep["admitted"]
+          == rep["attempted"]
+          and c["serve_occupancy_lanes"] + c["serve_padded_lanes"]
+          == served * d
+          and c["serve_shed_lanes"] == rep["shed"]
+          and sum(h["admitted"] for h in rep["per_host"]) == rep["admitted"]
+          and sum(h["shed"] for h in rep["per_host"]) == rep["shed"]
+          and c["route_ici_lanes"] + c["route_dcn_lanes"]
+          == c["lock_requests"] + c["install_writes"],
+          f"{label}: occupancy + padded == served x {d} ({served:,}), the "
+          f"shed mirrored ({rep['shed']:,}), the per-host sums equal the "
+          f"totals, route_ici + route_dcn == lock_requests + "
+          f"install_writes")
+
+
+def phase_mh_sb_cpu_vs_card(dev, card):
+    c = MH_TEST
+    (h, ci), cpb, w = c["shape"], c["cpb"], c["w"]
+    d = h * ci
+    print(f"== phase 19 (a): SmallBank on the {h}x{ci} mesh, CPU against "
+          f"the card: {c['n_acc']} accounts, w={w}, {cpb} cohorts/block, "
+          f"routes {list(MH_ROUTES)} with monitor, the same host-made "
+          f"draws and occupancies")
+    from dint_tpu_torch import convert
+    from dint_tpu_torch.ops import u32
+    from dint_tpu_torch.parallel import multihost_sb as mhs
+    t0 = time.perf_counter()
+    for route, kw in MH_ROUTES.items():
+        rng = np.random.default_rng(19)
+        draws = [(rng.integers(0, 1 << 32, (cpb, d, w, 5), dtype=np.uint64)
+                  .astype(np.uint32),
+                  rng.integers(-20, 21, (cpb, d, w)).astype(np.int32),
+                  rng.integers(0, w + 1, (h, ci, cpb)).astype(np.int32),
+                  rng.integers(0, 4, (h, ci, cpb)).astype(np.int32))
+                 for _ in range(3)]
+        serve = kw.get("serve", False)
+        trace = kw.get("trace", False)
+        out = []
+        for where in ("cpu", dev):
+            mesh = mhs.make_mesh_2d(h, ci, device=where)
+            states = mhs.create_multihost_sb(mesh, c["n_acc"],
+                                             log_capacity=c["log_cap"])
+            run, init, drain = mhs.build_multihost_sb_runner(
+                mesh, c["n_acc"], w=w, cohorts_per_block=cpb, monitor=True,
+                **kw)
+            cap = init.trace_cfg.cap if trace else None
+            carry = init(states)
+            stats, rings = [], []
+            for bits, amt, occ, shed in draws:
+                args = ((torch.from_numpy(occ).to(where),
+                         torch.from_numpy(shed).to(where)) if serve else ())
+                carry, s = run.run_draws(carry, u32.from_numpy(bits, where),
+                                         torch.from_numpy(amt).to(where),
+                                         *args)
+                stats.append(s.cpu())
+                if trace:
+                    rings.append(_sb_mesh_rings(carry[2], cap))
+            states, tail, *rest = drain(carry)
+            stats.append(tail.cpu())
+            if trace:
+                rings.append(_sb_mesh_rings(rest[0], cap))
+            out.append((convert.multihost_sb_to_numpy(states, (h, ci)),
+                        torch.cat(stats).numpy(), rings,
+                        np.stack([u32.to_numpy(k.buf) for k in rest[-1]])))
+        (a, a_st, a_r, a_c), (b, b_st, b_r, b_c) = out
+        same = [k for k in a if np.array_equal(np.asarray(a[k]),
+                                               np.asarray(b[k]))]
+        rings_same = all(np.array_equal(x[0], y[0]) and x[1] == y[1]
+                         for wa, wb in zip(a_r, b_r) for x, y in zip(wa, wb))
+        check(np.array_equal(a_st, b_st) and same == list(a) and rings_same
+              and np.array_equal(a_c, b_c) and (len(a_r) > 0) == trace,
+              f"{route}: stats of every step, {same}, the counters"
+              + (" and every window's event rings" if trace else "")
+              + f" bit-identical (stats total "
+              f"{a_st.astype(np.int64).sum(axis=0).tolist()})")
+    print(f"  phase 19 (a) seconds: {time.perf_counter() - t0:.3f}  "
+          f"[{card}]")
+
+
+def phase_mh_sb_full(dev, card, trace_dir):
+    from dint_tpu_torch.parallel import multihost_sb as mhs
+    h, ci = MH_SHAPE
+    d = h * ci
+    print(f"== phase 19 (b): SmallBank at {MESH_SB_N:,} accounts over "
+          f"{h} hosts x {ci} chips on one card, w={MESH_W} a partition, "
+          f"{MESH_CPB} cohorts/block, 90/4 skew, monitored, 1 warm + "
+          f"{MESH_SB_BLOCKS} timed blocks, the hierarchical and the flat "
+          f"exchange")
+    t_phase = time.perf_counter()
+    mesh = mhs.make_mesh_2d(h, ci, dev)
+    paths, rec, ref = {}, {}, None
+    for route, hier in (("hier", True), ("flat", False)):
+        label = ("smallbank multihost" if hier
+                 else "smallbank multihost flat")
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        states = mhs.create_multihost_sb(mesh, MESH_SB_N,
+                                         log_capacity=MESH_SB_LOG_CAP)
+        torch.cuda.synchronize()
+        print(f"  {d} partitions of "
+              f"{mhs.n_acct_local(MESH_SB_N, d):,} accounts "
+              f"({states[0].bal.numel():,} rows each) made on the card: "
+              f"{time.perf_counter() - t0:.3f} s")
+        base = mhs.total_balance_global(states)
+        run, init, drain = mhs.build_multihost_sb_runner(
+            mesh, MESH_SB_N, w=MESH_W, cohorts_per_block=MESH_CPB,
+            hierarchical=hier, monitor=True)
+        states, stats, launches, rec[route] = _sb_mesh_drive(
+            dev, card, label, run, init, drain, states, d)
+        paths[label] = launches
+        _sb_mesh_check(label, mesh, states, base, stats, launches,
+                       SB_MESH_PER_STEP["default"], axis=mhs.DCN_AXIS)
+        cnt = rec[route].pop("counters")
+        ici, dcn = cnt["route_ici_lanes"], cnt["route_dcn_lanes"]
+        rec[route]["route_ici_lanes"], rec[route]["route_dcn_lanes"] = \
+            ici, dcn
+        check(ici + dcn == cnt["lock_requests"] + cnt["install_writes"]
+              and cnt["txn_committed"] == int(stats[:, mhs.STAT_COMMITTED]
+                                              .astype(np.int64).sum())
+              and 0.5 < dcn / (ici + dcn) < 0.8,
+              f"{label}: the lane split ICI {ici:,} / DCN {dcn:,} (DCN "
+              f"share {dcn / (ici + dcn):.6f}; two hosts of three are "
+              f"remote) == lock_requests + install_writes; the counters "
+              f"reconcile with the stats")
+        if ref is None:
+            ref = (stats, [(st.bal.clone(), st.bck_bal.clone(),
+                            st.log.head.clone()) for st in states])
+            _sb_mesh_recover(dev, label, mesh, states, mesh.flat((1, 0)),
+                             axis=mhs.DCN_AXIS)
+        else:
+            check(np.array_equal(ref[0], stats)
+                  and all(torch.equal(a, st.bal) and torch.equal(b, st.bck_bal)
+                          and torch.equal(hd, st.log.head)
+                          for (a, b, hd), st in zip(ref[1], states)),
+                  f"{label}: the stats of every step, the balances, backups "
+                  f"and log heads equal the hierarchical route's")
+        states, rec[route]["wave_split"] = _sb_mesh_wave_split(
+            dev, card, label, run, init, drain, states, trace_dir,
+            rec[route]["ms_step"], engine="multihost_sb",
+            wave_names=MH_WAVES)
+        del states, run, init, drain
+        gc.collect()
+        torch.cuda.empty_cache()
+    del ref
+    hs, fs = (rec[r]["wave_split"]["host_ms"] for r in ("hier", "flat"))
+    print(f"  host ms a step in the waves: hierarchical {hs:.6f}, flat "
+          f"{fs:.6f} (ratio {hs / fs:.6f})  [{card}]")
+    rec["ab"] = _mh_exchange_ab(dev, card, mesh)
+    print(f"  phase 19 (b) seconds: {time.perf_counter() - t_phase:.3f}  "
+          f"[{card}]")
+    return paths, rec
+
+
+def _mh_exchange_ab(dev, card, mesh):
+    """The two exchanges in turns (flat, hier, hier, flat), unmonitored,
+    each from fresh tables and generator seed 18: one warm block, then
+    MH_AB_BLOCKS timed blocks; ms a step of each turn, the turns' stats
+    identical."""
+    from dint_tpu_torch.parallel import multihost_sb as mhs
+    ms, ref = {"hier": [], "flat": []}, None
+    for route in ("flat", "hier", "hier", "flat"):
+        states = mhs.create_multihost_sb(mesh, MESH_SB_N,
+                                         log_capacity=MESH_SB_LOG_CAP)
+        run, init, drain = mhs.build_multihost_sb_runner(
+            mesh, MESH_SB_N, w=MESH_W, cohorts_per_block=MESH_CPB,
+            hierarchical=route == "hier")
+        carry = init(states)
+        gen = torch.Generator(device=dev).manual_seed(18)
+        carry, _ = run(carry, gen)
+        torch.cuda.synchronize()
+        secs, stats = 0.0, []
+        for _ in range(MH_AB_BLOCKS):
+            t0 = time.perf_counter()
+            carry, s = run(carry, gen)
+            torch.cuda.synchronize()
+            secs += time.perf_counter() - t0
+            stats.append(s)
+        stats = torch.cat(stats).cpu().numpy()
+        ms[route].append(secs / (MH_AB_BLOCKS * MESH_CPB) * 1e3)
+        drain(carry)
+        if ref is None:
+            ref = stats
+        check(np.array_equal(ref, stats), f"exchange A/B: the {route} "
+              f"turn's stats equal the first turn's", quiet=True)
+        del states, carry, run, init, drain
+        gc.collect()
+        torch.cuda.empty_cache()
+    h, f = (sum(ms[r]) / 2 for r in ("hier", "flat"))
+    print(f"  exchange A/B in turns (flat, hier, hier, flat), unmonitored, "
+          f"ms a step: hierarchical {ms['hier']}, flat {ms['flat']}; means "
+          f"{h:.6f} and {f:.6f} (hierarchical / flat {h / f:.6f})  "
+          f"[{card}]")
+    return {"hier_ms_step": ms["hier"], "flat_ms_step": ms["flat"],
+            "hier_over_flat": h / f}
+
+
+def phase_mh_sb_serve(dev, card, txn_s):
+    from dint_tpu_torch.serve import (ControllerCfg, MeshServeEngine,
+                                      poisson_schedule)
+    h, ci = MH_SHAPE
+    d = h * ci
+    print(f"== phase 19 (c): MeshServeEngine over {h}x{ci} at "
+          f"{MESH_SB_N:,} accounts, widths {MH_SERVE_WIDTHS}, cpb "
+          f"{SV_CPB}, depth 2, monitor, wall clock: {MH_SERVE_WINDOW_S} s "
+          f"Poisson windows at {MH_SERVE_LOADS} of (b)'s "
+          f"{txn_s:,.1f} committed txn/s, overlap off and on")
+    t0 = time.perf_counter()
+    paths, out = {}, {}
+    for overlap in (False, True):
+        for load in MH_SERVE_LOADS:
+            rate = load * txn_s
+            label = (f"p19 serve {'overlap' if overlap else 'plain'} "
+                     f"{int(load * 100)}pct")
+            eng = MeshServeEngine(
+                MESH_SB_N, mesh_shape=MH_SHAPE,
+                cfg=ControllerCfg(widths=MH_SERVE_WIDTHS),
+                cohorts_per_block=SV_CPB, depth=2, monitor=True,
+                overlap=overlap, device=dev)
+            eng.warmup()
+            sched = poisson_schedule(rate, MH_SERVE_WINDOW_S, seed=19)
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_launches()
+            eng.run(sched)
+            eng.close()
+            launches = launch_counts()
+            rep = eng.snapshot()
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+            _mh_identities(label, rep, d)
+            q, s = rep["queue"], rep["service"]
+            shed_share = rep["shed"] / max(rep["offered"], 1)
+            check(rep["committed"] > 0 and launches["gather_rows"] > 0
+                  and rep["mesh"]["overlap"] is overlap,
+                  f"{label}: offered {rep['offered']:,} at "
+                  f"{rep['offered_rate']:,.1f}/s, achieved "
+                  f"{rep['achieved_rate']:,.1f} committed/s; queue p50 "
+                  f"{q['p50']:.1f} p99 {q['p99']:.1f} us, service p50 "
+                  f"{s['p50']:.1f} p99 {s['p99']:.1f} us; shed share "
+                  f"{shed_share:.6f}; per host "
+                  f"{[(x['admitted'], x['shed']) for x in rep['per_host']]};"
+                  f" steps by width {rep['steps_by_width']}; prefetched "
+                  f"{rep['counters']['route_prefetch_lanes']:,} lanes; "
+                  f"gather_rows {launches['gather_rows']}  [{card}]")
+            if overlap:
+                check(rep["counters"]["route_prefetch_lanes"]
+                      == rep["counters"]["lock_requests"],
+                      f"{label}: every lock lane prefetched "
+                      f"(route_prefetch_lanes == lock_requests)")
+            paths[label] = launches
+            out[label] = {"offered_rate": rep["offered_rate"],
+                          "achieved_rate": rep["achieved_rate"],
+                          "queue_p50_us": q["p50"], "queue_p99_us": q["p99"],
+                          "service_p50_us": s["p50"],
+                          "service_p99_us": s["p99"],
+                          "shed_share": shed_share,
+                          "per_host": rep["per_host"],
+                          "steps_by_width": rep["steps_by_width"],
+                          "slo_met": rep["slo_met"]}
+    print(f"  phase 19 (c) seconds: {time.perf_counter() - t0:.3f}  "
+          f"[{card}]")
+    return paths, out
+
+
+def phase_mh_sb_exp(dev, card):
+    from dint_tpu_torch import exp
+    from dint_tpu_torch import serve
+    h, ci = MH_SHAPE
+    print(f"== phase 19 (d): exp's mesh legs at DINT_BENCH_MESH={h}x{ci}, "
+          f"{MESH_SB_N:,} accounts: sweep_multihost_sb (hier and flat, "
+          f"w={MESH_W}, {P16_WINDOW_S} s windows) and sweep_serve_mesh "
+          f"(the _sat probe, rates {MH_EXP_RATES} of it, "
+          f"{P16_WINDOW_S} s windows)")
+    t0 = time.perf_counter()
+    paths, out = {}, {}
+
+    Recorded = _recorded(serve.MeshServeEngine)
+    res = PointSink()
+    real = exp.MeshServeEngine
+    exp.MeshServeEngine = Recorded
+    try:
+        with _Env(DINT_BENCH_MESH=f"{h}x{ci}", DINT_SERVE_OVERLAP=None,
+                  **P16_ENV):
+            exp.sweep_multihost_sb(MESH_SB_N, width=MESH_W, cpb=P16_CPB,
+                                   window_s=P16_WINDOW_S, results=res,
+                                   device=dev)
+            exp.sweep_serve_mesh("serve_mesh", MESH_SB_N,
+                                 window_s=P16_WINDOW_S,
+                                 open_rates=MH_EXP_RATES, results=res,
+                                 quick=False, cpb=P16_CPB, device=dev)
+    finally:
+        exp.MeshServeEngine = real
+    closed = [f"multihost_sb_{t}_closed_w{MESH_W}" for t in ("hier", "flat")]
+    serve_names = ["serve_mesh_sat"] + [f"serve_mesh_r{int(f * 100)}pct"
+                                        for f in MH_EXP_RATES]
+    check(sorted(res) == sorted(closed + serve_names)
+          and len(Recorded.snaps) == len(serve_names),
+          f"(d) ran {sorted(res)}")
+    mesh_keys = {"n_shards", "mesh", "hierarchical", "route_overflow"}
+    for name in closed:
+        blk = _p16_point(card, res, name, "closed", "smallbank", mesh_keys)
+        check(blk["n_shards"] == h * ci
+              and blk["mesh"] == {"n_hosts": h, "n_ici": ci,
+                                  "axes": ["dcn", "ici"]}
+              and blk["hierarchical"] == name.startswith("multihost_sb_hier")
+              and blk["route_overflow"] == 0
+              and res.launches[name]["gather_rows"] > 0,
+              f"{name}: the mesh keys, no overflow, gather_rows launched")
+        paths[f"p19 {name}"] = res.launches[name]
+        out[name] = {k: blk[k] for k in ("goodput", "throughput",
+                                          "abort_rate", "p50_us", "p99_us")}
+    for name, snap in zip(serve_names, Recorded.snaps):
+        blk = res[name]
+        want = P16_SERVE_KEYS | {"mesh", "per_host"} | (
+            {"target_rate"} if name != serve_names[0] else set())
+        check(set(blk) == want, f"{name}: exp.py's artifact keys"
+              + ("" if set(blk) == want else
+                 f" (extra {set(blk) - want}, missing {want - set(blk)})"))
+        _mh_identities(name, snap, h * ci)
+        check(blk["serve_counters"]["serve_occupancy_lanes"]
+              == blk["admitted"] and res.launches[name]["gather_rows"] > 0,
+              f"{name}: serve_counters agree, gather_rows launched")
+        print(f"  {name}: offered {blk['offered']:,} "
+              f"({blk['offered_rate']:,.1f}/s), admitted {blk['admitted']:,}"
+              f", shed {blk['shed']:,}; achieved {blk['achieved_rate']:,.1f} "
+              f"committed/s; queue p50 {blk['p50_us']} p99 {blk['p99_us']} "
+              f"us; service p99 {blk['service']['p99']:.1f} us; steps by "
+              f"width {snap['steps_by_width']}; peak "
+              f"{res.peak[name]:,} B  [{card}]")
+        paths[f"p19 {name}"] = res.launches[name]
+        out[name] = {k: blk[k] for k in ("offered_rate", "achieved_rate",
+                                          "p50_us", "p99_us", "shed")}
+    print(f"  phase 19 (d) seconds: {time.perf_counter() - t0:.3f}  "
+          f"[{card}]")
+    return paths, out
+
+
+def phase_mh_sb(dev, card):
+    """Phase 19: SmallBank on the 2-D mesh and the mesh serving plane."""
+    import tempfile
+    t0 = time.perf_counter()
+    phase_mh_sb_cpu_vs_card(dev, card)
+    with tempfile.TemporaryDirectory(prefix="dint_p19_") as tmp:
+        paths, rec = phase_mh_sb_full(dev, card, tmp)
+    serve_paths, rec["serve"] = phase_mh_sb_serve(dev, card,
+                                                  rec["hier"]["txn_s"])
+    paths.update(serve_paths)
+    gc.collect()
+    torch.cuda.empty_cache()
+    exp_paths, rec["exp"] = phase_mh_sb_exp(dev, card)
+    paths.update(exp_paths)
+    secs = time.perf_counter() - t0
+    rec["seconds"] = secs
+    print("  phase 19 record: " + json.dumps(rec, default=str))
+    print(f"  phase 19: {secs:.3f} s  [{card}]")
+    return paths
+
+
 KERNELS = {
     "gather_rows": ("dint_tpu_torch/csrc/gather_rows.cu",
                     "dint_tpu/ops/pallas_gather.py:212"),
@@ -6333,6 +6759,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     store_paths.update(phase_sb_mesh(dev, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    store_paths.update(phase_mh_sb(dev, card))
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -6345,8 +6774,9 @@ def main() -> int:
         # sweep_micro's store points (phase 14 (d)), phase 15's traced
         # runs and profiled blocks, phase 16's sweep, serve and
         # calibration points and drive, phase 17's sharded, multihost
-        # and dry runs, and phase 18's sharded SmallBank runs and dry run,
-        # each counted from 0 just before its run
+        # and dry runs, phase 18's sharded SmallBank runs and dry run, and
+        # phase 19's 2-D mesh runs, serving windows and exp points, each
+        # counted from 0 just before its run
         paths = {**{f"tatp {k}": v[name] for k, v in tatp.items()},
                  **{f"smallbank {k}": v[name] for k, v in sb.items()},
                  **{k: v[name] for k, v in store_paths.items()}}
@@ -6426,6 +6856,10 @@ def main() -> int:
           "phase 18: gather_rows ran on sharded SmallBank's default route, "
           "gather_rows_hot and scatter_rows_hot on its hot route, "
           "gather_streams and scatter_streams on its fused route")
+    check(by_name["gather_rows"]["smallbank multihost"] > 0
+          and by_name["gather_rows"]["smallbank multihost flat"] > 0,
+          "phase 19: gather_rows ran on SmallBank's 2-D mesh, both "
+          "exchanges")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,10 @@ one card, with the SmallBank leg. The port of bench.py's measurement
 
     python -m dint_tpu_torch.bench          # needs one CUDA card
 
-Prints ONE JSON line on stdout with bench.py's keys: the TATP mix
-35/35/10/2/14/2/2 over NURand subscriber ids, 3 replicated shards (log x3
-+ bck x2 + prim commit pipeline), the dense pipelined engine with
+Writes the measurement to ``artifacts/BENCH_<commit>_<ts>.json`` (a failed
+write raises) and prints ONE JSON line on stdout with bench.py's keys: the
+TATP mix 35/35/10/2/14/2/2 over NURand subscriber ids, 3 replicated shards
+(log x3 + bck x2 + prim commit pipeline), the dense pipelined engine with
 cross-cohort concurrency, workload drawn on the device, a timed window of
 committed (goodput) txns/s, the abort breakdown, and latency at cohort
 granularity (a txn completes 3 pipeline steps after its cohort's
@@ -386,8 +387,44 @@ def measure(env=None, device=None) -> dict:
     return out
 
 
+ARTIFACT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "artifacts")
+
+
+def _git_head() -> str:
+    """The checkout's short commit, "unknown" outside a git work tree."""
+    try:
+        c = subprocess.run(["git", "rev-parse", "--short", "HEAD"],
+                           capture_output=True, text=True, timeout=10,
+                           cwd=os.path.dirname(os.path.abspath(__file__)))
+    except (OSError, subprocess.SubprocessError):
+        return "unknown"
+    return c.stdout.strip() if c.returncode == 0 and c.stdout.strip() \
+        else "unknown"
+
+
+def _persist_artifact(out: dict, artifact_dir: str = ARTIFACT_DIR) -> str:
+    """Stamp the measurement with ``commit`` and ``ts`` and write it to
+    ``<artifact_dir>/BENCH_<commit>_<ts>.json`` (bench.py's artifact), so
+    every number on the card is a timestamped file; returns the path. A
+    failed write raises."""
+    out["commit"] = _git_head()
+    out["ts"] = time.strftime("%Y%m%dT%H%M%SZ", time.gmtime())
+    os.makedirs(artifact_dir, exist_ok=True)
+    path = os.path.join(artifact_dir,
+                        f"BENCH_{out['commit']}_{out['ts']}.json")
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    # stderr: stdout's one line is the result
+    print(f"artifact written: {path}", file=sys.stderr)
+    return path
+
+
 def main() -> int:
-    print(json.dumps(measure()), flush=True)
+    out = measure()
+    _persist_artifact(out)
+    print(json.dumps(out), flush=True)
     return 0
 
 

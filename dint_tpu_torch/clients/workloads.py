@@ -129,3 +129,28 @@ def zipf_keys(rng: np.random.Generator, n: int, n_keys: int,
     u = rng.random(n)
     k = np.searchsorted(zipf_cdf(n_keys, theta), u, side="right") + 1
     return np.clip(k, 1, n_keys).astype(np.uint64)
+
+
+def zipf_scan_starts(rng: np.random.Generator, n: int, n_keys: int,
+                     theta: float = ZIPF_THETA) -> np.ndarray:
+    """YCSB-E start keys: Zipfian over the keyspace with `zipf_keys`'
+    rank == key id alignment, so scans over the ordered run's hot head
+    touch the rows the point workloads' skew touches."""
+    return zipf_keys(rng, n, n_keys, theta)
+
+
+def ycsb_e_ops(rng: np.random.Generator, n: int, n_keys: int,
+               scan_frac: float = YCSB_E_SCAN_FRAC,
+               max_len: int = YCSB_E_MAX_SCAN,
+               theta: float = ZIPF_THETA):
+    """One YCSB-E-shaped cohort for the store: scans with Zipfian start
+    keys and uniform lengths, the rest upsert writes. Returns (is_scan [n]
+    bool, keys [n] u64, scan_len [n] u32, zero on write lanes), a function
+    of the generator's state."""
+    is_scan = rng.random(n) < scan_frac
+    starts = zipf_scan_starts(rng, n, n_keys, theta)
+    writes = zipf_keys(rng, n, n_keys, theta)
+    keys = np.where(is_scan, starts, writes)
+    lens = np.where(is_scan, scan_lengths(rng, n, max_len), 0) \
+        .astype(np.uint32)
+    return is_scan, keys, lens

@@ -417,3 +417,26 @@ def sharded_sb_to_numpy(states) -> dict:
             assert all(d[k] == v for d in dicts), k
             out[k] = v
     return out
+
+
+# ------------------------------------------- SmallBank on the 2-D mesh
+
+
+def multihost_sb_from_numpy(arrays: dict, device=None) -> list:
+    """JAX's `multihost_sb` state dict (every array leading [H, C]) -> the
+    port's list of `SBShard`, in flat partition order (h * C + c)."""
+    lead = np.asarray(arrays["bal"]).shape[:2]
+    n = int(np.prod(lead))
+    flat = {k: (np.asarray(v).reshape((n,) + np.shape(v)[2:])
+                if isinstance(v, (np.ndarray, np.generic)) else v)
+            for k, v in arrays.items()}
+    return sharded_sb_from_numpy(flat, device)
+
+
+def multihost_sb_to_numpy(states, mesh_shape) -> dict:
+    """The port's list of `SBShard` -> the dict of JAX's `multihost_sb`
+    state, every array with the leading mesh shape [H, C]."""
+    mesh_shape = tuple(mesh_shape)
+    return {k: (v.reshape(mesh_shape + v.shape[1:])
+                if isinstance(v, np.ndarray) else v)
+            for k, v in sharded_sb_to_numpy(states).items()}

@@ -9,11 +9,16 @@ run       serve one open-loop arrival schedule end to end and print the
           runs under the deterministic VirtualClock + ServiceModel; the
           default RealClock measures wall time. --journal streams the
           controller's decision journal as JSONL (`dintcal audit` replays
-          it). Exit 0 when the SLO is met (or --no-gate), 1 otherwise.
+          it). --mesh HxC serves SmallBank over the whole 2-D (dcn x
+          ici) mesh instead (`MeshServeEngine`: per-host admission, one
+          global controller, width switches drained on every
+          partition); add --overlap for the double-buffered route. Exit
+          0 when the SLO is met (or --no-gate), 1 otherwise.
 simulate  controller-only rehearsal: the width trajectory the controller
           would take for a schedule under the service-time model (flags,
           else `calib.resolve_service_model`: the port's calibration or
-          the defaults, and the report says which). No engine, no device.
+          the defaults, and the report says which); --mesh HxC rehearses
+          per-partition rates (lanes_scale = H*C). No engine, no device.
 describe  the serving-plane contract: serve counters, serve waves, and
           the controller's defaults.
 
@@ -23,18 +28,20 @@ Examples
       --size 7000000 --rate 500000 --window 2 --journal journal.jsonl
   python -m dint_tpu_torch.dintserve run --size 2000 --virtual \\
       --device cpu --json
+  python -m dint_tpu_torch.dintserve run --mesh 3x2 --size 24000000 \\
+      --rate 400000 --window 2
   python -m dint_tpu_torch.dintserve simulate --rate 200000 --window 1
   python -m dint_tpu_torch.dintserve describe
 
 What differs from tools/dintserve.py: ``run`` serves on the card unless
-``--device cpu``; ``--mesh`` and ``--overlap`` (the mesh serving plane)
-wait for the multi-device port, and ``describe``'s serve targets for the
-static analysis plane.
+``--device cpu`` (the mesh's partitions share that one device);
+``describe``'s serve targets wait for the static analysis plane.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 
 DEFAULT_WIDTHS = "256,1024,4096,8192"
@@ -52,6 +59,13 @@ def _schedule(args):
                   burst_every_s=args.burst_every_s)
     return arr.make_schedule(args.kind, args.rate, args.window,
                              seed=args.seed, **kw)
+
+
+def _mesh_shape(s: str) -> tuple[int, int]:
+    m = re.fullmatch(r"(\d+)\s*[xX*]\s*(\d+)", s.strip())
+    if not m:
+        raise SystemExit(f"--mesh wants HxC (e.g. 4x2), got {s!r}")
+    return int(m.group(1)), int(m.group(2))
 
 
 def _plan_arg(spec: str):
@@ -77,7 +91,8 @@ def _flag_model(args):
 
 
 def cmd_run(args) -> int:
-    from .serve import ControllerCfg, ServeEngine, VirtualClock
+    from .serve import (ControllerCfg, MeshServeEngine, ServeEngine,
+                        VirtualClock)
     # flags win; left unset, the width menu, SLO and service prior come
     # from the plan's serve priors inside ServeEngine
     cfg = None
@@ -85,12 +100,20 @@ def cmd_run(args) -> int:
         cfg = ControllerCfg(
             widths=_widths(args.widths or DEFAULT_WIDTHS),
             slo_us=args.slo_us if args.slo_us is not None else 5_000.0)
-    eng = ServeEngine(args.engine, args.size, cfg=cfg,
-                      model=_flag_model(args), cohorts_per_block=args.cpb,
-                      depth=args.depth,
-                      clock=VirtualClock() if args.virtual else None,
-                      monitor=not args.no_monitor, seed=args.seed,
-                      plan=_plan_arg(args.plan), device=args.device)
+    common = dict(cfg=cfg, model=_flag_model(args),
+                  cohorts_per_block=args.cpb, depth=args.depth,
+                  clock=VirtualClock() if args.virtual else None,
+                  monitor=not args.no_monitor, seed=args.seed,
+                  plan=_plan_arg(args.plan), device=args.device)
+    if args.mesh:
+        eng = MeshServeEngine(args.size, mesh_shape=_mesh_shape(args.mesh),
+                              overlap=args.overlap, **common)
+        label = f"mesh {args.mesh} multihost_sb"
+    else:
+        if args.overlap:
+            raise SystemExit("--overlap needs --mesh")
+        eng = ServeEngine(args.engine, args.size, **common)
+        label = args.engine
     cfg = eng.cfg
     if not args.virtual:
         eng.warmup()          # build the kernels outside the window
@@ -103,7 +126,7 @@ def cmd_run(args) -> int:
     if args.json:
         print(json.dumps(rep))
         return 0 if rep["slo_met"] or args.no_gate else 1
-    print(f"dintserve {args.engine} size={args.size} "
+    print(f"dintserve {label} size={args.size} "
           f"widths={list(cfg.widths)} slo={cfg.slo_us:.0f}us "
           f"{'virtual' if args.virtual else 'real'} clock")
     print(f"  offered  {rep['offered']} arrivals "
@@ -133,6 +156,13 @@ def cmd_run(args) -> int:
         print(f"  lanes    occupancy={c.get('serve_occupancy_lanes', 0)} "
               f"padded={c.get('serve_padded_lanes', 0)} "
               f"shed={c.get('serve_shed_lanes', 0)}")
+    if "mesh" in rep:
+        m = rep["mesh"]
+        print(f"  mesh     {m['n_hosts']}x{m['n_ici']} "
+              f"hierarchical={m['hierarchical']} overlap={m['overlap']}")
+        for hrep in rep["per_host"]:
+            print(f"    host {hrep['host']}: admitted={hrep['admitted']} "
+                  f"shed={hrep['shed']}")
     return 0 if rep["slo_met"] or args.no_gate else 1
 
 
@@ -147,12 +177,15 @@ def cmd_simulate(args) -> int:
         model_meta = {"source": "flags", "path": None, "hash": None}
     else:
         model, model_meta = resolve_service_model()
+    shape = _mesh_shape(args.mesh) if args.mesh else None
     widths = simulate_widths(_schedule(args), cfg, model,
-                             cohorts_per_block=args.cpb, lanes_scale=1)
+                             cohorts_per_block=args.cpb,
+                             lanes_scale=shape[0] * shape[1] if shape
+                             else 1)
     out = {"widths": sorted(set(widths)), "blocks": len(widths),
            "trajectory": widths if args.json else None,
            "final_width": widths[-1] if widths else None,
-           "mesh": None,
+           "mesh": list(shape) if shape else None,
            "model": {"base_us": model.base_us,
                      "per_lane_ns": model.per_lane_ns, **model_meta}}
     if args.json:
@@ -230,9 +263,18 @@ def main(argv=None) -> int:
         p.add_argument("--model-base-us", type=float, default=None)
         p.add_argument("--model-per-lane-ns", type=float, default=None)
         p.add_argument("--json", action="store_true")
+        p.add_argument("--mesh", default=None, metavar="HxC",
+                       help="serve over the whole 2-D mesh (e.g. 3x2): "
+                            "run drives MeshServeEngine, simulate "
+                            "rehearses per-partition rates (lanes_scale "
+                            "= H*C)")
         if engine:
             p.add_argument("--engine", default="tatp_dense",
                            choices=("tatp_dense", "smallbank_dense"))
+            p.add_argument("--overlap", action="store_true", default=None,
+                           help="mesh only: serve through the double-"
+                                "buffered route; unset = the plan's "
+                                "choice")
             p.add_argument("--plan", default="auto", metavar="auto|off|PATH",
                            help="PLAN.json: 'auto' reads the pinned plan, "
                                 "'off' none (the report records \"plan\": "

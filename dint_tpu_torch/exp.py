@@ -19,9 +19,13 @@ The legs, in exp.py's order, with its names, sizes and artifact keys:
   (``DINT_EXP_SB_ACCOUNTS``), ``--hot-frac``/``--hot-prob`` setting the
   skew; ``--only smallbank_skew`` is a preset: one width, hot_frac 0.01,
   0.04, 0.16 and 0.5 (``smallbank_skew_h{01,04,16,50}_closed_w8192``);
+* ``multihost_sb_{hier,flat}_closed_w8192``: `sweep_multihost_sb`,
+  SmallBank over the ``DINT_BENCH_MESH`` (host, chip) mesh, the
+  hierarchical and the flat exchange;
 * ``serve_tatp_*``, ``serve_smallbank_*``: `sweep_serve`, the serving
   plane's saturation probe ``_sat`` and Poisson rate points ``_r{N}pct``
-  at fractions of it;
+  at fractions of it; ``serve_mesh_*``: `sweep_serve_mesh`, the same over
+  the mesh serving plane (``DINT_SERVE_OVERLAP=1``: the overlap route);
 * the points of `sweep_micro` (store, Zipf, scan ladder, lock traces, log,
   wire, colocate, cached store).
 
@@ -52,10 +56,10 @@ What differs from exp.py:
   with `tatp_dense.populate_device` on a generator seeded 0.
 * A profiled point's ``breakdown`` is the port's (ROADMAP §C.13): each
   wave also carries ``host_ms``.
-* The ``multihost_sb`` and ``serve_mesh`` legs need a mesh of devices
-  (the multi-device port, not done yet): they print exp.py's "skipped"
-  line when the devices are too few, as they always are on one card, and
-  raise where a mesh could be formed. ``use_hotset`` (None:
+* The ``multihost_sb`` and ``serve_mesh`` legs run the
+  ``DINT_BENCH_MESH`` mesh (default 4x2) in one process on the one device
+  (`parallel/mesh.py`), so the device count never skips them; they print
+  exp.py's "skipped" line only for fewer than 3 hosts. ``use_hotset`` (None:
   ``DINT_USE_HOTSET``) is an argument of `sweep_micro`, whose point-op
   rows take no ordered run. A wire bench snapshots its pump after
   stopping it, so the last batch's tally is in (occupancy + padded ==
@@ -88,7 +92,8 @@ from .engines.types import Op
 from .monitor import attrib, profiler_session
 from .monitor import counters as mon
 from .monitor import txnevents as txe
-from .serve import ControllerCfg, ServeEngine
+from .parallel import multihost_sb as mhs
+from .serve import ControllerCfg, MeshServeEngine, ServeEngine
 from .serve import arrivals as arr
 from .serve.engine import block_seed
 from .shim import STORE, TATP, EnginePump, ShimClient
@@ -562,31 +567,130 @@ def sweep_serve(name, engine, size, *, window_s, open_rates, results,
                   {"load": frac, "target_rate": round(rate, 1)}))
 
 
-def mesh_shape_from_env(default: str = "4x2",
-                        env: str = "DINT_BENCH_MESH") -> tuple[int, int]:
-    """The mesh knob exp.py reads: DINT_BENCH_MESH="HxC" (hosts x
-    chips)."""
-    spec = os.environ.get(env) or default
-    try:
-        h, c = (int(p) for p in spec.lower().replace("*", "x").split("x"))
-    except ValueError as e:
-        raise ValueError(f"{env}={spec!r}: expected 'HxC', e.g. '4x2'") \
-            from e
-    return h, c
-
-
-def _mesh_leg(name, dev):
-    """A mesh leg: exp.py's "skipped" line when the devices cannot form
-    the mesh; where they could, the leg raises, since the multi-device
-    engines are not ported."""
-    n_hosts, n_ici = mesh_shape_from_env()
+def _mesh_shape_or_skip(name, dev):
+    """``DINT_BENCH_MESH``'s (hosts, chips), or None after exp.py's
+    "skipped" line when it names fewer than 3 hosts (the replication's
+    fault-domain rule). The mesh runs in one process on ``dev``, so the
+    device count never skips a leg."""
+    n_hosts, n_ici = mhs.mesh_shape_from_env()
+    if n_hosts >= 3:
+        return n_hosts, n_ici
     have = torch.cuda.device_count() if dev.type == "cuda" else 1
-    if have < n_hosts * n_ici or n_hosts < 3:
-        print(f"{name}: skipped ({n_hosts}x{n_ici} mesh needs "
-              f"{n_hosts * n_ici} devices and >= 3 hosts; have "
-              f"{have} devices)", flush=True)
+    print(f"{name}: skipped ({n_hosts}x{n_ici} mesh needs "
+          f"{n_hosts * n_ici} devices and >= 3 hosts; have "
+          f"{have} devices)", flush=True)
+    return None
+
+
+def _mh_sb_runner(n_acc, w, cpb, hierarchical, device=None):
+    """(run, carry, drain) of SmallBank over the ``DINT_BENCH_MESH`` mesh
+    at ``n_acc`` global accounts, the hierarchical or the flat exchange."""
+    mesh = mhs.make_mesh_2d(*mhs.mesh_shape_from_env(), device)
+    run, init, drain = mhs.build_multihost_sb_runner(
+        mesh, n_acc, w=w, cohorts_per_block=cpb, hierarchical=hierarchical,
+        monitor=_monitor_on(), trace=_trace_on())
+    run = _wrap_trace(run, init, SB_RING)
+    return run, init(mhs.create_multihost_sb(mesh, n_acc)), drain
+
+
+def _mh_sb_extras(total):
+    att, com, extra = _sb_extras(total)
+    extra["route_overflow"] = int(total[mhs.STAT_OVERFLOW])
+    return att, com, extra
+
+
+def sweep_multihost_sb(n_acc, *, width, cpb, window_s, results,
+                       device=None):
+    """exp.py's ``multihost_sb`` leg: the hierarchical-vs-flat exchange
+    A/B over the ``DINT_BENCH_MESH`` mesh, one closed point each
+    (``multihost_sb_{hier,flat}_closed_w{width}``), the same global
+    geometry and outputs; the points carry the mesh and ``hierarchical``."""
+    dev = resolve_device(device)
+    shape = _mesh_shape_or_skip("multihost_sb", dev)
+    if shape is None:
         return
-    raise NotImplementedError(f"{name}: the mesh engines are not ported")
+    n_hosts, n_ici = shape
+    mesh_extra = {"n_shards": n_hosts * n_ici,
+                  "mesh": {"n_hosts": n_hosts, "n_ici": n_ici,
+                           "axes": [mhs.DCN_AXIS, mhs.ICI_AXIS]}}
+    for tag, hier in (("hier", True), ("flat", False)):
+        sweep_pipeline(
+            f"multihost_sb_{tag}",
+            lambda w, b, h=hier: _mh_sb_runner(n_acc, w, b, h, dev),
+            _mh_sb_extras, mhs.N_STATS, widths=[width], cpb=cpb, depth=2,
+            magic_idx=mhs.STAT_MAGIC_BAD, window_s=window_s, open_rates=(),
+            results=results, point_extra=dict(mesh_extra, hierarchical=hier),
+            geom={"l": 3, "vw": 2, "d": n_hosts * n_ici}, device=dev)
+
+
+def sweep_serve_mesh(name, n_acc, *, window_s, open_rates, results,
+                     quick, cpb=4, depth=2, slo_us=5_000.0, device=None):
+    """The mesh serving plane's latency-vs-offered-load curve: the whole
+    ``DINT_BENCH_MESH`` mesh served as one open-loop plane
+    (`serve.mesh.MeshServeEngine`), the ladder of `sweep_serve` (a
+    saturation probe ``_sat``, then Poisson points at ``open_rates`` of
+    it); each artifact also carries the mesh, the per-host admitted/shed
+    split and ``route_prefetch_lanes``. ``DINT_SERVE_OVERLAP=1`` serves
+    through the double-buffered route."""
+    dev = resolve_device(device)
+    shape = _mesh_shape_or_skip(name, dev)
+    if shape is None:
+        return
+    n_hosts, n_ici = shape
+    overlap = os.environ.get("DINT_SERVE_OVERLAP", "0") == "1"
+    widths = (64, 256) if quick else (256, 1024, 4096)
+    max_arrivals = 50_000 if quick else 2_000_000
+
+    def point(schedule_fn, extra_static):
+        def fn():
+            eng = MeshServeEngine(
+                n_acc, mesh_shape=(n_hosts, n_ici),
+                cfg=ControllerCfg(widths=widths, slo_us=slo_us),
+                cohorts_per_block=cpb, depth=depth, monitor=True, seed=0,
+                overlap=overlap, device=dev)
+            eng.warmup()          # build the kernels outside the window
+            eng.run(schedule_fn())
+            eng.close()
+            rep = eng.snapshot()
+            p = {**eng.queue_hist.percentiles(),
+                 "hist": eng.queue_hist.to_dict()}
+            service = {**eng.service_hist.percentiles(),
+                       "hist": eng.service_hist.to_dict()}
+            del eng
+            extra = dict(extra_static)
+            extra.update(
+                mode="serve_mesh", engine="multihost_sb",
+                widths=list(widths), mesh=rep["mesh"],
+                per_host=rep["per_host"],
+                offered=rep["offered"], admitted=rep["admitted"],
+                shed=rep["shed"], blocks=rep["blocks"],
+                offered_rate=round(rep["offered_rate"], 1),
+                achieved_rate=round(rep["achieved_rate"], 1),
+                slo_us=slo_us, slo_met=rep["slo_met"], service=service,
+                controller=rep["controller"],
+                serve_counters={
+                    k: rep["counters"].get(k, 0)
+                    for k in ("serve_occupancy_lanes", "serve_padded_lanes",
+                              "serve_shed_lanes", "route_prefetch_lanes")})
+            return _metric_json(rep["attempted"], rep["committed"],
+                                rep["elapsed_s"], p, extra)
+
+        return fn
+
+    # saturation probe across the whole mesh: every arrival at t = 0
+    n_probe = min(widths[-1] * cpb * n_hosts * n_ici * 8, max_arrivals)
+    nm = f"{name}_sat"
+    run_point(results, nm, point(lambda: np.zeros(n_probe), {"load": "sat"}))
+    peak = (results.get(nm) or {}).get("achieved_rate")
+    if not peak:
+        return
+    for frac in open_rates:
+        rate = max(peak * frac, 1.0)
+        win = min(window_s, max_arrivals / rate)
+        run_point(
+            results, f"{name}_r{int(frac * 100)}pct",
+            point(lambda r=rate, w=win: arr.poisson_schedule(r, w, seed=11),
+                  {"load": frac, "target_rate": round(rate, 1)}))
 
 
 def _timed_client(client, go, window_s):
@@ -1035,7 +1139,8 @@ def run(out: str, window_s: float = 10.0, quick: bool = False,
         hot_frac: float | None = None, hot_prob: float | None = None,
         use_hotset=None, device=None) -> dict:
     """exp.py's `run_all`: the TATP and SmallBank pipeline legs, the mesh
-    leg's skip line, the skew preset, the serve legs, then `sweep_micro`,
+    leg, the skew preset, the serve legs and the mesh serve leg, then
+    `sweep_micro`,
     into ``out``; then ``out/summary.json``. ``only`` is a name substring
     filter both ways (``--only tatp`` runs tatp_closed_w256,
     ``--only tatp_closed`` passes the coarse ``tatp`` gate)."""
@@ -1079,7 +1184,8 @@ def run(out: str, window_s: float = 10.0, quick: bool = False,
                                                   wl.SB_HOT_PROB),
                        geom={"l": sd.L, "vw": sd.VW}, device=dev)
     if want("multihost_sb") and not skew_preset:
-        _mesh_leg("multihost_sb", dev)
+        sweep_multihost_sb(n_acc, width=256 if quick else 8192, cpb=cpb,
+                           window_s=window_s, results=results, device=dev)
     if skew_preset:
         sweep_skew(n_acc, width=256 if quick else 8192, cpb=cpb,
                    window_s=window_s, results=results, hot_prob=hot_prob,
@@ -1095,7 +1201,9 @@ def run(out: str, window_s: float = 10.0, quick: bool = False,
                     window_s=window_s, open_rates=rates, results=results,
                     quick=quick, cpb=cpb, device=dev)
     if want("serve_mesh") and not skew_preset:
-        _mesh_leg("serve_mesh", dev)
+        sweep_serve_mesh("serve_mesh", n_acc, window_s=window_s,
+                         open_rates=rates, results=results, quick=quick,
+                         cpb=cpb, device=dev)
 
     sweep_micro(window_s, quick, results, want=want, use_hotset=use_hotset,
                 device=dev)

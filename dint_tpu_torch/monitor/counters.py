@@ -267,9 +267,12 @@ def gauge_max(c: Counters | None, updates: dict):
 
 
 def snapshot(counters) -> dict[str, int]:
-    """A `Counters` (or a raw buffer: tensor or numpy, 1-D or stacked
-    [D, N_COUNTERS]) as a {name: int} dict; stacked rows are summed for
-    flow counters and maxed for gauges."""
+    """A `Counters`, a list of them (one a partition), or a raw buffer
+    (tensor or numpy, 1-D or stacked [D, N_COUNTERS]) as a {name: int}
+    dict; stacked rows are summed for flow counters and maxed for
+    gauges."""
+    if isinstance(counters, (list, tuple)):
+        counters = torch.stack([c.buf for c in counters])
     buf = counters.buf if isinstance(counters, Counters) else counters
     if isinstance(buf, torch.Tensor):
         buf = buf.detach().cpu().numpy()

@@ -13,6 +13,9 @@ and `psum` sums over it.
   shards.
 * `multihost` — the sharded TATP path over a (host, chip) mesh, the backups on the
   next two hosts.
+* `multihost_sb` — sharded SmallBank's step over the (host, chip) mesh:
+  hierarchical or flat exchanges, the backups on the next two hosts, the
+  serve and double-buffered (overlap) routes of the mesh serving plane.
 """
 from . import (dense_sharded, dense_sharded_sb, mesh, multihost,  # noqa: F401
-               sharded)
+               multihost_sb, sharded)

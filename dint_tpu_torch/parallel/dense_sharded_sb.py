@@ -53,12 +53,13 @@ The routing, the replies, the backups and the forwarded log appends are
 plain torch work on every route, as JAX's are XLA outside its kernels.
 
 The mesh is a list on one device (`mesh.py`), so a step runs phase by
-phase over all partitions, never partition by partition: every partition
-generates and routes, one `all_to_all`; every owner arbitrates and reads;
-the replies; every source classifies; every partition routes its previous
-cohort's installs, one `all_to_all`; every owner installs and logs; hop 1
-on every partition, then hop 2. Each log holds its own appends, then hop
-1's, then hop 2's, as on JAX's devices.
+phase over all partitions, never partition by partition (`_Phases`,
+which `multihost_sb` runs too, with its 2-D exchange and replication
+axis): every partition generates and routes, one `all_to_all`; every
+owner arbitrates and reads; the replies; every source classifies; every
+partition routes its previous cohort's installs, one `all_to_all`; every
+owner installs and logs; hop 1 on every partition, then hop 2. Each log
+holds its own appends, then hop 1's, then hop 2's, as on JAX's devices.
 
 What differs from JAX:
 
@@ -280,6 +281,411 @@ def _txn_ids(step: int, n_shards: int, dev: int, w: int,
     return u32.wrap_i32(base + lane)
 
 
+def _columns(x):
+    """A routed [D*cap, F] tensor as F contiguous [D*cap] columns."""
+    return x.t().contiguous().unbind(0)
+
+
+class _Phases:
+    """The phases of one mesh step of sharded SmallBank, each over every
+    partition before the next (a collective is a barrier, ROADMAP §C):
+    generate, route the lock requests, arbitrate at the owners, reply and
+    classify, route the previous cohort's installs, install and log at the
+    owners, replicate, then count and trace. The exchange and the
+    replication axis are parameters, so `multihost_sb` runs the same step
+    over its 2-D mesh: ``exchange(list of [D*cap, F]) -> list`` lands
+    partition s's bucket d in partition d's slot s; the backups of
+    partition p sit at ``mesh.shift(p, repl_axis, 1)`` and ``2``.
+    ``engine`` names the waves."""
+
+    def __init__(self, mesh: Mesh, n_accounts: int, w: int, *, engine: str,
+                 exchange, repl_axis: str, mix=None, hot_frac=None,
+                 hot_prob=None, use_hotset: bool = False,
+                 use_fused: bool = False, trace_on: bool = False):
+        d = mesh.size
+        dev = mesh.device
+        self.mesh, self.d, self.w, self.dev = mesh, d, w, dev
+        self.n_accounts = n_accounts
+        self.engine, self.exchange, self.axis = engine, exchange, repl_axis
+        self.use_hotset, self.use_fused = use_hotset, use_fused
+        self.trace_on = trace_on
+        self.n_loc = n_acct_local(n_accounts, d)
+        self.m1 = m1_local(n_accounts, d)
+        self.sent = self.m1 - 1
+        self.cap = 2 * ((w * L + d - 1) // d)
+        self.dc = d * self.cap
+        self.hot_loc = 0
+        if use_hotset:
+            frac = wl.SB_HOT_FRAC if hot_frac is None else float(hot_frac)
+            hot_n = max(1, min(int(n_accounts * frac), n_accounts))
+            self.hot_loc = min((hot_n + d - 1) // d, self.n_loc)
+        self.skew = {k: v for k, v in (("hot_frac", hot_frac),
+                                       ("hot_prob", hot_prob))
+                     if v is not None}
+        # device constants, made once (a host-to-device copy synchronises)
+        self.thresh = mix_thresh(mix, dev)
+        self.lane_dc = torch.arange(self.dc, dtype=I32, device=dev)
+        self.lane_w = torch.arange(w, dtype=torch.int64, device=dev)
+        self.zero_ctx = torch.zeros((), dtype=I32, device=dev)
+
+    def mirror_idx(self, rr, mask):
+        """Local row -> hot mirror index (tbl * hot_loc + q), -1 when cold;
+        the sentinel row (q == n_loc) is never hot: hot_loc <= n_loc."""
+        tb = (rr >= self.n_loc).to(I32)
+        q = rr - tb * self.n_loc
+        return torch.where(mask & (q < self.hot_loc),
+                           tb * self.hot_loc + q, -1)
+
+    def step_consts(self, t: int):
+        """The step's stamp column and zero column over the D*cap slots."""
+        stepv = torch.full((self.dc,), u32.i32_bits(t), dtype=I32,
+                           device=self.dev)
+        return stepv, torch.zeros((self.dc,), dtype=I32, device=self.dev)
+
+    def gen(self, bits, ts_amt, gen_new: bool, t: int, occ=None) -> list:
+        """Each partition's cohort from its draws (``bits[p]``,
+        ``ts_amt[p]``), or an empty one; with ``occ`` (serve), the lock
+        slots of the lanes past partition p's ``occ[p]`` are zeroed after
+        the full-width draw."""
+        w, dev = self.w, self.dev
+        src = [{} for _ in range(self.d)]
+        with waves.scope(self.engine, "gen"):
+            for p, s in enumerate(src):
+                if gen_new:
+                    ttype, a1, a2 = gen_cohort_from_bits(
+                        bits[p], w, self.n_accounts, thresh=self.thresh,
+                        **self.skew)
+                    s["l_op"], s["l_tb"], s["l_ac"] = _lock_slots(ttype,
+                                                                  a1, a2)
+                    s["amt"] = ts_amt[p]
+                else:
+                    ttype = torch.zeros((w,), dtype=I32, device=dev)
+                    s["l_op"], s["l_tb"], s["l_ac"] = (
+                        torch.zeros((w, L), dtype=I32, device=dev)
+                        for _ in range(3))
+                    s["amt"] = ttype
+                s["ttype"] = ttype
+                if self.trace_on:
+                    s["txn_new"] = _txn_ids(t, self.d, p, w, self.lane_w)
+                    s["txn_c1"] = _txn_ids(t - 1, self.d, p, w, self.lane_w)
+        if occ is not None and gen_new:
+            with waves.scope(self.engine, "serve"):
+                for p, s in enumerate(src):
+                    lane_ok = self.lane_w < occ[p]
+                    s["l_op"] = torch.where(lane_ok[:, None], s["l_op"], 0)
+        return src
+
+    def plan_route(self, s: dict):
+        """Destination, bucket position and validity of each lock slot of
+        one source partition (the source half of the route; no exchange)."""
+        l_op, l_tb, l_ac = s["l_op"], s["l_tb"], s["l_ac"]
+        d = self.d
+        active = (l_op != 0).reshape(-1)
+        dest = l_ac.reshape(-1) % d
+        row_loc = l_tb.reshape(-1) * self.n_loc + l_ac.reshape(-1) // d
+        pos = _positions(dest, active, d)
+        valid = active & (pos < self.cap)
+        s.update(active=active, dest=dest, pos=pos, valid=valid,
+                 row_loc=row_loc)
+
+    def route(self, src: list) -> list:
+        """Every partition's lock+read requests to their owners, one
+        exchange; returns each owner's routed [D*cap, F] requests."""
+        sends = []
+        for s in src:
+            self.plan_route(s)
+            fields = [s["l_op"].reshape(-1), s["row_loc"]]
+            if self.trace_on:
+                fields.append(s["txn_new"].repeat_interleave(L))
+            sends.append(_route(s["dest"], s["pos"], s["valid"], self.cap,
+                                self.d, fields))
+        return self.exchange(sends)
+
+    def arbitrate(self, states: list, recv: list, t: int) -> list:
+        """Every owner: no-wait S/X arbitration + the balance read."""
+        eng, dev, m1 = self.engine, self.dev, self.m1
+        lane_dc = self.lane_dc
+        use_hotset, use_fused = self.use_hotset, self.use_fused
+        t_now, t_held = u32.i32_bits(t), u32.i32_bits(t - 1)
+        own = []
+        for st, rv in zip(states, recv):
+            r_op, r_row, *r_txn = _columns(rv)
+            req = r_op != 0
+            is_x = r_op == Op.ACQ_X_READ
+            is_s = r_op == Op.ACQ_S_READ
+            rows = torch.where(req, r_row, self.sent)
+            if use_fused:
+                # the held stamps and the balances, over the main arrays,
+                # as the streams of one launch
+                with waves.scope(eng, "lock_validate"):
+                    hx, hs, raw_bal = gather_streams(
+                        (st.x_step, st.s_step, st.bal), (rows, rows, rows),
+                        (1, 1, 1))
+            with waves.scope(eng, "arbitrate"):
+                midx = self.mirror_idx(rows, req) if use_hotset else None
+                # one launch: only the stamp writes below come between
+                # these reads in JAX's order, and they never write bal
+                if use_hotset and not use_fused:
+                    hx, hs, raw_bal = gather_rows_hot(
+                        (st.x_step, st.s_step, st.bal),
+                        (st.hot_x, st.hot_s, st.hot_bal),
+                        (rows, rows, rows), (midx, midx, midx), (1, 1, 1))
+                elif not use_fused:
+                    hx, hs, raw_bal = gather_rows(
+                        (st.x_step, st.s_step, st.bal), (rows, rows, rows),
+                        (1, 1, 1))
+                # per row, the first X lane and the first S lane; lanes
+                # without such a request go to the drop slot m1
+                first_x = torch.full((m1 + 1,), BIG, dtype=I32, device=dev)
+                first_x.scatter_reduce_(
+                    0, torch.where(is_x, rows, m1).long(), lane_dc, "amin")
+                first_s = torch.full((m1 + 1,), BIG, dtype=I32, device=dev)
+                first_s.scatter_reduce_(
+                    0, torch.where(is_s, rows, m1).long(), lane_dc, "amin")
+                rows_l = rows.long()
+                fx, fs = first_x[rows_l], first_s[rows_l]
+                held_x, held_s = hx == t_held, hs == t_held
+                x_wins = (fx < fs) & ~held_x & ~held_s
+                grant_x = is_x & x_wins & (fx == lane_dc)
+                grant_s = is_s & ~held_x & ~x_wins
+                s_writer = grant_s & (fs == lane_dc)
+                _stamp(st.x_step, rows, grant_x, t_now)
+                _stamp(st.s_step, rows, s_writer, t_now)
+                if use_hotset:
+                    # one writer a row, so one a mirror index
+                    _stamp(st.hot_x, midx, grant_x & (midx >= 0), t_now)
+                    _stamp(st.hot_s, midx, s_writer & (midx >= 0), t_now)
+                grant = grant_x | grant_s
+                own.append(dict(
+                    req=req, grant=grant, held=held_x | held_s, midx=midx,
+                    r_txn=r_txn[0] if r_txn else None,
+                    reply=torch.stack([grant.to(I32),
+                                       torch.where(grant, raw_bal, 0)],
+                                      dim=1)))
+        return own
+
+    def reply(self, src: list, own: list, attempted: list) -> list:
+        """The replies back to the sources, one exchange; every source
+        classifies its cohort and runs `compute_phase`. Returns the
+        cohorts' `SBCtx`, partition p's attempted count ``attempted[p]``."""
+        w, cap = self.w, self.cap
+        replies = self.exchange([o["reply"] for o in own])
+        ctxs = []
+        for p, s in enumerate(src):
+            l_op, valid = s["l_op"], s["valid"]
+            back = torch.where(valid, s["dest"] * cap + s["pos"], 0)
+            rep = replies[p][back.long()]
+            granted = (valid & (rep[:, 0] != 0)).view(w, L)
+            bal = torch.where(granted, rep[:, 1].view(w, L), 0)
+            # an overflowed lane is not valid, so not granted: the
+            # no-wait reject covers it
+            lock_rejected = ((l_op != 0) & ~granted).any(dim=1)
+            lead = l_op[:, 0] != 0
+            alive = ~lock_rejected & lead
+            nw, do, logic_abort, commit, committed = compute_phase(
+                s["ttype"], bal, alive, s["amt"])
+            do_write = do & commit[:, None] & (l_op != 0)
+            bal_delta = u32.wrap_i32(torch.where(
+                do_write, nw.long() - bal.long(), 0).sum())
+            ab_lock_m = lock_rejected & lead
+            s.update(lead=lead, commit=commit, committed=committed,
+                     logic_abort=logic_abort, ab_lock_m=ab_lock_m)
+            ctxs.append(SBCtx(
+                acc=s["l_ac"], tbl=s["l_tb"], do_write=do_write, nw=nw,
+                attempted=attempted[p],
+                committed=committed.sum(dtype=I32),
+                ab_lock=ab_lock_m.sum(dtype=I32),
+                ab_logic=logic_abort.sum(dtype=I32),
+                magic_bad=self.zero_ctx,
+                bal_delta=bal_delta,
+                overflow=(s["active"] & ~valid).sum(dtype=I32)))
+        return ctxs
+
+    def install_route(self, c1s: list, src: list) -> list:
+        """Every partition routes its previous cohort's installs to their
+        owners, one exchange (``src[p]`` keeps ``wdest``/``wvalid``)."""
+        d, n_loc, cap = self.d, self.n_loc, self.cap
+        isends = []
+        for p, c1 in enumerate(c1s):
+            wmask = c1.do_write.reshape(-1)
+            acc = c1.acc.reshape(-1)
+            wdest = acc % d
+            wrow = c1.tbl.reshape(-1) * n_loc + acc // d
+            wpos = _positions(wdest, wmask, d)
+            wvalid = wmask & (wpos < cap)    # writes <= locks: no overflow
+            fields = [wmask.to(I32), wrow, c1.nw.reshape(-1),
+                      c1.tbl.reshape(-1), acc]
+            if self.trace_on:
+                fields.append(src[p]["txn_c1"].repeat_interleave(L))
+            src[p].update(wdest=wdest, wvalid=wvalid)
+            isends.append(_route(wdest, wpos, wvalid, cap, d, fields))
+        return self.exchange(isends)
+
+    def install(self, states: list, own: list, inst: list, stepv,
+                zero) -> list:
+        """Every owner installs its routed writes and logs them (CommitLog
+        at the primary); returns each owner's applied records."""
+        eng, use_hotset = self.engine, self.use_hotset
+        recs = []
+        for st, o, ins in zip(states, own, inst):
+            i_m, i_row, i_bal, i_tbl, i_acc, *i_txn = _columns(ins)
+            i_mask = i_m != 0
+            newval = torch.stack([i_bal, zero], dim=1)
+            i_midx = self.mirror_idx(i_row, i_mask) if use_hotset else None
+            if self.use_fused:
+                # the install, the log append and (hot tier) the mirror
+                # write-through as the streams of one launch; the log plan
+                # routes masked lanes to -1
+                with waves.scope(eng, "install_log"):
+                    lflat, entry, lane_counts = logring.plan_rep(
+                        st.log, i_mask, i_tbl, zero, zero, i_acc, stepv,
+                        newval)
+                    tabs = [st.bal, st.log.entries.view(-1)]
+                    idxs = [torch.where(i_mask, i_row, -1), lflat.to(I32)]
+                    vals = [i_bal, entry.reshape(-1)]
+                    vws = [1, st.log.entries.shape[1]]
+                    if use_hotset:
+                        tabs.append(st.hot_bal)
+                        idxs.append(i_midx)
+                        vals.append(i_bal)
+                        vws.append(1)
+                    scatter_streams(tabs, idxs, vals, vws)
+                    st.log.head = u32.wrap_i32(u32.to_u64(st.log.head)
+                                               + lane_counts)
+            else:
+                with waves.scope(eng, "install_route"):
+                    if use_hotset:
+                        scatter_rows_hot(st.bal, st.hot_bal, i_row, i_midx,
+                                         i_mask, i_bal, 1)
+                    else:
+                        keep = torch.nonzero(i_mask).squeeze(1)
+                        st.bal[i_row[keep].long()] = i_bal[keep]
+                    logring.append_rep(st.log, i_mask, i_tbl, zero, zero,
+                                       i_acc, stepv, newval)
+            i_txn = i_txn[0] if i_txn else None
+            o.update(i_mask=i_mask, i_txn=i_txn, repl=[])
+            recs.append((i_mask, i_row, i_bal, i_tbl, i_acc, i_txn))
+        return recs
+
+    def replicate(self, states: list, own: list, recs: list, cnts: list,
+                  t: int, stepv, zero):
+        """CommitBck x2 + CommitLog at the backups: hop 1 on every
+        partition, then hop 2, each along the replication axis."""
+        mesh, axis, m1 = self.mesh, self.axis, self.m1
+        for off in (1, 2):
+            fwd = mesh.ppermute(recs, axis, off)
+            hop = (mon.CTR_REPL_PUSH_HOP1 if off == 1
+                   else mon.CTR_REPL_PUSH_HOP2)
+            for p, (st, o) in enumerate(zip(states, own)):
+                f_mask, f_row, f_bal, f_tbl, f_acc, f_txn = fwd[p]
+                # counted where they are applied
+                mon.bump(cnts[p], {hop: f_mask.sum(dtype=I32)})
+                if self.trace_on:
+                    # the forwarded id joins the backup's event to the
+                    # txn; shard = the applying partition
+                    o["repl"].append(txe.ev(
+                        f_mask, f_txn, txe.EV_REPL,
+                        waves.full_name(self.engine, "replicate"),
+                        shard=p, aux=off, step=t))
+                keep = torch.nonzero(f_mask).squeeze(1)
+                st.bck_bal[(off - 1) * m1 + f_row[keep].long()] = \
+                    f_bal[keep]
+                # key_hi = source + 1 (own entries log 0), so recovery
+                # can check a ring's streams against acct % D
+                tag = mesh.shift(p, axis, -off) + 1
+                logring.append_rep(
+                    st.log, f_mask, f_tbl, zero,
+                    torch.full_like(zero, tag), f_acc, stepv,
+                    torch.stack([f_bal, zero], dim=1))
+
+    def counts(self, own: list, c1s: list) -> list:
+        """Each partition's counter increments of the step (txn outcomes
+        and routing overflow at the source, lock arbitration and installs
+        at the owner; the replication pushes are counted in `replicate`)."""
+        use_hotset, dc, hot_loc = self.use_hotset, self.dc, self.hot_loc
+        out = []
+        for o, c1 in zip(own, c1s):
+            upd = {}
+            if use_hotset:
+                # three partitioned gathers a step, each serving its hot
+                # lanes from the mirrors; the fused route reads the main
+                # arrays, so none of its gathers is partitioned. Refresh
+                # bytes are what JAX's kernel route counts
+                n_g = 0 if self.use_fused else 3
+                hits = (o["midx"] >= 0).sum(dtype=I32)
+                upd.update({mon.CTR_HOT_HITS: n_g * hits,
+                            mon.CTR_HOT_COLD_ROWS: n_g * dc - n_g * hits,
+                            mon.CTR_HOT_REFRESH_BYTES:
+                                n_g * 2 * hot_loc * 4})
+            rej = o["req"] & ~o["grant"]
+            n_inst = o["i_mask"].sum(dtype=I32)
+            upd.update({
+                mon.CTR_STEPS: 1,
+                mon.CTR_TXN_ATTEMPTED: c1.attempted,
+                mon.CTR_TXN_COMMITTED: c1.committed,
+                mon.CTR_AB_LOCK: c1.ab_lock,
+                mon.CTR_AB_LOGIC: c1.ab_logic,
+                mon.CTR_MAGIC_BAD: c1.magic_bad,
+                mon.CTR_ROUTE_OVERFLOW: c1.overflow,
+                mon.CTR_LOCK_REQUESTS: o["req"].sum(dtype=I32),
+                mon.CTR_LOCK_GRANTED: o["grant"].sum(dtype=I32),
+                mon.CTR_LOCK_REJECTED: rej.sum(dtype=I32),
+                mon.CTR_LOCK_REJECT_HELD: (rej & o["held"]).sum(dtype=I32),
+                mon.CTR_LOCK_REJECT_ARB: (rej & ~o["held"]).sum(dtype=I32),
+                mon.CTR_INSTALL_WRITES: n_inst,
+                mon.CTR_LOG_APPENDS: n_inst,
+                mon.CTR_DISPATCH_PALLAS: 1,   # the kernel route
+                **({mon.CTR_FUSED_DISPATCH: 1} if self.use_fused else {}),
+            })
+            out.append(upd)
+        return out
+
+    def trace(self, rings: list, cnts: list, tcfg, src: list, own: list,
+              t: int, route_aux=None):
+        """Each event lands on one partition: ROUTE, VOTE and OUTCOME at
+        the source, LOCK and INSTALL at the owner, REPL at the applying
+        backup, as the counters are attributed. A ROUTE event's aux is its
+        destination, or ``route_aux(p, dest)``."""
+        eng = self.engine
+        with waves.scope(eng, "trace"):
+            for p, (s, o) in enumerate(zip(src, own)):
+                lock_aux = (torch.where(o["grant"], txe.LOCK_GRANTED, 0)
+                            | torch.where(o["held"], txe.LOCK_HELD, 0))
+                cause = torch.where(
+                    s["ab_lock_m"], txe.CAUSE_LOCK,
+                    torch.where(s["logic_abort"], txe.CAUSE_LOGIC,
+                                txe.CAUSE_COMMIT))
+                out_mask = (s["committed"] | s["ab_lock_m"]
+                            | s["logic_abort"])
+                aux = (s["dest"] if route_aux is None
+                       else route_aux(p, s["dest"]))
+                groups = (
+                    txe.ev(s["valid"], s["txn_new"].repeat_interleave(L),
+                           txe.EV_ROUTE, waves.full_name(eng, "route"),
+                           shard=p, aux=aux, step=t),
+                    txe.ev(o["req"], o["r_txn"], txe.EV_LOCK,
+                           waves.full_name(eng, "arbitrate"),
+                           shard=p, aux=lock_aux, step=t),
+                    txe.ev(s["lead"], s["txn_new"], txe.EV_VOTE,
+                           waves.full_name(eng, "reply"),
+                           shard=p, aux=s["commit"], step=t),
+                    txe.ev(o["i_mask"], o["i_txn"], txe.EV_INSTALL,
+                           waves.full_name(eng, "install_route"),
+                           shard=p, step=t),
+                    *o["repl"],
+                    txe.ev(out_mask, s["txn_new"], txe.EV_OUTCOME,
+                           waves.full_name(eng, "reply"),
+                           shard=p, aux=cause, step=t),
+                )
+                txe.emit(rings[p], tcfg, groups, cnts[p])
+
+
+def _n_step_events(w: int, dc: int) -> int:
+    """Candidate events a partition a step: ROUTE wL + owner LOCK D*cap +
+    VOTE w + owner INSTALL D*cap + REPL x2 2*D*cap + OUTCOME w."""
+    return w * L + 4 * dc + 2 * w
+
+
 def build_sharded_sb_runner(mesh: Mesh, n_shards: int, n_accounts: int,
                             w: int = 2048, cohorts_per_block: int = 8,
                             hot_frac=None, hot_prob=None, mix=None,
@@ -324,348 +730,57 @@ def build_sharded_sb_runner(mesh: Mesh, n_shards: int, n_accounts: int,
         raise ValueError(f"w={w} exceeds the lane field of the scatter-mins")
     dev = mesh.device
     d, cpb = n_shards, cohorts_per_block
-    n_loc = n_acct_local(n_accounts, d)
-    m1 = m1_local(n_accounts, d)
-    sent = m1 - 1
-    wl_ = w * L
-    cap = 2 * ((wl_ + d - 1) // d)
-    dc = d * cap
-    hot_loc = 0
-    if use_hotset:
-        frac = wl.SB_HOT_FRAC if hot_frac is None else float(hot_frac)
-        hot_n = max(1, min(int(n_accounts * frac), n_accounts))
-        hot_loc = min((hot_n + d - 1) // d, n_loc)
-    skew = {k: v for k, v in (("hot_frac", hot_frac), ("hot_prob", hot_prob))
-            if v is not None}
     trace_on = txe.trace_enabled(trace)
+    ph = _Phases(mesh, n_accounts, w, engine=_ENGINE,
+                 exchange=lambda xs: _a2a(mesh, xs), repl_axis=AXIS,
+                 mix=mix, hot_frac=hot_frac, hot_prob=hot_prob,
+                 use_hotset=use_hotset, use_fused=use_fused,
+                 trace_on=trace_on)
+    n_step = _n_step_events(w, ph.dc)
     tcfg = None
-    # candidate events a partition a step: ROUTE wL + owner LOCK D*cap +
-    # VOTE w + owner INSTALL D*cap + REPL x2 2*D*cap + OUTCOME w
-    n_step = wl_ + 4 * dc + 2 * w
     if trace_on:
         rcap = int(trace_cap) if trace_cap else n_step * cpb
         tcfg = txe.TraceCfg(rate=txe.trace_rate(trace_rate), cap=rcap,
                             wave=waves.full_name(_ENGINE, "trace"))
-    # device constants, made once (a host-to-device copy synchronises)
-    thresh = mix_thresh(mix, dev)
-    lane_dc = torch.arange(dc, dtype=I32, device=dev)
-    lane_w = torch.arange(w, dtype=torch.int64, device=dev)
     n_att = {g: torch.full((), w if g else 0, dtype=I32, device=dev)
              for g in (True, False)}
-    zero_ctx = torch.zeros((), dtype=I32, device=dev)
-
-    def mirror_idx(rr, mask):
-        """Local row -> hot mirror index (tbl * hot_loc + q), -1 when cold;
-        the sentinel row (q == n_loc) is never hot: hot_loc <= n_loc."""
-        tb = (rr >= n_loc).to(I32)
-        q = rr - tb * n_loc
-        return torch.where(mask & (q < hot_loc), tb * hot_loc + q, -1)
-
-    def columns(x):
-        """A routed [D*cap, F] tensor as F contiguous [D*cap] columns."""
-        return x.t().contiguous().unbind(0)
 
     def step(carry, bits, ts_amt, gen_new=True):
         states, c1s = carry[0], carry[1]
         rings = carry[2] if trace_on else [None] * d
         cnts = carry[-1] if monitor else [None] * d
         t = states[0].step
-        t_now, t_held = u32.i32_bits(t), u32.i32_bits(t - 1)
-        src = [{} for _ in range(d)]     # each partition as a source
-        own = [{} for _ in range(d)]     # each partition as an owner
 
-        # ---- wave 1: every partition generates its cohort ...
-        with waves.scope(_ENGINE, "gen"):
-            for p, s in enumerate(src):
-                if gen_new:
-                    ttype, a1, a2 = gen_cohort_from_bits(
-                        bits[p], w, n_accounts, thresh=thresh, **skew)
-                    s["l_op"], s["l_tb"], s["l_ac"] = _lock_slots(ttype,
-                                                                  a1, a2)
-                    s["amt"] = ts_amt[p]
-                else:
-                    ttype = torch.zeros((w,), dtype=I32, device=dev)
-                    s["l_op"], s["l_tb"], s["l_ac"] = (
-                        torch.zeros((w, L), dtype=I32, device=dev)
-                        for _ in range(3))
-                    s["amt"] = ttype
-                s["ttype"] = ttype
-                if trace_on:
-                    s["txn_new"] = _txn_ids(t, d, p, w, lane_w)
-                    s["txn_c1"] = _txn_ids(t - 1, d, p, w, lane_w)
-
-        # ... and routes its lock+read requests to their owners
+        # ---- wave 1: every partition generates its cohort and routes its
+        # lock+read requests to their owners; every owner arbitrates and
+        # reads; the replies go back and every source classifies
+        src = ph.gen(bits, ts_amt, gen_new, t)
         with waves.scope(_ENGINE, "route"):
-            sends = []
-            for s in src:
-                l_op, l_tb, l_ac = s["l_op"], s["l_tb"], s["l_ac"]
-                active = (l_op != 0).reshape(-1)
-                dest = l_ac.reshape(-1) % d
-                row_loc = l_tb.reshape(-1) * n_loc + l_ac.reshape(-1) // d
-                pos = _positions(dest, active, d)
-                valid = active & (pos < cap)
-                fields = [l_op.reshape(-1), row_loc]
-                if trace_on:
-                    fields.append(s["txn_new"].repeat_interleave(L))
-                sends.append(_route(dest, pos, valid, cap, d, fields))
-                s.update(active=active, dest=dest, pos=pos, valid=valid)
-            recv = _a2a(mesh, sends)
-
-        # ---- every owner: no-wait S/X arbitration + the balance read
-        for p, (st, o) in enumerate(zip(states, own)):
-            r_op, r_row, *r_txn = columns(recv[p])
-            req = r_op != 0
-            is_x = r_op == Op.ACQ_X_READ
-            is_s = r_op == Op.ACQ_S_READ
-            rows = torch.where(req, r_row, sent)
-            if use_fused:
-                # the held stamps and the balances, over the main arrays,
-                # as the streams of one launch
-                with waves.scope(_ENGINE, "lock_validate"):
-                    hx, hs, raw_bal = gather_streams(
-                        (st.x_step, st.s_step, st.bal), (rows, rows, rows),
-                        (1, 1, 1))
-            with waves.scope(_ENGINE, "arbitrate"):
-                midx = mirror_idx(rows, req) if use_hotset else None
-                # one launch: only the stamp writes below come between
-                # these reads in JAX's order, and they never write bal
-                if use_hotset and not use_fused:
-                    hx, hs, raw_bal = gather_rows_hot(
-                        (st.x_step, st.s_step, st.bal),
-                        (st.hot_x, st.hot_s, st.hot_bal),
-                        (rows, rows, rows), (midx, midx, midx), (1, 1, 1))
-                elif not use_fused:
-                    hx, hs, raw_bal = gather_rows(
-                        (st.x_step, st.s_step, st.bal), (rows, rows, rows),
-                        (1, 1, 1))
-                # per row, the first X lane and the first S lane; lanes
-                # without such a request go to the drop slot m1
-                first_x = torch.full((m1 + 1,), BIG, dtype=I32, device=dev)
-                first_x.scatter_reduce_(
-                    0, torch.where(is_x, rows, m1).long(), lane_dc, "amin")
-                first_s = torch.full((m1 + 1,), BIG, dtype=I32, device=dev)
-                first_s.scatter_reduce_(
-                    0, torch.where(is_s, rows, m1).long(), lane_dc, "amin")
-                rows_l = rows.long()
-                fx, fs = first_x[rows_l], first_s[rows_l]
-                held_x, held_s = hx == t_held, hs == t_held
-                x_wins = (fx < fs) & ~held_x & ~held_s
-                grant_x = is_x & x_wins & (fx == lane_dc)
-                grant_s = is_s & ~held_x & ~x_wins
-                s_writer = grant_s & (fs == lane_dc)
-                _stamp(st.x_step, rows, grant_x, t_now)
-                _stamp(st.s_step, rows, s_writer, t_now)
-                if use_hotset:
-                    # one writer a row, so one a mirror index
-                    _stamp(st.hot_x, midx, grant_x & (midx >= 0), t_now)
-                    _stamp(st.hot_s, midx, s_writer & (midx >= 0), t_now)
-                grant = grant_x | grant_s
-                o.update(req=req, grant=grant, held=held_x | held_s,
-                         midx=midx, r_txn=r_txn[0] if r_txn else None,
-                         reply=torch.stack([grant.to(I32),
-                                            torch.where(grant, raw_bal, 0)],
-                                           dim=1))
-
-        # ---- the replies back to the sources, which classify
+            recv = ph.route(src)
+        own = ph.arbitrate(states, recv, t)
         with waves.scope(_ENGINE, "reply"):
-            replies = _a2a(mesh, [o["reply"] for o in own])
-            ctxs = []
-            for p, s in enumerate(src):
-                l_op, valid = s["l_op"], s["valid"]
-                back = torch.where(valid, s["dest"] * cap + s["pos"], 0)
-                rep = replies[p][back.long()]
-                granted = (valid & (rep[:, 0] != 0)).view(w, L)
-                bal = torch.where(granted, rep[:, 1].view(w, L), 0)
-                # an overflowed lane is not valid, so not granted: the
-                # no-wait reject covers it
-                lock_rejected = ((l_op != 0) & ~granted).any(dim=1)
-                lead = l_op[:, 0] != 0
-                alive = ~lock_rejected & lead
-                nw, do, logic_abort, commit, committed = compute_phase(
-                    s["ttype"], bal, alive, s["amt"])
-                do_write = do & commit[:, None] & (l_op != 0)
-                bal_delta = u32.wrap_i32(torch.where(
-                    do_write, nw.long() - bal.long(), 0).sum())
-                ab_lock_m = lock_rejected & lead
-                s.update(lead=lead, commit=commit, committed=committed,
-                         logic_abort=logic_abort, ab_lock_m=ab_lock_m)
-                ctxs.append(SBCtx(
-                    acc=s["l_ac"], tbl=s["l_tb"], do_write=do_write, nw=nw,
-                    attempted=n_att[gen_new],
-                    committed=committed.sum(dtype=I32),
-                    ab_lock=ab_lock_m.sum(dtype=I32),
-                    ab_logic=logic_abort.sum(dtype=I32),
-                    magic_bad=zero_ctx,
-                    bal_delta=bal_delta,
-                    overflow=(s["active"] & ~valid).sum(dtype=I32)))
+            ctxs = ph.reply(src, own, [n_att[gen_new]] * d)
 
-        # ---- wave 2 of c1: every partition routes its installs ...
+        # ---- wave 2 of c1: every partition routes its installs, every
+        # owner installs and logs them, then the backups
         with waves.scope(_ENGINE, "install_route"):
-            isends = []
-            for p, c1 in enumerate(c1s):
-                wmask = c1.do_write.reshape(-1)
-                acc = c1.acc.reshape(-1)
-                wdest = acc % d
-                wrow = c1.tbl.reshape(-1) * n_loc + acc // d
-                wpos = _positions(wdest, wmask, d)
-                wvalid = wmask & (wpos < cap)    # writes <= locks: no overflow
-                fields = [wmask.to(I32), wrow, c1.nw.reshape(-1),
-                          c1.tbl.reshape(-1), acc]
-                if trace_on:
-                    fields.append(src[p]["txn_c1"].repeat_interleave(L))
-                isends.append(_route(wdest, wpos, wvalid, cap, d, fields))
-            inst = _a2a(mesh, isends)
-
-        # ... every owner installs them and logs them (CommitLog at the
-        # primary)
-        recs = []
-        stepv = torch.full((dc,), t_now, dtype=I32, device=dev)
-        zero = torch.zeros((dc,), dtype=I32, device=dev)
-        for p, (st, o) in enumerate(zip(states, own)):
-            i_m, i_row, i_bal, i_tbl, i_acc, *i_txn = columns(inst[p])
-            i_mask = i_m != 0
-            newval = torch.stack([i_bal, zero], dim=1)
-            i_midx = mirror_idx(i_row, i_mask) if use_hotset else None
-            if use_fused:
-                # the install, the log append and (hot tier) the mirror
-                # write-through as the streams of one launch; the log plan
-                # routes masked lanes to -1
-                with waves.scope(_ENGINE, "install_log"):
-                    lflat, entry, lane_counts = logring.plan_rep(
-                        st.log, i_mask, i_tbl, zero, zero, i_acc, stepv,
-                        newval)
-                    tabs = [st.bal, st.log.entries.view(-1)]
-                    idxs = [torch.where(i_mask, i_row, -1), lflat.to(I32)]
-                    vals = [i_bal, entry.reshape(-1)]
-                    vws = [1, st.log.entries.shape[1]]
-                    if use_hotset:
-                        tabs.append(st.hot_bal)
-                        idxs.append(i_midx)
-                        vals.append(i_bal)
-                        vws.append(1)
-                    scatter_streams(tabs, idxs, vals, vws)
-                    st.log.head = u32.wrap_i32(u32.to_u64(st.log.head)
-                                               + lane_counts)
-            else:
-                with waves.scope(_ENGINE, "install_route"):
-                    if use_hotset:
-                        scatter_rows_hot(st.bal, st.hot_bal, i_row, i_midx,
-                                         i_mask, i_bal, 1)
-                    else:
-                        keep = torch.nonzero(i_mask).squeeze(1)
-                        st.bal[i_row[keep].long()] = i_bal[keep]
-                    logring.append_rep(st.log, i_mask, i_tbl, zero, zero,
-                                       i_acc, stepv, newval)
-            i_txn = i_txn[0] if i_txn else None
-            o.update(i_mask=i_mask, i_txn=i_txn, repl=[])
-            recs.append((i_mask, i_row, i_bal, i_tbl, i_acc, i_txn))
-
-        # ---- CommitBck x2 + CommitLog at the backups: hop 1 on every
-        # partition, then hop 2
+            inst = ph.install_route(c1s, src)
+        stepv, zero = ph.step_consts(t)
+        recs = ph.install(states, own, inst, stepv, zero)
         with waves.scope(_ENGINE, "replicate"):
-            for off in (1, 2):
-                fwd = mesh.ppermute(recs, AXIS, off)
-                hop = (mon.CTR_REPL_PUSH_HOP1 if off == 1
-                       else mon.CTR_REPL_PUSH_HOP2)
-                for p, (st, o) in enumerate(zip(states, own)):
-                    f_mask, f_row, f_bal, f_tbl, f_acc, f_txn = fwd[p]
-                    # counted where they are applied
-                    mon.bump(cnts[p], {hop: f_mask.sum(dtype=I32)})
-                    if trace_on:
-                        # the forwarded id joins the backup's event to the
-                        # txn; shard = the applying partition
-                        o["repl"].append(txe.ev(
-                            f_mask, f_txn, txe.EV_REPL,
-                            waves.full_name(_ENGINE, "replicate"),
-                            shard=p, aux=off, step=t))
-                    keep = torch.nonzero(f_mask).squeeze(1)
-                    st.bck_bal[(off - 1) * m1 + f_row[keep].long()] = \
-                        f_bal[keep]
-                    # key_hi = source + 1 (own entries log 0), so recovery
-                    # can check a ring's streams against acct % D
-                    tag = mesh.shift(p, AXIS, -off) + 1
-                    logring.append_rep(
-                        st.log, f_mask, f_tbl, zero,
-                        torch.full_like(zero, tag), f_acc, stepv,
-                        torch.stack([f_bal, zero], dim=1))
+            ph.replicate(states, own, recs, cnts, t, stepv, zero)
 
         for st in states:
             st.step = t + 1
 
         if monitor:
-            for p, (st, s, o) in enumerate(zip(states, src, own)):
-                c1 = c1s[p]
-                upd = {}
-                if use_hotset:
-                    # three partitioned gathers a step, each serving its
-                    # hot lanes from the mirrors; the fused route reads the
-                    # main arrays, so none of its gathers is partitioned.
-                    # Refresh bytes are what JAX's kernel route counts
-                    n_g = 0 if use_fused else 3
-                    hits = (o["midx"] >= 0).sum(dtype=I32)
-                    upd.update({mon.CTR_HOT_HITS: n_g * hits,
-                                mon.CTR_HOT_COLD_ROWS: n_g * dc - n_g * hits,
-                                mon.CTR_HOT_REFRESH_BYTES:
-                                    n_g * 2 * hot_loc * 4})
-                rej = o["req"] & ~o["grant"]
-                n_inst = o["i_mask"].sum(dtype=I32)
-                upd.update({
-                    mon.CTR_STEPS: 1,
-                    mon.CTR_TXN_ATTEMPTED: c1.attempted,
-                    mon.CTR_TXN_COMMITTED: c1.committed,
-                    mon.CTR_AB_LOCK: c1.ab_lock,
-                    mon.CTR_AB_LOGIC: c1.ab_logic,
-                    mon.CTR_MAGIC_BAD: c1.magic_bad,
-                    mon.CTR_ROUTE_OVERFLOW: c1.overflow,
-                    mon.CTR_LOCK_REQUESTS: o["req"].sum(dtype=I32),
-                    mon.CTR_LOCK_GRANTED: o["grant"].sum(dtype=I32),
-                    mon.CTR_LOCK_REJECTED: rej.sum(dtype=I32),
-                    mon.CTR_LOCK_REJECT_HELD:
-                        (rej & o["held"]).sum(dtype=I32),
-                    mon.CTR_LOCK_REJECT_ARB:
-                        (rej & ~o["held"]).sum(dtype=I32),
-                    mon.CTR_INSTALL_WRITES: n_inst,
-                    mon.CTR_LOG_APPENDS: n_inst,
-                    mon.CTR_DISPATCH_PALLAS: 1,   # the kernel route
-                    **({mon.CTR_FUSED_DISPATCH: 1} if use_fused else {}),
-                })
-                mon.bump(cnts[p], upd)
-                mon.gauge_max(cnts[p], {
+            for st, cnt, upd in zip(states, cnts, ph.counts(own, c1s)):
+                mon.bump(cnt, upd)
+                mon.gauge_max(cnt, {
                     mon.CTR_RING_HWM: u32.to_u64(st.log.head).max()})
 
         if trace_on:
-            # each event lands on one partition: ROUTE, VOTE and OUTCOME at
-            # the source, LOCK and INSTALL at the owner, REPL at the
-            # applying backup, as the counters are attributed
-            with waves.scope(_ENGINE, "trace"):
-                for p, (s, o) in enumerate(zip(src, own)):
-                    lock_aux = (torch.where(o["grant"], txe.LOCK_GRANTED, 0)
-                                | torch.where(o["held"], txe.LOCK_HELD, 0))
-                    cause = torch.where(
-                        s["ab_lock_m"], txe.CAUSE_LOCK,
-                        torch.where(s["logic_abort"], txe.CAUSE_LOGIC,
-                                    txe.CAUSE_COMMIT))
-                    out_mask = (s["committed"] | s["ab_lock_m"]
-                                | s["logic_abort"])
-                    groups = (
-                        txe.ev(s["valid"], s["txn_new"].repeat_interleave(L),
-                               txe.EV_ROUTE, waves.full_name(_ENGINE, "route"),
-                               shard=p, aux=s["dest"], step=t),
-                        txe.ev(o["req"], o["r_txn"], txe.EV_LOCK,
-                               waves.full_name(_ENGINE, "arbitrate"),
-                               shard=p, aux=lock_aux, step=t),
-                        txe.ev(s["lead"], s["txn_new"], txe.EV_VOTE,
-                               waves.full_name(_ENGINE, "reply"),
-                               shard=p, aux=s["commit"], step=t),
-                        txe.ev(o["i_mask"], o["i_txn"], txe.EV_INSTALL,
-                               waves.full_name(_ENGINE, "install_route"),
-                               shard=p, step=t),
-                        *o["repl"],
-                        txe.ev(out_mask, s["txn_new"], txe.EV_OUTCOME,
-                               waves.full_name(_ENGINE, "reply"),
-                               shard=p, aux=cause, step=t),
-                    )
-                    txe.emit(rings[p], tcfg, groups, cnts[p])
+            ph.trace(rings, cnts, tcfg, src, own, t)
 
         stats = mesh.psum([_stats_of(c) for c in c1s])
         return (states, ctxs) + tuple(carry[2:]), stats
@@ -700,7 +815,7 @@ def build_sharded_sb_runner(mesh: Mesh, n_shards: int, n_accounts: int,
                 raise ValueError(f"tables on {st.bal.device}, mesh on {dev}")
         states = list(states)
         if use_hotset and states[0].hot_loc == 0:
-            states = attach_hotset_sb(mesh, states, hot_loc)
+            states = attach_hotset_sb(mesh, states, ph.hot_loc)
         return ((states, [_empty_sb_ctx(w, dev) for _ in range(d)])
                 + (([txe.create_ring(tcfg.cap, dev, spill=n_step)
                      for _ in range(d)],) if trace_on else ())

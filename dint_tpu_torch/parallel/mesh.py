@@ -12,8 +12,9 @@ A collective is then list work on the host:
   [(i, (i + off) % n)]``): the receiver reads the sender's tensors, and
   no byte moves;
 * `Mesh.all_to_all` exchanges buckets along one axis (JAX's
-  ``all_to_all(x.reshape(n, cap), axis, 0, 0, tiled=False)``): bucket d
-  of partition s lands in slot s of partition d, with one stack and one
+  ``all_to_all(x.reshape(n, cap), axis, 0, 0, tiled=False)``), or along
+  the tuple of every axis (the 1-D exchange over the flat index): bucket
+  d of partition s lands in slot s of partition d, with one stack and one
   transposed copy on the device, and no link;
 * `Mesh.psum` sums equal-shape tensors over the whole list.
 
@@ -80,24 +81,33 @@ class Mesh:
             raise ValueError(f"{len(xs)} entries for {self.size} partitions")
         return [xs[self.shift(p, axis, -off)] for p in range(self.size)]
 
-    def all_to_all(self, xs: list, axis: str) -> list:
+    def all_to_all(self, xs: list, axis) -> list:
         """``jax.lax.all_to_all(x.reshape(n, cap, ...), axis, 0, 0,
         tiled=False)`` along ``axis`` of length n: each entry of ``xs`` is
         one tensor a partition, of n buckets of ``cap`` rows along its
         first dim (the same shape on every partition), and partition p
         receives, in its slot s, bucket ``p``'s coordinate along the axis
-        of the partition at coordinate s. Returns one tensor a partition,
-        of ``xs[0]``'s shape."""
+        of the partition at coordinate s. ``axis`` may also be the tuple of
+        every axis name, major first (JAX's tuple-axis form): then n is the
+        mesh's size, a coordinate is the flat index, and the exchange is
+        the 1-D one over all partitions. Returns one tensor a partition, of
+        ``xs[0]``'s shape."""
         if len(xs) != self.size:
             raise ValueError(f"{len(xs)} entries for {self.size} partitions")
-        i = self.axis_names.index(axis)
-        n = self.shape[i]
         rows, *rest = xs[0].shape
+        if isinstance(axis, tuple):
+            if axis != self.axis_names:
+                raise ValueError(f"the tuple axis {axis} is not the mesh's "
+                                 f"axes {self.axis_names} in order")
+            shape, i = (self.size,), 0
+        else:
+            shape, i = self.shape, self.axis_names.index(axis)
+        n = shape[i]
         if rows % n:
             raise ValueError(f"{rows} rows do not split into {n} buckets")
-        x = torch.stack(list(xs)).reshape(*self.shape, n, rows // n, *rest)
+        x = torch.stack(list(xs)).reshape(*shape, n, rows // n, *rest)
         # swap the sender's coordinate along the axis with its bucket
-        x = x.transpose(i, len(self.shape)).reshape(self.size, rows, *rest)
+        x = x.transpose(i, len(shape)).reshape(self.size, rows, *rest)
         return list(x.unbind(0))
 
     def psum(self, xs: list) -> torch.Tensor:

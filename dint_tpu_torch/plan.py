@@ -10,11 +10,13 @@ changed). Without a readable plan the knobs come from the environment and
 ``meta["source"]`` is None, so a record says ``"plan": null`` rather than
 hide a default.
 
-What differs: the port has two of the reference's build knobs,
-``use_hotset`` and ``use_fused`` (its routes, `engines.types.ROUTES`). It
-has no ``use_pallas``: its CUDA kernels are its only route. A pinned knob
-the port lacks is left out of the knobs and named in ``meta["dropped"]``,
-a key that is present only when the pin names such a knob.
+What differs: the port has the reference's build knobs ``use_hotset``
+and ``use_fused`` (its routes, `engines.types.ROUTES`) and its plan-only
+mesh knobs ``hierarchical`` and ``overlap`` (no env flag: without a plan
+they take their defaults, ON and OFF). It has no ``use_pallas``: its CUDA
+kernels are its only route. A pinned knob the port lacks is left out of
+the knobs and named in ``meta["dropped"]``, a key that is present only
+when the pin names such a knob.
 """
 from __future__ import annotations
 
@@ -26,18 +28,25 @@ SCHEMA = 1
 ENV_PLAN_PATH = "DINT_PLAN_PATH"          # read another plan file
 ENV_PLAN_OVERRIDE = "DINT_PLAN_OVERRIDE"  # "1": env flags beat the plan
 
-# the port's knobs: name -> env flag, set-and-not-"0"/"" meaning True
-KNOBS = {"use_hotset": "DINT_USE_HOTSET", "use_fused": "DINT_USE_FUSED"}
+# the port's knobs: name -> env flag, set-and-not-"0"/"" meaning True;
+# None = plan-only, its default below without a plan
+KNOBS = {"use_hotset": "DINT_USE_HOTSET", "use_fused": "DINT_USE_FUSED",
+         "hierarchical": None, "overlap": None}
+PLAN_ONLY_DEFAULTS = {"hierarchical": True, "overlap": False}
 
 # the planned knobs of the workloads the port reads, less use_pallas
 WORKLOAD_KNOBS = {"tatp_uniform": ("use_hotset", "use_fused"),
                   "smallbank_skewed": ("use_hotset", "use_fused"),
-                  "tatp_serve": (), "smallbank_serve": ()}
+                  "tatp_serve": (), "smallbank_serve": (),
+                  "multihost_4x2": ("hierarchical",),
+                  "multihost_3x2": ("hierarchical",),
+                  "multihost_serve": ("hierarchical", "overlap")}
 
 # which workload's serve priors a serving-plane engine family reads (the
-# store family has none; the mesh family is not ported)
+# store family has none)
 SERVE_WORKLOADS = {"tatp_dense": "tatp_serve",
-                   "smallbank_dense": "smallbank_serve"}
+                   "smallbank_dense": "smallbank_serve",
+                   "multihost_sb": "multihost_serve"}
 
 
 def plan_path() -> Path:
@@ -54,6 +63,8 @@ def override_active(environ=None) -> bool:
 
 
 def _flag(environ, name: str) -> bool:
+    if KNOBS[name] is None:
+        return PLAN_ONLY_DEFAULTS[name]
     return (environ.get(KNOBS[name]) or "0") not in ("", "0")
 
 
@@ -80,7 +91,7 @@ def resolve_for(workload: str, environ=None,
         except (OSError, ValueError):
             plan = None
     if plan is None or workload not in plan.get("workloads", {}):
-        names = WORKLOAD_KNOBS.get(workload, tuple(KNOBS))
+        names = WORKLOAD_KNOBS.get(workload, ("use_hotset", "use_fused"))
         return ({k: _flag(env, k) for k in names},
                 {"source": None, "hash": None, "overridden": []})
     pinned = plan["workloads"][workload]["pinned"]
@@ -89,7 +100,8 @@ def resolve_for(workload: str, environ=None,
     overridden = []
     if override_active(env):
         for name in list(knobs):
-            if env.get(KNOBS[name]) is not None \
+            if KNOBS[name] is not None \
+                    and env.get(KNOBS[name]) is not None \
                     and _flag(env, name) != knobs[name]:
                 knobs[name] = _flag(env, name)
                 overridden.append(name)

@@ -45,8 +45,8 @@ What differs from JAX:
   block's ``service_us`` (dispatch to retire, under a RealClock) covers
   the host's enqueue of the block and the device's work left behind it.
   Retiring a block is one host copy of its stats.
-* ``device`` (None = CUDA) places the tables and the runners; there is no
-  mesh family (`MeshServeEngine` is not ported).
+* ``device`` (None = CUDA) places the tables and the runners; the mesh
+  family is `serve.mesh.MeshServeEngine`'s.
 """
 from __future__ import annotations
 
@@ -106,9 +106,19 @@ def cached_runner(engine: str, size: int, *, val_words: int = 4, **kw):
     """(run, init, drain) of a serve family's runner, built at most once
     per process per distinct (engine, size, val_words, kw): ``tatp_dense``
     and ``smallbank_dense`` (`build_pipelined_runner`), ``store``
-    (`store.build_serve_runner`). ``kw`` goes to that function (``device``
-    None = CUDA). Unhashable kw values build uncached."""
-    kw["device"] = resolve_device(kw.get("device"))
+    (`store.build_serve_runner`), ``multihost_sb``
+    (`multihost_sb.build_multihost_sb_runner`, ``kw["mesh"]`` the 2-D
+    mesh, which places it). ``kw`` goes to that function (``device`` None
+    = CUDA). Unhashable kw values build uncached."""
+    if engine == "multihost_sb":
+        # the mesh places its runner
+        mesh = kw["mesh"]
+        if resolve_device(kw.get("device") or mesh.device) != mesh.device:
+            raise ValueError(f"device {kw['device']} for a mesh on "
+                             f"{mesh.device}")
+        kw["device"] = mesh.device
+    else:
+        kw["device"] = resolve_device(kw.get("device"))
     try:
         key = (engine, size, val_words, tuple(sorted(kw.items())))
         hash(key)
@@ -125,9 +135,15 @@ def cached_runner(engine: str, size: int, *, val_words: int = 4, **kw):
     elif engine == "smallbank_dense":
         from ..engines import smallbank_dense as sd
         out = sd.build_pipelined_runner(size, **kw)
+    elif engine == "multihost_sb":
+        # the mesh serving plane (serve/mesh.py): kw carries the 2-D mesh
+        from ..parallel import multihost_sb as mhs
+        mkw = dict(kw)
+        del mkw["device"]
+        out = mhs.build_multihost_sb_runner(mkw.pop("mesh"), size, **mkw)
     else:
         raise ValueError(f"no serve family {engine!r} (want tatp_dense | "
-                         f"smallbank_dense | store)")
+                         f"smallbank_dense | store | multihost_sb)")
     if key is not None:
         _RUNNER_CACHE[key] = out
     return out
@@ -353,11 +369,16 @@ class ServeEngine:
     # -- the pump -------------------------------------------------------
 
     def _dispatch(self, occ: np.ndarray, shed0: int) -> None:
-        run, _, _ = self._runners[self._cur_w]
         shed = np.zeros(self.cpb, np.int32)
         shed[0] = shed0
+        self._launch(occ, shed)
+
+    def _launch(self, occ: np.ndarray, shed: np.ndarray) -> None:
+        """Run one block at the current width on ``occ``/``shed`` (the
+        runner's shapes), keep its stats pending, retire past the depth."""
+        run, _, _ = self._runners[self._cur_w]
         occ_t = torch.from_numpy(occ.astype(np.int32)).to(self.dev)
-        shed_t = torch.from_numpy(shed).to(self.dev)
+        shed_t = torch.from_numpy(shed.astype(np.int32)).to(self.dev)
         t_disp = self.clock.now()
         if self.draws is None:
             gen = torch.Generator(device=self.dev)

@@ -419,3 +419,28 @@ def test_entry_runs_on_its_own_draws():
     db, new, c1, stats = fn(*args)
     assert int(new.attempted) == 64 and stats.shape == (td.N_STATS,)
     assert db.step == 3
+
+
+# -------------------------------------------------------------- artifact
+
+
+def test_persist_artifact_writes_bench_py_file(tmp_path, monkeypatch):
+    """bench.py's artifact: ``commit`` and ``ts`` stamped into the line,
+    the line written to BENCH_<commit>_<ts>.json (the commit is "unknown"
+    outside a git work tree); a failed write raises."""
+    import bench as jbench
+    out = {"metric": "tatp_committed_txns_per_sec", "value": 1.0}
+    path = bench._persist_artifact(out, str(tmp_path / "artifacts"))
+    assert set(out) == {"metric", "value", "commit", "ts"}
+    assert os.path.basename(path) == f"BENCH_{out['commit']}_{out['ts']}.json"
+    with open(path) as f:
+        assert json.load(f) == out
+    assert time.strptime(out["ts"], "%Y%m%dT%H%M%SZ")
+    assert out["commit"] == jbench._git_head()
+    monkeypatch.setattr(subprocess, "run", lambda *a, **k: (_ for _ in ())
+                        .throw(FileNotFoundError("git")))
+    assert bench._git_head() == "unknown"
+    blocker = tmp_path / "file"
+    blocker.write_text("")
+    with pytest.raises(OSError):
+        bench._persist_artifact({}, str(blocker / "artifacts"))

@@ -11,13 +11,13 @@ DINT_TRACE=1 and DINT_MONITOR=1 the closed point's ``counters`` and
 rules: every (trace, monitor) pairing of both engines drains by the flags
 and reconciles with the stats of every block; ``--skip-done`` anchors the
 open rates on a loaded closed point; ``--only smallbank_skew`` runs only
-the preset; the mesh legs print exp.py's skip line; a point whose warm
-block reads a bad magic word, or whose attribution fails, raises."""
+the preset; the mesh legs print exp.py's skip line below 3 hosts and run
+with exp.py's keys at 3x1; a point whose warm block reads a bad magic
+word, or whose attribution fails, raises."""
 import json
 
 import numpy as np
 import pytest
-import torch
 
 import exp as jexp
 from dint_tpu.engines import smallbank_dense as jsd
@@ -244,20 +244,49 @@ def test_only_smallbank_skew_runs_only_the_preset(tmp_path):
 
 
 @pytest.mark.parametrize("only", ["serve_mesh", "multihost_sb"])
-def test_mesh_legs_print_the_skip_line(tmp_path, capsys, only):
+def test_mesh_legs_print_the_skip_line(tmp_path, capsys, monkeypatch, only):
+    """Fewer than 3 hosts: exp.py's skip line and no point."""
+    monkeypatch.setenv("DINT_BENCH_MESH", "2x4")
     res = exp.run(str(tmp_path), window_s=WINDOW, quick=True, only=only,
                   device="cpu")
     assert res == {}
     out = capsys.readouterr().out
-    assert f"{only}: skipped (4x2 mesh needs 8 devices and >= 3 hosts; " \
+    assert f"{only}: skipped (2x4 mesh needs 8 devices and >= 3 hosts; " \
            f"have 1 devices)" in out
 
 
-def test_mesh_leg_raises_where_a_mesh_could_form(monkeypatch):
+def test_mesh_leg_runs_at_quick_size_with_jax_keys(tmp_path, monkeypatch):
+    """At DINT_BENCH_MESH=3x1 the multihost_sb leg runs on the one device:
+    its hier and flat points carry the keys of exp.py's leg (run by hand
+    as exp.py's run_all does, over 3 of the virtual devices), the mesh
+    and ``hierarchical``; both routes commit the same work."""
     monkeypatch.setenv("DINT_BENCH_MESH", "3x1")
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        exp._mesh_leg("serve_mesh", torch.device("cuda"))
+    res = exp.run(str(tmp_path), window_s=WINDOW, quick=True,
+                  only="multihost_sb", device="cpu")
+    names = [f"multihost_sb_{t}_closed_w{W}" for t in ("hier", "flat")]
+    assert sorted(res) == sorted(names)
+    from dint_tpu.engines import smallbank_pipeline as jsp
+    from dint_tpu.parallel import dense_sharded_sb as jdsb
+    ref = {}
+    extra = {"n_shards": 3,
+             "mesh": {"n_hosts": 3, "n_ici": 1, "axes": ["dcn", "ici"]}}
+    for tag, hier in (("hier", True), ("flat", False)):
+        jexp.sweep_pipeline(
+            f"multihost_sb_{tag}",
+            lambda w, b, h=hier: jexp._mh_sb_runner(N_ACC, w, b, h),
+            jexp._mh_sb_extras, jdsb.N_STATS, widths=[W], cpb=CPB, depth=2,
+            magic_idx=jsp.STAT_MAGIC_BAD, window_s=WINDOW, open_rates=(),
+            results=ref, point_extra=dict(extra, hierarchical=hier),
+            geom={"l": 3, "vw": 2, "d": 3})
+    ref = json.loads(json.dumps(ref))
+    for name in names:
+        p, r = res[name], ref[name]
+        assert _shape(p) == _shape(r), name
+        assert {k: p[k] for k in ("n_shards", "mesh", "hierarchical",
+                                  "mode", "width", "plan")} == \
+            {k: r[k] for k in ("n_shards", "mesh", "hierarchical", "mode",
+                               "width", "plan")}
+        assert p["goodput"] > 0 and p["route_overflow"] == 0
 
 
 def test_bad_magic_in_a_warm_block_raises():

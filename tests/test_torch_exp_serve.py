@@ -8,8 +8,8 @@ nested blocks included (the controller's service samples and journal),
 and the same ``plan``; every point accounts exactly (offered == admitted
 + shed, the serve counters == the host tallies). Each point's engine and
 its tables are gone when the next point starts. ``run(only="serve")``
-runs both engines' legs (and log_server, which the filter matches) and
-prints the mesh leg's skip line."""
+runs both engines' legs and, as exp.py's run_all does, the mesh serve
+leg and log_server, which the two-way filter matches too."""
 import gc
 import json
 import weakref
@@ -99,14 +99,17 @@ def test_each_point_frees_its_engine(monkeypatch):
 def test_run_only_serve_runs_both_legs(tmp_path, capsys):
     res = exp.run(str(tmp_path), window_s=WINDOW, quick=True, only="serve",
                   device="cpu")
-    want = [f"serve_{e}_{p}" for e in ("tatp", "smallbank")
+    want = [f"serve_{e}_{p}" for e in ("tatp", "smallbank", "mesh")
             for p in ("sat", "r50pct", "r90pct")]
-    # exp.py's two-way substring filter: "serve" is in "log_server" too
+    # exp.py's two-way substring filter: "serve" is in "log_server" and
+    # "serve_mesh" too
     assert sorted(res) == sorted(want + ["log_server"])
     for name in want:
         blk = res[name]
         assert blk["offered"] == blk["admitted"] + blk["shed"]
-        assert blk["engine"] == ("tatp_dense" if "tatp" in name
-                                 else "smallbank_dense")
-    assert "serve_mesh: skipped (4x2 mesh needs 8 devices" in \
-        capsys.readouterr().out
+        assert blk["engine"] == {"tatp": "tatp_dense",
+                                 "smallbank": "smallbank_dense",
+                                 "mesh": "multihost_sb"}[name.split("_")[1]]
+        if "mesh" in name:              # DINT_BENCH_MESH's default 4x2
+            assert blk["mesh"]["n_hosts"] == 4 and len(blk["per_host"]) == 4
+    assert "skipped" not in capsys.readouterr().out

@@ -377,4 +377,4 @@ def test_snapshot_keys_and_cached_runner():
                             device="cpu")
     assert a is p._runners[W]
     with pytest.raises(ValueError, match="serve family"):
-        serve.cached_runner("multihost_sb", N_SUB, device="cpu")
+        serve.cached_runner("dense_sharded_sb", N_SUB, device="cpu")

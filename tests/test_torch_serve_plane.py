@@ -218,7 +218,8 @@ def test_resolve_for_matches_the_reference(env):
     doc = pplan.load_plan()
     assert doc == jplan.load_plan()
     for wname in ("tatp_uniform", "smallbank_skewed", "tatp_serve",
-                  "smallbank_serve"):
+                  "smallbank_serve", "multihost_4x2", "multihost_3x2",
+                  "multihost_serve"):
         jk, jm = jplan.resolve_for(wname, environ=env)
         pk, pm = pplan.resolve_for(wname, environ=env)
         # the port has no use_pallas: dropped, and recorded as dropped
@@ -230,8 +231,7 @@ def test_resolve_for_matches_the_reference(env):
         assert pk.keys() == set(pplan.WORKLOAD_KNOBS[wname])
     for engine, wname in pplan.SERVE_WORKLOADS.items():
         assert jplan.SERVE_WORKLOADS[engine] == wname
-    assert set(jplan.SERVE_WORKLOADS) - set(pplan.SERVE_WORKLOADS) == \
-        {"multihost_sb"}
+    assert set(jplan.SERVE_WORKLOADS) == set(pplan.SERVE_WORKLOADS)
 
 
 @pytest.mark.parametrize("env", ENVS[:3])
@@ -243,7 +243,7 @@ def test_resolve_for_without_a_plan_reads_the_environment(env, tmp_path,
         monkeypatch.setenv(mod.ENV_PLAN_PATH, str(bad))
     with pytest.raises(ValueError):
         pplan.load_plan()
-    for wname in ("tatp_uniform", "smallbank_serve"):
+    for wname in ("tatp_uniform", "smallbank_serve", "multihost_serve"):
         jk, jm = jplan.resolve_for(wname, environ=env)
         pk, pm = pplan.resolve_for(wname, environ=env)
         assert pm == jm == {"source": None, "hash": None, "overridden": []}
