@@ -359,6 +359,20 @@ mismatch or error:
    DINT_BENCH_MESH=3x2 and full size, 2 s windows: exp.py's keys and the
    ledger.
 
+20. dintlint on the card (after phase 19): (a) `tatp_dense/block@fused`,
+   `tatp_dense/block@hot` and `smallbank_dense/block` traced with make_fx
+   on CUDA tensors (dint_tpu_torch/analysis/targets.py), once at the lint
+   geometry and once at full width (7,000,000 subscribers and 24,000,000
+   accounts, w=8192, 3 steps): each route's `dint::` nodes present, one a
+   kernel call, and equal in number to the wrappers' launch counts over
+   the trace; (b) the five passes on each trace: the same (pass, code,
+   site) set as the CPU trace of the same target, no unsuppressed error
+   under the port's allowlist; (c) host microseconds a call of B1
+   `gather_rows` and B3 `scatter_streams` through the wrapper,
+   `torch.ops.dint` and the direct ctypes launch (1,000 calls back to back,
+   the median of 5 groups); (d) host syncs a step on each route, from
+   the purity pass.
+
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -6678,6 +6692,168 @@ def phase_mh_sb(dev, card):
     return paths
 
 
+P20_TARGETS = ("tatp_dense/block@fused", "tatp_dense/block@hot",
+               "smallbank_dense/block")
+P20_KERNELS = {
+    "tatp_dense/block@fused": ("gather_rows", "lock_validate",
+                               "scatter_streams"),
+    "tatp_dense/block@hot": ("gather_rows_hot", "lock_arbitrate",
+                             "scatter_rows_hot"),
+    "smallbank_dense/block": ("gather_rows",),
+}
+P20_CALLS = 1000
+P20_GROUPS = 5
+
+
+def _p20_keys(trace):
+    """(pass, code, site) of every finding of the five passes on a trace,
+    the port's allowlist applied; and the unsuppressed errors."""
+    from dint_tpu_torch import analysis
+    from dint_tpu_torch.analysis import allowlist as al
+    fs = []
+    for fn in analysis.PASSES.values():
+        fs += fn(trace)
+    fs = al.apply(analysis._dedup(fs), al.load(analysis.DEFAULT_ALLOWLIST),
+                  check_unused=False)
+    return ({(f.pass_name, f.code, f.site) for f in fs},
+            [str(f) for f in fs if f.severity == "error" and not f.suppressed],
+            fs)
+
+
+def _p20_host_us(fn):
+    """Host microseconds a call of ``fn``: P20_CALLS calls back to back,
+    the median over P20_GROUPS groups (the stream drained between
+    groups, outside the timing)."""
+    per = []
+    for _ in range(P20_GROUPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(P20_CALLS):
+            fn()
+        per.append((time.perf_counter() - t0) / P20_CALLS * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(per)), per
+
+
+def phase_lint(dev, card):
+    """Phase 20: the static analysis on the card's traces, and the cost of
+    the dint:: dispatcher on the host."""
+    import dataclasses
+    from dint_tpu_torch.analysis import core
+    from dint_tpu_torch.analysis import targets as T
+    from dint_tpu_torch.analysis.passes.purity import HOST_SYNC_CODES
+    from dint_tpu_torch.ops import library
+    from dint_tpu_torch.ops import row_kernels as rk
+    print("== phase 20: dintlint on the card's traces; dint:: dispatch cost")
+    t0 = time.perf_counter()
+    full = dataclasses.replace(T.LINT, device=dev.type, n_sub=N_SUB,
+                               n_acct=SB_N, w=W, vw=VW, logcap=1 << 16)
+    geoms = {"lint": dataclasses.replace(T.LINT, device=dev.type),
+             "full": full}
+    paths, rec = {}, {"traces": {}}
+    for name in P20_TARGETS:
+        cpu = T.build(name, T.LINT)
+        check(cpu.gm is not None, f"{name}: the CPU trace builds")
+        want, cpu_errs, _ = _p20_keys(cpu)
+        check(not cpu_errs, f"{name}: no unsuppressed error on the CPU "
+                            f"trace {cpu_errs}")
+        for gname, geom in geoms.items():
+            reset_launches()
+            ts = time.perf_counter()
+            tr = T.build(name, geom)
+            secs = time.perf_counter() - ts
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            paths[f"p20 trace {name} {gname}"] = launches
+            check(tr.gm is not None and tr.device == dev.type,
+                  f"{name} ({gname}): traced on CUDA tensors "
+                  f"({tr.trace_error})")
+            nodes = {}
+            for ctx in core.walk(tr):
+                if ctx.in_kernel:
+                    k = ctx.prim.split("::")[1]
+                    nodes[k] = nodes.get(k, 0) + 1
+            expect = {k: geom.cpb for k in P20_KERNELS[name]}
+            check(nodes == expect, f"{name} ({gname}): one dint:: node a "
+                                   f"kernel call a step {nodes}")
+            check(all(launches[k] == n for k, n in nodes.items())
+                  and sum(launches.values()) == sum(nodes.values()),
+                  f"{name} ({gname}): the dint:: nodes equal the wrappers' "
+                  f"launches {launches}")
+            got, errs, fs = _p20_keys(tr)
+            check(not errs, f"{name} ({gname}): no unsuppressed error {errs}")
+            check(got == want, f"{name} ({gname}): the same (pass, code, "
+                               f"site) set as the CPU trace "
+                               f"{sorted(got ^ want)}")
+            syncs = {}
+            for f in fs:
+                if f.pass_name == "purity" and f.code in HOST_SYNC_CODES:
+                    syncs[f.code] = syncs.get(f.code, 0) + f.count
+            per_step = {k: v / geom.cpb for k, v in syncs.items()}
+            rec["traces"][f"{name} {gname}"] = {
+                "trace_s": secs, "nodes": len(tr.graph.nodes),
+                "dint_nodes": nodes, "findings": len(fs),
+                "host_syncs_per_step": per_step}
+            print(f"  {name} ({gname}): trace {secs:.3f} s, "
+                  f"{len(tr.graph.nodes)} nodes, host syncs a step "
+                  f"{per_step}")
+            del tr
+            gc.collect()
+            torch.cuda.empty_cache()
+    # (c) the dispatcher's host cost: wrapper, torch.ops.dint, direct launch
+    g = torch.Generator(device=dev).manual_seed(20)
+    tab = torch.randint(0, 1 << 30, (1 << 20,), dtype=torch.int32,
+                        device=dev, generator=g)
+    idx = torch.randint(0, 1 << 20, (16384,), dtype=torch.int32, device=dev,
+                        generator=g)
+    tabs = [torch.zeros(1 << 16, dtype=torch.int32, device=dev)
+            for _ in range(3)]
+    sidx = [torch.randperm(1 << 16, device=dev, generator=g)[:8192].to(
+        torch.int32) for _ in range(3)]
+    vals = [torch.randint(0, 9, (8192,), dtype=torch.int32, device=dev,
+                          generator=g) for _ in range(3)]
+    calls = {
+        "gather_rows": {
+            "wrapper": lambda: rk.gather_rows(tab, idx, 1),
+            "op": lambda: library.op("gather_rows")([tab], [idx], [1]),
+            "direct": lambda: rk._gather_dev(rk.gather_rows, (tab,), None,
+                                             (idx,), None, (1,))},
+        "scatter_streams": {
+            "wrapper": lambda: rk.scatter_streams(tabs, sidx, vals,
+                                                  [1, 1, 1]),
+            "op": lambda: library.op("scatter_streams")(tabs, sidx, vals,
+                                                        [1, 1, 1]),
+            "direct": lambda: rk._scatter_dev(
+                rk.scatter_streams, tuple(tabs), None, tuple(sidx), None,
+                None, tuple(vals), (1, 1, 1))},
+    }
+    want_g = rk.gather_rows_ref(tab, idx, 1)
+    check(torch.equal(calls["gather_rows"]["op"]()[0], want_g)
+          and torch.equal(calls["gather_rows"]["direct"]()[0], want_g),
+          "gather_rows through torch.ops.dint and the direct launch equal "
+          "the plain version")
+    rec["dispatch_us"] = {}
+    for kname, forms in calls.items():
+        order = ["direct", "op", "wrapper", "wrapper", "op", "direct"]
+        got = {f: [] for f in forms}
+        for form in order:          # in turns, P N N P
+            med, _ = _p20_host_us(forms[form])
+            got[form].append(med)
+        r = {f: float(np.mean(v)) for f, v in got.items()}
+        r["turns"] = got
+        r["op_over_direct_us"] = r["op"] - r["direct"]
+        r["wrapper_over_direct_us"] = r["wrapper"] - r["direct"]
+        rec["dispatch_us"][kname] = r
+        print(f"  {kname}: host us a call: direct {r['direct']:.3f}, "
+              f"torch.ops.dint {r['op']:.3f}, wrapper {r['wrapper']:.3f} "
+              f"(+{r['wrapper_over_direct_us']:.3f})  [{card}]")
+    reset_launches()
+    rec["seconds"] = time.perf_counter() - t0
+    print("  phase 20 record: " + json.dumps(rec, default=str))
+    print(f"  phase 20: {rec['seconds']:.3f} s  [{card}]")
+    return paths
+
+
 KERNELS = {
     "gather_rows": ("dint_tpu_torch/csrc/gather_rows.cu",
                     "dint_tpu/ops/pallas_gather.py:212"),
@@ -6762,6 +6938,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     store_paths.update(phase_mh_sb(dev, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    store_paths.update(phase_lint(dev, card))
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -6775,8 +6954,8 @@ def main() -> int:
         # runs and profiled blocks, phase 16's sweep, serve and
         # calibration points and drive, phase 17's sharded, multihost
         # and dry runs, phase 18's sharded SmallBank runs and dry run, and
-        # phase 19's 2-D mesh runs, serving windows and exp points, each
-        # counted from 0 just before its run
+        # phase 19's 2-D mesh runs, serving windows and exp points, and
+        # phase 20's traced blocks, each counted from 0 just before its run
         paths = {**{f"tatp {k}": v[name] for k, v in tatp.items()},
                  **{f"smallbank {k}": v[name] for k, v in sb.items()},
                  **{k: v[name] for k, v in store_paths.items()}}

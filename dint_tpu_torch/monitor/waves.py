@@ -343,6 +343,20 @@ def profiler_running() -> bool:
 
 
 _NULL = contextlib.nullcontext()
+_forced = [0]
+
+
+@contextlib.contextmanager
+def forced():
+    """Emit the scopes while no profiler runs: the static analysis
+    (dint_tpu_torch/analysis) traces a step inside this context, so that
+    its graph holds each scope's enter and exit and every node knows its
+    wave. Scopes disabled by DINT_SCOPE=0 stay off."""
+    _forced[0] += 1
+    try:
+        yield
+    finally:
+        _forced[0] -= 1
 
 
 def scope(engine: str, wave: str):
@@ -356,6 +370,6 @@ def scope(engine: str, wave: str):
         raise KeyError(
             f"wave {name!r} is not in the dintscope registry "
             "(monitor/waves.py); append it there first")
-    if not (scopes_enabled() and profiler_running()):
+    if not (scopes_enabled() and (profiler_running() or _forced[0])):
         return _NULL
     return torch.profiler.record_function(name)

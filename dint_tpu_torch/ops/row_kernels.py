@@ -4,11 +4,15 @@ store's cache tier (the counterparts of `dint_tpu/ops/pallas_gather.py`'s
 `scatter_streams`, `gather_rows_hot` and `scatter_rows_hot`), and the
 scalar scatter of the feasibility probe `tools/profile_pallas.py`.
 
-Each wrapper launches its hand-written CUDA kernel (``csrc/<name>.cu``,
-built for sm_90a at first use) when given CUDA tensors, and runs its plain
-PyTorch version (``*_ref``) only when given CPU tensors. There is no
-fallback: on a CUDA tensor the wrapper launches the kernel or raises. Each
-wrapper counts its kernel launches in ``<wrapper>.launches``.
+Each wrapper checks its arguments and calls its operator
+``torch.ops.dint.<name>`` (ops/library.py), whose implementation launches
+the hand-written CUDA kernel (``csrc/<name>.cu``, built for sm_90a at
+first use) when given CUDA tensors, and runs its plain PyTorch version
+(``*_ref``) only when given CPU tensors. There is no fallback: on a CUDA
+tensor the operator launches the kernel or raises. The checks a trace
+cannot see (which storages the tensors share) run inside the
+implementations. Each wrapper counts its kernel launches in
+``<wrapper>.launches``.
 
 Tables and words are int32 tensors holding u32 bit patterns (ops/u32.py);
 the kernels read them as ``uint32_t``.
@@ -20,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build
+from . import _build, library
 from .u32 import pack_stamp, shr, to_u64, wrap_i32
 
 I32 = torch.int32
@@ -113,7 +117,7 @@ def _same_device(*xs: torch.Tensor) -> torch.device:
     if any(x.device != dev for x in xs):
         raise ValueError("tensors are on different devices: "
                          + ", ".join(str(x.device) for x in xs))
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 
@@ -353,17 +357,29 @@ def _launch_plan(fn, structs, plan, dev, pointers, n_rows, n_mirror, ks,
 
 
 def _gather(fn, tabs, mirrors, idxs, midxs, vws):
-    """The gather pass on the card: one launch of `gather_plan` over the
-    streams (none when every stream is empty), counted on ``fn``. Returns
-    the tuple of outputs."""
+    """Check a gather pass call and run it through ``fn``'s operator.
+    Returns the tuple of outputs."""
+    _check_rows(fn.__name__, tabs, mirrors, idxs, midxs, vws)
+    _same_device(*tabs, *idxs, *(mirrors or ()), *(midxs or ()))
+    op = library.op(fn.__name__)
+    if mirrors is None:
+        return tuple(op(list(tabs), list(idxs), list(vws)))
+    return tuple(op(list(tabs), list(mirrors), list(idxs), list(midxs),
+                    list(vws)))
+
+
+def _gather_dev(fn, tabs, mirrors, idxs, midxs, vws):
+    """The gather pass: the plain version on the CPU, on the card one
+    launch of `gather_plan` over the streams (none when every stream is
+    empty), counted on ``fn``. Returns the list of outputs."""
     n_rows, n_mirror = _check_rows(fn.__name__, tabs, mirrors, idxs, midxs,
                                    vws)
     dev = _same_device(*tabs, *idxs, *(mirrors or ()), *(midxs or ()))
     if dev.type == "cpu":
-        return _gather_ref(tabs, mirrors, idxs, midxs, vws)
+        return list(_gather_ref(tabs, mirrors, idxs, midxs, vws))
     ks = [i.numel() for i in idxs]
-    outs = tuple(torch.empty(k * vw, dtype=I32, device=dev)
-                 for k, vw in zip(ks, vws))
+    outs = [torch.empty(k * vw, dtype=I32, device=dev)
+            for k, vw in zip(ks, vws)]
     hot = mirrors is not None
     plan = gather_plan(ks, vws, [
         gather_alignment(vw, tab, mirrors[s] if hot else None, idx,
@@ -377,6 +393,10 @@ def _gather(fn, tabs, mirrors, idxs, midxs, vws):
     return outs
 
 
+def _gather_fake(tabs, idxs, vws):
+    return [t.new_empty(i.numel() * vw) for t, i, vw in zip(tabs, idxs, vws)]
+
+
 def _gather_ref(tabs, mirrors, idxs, midxs, vws):
     if mirrors is None:
         return tuple(tab.view(-1, vw).index_select(0, idx).reshape(-1)
@@ -385,11 +405,10 @@ def _gather_ref(tabs, mirrors, idxs, midxs, vws):
 
 
 def _scatter(fn, tabs, mirrors, idxs, midxs, masks, vals, vws):
-    """The scatter pass on the card: one launch of `scatter_plan` over the
-    streams (none when every stream is empty), counted on ``fn``; tables
-    and mirrors are updated in place."""
+    """Check a scatter pass call and run it through ``fn``'s operator;
+    tables and mirrors are updated in place."""
     what = fn.__name__
-    n_rows, n_mirror = _check_rows(what, tabs, mirrors, idxs, midxs, vws)
+    _check_rows(what, tabs, mirrors, idxs, midxs, vws)
     hot = mirrors is not None
     if len(vals) != len(vws) or (hot and len(masks) != len(vws)):
         raise ValueError(f"{what}: streams disagree in number")
@@ -404,7 +423,26 @@ def _scatter(fn, tabs, mirrors, idxs, midxs, masks, vals, vws):
             if masks[s].numel() != k:
                 raise ValueError(f"{what} stream {s}: {k} lanes but "
                                  f"{masks[s].numel()} mask flags")
-    written = tabs + (mirrors or ())
+    _same_device(*tabs, *(mirrors or ()), *idxs, *vals, *(midxs or ()),
+                 *(masks or ()))
+    op = library.op(what)
+    if hot:
+        op(list(tabs), list(mirrors), list(idxs), list(midxs), list(masks),
+           list(vals), list(vws))
+    else:
+        op(list(tabs), list(idxs), list(vals), list(vws))
+
+
+def _scatter_dev(fn, tabs, mirrors, idxs, midxs, masks, vals, vws):
+    """The scatter pass: the plain version on the CPU, on the card one
+    launch of `scatter_plan` over the streams (none when every stream is
+    empty), counted on ``fn``; tables and mirrors are updated in place.
+    Raises where two tables or mirrors of the call share a storage, or
+    values share one with them."""
+    what = fn.__name__
+    n_rows, n_mirror = _check_rows(what, tabs, mirrors, idxs, midxs, vws)
+    hot = mirrors is not None
+    written = tuple(tabs) + tuple(mirrors or ())
     stores = {t.untyped_storage().data_ptr() for t in written}
     if len(stores) != len(written):
         raise ValueError(f"{what}: the streams' tables and mirrors must be "
@@ -588,20 +626,30 @@ def lock_arbitrate(arb, rows, active, step: int, k_arb: int):
     Rows must lie in [0, len(arb)); inactive lanes carry a valid sentinel
     row, as the engine's do. On the card it is one cooperative launch
     (`lock_pass_plan`; none when M = 0); a refused launch raises."""
-    dev = _check_lock_args(arb, rows, active, step, k_arb)
+    _check_lock_args(arb, rows, active, step, k_arb)
+    return arb, library.op("lock_arbitrate")(arb, rows, active, int(step),
+                                             int(k_arb))
+
+
+def _lock_arbitrate_dev(arb, rows, active, step, k_arb):
+    dev = _same_device(arb, rows, active)
     if dev.type == "cpu":
-        return lock_arbitrate_ref(arb, rows, active, step, k_arb)
+        return lock_arbitrate_ref(arb, rows, active, step, k_arb)[1]
     m = rows.numel()
     grant = torch.empty(m, dtype=torch.bool, device=dev)
     plan = lock_pass_plan(m, m, k_arb, lock_arbitrate_grid(dev))
     if plan.blocks == 0:
-        return arb, grant
+        return grant
     fn = _kernel("lock_arbitrate", dev)
     _launched(fn(arb.data_ptr(), rows.data_ptr(), active.data_ptr(),
                  grant.data_ptr(), m, arb.numel(), int(step), k_arb,
                  plan.blocks, _stream(dev)), "lock_arbitrate")
     lock_arbitrate.launches += 1
-    return arb, grant
+    return grant
+
+
+def _lock_arbitrate_fake(arb, rows, active, step, k_arb):
+    return rows.new_empty(rows.shape, dtype=torch.bool)
 
 
 lock_arbitrate.launches = 0
@@ -645,19 +693,27 @@ def lock_validate(arb, meta, vidx, vv1, ridx, rows, active, step: int,
     ``meta`` and ``arb`` must be distinct arrays, and every index in
     bounds (asserted on the device). On the card it is one cooperative
     launch (none when V = R = M = 0); a refused launch raises."""
-    dev = _check_lock_args(arb, rows, active, step, k_arb, "lock_validate")
+    _check_lock_args(arb, rows, active, step, k_arb, "lock_validate")
     for x, what in ((meta, "meta"), (vidx, "vidx"), (vv1, "vv1"),
                     (ridx, "ridx")):
         _check(x, f"lock_validate {what}")
     if vv1.numel() != vidx.numel():
         raise ValueError(f"lock_validate: {vidx.numel()} vidx but "
                          f"{vv1.numel()} vv1 lanes")
+    _same_device(arb, meta, vidx, vv1, ridx)
+    grant, vbad, rmeta = library.op("lock_validate")(
+        arb, meta, vidx, vv1, ridx, rows, active, int(step), int(k_arb))
+    return arb, grant, vbad, rmeta
+
+
+def _lock_validate_dev(arb, meta, vidx, vv1, ridx, rows, active, step,
+                       k_arb):
     if meta.untyped_storage().data_ptr() == arb.untyped_storage().data_ptr():
         raise ValueError("lock_validate: meta and arb must be distinct arrays")
-    _same_device(arb, meta, vidx, vv1, ridx)
+    dev = _same_device(arb, meta, vidx, vv1, ridx, rows, active)
     if dev.type == "cpu":
         return lock_validate_ref(arb, meta, vidx, vv1, ridx, rows, active,
-                                 step, k_arb)
+                                 step, k_arb)[1:]
     v, r, m = vidx.numel(), ridx.numel(), rows.numel()
     vbad = torch.empty(v, dtype=torch.bool, device=dev)
     rmeta = torch.empty(r, dtype=I32, device=dev)
@@ -665,7 +721,7 @@ def lock_validate(arb, meta, vidx, vv1, ridx, rows, active, step: int,
     plan = lock_pass_plan(max(v, r, m), m, k_arb, lock_validate_grid(dev),
                           "lock_validate")
     if plan.blocks == 0:
-        return arb, grant, vbad, rmeta
+        return grant, vbad, rmeta
     fn = _kernel("lock_validate", dev)
     _launched(fn(arb.data_ptr(), meta.data_ptr(), vidx.data_ptr(),
                  vv1.data_ptr(), vbad.data_ptr(), v, ridx.data_ptr(),
@@ -673,7 +729,14 @@ def lock_validate(arb, meta, vidx, vv1, ridx, rows, active, step: int,
                  grant.data_ptr(), m, meta.numel(), arb.numel(), int(step),
                  k_arb, plan.blocks, _stream(dev)), "lock_validate")
     lock_validate.launches += 1
-    return arb, grant, vbad, rmeta
+    return grant, vbad, rmeta
+
+
+def _lock_validate_fake(arb, meta, vidx, vv1, ridx, rows, active, step,
+                        k_arb):
+    b = torch.bool
+    return (rows.new_empty(rows.shape, dtype=b),
+            vidx.new_empty(vidx.shape, dtype=b), ridx.new_empty(ridx.shape))
 
 
 lock_validate.launches = 0
@@ -923,7 +986,12 @@ def scalar_scatter(tab, idx, val):
     the stream (`scalar_scatter_plan`); a refused launch raises. To capture
     it in a CUDA graph, call it once on the capture stream first (see
     `_claim_table`)."""
-    dev = _check_scalar_scatter(tab, idx, val)
+    _check_scalar_scatter(tab, idx, val)
+    return library.op("scalar_scatter")(tab, idx, val)
+
+
+def _scalar_scatter_dev(tab, idx, val):
+    dev = _same_device(tab, idx, val)
     if dev.type == "cpu":
         return scalar_scatter_ref(tab, idx, val)
     n, k = tab.numel(), idx.numel()
@@ -955,3 +1023,47 @@ WRAPPERS = (gather_rows, lock_arbitrate, lock_validate, gather_streams,
 def reset_launches():
     for fn in WRAPPERS:
         fn.launches = 0
+
+
+# ------------------------------------------------- the operators' kernels
+
+
+def _scatter_streams_fake(tabs, idxs, vals, vws):
+    return None
+
+
+def _scatter_rows_hot_fake(tabs, mirrors, idxs, midxs, masks, vals, vws):
+    return None
+
+
+def _gather_hot_fake(tabs, mirrors, idxs, midxs, vws):
+    return _gather_fake(tabs, idxs, vws)
+
+
+library.impl("gather_rows",
+             lambda tabs, idxs, vws: _gather_dev(gather_rows, tabs, None,
+                                                 idxs, None, vws),
+             _gather_fake)
+library.impl("gather_streams",
+             lambda tabs, idxs, vws: _gather_dev(gather_streams, tabs, None,
+                                                 idxs, None, vws),
+             _gather_fake)
+library.impl("gather_rows_hot",
+             lambda tabs, mirrors, idxs, midxs, vws: _gather_dev(
+                 gather_rows_hot, tabs, mirrors, idxs, midxs, vws),
+             _gather_hot_fake)
+library.impl("scatter_streams",
+             lambda tabs, idxs, vals, vws: _scatter_dev(
+                 scatter_streams, tabs, None, idxs, None, None, vals, vws),
+             _scatter_streams_fake)
+library.impl("scatter_rows_hot",
+             lambda tabs, mirrors, idxs, midxs, masks, vals, vws:
+             _scatter_dev(scatter_rows_hot, tabs, mirrors, idxs, midxs, masks,
+                          vals, vws),
+             _scatter_rows_hot_fake)
+library.impl("lock_arbitrate", lambda *a: _lock_arbitrate_dev(*a),
+             _lock_arbitrate_fake)
+library.impl("lock_validate", lambda *a: _lock_validate_dev(*a),
+             _lock_validate_fake)
+library.impl("scalar_scatter", lambda *a: _scalar_scatter_dev(*a),
+             lambda tab, idx, val: torch.empty_like(tab))

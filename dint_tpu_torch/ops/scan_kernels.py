@@ -2,10 +2,11 @@
 `dint_tpu/ops/pallas_gather.py`'s `scan_rows` and its dispatcher
 `scan_slab`).
 
-`scan_rows` launches the hand-written CUDA kernel ``csrc/scan_rows.cu``
-(built for sm_90a at first use) on CUDA tensors, and runs its plain
-PyTorch version `scan_rows_ref` only on CPU tensors; on a CUDA tensor it
-launches the kernel or raises. It counts its launches in
+`scan_rows` checks its arguments and calls ``torch.ops.dint.scan_rows``
+(ops/library.py), which launches the hand-written CUDA kernel
+``csrc/scan_rows.cu`` (built for sm_90a at first use) on CUDA tensors, and
+runs its plain PyTorch version `scan_rows_ref` only on CPU tensors; on a
+CUDA tensor it launches the kernel or raises. It counts its launches in
 ``scan_rows.launches``. Words are int32 tensors holding u32 bit patterns.
 
 Unlike the Pallas kernel, `scan_rows` takes no lane walk order: the TPU
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from . import library
 from .row_kernels import _check, _kernel, _launched, _same_device, _stream
 
 I32 = torch.int32
@@ -58,6 +60,12 @@ def scan_rows(run_hi, run_lo, run_ver, run_val, off, lg: int, vw: int):
     [K*lg*vw]) i32. Every offset must lie in [0, cap - lg] (the engine
     clamps them); the kernel asserts it on the device."""
     lg, vw = int(lg), int(vw)
+    _check_scan(run_hi, run_lo, run_ver, run_val, off, lg, vw)
+    return tuple(library.op("scan_rows")(run_hi, run_lo, run_ver, run_val,
+                                         off, lg, vw))
+
+
+def _scan_rows_dev(run_hi, run_lo, run_ver, run_val, off, lg, vw):
     dev, cap = _check_scan(run_hi, run_lo, run_ver, run_val, off, lg, vw)
     if dev.type == "cpu":
         return scan_rows_ref(run_hi, run_lo, run_ver, run_val, off, lg, vw)
@@ -71,6 +79,12 @@ def scan_rows(run_hi, run_lo, run_ver, run_val, off, lg: int, vw: int):
                  _stream(dev)), "scan_rows")
     scan_rows.launches += 1
     return tuple(outs)
+
+
+def _scan_rows_fake(run_hi, run_lo, run_ver, run_val, off, lg, vw):
+    n = off.numel() * lg
+    return (*(run_hi.new_empty(n) for _ in range(3)),
+            run_hi.new_empty(n * vw))
 
 
 scan_rows.launches = 0
@@ -88,3 +102,5 @@ def scan_slab(run_hi, run_lo, run_ver, run_val, off, lg: int, vw: int):
 
 
 WRAPPERS = (scan_rows,)
+
+library.impl("scan_rows", lambda *a: _scan_rows_dev(*a), _scan_rows_fake)

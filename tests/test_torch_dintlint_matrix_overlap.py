@@ -1,0 +1,19 @@
+"""dintlint over the port's 2-D mesh serve runners with the double-buffered exchange (one family of the
+``python -m dint_tpu_torch.dintlint --all`` matrix; tests/
+_torch_dintlint_matrix.py says what each test holds)."""
+import pytest
+
+from _torch_dintlint_matrix import check_family_allowlist, check_target, family
+
+NAMES = family("multihost_sb/serve@overlap")
+
+
+@pytest.mark.lint
+@pytest.mark.parametrize("name", NAMES)
+def test_target_is_clean(name):
+    check_target(name)
+
+
+@pytest.mark.lint
+def test_family_allowlist_entries_all_match():
+    check_family_allowlist(NAMES)
