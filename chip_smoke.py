@@ -6703,16 +6703,20 @@ P20_KERNELS = {
 }
 P20_CALLS = 1000
 P20_GROUPS = 5
+# dintlint's five trace-level passes (the cost and durability gates are
+# phase 21's: their budgets hold at the lint geometry only)
+P20_PASSES = ("scatter_race", "aliasing", "purity", "u64_overflow",
+              "protocol")
 
 
-def _p20_keys(trace):
-    """(pass, code, site) of every finding of the five passes on a trace,
-    the port's allowlist applied; and the unsuppressed errors."""
+def _p20_keys(trace, passes=P20_PASSES):
+    """(pass, code, site) of every finding of ``passes`` on a trace, the
+    port's allowlist applied; and the unsuppressed errors."""
     from dint_tpu_torch import analysis
     from dint_tpu_torch.analysis import allowlist as al
     fs = []
-    for fn in analysis.PASSES.values():
-        fs += fn(trace)
+    for name in passes:
+        fs += analysis.PASSES[name](trace)
     fs = al.apply(analysis._dedup(fs), al.load(analysis.DEFAULT_ALLOWLIST),
                   check_unused=False)
     return ({(f.pass_name, f.code, f.site) for f in fs},
@@ -6854,6 +6858,283 @@ def phase_lint(dev, card):
     return paths
 
 
+# ------------------------------------------- phase 21: dintcost, dintdur
+
+
+P21_LINT = ("tatp_dense/block", "tatp_dense/block@fused",
+            "tatp_dense/block@hot", "smallbank_dense/block",
+            "smallbank_dense/block@fused", "store/block@scan",
+            "dense_sharded_sb/block", "recovery/tatp_dense",
+            "recovery/smallbank_dense", "recovery/sb_shard")
+P21_PASSES = ("cost_budget", "durability")
+# full width: target -> (engine, use_fused)
+P21_FULL = {"tatp_dense/block": ("tatp", False),
+            "tatp_dense/block@fused": ("tatp", True),
+            "smallbank_dense/block": ("smallbank", False),
+            "smallbank_dense/block@fused": ("smallbank", True)}
+
+
+def _p21_model_key(model):
+    return (model.wave_bytes_per_step(), model.wave_dispatches_per_step(),
+            model.footprint_bytes)
+
+
+def _p21_storages(obj):
+    """{storage ptr: bytes} of the distinct storages of a carry's tensors."""
+    from dint_tpu_torch.analysis import targets as T
+    out = {}
+    for _, t in T.leaves(obj):
+        st = t.untyped_storage()
+        out[st.data_ptr()] = max(out.get(st.data_ptr(), 0), st.nbytes())
+    return out
+
+
+def _p21_lint(dev):
+    """(a): the lint geometry traced on CUDA tensors gives the CPU
+    trace's cost model and the CPU trace's cost and durability findings."""
+    import dataclasses
+    from dint_tpu_torch.analysis import cost
+    from dint_tpu_torch.analysis import targets as T
+    on_card = dataclasses.replace(T.LINT, device=dev.type)
+    rec = {}
+    for name in P21_LINT:
+        meta = T.TARGET_COST[name]
+        models, keys = [], []
+        for geom in (T.LINT, on_card):
+            tr = T.build(name, geom)
+            check(tr.gm is not None and tr.device == geom.device,
+                  f"{name}: traced on {geom.device} ({tr.trace_error})")
+            models.append(cost.derive(tr, steps=meta["steps"],
+                                      geom=meta["geom"]))
+            keys.append(_p20_keys(tr, P21_PASSES))
+            del tr
+        (mc, mg), ((want, cpu_errs, _), (got, errs, _)) = models, keys
+        check(_p21_model_key(mg) == _p21_model_key(mc),
+              f"{name}: the CUDA trace's cost model == the CPU trace's "
+              f"(bytes/step {mg.bytes_per_step} vs {mc.bytes_per_step}, "
+              f"dispatches {mg.dispatches_per_step} vs "
+              f"{mc.dispatches_per_step}, footprint {mg.footprint_bytes} "
+              f"vs {mc.footprint_bytes})")
+        check(not cpu_errs and not errs and got == want,
+              f"{name}: the same cost_budget/durability (pass, code, site) "
+              f"set as the CPU trace, no unsuppressed error "
+              f"{sorted(got ^ want)} {errs}")
+        rec[name] = {"bytes_per_step": mg.bytes_per_step,
+                     "dispatches_per_step": mg.dispatches_per_step,
+                     "footprint_bytes": mg.footprint_bytes,
+                     "findings": sorted(list(k) for k in got)}
+        print(f"  (a) {name}: {mg.bytes_per_step:g} B/step, "
+              f"{mg.dispatches_per_step:g} dispatches/step, footprint "
+              f"{mg.footprint_bytes} B, {len(got)} finding keys: "
+              "CPU == CUDA")
+    return rec
+
+
+def _p21_runner(engine, use_fused, dev, cpb):
+    """The full-width runner of a P21_FULL target and its populated
+    state, built as the target's builder builds them."""
+    if engine == "tatp":
+        from dint_tpu_torch.engines import tatp_dense as td
+        run, init, _ = td.build_pipelined_runner(
+            N_SUB, w=W, val_words=VW, cohorts_per_block=cpb,
+            use_fused=use_fused, device=dev)
+        db = td.populate_device(torch.Generator(device=dev).manual_seed(0),
+                                N_SUB, val_words=VW, device=dev)
+    else:
+        from dint_tpu_torch.engines import smallbank_dense as sd
+        run, init, _ = sd.build_pipelined_runner(
+            SB_N, w=SB_W, cohorts_per_block=cpb, use_fused=use_fused,
+            device=dev)
+        db = sd.create(SB_N, device=dev)
+    return run, init, db
+
+
+def _p21_profiled(label, run, carry, gen, trace_dir, geometry, steps):
+    """One block under `profiler_session` (taken again with more host
+    padding when the profile holds no device event, at most 3 times):
+    (carry, breakdown, kernel slices a step, wrapper launches)."""
+    from dint_tpu_torch.monitor import attrib, profiler_session
+    for i in range(3):
+        reset_launches()
+        with profiler_session(os.path.join(trace_dir, f"{label}_{i}")) as p:
+            time.sleep(0.2 * 2 ** i)
+            carry, _ = run(carry, gen)
+            torch.cuda.synchronize()
+            time.sleep(0.2 * 2 ** i)
+        launches = launch_counts()
+        events, _ = attrib.load_trace_events(p["trace"])
+        if any(e.get("cat") in attrib.DEVICE_CATS for e in events):
+            break
+        print(f"  {label}: profile {i} held no device event; taken again")
+    bd = attrib.attribute(events, steps=steps, geometry=geometry,
+                          trace_path=p["trace"])
+    kernels = sum(1 for e, _, _ in attrib.charge(events)
+                  if e.get("cat") == "kernel")
+    return carry, bd, kernels / steps, launches
+
+
+def _p21_full(dev, card, trace_dir):
+    """(b): the model at full width on the card, its footprint against
+    the carry's storages, and one profiled steady-state block: per wave
+    the derived bytes against the device time. (c): the replay twins at
+    full size against the numpy recovery on a ring the route wrote."""
+    import dataclasses
+    from dint_tpu_torch.analysis import cost
+    from dint_tpu_torch.analysis import targets as T
+    full = dataclasses.replace(T.LINT, device=dev.type, n_sub=N_SUB,
+                               n_acct=SB_N, w=W, vw=VW, logcap=1 << 16)
+    cpb = full.cpb
+    rec, paths = {}, {}
+    for name, (engine, use_fused) in P21_FULL.items():
+        route = "fused" if use_fused else "default"
+        geom = (dict(w=W, k=4, vw=VW) if engine == "tatp"
+                else dict(w=SB_W, l=3, vw=2))
+        t0 = time.perf_counter()
+        tr = T.build(name, full)
+        check(tr.gm is not None, f"{name} (full): traced ({tr.trace_error})")
+        model = cost.derive(tr, steps=float(cpb), geom=geom)
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        trace_s = time.perf_counter() - t0
+        # the footprint: the carry's distinct storages, plus every tensor
+        # the block returns in a storage of its own
+        run, init, db = _p21_runner(engine, use_fused, dev, cpb)
+        gen = torch.Generator(device=dev).manual_seed(21)
+        carry = init(db)
+        ins = _p21_storages(carry)
+        reset_launches()
+        out = run(carry, gen)
+        torch.cuda.synchronize()
+        paths[f"p21 {engine} {route} block 1"] = launch_counts()
+        outs = _p21_storages(out)
+        want_fp = sum(ins.values()) + sum(
+            b for ptr, b in outs.items() if ptr not in ins)
+        check(model.footprint_bytes == want_fp,
+              f"{name} (full): the model's footprint {model.footprint_bytes}"
+              f" B == the carry's distinct storages and the block's fresh "
+              f"outputs, {want_fp} B")
+        del carry, ins, outs
+        carry = out[0]
+        del out
+        carry, bd, kernels_per_step, launches = _p21_profiled(
+            f"p21_{engine}_{route}", run, carry, gen, trace_dir, geom, cpb)
+        paths[f"p21 {engine} {route} profiled"] = launches
+        derived = {k: round(v * cpb) for k, v in
+                   model.kernel_dispatches_per_step().items()}
+        ran = {k: c for k, c in launches.items() if c}
+        check(ran == derived,
+              f"{name} (full): the dint:: launch counters of the profiled "
+              f"block {ran} == the derived kernel dispatches {derived}")
+        per_wave = {}
+        print(f"  (b) {name} (full width, {route}): model "
+              f"{model.bytes_per_step:g} B/step, {model.dispatches_per_step:g}"
+              f" dispatches/step, footprint {model.footprint_bytes:,} B "
+              f"(trace {trace_s:.3f} s)  [{card}]")
+        for wave, nbytes in sorted(model.wave_bytes_per_step().items()):
+            r = bd["waves"].get(wave, {})
+            check(r.get("slices", 0) > 0,
+                  f"{name} (full): wave {wave} derives {nbytes:g} B/step "
+                  "and has device slices in the profiled block")
+            us = r["ms_per_step"] * 1e3
+            gbps = nbytes / (us * 1e-6) / 1e9
+            per_wave[wave] = {
+                "bytes_per_step": nbytes, "device_us_per_step": us,
+                "gbps": gbps, "share_of_3350": gbps / 3350.0,
+                "dispatches_per_step":
+                    model.wave_dispatches_per_step()[wave],
+                "slices": r["slices"]}
+            print(f"      {wave:34s} {nbytes:>12,.1f} B/step "
+                  f"{us:>10.3f} us/step {gbps:>9.3f} GB/s "
+                  f"({gbps / 3350.0:.6f} of 3.35 TB/s)")
+        print(f"      per step: derived dispatches "
+              f"{model.dispatches_per_step:g}, profiled kernel launches "
+              f"{kernels_per_step:g}, dint:: launches "
+              f"{sum(ran.values()) / cpb:g} (== derived "
+              f"{sum(derived.values()) / cpb:g})")
+        rec[name] = {"bytes_per_step": model.bytes_per_step,
+                     "dispatches_per_step": model.dispatches_per_step,
+                     "footprint_bytes": model.footprint_bytes,
+                     "profiled_kernels_per_step": kernels_per_step,
+                     "dint_launches": ran, "step_device_ms": bd["step_ms"],
+                     "waves": per_wave}
+        if not use_fused:
+            rec[f"{engine} replay"] = _p21_replay(dev, engine, run, carry,
+                                                  gen)
+        del carry, db, run, init
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rec, paths
+
+
+def _p21_replay(dev, engine, run, carry, gen):
+    """(c): one more block of the full-width route, then the live ring
+    replayed on the card and recovered in numpy: equal tables."""
+    from dint_tpu_torch import recovery
+    from dint_tpu_torch.ops.u32 import to_u64
+    from dint_tpu_torch.tables import log as logring
+    carry, _ = run(carry, gen)
+    torch.cuda.synchronize()
+    live = carry[0]
+    heads = to_u64(live.log.head)
+    check(0 < int(heads.max()) < live.log.capacity,
+          f"{engine}: the ring holds {int(heads.sum())} entries a replica, "
+          f"below the capacity of {live.log.capacity} a lane")
+    entries = logring.replica_entries(live.log, 0)
+    if engine == "tatp":
+        from dint_tpu_torch.engines import tatp_dense as td
+        db0 = td.populate_device(torch.Generator(device=dev).manual_seed(0),
+                                 N_SUB, val_words=VW, device=dev)
+        t0 = time.perf_counter()
+        got = recovery.replay_tatp_dense(db0, entries, live.log.head)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = recovery.recover_tatp_dense(db0, entries, live.log.head)
+        host_s = time.perf_counter() - t0
+        same = (torch.equal(got.val, want.val)
+                and torch.equal(got.meta, want.meta))
+        live_ok = (torch.equal(got.val, live.val)
+                   and torch.equal(got.meta, live.meta))
+    else:
+        from dint_tpu_torch.engines import smallbank_dense as sd
+        db0 = sd.create(SB_N, device=dev)
+        t0 = time.perf_counter()
+        got = recovery.replay_smallbank_dense(db0, entries, live.log.head)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = recovery.recover_smallbank_dense(db0, entries, live.log.head)
+        host_s = time.perf_counter() - t0
+        same = torch.equal(got.bal, want.bal) and got.step == want.step
+        live_ok = torch.equal(got.bal, live.bal)
+    check(same and live_ok,
+          f"(c) {engine}: the replay twin on the card ({card_s:.3f} s) == "
+          f"the numpy recovery ({host_s:.3f} s) on the same ring of "
+          f"{int(heads.sum()):,} entries, and == the live tables")
+    print(f"  (c) {engine}: replay on the card {card_s:.3f} s, numpy "
+          f"{host_s:.3f} s, {int(heads.sum()):,} entries a replica")
+    del got, want, db0, entries, live
+    return {"entries": int(heads.sum()), "card_s": card_s, "host_s": host_s}
+
+
+def phase_cost(dev, card):
+    """Phase 21: dintcost and dintdur on the card."""
+    import tempfile
+    print("== phase 21: dintcost and dintdur on the card: the lint "
+          "geometry's models and findings == the CPU's; the model at full "
+          "width against a profiled block; the replay twins at full size")
+    t0 = time.perf_counter()
+    rec = {"lint": _p21_lint(dev)}
+    with tempfile.TemporaryDirectory(prefix="dint_p21_") as trace_dir:
+        rec["full"], paths = _p21_full(dev, card, trace_dir)
+    reset_launches()
+    rec["seconds"] = time.perf_counter() - t0
+    print("  phase 21 record: " + json.dumps(rec, default=str))
+    print(f"  phase 21: {rec['seconds']:.3f} s  [{card}]")
+    return paths
+
+
 KERNELS = {
     "gather_rows": ("dint_tpu_torch/csrc/gather_rows.cu",
                     "dint_tpu/ops/pallas_gather.py:212"),
@@ -6941,6 +7222,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     store_paths.update(phase_lint(dev, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    store_paths.update(phase_cost(dev, card))
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -6954,8 +7238,10 @@ def main() -> int:
         # runs and profiled blocks, phase 16's sweep, serve and
         # calibration points and drive, phase 17's sharded, multihost
         # and dry runs, phase 18's sharded SmallBank runs and dry run, and
-        # phase 19's 2-D mesh runs, serving windows and exp points, and
-        # phase 20's traced blocks, each counted from 0 just before its run
+        # phase 19's 2-D mesh runs, serving windows and exp points,
+        # phase 20's traced blocks, and phase 21's full-width blocks (the
+        # footprint's and the profiled one), each counted from 0 just
+        # before its run
         paths = {**{f"tatp {k}": v[name] for k, v in tatp.items()},
                  **{f"smallbank {k}": v[name] for k, v in sb.items()},
                  **{k: v[name] for k, v in store_paths.items()}}

@@ -114,14 +114,17 @@ class TargetTrace:
     are persistent state and what each input is (``inputs``: one
     (path, is_state) per placeholder, in order), the storage of each state
     input (``storages``), the pairs (output, input) of carry positions a
-    block hands from one call to the next (``carry``), and the device it
-    was traced on."""
+    block hands from one call to the next (``carry``), the storage and
+    its bytes of every input (``arg_storages``: (ptr, nbytes) per
+    placeholder, the cost model's footprint), and the device it was
+    traced on."""
     name: str
     gm: torch.fx.GraphModule | None
     trace_error: BaseException | None = None
     inputs: tuple = ()
     storages: tuple = ()
     carry: tuple = ()
+    arg_storages: tuple = ()
     protocol: tuple[str, ...] = ("certified",)
     device: str = "cpu"
 
@@ -163,6 +166,13 @@ _ITEM = torch.ops.aten._local_scalar_dense.default
 def _storage(x) -> int:
     try:
         return x.untyped_storage().data_ptr()
+    except Exception:               # noqa: BLE001 — not a plain tensor
+        return 0
+
+
+def _storage_bytes(x) -> int:
+    try:
+        return int(x.untyped_storage().nbytes())
     except Exception:               # noqa: BLE001 — not a plain tensor
         return 0
 
@@ -220,6 +230,7 @@ def trace_target(name: str, fn: Callable, args, *, inputs=(), carry=(),
         inputs = tuple((f"arg{i}", True) for i in range(len(args)))
     storages = tuple(_storage(a) if st else 0
                      for a, (_, st) in zip(args, inputs))
+    arg_storages = tuple((_storage(a), _storage_bytes(a)) for a in args)
     device = str(args[0].device.type) if args else "cpu"
 
     def traced(*a):
@@ -227,7 +238,8 @@ def trace_target(name: str, fn: Callable, args, *, inputs=(), carry=(),
             return fn(*a)
 
     kw = dict(inputs=tuple(inputs), storages=storages, carry=tuple(carry),
-              protocol=tuple(protocol), device=device)
+              protocol=tuple(protocol), device=device,
+              arg_storages=arg_storages)
     # the tracer makes each node's metadata under the tracing context's
     # fake mode, else under a new FakeTensorMode a node (whose
     # construction walks the Python stack): one mode for the whole trace
@@ -417,6 +429,149 @@ def used_after(node, after) -> str:
             return "escapes as a graph output"
         return f"read by `{op_name(u)}` at {site_of(u)}"
     return ""
+
+
+# ------------------------------------------------------- logical widths
+#
+# JAX's installs and log appends are full-width scatters with
+# ``mode="drop"``: a masked lane rides an out-of-range index, so a jaxpr
+# prices all w lanes whatever the draws. The port keeps the masked-in
+# lanes with a ``nonzero`` filter first, so in a real-tensor trace the
+# width of every op behind the filter is the number of lanes the draws
+# kept. `logical_vals` re-derives those shapes as if every lane were
+# kept: a ``nonzero`` of a mask of n elements gives n rows, and each op
+# downstream of one is re-run on meta tensors. Widths so derived do not
+# depend on the draws. (No target indexes by a boolean mask, a host sync
+# the purity pass reports.)
+
+_DATA_DEP = frozenset({"nonzero"})
+
+
+def _shape_of(v):
+    if isinstance(v, torch.Tensor):
+        return tuple(v.shape)
+    if isinstance(v, (list, tuple)):
+        return tuple(_shape_of(x) for x in v)
+    return None
+
+
+def _to_meta(v):
+    if isinstance(v, torch.Tensor):
+        if v.device.type == "meta":
+            return v
+        return torch.empty_strided(tuple(v.shape), tuple(v.stride()),
+                                   dtype=v.dtype, device="meta")
+    if isinstance(v, (list, tuple)):
+        return type(v)(_to_meta(x) for x in v)
+    return v
+
+
+_RESHAPES = frozenset({"view", "_unsafe_view", "reshape"})
+
+
+def _rescaled_view(name, args, kwargs, target):
+    """A reshape whose size list the trace fixed from the kept lanes
+    (``view(x, [6])`` for one kept lane of six words), re-run with its
+    lane dimension scaled to the input's logical numel; None if it does
+    not divide."""
+    if name not in _RESHAPES or len(args) < 2 or kwargs \
+            or not isinstance(args[0], torch.Tensor):
+        return None
+    shape = [int(d) for d in args[1]]
+    if not shape or -1 in shape:
+        return None
+    n = int(args[0].numel())
+    lane = next((i for i, d in enumerate(shape) if d == 0), 0)
+    rest = 1
+    for i, d in enumerate(shape):
+        if i != lane:
+            rest *= d
+    if rest <= 0 or n % rest:
+        return None
+    shape[lane] = n // rest
+    try:
+        return target(args[0], shape)
+    except Exception:               # noqa: BLE001
+        return None
+
+
+def logical_vals(trace: TargetTrace) -> dict:
+    """node -> its value as if every masked-in filter kept all its lanes
+    (the recorded ``meta["val"]`` where nothing upstream is such a
+    filter). Memoized per trace."""
+    cached = getattr(trace, "_logical_vals", None)
+    if cached is not None:
+        return cached
+    vals: dict = {}
+    differs: set = set()
+    if trace.graph is not None:
+        for node in trace.graph.nodes:
+            rec = node.meta.get("val")
+            if node.op == "get_attr":
+                rec = getattr(trace.gm, str(node.target), rec)
+            vals[node] = rec
+            if node.op != "call_function":
+                continue
+            name = op_name(node)
+            ins = node_inputs(node)
+            if name in _DATA_DEP:
+                m = vals.get(node.args[0])
+                if isinstance(m, torch.Tensor):
+                    vals[node] = torch.empty((m.numel(), m.dim()),
+                                             dtype=torch.int64,
+                                             device="meta")
+                    differs.add(node)
+                continue
+            if not any(i in differs for i in ins):
+                continue
+            args = torch.fx.node.map_arg(
+                node.args, lambda n: _to_meta(vals.get(n)))
+            kwargs = torch.fx.node.map_arg(
+                node.kwargs, lambda n: _to_meta(vals.get(n)))
+            try:
+                got = node.target(*args, **kwargs)
+            except Exception:       # noqa: BLE001 — a shape fixed at trace
+                got = _rescaled_view(name, args, kwargs, node.target)
+                if got is None:     # keep the recorded val
+                    continue
+            vals[node] = got
+            if _shape_of(got) != _shape_of(rec):
+                differs.add(node)
+    trace._logical_vals = vals
+    return vals
+
+
+def _filter_masks(graph) -> dict:
+    """node -> the boolean mask of the ``nonzero`` its value descends from
+    (the one reached first through its inputs), for every node of
+    ``graph`` (computed once per graph)."""
+    got = graph.__dict__.get("_dint_filter_masks")
+    if got is None:
+        got = graph.__dict__["_dint_filter_masks"] = {}
+        for n in graph.nodes:
+            if n.op != "call_function":
+                continue
+            if op_name(n) in _DATA_DEP:
+                got[n] = n.args[0]
+                continue
+            for i in node_inputs(n):
+                if got.get(i) is not None:
+                    got[n] = got[i]
+                    break
+    return got
+
+
+def filter_mask(arg) -> torch.fx.Node | None:
+    """The boolean mask whose ``nonzero`` an argument descends from, or
+    None: the filter that replaced JAX's ``mode="drop"`` for it."""
+    nodes = flat_nodes(arg)
+    if not nodes:
+        return None
+    masks = _filter_masks(nodes[0].graph)
+    for n in nodes:
+        if masks.get(n) is not None:
+            return masks[n]
+    return None
 
 
 # ------------------------------------------------------------ SARIF export

@@ -51,9 +51,24 @@ Facts (a small powerset lattice, may-analysis: a fact on a value means
                 LOCK_WIN/VALIDATED-carrying lanes (``lock_rejected =
                 (active & ~granted).any(1)``, ``changed = bad.any(1)``).
 
+  durability facts (dintdur, passes/durability.py)
+    LOG_SLOT    (provenance) a ring slot id computed by the log-append
+                machinery. Seeded at ``remainder`` nodes whose site lies
+                in tables/log.py (``arange % lanes`` and ``pos % cap`` of
+                `_lane_slots`), so any scatter whose INDICES carry
+                LOG_SLOT is a log append: `LogRing.append`, `append_rep`,
+                and the fused route's log stream (plan_rep's ``flat``
+                rides into ``dint::scatter_streams``).
+    LOGGED      (protocol) written by a log-append scatter: seeded at a
+                scatter whose index carries LOG_SLOT, and on a
+                ``dint::scatter_streams`` call stream by stream (only the
+                ring's stream of the fused install_log is an append; the
+                meta and val streams are installs).
+    TRUNCATED   (protocol) a ring watermark advance: seeded at the
+                ``minimum`` clamp of tables/log.advance_watermark.
+
   Not in this port yet: REPL_PUSHED (the mesh's collectives do not show
-  in a trace; parallel/mesh.py re-indexes a list) and the durability
-  facts LOG_SLOT, LOGGED and TRUNCATED.
+  in a trace; parallel/mesh.py re-indexes a list).
 
 In-place writes: facts live on alias roots. A view (``view``, ``slice``,
 ``select``, ``expand`` ...) shares its base's root; an in-place op
@@ -77,7 +92,8 @@ import dataclasses
 
 import torch
 
-from .core import TargetTrace, flat_nodes, node_inputs, op_name, site_of, walk
+from .core import (TargetTrace, flat_nodes, logical_vals, node_inputs,
+                   op_name, site_of, walk)
 
 # ------------------------------------------------------------------ facts
 
@@ -89,6 +105,13 @@ STATE = "STATE"
 TBL_READ = "TBL_READ"
 ARB = "ARB"
 SORTED = "SORTED"
+LOG_SLOT = "LOG_SLOT"
+LOGGED = "LOGGED"
+TRUNCATED = "TRUNCATED"
+
+# source anchor of the durability seeds: the slot math of `_lane_slots`
+# and the watermark clamp of `advance_watermark` both live here
+_LOG_MODULE = "tables/log.py"
 
 # ops whose output aliases their first argument's storage
 VIEWS = frozenset({
@@ -274,7 +297,10 @@ class ScatterRec:
     acquire and release sites. ``kind``: 'overwrite', 'add', 'max',
     'min' or 'mul'. ``unique``: the one-writer evidence the op itself
     gives (a ``dint::`` scatter's contract, a boolean-mask index, or a
-    constant index of distinct values)."""
+    constant index of distinct values). ``idx_rows``: the lanes the write
+    takes, as if every masked-in filter kept all of them (core.
+    logical_vals; dintdur's ring bound); ``fused``: one stream of a
+    ``dint::`` scatter."""
     prim: str
     kind: str
     site: str
@@ -289,6 +315,8 @@ class ScatterRec:
     unique: bool
     node: object = None
     index: object = None
+    idx_rows: int = 0
+    fused: bool = False
 
     @property
     def stack(self) -> tuple:
@@ -313,6 +341,11 @@ class Dataflow:
     def seeded(self, fact: str) -> list[SeedSite]:
         return [s for s in self.seeds if s.fact == fact]
 
+    def log_appends(self) -> list[ScatterRec]:
+        """Scatters whose indices descend from the log slot math: the
+        LOGGED sites, fused and unfused routes alike."""
+        return [r for r in self.scatters if LOG_SLOT in r.index_facts]
+
 
 # --------------------------------------------------------------- analyzer
 
@@ -327,6 +360,7 @@ class _Analyzer:
                                                 trace.inputs) if st}
         self.roots = self._alias_roots()
         self.varying = varying_nodes(trace)
+        self.logical = logical_vals(trace)
         self.env: dict = {}
         self.root_env: dict = {}
         self.prov_env: dict = {}
@@ -393,6 +427,16 @@ class _Analyzer:
             self.root_env[r] = frozenset(cur | (set(fs) - {STATE}))
             if self.recording:
                 self._writes.append((self._current, r, n))
+
+    def _width(self, index) -> int:
+        """Lanes of an index argument: the largest logical numel of its
+        tensors."""
+        out = 0
+        for n in flat_nodes(index):
+            v = self.logical.get(n)
+            if isinstance(v, torch.Tensor):
+                out = max(out, int(v.numel()))
+        return out
 
     def _seed(self, fact, node):
         if self.recording:
@@ -480,6 +524,10 @@ class _Analyzer:
             base.discard(STATE)
             if name in SORTS:
                 extra.add(SORTED)
+            elif name == "remainder" and _LOG_MODULE in site_of(node):
+                # the slot math of the log rings: whatever it feeds is
+                # log-append indexing (monotone: the site test is fixed)
+                extra.add(LOG_SLOT)
             elif name in GATHERS or name in VIEWS:
                 if src_state:
                     extra.add(TBL_READ)
@@ -499,6 +547,11 @@ class _Analyzer:
                 if base & {LOCK_WIN, VALIDATED}:
                     extra.add(ABORT_MASK)
                     self._seed(ABORT_MASK, node)
+            elif name == "minimum" and _LOG_MODULE in site_of(node):
+                # the watermark clamp of advance_watermark: the only
+                # truncation anchor the rings expose
+                extra.add(TRUNCATED)
+                self._seed(TRUNCATED, node)
             if node in self.varying:
                 extra.add(STAMP)
                 self._seed(STAMP, node)
@@ -519,6 +572,9 @@ class _Analyzer:
             if node in self.varying:
                 extra.add(STAMP)
                 self._seed(STAMP, node)
+            if LOG_SLOT in self.pfacts(idx):
+                extra.add(LOGGED)
+                self._seed(LOGGED, node)
             upd_f = upd_f | (extra if not isinstance(upd, torch.fx.Node)
                              else _EMPTY)
         write = (set(idx_f) | set(upd_f) | extra) - {STATE}
@@ -546,7 +602,7 @@ class _Analyzer:
                     operand, torch.fx.Node) else None,
                 unique=(bool_index(idx) or base_name(node) == "masked_scatter"
                         or distinct_const(self.trace.gm, idx)),
-                node=node, index=idx))
+                node=node, index=idx, idx_rows=self._width(idx)))
 
     def _kernel(self, node, name):
         a = node.args
@@ -622,6 +678,11 @@ class _Analyzer:
                 index = [idx] + ([masks[s]] if hot else [])
                 idx_f, upd_f = self.facts(index), self.facts(vals[s])
                 write = (set(idx_f) | set(upd_f)) - {STATE, ARB}
+                if self.protocol_phase and LOG_SLOT in self.pfacts(idx):
+                    # this stream is the ring's: an append, the others
+                    # of the call are installs
+                    write.add(LOGGED)
+                    self._seed(LOGGED, node)
                 if self.recording:
                     self._scatters.append(ScatterRec(
                         prim=name, kind="overwrite", site=site_of(node),
@@ -631,7 +692,8 @@ class _Analyzer:
                         index_facts=idx_f | self.pfacts(index),
                         update_facts=upd_f | self.pfacts(vals[s]),
                         root=self.root(tab), unique=True, node=node,
-                        index=index))
+                        index=index, idx_rows=self._width(idx),
+                        fused=True))
                 self.write(tab, write, kill_arb=True)
         self.env[node] = _EMPTY
 

@@ -15,13 +15,18 @@ machinery):
   protocol           lock-dominates-write / validate-before-install /
                      abort-implies-unlock / writer-election, proven by the
                      dataflow layer (analysis/dataflow.py)
+  cost_budget        the static cost model (analysis/cost.py) against the
+                     waves.py ledger, the budgets of targets.TARGET_COST
+                     and the fused twins (the dintcost gate)
+  durability         log-before-visible, ring bounds, replay coverage and
+                     in-doubt totality over the LOG_SLOT/LOGGED/TRUNCATED
+                     facts (the dintdur gate)
 
-The reference's model-level gates (cost_budget, durability, plan_check,
-calib_check, mut_check) and the mesh-collective check
-(shard_consistency) are not ported yet (ROADMAP §A.8).
+Not ported yet (ROADMAP §A.8): plan_check, calib_check, mut_check and the
+mesh-collective check shard_consistency.
 
 Adding a pass: write ``passes/<name>.py``, decorate the entry point with
 ``@core.register_pass("<name>")``, import it here.
 """
-from . import (aliasing, protocol, purity, scatter_race,  # noqa: F401
-               u64_overflow)
+from . import (aliasing, cost_budget, durability, protocol,  # noqa: F401
+               purity, scatter_race, u64_overflow)

@@ -1,11 +1,12 @@
-"""dintlint over the port's single-device dense engines and store (one family of the
+"""dintlint over the port's single-device dense engines, the store and the
+recovery replay twins (one family of the
 ``python -m dint_tpu_torch.dintlint --all`` matrix; tests/
 _torch_dintlint_matrix.py says what each test holds)."""
 import pytest
 
 from _torch_dintlint_matrix import check_family_allowlist, check_target, family
 
-NAMES = family("tatp_dense/", "smallbank_dense/", "store/")
+NAMES = family("tatp_dense/", "smallbank_dense/", "store/", "recovery/")
 
 
 @pytest.mark.lint
