@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch port (dint_tpu_torch) on one NVIDIA H100.
 
     python3 chip_smoke.py            # from the repo root; needs one CUDA card
+    python3 chip_smoke.py --calibrate 3   # phase 1, then phase 22 (c)
+                                          # alone 3 times: the fits' spread
 
 Phases, each of which fails the run (non-zero exit, no result line) on any
 mismatch or error:
@@ -188,7 +190,10 @@ mismatch or error:
    sum(occ); the counters equal the stats' columns and the steps;
    memory_allocated constant over the steady blocks at one width; each
    route's kernels once a step (gather_rows + lock_arbitrate, gather_rows,
-   scan_rows); the burst forced a width switch and shedding. Then the
+   scan_rows); shedding, and a width switch forced by the burst, or, where
+   no width of the plan's priors (PLAN_H100.json's, the card's) meets the
+   controller's service bound, service at the priors' knee from the first
+   block. Then the
    bench's serve probe (`bench.serve_probe`) at the bench's shapes (7M, w
    = 8192, 16 cohorts a block): its eleven keys. Prints each family's
    achieved and offered rate, queue and service p50/p99, widths, shed
@@ -272,13 +277,15 @@ mismatch or error:
    1.1 of it, 1.5 s windows: offered == admitted + shed, occupancy +
    padded lanes == width x serving steps, each point's peak memory. (e)
    `dintserve run --journal` at 7M, `dintcal audit` of its journal clean.
-   (f) four single-width serve runs at 7M (256, 1024, 4096, 8192; 1 s at
-   half the width's closed-loop rate, tables from `populate_device`),
-   `dintcal gather` + `fit`, the refit of the calibration's samples equal
-   to its coefficients, `check_calib` of the committed CALIB_H100.json
-   against this evidence (printed), `dintserve simulate` reading the fresh
-   calibration. The evidence, the calibration and their committed forms
-   (CALIB_H100.evidence.json, CALIB_H100.json) go to $DINT_SMOKE_OUT when
+   (f) four single-width serve runs at 7M at the serving plane's defaults
+   (depth 2, 2 cohorts a block; 256, 1024, 4096, 8192; 1 s at half the
+   width's closed-loop rate, tables from `populate_device`), `dintcal
+   gather` + `fit`, the refit of the calibration's samples equal to its
+   coefficients, `check_calib` of the committed CALIB_H100.json against
+   this evidence (printed), `dintserve simulate` reading the fresh
+   calibration; the runs are kept for phase 22 (c). The evidence, the
+   calibration and their committed forms (CALIB_H100.evidence.json,
+   CALIB_H100.json) go to $DINT_SMOKE_OUT when
    set. (g) `python -m dint_tpu_torch.drive`: every check passes, scan_rows
    launched.
 17. The mesh on one card (after phase 16): the partitions of
@@ -372,12 +379,43 @@ mismatch or error:
    `torch.ops.dint` and the direct ctypes launch (1,000 calls back to back,
    the median of 5 groups); (d) host syncs a step on each route, from
    the purity pass.
+21. dintcost and dintdur on the card (after phase 20): (a) ten targets at
+   the lint geometry on CUDA == the CPU's cost models and findings; (b)
+   TATP 7M and SmallBank 24M at w=8192, default and fused: the derived
+   footprint against the carry's storages, a profiled block's per-wave
+   bytes, device µs and GB/s; (c) the replay twins at full size == numpy
+   recovery == the live tables.
+22. The planner and its gates on the card (after phase 21). The
+   measurements (c)-(e) run first, with nothing else on the host; then
+   (a) and (b). (c) the calibration: phase 16 (f)'s runs at depth 2 (the
+   serving plane's default; run here when phase 16 did not), and the
+   same four runs at depth 1: both fits beside CALIB_H100.json's
+   coefficients and tolerance (the files go to $DINT_SMOKE_OUT when set);
+   (d) tatp_uniform and smallbank_skewed on the pinned and the predicted
+   route, turns P N N P, 1 s windows at full width: committed txn/s; (e)
+   one Poisson schedule through ServeEngine (tatp_dense, 7M) and
+   MeshServeEngine (3x2, 24M accounts) with PLAN.json's document and with
+   plan="auto", the same arrivals: admitted and shed shares, queue p99;
+   "auto" reports PLAN_H100.json as its source and CALIB_H100.json's
+   coefficients as its ServiceModel, the document "<document>" and
+   others; (a) every feasible candidate of the planner's lattice (23
+   targets) traced on CUDA at the lint geometry in this process: the
+   frontier hash, each row's prices and ranks and the decision rule's
+   picks == PLAN_H100.json's; (b) plan_check in full mode on those
+   prices, calib_check (CALIB_H100.json against its evidence and the
+   plan), and dintmon check's four ledger identities on a monitored
+   full-size block of every family (dense TATP 7M and SmallBank 24M on
+   every route, the store, both generic pipelines, the 1-D,
+   sharded-SmallBank and 2-D meshes, the serving planes; the earlier
+   phases keep theirs in P22_SNAPSHOTS): no unsuppressed finding, every
+   identity ok or skipped.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import argparse
 import functools
 import gc
 import json
@@ -2278,6 +2316,7 @@ def phase_store(dev):
           f"ms/step; occupancy {occ_h.tolist()}")
     table, tail, cnt = sdrain(sc)
     snap = mon.snapshot(cnt)
+    keep_counters("store serve@scan", snap)
     stats = torch.cat([s_blk, tail]).cpu().numpy().astype(np.int64)
     hot_n = int(ST_N * 0.04)
     u_scan = store.draw_block(twin3, ST_CPB, ST_W, ST_N, hot_n, ST_MAXLEN,
@@ -2851,8 +2890,9 @@ def phase_bench(card):
     from dint_tpu_torch import bench
     torch.cuda.empty_cache()
     env = {k: v for k, v in os.environ.items() if not k.startswith("DINT_")}
+    # the gates' CPU runs take minutes: phase 22 runs them on the card
     env.update(DINT_BENCH_WINDOW_S=str(BENCH_WINDOW_S),
-               DINT_BENCH_PROFILE="1")
+               DINT_BENCH_PROFILE="1", DINT_BENCH_LINT="0")
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", "dint_tpu_torch.bench"],
                          env=env, capture_output=True, text=True,
@@ -2866,8 +2906,11 @@ def phase_bench(card):
     line = json.loads(lines[-1])
     print("  " + json.dumps({k: v for k, v in line.items()
                              if k != "lat_hist"}))
-    check(len(lines) == 1 and all(k in line for k in BENCH_KEYS),
-          "one JSON line holding every key of the bench line")
+    check(len(lines) == 1 and all(k in line for k in BENCH_KEYS)
+          and all(line[k] == {"disabled": "DINT_BENCH_LINT=0"}
+                  for k in ("dintlint", "dintcost", "dintdur")),
+          "one JSON line holding every key of the bench line; the three "
+          "gate fields record DINT_BENCH_LINT=0")
     route, _ = bench.plan_route("tatp_uniform", {})
     sb_route, _ = bench.plan_route("smallbank_skewed", {})
     check(line["value"] > 0 and line["smallbank_committed_txns_per_sec"] > 0
@@ -2880,7 +2923,8 @@ def phase_bench(card):
     check(line["route"] == route and line["smallbank_route"] == sb_route
           and line["card"] == card
           and line["device"] == torch.cuda.get_device_name(0),
-          f"the line names the route PLAN.json pins ({route}, {sb_route}) "
+          f"the line names the route PLAN_H100.json pins ({route}, "
+          f"{sb_route}) "
           f"and the card ({line['card']})")
     CLOSED_LOOP_RATE["tatp_dense"] = line["throughput"]
     CLOSED_LOOP_RATE["smallbank_dense"] = \
@@ -3454,6 +3498,7 @@ def phase_generic(dev, card):
                       (s.sav_sh, s.sav_ex, s.chk_sh, s.chk_ex)),
           "SmallBank: the three replicas identical, every lock released")
     del stacked, run
+    shards = _p11_monitored(dev, tp, sp, shards)
     torch.cuda.synchronize()
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
@@ -3687,6 +3732,7 @@ def phase_serve(dev, card):
           f"plan='auto', {SV_CPB} cohorts a block, a RealClock; then the "
           f"bench's serve probe")
     from dint_tpu_torch import bench, serve
+    from dint_tpu_torch import plan as dplan
     from dint_tpu_torch.clients.tatp_client import clone_tree
     t_phase = time.perf_counter()
     paths, out = {}, {}
@@ -3744,6 +3790,7 @@ def phase_serve(dev, card):
         launches = launch_counts()
         rep = eng.snapshot()
         c = rep["counters"]
+        keep_counters(f"serve {fam}", c)
         serve_steps = sum(rep["steps_by_width"].values())
         steps = serve_steps + drain_steps * eng.detaches
         served = sum(int(w) * n for w, n in rep["steps_by_width"].items())
@@ -3800,9 +3847,26 @@ def phase_serve(dev, card):
         check(launches == want,
               f"{fam}: {per_step} a step over {steps} steps "
               f"({ {k: v for k, v in launches.items() if v} })")
-        check(len(visited) >= 2 and rep["shed"] > 0,
-              f"{fam}: the burst forced a width switch ({visited}) and "
-              f"shedding")
+        # the plan's priors: where no width meets the service bound
+        # (slo_fraction x SLO), the controller serves at their knee from
+        # the first block and never switches (the card's priors)
+        knee = None
+        if fam in dplan.SERVE_WORKLOADS:
+            pri = dplan.load_plan()["workloads"][
+                dplan.SERVE_WORKLOADS[fam]]["serve"]
+            bound = eng.cfg.slo_fraction * eng.cfg.slo_us
+            if all(v["service_us"] > bound for v in pri["widths"].values()):
+                knee = pri["knee_width"]
+        first = rep["controller"]["switches"][0][1]
+        check(rep["shed"] > 0
+              and (first == knee if knee else len(visited) >= 2),
+              f"{fam}: " + (f"no width of the plan's priors meets the "
+                            f"service bound: served at their knee {knee} "
+                            f"from the first block ({first}; widths "
+                            f"{visited} as the observed service moved)"
+                            if knee else "the burst forced a width switch "
+                            f"({visited})")
+              + f", and shed {rep['shed']:,}")
         paths[f"serve {fam}"] = launches
         out[fam] = {k: rep[k] for k in (
             "offered", "admitted", "shed", "attempted", "committed",
@@ -4769,10 +4833,12 @@ def phase_obs_bench(card, trace_dir):
     torch.cuda.empty_cache()
     jsonl = os.path.join(trace_dir, "bench_trace.jsonl")
     env = {k: v for k, v in os.environ.items() if not k.startswith("DINT_")}
+    # the gates' CPU runs take minutes: phase 22 runs them on the card
     env.update(DINT_BENCH_WINDOW_S=str(BENCH_WINDOW_S),
                DINT_BENCH_SKIP_SB="1", DINT_TRACE="1",
                DINT_TRACE_JSONL=jsonl, DINT_BENCH_PROFILE="1",
-               DINT_BENCH_TRACE_DIR=os.path.join(trace_dir, "bench"))
+               DINT_BENCH_TRACE_DIR=os.path.join(trace_dir, "bench"),
+               DINT_BENCH_LINT="0")
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", "dint_tpu_torch.bench"],
                          env=env, capture_output=True, text=True,
@@ -4872,8 +4938,11 @@ P16_WINDOW_S = 2.0               # (a), (b), (c): each pipeline window
 P16_PROF_WINDOW_S = 0.5          # (c): the profiled window
 P16_SERVE_WINDOW_S = 1.5         # (d): each rate point's schedule
 P16_SERVE_RATES = (0.5, 1.1)
-P16_CAL_WIDTHS = (256, 1024, 4096, 8192)
+P16_CAL_WIDTHS = (256, 1024, 4096, 8192)   # ControllerCfg's width menu
 P16_CAL_WINDOW_S = 1.0
+# (f)'s serve runs at the serving plane's defaults, by depth: (closed-loop
+# rates, snapshots, evidence sources); phase 22 (c) fits them again
+CAL_RUNS: dict = {}
 P16_SKEW_FRAC = 0.16
 # exp.py's artifact keys (its points at n_sub 2000, w 256, read off the
 # JAX package's sweep), by point kind
@@ -5238,13 +5307,82 @@ def _recorded(base):
     return Recorded
 
 
+def _device_filled(base):
+    """``base`` (a ServeEngine class) with its TATP tables filled on the
+    card (`populate_device`, the population rules of `populate`)."""
+    from dint_tpu_torch.engines import tatp_dense as td
+
+    class DeviceFilled(base):
+        def _fresh_db(self, seed):
+            if self.engine != "tatp_dense":
+                return super()._fresh_db(seed)
+            gen = torch.Generator(device=self.dev).manual_seed(seed)
+            return td.populate_device(gen, self.size,
+                                      val_words=self.val_words,
+                                      device=self.dev)
+    return DeviceFilled
+
+
+def _cal_closed(dev, card, label):
+    """The calibration's offered rates: tatp_dense's closed-loop attempted
+    txn/s at 7M by width of the menu, at the serving plane's defaults
+    (SV_CPB cohorts a block, depth 2)."""
+    from dint_tpu_torch import exp
+    from dint_tpu_torch.engines import tatp_dense as td
+    res = PointSink()
+    exp.sweep_pipeline(
+        label, lambda w, b: exp._tatp_runner(N_SUB, w, b, device=dev),
+        exp._tatp_extras, td.N_STATS, widths=list(P16_CAL_WIDTHS),
+        cpb=SV_CPB, depth=2, magic_idx=td.STAT_MAGIC_BAD,
+        window_s=P16_CAL_WINDOW_S, open_rates=(), results=res, device=dev)
+    closed = {w: res[f"{label}_closed_w{w}"]["throughput"]
+              for w in P16_CAL_WIDTHS}
+    print(f"  closed-loop attempted txn/s by width ({SV_CPB} cohorts a "
+          f"block, depth 2): {closed}  [{card}]")
+    return closed
+
+
+def _cal_serve_runs(dev, card, closed, depth, where, key):
+    """The calibration's serve runs: ServeEngine over tatp_dense at 7M
+    (SV_CPB cohorts a block, ``depth``, no plan), one P16_CAL_WINDOW_S s
+    Poisson run a width of the menu at half its closed-loop rate.
+    Returns (snapshots, evidence sources naming ``where``, launches by
+    path)."""
+    from dint_tpu_torch import serve
+    engine_cls = _device_filled(serve.ServeEngine)
+    snaps, sources, paths = [], [], {}
+    for w in P16_CAL_WIDTHS:
+        eng = engine_cls("tatp_dense", N_SUB,
+                         cfg=serve.ControllerCfg(widths=(w,)),
+                         cohorts_per_block=SV_CPB, depth=depth, monitor=True,
+                         plan=None, device=dev)
+        eng.warmup()
+        reset_launches()
+        eng.run(serve.poisson_schedule(0.5 * closed[w], P16_CAL_WINDOW_S,
+                                       seed=17))
+        eng.close()
+        paths[f"{key} w{w}"] = launch_counts()
+        snap = eng.snapshot()
+        del eng
+        gc.collect()
+        _serve_identity(f"calibration depth {depth} w{w}", snap)
+        keep_counters("serve calibration", snap["counters"])
+        print(f"  depth {depth} w={w}: {snap['blocks']} blocks, "
+              f"{snap['controller']['service_samples']['n']} service "
+              f"samples, observed service {snap['controller']['service_us']}"
+              f" us a step, service p50 {snap['service']['p50']:.1f} us a "
+              f"block; queue p99 {snap['queue']['p99']:.1f} us  [{card}]")
+        snaps.append(snap)
+        sources.append(f"chip_smoke {where}, {card}: depth {depth} w{w}")
+    return snaps, sources, paths
+
+
 def phase_p16_serve(dev, card, out_dir):
     """(d)-(f): sweep_serve, dintserve run + dintcal audit, and the
     calibration. Returns (paths, record)."""
     import contextlib
     import io
     from dint_tpu_torch import dintcal, dintserve, exp, serve
-    from dint_tpu_torch.engines import tatp_dense as td
     from dint_tpu_torch.monitor import calib as CAL
     paths, out = {}, {}
 
@@ -5265,8 +5403,8 @@ def phase_p16_serve(dev, card, out_dir):
         exp.ServeEngine = real
     names = ["serve_tatp_sat"] + [f"serve_tatp_r{int(f * 100)}pct"
                                   for f in P16_SERVE_RATES]
-    check(sorted(res) == sorted(names) and len(Recorded.snaps) == 3,
-          f"(d) ran {sorted(res)}")
+    check(sorted(res) == sorted(names)
+          and len(Recorded.snaps) == len(names), f"(d) ran {sorted(res)}")
     peaks = []
     for name, snap in zip(names, Recorded.snaps):
         blk = res[name]
@@ -5331,56 +5469,23 @@ def phase_p16_serve(dev, card, out_dir):
                         "journal_entries": aud["n_entries"]}
     print(f"  (e) {time.perf_counter() - t0:.3f} s")
 
-    print(f"== phase 16 (f): the calibration: one serve run a width "
-          f"{P16_CAL_WIDTHS} at {N_SUB:,} subscribers, {P16_CAL_WINDOW_S} s "
-          f"at half the width's closed-loop rate; dintcal gather + fit")
+    print(f"== phase 16 (f): the calibration at the serving plane's "
+          f"defaults (depth 2, {SV_CPB} cohorts a block): one serve run a "
+          f"width {P16_CAL_WIDTHS} at {N_SUB:,} subscribers, "
+          f"{P16_CAL_WINDOW_S} s at half the width's closed-loop rate; "
+          f"dintcal gather + fit")
     t0 = time.perf_counter()
-    res = PointSink()
-    exp.sweep_pipeline(
-        "cal_tatp", lambda w, b: exp._tatp_runner(N_SUB, w, b, device=dev),
-        exp._tatp_extras, td.N_STATS, widths=list(P16_CAL_WIDTHS),
-        cpb=P16_CPB, depth=3, magic_idx=td.STAT_MAGIC_BAD,
-        window_s=P16_CAL_WINDOW_S, open_rates=(), results=res, device=dev)
-    closed = {w: res[f"cal_tatp_closed_w{w}"]["throughput"]
-              for w in P16_CAL_WIDTHS}
-    print(f"  closed-loop attempted txn/s by width: {closed}  [{card}]")
-
-    class DeviceFilled(serve.ServeEngine):
-        """A ServeEngine whose TATP tables are filled on the card
-        (`populate_device`, the population rules of `populate`)."""
-
-        def _fresh_db(self, seed):
-            gen = torch.Generator(device=self.dev).manual_seed(seed)
-            return td.populate_device(gen, self.size,
-                                      val_words=self.val_words,
-                                      device=self.dev)
-
-    arts, names = [], []
-    for w in P16_CAL_WIDTHS:
-        eng = DeviceFilled("tatp_dense", N_SUB,
-                           cfg=serve.ControllerCfg(widths=(w,)),
-                           cohorts_per_block=P16_CPB, monitor=True,
-                           device=dev)
-        eng.warmup()
-        reset_launches()
-        eng.run(serve.poisson_schedule(0.5 * closed[w], P16_CAL_WINDOW_S,
-                                       seed=17))
-        eng.close()
-        paths[f"p16 calibration w{w}"] = launch_counts()
-        snap = eng.snapshot()
-        del eng
-        gc.collect()
-        _serve_identity(f"calibration w{w}", snap)
-        n = snap["controller"]["service_samples"]["n"]
-        print(f"  w={w}: {snap['blocks']} blocks, {n} service samples, "
-              f"observed service {snap['controller']['service_us']} us a "
-              f"step; queue p99 {snap['queue']['p99']:.1f} us  [{card}]")
-        name = f"serve_tatp_w{w}"
-        p = os.path.join(out_dir, f"{name}.json")
+    closed = _cal_closed(dev, card, "cal_tatp")
+    snaps, sources, p = _cal_serve_runs(dev, card, closed, 2, "phase 16 (f)",
+                                        "p16 calibration")
+    paths.update(p)
+    CAL_RUNS[2] = (closed, snaps, sources)     # phase 22 (c)'s depth 2
+    arts = []
+    for w, snap in zip(P16_CAL_WIDTHS, snaps):
+        p = os.path.join(out_dir, f"serve_tatp_w{w}.json")
         with open(p, "w") as f:
             json.dump(snap, f)
         arts.append(p)
-        names.append(name)
     evidence = os.path.join(out_dir, "evidence.json")
     fresh = os.path.join(out_dir, "calib.json")
     buf = io.StringIO()
@@ -5401,13 +5506,7 @@ def phase_p16_serve(dev, card, out_dir):
           f"{doc['fit']['rms_us']}, max_abs_us {doc['fit']['max_abs_us']}) "
           f"[{card}]")
     # the committed form: sources naming this phase and the card
-    docs = []
-    for p in arts:
-        with open(p) as f:
-            docs.append(json.load(f))
-    ev = CAL.gather_evidence(
-        docs, sources=[f"chip_smoke phase 16 (f), {card}: {n}"
-                       for n in names])
+    ev = CAL.gather_evidence(snaps, sources=sources)
     CAL.save_calib(CAL.fit_calib(ev, source="CALIB_H100.evidence.json"),
                    os.path.join(out_dir, "CALIB_H100.json"))
     with open(os.path.join(out_dir, "CALIB_H100.evidence.json"), "w") as f:
@@ -5723,6 +5822,7 @@ def phase_mesh_cpu_vs_card(dev, card):
 
 
 def phase_mesh_1d(dev, card, trace_dir):
+    from dint_tpu_torch.monitor import counters as mon
     from dint_tpu_torch.parallel import dense_sharded as ds
     print(f"== phase 17 (b): sharded TATP at {N_SUB:,} subscribers over "
           f"{MESH_D} shards on one card, w={MESH_W} a shard, VW={VW}, "
@@ -5757,7 +5857,15 @@ def phase_mesh_1d(dev, card, trace_dir):
                   f"route's (same tables, same draws)")
         states, rec[route]["wave_split"] = _mesh_wave_split(
             dev, card, label, run, init, drain, states, trace_dir)
-        del states, run, init, drain
+        # phase 22 (b)'s monitored block of the route
+        run, init, drain = ds.build_sharded_pipelined_runner(
+            mesh, MESH_D, N_SUB, w=MESH_W, val_words=VW,
+            cohorts_per_block=2, use_fused=fused, monitor=True)
+        carry, _ = run(init(states),
+                       torch.Generator(device=dev).manual_seed(171))
+        outs = drain(carry)
+        keep_counters(f"dense_sharded {route}", mon.snapshot(outs[-1]))
+        del states, run, init, drain, carry, outs
         gc.collect()
         torch.cuda.empty_cache()
     print(f"  phase 17 (b) seconds: {time.perf_counter() - t_phase:.3f}  "
@@ -6227,6 +6335,7 @@ def phase_sb_mesh_traced(dev, card):
     total = (torch.cat([s, tail]).cpu().numpy().astype(np.int64)
              .sum(axis=0))
     snap = mon.snapshot(np.stack([u32.to_numpy(k.buf) for k in cnts]))
+    keep_counters("dense_sharded_sb", snap)
     ev = np.concatenate([e for win in windows for e in win])
     kind = (ev[:, 1] >> 24) & 0xFF
     aux = ev[:, 1] & 0xFF
@@ -6447,6 +6556,8 @@ def phase_mh_sb_full(dev, card, trace_dir):
         _sb_mesh_check(label, mesh, states, base, stats, launches,
                        SB_MESH_PER_STEP["default"], axis=mhs.DCN_AXIS)
         cnt = rec[route].pop("counters")
+        keep_counters("multihost_sb " + ("hierarchical" if hier else "flat"),
+                      cnt)
         ici, dcn = cnt["route_ici_lanes"], cnt["route_dcn_lanes"]
         rec[route]["route_ici_lanes"], rec[route]["route_dcn_lanes"] = \
             ici, dcn
@@ -6564,6 +6675,7 @@ def phase_mh_sb_serve(dev, card, txn_s):
             gc.collect()
             torch.cuda.empty_cache()
             _mh_identities(label, rep, d)
+            keep_counters("serve mesh", rep["counters"])
             q, s = rep["queue"], rep["service"]
             shed_share = rep["shed"] / max(rep["offered"], 1)
             check(rep["committed"] > 0 and launches["gather_rows"] > 0
@@ -7135,6 +7247,436 @@ def phase_cost(dev, card):
     return paths
 
 
+# ------------------------------------------- the planner and its gates
+
+P22_CAL_DEPTHS = (2, 1)          # the default, and one block in flight
+P22_ROUTE_WINDOW_S = 1.0         # (d): each turn's window
+P22_REPAIR_WINDOW_S = 2.0        # (e): the Poisson schedule's length
+# (e)'s offered rates (lanes/s): about 0.5 of the committed rates phase
+# 9's bench (TATP) and phase 19 (b) (the 3x2 mesh) measure
+P22_REPAIR_RATE = {"tatp_dense": 250_000.0, "mesh": 350_000.0}
+P22_MON_CPB = 2                   # (b): each monitored block's cohorts
+# (b): the families whose counter snapshot dintmon check reads; the
+# phases that already run such a block at full size keep theirs in
+# P22_SNAPSHOTS, phase 22 runs the others
+P22_FAMILIES = (
+    "tatp_dense default", "tatp_dense hotset", "tatp_dense fused",
+    "tatp_dense fused+hotset", "smallbank_dense default",
+    "smallbank_dense hotset", "smallbank_dense fused",
+    "smallbank_dense fused+hotset", "store serve@scan", "tatp_pipeline",
+    "smallbank_pipeline", "dense_sharded default", "dense_sharded fused",
+    "dense_sharded_sb", "multihost_sb hierarchical", "multihost_sb flat",
+    "serve tatp_dense", "serve smallbank_dense", "serve store",
+    "serve mesh", "serve calibration")
+P22_SNAPSHOTS: dict = {}
+
+
+def keep_counters(label, snap):
+    """Keep a monitored full-size block's counter snapshot for phase 22
+    (b)'s dintmon check."""
+    P22_SNAPSHOTS[label] = dict(snap)
+
+
+def _p22_pricer(dev):
+    """A pricer for `plan.price_frontier` that traces each candidate on
+    the card at the lint geometry (memoized)."""
+    import dataclasses
+    from dint_tpu_torch.analysis import cost
+    from dint_tpu_torch.analysis import plan as P
+    from dint_tpu_torch.analysis import targets as T
+    on_card = dataclasses.replace(T.LINT, device=dev.type)
+    prices = {}
+
+    def pricer(name):
+        if name not in prices:
+            tr = T.build(name, on_card)
+            check(tr.gm is not None and tr.device == on_card.device,
+                  f"{name}: traced on {on_card.device} ({tr.trace_error})",
+                  quiet=True)
+            meta = T.TARGET_COST[name]
+            prices[name] = P.price_model(cost.derive(
+                tr, steps=meta["steps"], geom=meta["geom"]))
+        return prices[name]
+    return pricer
+
+
+def _p22_frontier(dev, card):
+    """(a): every feasible candidate priced from CUDA traces at the lint
+    geometry; the frontier hash, each row's prices and ranks ==
+    PLAN_H100.json's. Returns (record, the memoized pricer)."""
+    from dint_tpu_torch.analysis import plan as P
+    print("== phase 22 (a): the planner's frontier priced from CUDA traces "
+          "at the lint geometry == PLAN_H100.json's")
+    t0 = time.perf_counter()
+    pricer = _p22_pricer(dev)
+    rows = P.price_frontier(pricer)
+    plan = P.load_plan()
+    check(os.path.basename(str(P.plan_path())) == "PLAN_H100.json",
+          f"the port's plan is {P.plan_path()}")
+    flat = sorted((r for rs in rows.values() for r in rs),
+                  key=lambda r: (r["workload"], r["target"]))
+    pinned = {(r["workload"], r["target"]): r for r in plan["frontier"]}
+    keys = ("dispatches_per_step", "bytes_per_step", "footprint_bytes",
+            "ici_bytes_per_step", "dcn_bytes_per_step", "unpriced_waves",
+            "rank", "dominated", "dominated_by")
+    for r in flat:
+        p = pinned.get((r["workload"], r["target"]))
+        check(p is not None and all(p[k] == r[k] for k in keys),
+              f"{r['workload']}/{r['target']}: CUDA prices and rank == the "
+              f"pinned row ({ {k: r[k] for k in keys} })", quiet=True)
+    fh = P.frontier_hash(flat)
+    secs = time.perf_counter() - t0
+    check(len(flat) == len(plan["frontier"])
+          and fh == plan["provenance"]["cost_model_hash"],
+          f"{len(flat)} candidates priced on the card in {secs:.3f} s: "
+          f"frontier_hash {fh} == PLAN_H100.json's cost_model_hash, every "
+          f"row's prices and ranks equal  [{card}]")
+    picks = {w: min((r for r in rs if not r["dominated"]),
+                    key=lambda r: (P.decision_key(r), r["target"]))["target"]
+             for w, rs in rows.items()}
+    check(all(picks[w] == e["predicted_target"]
+              for w, e in plan["workloads"].items()),
+          f"the decision rule on the card's prices picks the plan's "
+          f"predicted targets {picks}")
+    return ({"candidates": len(flat), "frontier_hash": fh, "picks": picks,
+             "seconds": secs}, pricer)
+
+
+def _p22_dense_snapshots(dev):
+    """(b): one monitored block and the drain of dense TATP (7M) and
+    SmallBank (24M) at w = 8192 on every route."""
+    from dint_tpu_torch.engines import smallbank_dense as sd
+    from dint_tpu_torch.engines import tatp_dense as td
+    from dint_tpu_torch.engines.types import ROUTES
+    from dint_tpu_torch.monitor import counters as mon
+    for label, mod, make in (
+            ("tatp_dense", td, lambda: td.populate_device(
+                torch.Generator(device=dev).manual_seed(0), N_SUB,
+                val_words=VW, device=dev)),
+            ("smallbank_dense", sd, lambda: sd.create(SB_N, device=dev))):
+        db = make()
+        for route, (hot, fused) in ROUTES.items():
+            kw = dict(val_words=VW) if mod is td else {}
+            run, init, drain = mod.build_pipelined_runner(
+                N_SUB if mod is td else SB_N, w=W,
+                cohorts_per_block=P22_MON_CPB,
+                use_hotset=hot, use_fused=fused, monitor=True, device=dev,
+                **kw)
+            carry, _ = run(init(db), torch.Generator(device=dev)
+                           .manual_seed(221))
+            outs = drain(carry)
+            db = outs[0]
+            keep_counters(f"{label} {route}", mon.snapshot(outs[-1]))
+            del carry, outs, run, init, drain
+        del db
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _p22_generic_snapshots(dev):
+    """Phase 11's generic pipelines, one monitored block each at full size
+    (run here only when phase 11 did not)."""
+    from dint_tpu_torch.clients import tatp_client
+    from dint_tpu_torch.engines import smallbank_pipeline as sp
+    from dint_tpu_torch.engines import tatp_pipeline as tp
+    shards, _ = tatp_client.populate_shards(
+        np.random.default_rng(0), GEN_N_SUB, val_words=VW, device=dev)
+    _p11_monitored(dev, tp, sp, shards)
+    del shards
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _p11_monitored(dev, tp, sp, shards):
+    """One monitored block and the drain of the generic TATP pipeline on
+    ``shards``, and one of generic SmallBank at GEN_SB_N: the counter
+    snapshots phase 22 (b) checks. Returns the drained shards."""
+    from dint_tpu_torch import monitor as mn
+    from dint_tpu_torch.monitor import counters as mon
+    run, init, drain = tp.build_pipelined_runner(
+        GEN_N_SUB, w=GEN_W, val_words=VW, cohorts_per_block=2,
+        monitor=True, device=dev)
+    carry, _ = run(init(shards), torch.Generator(device=dev).manual_seed(23))
+    outs = drain(carry)
+    keep_counters("tatp_pipeline", mon.snapshot(outs[-1]))
+    shards = outs[0]
+    del carry, outs
+    run = sp.build_runner(GEN_SB_N, w=GEN_W, cohorts_per_block=2,
+                          monitor=True, device=dev)
+    (stacked, cnt), _ = run((sp.create_stacked(GEN_SB_N, device=dev),
+                             mn.create(dev)),
+                            torch.Generator(device=dev).manual_seed(24))
+    keep_counters("smallbank_pipeline", mon.snapshot(cnt))
+    del stacked, cnt
+    return shards
+
+
+def _p22_gates(dev, card, pricer, require_all=True):
+    """(b): plan_check in full mode (the card's prices), calib_check, and
+    dintmon check's identities on every family's monitored block."""
+    from dint_tpu_torch import analysis
+    from dint_tpu_torch.analysis import allowlist as al
+    from dint_tpu_torch.analysis import plan as P
+    from dint_tpu_torch.analysis.passes import calib_check, plan_check
+    from dint_tpu_torch.dintmon import check_identities
+    from dint_tpu_torch.monitor import calib as CAL
+    print("== phase 22 (b): plan_check (full, the card's prices), "
+          "calib_check and dintmon check on every family's monitored "
+          "block at full size")
+    t0 = time.perf_counter()
+    anchor = P.DEFAULT_ANCHOR
+    plan = P.load_plan()
+    cpath = CAL.calib_path()
+    fs = plan_check.check_plan(plan, anchor, static=False, pricer=pricer)
+    fs += calib_check.check_calib_doc(CAL.load_calib(cpath), anchor,
+                                      plan=plan, source_dir=cpath.parent)
+    fs = al.apply(analysis._dedup(fs), al.load(analysis.DEFAULT_ALLOWLIST),
+                  check_unused=False)
+    errs = [str(f) for f in fs if f.severity == "error"
+            and not f.suppressed]
+    check(not errs, f"plan_check (full) and calib_check on "
+          f"{P.plan_path().name} and {cpath.name}: {len(fs)} finding(s), "
+          f"no unsuppressed error {errs}")
+    _p22_dense_snapshots(dev)
+    if "tatp_pipeline" not in P22_SNAPSHOTS:
+        _p22_generic_snapshots(dev)
+    rows = {}
+    for label in P22_FAMILIES:
+        snap = P22_SNAPSHOTS.get(label)
+        if snap is None:
+            if require_all:
+                check(False, f"{label}: a monitored block's counters were "
+                      f"kept")
+            print(f"  {label}: not run in this call")
+            continue
+        ok, ids = check_identities(snap)
+        check(ok and snap["steps"] > 0,
+              f"dintmon check {label}: "
+              + "; ".join(f"{r['identity'].split(' ==')[0]} {r['status']}"
+                          + ("" if r["status"] == "skipped"
+                             else f" ({r['lhs']:,})") for r in ids))
+        rows[label] = {r["identity"]: r["status"] for r in ids}
+    print(f"  (b) {time.perf_counter() - t0:.3f} s  [{card}]")
+    return {"findings": len(fs), "identities": rows}
+
+
+def _p22_calibration(dev, card, out_dir):
+    """(c): the serve runs at depth 2 (the default: phase 16 (f)'s, else
+    run here) and at depth 1, each depth's evidence gathered and fit,
+    printed beside CALIB_H100.json."""
+    import contextlib
+    import io
+    from dint_tpu_torch import dintcal
+    from dint_tpu_torch.monitor import calib as CAL
+    print(f"== phase 22 (c): the calibration at the serving plane's "
+          f"defaults (depth 2, {SV_CPB} cohorts a block) and at depth 1: "
+          f"ServeEngine over tatp_dense at {N_SUB:,}, one "
+          f"{P16_CAL_WINDOW_S} s run a width {P16_CAL_WIDTHS} at half the "
+          f"closed-loop rate")
+    t0 = time.perf_counter()
+    runs, paths = {}, {}
+    if 2 in CAL_RUNS:
+        closed, *runs[2] = CAL_RUNS[2]
+        print(f"  depth 2: phase 16 (f)'s runs (closed-loop rates {closed})")
+    else:
+        closed = _cal_closed(dev, card, "p22_cal")
+    for depth in P22_CAL_DEPTHS:
+        if depth not in runs:
+            snaps, sources, p = _cal_serve_runs(
+                dev, card, closed, depth, "phase 22 (c)",
+                f"p22 calibration d{depth}")
+            runs[depth] = (snaps, sources)
+            paths.update(p)
+    committed = CAL.load_calib(CAL.calib_path())
+    fits = {}
+    for depth in P22_CAL_DEPTHS:
+        snaps, sources = runs[depth]
+        ev = CAL.gather_evidence(snaps, sources=sources)
+        name = "CALIB_H100" if depth == 2 else f"CALIB_H100_depth{depth}"
+        evp = os.path.join(out_dir, f"p22_{name}.evidence.json")
+        with open(evp, "w") as f:
+            f.write(json.dumps(ev, indent=1, sort_keys=True) + "\n")
+        doc = CAL.fit_calib(ev, source=f"{name}.evidence.json")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = dintcal.main(["fit", evp, "-o",
+                               os.path.join(out_dir, "fit.json"), "--json"])
+        check(rc == 0 and json.loads(buf.getvalue())["model"]
+              == doc["model"], f"depth {depth}: dintcal fit of the evidence "
+              f"== the fit ({doc['model']})")
+        drift = CAL.check_calib(committed, ev)
+        rel = {c: doc["model"][c] / committed["model"][c] - 1
+               for c in ("base_us", "per_lane_ns")}
+        fits[depth] = {"model": doc["model"], "fit": doc["fit"],
+                       "rel_to_committed": rel, "drift": len(drift),
+                       "sources": sources}
+        print(f"  depth {depth} fit: base_us {doc['model']['base_us']}, "
+              f"per_lane_ns {doc['model']['per_lane_ns']} (rms_us "
+              f"{doc['fit']['rms_us']}, n {doc['fit']['n']}); committed "
+              f"CALIB_H100.json base_us {committed['model']['base_us']}, "
+              f"per_lane_ns {committed['model']['per_lane_ns']}, tolerance "
+              f"{committed['tolerance']}: relative {rel}, check_calib "
+              f"{len(drift)} drift record(s)  [{card}]")
+    print(f"  (c) {time.perf_counter() - t0:.3f} s")
+    return {"closed": closed, "fits": fits,
+            "seconds": time.perf_counter() - t0}, paths
+
+
+def _p22_routes(dev, card):
+    """(d): the pinned and the predicted route of tatp_uniform and
+    smallbank_skewed at full width, in turns P N N P."""
+    from dint_tpu_torch import bench
+    from dint_tpu_torch.analysis import plan as P
+    from dint_tpu_torch.clients import bench_smallbank
+    from dint_tpu_torch.engines import tatp_dense as td
+    from dint_tpu_torch.engines.types import ROUTES
+    plan = P.load_plan()
+    route_of = {v: k for k, v in ROUTES.items()}
+    print(f"== phase 22 (d): the pinned and the predicted route, turns P N "
+          f"N P, {P22_ROUTE_WINDOW_S} s windows at full width")
+    out, paths = {}, {}
+    for wname in ("tatp_uniform", "smallbank_skewed"):
+        e = plan["workloads"][wname]
+        turns = {}
+        for kind in ("pinned", "predicted"):
+            knobs = e[kind]
+            turns[kind] = route_of[(bool(knobs["use_hotset"]),
+                                    bool(knobs["use_fused"]))]
+        got = {"pinned": [], "predicted": []}
+        for i, kind in enumerate(("pinned", "predicted", "predicted",
+                                  "pinned")):
+            route = turns[kind]
+            if wname == "tatp_uniform":
+                leg = bench._tatp_leg(bench.Knobs(
+                    window_s=P22_ROUTE_WINDOW_S), route, dev)
+                tps = float(leg["total"][td.STAT_COMMITTED]) / leg["dt"]
+                paths[f"p22 {wname} {kind} {i}"] = leg["launches"]
+            else:
+                reset_launches()
+                pt = bench_smallbank._run_one(
+                    P22_ROUTE_WINDOW_S, SB_N, SB_W, SB_CPB, None, None,
+                    route, dev)
+                tps = pt["committed_tps"]
+                paths[f"p22 {wname} {kind} {i}"] = launch_counts()
+            got[kind].append(tps)
+            gc.collect()
+            torch.cuda.empty_cache()
+        out[wname] = {"pinned_route": turns["pinned"],
+                      "predicted_route": turns["predicted"], **got}
+        print(f"  {wname}: pinned {turns['pinned']} {got['pinned']}, "
+              f"predicted {turns['predicted']} {got['predicted']} committed "
+              f"txn/s (P N N P)  [{card}]")
+    return out, paths
+
+
+def _p22_repair(dev, card):
+    """(e): one Poisson schedule through ServeEngine (tatp_dense, 7M) and
+    MeshServeEngine (3x2, 24M accounts), with PLAN.json's priors (a TPU's)
+    and with plan="auto" (PLAN_H100.json), the same arrivals both times."""
+    from dint_tpu_torch import serve
+    from dint_tpu_torch.analysis import plan as P
+    from dint_tpu_torch.monitor import calib as CAL
+    print(f"== phase 22 (e): the serving planes on PLAN.json's priors and "
+          f"on plan=\"auto\" (PLAN_H100.json): one {P22_REPAIR_WINDOW_S} s "
+          f"Poisson schedule each, rates {P22_REPAIR_RATE} lanes/s")
+    ref_plan = P.load_plan(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "PLAN.json"))
+    h100 = P.load_plan()
+    cal = CAL.load_calib(CAL.calib_path())
+    cal_name = CAL.calib_path().name
+    card_model = {c: cal["model"][c] for c in ("base_us", "per_lane_ns")}
+    out, paths = {}, {}
+    tatp_cls = _device_filled(serve.ServeEngine)
+    for fam in ("tatp_dense", "mesh"):
+        wname = P.SERVE_WORKLOADS["multihost_sb" if fam == "mesh" else fam]
+        prior = h100["workloads"][wname]["serve"]["model"]
+        check(all(prior[c] == v for c, v in card_model.items()),
+              f"PLAN_H100.json's {wname} prior == {cal_name}'s fit "
+              f"({card_model})", quiet=True)
+        sched = serve.poisson_schedule(P22_REPAIR_RATE[fam],
+                                       P22_REPAIR_WINDOW_S, seed=22)
+        for label, plan in (("PLAN.json", ref_plan), ("auto", "auto")):
+            if fam == "tatp_dense":
+                eng = tatp_cls("tatp_dense", N_SUB,
+                               cohorts_per_block=SV_CPB, monitor=True,
+                               plan=plan, device=dev)
+            else:
+                eng = serve.MeshServeEngine(
+                    MESH_SB_N, mesh_shape=MH_SHAPE,
+                    cohorts_per_block=SV_CPB, depth=2, monitor=True,
+                    plan=plan, device=dev)
+            eng.warmup()
+            reset_launches()
+            eng.run(sched)
+            eng.close()
+            paths[f"p22 repair {fam} {label}"] = launch_counts()
+            rep = eng.snapshot()
+            model = {"base_us": eng.model.base_us,
+                     "per_lane_ns": eng.model.per_lane_ns}
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+            src = (rep["plan"] or {}).get("source") or ""
+            auto = label == "auto"
+            check(os.path.basename(src) == ("PLAN_H100.json" if auto
+                                            else "<document>")
+                  and (model == card_model) == auto,
+                  f"{fam} plan={label}: the plan's source is {src}, its "
+                  f"ServiceModel {model} "
+                  + ("==" if auto else "!=") + f" PLAN_H100.json's "
+                  f"{wname} prior, {cal_name}'s fit")
+            if auto:
+                keep_counters(f"serve {fam}" if fam == "mesh"
+                              else "serve tatp_dense", rep["counters"])
+            if fam == "mesh":
+                _mh_identities(f"{fam} {label}", rep,
+                               MH_SHAPE[0] * MH_SHAPE[1])
+            else:
+                _serve_identity(f"{fam} {label}", rep)
+            shares = {"admitted": rep["admitted"] / max(rep["offered"], 1),
+                      "shed": rep["shed"] / max(rep["offered"], 1)}
+            out[f"{fam} {label}"] = {
+                **shares, "queue_p99_us": rep["queue"]["p99"],
+                "service_p50_us": rep["service"]["p50"],
+                "steps_by_width": rep["steps_by_width"],
+                "achieved_rate": rep["achieved_rate"],
+                "slo_met": rep["slo_met"], "model": model}
+            print(f"  {fam} plan={label}: offered {rep['offered']:,}, "
+                  f"admitted {shares['admitted']:.6f}, shed "
+                  f"{shares['shed']:.6f}, queue p99 "
+                  f"{rep['queue']['p99']:.1f} us, service p50 "
+                  f"{rep['service']['p50']:.1f} us, steps by width "
+                  f"{rep['steps_by_width']}, achieved "
+                  f"{rep['achieved_rate']:,.1f}/s, priors {model}  "
+                  f"[{card}]")
+    return out, paths
+
+
+def phase_plan(dev, card, require_all=True):
+    """Phase 22: the planner and its gates on the card. The measurements
+    (c)-(e) run first, with nothing else on the host; then the pricing's
+    traces (a) and the gates (b)."""
+    import tempfile
+    t0 = time.perf_counter()
+    with _Env(**P16_ENV, DINT_PLAN_PATH=None), \
+            tempfile.TemporaryDirectory(prefix="dint_p22_") as tmp:
+        out_dir = os.environ.get("DINT_SMOKE_OUT") or tmp
+        os.makedirs(out_dir, exist_ok=True)
+        rec = {}
+        rec["calibration"], paths = _p22_calibration(dev, card, out_dir)
+        rec["routes"], p = _p22_routes(dev, card)
+        paths.update(p)
+        rec["repair"], p = _p22_repair(dev, card)
+        paths.update(p)
+        rec["frontier"], pricer = _p22_frontier(dev, card)
+        rec["gates"] = _p22_gates(dev, card, pricer, require_all)
+    reset_launches()
+    rec["seconds"] = time.perf_counter() - t0
+    print("  phase 22 record: " + json.dumps(rec, default=str))
+    print(f"  phase 22: {rec['seconds']:.3f} s  [{card}]")
+    return paths
+
+
 KERNELS = {
     "gather_rows": ("dint_tpu_torch/csrc/gather_rows.cu",
                     "dint_tpu/ops/pallas_gather.py:212"),
@@ -7157,7 +7699,41 @@ KERNELS = {
 }
 
 
-def main() -> int:
+def calibrate_only(dev, card, n):
+    """``--calibrate N``: phase 22 (c) alone N times back to back, nothing
+    else on the host: each run's fits at depth 2 (the serving plane's
+    default) and depth 1, and their spread. Each run's evidence goes to
+    $DINT_SMOKE_OUT/run<i> when set."""
+    import statistics
+    import tempfile
+    with _Env(**P16_ENV, DINT_PLAN_PATH=None), \
+            tempfile.TemporaryDirectory(prefix="dint_cal_") as tmp:
+        root = os.environ.get("DINT_SMOKE_OUT") or tmp
+        runs = []
+        for i in range(n):
+            out_dir = os.path.join(root, f"run{i}")
+            os.makedirs(out_dir, exist_ok=True)
+            print(f"== calibration run {i + 1} of {n}")
+            rec, _ = _p22_calibration(dev, card, out_dir)
+            runs.append({d: f["model"] for d, f in rec["fits"].items()})
+            gc.collect()
+            torch.cuda.empty_cache()
+    spread = {d: {c: {"min": min(r[d][c] for r in runs),
+                      "median": statistics.median(r[d][c] for r in runs),
+                      "max": max(r[d][c] for r in runs)}
+                  for c in ("base_us", "per_lane_ns")}
+              for d in P22_CAL_DEPTHS}
+    print("  calibration runs: " + json.dumps(
+        {"runs": runs, "spread": spread, "card": card}))
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--calibrate", type=int, metavar="N",
+                    help="run phase 22 (c) alone N times and print the "
+                         "fits' spread, in place of the smoke run")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -7169,6 +7745,8 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     card = phase_card()
+    if args.calibrate:
+        return calibrate_only(dev, card, args.calibrate)
     rec = {**phase_kernels(dev), **phase_sb_kernels(dev)}
     tatp_rec = phase_tatp_kernels(dev)
     rec["lock_validate"] = tatp_rec.pop("lock_validate")
@@ -7225,6 +7803,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     store_paths.update(phase_cost(dev, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    store_paths.update(phase_plan(dev, card))
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():

@@ -1,5 +1,5 @@
 """Shared scaffolding of the port's gate CLIs (dint_tpu_torch/dintlint.py,
-dintcost.py and dintdur.py).
+dintcost.py, dintdur.py, dintplan.py and dintcal.py's check).
 
 Every gate CLI repeats one harness: default the allowlist to the port's
 analysis/dintlint_allow.json, validate --target/--pass names into an
@@ -94,12 +94,15 @@ def print_findings(findings, prog: str, failed: bool,
               f"-> {'FAIL' if failed else 'ok'}", flush=True)
 
 
-def prune_scoped_gate(args, ap, pass_name: str, allowlist: str | None):
+def prune_scoped_gate(args, ap, pass_name: str, allowlist: str | None,
+                      targets=None):
     """The --prune-allowlist [--check] flow of a single-pass gate: run the
-    gate's FULL target matrix under ONLY its pass and judge stale only the
-    entries pinned to that pass (another gate's entries, and wildcard-pass
-    ones, belong to dintlint --prune-allowlist); rewrite the file, or
-    under --check rewrite nothing and report. Returns (findings, stale)."""
+    gate's FULL target matrix (every target, or ``targets`` for a gate
+    whose findings land on one anchor) under ONLY its pass and judge stale
+    only the entries pinned to that pass (another gate's entries, and
+    wildcard-pass ones, belong to dintlint --prune-allowlist); rewrite the
+    file, or under --check rewrite nothing and report. Returns (findings,
+    stale)."""
     from . import run
     from . import allowlist as al
     if getattr(args, "target", None):
@@ -111,7 +114,8 @@ def prune_scoped_gate(args, ap, pass_name: str, allowlist: str | None):
         ap.error("--prune-allowlist: no allowlist file found "
                  f"(looked for {allowlist or DEFAULT_ALLOWLIST})")
     entries = al.load(allowlist)
-    findings = run(passes=[pass_name], allowlist_entries=entries)
+    findings = run(targets=targets, passes=[pass_name],
+                   allowlist_entries=entries)
     kept, dropped = al.prune_scoped(entries, pass_name)
     stale = False
     if dropped:

@@ -21,12 +21,19 @@ machinery):
   durability         log-before-visible, ring bounds, replay coverage and
                      in-doubt totality over the LOG_SLOT/LOGGED/TRUNCATED
                      facts (the dintdur gate)
+  plan_check         the pinned PLAN_H100.json against the knob registry,
+                     the calibration ledger and the priced frontier (the
+                     dintplan gate; static inside dintlint)
+  calib_check        the pinned CALIB_H100.json against its own evidence
+                     and the plan's serve-model provenance (the dintcal
+                     gate)
 
-Not ported yet (ROADMAP §A.8): plan_check, calib_check, mut_check and the
-mesh-collective check shard_consistency.
+Not ported yet (ROADMAP §A.8): mut_check and the mesh-collective check
+shard_consistency.
 
 Adding a pass: write ``passes/<name>.py``, decorate the entry point with
 ``@core.register_pass("<name>")``, import it here.
 """
-from . import (aliasing, cost_budget, durability, protocol,  # noqa: F401
-               purity, scatter_race, u64_overflow)
+from . import (aliasing, calib_check, cost_budget,  # noqa: F401
+               durability, plan_check, protocol, purity, scatter_race,
+               u64_overflow)

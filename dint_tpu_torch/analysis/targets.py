@@ -28,7 +28,9 @@ Geometry: the mesh targets run on the port's in-process mesh
 (parallel/mesh.py) on one device, with 3 partitions (3 x 2 on the 2-D
 mesh; the port refuses fewer than 3 hosts), where the reference used 4
 (4 x 2) of its 8 virtual devices: a partition's step traces as its own
-nodes, so the graph grows with the partitions.
+nodes, so the graph grows with the partitions. The planner's
+``multihost_4x2`` candidates, ``multihost_sb/block`` and ``@flat``, trace
+at the reference's 4 x 2 (`MH4_HOSTS`), the shape they are priced under.
 """
 from __future__ import annotations
 
@@ -497,10 +499,12 @@ for _name, (_doc, _kw) in _DSB.items():
 
 
 def _multihost_sb(name: str, g: Geometry, hierarchical=True, monitor=False,
-                  trace=False, serve=False, overlap=False) -> TargetTrace:
+                  trace=False, serve=False, overlap=False,
+                  hosts=None) -> TargetTrace:
     from ..parallel import multihost_sb as mhs
-    mesh = mhs.make_mesh_2d(g.hosts, g.chips, g.device)
-    d = g.hosts * g.chips
+    hosts = hosts or g.hosts
+    mesh = mhs.make_mesh_2d(hosts, g.chips, g.device)
+    d = hosts * g.chips
     run, init, _ = mhs.build_multihost_sb_runner(
         mesh, g.n_acct * d, w=g.w, cohorts_per_block=g.cpb,
         hierarchical=hierarchical, monitor=monitor, trace=trace,
@@ -508,14 +512,21 @@ def _multihost_sb(name: str, g: Geometry, hierarchical=True, monitor=False,
     carry = init(mhs.create_multihost_sb(mesh, g.n_acct * d,
                                          log_capacity=g.logcap * 8))
     return _runner(name, g, run, carry, serve,
-                   occ_shape=(g.hosts, g.chips, g.cpb))
+                   occ_shape=(hosts, g.chips, g.cpb))
 
+
+# the reference's 4 x 2 geometry: the two candidates of the planner's
+# multihost_4x2 workload (analysis/plan.py), traced at the shape they
+# are priced under
+MH4_HOSTS = 4
 
 _MHSB = {
-    "multihost_sb/block": ("2-D mesh SmallBank: hierarchical (ici-then-dcn) "
-                           "routing, host fault-domain replication", {}),
-    "multihost_sb/block@flat": ("2-D mesh SmallBank with the flat "
-                                "all_to_all", dict(hierarchical=False)),
+    "multihost_sb/block": ("2-D mesh SmallBank at 4 x 2: hierarchical "
+                           "(ici-then-dcn) routing, host fault-domain "
+                           "replication", dict(hosts=MH4_HOSTS)),
+    "multihost_sb/block@flat": ("2-D mesh SmallBank at 4 x 2 with the flat "
+                                "all_to_all",
+                                dict(hierarchical=False, hosts=MH4_HOSTS)),
     "multihost_sb/block@mon": ("2-D mesh SmallBank with the counter plane "
                                "(the route_ici/route_dcn split)",
                                dict(monitor=True)),
@@ -765,6 +776,9 @@ _DSB_GEOM = dict(w=LINT.w, l=3, vw=2, d=LINT.shards)
 # the 2-D mesh: d is the GLOBAL partition count hosts x chips
 _MHSB_GEOM = dict(w=LINT.w, l=3, vw=2, d=LINT.hosts * LINT.chips,
                   h=LINT.hosts)
+# the two 4 x 2 candidates (MH4_HOSTS)
+_MHSB4_GEOM = dict(w=LINT.w, l=3, vw=2, d=MH4_HOSTS * LINT.chips,
+                   h=MH4_HOSTS)
 _MH_GEOM = dict(w=LINT.w, k=4, vw=LINT.vw, d=LINT.hosts * LINT.chips,
                 h=LINT.hosts)
 # lg = locate rounds = bit_length(cap = 16 buckets x 4 slots = 64) = 7
@@ -880,14 +894,16 @@ TARGET_COST: dict[str, dict] = {
                                    wave_expect=_READ_SB),
     "smallbank_dense/serve@mon": _cost(_SB_GEOM, 10, 152216,
                                        wave_expect=_READ_SB),
-    # generic pipelines and shards: sort-bound, no formula-backed wave
+    # generic pipelines and shards: sort-bound, no formula-backed wave;
+    # the @mon footprints hold the counters' cached index tensor, whose
+    # ids include the reject split's two (monitor.counters.reject_split)
     "tatp_pipeline/block": _cost(_TD_GEOM, 162, 324046,
                                  bytes_budget=250992),
-    "tatp_pipeline/block@mon": _cost(_TD_GEOM, 164, 324314,
+    "tatp_pipeline/block@mon": _cost(_TD_GEOM, 164, 324330,
                                      bytes_budget=251118),
     "smallbank_pipeline/block": _cost(_SB_GEOM, 108, 155592,
                                       bytes_budget=65319),
-    "smallbank_pipeline/block@mon": _cost(_SB_GEOM, 110, 155836,
+    "smallbank_pipeline/block@mon": _cost(_SB_GEOM, 110, 155852,
                                           bytes_budget=65420),
     # one engine step a trace
     "sharded/tatp": _cost(_DS_GEOM, 162, 319458, steps=1.0,
@@ -929,10 +945,10 @@ TARGET_COST: dict[str, dict] = {
     # the 2-D mesh: the hierarchical and flat exchanges move the same
     # lanes through the same local ops on one card (their difference is
     # the link bytes no trace shows: link-bytes-unchecked)
-    "multihost_sb/block": _cost(_MHSB_GEOM, 72, 2383412, bytes_budget=70157,
-                                wave_expect=_MHSB),
-    "multihost_sb/block@flat": _cost(_MHSB_GEOM, 72, 2383412,
-                                     bytes_budget=70157, wave_expect=_MHSB),
+    "multihost_sb/block": _cost(_MHSB4_GEOM, 96, 3177852,
+                                bytes_budget=93543, wave_expect=_MHSB),
+    "multihost_sb/block@flat": _cost(_MHSB4_GEOM, 96, 3177852,
+                                     bytes_budget=93543, wave_expect=_MHSB),
     "multihost_sb/block@mon": _cost(_MHSB_GEOM, 120, 2385260,
                                     bytes_budget=71165, wave_expect=_MHSB),
     "multihost_sb/block@h3": _cost(_MHSB_GEOM, 72, 2383412,

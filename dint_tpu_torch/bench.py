@@ -21,14 +21,21 @@ What differs from bench.py's line:
 * ``device`` and ``card``: the torch device's name, and the card's name
   and power limit as `nvidia-smi --query-gpu=name,power.limit
   --format=csv,noheader` gives them (null on the CPU).
-* Keys of modules not ported yet are explicit nulls: ``dintlint``,
-  ``dintcost``, ``dintdur``.
+* ``dintlint``, ``dintcost``, ``dintdur``: `main` fills them after both
+  legs, as bench.py does (`gate_snapshots`): ``python -m
+  dint_tpu_torch.dintlint --all --json``, ``dintcost report --all --json``
+  and ``dintdur check --all --json``, each in a CPU subprocess (the three
+  run side by side), the lint and durability payloads without their
+  finding lists. A red gate is recorded as it is; a gate that crashes,
+  times out (``DINT_BENCH_LINT_TIMEOUT`` s, 900) or prints no JSON line
+  raises. ``DINT_BENCH_LINT=0`` records ``{"disabled":
+  "DINT_BENCH_LINT=0"}`` in each. `measure` leaves them null.
 * ``breakdown`` is `monitor.attrib`'s: device time charged to each wave
   through the kernels' launches, plus each wave's ``host_ms``.
 * No parent/child retry, no stale line, no fallback to another path, no
-  caught SmallBank leg, serve probe, profiler session or attribution: any
-  failure, a magic-word or balance fault of either leg included, raises,
-  and the process exits non-zero with no result line.
+  caught SmallBank leg, serve probe, profiler session, attribution or
+  gate run: any failure, a magic-word or balance fault of either leg
+  included, raises, and the process exits non-zero with no result line.
 
 Knobs, the environment variables bench.py reads:
 
@@ -52,9 +59,10 @@ Knobs, the environment variables bench.py reads:
   TATP block after the window under `monitor.profiler_session`, and
   ``breakdown`` holds `monitor.attrib.report` of its trace with geometry
   w, k = K, vw (null otherwise);
-* the route: PLAN.json's pinned ``use_hotset``/``use_fused`` for
-  ``tatp_uniform`` and ``smallbank_skewed``, which ``DINT_USE_HOTSET`` and
-  ``DINT_USE_FUSED`` change only under ``DINT_PLAN_OVERRIDE=1``
+* the route: the pinned plan's (PLAN_H100.json) ``use_hotset``/
+  ``use_fused`` for ``tatp_uniform`` and ``smallbank_skewed``, which
+  ``DINT_USE_HOTSET`` and ``DINT_USE_FUSED`` change only under
+  ``DINT_PLAN_OVERRIDE=1``
   (`plan.resolve_for`); ``plan`` records {source, hash, overridden};
 * ``DINT_BENCH_SERVE=1``: ``serve`` holds the serving plane's probe
   (`serve_probe`), an explicit null otherwise.
@@ -140,7 +148,7 @@ class Knobs:
 
 
 def plan_route(workload: str, env) -> tuple[str, dict]:
-    """The route PLAN.json pins for ``workload`` as `plan.resolve_for`
+    """The route the pinned plan pins for ``workload`` as `plan.resolve_for`
     resolves it under ``env``, and the plan record {source, hash,
     overridden}: bench.py's record, since the line's ``route`` already
     says that the port has no ``use_pallas``."""
@@ -421,8 +429,65 @@ def _persist_artifact(out: dict, artifact_dir: str = ARTIFACT_DIR) -> str:
     return path
 
 
+# (field, argv after `python -m`, keep the finding list)
+GATES = (
+    ("dintlint", ("dint_tpu_torch.dintlint", "--all", "--json"), False),
+    ("dintcost", ("dint_tpu_torch.dintcost", "report", "--all", "--json"),
+     True),
+    ("dintdur", ("dint_tpu_torch.dintdur", "check", "--all", "--json"),
+     False),
+)
+
+
+def gate_snapshots(env=None) -> dict:
+    """The static gates' verdicts this tree measures under: each gate of
+    `GATES` in a CPU subprocess (no card visible), all three at once; its
+    last JSON line on stdout, less the finding list where the reference
+    drops it. A red gate (exit 1 with its JSON line) is data. A gate that
+    exits otherwise, times out or prints no JSON line raises.
+    ``DINT_BENCH_LINT=0`` is the caller's opt-out, recorded in each
+    field."""
+    env = os.environ if env is None else env
+    if env.get("DINT_BENCH_LINT", "1") == "0":
+        return {name: {"disabled": "DINT_BENCH_LINT=0"}
+                for name, _, _ in GATES}
+    timeout = float(env.get("DINT_BENCH_LINT_TIMEOUT", "900"))
+    sub_env = dict(env, CUDA_VISIBLE_DEVICES="")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [(name, keep, subprocess.Popen(
+        [sys.executable, "-m", *argv], cwd=root, env=sub_env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for name, argv, keep in GATES]
+    out = {}
+    try:
+        for name, keep, p in procs:
+            try:
+                stdout, stderr = p.communicate(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"{name}: no verdict within {timeout} s")
+            lines = [ln for ln in stdout.splitlines() if ln.startswith("{")]
+            if p.returncode not in (0, 1) or not lines:
+                raise RuntimeError(
+                    f"{name}: exit {p.returncode}, "
+                    f"{'no' if not lines else 'a'} JSON line; stderr: "
+                    f"{stderr.strip()[-400:]}")
+            payload = json.loads(lines[-1])
+            if not keep:
+                payload.pop("findings", None)
+            out[name] = payload
+    finally:
+        for _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
 def main() -> int:
     out = measure()
+    # after both legs: the gates' processes would share the host's cores
+    # with the measurement
+    out.update(gate_snapshots())
     _persist_artifact(out)
     print(json.dumps(out), flush=True)
     return 0

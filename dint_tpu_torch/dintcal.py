@@ -1,17 +1,23 @@
-"""dintcal CLI: the calibration and prediction-audit plane (the port of
-tools/dintcal.py, over `dint_tpu_torch.monitor.calib`).
+"""dintcal CLI: the calibration and prediction-audit plane and its gate
+(the port of tools/dintcal.py, over `dint_tpu_torch.monitor.calib`).
 
 `gather` normalizes bench/exp artifacts (dintscope breakdowns, counter
 snapshots, serve controller samples) into one evidence document, `fit`
 pins ServiceModel coefficients from it as a schema-versioned calibration,
-`audit` replays a controller decision journal through the policy
-functions, verifying every recorded width/shed/hot_frac decision bit for
-bit, and `propose` fits a recalibration from the pinned calibration's
-evidence (or ``--evidence``).
+`check` is the standing drift gate (the static calib_check pass plus the
+tolerance-banded reconciliation with the evidence), `audit` replays a
+controller decision journal through the policy functions, verifying every
+recorded width/shed/hot_frac decision bit for bit, and `propose` fits a
+recalibration from the pinned calibration's evidence (or ``--evidence``)
+that ``python -m dint_tpu_torch.dintplan plan --calib`` re-pins the plan
+from.
 
 Usage:
     python -m dint_tpu_torch.dintcal gather ART [ART...] -o evidence.json
     python -m dint_tpu_torch.dintcal fit EVIDENCE [-o CALIB.json] [--json]
+    python -m dint_tpu_torch.dintcal check                 # the gate
+        [--calib PATH] [--evidence PATH] [--allowlist PATH]
+        [--sarif out.sarif] [--json]
     python -m dint_tpu_torch.dintcal audit JOURNAL [--json]
     python -m dint_tpu_torch.dintcal propose [--calib PATH]
         [--evidence PATH] [-o CALIB.proposed.json] [--json]
@@ -20,20 +26,21 @@ Usage:
         --out-journal PATH [--json]
 
 The pinned calibration is ``$DINT_CALIB_PATH``, else ``CALIB_H100.json``
-at the repository's root (`calib.calib_path`). `audit` exits 1 naming the
-entry (index and block) whose recorded decision the replay does not
-reproduce. Exit codes: 0 ok; 1 audit failure; 2 usage or file errors.
+at the repository's root (`calib.calib_path`); the plan it is checked
+against is the port's (``PLAN_H100.json``). `check` exits 1 naming the
+drifted wave or coefficient; `audit` exits 1 naming the entry (index and
+block) whose recorded decision the replay does not reproduce. Exit codes:
+0 ok; 1 gate or audit failure; 2 usage or file errors.
 
-What differs from tools/dintcal.py: no ``check`` (it runs the static
-analysis plane's ``calib_check`` pass, which is not ported); ``synth``
-writes only where ``--out-evidence`` and ``--out-journal`` say, since the
-default paths are the JAX package's fixtures; ``propose``'s ``repin`` is
-null, since the port has no planner to re-pin PLAN.json's serve priors.
+What differs from tools/dintcal.py: ``synth`` writes only where
+``--out-evidence`` and ``--out-journal`` say, since the default paths are
+the JAX package's fixtures.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from pathlib import Path
 
@@ -115,6 +122,79 @@ def _resolve_evidence(args, calib, cpath):
         return None, str(spath)
 
 
+def cmd_check(args) -> int:
+    from . import analysis
+    from .analysis import allowlist as AL
+    from .analysis import cli
+    from .analysis import plan as P
+    from .analysis.core import Finding, SEV_ERROR
+
+    cpath = Path(args.calib) if args.calib else CAL.calib_path()
+    if args.calib:
+        os.environ[CAL.ENV_CALIB_PATH] = args.calib
+    anchor = os.environ.get(P.ENV_PLAN_ANCHOR, P.DEFAULT_ANCHOR)
+    allowlist = cli.resolve_allowlist(args.allowlist)
+
+    # half 1: the static calib_check pass (provenance, refit equality,
+    # wave registry, plan model attribution) under the allowlist
+    findings = analysis.run(targets=[anchor], passes=["calib_check"],
+                            allowlist_path=allowlist)
+
+    # half 2: tolerance-banded drift of the pinned fit against evidence
+    drift: list[dict] = []
+    evidence_path = None
+    try:
+        calib = CAL.load_calib(cpath)
+    except FileNotFoundError:
+        calib = None
+        findings.append(Finding(
+            "calib_check", "missing-calib", SEV_ERROR, anchor,
+            f"no calibration at {cpath}: nothing pins the ServiceModel "
+            "coefficients to evidence",
+            site=str(cpath),
+            suggestion="fit one with `python -m dint_tpu_torch.dintcal "
+                       "fit <evidence> -o CALIB_H100.json`"))
+    except (OSError, ValueError):
+        calib = None            # malformed-calib already landed via pass
+    if calib is not None:
+        ev, evidence_path = _resolve_evidence(args, calib, cpath)
+        if ev is not None:
+            drift = CAL.check_calib(calib, ev)
+            for d in drift:
+                findings.append(Finding(
+                    "calib_check", "evidence-drift", SEV_ERROR, anchor,
+                    d["message"], site=f"{d['what']}:{d['name']}",
+                    suggestion="recalibrate with `python -m dint_tpu_torch."
+                               "dintcal propose` and re-pin via `python -m "
+                               "dint_tpu_torch.dintplan plan --calib`"))
+    if allowlist and drift:
+        # drift findings come after analysis.run applied the allowlist:
+        # give them the same suppression chance
+        AL.apply(findings[-len(drift):], AL.load(allowlist),
+                 check_unused=False)
+
+    failed = analysis.has_errors(findings)
+    if args.sarif:
+        cli.write_sarif(findings, "dintcal", args.sarif)
+    if args.json:
+        print(json.dumps({
+            "metric": "dintcal", "schema": JSON_SCHEMA, "mode": "check",
+            "calib": str(cpath), "evidence": evidence_path,
+            "anchor": anchor, "allowlist": allowlist,
+            "n_findings": len(findings),
+            "n_errors": cli.count_errors(findings),
+            "n_drift": len(drift), "ok": not failed,
+            "findings": [f.to_dict() for f in findings]}), flush=True)
+    else:
+        for f in findings:
+            print(f)
+        print(f"dintcal check: {len(findings)} finding(s), "
+              f"{cli.count_errors(findings)} error(s), "
+              f"{len(drift)} drift(s) -> "
+              f"{'FAIL' if failed else 'ok'}", flush=True)
+    return 1 if failed else 0
+
+
 def cmd_audit(args) -> int:
     doc = CAL.load_journal(args.journal)
     violations = CAL.audit_journal(doc)
@@ -159,14 +239,15 @@ def cmd_propose(args) -> int:
             "mode": "propose", "out": str(out),
             "evidence": evidence_path, "model": proposed["model"],
             "delta": delta, "provenance": proposed["provenance"],
-            "repin": None}), flush=True)
+            "repin": "python -m dint_tpu_torch.dintplan plan --calib "
+                     f"{out}"}), flush=True)
         return 0
     print(f"wrote {out} from {evidence_path}")
     for c in ("base_us", "per_lane_ns"):
         was = f" (pinned {calib['model'][c]})" if calib else ""
         print(f"  {c:12s} {proposed['model'][c]}{was}")
-    print("the port has no planner: PLAN.json's serve priors stay as they "
-          "are")
+    print(f"re-pin the plan with: python -m dint_tpu_torch.dintplan plan "
+          f"--calib {out}")
     return 0
 
 
@@ -237,6 +318,24 @@ def main(argv=None) -> int:
                         "evidence path as given)")
     p.add_argument("--json", action="store_true")
     p.set_defaults(fn=cmd_fit)
+
+    p = sub.add_parser("check",
+                       help="the gate: calib_check pass + tolerance-"
+                            "banded evidence drift (names the drifted "
+                            "wave or coefficient)")
+    p.add_argument("--calib", default=None,
+                   help="check this calib file instead of the pinned one")
+    p.add_argument("--evidence", default=None,
+                   help="reconcile against this evidence (default: the "
+                        "calib's recorded source)")
+    p.add_argument("--allowlist", default=None,
+                   help="allowlist JSON path (default: the port's "
+                        "analysis/dintlint_allow.json)")
+    p.add_argument("--sarif", metavar="PATH", default=None,
+                   help="also write the findings as SARIF 2.1.0 "
+                        "('-' for stdout)")
+    p.add_argument("--json", action="store_true")
+    p.set_defaults(fn=cmd_check)
 
     p = sub.add_parser("audit",
                        help="replay a decision journal through the policy "

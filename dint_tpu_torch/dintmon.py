@@ -14,11 +14,14 @@ Usage:
     python -m dint_tpu_torch.dintmon export-trace RUN.jsonl -o trace.json
     python -m dint_tpu_torch.dintmon export-trace RUN.jsonl \
         -o merged.json --merge trace_dir/   # counters + device ops
+    python -m dint_tpu_torch.dintmon check BENCH.json      # the identities
     python -m dint_tpu_torch.dintmon describe              # the registry
 
 `export-trace` writes the Chrome trace-event format — load it in
 chrome://tracing or https://ui.perfetto.dev to see the wave timeline with
-counter tracks. Exit code 0 on success, 2 on usage/file errors.
+counter tracks. `check` holds one artifact's counters to the ledger
+identities (`IDENTITIES`): exit 1 on a violation, or when monitoring was
+off. Exit code 0 on success, 2 on usage/file errors.
 """
 from __future__ import annotations
 
@@ -137,6 +140,75 @@ def cmd_export_trace(args) -> int:
     return 0
 
 
+# ledger identities every engine's counter plane must satisfy exactly:
+# (name, lhs terms, rhs terms, gate terms or None). A gated identity is
+# skipped when every gate counter is zero (the route split on
+# single-device paths). The port counts one of the dispatch pair a step:
+# dispatch_pallas on the kernel routes, dispatch_xla on the generic
+# pipelines.
+IDENTITIES = (
+    ("lock_requests == lock_granted + lock_rejected",
+     ("lock_requests",), ("lock_granted", "lock_rejected"), None),
+    ("lock_rejected == lock_reject_held + lock_reject_arb",
+     ("lock_rejected",), ("lock_reject_held", "lock_reject_arb"), None),
+    ("steps == dispatch_xla + dispatch_pallas",
+     ("steps",), ("dispatch_xla", "dispatch_pallas"), None),
+    ("route_ici_lanes + route_dcn_lanes == lock_requests + install_writes",
+     ("route_ici_lanes", "route_dcn_lanes"),
+     ("lock_requests", "install_writes"),
+     ("route_ici_lanes", "route_dcn_lanes")),
+)
+
+
+def check_identities(counters: dict) -> tuple[bool, list[dict]]:
+    """(ok, rows) of the ledger identities over one counter snapshot
+    ({name: value}); a row's status is "ok", "violated" or "skipped"."""
+    rows, ok = [], True
+    for name, lhs, rhs, gate in IDENTITIES:
+        if gate is not None and not any(counters.get(g, 0) for g in gate):
+            rows.append({"identity": name, "status": "skipped",
+                         "lhs": 0, "rhs": 0})
+            continue
+        lv = sum(int(counters.get(k, 0)) for k in lhs)
+        rv = sum(int(counters.get(k, 0)) for k in rhs)
+        good = lv == rv
+        ok = ok and good
+        rows.append({"identity": name,
+                     "status": "ok" if good else "violated",
+                     "lhs": lv, "rhs": rv})
+    return ok, rows
+
+
+def cmd_check(args) -> int:
+    s = _load_summary(args.file)
+    c = s.get("counters")
+    if c is None:
+        out = {"path": s["path"], "ok": False,
+               "error": "counters = null (monitoring was off)"}
+        if args.json:
+            print(json.dumps(out), flush=True)
+        else:
+            print(f"{s['path']}: counters = null (monitoring was off) "
+                  "-> nothing to check", file=sys.stderr)
+        return 1
+    ok, rows = check_identities(c)
+    out = {"path": s["path"], "ok": ok, "identities": rows}
+    if args.json:
+        print(json.dumps(out), flush=True)
+    else:
+        print(f"{s['path']} ({s['source']})")
+        for r in rows:
+            mark = {"ok": "ok ", "violated": "FAIL",
+                    "skipped": "--  "}[r["status"]]
+            detail = ("" if r["status"] == "skipped"
+                      else f"  ({r['lhs']:,} vs {r['rhs']:,})")
+            print(f"  {mark} {r['identity']}{detail}")
+        print("dintmon check: " + ("ok" if ok else "FAIL — violated: "
+              + "; ".join(r["identity"] for r in rows
+                          if r["status"] == "violated")))
+    return 0 if ok else 1
+
+
 def cmd_describe(args) -> int:
     if args.json:
         print(json.dumps({
@@ -189,6 +261,13 @@ def main(argv=None) -> int:
                    help="explicit dintmon->profiler clock offset override")
     p.add_argument("--json", action="store_true")
     p.set_defaults(fn=cmd_export_trace)
+
+    p = sub.add_parser("check",
+                       help="the counter ledger identities of one "
+                            "artifact; exit 1 on a violation")
+    p.add_argument("file")
+    p.add_argument("--json", action="store_true")
+    p.set_defaults(fn=cmd_check)
 
     p = sub.add_parser("describe", help="print the counter registry")
     p.add_argument("--json", action="store_true")

@@ -19,8 +19,9 @@ simulate  controller-only rehearsal: the width trajectory the controller
           else `calib.resolve_service_model`: the port's calibration or
           the defaults, and the report says which); --mesh HxC rehearses
           per-partition rates (lanes_scale = H*C). No engine, no device.
-describe  the serving-plane contract: serve counters, serve waves, and
-          the controller's defaults.
+describe  the serving-plane contract: serve counters, serve waves, the
+          serve targets the static gates check (with their dintcost
+          budgets), and the controller's defaults.
 
 Examples
 --------
@@ -35,7 +36,9 @@ Examples
 
 What differs from tools/dintserve.py: ``run`` serves on the card unless
 ``--device cpu`` (the mesh's partitions share that one device);
-``describe``'s serve targets wait for the static analysis plane.
+``describe`` lists each serve target with its `TARGET_COST` dispatches a
+step and its bytes budget a step (a number, or the formula over the
+waves.py ledger) at the lint geometry.
 """
 from __future__ import annotations
 
@@ -229,7 +232,15 @@ def cmd_describe(args) -> int:
                     ("multihost_sb", "route_prefetch")):
         nm = waves.full_name(eng, wv)
         print(f"  {nm}: {waves.WAVE_DOCS[nm].splitlines()[0]}")
-    print("serve targets (the static analysis plane): not ported")
+    from .analysis import targets as tg
+    print("serve targets (dintlint/dintcost/dintdur gated; TARGET_COST "
+          "at the lint geometry):")
+    for n in sorted(tg.TARGETS):
+        if "/serve" in n:
+            bud = tg.TARGET_COST[n]["budget"]
+            print(f"  {n:32s} {bud['dispatches']:g} dispatches/step, "
+                  f"bytes/step budget {bud['bytes']}; "
+                  f"{tg.TARGET_DOCS[n].splitlines()[0]}")
     d = ControllerCfg()
     print("controller defaults: widths=%s slo_us=%.0f headroom=%.2f "
           "slo_fraction=%.2f hysteresis_blocks=%d"
@@ -276,7 +287,8 @@ def main(argv=None) -> int:
                                 "buffered route; unset = the plan's "
                                 "choice")
             p.add_argument("--plan", default="auto", metavar="auto|off|PATH",
-                           help="PLAN.json: 'auto' reads the pinned plan, "
+                           help="the plan: 'auto' reads the pinned plan "
+                                "(PLAN_H100.json), "
                                 "'off' none (the report records \"plan\": "
                                 "null), a path that plan file")
             p.add_argument("--size", type=int, default=100_000,

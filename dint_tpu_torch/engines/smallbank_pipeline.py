@@ -286,6 +286,8 @@ def cohort_step(stacked, bits, ts_amt, *, w: int, n_accounts: int,
     if counters is None:
         return stacked, stats
     n_writes = do_write.sum(dtype=I32)
+    held, arb = mon.reject_split((active & ~granted).reshape(r),
+                                 granted.reshape(r), lane_tbl, lane_acc)
     mon.bump(counters, {
         mon.CTR_STEPS: 1,
         mon.CTR_TXN_ATTEMPTED: stats[STAT_ATTEMPTED],
@@ -296,6 +298,8 @@ def cohort_step(stacked, bits, ts_amt, *, w: int, n_accounts: int,
         mon.CTR_LOCK_REQUESTS: active.sum(dtype=I32),
         mon.CTR_LOCK_GRANTED: granted.sum(dtype=I32),
         mon.CTR_LOCK_REJECTED: (active & ~granted).sum(dtype=I32),
+        mon.CTR_LOCK_REJECT_HELD: held,
+        mon.CTR_LOCK_REJECT_ARB: arb,
         mon.CTR_INSTALL_WRITES: n_writes,
         mon.CTR_LOG_APPENDS: n_writes,
         mon.CTR_DISPATCH_XLA: 1,    # the plain route, JAX's XLA one

@@ -521,6 +521,8 @@ def pipe_step(stacked, c1: PipeCtx, c2: PipeCtx, bits, payload, *, w: int,
     if counters is None:
         return stacked, new_ctx, c1, stats
     n_writes = _count(c2.ws_active & c2.alive[:, None])  # wave-3 do_write
+    held, arb = mon.reject_split(ws_active & ~granted, granted, ws_tbl,
+                                 ws_key)
     mon.bump(counters, {
         mon.CTR_STEPS: 1,
         mon.CTR_TXN_ATTEMPTED: stats[STAT_ATTEMPTED],
@@ -532,6 +534,8 @@ def pipe_step(stacked, c1: PipeCtx, c2: PipeCtx, bits, payload, *, w: int,
         mon.CTR_LOCK_REQUESTS: _count(ws_active),
         mon.CTR_LOCK_GRANTED: _count(granted),
         mon.CTR_LOCK_REJECTED: _count(ws_active & ~granted),
+        mon.CTR_LOCK_REJECT_HELD: held,
+        mon.CTR_LOCK_REJECT_ARB: arb,
         mon.CTR_VALIDATE_LANES: _count(is_read_lane),
         mon.CTR_VALIDATE_FAILED: _count(bad_lane),
         mon.CTR_INSTALL_WRITES: n_writes,

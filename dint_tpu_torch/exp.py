@@ -29,7 +29,8 @@ The legs, in exp.py's order, with its names, sizes and artifact keys:
 * the points of `sweep_micro` (store, Zipf, scan ladder, lock traces, log,
   wire, colocate, cached store).
 
-Build knobs (the route) come from PLAN.json's pins (`plan.resolve_for`;
+Build knobs (the route) come from the pinned plan's (PLAN_H100.json) pins
+(`plan.resolve_for`;
 ``DINT_USE_HOTSET``/``DINT_USE_FUSED`` win only under
 ``DINT_PLAN_OVERRIDE=1``, ``DINT_BENCH_PLAN=0`` reads no plan); every
 artifact carries ``plan``: {source, hash, overridden}, null without a
@@ -141,7 +142,7 @@ _PLAN_OVERRIDDEN: set = set()
 
 
 def _plan_doc():
-    """PLAN.json, or None without a readable one or under
+    """The pinned plan, or None without a readable one or under
     DINT_BENCH_PLAN=0."""
     if os.environ.get("DINT_BENCH_PLAN", "1") == "0":
         return None
@@ -161,7 +162,7 @@ def _plan_knobs(workload: str) -> dict:
 
 def plan_meta():
     """The artifact's ``plan`` field: {source, hash, overridden} of the
-    readable PLAN.json, None without one or under ``DINT_BENCH_PLAN=0``."""
+    readable plan, None without one or under ``DINT_BENCH_PLAN=0``."""
     doc = _plan_doc()
     if doc is None:
         return None

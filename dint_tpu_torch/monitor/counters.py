@@ -59,8 +59,8 @@ _REGISTRY: tuple[tuple[str, str, str], ...] = (
      "lock lanes that requested a grant (active write slots)"),
     ("lock_granted", FLOW, "lock lanes granted"),
     ("lock_rejected", FLOW,
-     "lock lanes rejected = reject_held + reject_arb where the split is "
-     "observable (dense engines); generic engines bump only this total"),
+     "lock lanes rejected = reject_held + reject_arb (the generic "
+     "engines split by `reject_split`)"),
     ("lock_reject_held", FLOW,
      "lock lanes rejected because the row/slot was stamped by an "
      "in-flight cohort (cross-cohort conflict)"),
@@ -264,6 +264,23 @@ def gauge_max(c: Counters | None, updates: dict):
 
 
 # ------------------------------------------------------------- host side
+
+
+def reject_split(rejected: torch.Tensor, granted: torch.Tensor,
+                 tbl: torch.Tensor, key: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(held, arb) i32 counts of the ``rejected`` lock lanes of one batch,
+    for engines whose lock server answers GRANT or not with no reason: a
+    rejected lane whose (table, key) some lane of the same batch was
+    granted lost the batch's first-wins arbitration (arb); any other was
+    refused by a lock an earlier cohort holds (held). held + arb ==
+    rejected.sum(), so `lock_rejected` splits as on the dense engines.
+    Device ops only (no host sync)."""
+    code = (tbl.to(torch.int64) << 32) | (key.to(torch.int64) & 0xFFFFFFFF)
+    won = torch.where(granted, code, torch.full_like(code, -1))
+    arb = rejected & torch.isin(code, won)
+    return ((rejected & ~arb).sum(dtype=torch.int32),
+            arb.sum(dtype=torch.int32))
 
 
 def snapshot(counters) -> dict[str, int]:

@@ -35,9 +35,10 @@ inputs the pure policy functions consumed next to the outcome, so a
 journal can be replayed through choose_width / max_backlog /
 recommend_hot_frac decision for decision.
 
-The ServiceModel's defaults and PLAN.json's serve priors are the
-reference's (calibrated for a TPU); they seed the controller, and the
-service times it observes on the card replace them block by block.
+The ServiceModel's defaults are the reference's (calibrated for a TPU);
+the port's pinned plan (PLAN_H100.json) prices its serve priors from the
+card's calibration (CALIB_H100.json). Either seeds the controller, and
+the service times it observes on the card replace them block by block.
 """
 from __future__ import annotations
 

@@ -165,12 +165,14 @@ class ServeEngine:
         reconciliation and hot_frac auto-sizing)
     runner_kw : forwarded to the runner's build function (mix, use_hotset,
         use_fused, hot_frac, use_scan, ...); always wins over the plan
-    plan : "auto" (default) reads the pinned PLAN.json (`..plan`): the
-        width menu + SLO come from the plan's serve priors when ``cfg``
-        is None, the ServiceModel when ``model`` is None, build knobs the
+    plan : "auto" (default) reads the pinned plan, PLAN_H100.json
+        (`..plan`): the width menu + SLO come from the plan's serve
+        priors when ``cfg`` is None, the ServiceModel when ``model`` is
+        None, build knobs the
         plan pins for this family's serve workload fill ``runner_kw``,
         and the hot_frac prior seeds the rebuild loop. A plan dict is
-        taken as it is; None reads no plan. Without a readable plan the
+        taken as it is, and the snapshot's plan source says
+        ``"<document>"``; None reads no plan. Without a readable plan the
         snapshot records ``"plan": None``.
     adapt_hot_frac : rebuild the width menu at the recommended hot_frac at
         width-switch drain boundaries (the pipeline is empty there). None
@@ -263,16 +265,16 @@ class ServeEngine:
         if plan is None:
             return {}, None, None
         from .. import plan as P
-        doc = plan if isinstance(plan, dict) else None
-        if doc is None:
+        doc, source = plan, None
+        if not isinstance(doc, dict):
             try:
-                doc = P.load_plan()
+                doc, source = P.load_plan(), str(P.plan_path())
             except (OSError, ValueError):
                 return {}, None, None
         wname = P.SERVE_WORKLOADS.get(self.engine)
         if wname is None or wname not in doc.get("workloads", {}):
             return {}, None, None
-        knobs, meta = P.resolve_for(wname, plan=doc)
+        knobs, meta = P.resolve_for(wname, plan=doc, source=source)
         return knobs, doc["workloads"][wname].get("serve"), meta
 
     def _apply_plan_knobs(self, knobs: dict) -> None:

@@ -17,7 +17,8 @@ the serve route of `parallel/multihost_sb.py`:
   block at occupancy/shed slot [h, 0, 0], so the device's
   ``serve_shed_lanes`` reconciles with the per-host tallies.
 * **Plan knobs.** ``hierarchical`` and ``overlap`` left at None come from
-  PLAN.json's ``multihost_serve`` workload, else ON and OFF.
+  the pinned plan's ``multihost_serve`` workload (PLAN_H100.json), else
+  ON and OFF.
 
 Under a VirtualClock the ServiceModel is the device (one block advances
 virtual time by cpb x service_us(w)), so two runs with the same schedule

@@ -27,6 +27,7 @@ import torch
 from dint_tpu import stats as jst
 from dint_tpu.analysis import plan as dplan
 from dint_tpu_torch import bench, convert, entry
+from dint_tpu_torch import plan as pplan
 from dint_tpu_torch import stats as pst
 from dint_tpu_torch.engines import smallbank_dense as sd
 from dint_tpu_torch.engines import tatp_dense as td
@@ -266,13 +267,19 @@ def test_bench_raises_when_a_balance_is_not_conserved(monkeypatch):
      "DINT_USE_FUSED": "1"},
 ])
 def test_route_is_plan_json_pins_as_plan_resolves_them(env):
+    """The route is the port's pinned plan's (PLAN_H100.json), resolved as
+    the reference's resolve_for resolves the same document."""
+    doc = pplan.load_plan()
     for wl in ("tatp_uniform", "smallbank_skewed"):
-        knobs, meta = dplan.resolve_for(wl, environ=env)
+        knobs, meta = dplan.resolve_for(wl, environ=env, plan=doc)
         route, pmeta = bench.plan_route(wl, env)
         assert ROUTES[route] == (knobs["use_hotset"], knobs["use_fused"])
-        assert pmeta == meta
+        assert pmeta["source"] == str(REPO / "PLAN_H100.json")
+        assert {k: v for k, v in pmeta.items() if k != "source"} == \
+            {k: v for k, v in meta.items() if k != "source"}
     if not env:
-        pinned = json.loads((REPO / "PLAN.json").read_text())["workloads"]
+        pinned = json.loads((REPO / "PLAN_H100.json").read_text())[
+            "workloads"]
         assert all(not pinned[w]["pinned"][k]
                    for w in ("tatp_uniform", "smallbank_skewed")
                    for k in ("use_hotset", "use_fused"))
@@ -280,9 +287,10 @@ def test_route_is_plan_json_pins_as_plan_resolves_them(env):
 
 
 def _old_plan_route(workload, env):
-    """The bench's route rule before it read PLAN.json through
-    `dint_tpu_torch.plan`, kept here to hold the new one to it."""
-    plan = json.loads((REPO / "PLAN.json").read_text())
+    """The bench's route rule before it read the plan through
+    `dint_tpu_torch.plan`, kept here to hold the new one to it (on the
+    port's plan file, PLAN_H100.json)."""
+    plan = json.loads((REPO / "PLAN_H100.json").read_text())
     knobs = {k: bool(v) for k, v in plan["workloads"][workload]["pinned"]
              .items() if k in ("use_hotset", "use_fused")}
     overridden = []
@@ -294,7 +302,7 @@ def _old_plan_route(workload, env):
                 overridden.append(name)
     route = {v: k for k, v in ROUTES.items()}[(knobs["use_hotset"],
                                                knobs["use_fused"])]
-    return route, {"source": str(REPO / "PLAN.json"),
+    return route, {"source": str(REPO / "PLAN_H100.json"),
                    "hash": plan.get("provenance", {}).get("cost_model_hash"),
                    "overridden": overridden}
 
@@ -302,7 +310,7 @@ def _old_plan_route(workload, env):
 @pytest.mark.parametrize("override", ["0", "1"])
 def test_plan_route_is_unchanged_for_every_workload_it_reads(override):
     """The bench's plan record and route through `dint_tpu_torch.plan` are
-    what they were, for each PLAN.json workload the bench reads, under
+    what they were, for each plan workload the bench reads, under
     every combination of the two route flags."""
     for hot in (None, "", "0", "1"):
         for fused in (None, "0", "1", "true"):
@@ -341,7 +349,8 @@ def test_bench_serve_probe_fills_the_reference_keys():
     assert s["offered"] == s["admitted"] + s["shed"] == 256 * 4 * 8
     assert s["blocks"] > 0 and s["achieved_rate"] > 0
     assert s["controller"]["width"] == 256
-    assert s["plan"] == dplan.resolve_for("tatp_serve", environ={})[1]
+    assert s["plan"] == pplan.resolve_for("tatp_serve", environ={})[1]
+    assert s["plan"]["source"] == str(REPO / "PLAN_H100.json")
     assert s["slo_us"] == 5000.0 and isinstance(s["slo_met"], bool)
     assert set(s["queue"]) == {"avg", "p50", "p99", "p999", "hist"}
     assert s["service"]["hist"]["n"] == s["blocks"]

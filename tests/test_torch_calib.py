@@ -231,8 +231,10 @@ def test_committed_h100_calibration_reproduced_from_its_evidence():
     assert JC.fit_calib(ev, source=H100_EVIDENCE.name) == doc
     # fitted on the card: four widths, sources naming the phase and card
     assert pinned["fit"]["widths"] == [256, 1024, 4096, 8192]
-    assert all(s.startswith("chip_smoke phase 16 (f), NVIDIA H100")
-               for s in ev["sources"])
+    # re-pinned from phase 22 (c): the serving plane's defaults (depth 2,
+    # 2 cohorts a block)
+    assert all(s.startswith("chip_smoke phase 22 (c), NVIDIA H100")
+               and ": depth 2 w" in s for s in ev["sources"])
     assert len(ev["sources"]) == 4 and np.isfinite(
         [pinned["model"]["base_us"], pinned["model"]["per_lane_ns"]]).all()
     assert pinned["source"] == "CALIB_H100.evidence.json"

@@ -138,7 +138,9 @@ def test_propose_equals_jax_but_repins_nothing(jcal, tmp_path):
     assert set(p) == set(j)
     for k in ("model", "provenance", "delta", "evidence"):
         assert p[k] == j[k], k
-    assert p["repin"] is None and j["repin"].startswith("python tools/")
+    assert p["repin"] == ("python -m dint_tpu_torch.dintplan plan --calib "
+                          f"{tmp_path / 'port.json'}")
+    assert j["repin"].startswith("python tools/")
     # no evidence anywhere: exit 2 on both sides
     (rc, _), (jrc, _) = _both(jcal, lambda s: [
         "propose", "--calib", str(tmp_path / "none.json")])
@@ -222,7 +224,10 @@ RUN = ["run", "--engine", "tatp_dense", "--size", "2000", "--rate", "30000",
 
 
 def test_virtual_run_equals_jax(jserve, monkeypatch, tmp_path):
-    argv = RUN + ["--json", "--journal", str(tmp_path / "j.jsonl")]
+    # the same plan file to both (JAX's "auto" is PLAN.json, the port's
+    # PLAN_H100.json)
+    argv = RUN + ["--plan", str(REPO / "PLAN.json"), "--json", "--journal",
+                  str(tmp_path / "j.jsonl")]
     rc, out = _run(dintserve.main, argv + ["--device", "cpu"])
     jrc, jout = _run(jserve.main, argv[:-2] + ["--journal",
                                                str(tmp_path / "jj.jsonl")],
@@ -232,15 +237,19 @@ def test_virtual_run_equals_jax(jserve, monkeypatch, tmp_path):
     # under the virtual clock the serving loop is a function of the
     # schedule and the model: the same decisions on both sides
     for k in ("offered", "admitted", "shed", "blocks", "steps_by_width",
-              "slo_met", "widths", "plan"):
+              "slo_met", "widths"):
         assert p[k] == j[k], k
+    # a plan document handed in: each package names its default file
+    assert {k: v for k, v in p["plan"].items() if k != "source"} == \
+        {k: v for k, v in j["plan"].items() if k != "source"}
     assert p["controller"]["switches"] == j["controller"]["switches"]
     assert (tmp_path / "j.jsonl").read_bytes() == \
         (tmp_path / "jj.jsonl").read_bytes()
     rc, out = _run(dintcal.main, ["audit", str(tmp_path / "j.jsonl")])
     assert rc == 0
     # the exit gate: an SLO no run can meet
-    tight = RUN + ["--slo-us", "1", "--device", "cpu"]
+    tight = RUN + ["--plan", str(REPO / "PLAN.json"), "--slo-us", "1",
+                   "--device", "cpu"]
     rc, text = _run(dintserve.main, tight)
     jrc, _ = _run(jserve.main, tight[:-2], monkeypatch)
     assert rc == jrc == 1 and "MISSED" in text
@@ -249,12 +258,18 @@ def test_virtual_run_equals_jax(jserve, monkeypatch, tmp_path):
 
 
 def test_describe_marks_the_targets_not_ported(jserve, monkeypatch):
+    """describe's lines equal the reference's but for the serve targets,
+    which the port lists from its own registry with their budgets."""
     rc, out = _run(dintserve.main, ["describe"])
     jrc, jout = _run(jserve.main, ["describe"], monkeypatch)
     assert rc == jrc == 0
-    assert "serve targets (the static analysis plane): not ported" in out
+    assert "not ported" not in out
+    from dint_tpu_torch.analysis import targets as tg
+    serve = sorted(n for n in tg.TARGETS if "/serve" in n)
+    assert serve and all(f"  {n} " in out for n in serve)
     for line in jout.splitlines():
-        if "targets" not in line and not line.startswith("  dint_tpu"):
+        if "targets" not in line and "/serve" not in line \
+                and not line.startswith("  dint_tpu"):
             if not line.startswith("  ") or "serve_" in line \
                     or "dint." in line:
                 assert line in out.splitlines(), line

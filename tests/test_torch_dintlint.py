@@ -466,6 +466,12 @@ def _broken_findings(pname):
     if pname == "durability":
         from test_torch_dintdur import broken_wal_order_findings
         return broken_wal_order_findings()
+    if pname == "plan_check":
+        from test_torch_dintplan import broken_plan_findings
+        return broken_plan_findings()
+    if pname == "calib_check":
+        from test_torch_calib_check import broken_calib_findings
+        return broken_calib_findings()
     raise AssertionError(pname)
 
 

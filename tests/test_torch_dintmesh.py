@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from dint_tpu import serve as jserve
+from dint_tpu.analysis import plan as jplan
 from dint_tpu_torch import convert
 from dint_tpu_torch import dintserve
 from dint_tpu_torch import plan as pplan
@@ -230,6 +231,10 @@ def _strip(snap):
     out.pop("elapsed_s")
     out["counters"] = {k: v for k, v in snap["counters"].items()
                        if k not in DISPATCH}
+    if out.get("plan"):
+        # each package names its own default plan file as the source
+        out["plan"] = {k: v for k, v in out["plan"].items()
+                       if k != "source"}
     return out
 
 
@@ -241,9 +246,11 @@ def test_mesh_engine_equals_jax_under_virtual_clock(sched):
     schedule = (poisson_schedule(300_000.0, 0.004, seed=3)
                 if sched == "poisson"
                 else constant_schedule(6_000_000.0, 0.003))
+    # the same plan document to both (JAX's "auto" is PLAN.json, the
+    # port's PLAN_H100.json)
     common = dict(mesh_shape=(H, C), cfg=ControllerCfg(widths=(8, W)),
                   model=ServiceModel(), cohorts_per_block=CPB, monitor=True,
-                  seed=0, overlap=False)
+                  seed=0, overlap=False, plan=jplan.load_plan())
     j = jserve.MeshServeEngine(N, clock=jserve.VirtualClock(), **common)
     p = MeshServeEngine(N, clock=VirtualClock(), draws=_jax_draws(0),
                         device="cpu", **common)
@@ -266,16 +273,17 @@ def test_mesh_engine_equals_jax_under_virtual_clock(sched):
 
 
 def test_mesh_engine_resolves_geometry_knobs_from_plan():
-    """hierarchical/overlap left unset come from PLAN.json's
-    multihost_serve (ON / OFF); an explicit plan dict wins, no plan gives
-    the defaults, an explicit argument beats the plan."""
+    """hierarchical/overlap left unset come from the pinned plan's
+    (PLAN_H100.json) multihost_serve (ON / OFF); an explicit plan dict
+    wins, no plan gives the defaults, an explicit argument beats the
+    plan."""
     eng = _engine(overlap=None)
     eng.run(constant_schedule(100_000.0, 0.004))
     eng.close()
     rep = eng.snapshot()
     assert rep["mesh"] == {"n_hosts": H, "n_ici": C, "hierarchical": True,
                            "overlap": False}
-    assert rep["plan"]["source"].endswith("PLAN.json")
+    assert rep["plan"]["source"].endswith("PLAN_H100.json")
     assert rep["plan"]["overridden"] == []
     doc = pplan.load_plan()
     doc["workloads"]["multihost_serve"]["pinned"] = {"hierarchical": False,
@@ -329,17 +337,20 @@ def test_dintserve_cli_mesh_simulate_and_describe(capsys):
     rc, out = _cli(capsys, "describe")
     assert rc == 0
     for want in ("dint.multihost_sb.route_prefetch",
-                 "dint.multihost_sb.serve", "not ported"):
+                 "dint.multihost_sb.serve", "multihost_sb/serve@overlap"):
         assert want in out, want
     with pytest.raises(SystemExit, match="HxC"):
         dintserve.main(["simulate", "--mesh", "four"])
 
 
 def test_dintserve_cli_mesh_virtual_run(capsys):
+    # the ServiceModel's defaults as flags: the pinned plan's H100 priors
+    # price a virtual block past the SLO
+    model = ("--model-base-us", "150", "--model-per-lane-ns", "40")
     rc, out = _cli(capsys, "run", "--mesh", "3x2", "--size", str(N),
                    "--rate", "200000", "--window", "0.01", "--widths",
                    f"8,{W}", "--cpb", str(CPB), "--virtual", "--device",
-                   "cpu", "--json")
+                   "cpu", "--json", *model)
     assert rc == 0                          # the SLO gate: met
     rep = json.loads(out.strip().splitlines()[-1])
     assert rep["mesh"]["n_hosts"] == 3 and rep["mesh"]["n_ici"] == 2
@@ -349,7 +360,7 @@ def test_dintserve_cli_mesh_virtual_run(capsys):
     rc, out = _cli(capsys, "run", "--mesh", "3x2", "--size", str(N),
                    "--rate", "200000", "--window", "0.004", "--widths",
                    f"8,{W}", "--cpb", str(CPB), "--virtual", "--device",
-                   "cpu", "--overlap")
+                   "cpu", "--overlap", *model)
     assert rc == 0
     assert "mesh     3x2 hierarchical=True overlap=True" in out
     assert "host 2: admitted=" in out

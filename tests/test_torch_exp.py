@@ -14,6 +14,7 @@ result sink writes each point as it lands; ``--skip-done`` skips a point
 whose artifact is there; the entry point needs a card."""
 import functools
 import json
+from pathlib import Path
 
 import pytest
 
@@ -55,11 +56,18 @@ def _small_logs(mp, micro_mod, wire_mod):
 
 @pytest.fixture(scope="module")
 def sweeps():
+    # the one plan file both read (the reference's default is PLAN.json,
+    # the port's PLAN_H100.json)
+    plan = str(Path(__file__).resolve().parent.parent / "PLAN_H100.json")
     with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("DINT_PLAN_PATH", plan)
         _small_logs(mp, micro, tw)
         port = {}
         exp.sweep_micro(WINDOW, True, port, device="cpu")
     with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("DINT_PLAN_PATH", plan)
+        # exp.py keeps the first plan it read in a process
+        mp.setattr(jexp, "_PLAN_DOC", None)
         _small_logs(mp, jmicro, jtw)
         mp.setattr(jnative, "_SO", str(native.build()))
         mp.setattr(jnative, "_lib", None)

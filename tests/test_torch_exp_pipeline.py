@@ -15,6 +15,7 @@ the preset; the mesh legs print exp.py's skip line below 3 hosts and run
 with exp.py's keys at 3x1; a point whose warm block reads a bad magic
 word, or whose attribution fails, raises."""
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -32,6 +33,9 @@ NAMES = [f"{e}_{p}" for e in ("tatp", "smallbank")
          for p in (f"closed_w{W}", "open_50pct", f"latency_w{W}")]
 FLAGS = ("DINT_TRACE", "DINT_MONITOR", "DINT_EXP_TRACE_DIR",
          "DINT_PLAN_OVERRIDE", "DINT_USE_HOTSET", "DINT_USE_FUSED")
+# the one plan file both packages read where their artifacts are compared
+# (the reference reads PLAN.json by default, the port PLAN_H100.json)
+PLAN_H100 = str(Path(__file__).resolve().parent.parent / "PLAN_H100.json")
 
 
 @pytest.fixture(autouse=True)
@@ -90,6 +94,9 @@ def sweeps():
     with pytest.MonkeyPatch.context() as mp:
         for k in FLAGS:
             mp.delenv(k, raising=False)
+        mp.setenv("DINT_PLAN_PATH", PLAN_H100)
+        # exp.py keeps the first plan it read in a process
+        mp.setattr(jexp, "_PLAN_DOC", None)
         port = _sweep(exp, {})
         ref = _sweep(jexp, {})
         mp.setenv("DINT_TRACE", "1")
@@ -238,7 +245,7 @@ def test_only_smallbank_skew_runs_only_the_preset(tmp_path):
     assert sorted(res) == sorted(want)
     for f, name in zip(exp.SKEW_FRACS, want):
         assert res[name]["hot_frac"] == f and res[name]["hot_prob"] == 0.9
-        assert res[name]["use_hotset"] is False     # PLAN.json's pin
+        assert res[name]["use_hotset"] is False     # PLAN_H100.json's pin
     with open(tmp_path / "summary.json") as f:
         assert json.load(f)["configs"] == sorted(want)
 
@@ -261,6 +268,8 @@ def test_mesh_leg_runs_at_quick_size_with_jax_keys(tmp_path, monkeypatch):
     as exp.py's run_all does, over 3 of the virtual devices), the mesh
     and ``hierarchical``; both routes commit the same work."""
     monkeypatch.setenv("DINT_BENCH_MESH", "3x1")
+    monkeypatch.setenv("DINT_PLAN_PATH", PLAN_H100)
+    monkeypatch.setattr(jexp, "_PLAN_DOC", None)
     res = exp.run(str(tmp_path), window_s=WINDOW, quick=True,
                   only="multihost_sb", device="cpu")
     names = [f"multihost_sb_{t}_closed_w{W}" for t in ("hier", "flat")]

@@ -13,6 +13,7 @@ leg and log_server, which the two-way filter matches too."""
 import gc
 import json
 import weakref
+from pathlib import Path
 
 import pytest
 
@@ -34,11 +35,19 @@ def _shape(x):
 @pytest.fixture(scope="module")
 def sweeps():
     port, ref = {}, {}
-    exp.sweep_serve("serve_tatp", "tatp_dense", N_SUB, window_s=WINDOW,
-                    open_rates=(0.5,), results=port, quick=True,
-                    device="cpu")
-    jexp.sweep_serve("serve_tatp", "tatp_dense", N_SUB, window_s=WINDOW,
-                     open_rates=(0.5,), results=ref, quick=True)
+    # the one plan file both read (the reference's default is PLAN.json,
+    # the port's PLAN_H100.json)
+    plan = str(Path(__file__).resolve().parent.parent / "PLAN_H100.json")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("DINT_PLAN_PATH", plan)
+        # exp.py keeps the first plan it read in a process
+        mp.setattr(jexp, "_PLAN_DOC", None)
+        exp.sweep_serve("serve_tatp", "tatp_dense", N_SUB, window_s=WINDOW,
+                        open_rates=(0.5,), results=port, quick=True,
+                        device="cpu")
+        jexp.sweep_serve("serve_tatp", "tatp_dense", N_SUB,
+                         window_s=WINDOW, open_rates=(0.5,), results=ref,
+                         quick=True)
     return json.loads(json.dumps(port)), json.loads(json.dumps(ref))
 
 

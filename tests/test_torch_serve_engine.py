@@ -37,6 +37,9 @@ from test_torch_lock_engines import assert_same, np_tree
 from test_torch_tatp_routes import _assert_same_db, _jax_arrays
 
 BY_DESIGN = ("dispatch_xla", "dispatch_pallas", "hot_refresh_bytes")
+# the one plan document both engines read in the parity tests: JAX's
+# "auto" is PLAN.json (a TPU's priors), the port's PLAN_H100.json
+REF_PLAN = jplan.load_plan()
 N_SUB = 300
 N_ACC = 400
 W = 64
@@ -93,6 +96,7 @@ def jax_draws(engine, seed, size, kw=None):
 
 def _pair(engine, size, seed=0, **kw):
     """The JAX engine and the port's on the same arguments and draws."""
+    kw.setdefault("plan", REF_PLAN)
     common = dict(cohorts_per_block=CPB, monitor=True, seed=seed, **kw)
     if engine != "smallbank_dense":
         common["val_words"] = VW
@@ -108,6 +112,10 @@ def _pair(engine, size, seed=0, **kw):
 def _strip(snap):
     out = dict(snap)
     out.pop("elapsed_s")
+    if out.get("plan"):
+        # each package names its own default plan file as the source
+        out["plan"] = {k: v for k, v in out["plan"].items()
+                       if k != "source"}
     out["counters"] = {k: v for k, v in snap["counters"].items()
                        if k not in BY_DESIGN}
     return out
@@ -115,6 +123,9 @@ def _strip(snap):
 
 def _assert_same_snapshot(js, ps):
     assert js.keys() == ps.keys()
+    if ps.get("plan"):
+        # a document handed in, not a file read
+        assert ps["plan"]["source"] == "<document>"
     assert js["counters"].keys() == ps["counters"].keys()
     assert _strip(js) == _strip(ps)
     steps = sum(ps["steps_by_width"].values())
@@ -231,15 +242,28 @@ def test_store_family_matches_jax(scan):
 def test_plan_auto_dict_and_none():
     sched = serve.constant_schedule(30_000.0, 0.01)
     cfg = serve.ControllerCfg(widths=(16, W))
-    # "auto": PLAN.json's smallbank_serve priors (a TPU's calibration):
-    # the ServiceModel and the hot_frac prior
-    _, p, rep = _serve_both("smallbank_dense", N_ACC, [sched], cfg=cfg)
+    # "auto": the port's PLAN_H100.json smallbank_serve priors (the card's
+    # calibration): the ServiceModel and the hot_frac prior
+    p = serve.ServeEngine("smallbank_dense", N_ACC, cfg=cfg,
+                          cohorts_per_block=CPB, monitor=True,
+                          clock=serve.VirtualClock(), plan="auto",
+                          device="cpu")
+    rep = p.run(sched)
+    p.close()
     assert rep["plan"] is not None and rep["plan"]["overridden"] == []
-    assert rep["plan"]["source"].endswith("PLAN.json")
-    assert rep["plan"] == jplan.resolve_for("smallbank_serve")[1]
+    assert rep["plan"]["source"].endswith("PLAN_H100.json")
+    assert rep["plan"] == pplan.resolve_for("smallbank_serve")[1]
     assert rep["hot_frac"] == {"current": wl.SB_HOT_FRAC, "adaptive": True,
                                "rebuilds": 0}
     prior = pplan.load_plan()["workloads"]["smallbank_serve"]["serve"]
+    assert prior["model"]["source"] == "calib"
+    assert (p.model.base_us, p.model.per_lane_ns) == (
+        prior["model"]["base_us"], prior["model"]["per_lane_ns"])
+    # the reference's plan handed to both engines: the same serving
+    _, p, rep = _serve_both("smallbank_dense", N_ACC, [sched], cfg=cfg)
+    assert rep["plan"] == pplan.resolve_for("smallbank_serve",
+                                            plan=REF_PLAN)[1]
+    prior = REF_PLAN["workloads"]["smallbank_serve"]["serve"]
     assert (p.model.base_us, p.model.per_lane_ns) == (
         prior["model"]["base_us"], prior["model"]["per_lane_ns"])
     # a plan dict: the width menu, SLO and model flow from its priors
@@ -288,6 +312,7 @@ def test_hot_frac_rebuild_at_width_switch_drain():
 
 
 def _port_engine(engine="tatp_dense", size=N_SUB, **kw):
+    kw.setdefault("plan", REF_PLAN)
     return serve.ServeEngine(engine, size, cfg=serve.ControllerCfg(
         widths=(W,)), cohorts_per_block=CPB, val_words=VW,
         clock=serve.VirtualClock(), monitor=True, seed=4, device="cpu", **kw)

@@ -215,13 +215,19 @@ ENVS = [
 
 @pytest.mark.parametrize("env", ENVS)
 def test_resolve_for_matches_the_reference(env):
-    doc = pplan.load_plan()
-    assert doc == jplan.load_plan()
+    """On the reference's PLAN.json handed to both: the port's knobs are
+    the reference's less use_pallas (recorded as dropped), its meta the
+    reference's but for the source: the reference names its default plan
+    path, the port records that a document was handed in."""
+    doc = jplan.load_plan()
     for wname in ("tatp_uniform", "smallbank_skewed", "tatp_serve",
                   "smallbank_serve", "multihost_4x2", "multihost_3x2",
                   "multihost_serve"):
-        jk, jm = jplan.resolve_for(wname, environ=env)
-        pk, pm = pplan.resolve_for(wname, environ=env)
+        jk, jm = jplan.resolve_for(wname, environ=env, plan=doc)
+        pk, pm = pplan.resolve_for(wname, environ=env, plan=doc)
+        assert pm["source"] == "<document>"
+        assert jm.pop("source") == str(jplan.plan_path())
+        pm.pop("source")
         # the port has no use_pallas: dropped, and recorded as dropped
         assert pk == {k: v for k, v in jk.items() if k in pplan.KNOBS}
         pinned = doc["workloads"][wname]["pinned"]

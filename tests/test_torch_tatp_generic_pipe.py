@@ -65,13 +65,24 @@ def test_pipelined_runner_and_drain_bit_identical(jax_pipes, cfg, monitor):
     assert _closes(total) and total[tp.STAT_MAGIC_BAD] == 0
     assert total[tp.STAT_ATTEMPTED] == BLOCKS * cpb * w
     if monitor:
-        assert np.array_equal(np.asarray(jout[2].buf),
-                              convert.counters_to_numpy(pout[2]))
+        # bit-identical but for the reject split, which JAX's generic
+        # engine leaves at 0 and the port's fills (held + arb == rejected)
+        split = [mon.CTR_LOCK_REJECT_HELD, mon.CTR_LOCK_REJECT_ARB]
+        jbuf = np.asarray(jout[2].buf)
+        pbuf = convert.counters_to_numpy(pout[2])
+        assert np.array_equal(np.delete(jbuf, split),
+                              np.delete(pbuf, split))
+        assert not jbuf[split].any()
         snap = mon.snapshot(pout[2])
+        assert snap["lock_rejected"] == (snap["lock_reject_held"]
+                                         + snap["lock_reject_arb"])
+        assert snap["lock_reject_held"] > 0 and snap["lock_reject_arb"] > 0
         assert snap["txn_committed"] == total[tp.STAT_COMMITTED]
         assert snap["ab_validate"] == total[tp.STAT_AB_VALIDATE] > 0
         assert total[tp.STAT_AB_LOCK] > 0
-        assert jmon.snapshot(jout[2]) == snap
+        jsnap = jmon.snapshot(jout[2])
+        assert {k: v for k, v in jsnap.items() if "reject_" not in k} == \
+            {k: v for k, v in snap.items() if "reject_" not in k}
 
 
 
