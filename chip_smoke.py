@@ -409,6 +409,21 @@ mismatch or error:
    sharded-SmallBank and 2-D meshes, the serving planes; the earlier
    phases keep theirs in P22_SNAPSHOTS): no unsuppressed finding, every
    identity ok or skipped.
+23. The mesh's collectives on the card (after phase 22): (a)
+   `dense_sharded/block`, `dense_sharded_sb/block`, `multihost_sb/block`
+   and `@flat` traced on CUDA tensors at the lint geometry: the
+   `dint_mesh` nodes by (op, axis) and the link bytes a step by axis,
+   and the shard_consistency, protocol, durability and cost_budget
+   findings, each == the CPU trace's; (b) `dint_mesh::ppermute`,
+   `all_to_all` and `psum` on CUDA tensors at the 3 and 3x2 meshes, every
+   axis, offsets 1 and 2, the tuple axis: bit for bit the CPU's results;
+   and host µs a call of the TATP install record's hop (3 partitions, 2w
+   = 16,384 lanes) and of the 3x2 route buckets' exchange, through the
+   op and in the list form it replaced; (c) dintmut's pinned quick
+   sample (MUTCOV_TORCH.json) re-run over the CUDA traces: each cell's
+   verdict, killer and new errors == the pinned row's. (a) and (c) read
+   the CUDA traces phase 22 (a) made where it made them; (a)'s CPU
+   traces run in a child process meanwhile.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -7296,6 +7311,8 @@ def _p22_pricer(dev):
             meta = T.TARGET_COST[name]
             prices[name] = P.price_model(cost.derive(
                 tr, steps=meta["steps"], geom=meta["geom"]))
+            if name in P23_KEEP:        # phase 23 reads these traces
+                CARD_TRACES[name] = tr
         return prices[name]
     return pricer
 
@@ -7677,6 +7694,252 @@ def phase_plan(dev, card, require_all=True):
     return paths
 
 
+# ------------------------------------- the mesh's collectives on the card
+
+P23_TARGETS = ("dense_sharded/block", "dense_sharded_sb/block",
+               "multihost_sb/block", "multihost_sb/block@flat")
+# the lint geometry's CUDA traces phase 22 (a) makes and phase 23 reuses
+# (its mesh targets, and the quick sample's tatp_dense/block)
+P23_KEEP = P23_TARGETS + ("tatp_dense/block",)
+CARD_TRACES: dict = {}
+P23_PASSES = ("shard_consistency", "protocol", "durability", "cost_budget")
+
+
+def _p23_collectives(trace):
+    """{"op axes": nodes} of a trace's dint_mesh nodes."""
+    from dint_tpu_torch.analysis import core
+    from dint_tpu_torch.ops import mesh_ops
+    out = {}
+    for n in trace.graph.nodes:
+        if n.op == "call_function" and mesh_ops.is_collective(n.target):
+            k = f"{core.op_name(n)} {','.join(mesh_ops.node_axes(n))}"
+            out[k] = out.get(k, 0) + 1
+    return dict(sorted(out.items()))
+
+
+def _p23_summary(trace):
+    """What (a) compares of one trace: its collective nodes, its link
+    bytes a step by axis, its unpriced collective waves, and the four
+    passes' (pass, code, site) keys and unsuppressed errors."""
+    from dint_tpu_torch.analysis import cost
+    from dint_tpu_torch.analysis import targets as T
+    meta = T.TARGET_COST[trace.name]
+    model = cost.derive(trace, steps=meta["steps"], geom=meta["geom"])
+    keys, errs, _ = _p20_keys(trace, P23_PASSES)
+    return {"collectives": _p23_collectives(trace),
+            "links": model.axis_bytes_per_step(),
+            "unpriced": list(model.unpriced_waves),
+            "keys": sorted(list(k) for k in keys), "errors": errs}
+
+
+def p23_cpu_main():
+    """(a)'s CPU side, run as a child process beside the card's traces:
+    one JSON line of every target's summary."""
+    from dint_tpu_torch.analysis import targets as T
+    out = {name: _p23_summary(T.build(name, T.LINT)) for name in P23_TARGETS}
+    print("P23 " + json.dumps(out), flush=True)
+
+
+def _p23_traces(dev, card):
+    """(a): the mesh targets traced on CUDA == their CPU traces (traced in
+    a child process meanwhile): the collective nodes, the link bytes and
+    the four passes' findings. Returns (record, {target: CUDA trace})."""
+    import dataclasses
+    from dint_tpu_torch.analysis import targets as T
+    child = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.p23_cpu_main()"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, text=True,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    on_card = dataclasses.replace(T.LINT, device=dev.type)
+    rec, traces, got = {}, {}, {}
+    try:
+        for name in P23_TARGETS:
+            tr = CARD_TRACES.pop(name, None) or T.build(name, on_card)
+            check(tr.gm is not None and tr.device == dev.type,
+                  f"{name}: traced on {dev.type} ({tr.trace_error})")
+            traces[name] = tr
+            got[name] = _p23_summary(tr)
+        out, _ = child.communicate(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    check(child.returncode == 0, f"(a)'s CPU traces: child exit "
+                                 f"{child.returncode}")
+    cpu = json.loads(next(ln[4:] for ln in out.splitlines()
+                          if ln.startswith("P23 ")))
+    for name in P23_TARGETS:
+        g, c = got[name], cpu[name]
+        print(f"  (a) {name}: collective nodes {g['collectives']}; link "
+              f"bytes a step {g['links']}  [{card}]")
+        check(g["collectives"] == c["collectives"]
+              and g["links"] == c["links"]
+              and not g["unpriced"] and not c["unpriced"],
+              f"{name}: the CUDA trace's collective nodes and link bytes "
+              f"== the CPU trace's ({c['collectives']}, {c['links']}), "
+              f"every collective wave priced")
+        check(g["keys"] == c["keys"] and not g["errors"]
+              and not c["errors"],
+              f"{name}: the same {'/'.join(P23_PASSES)} (pass, code, site) "
+              f"set as the CPU trace ({len(g['keys'])} keys), no "
+              f"unsuppressed error {g['errors']} {c['errors']}")
+        rec[name] = {"collectives": g["collectives"],
+                     "link_bytes_per_step": g["links"],
+                     "findings": g["keys"]}
+    return rec, traces
+
+
+def _p23_ops(dev, card):
+    """(b): the three ops on CUDA tensors == on CPU tensors, bit for bit."""
+    from dint_tpu_torch.parallel.mesh import Mesh
+    g = torch.Generator().manual_seed(23)
+    n_calls = 0
+    for shape, axes in (((3,), ("shard",)), ((3, 2), ("dcn", "ici"))):
+        meshes = [Mesh(shape, axes, device=d) for d in ("cpu", dev)]
+        size = meshes[0].size
+        rows = 4 * size * 6
+        xs = [torch.randint(-(1 << 31), 1 << 31, (rows, 5), generator=g,
+                            dtype=torch.int64).to(torch.int32)
+              for _ in range(size)]
+        masks = [torch.rand(rows, generator=g) < 0.5 for _ in range(size)]
+        on = [[x.to(m.device) for x in xs] for m in meshes]
+        mk = [[x.to(m.device) for x in masks] for m in meshes]
+        calls = []
+        for axis in axes:
+            for off in (1, 2):
+                calls.append(("ppermute", lambda m, i, a=axis, o=off:
+                              m.ppermute(list(zip(on[i], mk[i])), a, o)))
+            calls.append(("all_to_all", lambda m, i, a=axis:
+                          m.all_to_all(on[i], a)))
+        calls.append(("all_to_all", lambda m, i: m.all_to_all(
+            on[i], tuple(axes))))
+        calls.append(("psum", lambda m, i: [m.psum(on[i])]))
+        for op, fn in calls:
+            want, got = fn(meshes[0], 0), fn(meshes[1], 1)
+            flat = (lambda v: [t for e in v for t in (
+                e if isinstance(e, tuple) else (e,))])
+            w_, g_ = flat(want), flat(got)
+            check(len(w_) == len(g_) and all(
+                b.device.type == dev.type and torch.equal(a, b.cpu())
+                for a, b in zip(w_, g_)),
+                f"dint_mesh::{op} on a {shape} mesh: the card's result == "
+                f"the CPU's", quiet=True)
+            n_calls += 1
+    torch.cuda.synchronize()
+    print(f"  (b) {n_calls} calls of dint_mesh::ppermute, all_to_all and "
+          f"psum on the 3 and 3x2 meshes: the card's results == the CPU's, "
+          f"bit for bit  [{card}]")
+    return {"calls": n_calls, "host_us": _p23_host_cost(dev, card)}
+
+
+def _p23_host_cost(dev, card):
+    """Host µs a call of a hop and an exchange at the main path's width,
+    through the op and in the list form it replaced (a re-index of the
+    list; a stack and one transposed copy): what a mesh step pays for
+    the ops."""
+    from dint_tpu_torch.engines import tatp_dense as td
+    from dint_tpu_torch.parallel.mesh import Mesh
+    n = 2 * MESH_W
+    mesh = Mesh((MESH_D,), ("shard",), device=dev)
+
+    def rec():
+        z = torch.zeros(n, dtype=torch.int32, device=dev)
+        return td.Installs(
+            wmask=torch.zeros(n, dtype=torch.bool, device=dev),
+            rows=z.clone(), meta=z.clone(),
+            val=torch.zeros((n, VW), dtype=torch.int32, device=dev),
+            tbl=z.clone(), key=z.clone(), is_del=z.clone(), ver=z.clone())
+    insts = [rec() for _ in range(MESH_D)]
+    h, ci = MH_SHAPE
+    m2 = Mesh(MH_SHAPE, ("dcn", "ici"), device=dev)
+    rows = m2.size * 2 * -(-MESH_W * 3 // m2.size)
+    buckets = [torch.zeros((rows, 2), dtype=torch.int32, device=dev)
+               for _ in range(m2.size)]
+
+    def listed_hop():
+        return [insts[mesh.shift(p, "shard", -1)] for p in range(MESH_D)]
+
+    def listed_exchange():
+        x = torch.stack(buckets).reshape(h, ci, ci, rows // ci, 2)
+        return list(x.transpose(1, 2).reshape(m2.size, rows, 2).unbind(0))
+    out = {}
+    for label, fn in (
+            ("ppermute op", lambda: mesh.ppermute(insts, "shard", 1)),
+            ("ppermute list form", listed_hop),
+            ("all_to_all op", lambda: m2.all_to_all(buckets, "ici")),
+            ("all_to_all list form", listed_exchange)):
+        out[label], _ = _p20_host_us(fn)
+    print(f"  (b) host µs a call: the TATP install record's hop over "
+          f"{MESH_D} partitions (2w = {n} lanes, VW = {VW}): op "
+          f"{out['ppermute op']:.3f}, list form "
+          f"{out['ppermute list form']:.3f}; the {h}x{ci} route buckets' "
+          f"ici exchange ([{rows}, 2] a partition): op "
+          f"{out['all_to_all op']:.3f}, list form "
+          f"{out['all_to_all list form']:.3f}  [{card}]")
+    return out
+
+
+def _p23_mutants(dev, card, traces):
+    """(c): the pinned quick sample re-run over the card's traces."""
+    import dataclasses
+    from dint_tpu_torch.analysis import mutate as M
+    from dint_tpu_torch.analysis import targets as T
+    doc = M.load_mutcov()
+    ids = doc["quick"]["cells"]
+    on_card = dataclasses.replace(T.LINT, device=dev.type)
+
+    def get_trace(name):
+        if name not in traces:
+            traces[name] = CARD_TRACES.pop(name, None) or T.build(
+                name, on_card)
+        return traces[name]
+    fresh = M.run_cells(ids, get_trace=get_trace)
+    pinned = {c["id"]: c for c in doc["cells"]}
+    rec = {}
+    for cell in fresh:
+        want = pinned[cell["id"]]
+        same = all(cell.get(k) == want[k]
+                   for k in ("verdict", "killer", "new_errors"))
+        print(f"  (c) {cell['id']}: {cell.get('verdict')} by "
+              f"{cell.get('killer')!r} (pinned: {want['verdict']} by "
+              f"{want['killer']!r})")
+        check(same, f"{cell['id']}: the CUDA trace's mutant gives the "
+                    f"pinned verdict, killer and new errors", quiet=True)
+        rec[cell["id"]] = [cell.get("verdict"), cell.get("killer")]
+    check(len(fresh) == len(ids) == len({i.split("|")[1] for i in ids}),
+          f"dintmut's quick sample ({len(ids)} cells, one an operator) "
+          f"re-run on the card's traces == MUTCOV_TORCH.json  [{card}]")
+    return rec
+
+
+def phase_mesh_trace(dev, card):
+    """Phase 23: the mesh's collectives in the card's traces."""
+    print("== phase 23: the mesh's collectives on the card: the mesh "
+          "targets' CUDA traces (collective nodes, link bytes, findings) "
+          "== the CPU's; the three ops on CUDA tensors == on CPU tensors; "
+          "dintmut's quick sample over the CUDA traces == the pin")
+    t0 = time.perf_counter()
+    rec = {}
+    t = time.perf_counter()
+    rec["traces"], traces = _p23_traces(dev, card)
+    rec["traces_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    rec["ops"] = _p23_ops(dev, card)
+    rec["ops_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    rec["mutants"] = _p23_mutants(dev, card, traces)
+    rec["mutants_s"] = time.perf_counter() - t
+    del traces
+    CARD_TRACES.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()
+    rec["seconds"] = time.perf_counter() - t0
+    print("  phase 23 record: " + json.dumps(rec, default=str))
+    print(f"  phase 23: {rec['seconds']:.3f} s  [{card}]")
+
+
 KERNELS = {
     "gather_rows": ("dint_tpu_torch/csrc/gather_rows.cu",
                     "dint_tpu/ops/pallas_gather.py:212"),
@@ -7806,6 +8069,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     store_paths.update(phase_plan(dev, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_mesh_trace(dev, card)
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():

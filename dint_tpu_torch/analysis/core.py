@@ -134,11 +134,13 @@ class TargetTrace:
 
 
 _PKG = os.sep + "dint_tpu_torch" + os.sep
-# frames that are the kernels' and the scopes' plumbing, not the step's
-# code: a kernel node's site is its caller's line
+# frames that are the kernels', the collectives' and the scopes'
+# plumbing, not the step's code: a kernel or collective node's site is
+# its caller's line
 _PLUMBING = tuple(os.sep + p for p in (
     "dint_tpu_torch/ops/library.py", "dint_tpu_torch/ops/row_kernels.py",
     "dint_tpu_torch/ops/scan_kernels.py", "dint_tpu_torch/monitor/waves.py",
+    "dint_tpu_torch/ops/mesh_ops.py", "dint_tpu_torch/parallel/mesh.py",
     "dint_tpu_torch/analysis/"))
 
 
@@ -514,6 +516,11 @@ def logical_vals(trace: TargetTrace) -> dict:
                 continue
             name = op_name(node)
             ins = node_inputs(node)
+            if node.meta.get("dint_widened"):
+                # a mutant's widened output (analysis/mutate.py): its
+                # readers are re-derived from the recorded widened val
+                differs.add(node)
+                continue
             if name in _DATA_DEP:
                 m = vals.get(node.args[0])
                 if isinstance(m, torch.Tensor):

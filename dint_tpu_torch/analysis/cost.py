@@ -43,11 +43,22 @@ What differs from the reference:
   lanes), which prices what JAX prices and does not depend on the draws;
   the filter's own lane compaction (``x[keep]``, JAX's ``where``) is not a
   memory op. An access behind a filter records its lane count.
-* **No collectives.** The in-process mesh's ``ppermute``/``all_to_all``
-  re-index a Python list (parallel/mesh.py), so no collective appears in
-  a trace and the per-axis link bytes stay zero. A wave whose waves.py
-  formula prices collective bytes (`COLLECTIVE_WAVES`) is left out of
-  reconciliation and of the ledger and named in ``unpriced_waves``.
+* **Collectives and link bytes.** The mesh's moves are ``dint_mesh``
+  operators (ops/mesh_ops.py), one node a call over every partition. A
+  ``ppermute`` or ``all_to_all`` counts its operand bytes once (the move,
+  the convention of the waves.py formulas) and one dispatch, and also
+  carries its interconnect attribution: the axis class it is priced on
+  ("dcn" when any axis name it names contains ``dcn``, else "ici"; a
+  tuple axis spanning both is priced "dcn", one exchange at the speed of
+  its slowest link) and its link bytes. An untiled ``all_to_all`` prices
+  (n-1)/n of its operand (the self shard never moves; n is the axis
+  size, read off the node's mesh); a ``ppermute`` its whole operand.
+  ``psum`` (the stats' vote) is not priced, as in the reference. Since
+  one node moves every partition's records, a mesh target's link bytes
+  are d times the reference's per-device figure, as every other byte of
+  a mesh trace is. ``unpriced_waves`` names a wave whose waves.py formula
+  prices collective bytes (`COLLECTIVE_WAVES`) but whose trace holds no
+  collective: empty on every registered target.
 * **Per step.** A target traces a block of ``steps`` steps, unrolled, and
   the model divides by it, as the reference divides by its scan length.
 
@@ -66,6 +77,7 @@ import torch
 
 from ..monitor import waves
 from ..monitor.attrib import WAVE_ALIASES
+from ..ops import mesh_ops
 from . import dataflow as df
 from .core import (TargetTrace, filter_mask, flat_nodes, logical_vals,
                    node_inputs, op_name, site_of, walk)
@@ -88,7 +100,7 @@ _LANE_VIEWS = frozenset({"squeeze", "view", "_unsafe_view", "reshape",
                          "select", "unsqueeze", "flatten", "alias"})
 
 # waves whose waves.py formula prices collective bytes (the mesh's
-# routes, replies and replication): the trace cannot see the collectives
+# routes, replies and replication)
 COLLECTIVE_WAVES = frozenset(waves.full_name(e, w) for e, w in (
     ("dense_sharded", "replicate"),
     ("dense_sharded_sb", "route"), ("dense_sharded_sb", "reply"),
@@ -131,8 +143,8 @@ class Access:
     site: str = ""
     path: str = ""
     lanes: int = 0      # behind a nonzero filter: its mask's lanes
-    axis: str = ""      # collectives only (none in a port trace)
-    link_bytes: float = 0.0
+    axis: str = ""      # collectives only: "ici" | "dcn" (slowest axis)
+    link_bytes: float = 0.0  # collectives only: bytes priced on `axis`
 
 
 @dataclasses.dataclass
@@ -180,8 +192,8 @@ class CostModel:
                               if a.kind == "kernel" else None, "dispatches")
 
     def axis_bytes_per_step(self) -> dict[str, float]:
-        """Per-axis link bytes/step; zero on the port (no collective shows
-        in a trace)."""
+        """Per-axis interconnect link bytes/step ({"ici": x, "dcn": y});
+        gathers, scatters and kernels carry no axis."""
         out = {"ici": 0.0, "dcn": 0.0}
         for a in self.accesses:
             if a.axis:
@@ -271,6 +283,42 @@ def kernel_bytes(name: str, args, out) -> float:
     return nb(out)
 
 
+# ------------------------------------------------------- collectives
+
+_PRICED_COLLECTIVES = frozenset({"dint_mesh::ppermute",
+                                 "dint_mesh::all_to_all"})
+
+
+def collective_axis(node) -> str:
+    """The axis class a collective node is priced on: "dcn" when ANY axis
+    name it names contains "dcn", else "ici" (the 1-D mesh's "shard" axis
+    is ICI-class)."""
+    return ("dcn" if any("dcn" in a for a in mesh_ops.node_axes(node))
+            else "ici")
+
+
+def collective_link(node, nb: float) -> tuple[str, float]:
+    """(axis, link_bytes) for a collective node of operand bytes ``nb``:
+    an all_to_all keeps each partition's own bucket, so (n-1)/n of its
+    operand crosses the axis (n = the axis size, or the mesh's size for
+    the tuple of every axis); a ppermute moves its whole operand."""
+    axis = collective_axis(node)
+    if op_name(node) == "dint_mesh::all_to_all":
+        shape, names = mesh_ops.node_mesh(node)
+        axes = mesh_ops.node_axes(node)
+        if axes == names:
+            n = 1
+            for d in shape:
+                n *= d
+        elif len(axes) == 1 and axes[0] in names:
+            n = shape[names.index(axes[0])]
+        else:
+            n = 0
+        if n > 1:
+            return axis, nb * (n - 1) / n
+    return axis, nb
+
+
 # ------------------------------------------------------------ the walker
 
 
@@ -305,11 +353,12 @@ class _Walker:
             self.node(ctx, wave)
         return self.accesses
 
-    def _rec(self, ctx, wave, kind, nbytes, lanes=0):
+    def _rec(self, ctx, wave, kind, nbytes, lanes=0, axis="",
+             link_bytes=0.0):
         self.accesses.append(Access(
             kind=kind, prim=ctx.prim, wave=wave, bytes=float(nbytes),
             dispatches=1.0, site=site_of(ctx.node), path="/".join(ctx.path),
-            lanes=int(lanes)))
+            lanes=int(lanes), axis=axis, link_bytes=float(link_bytes)))
 
     def _lanes(self, index) -> int:
         mask = filter_mask(index)
@@ -324,6 +373,13 @@ class _Walker:
             args = torch.fx.node.map_arg(node.args, self.vals.get)
             self._rec(ctx, wave, "kernel",
                       kernel_bytes(name.split("::")[-1], args, out))
+            return
+        if name in _PRICED_COLLECTIVES:
+            nb = float(sum(_nbytes(self.vals.get(x))
+                           for x in flat_nodes(node.args[0])))
+            axis, link = collective_link(node, nb)
+            self._rec(ctx, wave, "collective", nb, axis=axis,
+                      link_bytes=link)
             return
         if name in _GATHERS:
             word = self.state_of(node.args[0])
@@ -430,9 +486,10 @@ def derive(trace: TargetTrace, *, steps: float = 1.0,
     walker = _Walker(trace)
     accesses = walker.run()
     fp, in_b, don_b = walker.footprint()
+    priced = {a.wave for a in accesses if a.kind == "collective"}
     return CostModel(trace.name, max(steps, 1e-9), geom, accesses, fp, in_b,
                      don_b, unpriced_waves=sorted(
-                         walker.seen_waves & COLLECTIVE_WAVES))
+                         (walker.seen_waves & COLLECTIVE_WAVES) - priced))
 
 
 def model_for(name: str, trace: TargetTrace | None = None) -> CostModel:
@@ -497,13 +554,11 @@ def reconcile(model: CostModel,
     formula the target exercises. Fused megakernel waves absorb their
     swallowed constituents first (attrib.WAVE_ALIASES, the folding
     dintscope uses), and `wave_expect` carries the target's documented
-    layout deviations. Waves whose formula prices collectives
-    (`COLLECTIVE_WAVES`) are not reconciled: the trace cannot see them."""
+    layout deviations."""
     tols = tol_overrides or {}
     expects = wave_expect or {}
     per_wave = model.wave_bytes_per_step()
-    observed = {w for w in per_wave
-                if w != "(unattributed)" and w not in COLLECTIVE_WAVES}
+    observed = {w for w in per_wave if w != "(unattributed)"}
     groups: dict[str, set[str]] = {}
     consumed: set[str] = set()
     for w in observed:

@@ -67,8 +67,16 @@ Facts (a small powerset lattice, may-analysis: a fact on a value means
     TRUNCATED   (protocol) a ring watermark advance: seeded at the
                 ``minimum`` clamp of tables/log.advance_watermark.
 
-  Not in this port yet: REPL_PUSHED (the mesh's collectives do not show
-  in a trace; parallel/mesh.py re-indexes a list).
+  replication fact
+    REPL_PUSHED (protocol) crossed a replication hop: seeded at every
+                ``dint_mesh::ppermute`` output (the CommitBck/CommitLog
+                fan-out of parallel/mesh.py). The op moves every
+                partition's records in one call; output j carries the
+                facts of the input it was copied from (the perm on the
+                node says which), so a partition's backup write sees its
+                sender's grant. Each ppermute's perm, axis and mesh are
+                recorded (`PermRec`), so the replica placement is
+                statically evaluable (`Dataflow.quorum_dests`).
 
 In-place writes: facts live on alias roots. A view (``view``, ``slice``,
 ``select``, ``expand`` ...) shares its base's root; an in-place op
@@ -92,6 +100,7 @@ import dataclasses
 
 import torch
 
+from ..ops import mesh_ops
 from .core import (TargetTrace, flat_nodes, logical_vals, node_inputs,
                    op_name, site_of, walk)
 
@@ -108,6 +117,7 @@ SORTED = "SORTED"
 LOG_SLOT = "LOG_SLOT"
 LOGGED = "LOGGED"
 TRUNCATED = "TRUNCATED"
+REPL_PUSHED = "REPL_PUSHED"
 
 # source anchor of the durability seeds: the slot math of `_lane_slots`
 # and the watermark clamp of `advance_watermark` both live here
@@ -330,6 +340,22 @@ class ScatterRec:
 
 
 @dataclasses.dataclass
+class PermRec:
+    """One ``dint_mesh::ppermute`` with its static permutation (pairs of
+    coordinates along ``axis``) and the mesh it runs on."""
+    perm: tuple                    # ((src, dst), ...)
+    axis: str
+    mesh_axes: tuple
+    mesh_shape: tuple
+    site: str
+    path: tuple[str, ...]
+
+    @property
+    def identity(self) -> bool:
+        return all(int(s) == int(d) for s, d in self.perm)
+
+
+@dataclasses.dataclass
 class Dataflow:
     """Analysis result for one TargetTrace (memoized on the trace)."""
     seeds: list[SeedSite]
@@ -337,6 +363,8 @@ class Dataflow:
     kernel_locks: list[SeedSite]       # dint:: lock kernel calls
     roots: dict                        # node -> alias root node
     writes: list                       # (node, root, written arg node)
+    ppermutes: list = dataclasses.field(default_factory=list)
+    perms: list = dataclasses.field(default_factory=list)  # PermRec
 
     def seeded(self, fact: str) -> list[SeedSite]:
         return [s for s in self.seeds if s.fact == fact]
@@ -345,6 +373,21 @@ class Dataflow:
         """Scatters whose indices descend from the log slot math: the
         LOGGED sites, fused and unfused routes alike."""
         return [r for r in self.scatters if LOG_SLOT in r.index_facts]
+
+    def quorum_dests(self) -> dict[int, set[int]]:
+        """Per-source destination sets (coordinates along the hops' axis),
+        unioned over every recorded non-identity perm, self-sends
+        excluded: the static replica placement of the CommitBck/CommitLog
+        fan-out."""
+        dests: dict[int, set[int]] = {}
+        for rec in self.perms:
+            if rec.identity:
+                continue
+            for s, d in rec.perm:
+                dests.setdefault(int(s), set())
+                if int(d) != int(s):
+                    dests[int(s)].add(int(d))
+        return dests
 
 
 # --------------------------------------------------------------- analyzer
@@ -371,6 +414,8 @@ class _Analyzer:
         self._scatters: list = []
         self._locks: dict = {}
         self._writes: list = []
+        self._ppermutes: dict = {}
+        self._perms: dict = {}
 
     # -- structure ------------------------------------------------------
 
@@ -453,7 +498,9 @@ class _Analyzer:
         return Dataflow(seeds=list(self._seeds.values()),
                         scatters=self._scatters,
                         kernel_locks=list(self._locks.values()),
-                        roots=self.roots, writes=self._writes)
+                        roots=self.roots, writes=self._writes,
+                        ppermutes=list(self._ppermutes.values()),
+                        perms=list(self._perms.values()))
 
     def _carry_back(self) -> dict:
         """What one call of the block hands to the next: each state
@@ -513,6 +560,8 @@ class _Analyzer:
             return
         if name.startswith("dint::"):
             return self._kernel(node, name)
+        if name == "dint_mesh::ppermute":
+            return self._ppermute(node)
         if scatter_kind(node) is not None:
             return self._scatter(node)
         ins = node_inputs(node)
@@ -603,6 +652,47 @@ class _Analyzer:
                 unique=(bool_index(idx) or base_name(node) == "masked_scatter"
                         or distinct_const(self.trace.gm, idx)),
                 node=node, index=idx, idx_rows=self._width(idx)))
+
+    def _ppermute(self, node):
+        """Output j of the hop carries the facts of the input it copies
+        (zeros where no sender: none), plus REPL_PUSHED."""
+        xs = list(node.args[0])
+        shape, axes = mesh_ops.node_mesh(node)
+        axis = str(node.args[1])
+        try:
+            srcs = mesh_ops.ppermute_sources(axis, node.args[2], shape, axes)
+        except ValueError:          # a perm the op would refuse: join all
+            srcs = None
+        leaves = max(1, len(xs) // max(1, len(srcs or [1])))
+        outs = []
+        for j in range(len(xs)):
+            p, leaf = divmod(j, leaves)
+            s = srcs[p] if srcs is not None and p < len(srcs) else -2
+            if s == -1:
+                fs = set()
+            elif s >= 0:
+                fs = set(self.facts(xs[s * leaves + leaf]))
+            else:
+                fs = set(self.facts(xs))
+            fs.discard(STATE)
+            if self.protocol_phase:
+                fs.add(REPL_PUSHED)
+            outs.append(frozenset(fs))
+        self.env[node] = outs
+        if self.protocol_phase:
+            self._seed(REPL_PUSHED, node)
+            if self.recording:
+                c = self.ctx.get(node)
+                path = c.path if c else ()
+                self._ppermutes[node] = SeedSite(
+                    REPL_PUSHED, op_name(node), site_of(node), path)
+                try:
+                    pairs = tuple(mesh_ops.node_perm(node))
+                except ValueError:
+                    pairs = ()
+                self._perms[node] = PermRec(
+                    perm=pairs, axis=axis, mesh_axes=axes,
+                    mesh_shape=shape, site=site_of(node), path=path)
 
     def _kernel(self, node, name):
         a = node.args

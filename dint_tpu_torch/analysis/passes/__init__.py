@@ -27,13 +27,16 @@ machinery):
   calib_check        the pinned CALIB_H100.json against its own evidence
                      and the plan's serve-model provenance (the dintcal
                      gate)
-
-Not ported yet (ROADMAP §A.8): mut_check and the mesh-collective check
-shard_consistency.
+  shard_consistency  the mesh's collectives name axes their mesh has, and
+                     each ppermute's perm is a partial permutation of its
+                     axis
+  mut_check          the pinned MUTCOV_TORCH.json against the mutation
+                     operator registry, the target matrix and the
+                     kill-rate/triage policy (the dintmut gate; static)
 
 Adding a pass: write ``passes/<name>.py``, decorate the entry point with
 ``@core.register_pass("<name>")``, import it here.
 """
 from . import (aliasing, calib_check, cost_budget,  # noqa: F401
-               durability, plan_check, protocol, purity, scatter_race,
-               u64_overflow)
+               durability, mut_check, plan_check, protocol, purity,
+               scatter_race, shard_consistency, u64_overflow)

@@ -22,6 +22,15 @@ pass fails closed on:
                           unfused twin on dispatches/step
   fused-bytes-dominance   an @fused target moves >5% more bytes than its
                           twin
+  hier-dcn-dominance      a hierarchical 2-D mesh target no longer
+                          schedules STRICTLY fewer dcn-axis link bytes a
+                          step than its flat tuple-axis twin
+                          (targets.TARGET_FLAT_TWIN): the point of
+                          routing ici-then-dcn
+  overlap-dcn-parity      a double-buffered serve target schedules MORE
+                          dcn-axis link bytes a step than its
+                          unoverlapped twin (targets.TARGET_OVERLAP_TWIN):
+                          overlap hides the exchange, never inflates it
   overlap-footprint       the overlap serve route's carry grew past its
                           twin's footprint plus the priced prefetch buffer
                           (targets.OVERLAP_FOOTPRINT)
@@ -33,15 +42,9 @@ pass fails closed on:
                           TARGET_COST row
   derivation-failed       the trace or the derivation failed
 
-Not checked yet: the reference's ``hier-dcn-dominance`` and
-``overlap-dcn-parity`` compare the link bytes a 2-D mesh target
-schedules on its slow axis, and the port's in-process mesh re-indexes a
-Python list (parallel/mesh.py), so no collective and no link byte shows
-in a trace. Until the collectives are visible (ROADMAP §A.8.5) each
-target of targets.TARGET_FLAT_TWIN or TARGET_OVERLAP_TWIN gets one INFO
-``link-bytes-unchecked``, and a target whose trace runs waves whose
-formula prices collectives (cost.COLLECTIVE_WAVES) one INFO
-``collective-waves-unpriced`` naming them.
+The link bytes are the cost model's per-axis ledger (analysis/cost.py):
+the mesh's collectives are ``dint_mesh`` nodes in the trace, each priced
+on the axis it names.
 
 Every finding names the offending wave or twin in `site` and can be
 silenced through the port's allowlist with a reviewed reason. Budgets
@@ -51,7 +54,7 @@ that table, never an edit to this pass.
 from __future__ import annotations
 
 from .. import cost
-from ..core import (Finding, SEV_ERROR, SEV_INFO, SEV_WARNING, TargetTrace,
+from ..core import (Finding, SEV_ERROR, SEV_WARNING, TargetTrace,
                     register_pass)
 
 # fused targets may exceed their twin's bytes by this much (the monitored
@@ -166,33 +169,25 @@ def _dominance_findings(trace: TargetTrace,
     return out
 
 
-def _link_findings(trace: TargetTrace,
-                   model: cost.CostModel) -> list[Finding]:
+def _hier_dominance_findings(trace: TargetTrace,
+                             model: cost.CostModel) -> list[Finding]:
     from .. import targets as T
-    out: list[Finding] = []
-    twins = [t for t in (T.TARGET_FLAT_TWIN.get(trace.name),
-                         T.TARGET_OVERLAP_TWIN.get(trace.name)) if t]
-    if twins:
-        out.append(Finding(
-            "cost_budget", "link-bytes-unchecked", SEV_INFO, trace.name,
-            "hier-dcn-dominance / overlap-dcn-parity not checked: the "
-            "in-process mesh's collectives re-index a Python list, so the "
-            "trace shows no link byte to compare with "
-            + " and ".join(twins),
-            site=twins[0],
-            suggestion="make the mesh's moves visible to the trace "
-                       "(ROADMAP §A.8.5)"))
-    if model.unpriced_waves:
-        out.append(Finding(
-            "cost_budget", "collective-waves-unpriced", SEV_INFO,
-            trace.name,
-            "waves whose waves.py formula prices collective bytes are "
-            "left out of reconciliation and of the ledger (no collective "
-            "shows in a trace): " + ", ".join(model.unpriced_waves),
-            site=model.unpriced_waves[0],
-            suggestion="make the mesh's moves visible to the trace "
-                       "(ROADMAP §A.8.5)"))
-    return out
+    twin = T.TARGET_FLAT_TWIN.get(trace.name)
+    twin_model = _twin_model(twin)
+    if twin_model is None:
+        return []
+    hier, flat = model.dcn_bytes_per_step, twin_model.dcn_bytes_per_step
+    if hier >= flat:
+        return [Finding(
+            "cost_budget", "hier-dcn-dominance", SEV_ERROR, trace.name,
+            f"{hier:g} dcn-axis link bytes/step vs flat twin {twin} at "
+            f"{flat:g}: the hierarchical (ici-then-dcn) route no longer "
+            "moves strictly fewer bytes over the slow axis",
+            site=twin,
+            suggestion="a collective fell back onto the dcn (or tuple) "
+                       "axis — diff the per-wave ici/dcn bytes of "
+                       f"`{_REPORT} {trace.name} {twin} --json`")]
+    return []
 
 
 def _overlap_findings(trace: TargetTrace,
@@ -202,11 +197,24 @@ def _overlap_findings(trace: TargetTrace,
     twin_model = _twin_model(twin)
     if twin_model is None:
         return []
+    out: list[Finding] = []
+    dcn, dcn_t = model.dcn_bytes_per_step, twin_model.dcn_bytes_per_step
+    if dcn > dcn_t:
+        out.append(Finding(
+            "cost_budget", "overlap-dcn-parity", SEV_ERROR, trace.name,
+            f"{dcn:g} dcn-axis link bytes/step vs unoverlapped twin "
+            f"{twin} at {dcn_t:g}: the double-buffered route moves MORE "
+            "bytes over the slow axis than the route it hides — the "
+            "prefetch duplicated an exchange",
+            site=twin,
+            suggestion="the prefetched buckets must be CONSUMED next "
+                       "step, never re-exchanged — diff the per-wave dcn "
+                       f"bytes of `{_REPORT} {trace.name} {twin} --json`"))
     allowance = cost.eval_budget_bytes(T.OVERLAP_FOOTPRINT, model.geom,
                                        0.0) or 0.0
     fp, fp_t = model.footprint_bytes, twin_model.footprint_bytes
     if fp > fp_t + allowance:
-        return [Finding(
+        out.append(Finding(
             "cost_budget", "overlap-footprint", SEV_ERROR, trace.name,
             f"{fp} B persistent footprint vs twin {twin} at {fp_t} B + "
             f"{allowance:g} B priced prefetch buffer "
@@ -216,8 +224,8 @@ def _overlap_findings(trace: TargetTrace,
             suggestion="the prefetch holds the next cohort's draws, its "
                        "occupancy and the two exchanged fields and "
                        f"nothing else — find the extra leaf with "
-                       f"`{_REPORT} {trace.name} {twin}`")]
-    return []
+                       f"`{_REPORT} {trace.name} {twin}`"))
+    return out
 
 
 def _scan_dominance_findings(trace: TargetTrace,
@@ -274,6 +282,6 @@ def cost_budget(trace: TargetTrace) -> list[Finding]:
     out += _budget_findings(trace, meta, model)
     out += _dominance_findings(trace, model)
     out += _overlap_findings(trace, model)
+    out += _hier_dominance_findings(trace, model)
     out += _scan_dominance_findings(trace, model)
-    out += _link_findings(trace, model)
     return out

@@ -50,12 +50,12 @@ The pass consumes the durability facts of analysis/dataflow.py
       in-doubt fold), and an Op.ABORT wave must release the doubted
       txns' locks.
 
-Not checked yet: ``quorum-fanout`` proves from the replication perms
-that every source reaches two distinct fault domains. The port's mesh
-re-indexes a Python list (parallel/mesh.py), so its perms do not show in
-a trace; every ``durable`` + ``replicated`` target gets one INFO
-``quorum-fanout-unchecked`` until the collectives are visible (ROADMAP
-§A.8.5).
+  quorum-fanout       ["replicated"]  the replication perms (the
+      ``dint_mesh::ppermute`` nodes' explicit pairs, unioned over every
+      hop) must give every source at least 2 distinct non-self
+      destinations, and on a 2-D mesh every hop must ride the major
+      (dcn, host) axis: replicas one ici hop apart share the host fault
+      domain.
 
 Fixtures in tests/test_torch_dintdur.py prove each check fires on a
 mutated mini-engine and stays silent on every real target.
@@ -68,7 +68,7 @@ import os
 import torch
 
 from .. import dataflow as df
-from ..core import (Finding, SEV_ERROR, SEV_INFO, TargetTrace, flat_nodes,
+from ..core import (Finding, SEV_ERROR, TargetTrace, flat_nodes,
                     node_inputs, op_name, register_pass, walk)
 
 # protocol flags read here (besides protocol.py's)
@@ -126,16 +126,44 @@ def _wal_order(trace: TargetTrace, flow: df.Dataflow) -> list[Finding]:
 # ----------------------------------------------------- quorum-fanout
 
 
-def _quorum_unchecked(trace: TargetTrace, flags: set) -> list[Finding]:
-    if "replicated" not in flags:
-        return []
-    return [Finding(
-        "durability", "quorum-fanout-unchecked", SEV_INFO, trace.name,
-        "quorum-fanout not checked: the replication hops of the "
-        "in-process mesh re-index a Python list (parallel/mesh.py), so "
-        "their perms do not show in the trace",
-        suggestion="make the mesh's moves visible to the trace "
-                   "(ROADMAP §A.8.5)")]
+def _quorum_fanout(trace: TargetTrace, flow: df.Dataflow,
+                   flags: set) -> list[Finding]:
+    if "replicated" not in flags or not flow.perms:
+        return []                    # protocol/no-replication-push owns
+    #                                  the zero-ppermute case
+    out = []
+    live = [p for p in flow.perms if not p.identity]
+    dests = flow.quorum_dests()
+    bad = sorted(s for s, d in dests.items() if len(d) < 2)
+    if bad and live:
+        out.append(Finding(
+            "durability", "quorum-fanout", SEV_ERROR, trace.name,
+            f"replication fan-out reaches < 2 distinct non-self "
+            f"destinations for source partition(s) {bad}: the statically "
+            "evaluated ppermute perms collapse (h+1 == h+2 mod H or a "
+            "self-send), so a single fault domain holds every copy of "
+            "those partitions' log stream",
+            primitive="dint_mesh::ppermute",
+            site=live[0].site, path="/".join(live[0].path),
+            suggestion="fan out with two distinct offsets, "
+                       "Mesh.ppermute(xs, axis, 1) and (xs, axis, 2) with "
+                       "at least 3 partitions on the axis "
+                       "(parallel/dense_sharded.py's CommitBck hops)"))
+    for rec in live:
+        if len(rec.mesh_axes) == 2 and rec.axis != rec.mesh_axes[0]:
+            dcn = rec.mesh_axes[0]
+            out.append(Finding(
+                "durability", "quorum-fanout", SEV_ERROR, trace.name,
+                f"replication hop rides the '{rec.axis}' axis of a 2-D "
+                f"({', '.join(rec.mesh_axes)}) mesh: replicas one ici "
+                "hop apart share the host fault domain, so a host loss "
+                "takes the primary AND its copies (the fan-out must ride "
+                f"'{dcn}')",
+                primitive="dint_mesh::ppermute", site=rec.site,
+                path="/".join(rec.path),
+                suggestion="ppermute over the dcn (host) axis as "
+                           "parallel/multihost_sb.py does"))
+    return out
 
 
 # --------------------------------------------------------- ring bounds
@@ -566,7 +594,7 @@ def durability(trace: TargetTrace) -> list[Finding]:
         return out
     flow = df.analyze(trace)
     out += _wal_order(trace, flow)
-    out += _quorum_unchecked(trace, flags)
+    out += _quorum_fanout(trace, flow, flags)
     out += _ring_bounds(trace, flow)
     out += _replay_twin_coverage(trace, flow)
     return out

@@ -47,11 +47,14 @@ analysis/targets.py:
           a boolean-mask index, the port's counterparts of
           ``unique_indices=True``.
 
-  commit-after-replication ["replicated"]  not ported: the mesh of
-      parallel/mesh.py moves its partitions' records by re-indexing a
-      Python list, so no collective shows in a trace. A target with the
-      flag gets one INFO ``commit-after-replication-unchecked`` finding,
-      so the gap is never silent (ROADMAP §A.8).
+  commit-after-replication ["replicated"]  mesh paths must push
+      install records over a replication hop and land them: at least one
+      ``dint_mesh::ppermute`` in the trace (``no-replication-push``), and
+      at least one scatter into persistent state whose write facts carry
+      REPL_PUSHED, the backup-apply and forwarded-log writes
+      (``push-not-applied``). The committed-outcome stats ride the same
+      carry those writes update, so a path that drops the push or
+      discards the pushed payload fails deterministically.
 
 Targets whose builders close no protocol loop in-trace declare fewer
 flags, as the reference's do (``sharded/*`` servers: the coordinator owns
@@ -62,8 +65,7 @@ mutated engine and stays silent on the safe idiom.
 from __future__ import annotations
 
 from .. import dataflow as df
-from ..core import (Finding, SEV_ERROR, SEV_INFO, TargetTrace,
-                    register_pass)
+from ..core import Finding, SEV_ERROR, TargetTrace, register_pass
 
 FLAG_CERTIFIED = "certified"
 FLAG_OCC = "occ"
@@ -175,13 +177,30 @@ def protocol(trace: TargetTrace) -> list[Finding]:
                                    "block)"))
 
     if FLAG_REPLICATED in flags:
-        out.append(Finding(
-            "protocol", "commit-after-replication-unchecked", SEV_INFO,
-            trace.name,
-            "commit-after-replication is not checked: the mesh's "
-            "collectives re-index a Python list of partitions, so no "
-            "replication hop shows in the trace (the mesh-collective "
-            "slice of ROADMAP §A.8 makes them visible)"))
+        if not flow.ppermutes:
+            out.append(Finding(
+                "protocol", "no-replication-push", SEV_ERROR, trace.name,
+                "replicated path with no ppermute in the trace: install "
+                "records are never forwarded to the +1/+2 backup "
+                "partitions (the reference's CommitBck x2 / CommitLog x3 "
+                "fan-out)",
+                suggestion="forward the Installs record with "
+                           "Mesh.ppermute as parallel/dense_sharded.py "
+                           "does"))
+        elif not any(df.REPL_PUSHED in r.write_facts and r.is_state
+                     for r in flow.scatters):
+            out.append(Finding(
+                "protocol", "push-not-applied", SEV_ERROR, trace.name,
+                "ppermute present but nothing it moved is ever scattered "
+                "into persistent state: the pushed install records are "
+                "discarded, so backups and forwarded logs silently "
+                "diverge from the primary",
+                primitive=flow.ppermutes[0].prim,
+                site=flow.ppermutes[0].site,
+                path="/".join(flow.ppermutes[0].path),
+                suggestion="apply the ppermuted record to the backup "
+                           "tables and append it to the local log "
+                           "(parallel/dense_sharded._apply_backup)"))
 
     if FLAG_ELECTED in flags:
         elections = [r for r in flow.scatters

@@ -50,12 +50,14 @@ What differs from the reference:
   ``@flat``) trace at 4 x 2 as the reference's do; ``multihost_3x2`` and
   ``multihost_serve`` at 3 x 2, the 1-D mesh workloads at 3 partitions
   (analysis/targets.py).
-* Link bytes are not priced yet: the port's in-process mesh shows no
-  collective in a trace, so ``ici``/``dcn_bytes_per_step`` are 0 on every
-  row and the first key of the choice does not separate ``hierarchical``
-  from ``@flat``. Each frontier row records the collective waves its
-  model leaves out as ``unpriced_waves`` beside its prices (the one
-  schema addition).
+* Link bytes: the mesh's collectives are ``dint_mesh`` nodes in the
+  trace (ops/mesh_ops.py), so ``ici``/``dcn_bytes_per_step`` are the cost
+  model's per-axis ledger, and the first key of the choice separates
+  ``hierarchical`` from ``@flat`` on the 2-D workloads. Since one node
+  moves every partition's operand, a row's link bytes are the whole
+  mesh's (d times the reference's per-device figure). Each frontier row
+  keeps ``unpriced_waves`` (the one schema addition): the collective
+  waves its model could not price, empty on every row.
 """
 from __future__ import annotations
 
@@ -358,11 +360,6 @@ MEASURED_OVERRIDES: dict[str, str] = {
         "mirror); its win is locality, which a bytes ledger cannot see, "
         "and the single-device bench has no A/B of it in turns: opt-in "
         "until one orders the routes"),
-    "hierarchical": (
-        "link bytes are unpriced on the port (its in-process mesh shows "
-        "no collective in a trace), so the static model cannot separate "
-        "the hierarchical exchange from @flat; the pin keeps the "
-        "reference's default until the collectives are priced"),
     "overlap": (
         "overlap exists to hide the exchange under the lock wave, a "
         "wall-clock effect, and statically it adds the prefetch "

@@ -727,13 +727,15 @@ def _t_recovery_sb_shard(g: Geometry = LINT) -> TargetTrace:
 
 
 # ------------------------------------------------- mesh twins (dintcost)
-# hierarchical 2-D targets -> their flat-exchange twin, and the overlap
-# serve targets -> their unoverlapped twin. The reference holds them to
-# link bytes (hier-dcn-dominance, overlap-dcn-parity), which the port's
-# traces cannot show yet (parallel/mesh.py moves a list, ROADMAP §A.8.5):
-# passes/cost_budget.py reports each as link-bytes-unchecked and checks
-# the overlap carry's footprint.
+# hierarchical 2-D targets -> their flat-exchange twin at the same mesh
+# shape, and the overlap serve targets -> their unoverlapped twin:
+# passes/cost_budget.py holds them to the cost model's dcn-axis link
+# bytes (hier-dcn-dominance: strictly fewer; overlap-dcn-parity: no
+# more) and checks the overlap carry's footprint.
 TARGET_FLAT_TWIN: dict[str, str] = {
+    "multihost_sb/block": "multihost_sb/block@flat",
+    "multihost_sb/block@mon": "multihost_sb/block@h3+flat",
+    "multihost_sb/block@h3": "multihost_sb/block@h3+flat",
     "multihost_sb/serve": "multihost_sb/serve@flat",
     "multihost_sb/serve@mon": "multihost_sb/serve@flat",
     "multihost_sb/serve@overlap": "multihost_sb/serve@flat",
@@ -763,11 +765,10 @@ TARGET_SCAN_TWIN: dict[str, str] = {
 # ceilings (ANY extra dispatch or copied table regresses them); bytes
 # allow 25% over the declared waves.py ledger, the band reconciliation
 # uses. Where no wave carries a formula the trace can price (the generic
-# pipelines and shards, the store's point route, the replay twins, and
-# the mesh targets, whose routes and replication are collectives no
-# trace shows), the bytes budget is an absolute ceiling 5% over the
-# calibrated trace. Recalibrate with the report and justify the diff;
-# silence a reviewed exception through the allowlist.
+# pipelines and shards, the store's point route, the replay twins), the
+# bytes budget is an absolute ceiling 5% over the calibrated trace.
+# Recalibrate with the report and justify the diff; silence a reviewed
+# exception through the allowlist.
 
 _TD_GEOM = dict(w=LINT.w, k=4, vw=LINT.vw)
 _SB_GEOM = dict(w=LINT.w, l=3, vw=2)
@@ -808,37 +809,72 @@ _READ_SB = {"dint.smallbank_dense.read": "3*w*l*4",
             "dint.smallbank_dense.lock": "2*w*l*4"}
 _HOT_SB = {"dint.smallbank_dense.read": "3*w*l*4",
            "dint.smallbank_dense.install": 2.0}
-# The in-process mesh traces every partition's step: a mesh target's
-# waves move d times the per-device formula. The 1-D TATP mesh appends
-# ONE local log replica a partition (the other two ride replicate's
-# hops), as the reference's _DS_EXPECT documents.
+# The in-process mesh traces every partition's step, and one collective
+# node moves every partition's operand: a mesh target's waves move d
+# times the per-device formula, its collective waves included. The 1-D
+# TATP mesh appends ONE local log replica a partition (the other two
+# ride replicate's hops), as the reference's _DS_EXPECT documents;
+# replicate's two hops each move the install record (2w lanes of six
+# i32 words, the write mask and vw value words) besides the backup
+# install and the log append the formula counts (the reference's 1.75).
+_DS_REPL = {"dint.dense_sharded.replicate":
+            "d*2*(2*w*(25 + 4*vw) + 2*w*(4 + 4*vw) + 2*w*(20 + 4*vw))"}
 _DS = {"dint.tatp_dense.install": "d*2*w*(4 + 4*vw)",
        "dint.tatp_dense.lock": "d*3*2*w*4",
        "dint.tatp_dense.meta_gather": "d*(2*w*k*4 + w*k*4)",
-       "dint.tatp_dense.log_append": "d*2*w*(20 + 4*vw)"}
+       "dint.tatp_dense.log_append": "d*2*w*(20 + 4*vw)", **_DS_REPL}
 _DS_MON = {**_DS, "dint.tatp_dense.lock": "d*4*2*w*4"}
 _DS_FUSED = {"dint.tatp_dense.install_log":
              "d*(2*w*(4 + 4*vw) + 2*w*(20 + 4*vw))",
              "dint.tatp_dense.lock_validate": "d*(3*2*w*4 + 2*w*k*4)",
-             "dint.tatp_dense.magic_gather": "d*w*k*4"}
+             "dint.tatp_dense.magic_gather": "d*w*k*4", **_DS_REPL}
 _DS_FUSED_MON = {**_DS_FUSED, "dint.tatp_dense.lock_validate":
                  "d*(4*2*w*4 + 2*w*k*4)"}
 # Sharded SmallBank's owners: d partitions of the 5-pass arbitration;
 # the hot route also stamps the mirrors (7 passes). The fused owner
 # install and its one-replica CommitLog append run over all 2wL routed
 # slots (the reference's formula counts wL lanes and three replicas),
-# with the log head read; the hot mirror is one more stream.
-_DSB = {"dint.dense_sharded_sb.arbitrate": "d*5*2*w*l*4"}
-_DSB_HOT = {"dint.dense_sharded_sb.arbitrate": "d*7*2*w*l*4"}
-_DSB_LOG = "2*w*l*4 + 2*w*l*4 + 2*w*l*(16 + 4*vw)"
-_DSB_FUSED = {"dint.dense_sharded_sb.lock_validate": "d*5*2*w*l*4",
+# with the log head read; the hot mirror is one more stream; the
+# install_route's exchange (2wL slots of five i32 fields) folds into
+# install_log with it. The reply exchanges the same [2wL, 2] i32 bucket
+# array as the route (grant and balance as words over the routed slots,
+# where the formula counts a grant byte and a balance word a lane).
+_DSB_COLL = {"dint.dense_sharded_sb.route": "d*2*w*l*8",
+             "dint.dense_sharded_sb.reply": "d*2*w*l*8",
+             "dint.dense_sharded_sb.install_route":
+             "d*(2*w*l*8 + 2*w*l*4 + w*l*3*(20 + 4*vw))",
+             "dint.dense_sharded_sb.replicate":
+             "d*2*(w*l*4 + w*l*3*(20 + 4*vw))"}
+_DSB = {"dint.dense_sharded_sb.arbitrate": "d*5*2*w*l*4", **_DSB_COLL}
+_DSB_HOT = {"dint.dense_sharded_sb.arbitrate": "d*7*2*w*l*4", **_DSB_COLL}
+_DSB_LOG = "2*w*l*20 + 2*w*l*4 + 2*w*l*4 + 2*w*l*(16 + 4*vw)"
+_DSB_FUSED = {**_DSB_COLL,
+              "dint.dense_sharded_sb.lock_validate": "d*5*2*w*l*4",
               "dint.dense_sharded_sb.install_log": f"d*({_DSB_LOG})"}
-_DSB_FUSED_HOT = {"dint.dense_sharded_sb.lock_validate": "d*7*2*w*l*4",
+_DSB_FUSED_HOT = {**_DSB_COLL,
+                  "dint.dense_sharded_sb.lock_validate": "d*7*2*w*l*4",
                   "dint.dense_sharded_sb.install_log":
                   f"d*(2*w*l*4 + {_DSB_LOG})"}
-_DSB_TRACE = {**_DSB, "dint.dense_sharded_sb.trace": "d*16*(9*w*l + 2*w)"}
-_MHSB = {"dint.multihost_sb.arbitrate": "d*5*2*w*l*4"}
-_MHSB_TRACE = {**_MHSB, "dint.multihost_sb.trace": "d*16*(9*w*l + 2*w)"}
+# the traced routes carry the txn id beside key+op: 12-byte route slots
+_DSB_TRACE = {**_DSB, "dint.dense_sharded_sb.trace": "d*16*(9*w*l + 2*w)",
+              "dint.dense_sharded_sb.route": "d*2*w*l*12"}
+# the 2-D mesh: the hierarchical exchange runs two stages (the formulas'
+# 2x); the @flat twins run one tuple-axis exchange, so route and reply
+# halve and install_route falls back to the 1-D formula, as the
+# reference's _MHSB_FLAT documents
+_MHSB = {"dint.multihost_sb.arbitrate": "d*5*2*w*l*4",
+         "dint.multihost_sb.route": "d*2*2*w*l*8",
+         "dint.multihost_sb.route_prefetch": "d*2*2*w*l*8",
+         "dint.multihost_sb.reply": "d*2*2*w*l*8",
+         "dint.multihost_sb.install_route":
+         "d*(2*(2*w*l*8 + 2*w*l*4) + w*l*3*(20 + 4*vw))",
+         "dint.multihost_sb.replicate": "d*2*(w*l*4 + w*l*3*(20 + 4*vw))"}
+_MHSB_FLAT = {**_MHSB, "dint.multihost_sb.route": "d*2*w*l*8",
+              "dint.multihost_sb.reply": "d*2*w*l*8",
+              "dint.multihost_sb.install_route":
+              "d*(2*w*l*8 + 2*w*l*4 + w*l*3*(20 + 4*vw))"}
+_MHSB_TRACE = {**_MHSB, "dint.multihost_sb.trace": "d*16*(9*w*l + 2*w)",
+               "dint.multihost_sb.route": "d*2*2*w*l*12"}
 
 # the overlap serve route's in-flight cohort a partition: its draws
 # (bits [w, 5] and ts_amt [w]), its occupancy, and the two exchanged
@@ -906,72 +942,60 @@ TARGET_COST: dict[str, dict] = {
     "smallbank_pipeline/block@mon": _cost(_SB_GEOM, 110, 155852,
                                           bytes_budget=65420),
     # one engine step a trace
-    "sharded/tatp": _cost(_DS_GEOM, 162, 319458, steps=1.0,
-                          bytes_budget=31374),
-    "sharded/smallbank": _cost(_DSB_GEOM, 54, 157596, steps=1.0,
-                               bytes_budget=8165),
-    # the mesh: every partition's step and replicate's local writes
-    "dense_sharded/block": _cost(_DS_GEOM, 42, 356472, bytes_budget=20564,
-                                 wave_expect=_DS),
-    "dense_sharded/block@mon": _cost(_DS_GEOM, 69, 357396,
-                                     bytes_budget=21471,
+    "sharded/tatp": _cost(_DS_GEOM, 164, 319458, steps=1.0,
+                          bytes_budget=33188),
+    "sharded/smallbank": _cost(_DSB_GEOM, 56, 157596, steps=1.0,
+                               bytes_budget=9576),
+    # the mesh: every partition's step, replicate's local writes and one
+    # dispatch a collective call (2 ppermutes a step; SmallBank adds 3
+    # all_to_alls, the hierarchical exchange 6)
+    "dense_sharded/block": _cost(_DS_GEOM, 44, 356472, wave_expect=_DS),
+    "dense_sharded/block@mon": _cost(_DS_GEOM, 71, 357396,
                                      wave_expect=_DS_MON),
-    "dense_sharded/block@fused": _cost(_DS_GEOM, 36, 354936,
-                                       bytes_budget=20564,
+    "dense_sharded/block@fused": _cost(_DS_GEOM, 38, 354936,
                                        wave_expect=_DS_FUSED),
-    "dense_sharded/block@fused+mon": _cost(_DS_GEOM, 63, 355884,
-                                           bytes_budget=21496,
+    "dense_sharded/block@fused+mon": _cost(_DS_GEOM, 65, 355884,
                                            wave_expect=_DS_FUSED_MON),
-    "dense_sharded_sb/block": _cost(_DSB_GEOM, 36, 1191752,
-                                    bytes_budget=35079, wave_expect=_DSB),
-    "dense_sharded_sb/block@mon": _cost(_DSB_GEOM, 60, 1192628,
-                                        bytes_budget=35532,
+    "dense_sharded_sb/block": _cost(_DSB_GEOM, 41, 1191752,
+                                    wave_expect=_DSB),
+    "dense_sharded_sb/block@mon": _cost(_DSB_GEOM, 65, 1192628,
                                         wave_expect=_DSB),
-    "dense_sharded_sb/block@hot": _cost(_DSB_GEOM, 42, 1191968,
-                                        bytes_budget=38708,
+    "dense_sharded_sb/block@hot": _cost(_DSB_GEOM, 47, 1191968,
                                         wave_expect=_DSB_HOT),
-    "dense_sharded_sb/block@fused": _cost(_DSB_GEOM, 33, 1191752,
-                                          bytes_budget=35079,
+    "dense_sharded_sb/block@fused": _cost(_DSB_GEOM, 38, 1191752,
                                           wave_expect=_DSB_FUSED),
-    "dense_sharded_sb/block@fused+hot": _cost(_DSB_GEOM, 39, 1191968,
-                                              bytes_budget=38708,
+    "dense_sharded_sb/block@fused+hot": _cost(_DSB_GEOM, 44, 1191968,
                                               wave_expect=_DSB_FUSED_HOT),
-    "dense_sharded_sb/block@fused+mon": _cost(_DSB_GEOM, 57, 1192652,
-                                              bytes_budget=35558,
+    "dense_sharded_sb/block@fused+mon": _cost(_DSB_GEOM, 62, 1192652,
                                               wave_expect=_DSB_FUSED),
-    "dense_sharded_sb/block@trace": _cost(_DSB_GEOM, 39, 1280852,
-                                          bytes_budget=58464,
+    "dense_sharded_sb/block@trace": _cost(_DSB_GEOM, 44, 1280852,
                                           wave_expect=_DSB_TRACE),
-    # the 2-D mesh: the hierarchical and flat exchanges move the same
-    # lanes through the same local ops on one card (their difference is
-    # the link bytes no trace shows: link-bytes-unchecked)
-    "multihost_sb/block": _cost(_MHSB4_GEOM, 96, 3177852,
-                                bytes_budget=93543, wave_expect=_MHSB),
-    "multihost_sb/block@flat": _cost(_MHSB4_GEOM, 96, 3177852,
-                                     bytes_budget=93543, wave_expect=_MHSB),
-    "multihost_sb/block@mon": _cost(_MHSB_GEOM, 120, 2385260,
-                                    bytes_budget=71165, wave_expect=_MHSB),
-    "multihost_sb/block@h3": _cost(_MHSB_GEOM, 72, 2383412,
-                                   bytes_budget=70157, wave_expect=_MHSB),
-    "multihost_sb/block@h3+flat": _cost(_MHSB_GEOM, 72, 2383412,
-                                        bytes_budget=70157,
-                                        wave_expect=_MHSB),
-    "multihost_sb/block@trace": _cost(_MHSB_GEOM, 78, 2561612,
-                                      bytes_budget=116928,
-                                      wave_expect=_MHSB_TRACE),
-    "multihost_sb/serve": _cost(_MHSB_GEOM, 72, 2383624, bytes_budget=70157,
+    # the 2-D mesh: the hierarchical exchange pays 3 more dispatches a
+    # step than the flat one (each exchange runs an ici and a dcn stage)
+    # to move strictly fewer dcn-axis link bytes (hier-dcn-dominance)
+    "multihost_sb/block": _cost(_MHSB4_GEOM, 104, 3177852,
                                 wave_expect=_MHSB),
-    "multihost_sb/serve@flat": _cost(_MHSB_GEOM, 72, 2383624,
-                                     bytes_budget=70157, wave_expect=_MHSB),
-    "multihost_sb/serve@mon": _cost(_MHSB_GEOM, 120, 2385616,
-                                    bytes_budget=71316, wave_expect=_MHSB),
-    "multihost_sb/serve@overlap": _cost(_MHSB_GEOM, 72, 2396300,
-                                        bytes_budget=70157,
+    "multihost_sb/block@flat": _cost(_MHSB4_GEOM, 101, 3177852,
+                                     wave_expect=_MHSB_FLAT),
+    "multihost_sb/block@mon": _cost(_MHSB_GEOM, 128, 2385260,
+                                    wave_expect=_MHSB),
+    "multihost_sb/block@h3": _cost(_MHSB_GEOM, 80, 2383412,
+                                   wave_expect=_MHSB),
+    "multihost_sb/block@h3+flat": _cost(_MHSB_GEOM, 77, 2383412,
+                                        wave_expect=_MHSB_FLAT),
+    "multihost_sb/block@trace": _cost(_MHSB_GEOM, 86, 2561612,
+                                      wave_expect=_MHSB_TRACE),
+    "multihost_sb/serve": _cost(_MHSB_GEOM, 80, 2383624,
+                                wave_expect=_MHSB),
+    "multihost_sb/serve@flat": _cost(_MHSB_GEOM, 77, 2383624,
+                                     wave_expect=_MHSB_FLAT),
+    "multihost_sb/serve@mon": _cost(_MHSB_GEOM, 128, 2385616,
+                                    wave_expect=_MHSB),
+    "multihost_sb/serve@overlap": _cost(_MHSB_GEOM, 80, 2396300,
                                         wave_expect=_MHSB),
-    "multihost_sb/serve@overlap+mon": _cost(_MHSB_GEOM, 120, 2398340,
-                                            bytes_budget=71367,
+    "multihost_sb/serve@overlap+mon": _cost(_MHSB_GEOM, 128, 2398340,
                                             wave_expect=_MHSB),
-    "multihost/block": _cost(_MH_GEOM, 84, 712872, bytes_budget=41127,
+    "multihost/block": _cost(_MH_GEOM, 86, 712872,
                              wave_expect=_DS),
     # the store: probe and install are hash-layout-dependent (unmodeled);
     # the scan pair reconciles (scan 1.17, scan_locate 1.0)
@@ -991,6 +1015,40 @@ TARGET_COST: dict[str, dict] = {
                                       bytes_budget=8602),
     "recovery/sb_shard": _cost(_DSB_GEOM, 1, 50248, steps=1.0,
                                bytes_budget=8602),
+}
+
+
+# ------------------------------------------------ mutation-target matrix
+#
+# The dintmut matrix (analysis/mutate.py): which targets get corrupted,
+# and with which operators — the reference's six targets with the same
+# operator sets (``drop-donation`` is the port's ``out-of-place-write``),
+# at the geometry the lint traces them at (``multihost_sb/block`` at
+# 4 x 2). An operator that finds no site on its target is a loud
+# mut_check error (operator-dormant), not a blank.
+MUT_TARGETS: dict[str, tuple[str, ...]] = {
+    # single-device certified+occ TATP: the lock/validate/install loop,
+    # the in-place table writes and the durable log ring in one trace
+    "tatp_dense/block": ("drop-eqn", "weaken-scatter", "mask-swap",
+                         "widen-gather", "out-of-place-write",
+                         "ring-shrink"),
+    # single-device certified SmallBank (no occ validate)
+    "smallbank_dense/block": ("drop-eqn", "weaken-scatter", "mask-swap",
+                              "widen-gather", "ring-shrink"),
+    # the replicated 1-D mesh TATP: its replication hops
+    "dense_sharded/block": ("drop-eqn", "mask-swap", "axis-swap",
+                            "ring-shrink"),
+    # the replicated SmallBank mesh: weaken and widen against a mesh's
+    # byte ledger
+    "dense_sharded_sb/block": ("drop-eqn", "weaken-scatter", "axis-swap",
+                               "widen-gather"),
+    # the 2-D (dcn x ici) mesh: the only target where a dcn -> ici
+    # reroute is expressible
+    "multihost_sb/block": ("drop-eqn", "axis-swap", "ring-shrink"),
+    # the scan store: writer-election scatters, scan merge masks and
+    # slab gathers
+    "store/block@scan": ("drop-eqn", "weaken-scatter", "mask-swap",
+                         "widen-gather"),
 }
 
 

@@ -5,12 +5,11 @@ Runs ONLY the `durability` pass (analysis/passes/durability.py) over the
 registered targets — log-before-visible (wal-order), bounded rings
 (unbounded-ring / no-ring-truncation), replay coverage of everything the
 engines install (replay-coverage), and TIMEOUT totality in the wire
-coordinator (in-doubt-totality) — proven from the fx traces before any
-fault is injected. Traced on small CPU tensors; the trace cache is
-shared with dintlint and dintcost (analysis/core.TraceCache). The
-replica-quorum check (quorum-fanout) needs the mesh's perms, which the
-in-process mesh does not show in a trace: each durable, replicated
-target reports it as quorum-fanout-unchecked (INFO).
+coordinator (in-doubt-totality), and the replica quorum of the mesh's
+replication hops (quorum-fanout, read off the ``dint_mesh::ppermute``
+nodes' perms) — proven from the fx traces before any fault is injected.
+Traced on small CPU tensors; the trace cache is shared with dintlint and
+dintcost (analysis/core.TraceCache).
 
 Usage:
     python -m dint_tpu_torch.dintdur check --all                 # the gate
@@ -46,9 +45,9 @@ _CHECKS = {
     "wal-order":
         "every certified commit-visible install has a log append under "
         "the same grant mask (write-ahead, never install-without-log)",
-    "quorum-fanout-unchecked":
-        "(info) the replication hops' perms are not visible in a trace of "
-        "the in-process mesh; reported per durable, replicated target",
+    "quorum-fanout":
+        "the replication perms give every source >= 2 distinct non-self "
+        "destinations, and on a 2-D mesh every hop rides the dcn axis",
     "unbounded-ring":
         "the appends a trace makes (each append's lanes over the traced "
         "steps) fit the ring's slot count",

@@ -1,7 +1,7 @@
 """The multi-device paths of the port (the port of `dint_tpu.parallel`),
 on an in-process mesh (`mesh.Mesh`): the partitions are a list on one
-device, `ppermute` re-indexes it, `all_to_all` exchanges buckets over it
-and `psum` sums over it.
+device, and `ppermute`, `all_to_all` and `psum` are `dint_mesh` operators
+over the whole list (ops/mesh_ops.py), one node a call in a trace.
 
 * `sharded` — the generic engines over a partitioned keyspace with
   primary-backup replication (`build_sharded_step`, `route_batches`).

@@ -14,7 +14,7 @@ the primary). Here the servers are the partitions of a `mesh.Mesh`:
 * `route_batches` buckets requests by owner on the host, as the
   reference client groups its per-shard batches;
 * `replicated_step` forwards each shard's prim ops to shards +1 and +2 as
-  backup ops (a re-indexing of the batch list, `Mesh.ppermute`) and runs
+  backup ops (one `Mesh.ppermute` of the batch list a hop) and runs
   ONE engine step a shard over the [3w] concatenation; the commit vote is
   summed over the mesh (`Mesh.psum`).
 

@@ -162,12 +162,44 @@ def test_fused_log_stream_is_the_only_append_of_its_call():
         {tuple(r.root.meta["val"].shape) for r in flow.log_appends()}
 
 
-def test_quorum_fanout_is_reported_unchecked_on_replicated_targets():
-    fs = run_pass(*_mini_durable("ok"),
-                  protocol=("certified", "durable", "replicated"))
-    info = [f for f in fs if f.code == "quorum-fanout-unchecked"]
-    assert len(info) == 1 and info[0].severity == "info"
-    assert not codes(run_pass(*_mini_durable("ok")), "info")
+def _mini_fanout(offs, shape=(3,), axes=("shard",), axis="shard"):
+    """Each partition's install record ppermuted along ``axis`` by each
+    offset of ``offs`` and logged at the receiver (the CommitBck hops)."""
+    from dint_tpu_torch.parallel import mesh as pmesh
+    mesh = pmesh.Mesh(shape, axes, device="cpu")
+    inner, args0 = _mini_durable("ok")
+
+    def fn(tab, meta, entries, head, rows, snap, vals):
+        out = inner(tab, meta, entries, head, rows, snap, vals)
+        recs = [(rows, vals)] * mesh.size
+        for off in offs:
+            for r, v in mesh.ppermute(recs, axis, off):
+                tab[r.long()] = v[:, 0]
+        return out
+    return fn, args0
+
+
+@pytest.mark.parametrize("case,want", [
+    ("hops 1 and 2", set()),
+    ("no hop", set()),                 # protocol/no-replication-push's
+    ("hop 1 twice", {"quorum-fanout"}),
+    ("ici axis", {"quorum-fanout"}),
+])
+def test_quorum_fanout_is_reported_unchecked_on_replicated_targets(case,
+                                                                   want):
+    """quorum-fanout reads the ppermute nodes' perms: two distinct
+    destinations a source, on the dcn axis of a 2-D mesh."""
+    mk = {"hops 1 and 2": lambda: _mini_fanout((1, 2)),
+          "no hop": lambda: _mini_fanout(()),
+          "hop 1 twice": lambda: _mini_fanout((1, 1)),
+          "ici axis": lambda: _mini_fanout(
+              (1, 2), (3, 3), ("dcn", "ici"), "ici")}[case]
+    fs = run_pass(*mk(), protocol=("certified", "durable", "replicated"))
+    got = {f.code for f in fs if f.code.startswith("quorum")}
+    assert got == want, [str(f) for f in fs]
+    assert all(f.severity == "error" for f in fs
+               if f.code.startswith("quorum"))
+    assert not [f for f in fs if f.severity == "info"]
 
 
 # ------------------------------------------------------- replay-coverage

@@ -412,10 +412,43 @@ def test_protocol_writer_election_fixture(variant, want):
     assert codes(fs, "error") == want, [str(f) for f in fs]
 
 
-def test_protocol_replicated_flag_is_never_silent():
-    fs = run_pass("protocol", lambda x: [x + 1], (i32(8),),
-                  protocol=("replicated",))
-    assert codes(fs, "info") == {"commit-after-replication-unchecked"}
+def _replicated(variant):
+    """A 3-partition step: each partition installs its write, then the
+    records hop to p+1 and p+2 (Mesh.ppermute) and are applied to the
+    backup table, or discarded ("discard"), or never pushed ("nohop")."""
+    from dint_tpu_torch.parallel import mesh as pmesh
+    mesh = pmesh.Mesh((3,), ("shard",), device="cpu")
+
+    def fn(t0, t1, t2, b0, b1, b2, rows):
+        tabs, bcks = [t0, t1, t2], [b0, b1, b2]
+        recs = []
+        for t in tabs:
+            t[rows.long()] = rows + 1
+            recs.append((rows, rows + 1))
+        if variant == "nohop":
+            return tabs + bcks
+        for off in (1, 2):
+            fwd = mesh.ppermute(recs, "shard", off)
+            for b, (r, v) in zip(bcks, fwd):
+                if variant != "discard":
+                    b[(off - 1) * 8 + r.long()] = v
+        return tabs + bcks
+    args = tuple(i32(8) for _ in range(3)) + tuple(i32(16)
+                                                   for _ in range(3))
+    return fn, args + (torch.arange(4, dtype=I32),)
+
+
+@pytest.mark.parametrize("variant,want", [
+    ("nohop", {"no-replication-push"}),
+    ("discard", {"push-not-applied"}),
+    ("ok", set()),
+])
+def test_protocol_replicated_flag_is_never_silent(variant, want):
+    fn, args = _replicated(variant)
+    fs = run_pass("protocol", fn, args, protocol=("replicated",),
+                  inputs=tuple((f"a{i}", i < 6) for i in range(7)))
+    assert codes(fs, "error") == want, [str(f) for f in fs]
+    assert not codes(fs, "info")
 
 
 # --------------------------------------------------------------- allowlist
@@ -472,6 +505,12 @@ def _broken_findings(pname):
     if pname == "calib_check":
         from test_torch_calib_check import broken_calib_findings
         return broken_calib_findings()
+    if pname == "mut_check":
+        from test_torch_dintmut import broken_mutcov_findings
+        return broken_mutcov_findings()
+    if pname == "shard_consistency":
+        from test_torch_shard_consistency import broken_shard_findings
+        return broken_shard_findings()
     raise AssertionError(pname)
 
 

@@ -3,7 +3,8 @@
 _torch_dintlint_matrix.py says what each test holds)."""
 import pytest
 
-from _torch_dintlint_matrix import check_family_allowlist, check_target, family
+from _torch_dintlint_matrix import (check_family_allowlist,
+                                    check_link_bytes, check_target, family)
 
 NAMES = family("multihost_sb/serve@overlap")
 
@@ -17,3 +18,9 @@ def test_target_is_clean(name):
 @pytest.mark.lint
 def test_family_allowlist_entries_all_match():
     check_family_allowlist(NAMES)
+
+
+@pytest.mark.lint
+@pytest.mark.parametrize("name", NAMES)
+def test_link_bytes_equal_the_hand_count(name):
+    check_link_bytes(name)

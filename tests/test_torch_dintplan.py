@@ -255,13 +255,21 @@ def test_plan_h100_pins_the_defaults_and_the_cards_priors():
             assert o["reason"] == P.MEASURED_OVERRIDES[o["knob"]]
     assert doc["provenance"]["knobs_hash"] == P.knobs_hash()
     assert doc["provenance"]["calibration_hash"] == P.calibration_hash()
-    # the collective waves of a mesh row are recorded beside its prices
+    # every collective wave is priced; a mesh row's link bytes sit on
+    # its axes: dcn on the 2-D mesh, ici on the 1-D mesh and on the
+    # hierarchical exchange's first stage, none off the mesh
     for r in doc["frontier"]:
         mesh = P.WORKLOADS_BY_NAME[r["workload"]].mesh
-        assert r["dcn_bytes_per_step"] == r["ici_bytes_per_step"] == 0
-        assert bool(r["unpriced_waves"]) == r["target"].startswith(
-            ("multihost_sb/", "dense_sharded"))
-        assert not r["unpriced_waves"] or mesh
+        assert r["unpriced_waves"] == []
+        two_d = r["target"].startswith("multihost_sb/")
+        assert (r["dcn_bytes_per_step"] > 0) == two_d
+        assert (r["ici_bytes_per_step"] > 0) == (
+            bool(mesh) and "@flat" not in r["target"]
+            and "+flat" not in r["target"])
+    # the hierarchical exchange wins each 2-D workload on dcn bytes
+    for name in ("multihost_4x2", "multihost_3x2", "multihost_serve"):
+        e = doc["workloads"][name]
+        assert e["predicted"]["hierarchical"] is True and not e["overrides"]
 
 
 def test_plan_from_recorded_prices_reproduces_plan_h100(monkeypatch,
