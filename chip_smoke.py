@@ -4,6 +4,14 @@
     python3 chip_smoke.py            # from the repo root; needs one CUDA card
     python3 chip_smoke.py --calibrate 3   # phase 1, then phase 22 (c)
                                           # alone 3 times: the fits' spread
+    python3 chip_smoke.py --mesh-cards [N]  # phase 1, then phase 24
+                                          # alone (the mesh over every
+                                          # card), N spread/one-card
+                                          # pairs a route in turns
+    python3 chip_smoke.py --turns DIR     # this tree against the tree at
+                                          # DIR (e.g. the parent commit's
+                                          # `git archive`) on one card, in
+                                          # turns DIR, here, here, DIR
 
 Phases, each of which fails the run (non-zero exit, no result line) on any
 mismatch or error:
@@ -312,8 +320,8 @@ mismatch or error:
    card.
 18. Sharded SmallBank on the card (after phase 17): cross-device
    transactions, each partition's lock requests, replies and installs
-   exchanged with `Mesh.all_to_all` (a stack and a transposed copy on the
-   one card: no byte crosses a link). (a) The default, hot, fused and
+   exchanged with `Mesh.all_to_all` (copies on the one card: no byte
+   crosses a link). (a) The default, hot, fused and
    fused+hot routes with monitor and trace at 4 partitions, 512 accounts,
    w=32, 2 cohorts/block, on the CPU and the card from the same host-made
    draws: tables, mirrors, backups, logs, heads, the stats of every step,
@@ -424,6 +432,27 @@ mismatch or error:
    verdict, killer and new errors == the pinned row's. (a) and (c) read
    the CUDA traces phase 22 (a) made where it made them; (a)'s CPU
    traces run in a child process meanwhile.
+24. The mesh over the machine's cards (after phase 23): the partitions
+   placed by `parallel.mesh.placement` over every visible card (one a
+   partition where there are enough, a host's chips sharing one where
+   not; on a one-card machine every partition on cuda:0, given
+   explicitly). TATP at 7,000,000 subscribers over 3 shards (default and
+   fused) and SmallBank at 24,000,000 accounts over 3x2 (hierarchical and
+   flat), w=8192 a partition, 4 cohorts/block, monitored, 1 warm + 2
+   timed blocks and the drain, each run twice: spread, then with every
+   partition on cuda:0 from the same seeds and draws; the stats of every
+   step, the counters and every partition's tables, backups, log rings
+   and heads bit for bit. One line a run: the cards, committed txn/s
+   summed, ms a step, peak memory by card. Then, on more than one card,
+   one profiled block on each placement's tables: device and host ms a
+   step of the waves (the device ms summed over the cards). A lost TATP
+   shard rebuilt on its own card from its ring and another shard's,
+   SmallBank's partition (1, 0) from its ring and host 2's (numpy and
+   `replay_sb_shard`, the ring copied across). `entry.dryrun_multichip(3)` over the cards ==
+   on cuda:0 but for its cards. Device time of one `ppermute` hop of
+   TATP's install record across the cards beside the same hop on one
+   card, and `can_device_access_peer` for every pair. On one card it
+   prints "cards: 1; cross-card copies not exercised".
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -5610,48 +5639,55 @@ MESH_TEST = dict(n=4, n_sub=4 * 200, w=32, cpb=2, vw=4, log_cap=128)
 
 def _mesh_states(dev, mesh, axis, n_sub_global, seed0=0):
     """The partitions' states at full size: `populate_device` a partition
-    (generator seeds seed0 + p, the population rules of `populate`), the
-    backups assembled by dense_sharded's helper; and each partition's
-    populated ver sum."""
+    on its own device (generator seeds seed0 + p, the population rules of
+    `populate`), the backups assembled by dense_sharded's helper; and each
+    partition's populated ver sum."""
     from dint_tpu_torch.engines import tatp_dense as td
     from dint_tpu_torch.ops import u32
     from dint_tpu_torch.parallel import dense_sharded as ds
+    from dint_tpu_torch.timing import synchronize
     n_loc = ds.n_sub_local(n_sub_global, mesh.size)
     t0 = time.perf_counter()
-    dbs = [td.populate_device(torch.Generator(device=dev).manual_seed(
-        seed0 + p), n_loc, val_words=VW, log_replicas=1, device=dev)
-        for p in range(mesh.size)]
+    devs = [mesh.device_of(p) for p in range(mesh.size)]
+    dbs = [td.populate_device(torch.Generator(device=d).manual_seed(
+        seed0 + p), n_loc, val_words=VW, log_replicas=1, device=d)
+        for p, d in enumerate(devs)]
     states = ds._with_backups(mesh, axis, dbs)
     base = [int((u32.to_u64(st.db.meta) >> 1).sum()) for st in states]
-    torch.cuda.synchronize()
+    synchronize(mesh.cards)
     print(f"  {mesh.size} partitions of {n_loc:,} subscribers "
           f"({dbs[0].meta.numel():,} rows each) populated on the card with "
           f"their backups: {time.perf_counter() - t0:.3f} s")
     return states, base
 
 
-def _mesh_drive(dev, card, label, run, init, drain, states, n_parts, blocks):
+def _mesh_drive(dev, card, label, run, init, drain, states, n_parts, blocks,
+                cards=None):
     """One warm block and ``blocks`` timed blocks from generator seed 1,
-    then the drain, launches counted from 0 over them; prints committed
-    txn/s summed over the partitions, ms a step, the abort mix and the peak
-    memory. Returns (states, stats of every step, launches)."""
+    then the drain, launches counted from 0 over them, every card of
+    ``cards`` (the mesh's; default ``dev``) synchronised around each;
+    prints committed txn/s summed over the partitions, ms a step, the
+    abort mix and the peak memory of each card. Returns (states, stats of
+    every step, launches)."""
     from dint_tpu_torch.engines import tatp_dense as td
+    from dint_tpu_torch.timing import peak_memory, synchronize
+    cards = cards or (dev,)
     gen = torch.Generator(device=dev).manual_seed(1)
     reset_launches()
     carry = init(states)
     t0 = time.perf_counter()
     carry, s_warm = run(carry, gen)
-    torch.cuda.synchronize()
+    synchronize(cards)
     warm = time.perf_counter() - t0
     block_s, timed = [], []
     for _ in range(blocks):
         t0 = time.perf_counter()
         carry, s = run(carry, gen)
-        torch.cuda.synchronize()
+        synchronize(cards)
         block_s.append(time.perf_counter() - t0)
         timed.append(s)
     states, tail, *rest = drain(carry)
-    torch.cuda.synchronize()
+    synchronize(cards)
     launches = launch_counts()
     stats = torch.cat([s_warm] + timed + [tail]).cpu().numpy()
     total = stats.astype(np.int64).sum(axis=0)
@@ -5667,8 +5703,8 @@ def _mesh_drive(dev, card, label, run, init, drain, states, n_parts, blocks):
     print(f"  {label}: abort mix of {att}: ab_lock "
           f"{int(total[td.STAT_AB_LOCK])}, ab_missing "
           f"{int(total[td.STAT_AB_MISSING])}, ab_validate "
-          f"{int(total[td.STAT_AB_VALIDATE])}; max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated(dev):,} B")
+          f"{int(total[td.STAT_AB_VALIDATE])}; max_memory_allocated by "
+          f"card {peak_memory(cards)} B")
     return states, stats, launches
 
 
@@ -5724,8 +5760,9 @@ def _mesh_recover(dev, label, mesh, states, dead, sources, n_loc, seed0=0):
     from dint_tpu_torch import recovery
     from dint_tpu_torch.engines import tatp_dense as td
     from dint_tpu_torch.tables import log as logring
-    snap = td.populate_device(torch.Generator(device=dev).manual_seed(
-        seed0 + dead), n_loc, val_words=VW, log_replicas=1, device=dev)
+    home = mesh.device_of(dead)         # rebuilt on the lost partition's card
+    snap = td.populate_device(torch.Generator(device=home).manual_seed(
+        seed0 + dead), n_loc, val_words=VW, log_replicas=1, device=home)
     for holder, tag in sources:
         t0 = time.perf_counter()
         log = states[holder].db.log
@@ -5837,6 +5874,7 @@ def phase_mesh_cpu_vs_card(dev, card):
 
 
 def phase_mesh_1d(dev, card, trace_dir):
+    from dint_tpu_torch import timing
     from dint_tpu_torch.monitor import counters as mon
     from dint_tpu_torch.parallel import dense_sharded as ds
     print(f"== phase 17 (b): sharded TATP at {N_SUB:,} subscribers over "
@@ -5849,14 +5887,15 @@ def phase_mesh_1d(dev, card, trace_dir):
     paths, rec, ref = {}, {}, None
     for route, fused in (("default", False), ("fused", True)):
         label = f"tatp sharded{' fused' if fused else ''}"
-        torch.cuda.reset_peak_memory_stats(dev)
+        timing.reset_peak_memory(mesh.cards)
         states, base = _mesh_states(dev, mesh, ds.SHARD_AXIS, N_SUB)
         run, init, drain = ds.build_sharded_pipelined_runner(
             mesh, MESH_D, N_SUB, w=MESH_W, val_words=VW,
             cohorts_per_block=MESH_CPB, use_fused=fused)
         states, stats, launches = _mesh_drive(
-            dev, card, label, run, init, drain, states, MESH_D, MESH_BLOCKS)
-        rec[route] = {"peak_bytes": torch.cuda.max_memory_allocated(dev)}
+            dev, card, label, run, init, drain, states, MESH_D, MESH_BLOCKS,
+            mesh.cards)
+        rec[route] = {"peak_bytes": timing.peak_memory(mesh.cards)}
         paths[label] = launches
         _mesh_check(label, mesh, ds.SHARD_AXIS, states, base, stats,
                     launches, TATP_PER_STEP[route], MESH_BLOCKS)
@@ -5889,6 +5928,7 @@ def phase_mesh_1d(dev, card, trace_dir):
 
 
 def phase_mesh_2d(dev, card):
+    from dint_tpu_torch import timing
     from dint_tpu_torch.parallel import multihost as mh
     h, c = MESH_2D
     print(f"== phase 17 (c): multihost TATP at {N_SUB:,} subscribers over a "
@@ -5896,14 +5936,14 @@ def phase_mesh_2d(dev, card):
           f"{MESH_CPB} cohorts/block, 1 warm + {MESH_2D_BLOCKS} timed blocks")
     t_phase = time.perf_counter()
     mesh = mh.make_mesh_2d(h, c, dev)
-    torch.cuda.reset_peak_memory_stats(dev)
+    timing.reset_peak_memory(mesh.cards)
     states, base = _mesh_states(dev, mesh, mh.DCN_AXIS, N_SUB)
     run, init, drain = mh.build_multihost_runner(
         mesh, N_SUB, w=MESH_W, val_words=VW, cohorts_per_block=MESH_CPB)
     states, stats, launches = _mesh_drive(
         dev, card, "tatp multihost", run, init, drain, states, mesh.size,
-        MESH_2D_BLOCKS)
-    peak = torch.cuda.max_memory_allocated(dev)
+        MESH_2D_BLOCKS, mesh.cards)
+    peak = timing.peak_memory(mesh.cards)
     _mesh_check("tatp multihost", mesh, mh.DCN_AXIS, states, base, stats,
                 launches, TATP_PER_STEP["default"], MESH_2D_BLOCKS)
     hosts = {p: {mesh.coords(mesh.shift(p, mh.DCN_AXIS, off))[0]
@@ -6052,30 +6092,34 @@ def _sb_mesh_states(dev, mesh):
     return states
 
 
-def _sb_mesh_drive(dev, card, label, run, init, drain, states, n_parts):
+def _sb_mesh_drive(dev, card, label, run, init, drain, states, n_parts,
+                   cards=None):
     """One warm block and MESH_SB_BLOCKS timed blocks from generator seed
     18, then the drain, launches counted from 0 over them; prints
     committed txn/s summed over the partitions, ms a step, the abort mix,
     the overflow and the peak memory. Returns (states, stats of every
     step, launches, record; with a monitored runner the record holds the
-    counters' snapshot)."""
+    counters' snapshot). ``cards``: the mesh's, each synchronised around
+    a block and its peak memory read (default ``dev``)."""
     from dint_tpu_torch.parallel import dense_sharded_sb as dsb
+    from dint_tpu_torch.timing import peak_memory, synchronize
+    cards = cards or (dev,)
     gen = torch.Generator(device=dev).manual_seed(18)
     reset_launches()
     carry = init(states)
     t0 = time.perf_counter()
     carry, s_warm = run(carry, gen)
-    torch.cuda.synchronize()
+    synchronize(cards)
     warm = time.perf_counter() - t0
     block_s, timed = [], []
     for _ in range(MESH_SB_BLOCKS):
         t0 = time.perf_counter()
         carry, s = run(carry, gen)
-        torch.cuda.synchronize()
+        synchronize(cards)
         block_s.append(time.perf_counter() - t0)
         timed.append(s)
     states, tail, *rest = drain(carry)
-    torch.cuda.synchronize()
+    synchronize(cards)
     launches = launch_counts()
     stats = torch.cat([s_warm] + timed + [tail]).cpu().numpy()
     total = stats.astype(np.int64).sum(axis=0)
@@ -6087,7 +6131,7 @@ def _sb_mesh_drive(dev, card, label, run, init, drain, states, n_parts):
     att = int(total[dsb.STAT_ATTEMPTED])
     rec = {"txn_s": committed / secs,
            "ms_step": secs / (MESH_SB_BLOCKS * MESH_CPB) * 1e3,
-           "peak_bytes": torch.cuda.max_memory_allocated(dev),
+           "peak_bytes": peak_memory(cards),
            "ab_lock": int(total[dsb.STAT_AB_LOCK]),
            "ab_logic": int(total[dsb.STAT_AB_LOGIC]),
            "overflow": int(total[dsb.STAT_OVERFLOW]), "attempted": att}
@@ -6102,7 +6146,7 @@ def _sb_mesh_drive(dev, card, label, run, init, drain, states, n_parts):
           f"{[round(b * 1e3, 3) for b in block_s]} ms  [{card}]")
     print(f"  {label}: abort mix of {att}: ab_lock {rec['ab_lock']}, "
           f"ab_logic {rec['ab_logic']}; overflow {rec['overflow']}; "
-          f"max_memory_allocated {rec['peak_bytes']:,} B")
+          f"max_memory_allocated by card {rec['peak_bytes']} B")
     return states, stats, launches, rec
 
 
@@ -6194,7 +6238,7 @@ def _sb_mesh_recover(dev, label, mesh, states, dead, axis="shard"):
     """Partition ``dead``'s balances rebuilt from its own ring and from its
     first backup holder's (``mesh.shift(dead, axis, 1)``): numpy
     `recover_sb_shard` (with the ring_owner check) and `replay_sb_shard`
-    on the card."""
+    on the lost partition's card (the holder's ring copied there)."""
     from dint_tpu_torch import recovery
     from dint_tpu_torch.ops import u32
     from dint_tpu_torch.parallel import dense_sharded_sb as dsb
@@ -6212,7 +6256,7 @@ def _sb_mesh_recover(dev, label, mesh, states, dead, axis="shard"):
         t0 = time.perf_counter()
         rep = recovery.replay_sb_shard(bal0, ents, log.head, dead=dead,
                                        n_shards=mesh.size)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(want.device)
         t_dev = time.perf_counter() - t0
         check(np.array_equal(rec, u32.to_numpy(want))
               and torch.equal(rep, want),
@@ -6276,6 +6320,7 @@ def _sb_mesh_wave_split(dev, card, label, run, init, drain, states,
 
 
 def phase_sb_mesh_full(dev, card, trace_dir):
+    from dint_tpu_torch import timing
     from dint_tpu_torch.engines.types import ROUTES
     from dint_tpu_torch.parallel import dense_sharded_sb as dsb
     print(f"== phase 18 (b): sharded SmallBank at {MESH_SB_N:,} accounts "
@@ -6289,14 +6334,14 @@ def phase_sb_mesh_full(dev, card, trace_dir):
         hot, fused = ROUTES[route]
         label = ("smallbank sharded" if route == "default"
                  else f"smallbank sharded {route}")
-        torch.cuda.reset_peak_memory_stats(dev)
+        timing.reset_peak_memory(mesh.cards)
         states = _sb_mesh_states(dev, mesh)
         base = dsb.total_balance_global(states)
         run, init, drain = dsb.build_sharded_sb_runner(
             mesh, MESH_D, MESH_SB_N, w=MESH_W, cohorts_per_block=MESH_CPB,
             use_hotset=hot, use_fused=fused)
         states, stats, launches, rec[route] = _sb_mesh_drive(
-            dev, card, label, run, init, drain, states, MESH_D)
+            dev, card, label, run, init, drain, states, MESH_D, mesh.cards)
         paths[label] = launches
         _sb_mesh_check(label, mesh, states, base, stats, launches,
                        SB_MESH_PER_STEP[route])
@@ -6538,6 +6583,7 @@ def phase_mh_sb_cpu_vs_card(dev, card):
 
 
 def phase_mh_sb_full(dev, card, trace_dir):
+    from dint_tpu_torch import timing
     from dint_tpu_torch.parallel import multihost_sb as mhs
     h, ci = MH_SHAPE
     d = h * ci
@@ -6552,7 +6598,7 @@ def phase_mh_sb_full(dev, card, trace_dir):
     for route, hier in (("hier", True), ("flat", False)):
         label = ("smallbank multihost" if hier
                  else "smallbank multihost flat")
-        torch.cuda.reset_peak_memory_stats(dev)
+        timing.reset_peak_memory(mesh.cards)
         t0 = time.perf_counter()
         states = mhs.create_multihost_sb(mesh, MESH_SB_N,
                                          log_capacity=MESH_SB_LOG_CAP)
@@ -6566,7 +6612,7 @@ def phase_mh_sb_full(dev, card, trace_dir):
             mesh, MESH_SB_N, w=MESH_W, cohorts_per_block=MESH_CPB,
             hierarchical=hier, monitor=True)
         states, stats, launches, rec[route] = _sb_mesh_drive(
-            dev, card, label, run, init, drain, states, d)
+            dev, card, label, run, init, drain, states, d, mesh.cards)
         paths[label] = launches
         _sb_mesh_check(label, mesh, states, base, stats, launches,
                        SB_MESH_PER_STEP["default"], axis=mhs.DCN_AXIS)
@@ -6759,14 +6805,16 @@ def phase_mh_sb_exp(dev, card):
     check(sorted(res) == sorted(closed + serve_names)
           and len(Recorded.snaps) == len(serve_names),
           f"(d) ran {sorted(res)}")
-    mesh_keys = {"n_shards", "mesh", "hierarchical", "route_overflow"}
+    # exp.py's keys, and the port's record of the cards the mesh ran on
+    mesh_keys = {"n_shards", "mesh", "hierarchical", "route_overflow",
+                 "cards"}
     for name in closed:
         blk = _p16_point(card, res, name, "closed", "smallbank", mesh_keys)
         check(blk["n_shards"] == h * ci
               and blk["mesh"] == {"n_hosts": h, "n_ici": ci,
                                   "axes": ["dcn", "ici"]}
               and blk["hierarchical"] == name.startswith("multihost_sb_hier")
-              and blk["route_overflow"] == 0
+              and blk["route_overflow"] == 0 and blk["cards"] == [str(dev)]
               and res.launches[name]["gather_rows"] > 0,
               f"{name}: the mesh keys, no overflow, gather_rows launched")
         paths[f"p19 {name}"] = res.launches[name]
@@ -6774,9 +6822,10 @@ def phase_mh_sb_exp(dev, card):
                                           "abort_rate", "p50_us", "p99_us")}
     for name, snap in zip(serve_names, Recorded.snaps):
         blk = res[name]
-        want = P16_SERVE_KEYS | {"mesh", "per_host"} | (
+        want = P16_SERVE_KEYS | {"mesh", "per_host", "cards"} | (
             {"target_rate"} if name != serve_names[0] else set())
-        check(set(blk) == want, f"{name}: exp.py's artifact keys"
+        check(set(blk) == want and blk["cards"] == [str(dev)],
+              f"{name}: exp.py's artifact keys and the cards"
               + ("" if set(blk) == want else
                  f" (extra {set(blk) - want}, missing {want - set(blk)})"))
         _mh_identities(name, snap, h * ci)
@@ -7940,6 +7989,410 @@ def phase_mesh_trace(dev, card):
     print(f"  phase 23: {rec['seconds']:.3f} s  [{card}]")
 
 
+# ------------------------------------------------ the mesh over the cards
+
+P24_BLOCKS = 2                   # timed blocks after the warm one, a run
+
+
+def _p24_order(turns: int) -> list:
+    """The placements of a route's runs: spread, one card, then the pair
+    in turns (one card, spread; spread, one card; ...), ``turns`` pairs."""
+    return [w for i in range(turns)
+            for w in (("spread", "one card") if i % 2 == 0
+                      else ("one card", "spread"))]
+
+
+def _p24_spread(shape):
+    """The spread placement: `parallel.mesh.placement` over the visible
+    cards (on one card, every partition on cuda:0, given explicitly)."""
+    from dint_tpu_torch.parallel.mesh import placement
+    return placement(shape, [torch.device("cuda", i)
+                             for i in range(torch.cuda.device_count())])
+
+
+def _p24_run(card, label, mesh, runner, states, seed, commit_idx):
+    """One warm block and P24_BLOCKS timed blocks drawn from generator
+    seed ``seed`` on the mesh's home device, then the drain, every card of
+    the mesh synchronised around each block, launches counted from 0.
+    Prints the run's line. Returns (states, stats of every step, the
+    counters' snapshot, launches, record)."""
+    from dint_tpu_torch import timing
+    from dint_tpu_torch.monitor import counters as mon
+    run, init, drain = runner
+    timing.reset_peak_memory(mesh.cards)
+    gen = torch.Generator(device=mesh.device).manual_seed(seed)
+    reset_launches()
+    carry, s = run(init(states), gen)
+    stats = [s]
+    timing.synchronize(mesh.cards)
+    secs = 0.0
+    for _ in range(P24_BLOCKS):
+        t0 = time.perf_counter()
+        carry, s = run(carry, gen)
+        timing.synchronize(mesh.cards)
+        secs += time.perf_counter() - t0
+        stats.append(s)
+    states, tail, cnt = drain(carry)      # monitored: the counters last
+    timing.synchronize(mesh.cards)
+    launches = launch_counts()
+    stats = torch.cat(stats + [tail]).cpu().numpy()
+    timed = stats[MESH_CPB:MESH_CPB * (1 + P24_BLOCKS), commit_idx]
+    rec = {"cards": [str(d) for d in mesh.cards],
+           "txn_s": int(timed.astype(np.int64).sum()) / secs,
+           "ms_step": secs / (P24_BLOCKS * MESH_CPB) * 1e3,
+           "peak_bytes": timing.peak_memory(mesh.cards)}
+    print(f"  {label}: cards {rec['cards']}; committed txn/s "
+          f"{rec['txn_s']:.1f} summed over {mesh.size} partitions; ms/step "
+          f"{rec['ms_step']:.6f}; peak memory by card {rec['peak_bytes']} B"
+          f"  [{card}]")
+    return states, stats, mon.snapshot(cnt), launches, rec
+
+
+def _p24_host_fields(obj) -> list:
+    """The host values (step counters, sizes) of a state, in field order."""
+    import dataclasses
+    out = []
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            out.extend(_p24_host_fields(v))
+        elif not isinstance(v, torch.Tensor):
+            out.append(v)
+    return out
+
+
+def _p24_same(label, run, ref):
+    """A run against the route's first (spread) run: the stats of every
+    step, the counters, and every partition's tensors (tables, backups,
+    log rings, stamps; each copied to the other's card where they differ)
+    and host fields, bit for bit."""
+    from dint_tpu_torch.parallel.mesh import leaves
+    (s_states, s_stats, s_cnt), (r_states, r_stats, r_cnt) = run, ref
+    n_leaves = 0
+    for a, b in zip(s_states, r_states):
+        la, lb = leaves(a), leaves(b)
+        check(len(la) == len(lb)
+              and all(torch.equal(x.to(y.device), y) for x, y in zip(la, lb))
+              and _p24_host_fields(a) == _p24_host_fields(b),
+              f"{label}: a partition's tensors equal", quiet=True)
+        n_leaves += len(la)
+    check(np.array_equal(s_stats, r_stats) and s_cnt == r_cnt
+          and len(s_states) == len(r_states),
+          f"{label} bit for bit: the stats of "
+          f"{s_stats.shape[0]} steps, the counters and {n_leaves} tensors of "
+          f"{len(s_states)} partitions (tables, backups, log rings and heads, "
+          f"stamps)")
+
+
+def _p24_tatp(dev, card, spread, turns, trace_dir):
+    """TATP at 7M over 3 shards, default and fused: the spread mesh, then
+    ``device=dev``, from the same populate seeds and draws (``turns``
+    pairs, `_p24_order`), every run held against the first; a lost shard
+    rebuilt on its own card from its ring and another card's; then, on
+    more than one card, one profiled block on each placement's last
+    tables (`_mesh_wave_split`)."""
+    from dint_tpu_torch.engines import tatp_dense as td
+    from dint_tpu_torch.parallel import dense_sharded as ds
+    paths, rec = {}, {}
+    for route, fused in (("default", False), ("fused", True)):
+        ref, last = None, {}
+        rec[route] = {"spread": [], "one card": []}
+        for where in _p24_order(turns):
+            last.pop(where, None)
+            mesh = ds.make_mesh(MESH_D, **({"devices": spread}
+                                           if where == "spread"
+                                           else {"device": dev}))
+            label = f"p24 tatp {route}, {where}"
+            states, _ = _mesh_states(dev, mesh, ds.SHARD_AXIS, N_SUB)
+            runner = ds.build_sharded_pipelined_runner(
+                mesh, MESH_D, N_SUB, w=MESH_W, val_words=VW,
+                cohorts_per_block=MESH_CPB, use_fused=fused, monitor=True)
+            states, stats, cnt, launches, r = _p24_run(
+                card, label, mesh, runner, states, 1, td.STAT_COMMITTED)
+            rec[route][where].append(r)
+            last[where] = (runner, states)
+            del runner
+            if ref is None:
+                paths[f"p24 tatp {route}"] = launches
+                if not fused:
+                    _mesh_recover(dev, label, mesh, states, 1,
+                                  ((1, 0), (2, 2)),
+                                  ds.n_sub_local(N_SUB, MESH_D))
+                ref = (states, stats, cnt)
+            else:
+                _p24_same(f"tatp {route}, {where} == spread",
+                          (states, stats, cnt), ref)
+            del states
+            gc.collect()
+            torch.cuda.empty_cache()
+        del ref
+        if len(set(spread)) > 1:     # one card: both placements are one
+            for where, (runner, states) in last.items():
+                _, rec[route][f"{where} wave split"] = _mesh_wave_split(
+                    dev, card, f"p24 tatp {route}, {where}", *runner,
+                    states, trace_dir)
+            del runner, states
+        del last
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths, rec
+
+
+def _p24_smallbank(dev, card, spread, turns, trace_dir):
+    """SmallBank at 24M over 3x2, hierarchical and flat: the spread mesh,
+    then ``device=dev``, the same draws (``turns`` pairs, `_p24_order`),
+    every run held against the first; partition (1, 0) rebuilt on its
+    own card from its ring and host 2's; then, on more than one card, one
+    profiled block on each placement's last tables
+    (`_sb_mesh_wave_split`)."""
+    from dint_tpu_torch.parallel import multihost_sb as mhs
+    paths, rec = {}, {}
+    for route, hier in (("hier", True), ("flat", False)):
+        ref, last = None, {}
+        rec[route] = {"spread": [], "one card": []}
+        for where in _p24_order(turns):
+            last.pop(where, None)
+            mesh = mhs.make_mesh_2d(*MH_SHAPE, **({"devices": spread}
+                                                  if where == "spread"
+                                                  else {"device": dev}))
+            label = f"p24 smallbank 3x2 {route}, {where}"
+            states = mhs.create_multihost_sb(mesh, MESH_SB_N,
+                                             log_capacity=MESH_SB_LOG_CAP)
+            runner = mhs.build_multihost_sb_runner(
+                mesh, MESH_SB_N, w=MESH_W, cohorts_per_block=MESH_CPB,
+                hierarchical=hier, monitor=True)
+            states, stats, cnt, launches, r = _p24_run(
+                card, label, mesh, runner, states, 18, mhs.STAT_COMMITTED)
+            rec[route][where].append(r)
+            last[where] = (runner, states, r["ms_step"])
+            del runner
+            if ref is None:
+                paths[f"p24 smallbank 3x2 {route}"] = launches
+                if hier:
+                    _sb_mesh_recover(dev, label, mesh, states,
+                                     mesh.flat((1, 0)), axis=mhs.DCN_AXIS)
+                ref = (states, stats, cnt)
+            else:
+                _p24_same(f"smallbank 3x2 {route}, {where} == spread",
+                          (states, stats, cnt), ref)
+            del states
+        del ref
+        if len(set(spread)) > 1:     # one card: both placements are one
+            for where, (runner, states, ms_step) in last.items():
+                _, rec[route][f"{where} wave split"] = _sb_mesh_wave_split(
+                    dev, card, f"p24 smallbank 3x2 {route}, {where}",
+                    *runner, states, trace_dir, ms_step,
+                    engine="multihost_sb", wave_names=MH_WAVES)
+            del runner, states
+        del last
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths, rec
+
+
+def _p24_dryrun(dev, card):
+    """`entry.dryrun_multichip(3)` over the visible cards against
+    ``device=dev``: the same line but for the cards and the wall time."""
+    import contextlib
+    import io
+    import re
+    from dint_tpu_torch import entry
+    lines = {}
+    for where, device in (("spread", None), ("one card", dev)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            entry.dryrun_multichip(MESH_D, device=device)
+        cards, lines[where] = buf.getvalue().strip().splitlines()[-2:]
+        print(f"  p24 dry run, {where}: {cards}; {lines[where]}")
+    bare = {k: re.sub(r" wall_s=\S+", "", v) for k, v in lines.items()}
+    check(bare["spread"] == bare["one card"]
+          and bare["spread"].startswith(f"dryrun_multichip ok: devices="
+                                        f"{MESH_D} "),
+          f"the dry run over the cards prints the one-card run's line but "
+          f"for its wall time  [{card}]")
+
+
+def _p24_hop(dev, card, spread):
+    """Device ms of one `ppermute` hop of TATP's install record (3
+    partitions, 2w lanes, VW words) on the spread mesh and on one card,
+    by CUDA events on every card the mesh uses."""
+    from dint_tpu_torch import timing
+    from dint_tpu_torch.engines import tatp_dense as td
+    from dint_tpu_torch.parallel.mesh import Mesh
+    n = 2 * MESH_W
+
+    def rec(d):
+        z = torch.zeros(n, dtype=torch.int32, device=d)
+        return td.Installs(
+            wmask=torch.zeros(n, dtype=torch.bool, device=d),
+            rows=z.clone(), meta=z.clone(),
+            val=torch.zeros((n, VW), dtype=torch.int32, device=d),
+            tbl=z.clone(), key=z.clone(), is_del=z.clone(), ver=z.clone())
+    meshes = {"spread": Mesh((MESH_D,), ("shard",), devices=spread),
+              "one card": Mesh((MESH_D,), ("shard",), device=dev)}
+    insts = {k: [rec(m.device_of(p)) for p in range(MESH_D)]
+             for k, m in meshes.items()}
+    nbytes = sum(t.numel() * t.element_size()
+                 for x in insts["spread"]
+                 for t in (x.wmask, x.rows, x.meta, x.val, x.tbl, x.key,
+                           x.is_del, x.ver))
+    out = {k: {"ms": [], "bytes": nbytes,
+               "cards": [str(d) for d in m.cards]}
+           for k, m in meshes.items()}
+    for where in ("spread", "one card", "one card", "spread"):   # in turns
+        mesh, xs = meshes[where], insts[where]
+        out[where]["ms"].append(timing.device_ms(
+            lambda: mesh.ppermute(xs, "shard", 1), devices=mesh.cards))
+    for where, r in out.items():
+        ms = float(np.mean(r["ms"]))
+        print(f"  p24 hop of the install record, {where} ({r['cards']}): "
+              f"{[round(t * 1e3, 3) for t in r['ms']]} us device time in "
+              f"turns for {nbytes:,} B over {MESH_D} partitions "
+              f"({nbytes / (ms * 1e-3) / 1e9:.3f} GB/s at their mean)  "
+              f"[{card}]")
+    return out
+
+
+def phase_mesh_cards(dev, card, turns=1):
+    """Phase 24: the mesh over the machine's cards (``turns`` spread and
+    one-card pairs a route, `_p24_order`)."""
+    import tempfile
+    n_cards = torch.cuda.device_count()
+    print(f"== phase 24: the mesh over the cards ({n_cards} visible): TATP "
+          f"at {N_SUB:,} over {MESH_D} shards (default, fused) and "
+          f"SmallBank at {MESH_SB_N:,} over {MH_SHAPE[0]}x{MH_SHAPE[1]} "
+          f"(hierarchical, flat), w={MESH_W} a partition, 1 warm + "
+          f"{P24_BLOCKS} timed blocks and the drain each, spread by the "
+          f"placement and then on one card, bit for bit; the dry run; a "
+          f"lost partition from another card's ring; one hop timed")
+    t0 = time.perf_counter()
+    peers = {f"{i}->{j}": torch.cuda.can_device_access_peer(i, j)
+             for i in range(n_cards) for j in range(n_cards) if i != j}
+    print(f"  can_device_access_peer: {peers}")
+    if n_cards == 1:
+        print("  cards: 1; cross-card copies not exercised")
+    else:
+        print(f"  cards: {n_cards}")
+    rec = {"cards": n_cards, "peers": peers}
+    with tempfile.TemporaryDirectory(prefix="dint_p24_") as tmp:
+        paths, rec["tatp"] = _p24_tatp(dev, card, _p24_spread((MESH_D,)),
+                                       turns, tmp)
+        p, rec["smallbank"] = _p24_smallbank(
+            dev, card, _p24_spread(MH_SHAPE), turns, tmp)
+    paths.update(p)
+    _p24_dryrun(dev, card)
+    rec["hop"] = _p24_hop(dev, card, _p24_spread((MESH_D,)))
+    rec["seconds"] = time.perf_counter() - t0
+    print("  phase 24 record: " + json.dumps(rec, default=str))
+    print(f"  phase 24: {rec['seconds']:.3f} s  [{card}]")
+    return paths
+
+
+TURN_BLOCKS = 8                  # timed blocks a path a turn
+
+
+def turn_paths(dev) -> dict:
+    """One turn of ``--turns``: the one-card paths whose host work the
+    mesh over the cards changed (the `dint::` ops' device guard, the
+    exchange, a constant a card), each from fresh tables, one warm block
+    and TURN_BLOCKS timed blocks: dense TATP at 7M (phase 4's runner),
+    dense SmallBank at 24M (phase 5's default route), sharded SmallBank at
+    24M over 3 partitions (phase 18 (b)'s default route) and over 3x2,
+    monitored, hierarchical and flat (phase 19 (b)). Committed txn/s and
+    wall ms a step each. Uses only the API that the trees compared
+    share."""
+    from dint_tpu_torch.engines import smallbank_dense as sd
+    from dint_tpu_torch.engines import tatp_dense as td
+    from dint_tpu_torch.parallel import dense_sharded_sb as dsb
+    from dint_tpu_torch.parallel import multihost_sb as mhs
+    out = {}
+
+    def timed(name, runner, state, seed, commit_idx, cpb):
+        run, init, drain = runner
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        carry, _ = run(init(state), gen)
+        torch.cuda.synchronize()
+        secs, committed = 0.0, 0
+        for _ in range(TURN_BLOCKS):
+            t0 = time.perf_counter()
+            carry, st = run(carry, gen)
+            torch.cuda.synchronize()
+            secs += time.perf_counter() - t0
+            committed += int(st[:, commit_idx].to(torch.int64).sum())
+        drain(carry)
+        torch.cuda.synchronize()
+        out[name] = {"txn_s": committed / secs,
+                     "ms_step": secs / (TURN_BLOCKS * cpb) * 1e3}
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    timed("tatp 7M", td.build_pipelined_runner(
+        N_SUB, w=W, val_words=VW, cohorts_per_block=CPB, device=dev),
+        td.populate_device(torch.Generator(device=dev).manual_seed(0), N_SUB,
+                           val_words=VW, device=dev),
+        1, td.STAT_COMMITTED, CPB)
+    timed("smallbank 24M", sd.build_pipelined_runner(
+        SB_N, w=SB_W, cohorts_per_block=SB_CPB, device=dev),
+        sd.create(SB_N, device=dev), 5, sd.STAT_COMMITTED, SB_CPB)
+    mesh = dsb.make_mesh(MESH_D, dev)
+    timed("smallbank sharded x3", dsb.build_sharded_sb_runner(
+        mesh, MESH_D, MESH_SB_N, w=MESH_W, cohorts_per_block=MESH_CPB),
+        dsb.create_sharded_sb(mesh, MESH_D, MESH_SB_N,
+                              log_capacity=MESH_SB_LOG_CAP),
+        18, dsb.STAT_COMMITTED, MESH_CPB)
+    mesh = mhs.make_mesh_2d(*MH_SHAPE, dev)
+    for tag, hier in (("hier", True), ("flat", False)):
+        timed(f"smallbank 3x2 {tag}", mhs.build_multihost_sb_runner(
+            mesh, MESH_SB_N, w=MESH_W, cohorts_per_block=MESH_CPB,
+            hierarchical=hier, monitor=True),
+            mhs.create_multihost_sb(mesh, MESH_SB_N,
+                                    log_capacity=MESH_SB_LOG_CAP),
+            18, mhs.STAT_COMMITTED, MESH_CPB)
+    return out
+
+
+def turns(other: str, rounds: int = 2) -> int:
+    """``--turns DIR``: `turn_paths` in a process of its own for the tree
+    at DIR and for this one, in turns DIR, here, here, DIR, ``rounds``
+    times; prints every turn and, a path, both trees' txn/s and ms a step
+    and the change's median over the other's."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    roots = {"other": os.path.abspath(other), "this": here}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"== turns: {roots['this']} against {roots['other']}, "
+          f"{TURN_BLOCKS} timed blocks a path  [{card}]")
+    res = {"other": [], "this": []}
+    for who in ("other", "this", "this", "other") * rounds:
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--turn-worker", roots[who]],
+                           capture_output=True, text=True, timeout=900)
+        sys.stderr.write(p.stderr[-4000:])
+        lines = [ln for ln in p.stdout.splitlines() if ln.startswith("turn: ")]
+        check(p.returncode == 0 and len(lines) == 1,
+              f"the {who} tree's turn ran (rc {p.returncode})")
+        rec = json.loads(lines[0][len("turn: "):])
+        check(rec["package"] == os.path.join(roots[who], "dint_tpu_torch"),
+              f"the turn ran the {who} tree's package {rec['package']}")
+        res[who].append(rec["paths"])
+        print(f"  {who}: {time.perf_counter() - t0:.1f} s; " + json.dumps(
+            {k: {m: round(v, 3) for m, v in r.items()}
+             for k, r in res[who][-1].items()}), flush=True)
+    for path in res["this"][0]:
+        row = {who: {m: [r[path][m] for r in rs] for m in ("txn_s",
+                                                              "ms_step")}
+               for who, rs in res.items()}
+        ratio = {m: float(np.median(row["this"][m])
+                          / np.median(row["other"][m]))
+                 for m in ("txn_s", "ms_step")}
+        print(f"  {path}: " + json.dumps({**row, "this_over_other": ratio}))
+    print(card)
+    return 0
+
+
 KERNELS = {
     "gather_rows": ("dint_tpu_torch/csrc/gather_rows.cu",
                     "dint_tpu/ops/pallas_gather.py:212"),
@@ -7996,10 +8449,25 @@ def main(argv=None) -> int:
     ap.add_argument("--calibrate", type=int, metavar="N",
                     help="run phase 22 (c) alone N times and print the "
                          "fits' spread, in place of the smoke run")
+    ap.add_argument("--mesh-cards", type=int, nargs="?", const=1,
+                    metavar="TURNS",
+                    help="run phase 24 (the mesh over every visible card) "
+                         "alone after phase 1, in place of the smoke run; "
+                         "TURNS spread and one-card pairs a route, in turns "
+                         "(default 1)")
+    ap.add_argument("--turns", metavar="DIR",
+                    help="time the one-card paths of `turn_paths` for this "
+                         "tree against the tree at DIR, in turns, in place "
+                         "of the smoke run")
+    ap.add_argument("--turn-worker", metavar="ROOT", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.turn_worker:         # one turn, on the tree at ROOT
+        sys.path.insert(0, os.path.abspath(args.turn_worker))
+    if args.turns:
+        return turns(args.turns)
     try:
         import dint_tpu_torch  # noqa: F401
     except ImportError as e:
@@ -8007,9 +8475,17 @@ def main(argv=None) -> int:
               f"run from the repository root", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
+    if args.turn_worker:
+        print("turn: " + json.dumps({
+            "package": os.path.dirname(dint_tpu_torch.__file__),
+            "paths": turn_paths(dev)}))
+        return 0
     card = phase_card()
     if args.calibrate:
         return calibrate_only(dev, card, args.calibrate)
+    if args.mesh_cards:
+        phase_mesh_cards(dev, card, args.mesh_cards)
+        return 0
     rec = {**phase_kernels(dev), **phase_sb_kernels(dev)}
     tatp_rec = phase_tatp_kernels(dev)
     rec["lock_validate"] = tatp_rec.pop("lock_validate")
@@ -8072,6 +8548,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_mesh_trace(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    store_paths.update(phase_mesh_cards(dev, card))
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -8086,9 +8565,9 @@ def main(argv=None) -> int:
         # calibration points and drive, phase 17's sharded, multihost
         # and dry runs, phase 18's sharded SmallBank runs and dry run, and
         # phase 19's 2-D mesh runs, serving windows and exp points,
-        # phase 20's traced blocks, and phase 21's full-width blocks (the
-        # footprint's and the profiled one), each counted from 0 just
-        # before its run
+        # phase 20's traced blocks, phase 21's full-width blocks (the
+        # footprint's and the profiled one), and phase 24's spread mesh
+        # runs, each counted from 0 just before its run
         paths = {**{f"tatp {k}": v[name] for k, v in tatp.items()},
                  **{f"smallbank {k}": v[name] for k, v in sb.items()},
                  **{k: v[name] for k, v in store_paths.items()}}
@@ -8172,6 +8651,14 @@ def main(argv=None) -> int:
           and by_name["gather_rows"]["smallbank multihost flat"] > 0,
           "phase 19: gather_rows ran on SmallBank's 2-D mesh, both "
           "exchanges")
+    check(all(by_name[k]["p24 tatp default"] > 0
+              for k in ("gather_rows", "lock_arbitrate"))
+          and all(by_name[k]["p24 tatp fused"] > 0
+                  for k in ("scatter_streams", "lock_validate"))
+          and all(by_name["gather_rows"][f"p24 smallbank 3x2 {r}"] > 0
+                  for r in ("hier", "flat")),
+          "phase 24: the spread mesh's runs launched their routes' "
+          "kernels on the partitions' cards")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -59,6 +59,10 @@ JAX's stacked over a leading [D]) travels as
      "lanes", "replicas": ints, and, only when the hot mirrors are
      present, "hot_bal", "hot_x", "hot_s": u32 [D, 2*hot_loc] and
      "hot_loc": int}
+
+A mesh state's converters place each partition on its own device: the
+mesh's (``mesh=``, `parallel.mesh.Mesh.devices`), or one device for all
+(``device``, None = CUDA).
 """
 from __future__ import annotations
 
@@ -83,6 +87,19 @@ from .tables.run import OrderedRun
 
 HOT_LEAVES = ("hot_bal", "hot_x", "hot_s")
 TATP_HOT_LEAVES = ("hot_meta", "hot_val")
+
+
+def partition_devices(n: int, device=None, mesh=None) -> list:
+    """The device of each of ``n`` partitions: ``mesh.devices`` (the
+    mesh's size must be ``n``), else ``device`` (None = CUDA) for every
+    partition."""
+    if mesh is None:
+        return [resolve_device(device)] * n
+    if device is not None:
+        raise ValueError("give a converter device= or mesh=, not both")
+    if mesh.size != n:
+        raise ValueError(f"{mesh.size} devices for {n} partitions")
+    return list(mesh.devices)
 
 
 def _log_from_numpy(arrays: dict, dev) -> RepLog:
@@ -322,34 +339,42 @@ def smallbank_stacked_from_numpy(arrays: dict, device=None) -> list:
             for i in range(n)]
 
 
-def tatp_sharded_from_numpy(arrays: dict, device=None) -> list:
+def tatp_sharded_from_numpy(arrays: dict, device=None, mesh=None) -> list:
     """JAX's `sharded.create_sharded_state` state (stacked [D]) -> the
-    port's list of D shards."""
-    return tatp_stacked_from_numpy(arrays, device)
+    port's list of D shards, shard d on its device (`partition_devices`)."""
+    n = len(arrays["sub.ver"])
+    devs = partition_devices(n, device, mesh)
+    return [tatp_shard_from_numpy(_replica(arrays, i), devs[i])
+            for i in range(n)]
 
 
-def smallbank_sharded_from_numpy(arrays: dict, device=None) -> list:
+def smallbank_sharded_from_numpy(arrays: dict, device=None,
+                                 mesh=None) -> list:
     """JAX's `sharded.create_sharded_smallbank` state (stacked [D]) -> the
-    port's list of D shards."""
-    return smallbank_stacked_from_numpy(arrays, device)
+    port's list of D shards, shard d on its device (`partition_devices`)."""
+    n = len(arrays["sav.ver"])
+    devs = partition_devices(n, device, mesh)
+    return [smallbank_shard_from_numpy(_replica(arrays, i), devs[i])
+            for i in range(n)]
 
 
 # ------------------------------------------------- sharded dense TATP
 
 
-def sharded_state_from_numpy(arrays: dict, device=None) -> list:
+def sharded_state_from_numpy(arrays: dict, device=None, mesh=None) -> list:
     """JAX's stacked `ShardState` dict (leading [D] or [H, C]) -> the
-    port's list of `ShardState`, in flat partition order (h * C + c)."""
+    port's list of `ShardState`, in flat partition order (h * C + c),
+    each on its partition's device (`partition_devices`)."""
     from .parallel.dense_sharded import ShardState
-    dev = resolve_device(device)
     lead = np.asarray(arrays["bck_meta"]).shape[:-1]
     n = int(np.prod(lead))
+    devs = partition_devices(n, device, mesh)
     flat = {k: (np.asarray(v).reshape((n,) + np.shape(v)[len(lead):])
                 if isinstance(v, (np.ndarray, np.generic)) else v)
             for k, v in arrays.items()}
     out = []
     for i in range(n):
-        a = _replica(flat, i)
+        a, dev = _replica(flat, i), devs[i]
         out.append(ShardState(db=dense_db_from_numpy(_sub(a, "db"), dev),
                               bck_val=from_numpy(a["bck_val"], dev),
                               bck_meta=from_numpy(a["bck_meta"], dev)))
@@ -377,15 +402,16 @@ def sharded_state_to_numpy(states, mesh_shape) -> dict:
 # ------------------------------------------------- sharded dense SmallBank
 
 
-def sharded_sb_from_numpy(arrays: dict, device=None) -> list:
+def sharded_sb_from_numpy(arrays: dict, device=None, mesh=None) -> list:
     """JAX's stacked `SBShard` dict (leading [D]) -> the port's list of
-    `SBShard`, each with storage of its own."""
+    `SBShard`, each with storage of its own on its partition's device
+    (`partition_devices`)."""
     from .parallel.dense_sharded_sb import SBShard
-    dev = resolve_device(device)
     n = len(arrays["bal"])
+    devs = partition_devices(n, device, mesh)
     out = []
     for i in range(n):
-        a = _replica(arrays, i)
+        a, dev = _replica(arrays, i), devs[i]
         hot = {k: from_numpy(a[k], dev) for k in HOT_LEAVES
                if a.get(k) is not None}
         out.append(SBShard(
@@ -422,15 +448,16 @@ def sharded_sb_to_numpy(states) -> dict:
 # ------------------------------------------- SmallBank on the 2-D mesh
 
 
-def multihost_sb_from_numpy(arrays: dict, device=None) -> list:
+def multihost_sb_from_numpy(arrays: dict, device=None, mesh=None) -> list:
     """JAX's `multihost_sb` state dict (every array leading [H, C]) -> the
-    port's list of `SBShard`, in flat partition order (h * C + c)."""
+    port's list of `SBShard`, in flat partition order (h * C + c), each on
+    its partition's device (`partition_devices`)."""
     lead = np.asarray(arrays["bal"]).shape[:2]
     n = int(np.prod(lead))
     flat = {k: (np.asarray(v).reshape((n,) + np.shape(v)[2:])
                 if isinstance(v, (np.ndarray, np.generic)) else v)
             for k, v in arrays.items()}
-    return sharded_sb_from_numpy(flat, device)
+    return sharded_sb_from_numpy(flat, device, mesh)
 
 
 def multihost_sb_to_numpy(states, mesh_shape) -> dict:

@@ -35,7 +35,9 @@ Examples
   python -m dint_tpu_torch.dintserve describe
 
 What differs from tools/dintserve.py: ``run`` serves on the card unless
-``--device cpu`` (the mesh's partitions share that one device);
+``--device cpu``; ``--mesh`` without ``--device`` spreads the partitions
+over the visible cards (`parallel.mesh.placement`), and a ``--device``
+puts them all on that one device; the report names the ``cards`` used;
 ``describe`` lists each serve target with its `TARGET_COST` dispatches a
 step and its bytes budget a step (a number, or the formula over the
 waves.py ledger) at the lint geometry.
@@ -123,6 +125,9 @@ def cmd_run(args) -> int:
     eng.run(_schedule(args))
     eng.close()
     rep = eng.snapshot()
+    if args.mesh:
+        # the placement: the distinct devices the partitions live on
+        rep["cards"] = [str(d) for d in eng.mesh.cards]
     if args.journal:
         from .monitor import calib as CAL
         CAL.dump_journal_jsonl(eng.ctl.journal_doc(), args.journal)
@@ -162,7 +167,8 @@ def cmd_run(args) -> int:
     if "mesh" in rep:
         m = rep["mesh"]
         print(f"  mesh     {m['n_hosts']}x{m['n_ici']} "
-              f"hierarchical={m['hierarchical']} overlap={m['overlap']}")
+              f"hierarchical={m['hierarchical']} overlap={m['overlap']} "
+              f"cards={','.join(rep['cards'])}")
         for hrep in rep["per_host"]:
             print(f"    host {hrep['host']}: admitted={hrep['admitted']} "
                   f"shed={hrep['shed']}")
@@ -306,7 +312,8 @@ def main(argv=None) -> int:
                                 "`dintcal audit`)")
             p.add_argument("--device", default=None,
                            help="torch device of the tables (default: "
-                                "the CUDA card; 'cpu' for the plain path)")
+                                "the CUDA card, with --mesh the visible "
+                                "cards; 'cpu' for the plain path)")
 
     common(sub.add_parser("run", help="serve a schedule"), engine=True)
     common(sub.add_parser("simulate",

@@ -37,8 +37,13 @@ def entry(device=None):
 
 def dryrun_multichip(n_devices: int, device=None) -> None:
     """The sharded TATP paths over an in-process mesh of ``n_devices``
-    partitions on ``device`` (None means CUDA), on tiny shapes, each
-    checked; prints one ``dryrun_multichip ok:`` line.
+    partitions, on tiny shapes, each checked; prints a
+    ``dryrun_multichip cards:`` line (the devices used) and then the
+    ``dryrun_multichip ok:`` line, JAX's. With
+    ``device`` None the partitions spread over the visible CUDA cards,
+    one a partition where there are enough (as JAX's dry run takes
+    ``jax.devices()[:n]``; `parallel.mesh.placement`), and it raises
+    without a card; a ``device`` puts every partition on it.
 
     * the generic TATP shards (64 subscribers, VW 4): COMMIT_PRIM waves
       from `sharded.route_batches` through `build_sharded_step`, the
@@ -63,9 +68,9 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     from .parallel import dense_sharded_sb as dsb
     from .parallel import sharded
 
-    dev = resolve_device(device)
     t0 = time.time()
-    mesh = sharded.make_mesh(n_devices, dev)
+    mesh = sharded.make_mesh(n_devices, device)
+    dev = mesh.device                   # home: the psums, draws and totals
     vw = 4
     state = sharded.create_sharded_state(mesh, n_devices, 64, val_words=vw,
                                          cf_buckets=256, cf_lock_slots=256,
@@ -77,7 +82,8 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     ops = np.full(m, Op.COMMIT_PRIM, np.int32)
     tbls = np.full(m, tatp.SUBSCRIBER, np.int32)
     waves, _ = sharded.route_batches(ops, tbls, keys, None, None, n_devices,
-                                     width=8, val_words=vw, device=dev)
+                                     width=8, val_words=vw,
+                                     devices=mesh.devices)
     committed_total = 0
     for batch in waves:
         state, _, committed = step(state, batch)
@@ -94,7 +100,7 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     sb_vers = np.ones(m, np.uint32)     # client-supplied version
     sb_waves, _ = sharded.route_batches(ops, sb_tbls, keys, None, sb_vers,
                                         n_devices, width=8, val_words=2,
-                                        device=dev)
+                                        devices=mesh.devices)
     sb_committed = 0
     for batch in sb_waves:
         sb_state, _, committed = sb_step(sb_state, batch)
@@ -145,6 +151,8 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
                            f"{stot[dsb.STAT_BAL_DELTA]}")
 
     rows = sharded.local_rows(65, n_devices)
+    print("dryrun_multichip cards: "
+          + ",".join(str(d) for d in mesh.cards), flush=True)
     print(f"dryrun_multichip ok: devices={n_devices} "
           f"tatp_local_rows={rows} tatp_committed={committed_total} "
           f"smallbank_committed={sb_committed} "

@@ -58,13 +58,14 @@ What differs from exp.py:
 * A profiled point's ``breakdown`` is the port's (ROADMAP §C.13): each
   wave also carries ``host_ms``.
 * The ``multihost_sb`` and ``serve_mesh`` legs run the
-  ``DINT_BENCH_MESH`` mesh (default 4x2) in one process on the one device
-  (`parallel/mesh.py`), so the device count never skips them; they print
-  exp.py's "skipped" line only for fewer than 3 hosts. ``use_hotset`` (None:
-  ``DINT_USE_HOTSET``) is an argument of `sweep_micro`, whose point-op
-  rows take no ordered run. A wire bench snapshots its pump after
-  stopping it, so the last batch's tally is in (occupancy + padded ==
-  width * batches).
+  ``DINT_BENCH_MESH`` mesh (default 4x2) in one process over the visible
+  cards (`parallel/mesh.py`'s placement; ``device`` given: all on it), so
+  the device count never skips them; they print exp.py's "skipped" line
+  only for fewer than 3 hosts, and record the ``cards`` they ran on.
+  ``use_hotset`` (None: ``DINT_USE_HOTSET``) is an argument of
+  `sweep_micro`, whose point-op rows take no ordered run. A wire bench
+  snapshots its pump after stopping it, so the last batch's tally is in
+  (occupancy + padded == width * batches).
 * ``device`` (None = CUDA) places every table; ``device="cpu"`` runs the
   plain path.
 """
@@ -571,8 +572,12 @@ def sweep_serve(name, engine, size, *, window_s, open_rates, results,
 def _mesh_shape_or_skip(name, dev):
     """``DINT_BENCH_MESH``'s (hosts, chips), or None after exp.py's
     "skipped" line when it names fewer than 3 hosts (the replication's
-    fault-domain rule). The mesh runs in one process on ``dev``, so the
-    device count never skips a leg."""
+    fault-domain rule). The mesh runs in one process over the devices
+    its placement gives (`parallel.mesh.placement`: the visible cards,
+    one a partition where there are enough, else a host's partitions
+    sharing one; every partition on ``dev`` when the caller named a
+    device), so the device count never skips a leg; the line keeps
+    exp.py's wording."""
     n_hosts, n_ici = mhs.mesh_shape_from_env()
     if n_hosts >= 3:
         return n_hosts, n_ici
@@ -583,10 +588,14 @@ def _mesh_shape_or_skip(name, dev):
     return None
 
 
-def _mh_sb_runner(n_acc, w, cpb, hierarchical, device=None):
+def _mh_sb_runner(n_acc, w, cpb, hierarchical, device=None, extra=None):
     """(run, carry, drain) of SmallBank over the ``DINT_BENCH_MESH`` mesh
-    at ``n_acc`` global accounts, the hierarchical or the flat exchange."""
+    at ``n_acc`` global accounts, the hierarchical or the flat exchange;
+    ``device`` None spreads the mesh over the visible cards, whose
+    distinct devices go to ``extra["cards"]``."""
     mesh = mhs.make_mesh_2d(*mhs.mesh_shape_from_env(), device)
+    if extra is not None:
+        extra["cards"] = [str(d) for d in mesh.cards]
     run, init, drain = mhs.build_multihost_sb_runner(
         mesh, n_acc, w=w, cohorts_per_block=cpb, hierarchical=hierarchical,
         monitor=_monitor_on(), trace=_trace_on())
@@ -605,7 +614,8 @@ def sweep_multihost_sb(n_acc, *, width, cpb, window_s, results,
     """exp.py's ``multihost_sb`` leg: the hierarchical-vs-flat exchange
     A/B over the ``DINT_BENCH_MESH`` mesh, one closed point each
     (``multihost_sb_{hier,flat}_closed_w{width}``), the same global
-    geometry and outputs; the points carry the mesh and ``hierarchical``."""
+    geometry and outputs; the points carry the mesh, ``hierarchical`` and
+    the ``cards`` of the mesh their runner built."""
     dev = resolve_device(device)
     shape = _mesh_shape_or_skip("multihost_sb", dev)
     if shape is None:
@@ -615,12 +625,14 @@ def sweep_multihost_sb(n_acc, *, width, cpb, window_s, results,
                   "mesh": {"n_hosts": n_hosts, "n_ici": n_ici,
                            "axes": [mhs.DCN_AXIS, mhs.ICI_AXIS]}}
     for tag, hier in (("hier", True), ("flat", False)):
+        extra = dict(mesh_extra, hierarchical=hier)
         sweep_pipeline(
             f"multihost_sb_{tag}",
-            lambda w, b, h=hier: _mh_sb_runner(n_acc, w, b, h, dev),
+            lambda w, b, h=hier, e=extra: _mh_sb_runner(n_acc, w, b, h,
+                                                        device, e),
             _mh_sb_extras, mhs.N_STATS, widths=[width], cpb=cpb, depth=2,
             magic_idx=mhs.STAT_MAGIC_BAD, window_s=window_s, open_rates=(),
-            results=results, point_extra=dict(mesh_extra, hierarchical=hier),
+            results=results, point_extra=extra,
             geom={"l": 3, "vw": 2, "d": n_hosts * n_ici}, device=dev)
 
 
@@ -631,8 +643,9 @@ def sweep_serve_mesh(name, n_acc, *, window_s, open_rates, results,
     (`serve.mesh.MeshServeEngine`), the ladder of `sweep_serve` (a
     saturation probe ``_sat``, then Poisson points at ``open_rates`` of
     it); each artifact also carries the mesh, the per-host admitted/shed
-    split and ``route_prefetch_lanes``. ``DINT_SERVE_OVERLAP=1`` serves
-    through the double-buffered route."""
+    split, ``route_prefetch_lanes`` and the ``cards`` the partitions sit
+    on (``device`` None: the visible cards). ``DINT_SERVE_OVERLAP=1``
+    serves through the double-buffered route."""
     dev = resolve_device(device)
     shape = _mesh_shape_or_skip(name, dev)
     if shape is None:
@@ -648,7 +661,8 @@ def sweep_serve_mesh(name, n_acc, *, window_s, open_rates, results,
                 n_acc, mesh_shape=(n_hosts, n_ici),
                 cfg=ControllerCfg(widths=widths, slo_us=slo_us),
                 cohorts_per_block=cpb, depth=depth, monitor=True, seed=0,
-                overlap=overlap, device=dev)
+                overlap=overlap, device=device)
+            cards = [str(d) for d in eng.mesh.cards]
             eng.warmup()          # build the kernels outside the window
             eng.run(schedule_fn())
             eng.close()
@@ -661,7 +675,7 @@ def sweep_serve_mesh(name, n_acc, *, window_s, open_rates, results,
             extra = dict(extra_static)
             extra.update(
                 mode="serve_mesh", engine="multihost_sb",
-                widths=list(widths), mesh=rep["mesh"],
+                widths=list(widths), mesh=rep["mesh"], cards=cards,
                 per_host=rep["per_host"],
                 offered=rep["offered"], admitted=rep["admitted"],
                 shed=rep["shed"], blocks=rep["blocks"],

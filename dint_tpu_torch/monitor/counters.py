@@ -289,7 +289,9 @@ def snapshot(counters) -> dict[str, int]:
     dict; stacked rows are summed for flow counters and maxed for
     gauges."""
     if isinstance(counters, (list, tuple)):
-        counters = torch.stack([c.buf for c in counters])
+        # one a partition, each read from its own device
+        counters = np.stack([c.buf.detach().cpu().numpy()
+                             for c in counters])
     buf = counters.buf if isinstance(counters, Counters) else counters
     if isinstance(buf, torch.Tensor):
         buf = buf.detach().cpu().numpy()

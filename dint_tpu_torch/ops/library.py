@@ -14,7 +14,11 @@ what a ``pallas_call`` with ``input_output_aliases`` is to a jaxpr. The
 static analysis (dint_tpu_torch/analysis) reads those annotations.
 
 The schemas are defined here, once; each kernel module registers its
-implementations with `impl` when it is imported. The ops are defined
+implementations with `impl` when it is imported. A Python kernel gets no
+device guard from the dispatcher, so `impl` runs the CUDA one under the
+guard of its tensors' card (`on_tensors_card`): the launch, the stream
+it takes and any build or occupancy query it triggers then belong to
+that card, whichever card is current in the calling thread. The ops are defined
 with the low-level ``Library.define``/``impl`` API: a Python kernel
 behind the dispatcher costs a few microseconds a call on the host
 (chip_smoke.py phase 20 times it against the direct ctypes launch).
@@ -56,12 +60,30 @@ for _name, _schema in SCHEMAS.items():
 _IMPL = torch.library.Library(NAMESPACE, "IMPL")
 
 
+def _first_cuda(args):
+    for a in args:
+        for t in (a if isinstance(a, (list, tuple)) else (a,)):
+            if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+                return t.device
+    return None
+
+
+def on_tensors_card(kernel):
+    """``kernel`` run under ``torch.cuda.device`` of its first CUDA tensor
+    argument (the kernels check that all their tensors share it)."""
+    def run(*args):
+        with torch.cuda.device(_first_cuda(args)):
+            return kernel(*args)
+    return run
+
+
 def impl(name: str, kernel, fake):
     """Register ``kernel`` for CPU and CUDA tensors (it tells the two
-    apart itself: the plain version on the CPU, the launch on the card)
-    and ``fake`` (shapes only) for meta tensors and fake tensor modes."""
+    apart itself: the plain version on the CPU, the launch on the card,
+    here under its tensors' device guard) and ``fake`` (shapes only) for
+    meta tensors and fake tensor modes."""
     _IMPL.impl(name, kernel, "CPU")
-    _IMPL.impl(name, kernel, "CUDA")
+    _IMPL.impl(name, on_tensors_card(kernel), "CUDA")
     # the fake also serves meta tensors
     torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=_IMPL)
 

@@ -1,9 +1,10 @@
 """The mesh's three collectives as operators of the ``dint_mesh`` namespace
 in ``torch.library``.
 
-parallel/mesh.py keeps a mesh's partitions as a Python list on one
-device. Its moves (`Mesh.ppermute`, `Mesh.all_to_all`, `Mesh.psum`) call
-these operators with every partition's tensors in one ``Tensor[]``
+parallel/mesh.py keeps a mesh's partitions as a Python list, one device
+a partition (several partitions may share one). Its moves
+(`Mesh.ppermute`, `Mesh.all_to_all`, `Mesh.psum`) call these operators
+with every partition's tensors in one ``Tensor[]``
 (partition-major: partition p's leaves at ``p * L ... p * L + L - 1``), so
 a trace of a mesh step (``make_fx``) holds one node per collective call,
 and the node carries what a JAX collective eqn carries as parameters: the
@@ -17,14 +18,21 @@ kernels, and the passes tell a collective (`is_collective`) apart from a
 kernel.
 
 These are JAX collectives, not Pallas kernels: one implementation, plain
-PyTorch, serves CPU and CUDA tensors alike (no link is crossed: every
-partition lives on one device), plus a fake (shapes only) for ``make_fx``
-and meta tensors. An operator returns fresh tensors, never an alias of
-its input, so a ``ppermute`` copies the records it moves. Arguments that
-do not fit the mesh raise; nothing falls back.
+PyTorch, serves CPU and CUDA tensors alike, plus a fake (shapes and
+devices only) for ``make_fx`` and fake tensor modes. A partition's device
+is the device of its own entry (every leaf of an entry on one device, else
+the call raises): a receiver's output lands there, a copy between cards
+where the sender sits on another (``Tensor.to``; the copy is the link),
+and ``psum`` sums on ``xs[0]``'s device, the mesh's home. So the
+operators take no device argument, and a trace keeps the schemas it had
+when every partition shared one device. An operator returns fresh
+tensors, never an alias of its input, so a ``ppermute`` copies the
+records it moves, on one card too. Arguments that do not fit the mesh
+raise; nothing falls back.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -69,9 +77,12 @@ def _check(xs, mesh_shape, mesh_axes):
     size = math.prod(shape)
     if not xs or len(xs) % size:
         raise ValueError(f"{len(xs)} tensors for {size} partitions")
-    dev = xs[0].device
-    if any(x.device != dev for x in xs):
-        raise ValueError("the partitions' tensors are on different devices")
+    leaves = len(xs) // size
+    for p in range(size):
+        own = xs[p * leaves:(p + 1) * leaves]
+        if any(x.device != own[0].device for x in own):
+            raise ValueError(f"partition {p}'s tensors are on different "
+                             f"devices: {[str(x.device) for x in own]}")
     return shape, size
 
 
@@ -112,17 +123,28 @@ def ppermute_sources(axis: str, perm, mesh_shape, mesh_axes) -> list:
     return out
 
 
+def _moved(x: torch.Tensor, dev) -> torch.Tensor:
+    """A fresh copy of ``x`` on ``dev``: a clone on its own device, else
+    a copy between devices."""
+    if x.device == dev:
+        return x.clone()
+    return x.to(dev, non_blocking=True)
+
+
 def _ppermute(xs, axis, perm, mesh_shape, mesh_axes, make):
+    """``make(sender's leaf, receiver's device)`` for every receiving
+    partition's leaves, zeros on its own device for the others."""
     shape, size = _check(xs, mesh_shape, mesh_axes)
     leaves = len(xs) // size
     srcs = ppermute_sources(axis, perm, mesh_shape, mesh_axes)
     out = []
     for p, s in enumerate(srcs):
+        dev = xs[p * leaves].device
         for leaf in range(leaves):
             if s < 0:
                 out.append(torch.zeros_like(xs[p * leaves + leaf]))
             else:
-                out.append(make(xs[s * leaves + leaf]))
+                out.append(make(xs[s * leaves + leaf], dev))
     return out
 
 
@@ -152,15 +174,55 @@ def _a2a_check(xs, axes, mesh_shape, mesh_axes):
     return grid, i, size
 
 
+@functools.lru_cache(maxsize=None)
+def _exchange_plan(devs, grid, i):
+    """How an exchange along axis ``i`` of ``grid`` runs when partition q
+    sits on ``devs[q]``: one group of receivers a device, (device, the
+    senders in stack order, the buckets [a0, a1) they send it, the
+    receivers in the order the stack's transpose yields them). A group is
+    the product of its off-axis coordinates and an axis range; a device
+    whose receivers are no such product gives one group a receiver. One
+    card: one group, the whole exchange."""
+    n = grid[i]
+    by_dev = {}
+    for q, dev in enumerate(devs):
+        c = _coords(q, grid)
+        by_dev.setdefault(dev, []).append((tuple(c[:i] + c[i + 1:]), c[i]))
+    groups = []
+    for dev, cs in by_dev.items():
+        offs = sorted({o for o, _ in cs})
+        a = sorted({b for _, b in cs})
+        if len(cs) == len(offs) * len(a) and a[-1] - a[0] == len(a) - 1:
+            groups.append((dev, offs, a[0], a[-1] + 1))
+        else:
+            groups += [(dev, [o], b, b + 1) for o, b in cs]
+
+    def at(o, j):
+        return _flat(o[:i] + (j,) + o[i:], grid)
+    return tuple((dev, tuple(at(o, j) for o in offs for j in range(n)),
+                  a0, a1, tuple(at(o, b) for o in offs
+                                for b in range(a0, a1)))
+                 for dev, offs, a0, a1 in groups)
+
+
 def _all_to_all(xs, axes, mesh_shape, mesh_axes):
     grid, i, size = _a2a_check(xs, axes, mesh_shape, mesh_axes)
-    rows, *rest = xs[0].shape
     n = grid[i]
-    x = torch.stack(list(xs)).reshape(*grid, n, rows // n, *rest)
-    # swap the sender's coordinate along the axis with its bucket; one
-    # copy into a fresh tensor, whose rows are the partitions' outputs
-    x = x.transpose(i, len(grid)).reshape(size, rows, *rest)
-    return list(x.unbind(0))
+    rows, *rest = xs[0].shape
+    cap = rows // n
+    out = [None] * size
+    for dev, srcs, a0, a1, dests in _exchange_plan(
+            tuple(x.device for x in xs), grid, i):
+        # the senders' buckets a0..a1 on the group's device, one stack,
+        # then one copy that swaps the sender's coordinate with its bucket
+        part = [xs[s] if a1 - a0 == n else xs[s][a0 * cap:a1 * cap]
+                for s in srcs]
+        x = torch.stack([t if t.device == dev else t.to(dev, non_blocking=True)
+                         for t in part])
+        x = x.reshape(len(srcs) // n, n, a1 - a0, cap, *rest).transpose(1, 2)
+        for q, t in zip(dests, x.reshape(len(dests), rows, *rest).unbind(0)):
+            out[q] = t
+    return out
 
 
 def _all_to_all_fake(xs, axes, mesh_shape, mesh_axes):
@@ -181,8 +243,10 @@ def _psum_check(xs, axes, mesh_shape, mesh_axes):
 
 def _psum(xs, axes, mesh_shape, mesh_axes):
     _psum_check(xs, axes, mesh_shape, mesh_axes)
-    # in the partitions' dtype: int32 wraps, as JAX's
-    return torch.stack(list(xs)).sum(0, dtype=xs[0].dtype)
+    home = xs[0].device
+    # on the home device, in the partitions' dtype: int32 wraps, as JAX's
+    return torch.stack([x.to(home, non_blocking=True) for x in xs]).sum(
+        0, dtype=xs[0].dtype)
 
 
 def _psum_fake(xs, axes, mesh_shape, mesh_axes):
@@ -204,9 +268,10 @@ def _register(name, kernel, fake):
 
 _register("ppermute",
           lambda xs, axis, perm, shape, axes: _ppermute(
-              xs, axis, perm, shape, axes, torch.clone),
+              xs, axis, perm, shape, axes, _moved),
           lambda xs, axis, perm, shape, axes: _ppermute(
-              xs, axis, perm, shape, axes, torch.empty_like))
+              xs, axis, perm, shape, axes,
+              lambda x, dev: torch.empty_like(x, device=dev)))
 _register("all_to_all", _all_to_all, _all_to_all_fake)
 _register("psum", _psum, _psum_fake)
 

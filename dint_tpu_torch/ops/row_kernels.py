@@ -9,7 +9,10 @@ Each wrapper checks its arguments and calls its operator
 the hand-written CUDA kernel (``csrc/<name>.cu``, built for sm_90a at
 first use) when given CUDA tensors, and runs its plain PyTorch version
 (``*_ref``) only when given CPU tensors. There is no fallback: on a CUDA
-tensor the operator launches the kernel or raises. The checks a trace
+tensor the operator launches the kernel or raises. The launch runs under
+the device guard of its tensors' card (`library.on_tensors_card`), so
+the kernel, its stream and its build and grid queries belong to that
+card whichever one is current. The checks a trace
 cannot see (which storages the tensors share) run inside the
 implementations. Each wrapper counts its kernel launches in
 ``<wrapper>.launches``.

@@ -6,7 +6,8 @@
 (ops/library.py), which launches the hand-written CUDA kernel
 ``csrc/scan_rows.cu`` (built for sm_90a at first use) on CUDA tensors, and
 runs its plain PyTorch version `scan_rows_ref` only on CPU tensors; on a
-CUDA tensor it launches the kernel or raises. It counts its launches in
+CUDA tensor it launches the kernel, under the device guard of the
+tensors' card, or raises. It counts its launches in
 ``scan_rows.launches``. Words are int32 tensors holding u32 bit patterns.
 
 Unlike the Pallas kernel, `scan_rows` takes no lane walk order: the TPU

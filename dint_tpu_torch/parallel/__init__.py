@@ -1,7 +1,9 @@
 """The multi-device paths of the port (the port of `dint_tpu.parallel`),
-on an in-process mesh (`mesh.Mesh`): the partitions are a list on one
-device, and `ppermute`, `all_to_all` and `psum` are `dint_mesh` operators
-over the whole list (ops/mesh_ops.py), one node a call in a trace.
+on an in-process mesh (`mesh.Mesh`): the partitions are a list, each on
+its own device (the visible cards by `mesh.placement`, or one device for
+all), and `ppermute`, `all_to_all` and `psum` are `dint_mesh` operators
+over the whole list (ops/mesh_ops.py), one node a call in a trace, the
+only place one partition's data reaches another's card.
 
 * `sharded` — the generic engines over a partitioned keyspace with
   primary-backup replication (`build_sharded_step`, `route_batches`).

@@ -20,17 +20,21 @@ Backups hold val and ver:exists in the interleaved 1-D layout, two slots
 of ``n1`` rows (slot 0 shard d-1's rows, slot 1 d-2's, each with a zero
 sentinel row); locks are primary-side state only.
 
-The mesh is a list of shards on one device (`mesh.py`), so the order of
-work within a step is explicit: every shard's `pipe_step` first, then hop
-1 applied on every shard, then hop 2, as JAX's program orders them on
-each device. A shard's log sees its own append, the hop-1 record and then
-the hop-2 record. The backup installs and the log appends are plain torch
-writes, as JAX's are XLA scatters outside any Pallas kernel; each shard's
+The mesh is a list of shards, each on its partition's device (`mesh.py`:
+one card a shard, or several shards sharing one), driven phase by phase
+from one thread, so the order of work within a step is explicit: every
+shard's `pipe_step` first, then hop 1 applied on every shard, then hop 2,
+as JAX's program orders them on each device. A hop's record reaches its
+receiver's card inside `Mesh.ppermute`; nothing else crosses cards. A
+shard's log sees its own append, the hop-1 record and then the hop-2
+record. The backup installs and the log appends are plain torch writes,
+as JAX's are XLA scatters outside any Pallas kernel; each shard's
 `pipe_step` launches its route's kernels.
 
-What differs from JAX: the draws come in from outside (``run.run_draws``),
-the states are updated in place, and the step counter is a host int a
-shard (all shards advance in lockstep).
+What differs from JAX: the draws come in from outside (``run.run_draws``,
+on any device: partition p's slice is copied to its card), the states
+are updated in place, and the step counter is a host int a shard (all
+shards advance in lockstep).
 """
 from __future__ import annotations
 
@@ -67,11 +71,12 @@ def n_sub_local(n_sub_global: int, n_shards: int) -> int:
 
 
 def _with_backups(mesh: Mesh, axis: str, dbs: list) -> list:
-    """The partitions' states from their populated DBs (flat mesh order):
-    partition p's backup slot ``off - 1`` starts as a copy of the
-    partition ``off`` behind it along ``axis`` (its val and meta without
-    the sentinel row, then one zero sentinel row). The backups are fresh
-    tensors, never views of a primary."""
+    """The partitions' states from their populated DBs (flat mesh order,
+    partition p's on ``mesh.device_of(p)``): partition p's backup slot
+    ``off - 1`` starts as a copy of the partition ``off`` behind it along
+    ``axis`` (its val and meta without the sentinel row, then one zero
+    sentinel row), on p's device. The backups are fresh tensors, never
+    views of a primary."""
     vw = dbs[0].val_words
     prims = [(db.val[:-vw], db.meta[:-1]) for db in dbs]
     srcs = {off: mesh.ppermute(prims, axis, off) for off in (1, 2)}
@@ -88,9 +93,9 @@ def _with_backups(mesh: Mesh, axis: str, dbs: list) -> list:
 
 def create_sharded(mesh: Mesh, n_shards: int, n_sub_global: int,
                    val_words: int = 10, seed: int = 0, **kw) -> list:
-    """One `ShardState` a partition on the mesh's device. Shard d's tables
-    are `tatp_dense.populate(np.random.default_rng(seed + d), n_loc,
-    log_replicas=1)`, bit-identical to JAX's (reference populate,
+    """One `ShardState` a partition on its partition's device. Shard d's
+    tables are `tatp_dense.populate(np.random.default_rng(seed + d),
+    n_loc, log_replicas=1)`, bit-identical to JAX's (reference populate,
     client_ebpf_shard.cc:96-341); its backups start as its predecessors'
     populated rows."""
     if n_shards != mesh.size:
@@ -100,7 +105,8 @@ def create_sharded(mesh: Mesh, n_shards: int, n_sub_global: int,
     # appends the forwarded installs), not packed a slot
     dbs = [td.populate(np.random.default_rng(seed + d), n_loc,
                        val_words=val_words, log_replicas=1,
-                       device=mesh.device, **kw) for d in range(n_shards)]
+                       device=mesh.device_of(d), **kw)
+           for d in range(n_shards)]
     return _with_backups(mesh, SHARD_AXIS, dbs)
 
 
@@ -134,13 +140,15 @@ def _runner(mesh: Mesh, axis: str, n_sub_global: int, w: int,
     ``"dcn"``)."""
     if 2 * w > (1 << td.K_ARB):
         raise ValueError(f"w={w} exceeds the arb slot field")
-    dev = mesh.device
+    home, devs = mesh.device, mesh.devices
     n_parts, cpb = mesh.size, cohorts_per_block
     n_loc = n_sub_local(n_sub_global, n_parts)
     n1 = td.n_rows(n_loc) + 1
-    kw = dict(w=w, n_sub=n_loc, val_words=val_words, mix=mix,
-              use_fused=use_fused, emit_installs=True,
-              consts=td.step_consts(n_loc, w, mix, dev))
+    # the step's device constants, once a card
+    kws = [dict(w=w, n_sub=n_loc, val_words=val_words, mix=mix,
+                use_fused=use_fused, emit_installs=True, consts=c)
+           for c in mesh.per_partition(
+               lambda d: td.step_consts(n_loc, w, mix, d))]
 
     def step(carry, bits, payload, gen_new=True):
         # every shard's local step first, then each hop on every shard:
@@ -150,8 +158,9 @@ def _runner(mesh: Mesh, axis: str, n_sub_global: int, w: int,
         insts, stats, new_c1, new_c2 = [], [], [], []
         for p in range(n_parts):
             out = td.pipe_step(states[p].db, c1s[p], c2s[p],
-                               bits[p] if gen_new else None, payload[p],
-                               gen_new=gen_new, counters=cnts[p], **kw)
+                               mesh.to_partition(bits[p], p) if gen_new
+                               else None, mesh.to_partition(payload[p], p),
+                               gen_new=gen_new, counters=cnts[p], **kws[p])
             _, new_ctx, c1, s, inst = out[:5]
             new_c1.append(new_ctx)
             new_c2.append(c1)
@@ -190,10 +199,12 @@ def _runner(mesh: Mesh, axis: str, n_sub_global: int, w: int,
         return carry, torch.stack(stats)
 
     def run(carry, gen: torch.Generator):
+        # one block's draws on the home device, so a seed gives the same
+        # draws whatever the placement
         with waves.scope("tatp_dense", "gen"):
-            bits = draw_bits(gen, (cpb, n_parts, w, 4), dev)
+            bits = draw_bits(gen, (cpb, n_parts, w, 4), home)
             payload = torch.randint(0, 1 << 16, (cpb, n_parts, w, 2),
-                                    dtype=I32, generator=gen, device=dev)
+                                    dtype=I32, generator=gen, device=home)
         return run_draws(carry, bits, payload)
 
     run.run_draws = run_draws
@@ -202,22 +213,21 @@ def _runner(mesh: Mesh, axis: str, n_sub_global: int, w: int,
         if len(states) != n_parts:
             raise ValueError(f"{len(states)} states for {n_parts} "
                              f"partitions")
-        for st in states:
-            if st.db.meta.device.type != dev.type:
-                raise ValueError(f"tables on {st.db.meta.device}, mesh on "
-                                 f"{dev}")
-        ctxs = [[td.empty_ctx(w, dev) for _ in range(n_parts)]
-                for _ in range(2)]
+        for p, st in enumerate(states):
+            if st.db.meta.device != devs[p]:
+                raise ValueError(f"partition {p}'s tables on "
+                                 f"{st.db.meta.device}, its mesh device "
+                                 f"{devs[p]}")
+        ctxs = [[td.empty_ctx(w, d) for d in devs] for _ in range(2)]
         return ((list(states), *ctxs)
-                + (([mon.create(dev) for _ in range(n_parts)],)
-                   if monitor else ()))
+                + (([mon.create(d) for d in devs],) if monitor else ()))
 
     def drain(carry, payload=None):
         if payload is None:
-            g = torch.Generator(device=dev)
+            g = torch.Generator(device=home)
             g.manual_seed(0)
             payload = torch.randint(0, 1 << 16, (2, n_parts, w, 2),
-                                    dtype=I32, generator=g, device=dev)
+                                    dtype=I32, generator=g, device=home)
         carry, s1 = step(carry, None, payload[0], gen_new=False)
         carry, s2 = step(carry, None, payload[1], gen_new=False)
         return (carry[0], torch.stack([s1, s2])) + carry[3:]
@@ -236,12 +246,14 @@ def build_sharded_pipelined_runner(mesh: Mesh, n_shards: int,
     over lists, one entry a partition:
 
     * ``run(carry, gen)`` draws a block's bits [cpb, D, w, 4] and payloads
-      [cpb, D, w, 2] with the torch generator ``gen`` on the mesh's device
-      and calls ``run.run_draws``;
+      [cpb, D, w, 2] with the torch generator ``gen`` on the mesh's home
+      device and calls ``run.run_draws``;
     * ``run.run_draws(carry, bits, payload)`` runs ``cohorts_per_block``
       steps on the given draws (partition d's step i takes ``bits[i, d]``,
+      copied to its card,
       where JAX's takes ``fold_in(split(block_key, cpb)[i], d)``) and
-      returns (carry, stats i32 [cpb, N_STATS] summed over the shards); at
+      returns (carry, stats i32 [cpb, N_STATS] summed over the shards, on
+      the home device); at
       the start of a block each shard rebases its arb stamps once its step
       counter has reached REBASE_AT;
     * ``init(states)`` -> carry (states, c1s, c2s[, counters]) with two

@@ -52,14 +52,18 @@ Routes, each bit-identical to JAX's XLA route:
 The routing, the replies, the backups and the forwarded log appends are
 plain torch work on every route, as JAX's are XLA outside its kernels.
 
-The mesh is a list on one device (`mesh.py`), so a step runs phase by
-phase over all partitions, never partition by partition (`_Phases`,
+The mesh is a list of partitions, each on its own device (`mesh.py`: one
+card a partition, or several sharing one), driven from one thread, so a
+step runs phase by phase over all partitions, never partition by
+partition (`_Phases`,
 which `multihost_sb` runs too, with its 2-D exchange and replication
 axis): every partition generates and routes, one `all_to_all`; every
 owner arbitrates and reads; the replies; every source classifies; every
 partition routes its previous cohort's installs, one `all_to_all`; every
 owner installs and logs; hop 1 on every partition, then hop 2. Each log
 holds its own appends, then hop 1's, then hop 2's, as on JAX's devices.
+A partition's data reaches another card only inside the collectives; each
+partition's constants live on its own card.
 
 What differs from JAX:
 
@@ -75,7 +79,8 @@ What differs from JAX:
 * `_positions` ranks along the inner dimension of a [D, wL] one-hot
   (JAX's cumsum runs along the outer dimension of [wL, D]): the same
   integers.
-* Draws come in from outside (``run.run_draws``); ``use_pallas`` has no
+* Draws come in from outside (``run.run_draws``, on any device: partition
+  p's slice is copied to its card); ``use_pallas`` has no
   twin (CUDA tensors launch the kernels, CPU tensors run their plain
   versions).
 """
@@ -155,6 +160,16 @@ def _check_mesh(mesh: Mesh, n_shards: int):
         raise ValueError(f"n_shards={n_shards} on a mesh of {mesh.size}")
 
 
+def _check_placement(mesh: Mesh, states: list):
+    """Each partition's state on its own mesh device."""
+    if len(states) != mesh.size:
+        raise ValueError(f"{len(states)} states for {mesh.size} partitions")
+    for p, st in enumerate(states):
+        if st.bal.device != mesh.device_of(p):
+            raise ValueError(f"partition {p}'s tables on {st.bal.device}, "
+                             f"its mesh device {mesh.device_of(p)}")
+
+
 def attach_hotset_sb(mesh: Mesh, states: list, hot_loc: int) -> list:
     """The partitions with hot mirrors of their local prefix ``[0,
     hot_loc)`` (clamped to [1, n_loc]) built from their current tables;
@@ -175,18 +190,17 @@ def attach_hotset_sb(mesh: Mesh, states: list, hot_loc: int) -> list:
 def create_sharded_sb(mesh: Mesh, n_shards: int, n_accounts: int,
                       init_balance: int = 1000, log_lanes: int = 16,
                       log_capacity: int = 1 << 16) -> list:
-    """One `SBShard` a partition on the mesh's device, each with storage of
-    its own: every balance ``init_balance`` (reference: smallbank/ebpf/
-    shard_user.c:74-77), the sentinel 0, the backups copies of the same,
-    no stamp, an empty ring of ``log_lanes`` x ``log_capacity``."""
+    """One `SBShard` a partition on its partition's device, each with
+    storage of its own: every balance ``init_balance`` (reference:
+    smallbank/ebpf/shard_user.c:74-77), the sentinel 0, the backups copies
+    of the same, no stamp, an empty ring of ``log_lanes`` x
+    ``log_capacity``."""
     _check_mesh(mesh, n_shards)
     m1 = m1_local(n_accounts, n_shards)
     if N_BCK * m1 >= (1 << 31):
         raise ValueError(f"{n_accounts} accounts over {n_shards} shards "
                          f"overflow int32 row ids")
-    dev = mesh.device
-
-    def one():
+    def one(dev):
         bal = torch.full((m1,), u32.i32_bits(init_balance), dtype=I32,
                          device=dev)
         bal[-1] = 0
@@ -198,7 +212,7 @@ def create_sharded_sb(mesh: Mesh, n_shards: int, n_accounts: int,
             log=logring.create_rep(log_lanes, log_capacity, VW, replicas=1,
                                    device=dev))
 
-    return [one() for _ in range(n_shards)]
+    return [one(mesh.device_of(p)) for p in range(n_shards)]
 
 
 def total_balance_global(states: list) -> int:
@@ -303,8 +317,7 @@ class _Phases:
                  hot_prob=None, use_hotset: bool = False,
                  use_fused: bool = False, trace_on: bool = False):
         d = mesh.size
-        dev = mesh.device
-        self.mesh, self.d, self.w, self.dev = mesh, d, w, dev
+        self.mesh, self.d, self.w, self.devs = mesh, d, w, mesh.devices
         self.n_accounts = n_accounts
         self.engine, self.exchange, self.axis = engine, exchange, repl_axis
         self.use_hotset, self.use_fused = use_hotset, use_fused
@@ -322,11 +335,14 @@ class _Phases:
         self.skew = {k: v for k, v in (("hot_frac", hot_frac),
                                        ("hot_prob", hot_prob))
                      if v is not None}
-        # device constants, made once (a host-to-device copy synchronises)
-        self.thresh = mix_thresh(mix, dev)
-        self.lane_dc = torch.arange(self.dc, dtype=I32, device=dev)
-        self.lane_w = torch.arange(w, dtype=torch.int64, device=dev)
-        self.zero_ctx = torch.zeros((), dtype=I32, device=dev)
+        # device constants, made once a card (a host-to-device copy
+        # synchronises), then listed a partition
+        self.thresh, self.lane_dc, self.lane_w, self.zero_ctx = map(
+            list, zip(*mesh.per_partition(lambda dv: (
+                mix_thresh(mix, dv),
+                torch.arange(self.dc, dtype=I32, device=dv),
+                torch.arange(w, dtype=torch.int64, device=dv),
+                torch.zeros((), dtype=I32, device=dv)))))
 
     def mirror_idx(self, rr, mask):
         """Local row -> hot mirror index (tbl * hot_loc + q), -1 when cold;
@@ -337,27 +353,30 @@ class _Phases:
                            tb * self.hot_loc + q, -1)
 
     def step_consts(self, t: int):
-        """The step's stamp column and zero column over the D*cap slots."""
-        stepv = torch.full((self.dc,), u32.i32_bits(t), dtype=I32,
-                           device=self.dev)
-        return stepv, torch.zeros((self.dc,), dtype=I32, device=self.dev)
+        """The step's stamp column and zero column over the D*cap slots,
+        one of each a partition on its device."""
+        stamps, zeros = zip(*self.mesh.per_partition(lambda dv: (
+            torch.full((self.dc,), u32.i32_bits(t), dtype=I32, device=dv),
+            torch.zeros((self.dc,), dtype=I32, device=dv))))
+        return list(stamps), list(zeros)
 
     def gen(self, bits, ts_amt, gen_new: bool, t: int, occ=None) -> list:
         """Each partition's cohort from its draws (``bits[p]``,
         ``ts_amt[p]``), or an empty one; with ``occ`` (serve), the lock
         slots of the lanes past partition p's ``occ[p]`` are zeroed after
         the full-width draw."""
-        w, dev = self.w, self.dev
+        w = self.w
         src = [{} for _ in range(self.d)]
         with waves.scope(self.engine, "gen"):
             for p, s in enumerate(src):
+                dev = self.devs[p]
                 if gen_new:
                     ttype, a1, a2 = gen_cohort_from_bits(
-                        bits[p], w, self.n_accounts, thresh=self.thresh,
-                        **self.skew)
+                        self.mesh.to_partition(bits[p], p), w,
+                        self.n_accounts, thresh=self.thresh[p], **self.skew)
                     s["l_op"], s["l_tb"], s["l_ac"] = _lock_slots(ttype,
                                                                   a1, a2)
-                    s["amt"] = ts_amt[p]
+                    s["amt"] = self.mesh.to_partition(ts_amt[p], p)
                 else:
                     ttype = torch.zeros((w,), dtype=I32, device=dev)
                     s["l_op"], s["l_tb"], s["l_ac"] = (
@@ -366,12 +385,13 @@ class _Phases:
                     s["amt"] = ttype
                 s["ttype"] = ttype
                 if self.trace_on:
-                    s["txn_new"] = _txn_ids(t, self.d, p, w, self.lane_w)
-                    s["txn_c1"] = _txn_ids(t - 1, self.d, p, w, self.lane_w)
+                    s["txn_new"] = _txn_ids(t, self.d, p, w, self.lane_w[p])
+                    s["txn_c1"] = _txn_ids(t - 1, self.d, p, w,
+                                           self.lane_w[p])
         if occ is not None and gen_new:
             with waves.scope(self.engine, "serve"):
                 for p, s in enumerate(src):
-                    lane_ok = self.lane_w < occ[p]
+                    lane_ok = self.lane_w[p] < occ[p]
                     s["l_op"] = torch.where(lane_ok[:, None], s["l_op"], 0)
         return src
 
@@ -403,12 +423,12 @@ class _Phases:
 
     def arbitrate(self, states: list, recv: list, t: int) -> list:
         """Every owner: no-wait S/X arbitration + the balance read."""
-        eng, dev, m1 = self.engine, self.dev, self.m1
-        lane_dc = self.lane_dc
+        eng, m1 = self.engine, self.m1
         use_hotset, use_fused = self.use_hotset, self.use_fused
         t_now, t_held = u32.i32_bits(t), u32.i32_bits(t - 1)
         own = []
-        for st, rv in zip(states, recv):
+        for p, (st, rv) in enumerate(zip(states, recv)):
+            dev, lane_dc = self.devs[p], self.lane_dc[p]
             r_op, r_row, *r_txn = _columns(rv)
             req = r_op != 0
             is_x = r_op == Op.ACQ_X_READ
@@ -496,7 +516,7 @@ class _Phases:
                 committed=committed.sum(dtype=I32),
                 ab_lock=ab_lock_m.sum(dtype=I32),
                 ab_logic=logic_abort.sum(dtype=I32),
-                magic_bad=self.zero_ctx,
+                magic_bad=self.zero_ctx[p],
                 bal_delta=bal_delta,
                 overflow=(s["active"] & ~valid).sum(dtype=I32)))
         return ctxs
@@ -524,13 +544,14 @@ class _Phases:
     def install(self, states: list, own: list, inst: list, stepv,
                 zero) -> list:
         """Every owner installs its routed writes and logs them (CommitLog
-        at the primary); returns each owner's applied records."""
+        at the primary); returns each owner's applied records. ``stepv``
+        and ``zero``: `step_consts`, one a partition."""
         eng, use_hotset = self.engine, self.use_hotset
         recs = []
-        for st, o, ins in zip(states, own, inst):
+        for st, o, ins, sv, zv in zip(states, own, inst, stepv, zero):
             i_m, i_row, i_bal, i_tbl, i_acc, *i_txn = _columns(ins)
             i_mask = i_m != 0
-            newval = torch.stack([i_bal, zero], dim=1)
+            newval = torch.stack([i_bal, zv], dim=1)
             i_midx = self.mirror_idx(i_row, i_mask) if use_hotset else None
             if self.use_fused:
                 # the install, the log append and (hot tier) the mirror
@@ -538,7 +559,7 @@ class _Phases:
                 # routes masked lanes to -1
                 with waves.scope(eng, "install_log"):
                     lflat, entry, lane_counts = logring.plan_rep(
-                        st.log, i_mask, i_tbl, zero, zero, i_acc, stepv,
+                        st.log, i_mask, i_tbl, zv, zv, i_acc, sv,
                         newval)
                     tabs = [st.bal, st.log.entries.view(-1)]
                     idxs = [torch.where(i_mask, i_row, -1), lflat.to(I32)]
@@ -560,8 +581,8 @@ class _Phases:
                     else:
                         keep = torch.nonzero(i_mask).squeeze(1)
                         st.bal[i_row[keep].long()] = i_bal[keep]
-                    logring.append_rep(st.log, i_mask, i_tbl, zero, zero,
-                                       i_acc, stepv, newval)
+                    logring.append_rep(st.log, i_mask, i_tbl, zv, zv,
+                                       i_acc, sv, newval)
             i_txn = i_txn[0] if i_txn else None
             o.update(i_mask=i_mask, i_txn=i_txn, repl=[])
             recs.append((i_mask, i_row, i_bal, i_tbl, i_acc, i_txn))
@@ -578,6 +599,7 @@ class _Phases:
                    else mon.CTR_REPL_PUSH_HOP2)
             for p, (st, o) in enumerate(zip(states, own)):
                 f_mask, f_row, f_bal, f_tbl, f_acc, f_txn = fwd[p]
+                zp = zero[p]
                 # counted where they are applied
                 mon.bump(cnts[p], {hop: f_mask.sum(dtype=I32)})
                 if self.trace_on:
@@ -594,9 +616,9 @@ class _Phases:
                 # can check a ring's streams against acct % D
                 tag = mesh.shift(p, axis, -off) + 1
                 logring.append_rep(
-                    st.log, f_mask, f_tbl, zero,
-                    torch.full_like(zero, tag), f_acc, stepv,
-                    torch.stack([f_bal, zero], dim=1))
+                    st.log, f_mask, f_tbl, zp,
+                    torch.full_like(zp, tag), f_acc, stepv[p],
+                    torch.stack([f_bal, zp], dim=1))
 
     def counts(self, own: list, c1s: list) -> list:
         """Each partition's counter increments of the step (txn outcomes
@@ -697,12 +719,13 @@ def build_sharded_sb_runner(mesh: Mesh, n_shards: int, n_accounts: int,
 
     * ``run(carry, gen)`` draws a block's bits [cpb, D, w, 5] and
       transact_saving amounts [cpb, D, w] with the torch generator ``gen``
-      on the mesh's device (`smallbank_pipeline.draw_step`) and calls
+      on the mesh's home device (`smallbank_pipeline.draw_step`) and calls
       ``run.run_draws``;
     * ``run.run_draws(carry, bits, ts_amt)`` runs ``cohorts_per_block``
       steps on the given draws (partition d's step i takes ``bits[i, d]``,
-      where JAX's draws from ``fold_in(split(block_key, cpb)[i], d)``) and
-      returns (carry, stats i32 [cpb, N_STATS] summed over the partitions);
+      copied to its card, where JAX's draws from ``fold_in(split(
+      block_key, cpb)[i], d)``) and returns (carry, stats i32 [cpb,
+      N_STATS] summed over the partitions on the home device);
     * ``init(states)`` -> carry (states, ctxs[, rings][, counters]) with an
       empty in-flight cohort a partition; with ``use_hotset`` it first
       attaches the hot mirrors to partitions that have none;
@@ -728,7 +751,7 @@ def build_sharded_sb_runner(mesh: Mesh, n_shards: int, n_accounts: int,
     _check_mesh(mesh, n_shards)
     if w * L >= BIG:
         raise ValueError(f"w={w} exceeds the lane field of the scatter-mins")
-    dev = mesh.device
+    home, devs = mesh.device, mesh.devices
     d, cpb = n_shards, cohorts_per_block
     trace_on = txe.trace_enabled(trace)
     ph = _Phases(mesh, n_accounts, w, engine=_ENGINE,
@@ -742,8 +765,10 @@ def build_sharded_sb_runner(mesh: Mesh, n_shards: int, n_accounts: int,
         rcap = int(trace_cap) if trace_cap else n_step * cpb
         tcfg = txe.TraceCfg(rate=txe.trace_rate(trace_rate), cap=rcap,
                             wave=waves.full_name(_ENGINE, "trace"))
-    n_att = {g: torch.full((), w if g else 0, dtype=I32, device=dev)
-             for g in (True, False)}
+    # the attempted count of a full and an empty cohort, a partition
+    n_att = {g: mesh.per_partition(
+        lambda dv, g=g: torch.full((), w if g else 0, dtype=I32, device=dv))
+        for g in (False, True)}
 
     def step(carry, bits, ts_amt, gen_new=True):
         states, c1s = carry[0], carry[1]
@@ -759,7 +784,7 @@ def build_sharded_sb_runner(mesh: Mesh, n_shards: int, n_accounts: int,
             recv = ph.route(src)
         own = ph.arbitrate(states, recv, t)
         with waves.scope(_ENGINE, "reply"):
-            ctxs = ph.reply(src, own, [n_att[gen_new]] * d)
+            ctxs = ph.reply(src, own, n_att[gen_new])
 
         # ---- wave 2 of c1: every partition routes its installs, every
         # owner installs and logs them, then the backups
@@ -802,7 +827,7 @@ def build_sharded_sb_runner(mesh: Mesh, n_shards: int, n_accounts: int,
 
     def run(carry, gen: torch.Generator):
         with waves.scope(_ENGINE, "gen"):
-            draws = draw_step(gen, (cpb, d, w), dev)
+            draws = draw_step(gen, (cpb, d, w), home)
         return run_draws(carry, *draws)
 
     run.run_draws = run_draws
@@ -810,17 +835,14 @@ def build_sharded_sb_runner(mesh: Mesh, n_shards: int, n_accounts: int,
     def init(states: list):
         if len(states) != d:
             raise ValueError(f"{len(states)} states for {d} partitions")
-        for st in states:
-            if st.bal.device.type != dev.type:
-                raise ValueError(f"tables on {st.bal.device}, mesh on {dev}")
+        _check_placement(mesh, states)
         states = list(states)
         if use_hotset and states[0].hot_loc == 0:
             states = attach_hotset_sb(mesh, states, ph.hot_loc)
-        return ((states, [_empty_sb_ctx(w, dev) for _ in range(d)])
-                + (([txe.create_ring(tcfg.cap, dev, spill=n_step)
-                     for _ in range(d)],) if trace_on else ())
-                + (([mon.create(dev) for _ in range(d)],)
-                   if monitor else ()))
+        return ((states, [_empty_sb_ctx(w, dv) for dv in devs])
+                + (([txe.create_ring(tcfg.cap, dv, spill=n_step)
+                     for dv in devs],) if trace_on else ())
+                + (([mon.create(dv) for dv in devs],) if monitor else ()))
 
     init.trace_cfg = tcfg
 

@@ -17,8 +17,10 @@ different hosts. Host h's partitions rebuild from the logs of (h+1, c) or
 key_hi_filter). Needs n_hosts >= 3: with 2 hosts the +2 hop would alias
 the source host.
 
-On one card the mesh is a list of partitions (`mesh.py`): a run measures
-the partitions' work and their replication, and no link between hosts.
+The partitions sit one a card where there are cards enough, else a
+host's chips share one card (`mesh.placement`), so the "dcn" hops are the
+ones that cross cards; on one card (``device=``) a run measures the
+partitions' work and their replication, and no link between hosts.
 """
 from __future__ import annotations
 
@@ -48,10 +50,14 @@ def mesh_shape_from_env(default: str = "4x2",
     return h, c
 
 
-def make_mesh_2d(n_hosts: int, chips_per_host: int, device=None) -> Mesh:
-    """A (host, chip) mesh of ``n_hosts * chips_per_host`` partitions on
-    ``device`` (None = CUDA), host-major, so "dcn" is the major axis."""
-    return Mesh((n_hosts, chips_per_host), (DCN_AXIS, ICI_AXIS), device)
+def make_mesh_2d(n_hosts: int, chips_per_host: int, device=None,
+                 devices=None) -> Mesh:
+    """A (host, chip) mesh of ``n_hosts * chips_per_host`` partitions,
+    host-major, so "dcn" is the major axis: one device a partition
+    (``devices``, flat order ``h * C + c``), all on ``device``, or (both
+    None) over the visible cards by `mesh.placement`."""
+    return Mesh((n_hosts, chips_per_host), (DCN_AXIS, ICI_AXIS), device,
+                devices)
 
 
 def _check_hosts(mesh: Mesh):
@@ -63,9 +69,10 @@ def _check_hosts(mesh: Mesh):
 
 def create_multihost(mesh: Mesh, n_sub_global: int, val_words: int = 10,
                      seed: int = 0, **kw) -> list:
-    """One `ShardState` a partition, in flat order: partition (h, c)'s
-    range populated from ``np.random.default_rng(seed + h * C + c)``, its
-    backups copies of hosts h-1 and h-2 at the same chip."""
+    """One `ShardState` a partition, in flat order, on its partition's
+    device: partition (h, c)'s range populated from
+    ``np.random.default_rng(seed + h * C + c)``, its backups copies of
+    hosts h-1 and h-2 at the same chip."""
     n_hosts, _ = _check_hosts(mesh)
     if n_hosts < 3:
         raise ValueError("multihost replication needs >= 3 hosts "
@@ -73,7 +80,8 @@ def create_multihost(mesh: Mesh, n_sub_global: int, val_words: int = 10,
     n_loc = n_sub_local(n_sub_global, mesh.size)
     dbs = [td.populate(np.random.default_rng(seed + d), n_loc,
                        val_words=val_words, log_replicas=1,
-                       device=mesh.device, **kw) for d in range(mesh.size)]
+                       device=mesh.device_of(d), **kw)
+           for d in range(mesh.size)]
     return _with_backups(mesh, DCN_AXIS, dbs)
 
 

@@ -45,12 +45,14 @@ three streams a partition), the replies, the install routing, every owner
 installs and logs, hop 1, hop 2. JAX's runner has no ``use_hotset``,
 ``use_fused`` or ``use_pallas``, and neither has this one.
 
-On one card the mesh is a list of partitions (`mesh.py`): every exchange
-is a stack and a copy on one stream, so no byte crosses a link, the
-hierarchical route costs a second stack and copy, and the overlap route
-reorders work and overlaps nothing. Draws come in from outside: partition
-p's step i takes ``bits[i, p]`` where JAX draws from ``fold_in(split(
-block_key, cpb)[i], p)``.
+The partitions sit one a card where there are cards enough, else a
+host's chips share one card (`mesh.placement`): an "ici" exchange then
+stays on its card and the "dcn" hops are the copies between cards. On one
+card (``device=``) every exchange is a copy on one stream, so no byte
+crosses a link, the hierarchical route costs a second exchange, and the
+overlap route reorders work and overlaps nothing. Draws come in from
+outside: partition p's step i takes ``bits[i, p]``, copied to its card,
+where JAX draws from ``fold_in(split(block_key, cpb)[i], p)``.
 """
 from __future__ import annotations
 
@@ -68,8 +70,8 @@ from .dense_sharded_sb import (  # noqa: F401 (re-exported)
     N_STATS, STAT_AB_LOCK, STAT_AB_LOGIC, STAT_ATTEMPTED, STAT_BAL_DELTA,
     STAT_COMMITTED, STAT_MAGIC_BAD, STAT_OVERFLOW, SBShard, m1_local,
     n_acct_local, total_balance_global)
-from .dense_sharded_sb import (_Phases, _empty_sb_ctx, _n_step_events,
-                               _stats_of, create_sharded_sb)
+from .dense_sharded_sb import (_Phases, _check_placement, _empty_sb_ctx,
+                               _n_step_events, _stats_of, create_sharded_sb)
 from .mesh import Mesh
 from .multihost import (  # noqa: F401 (re-exported)
     DCN_AXIS, ICI_AXIS, make_mesh_2d, mesh_shape_from_env)
@@ -92,10 +94,10 @@ def _mesh_hosts(mesh: Mesh) -> tuple[int, int]:
 def create_multihost_sb(mesh: Mesh, n_accounts: int,
                         init_balance: int = 1000, log_lanes: int = 16,
                         log_capacity: int = 1 << 16) -> list:
-    """One `SBShard` a partition, in flat order ``h * C + c``, on the mesh's
-    device: partition (h, c) is primary for global shard h*C + c (the
-    partition of `create_sharded_sb` at D = H*C); each has storage of its
-    own, its backups a fresh copy of ``[bal, bal]``."""
+    """One `SBShard` a partition, in flat order ``h * C + c``, on its
+    partition's device: partition (h, c) is primary for global shard
+    h*C + c (the partition of `create_sharded_sb` at D = H*C); each has
+    storage of its own, its backups a fresh copy of ``[bal, bal]``."""
     _mesh_hosts(mesh)
     return create_sharded_sb(mesh, mesh.size, n_accounts,
                              init_balance=init_balance, log_lanes=log_lanes,
@@ -134,7 +136,8 @@ def build_multihost_sb_runner(mesh: Mesh, n_accounts: int, w: int = 2048,
     ``h * C + c`` in the draws, the states and the counts):
 
     * ``run(carry, gen[, occ, shed])`` draws a block's bits [cpb, H*C, w,
-      5] and amounts [cpb, H*C, w] with ``gen`` on the mesh's device and
+      5] and amounts [cpb, H*C, w] with ``gen`` on the mesh's home device
+      and
       calls ``run.run_draws(carry, bits, ts_amt[, occ, shed])``, which
       returns (carry, stats i32 [cpb, N_STATS] summed over the mesh);
       ``occ`` and ``shed`` (``serve`` only) are device i32 [H, C, cpb];
@@ -160,7 +163,7 @@ def build_multihost_sb_runner(mesh: Mesh, n_accounts: int, w: int = 2048,
         raise ValueError("overlap=True is incompatible with trace: the "
                          "txn ids are stamped with the generation step, "
                          "which the double buffer shifts by one")
-    dev = mesh.device
+    home, devs = mesh.device, mesh.devices
     d, cpb = mesh.size, cohorts_per_block
     cap = 2 * ((w * L + d - 1) // d)
 
@@ -175,12 +178,17 @@ def build_multihost_sb_runner(mesh: Mesh, n_accounts: int, w: int = 2048,
         tcfg = txe.TraceCfg(rate=txe.trace_rate(trace_rate), cap=rcap,
                             wave=waves.full_name(_ENGINE, "trace"))
     host = [mesh.axis_index(p, DCN_AXIS) for p in range(d)]
-    n_att = {g: torch.full((), w if g else 0, dtype=I32, device=dev)
-             for g in (True, False)}
-    # the empty prefetch: the bootstrap step's and the flush steps' cohort
-    empty_pf = (torch.zeros((w, 5), dtype=I32, device=dev),
-                torch.zeros((w,), dtype=I32, device=dev), n_att[False],
-                torch.zeros((ph.dc, 2), dtype=I32, device=dev))
+    # the attempted count of a full and an empty cohort, a partition
+    n_att = {g: mesh.per_partition(
+        lambda dv, g=g: torch.full((), w if g else 0, dtype=I32, device=dv))
+        for g in (False, True)}
+    # the empty prefetch: the bootstrap step's and the flush steps' cohort,
+    # one a card
+    empty_pf = mesh.per_partition(lambda dv: (
+        torch.zeros((w, 5), dtype=I32, device=dv),
+        torch.zeros((w,), dtype=I32, device=dv),
+        torch.zeros((), dtype=I32, device=dv),
+        torch.zeros((ph.dc, 2), dtype=I32, device=dv)))
 
     def route_aux(p, dest):
         return dest | torch.where(dest // n_ici != host[p], txe.ROUTE_DCN, 0)
@@ -201,11 +209,12 @@ def build_multihost_sb_runner(mesh: Mesh, n_accounts: int, w: int = 2048,
                 nxt = ph.gen(bits, ts_amt, True, t, occ=occ)
                 with waves.scope(_ENGINE, "route_prefetch"):
                     routed = ph.route(nxt)
-                pf_next = [(bits[p], ts_amt[p], occ[p], routed[p])
-                           for p in range(d)]
+                pf_next = [(mesh.to_partition(bits[p], p),
+                            mesh.to_partition(ts_amt[p], p), occ[p],
+                            routed[p]) for p in range(d)]
                 p_valid = [s["valid"] for s in nxt]
             else:
-                pf_next = [empty_pf] * d
+                pf_next = empty_pf
             # the in-flight cohort's source-side locals, regenerated from
             # its carried draws: no exchange
             src = ph.gen([f[0] for f in pf], [f[1] for f in pf], True, t,
@@ -219,9 +228,9 @@ def build_multihost_sb_runner(mesh: Mesh, n_accounts: int, w: int = 2048,
             with waves.scope(_ENGINE, "route"):
                 recv = ph.route(src)
             if serve and gen_new:
-                attempted = [occ[p] for p in range(d)]
+                attempted = occ
             else:
-                attempted = [n_att[gen_new]] * d
+                attempted = n_att[gen_new]
 
         # ---- owner side, replies, then wave 2 of c1 and the backups
         own = ph.arbitrate(states, recv, t)
@@ -294,20 +303,24 @@ def build_multihost_sb_runner(mesh: Mesh, n_accounts: int, w: int = 2048,
                                  f"got {tuple(occ.shape)} and "
                                  f"{tuple(shed.shape)}")
             # copies: a cohort's occupancy is read when it completes,
-            # after the caller may have refilled its buffers; [cpb, D]
-            occ = occ.to(I32, copy=True).reshape(d, cpb).t()
-            shed = shed.to(I32, copy=True).reshape(d, cpb).t()
+            # after the caller may have refilled its buffers; partition
+            # p's [cpb] on its card
+            occ = occ.to(I32, copy=True).reshape(d, cpb)
+            shed = shed.to(I32, copy=True).reshape(d, cpb)
+            occ = [mesh.to_partition(occ[p], p) for p in range(d)]
+            shed = [mesh.to_partition(shed[p], p) for p in range(d)]
         _reset_rings(carry)
         stats = []
         for i in range(cpb):
             carry, s = step(carry, bits[i], ts_amt[i],
-                            *((occ[i], shed[i]) if serve else ()))
+                            *(([o[i] for o in occ], [h[i] for h in shed])
+                              if serve else ()))
             stats.append(s)
         return carry, torch.stack(stats)
 
     def run(carry, gen: torch.Generator, occ=None, shed=None):
         with waves.scope(_ENGINE, "gen"):
-            draws = draw_step(gen, (cpb, d, w), dev)
+            draws = draw_step(gen, (cpb, d, w), home)
         return run_draws(carry, *draws, occ, shed)
 
     run.run_draws = run_draws
@@ -315,9 +328,7 @@ def build_multihost_sb_runner(mesh: Mesh, n_accounts: int, w: int = 2048,
     def init(states: list):
         if len(states) != d:
             raise ValueError(f"{len(states)} states for {d} partitions")
-        for st in states:
-            if st.bal.device.type != dev.type:
-                raise ValueError(f"tables on {st.bal.device}, mesh on {dev}")
+        _check_placement(mesh, states)
         states = list(states)
         if overlap:
             # one step early: the bootstrap step arbitrates the empty
@@ -325,12 +336,11 @@ def build_multihost_sb_runner(mesh: Mesh, n_accounts: int, w: int = 2048,
             # installed at 3+j, as on the unoverlapped route
             states = [dataclasses.replace(st, step=st.step - 1)
                       for st in states]
-        return ((states, [_empty_sb_ctx(w, dev) for _ in range(d)])
-                + (([empty_pf] * d,) if overlap else ())
-                + (([txe.create_ring(tcfg.cap, dev, spill=n_step)
-                     for _ in range(d)],) if trace_on else ())
-                + (([mon.create(dev) for _ in range(d)],)
-                   if monitor else ()))
+        return ((states, [_empty_sb_ctx(w, dv) for dv in devs])
+                + ((list(empty_pf),) if overlap else ())
+                + (([txe.create_ring(tcfg.cap, dv, spill=n_step)
+                     for dv in devs],) if trace_on else ())
+                + (([mon.create(dv) for dv in devs],) if monitor else ()))
 
     init.trace_cfg = tcfg
 

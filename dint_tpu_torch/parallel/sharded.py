@@ -19,7 +19,8 @@ the primary). Here the servers are the partitions of a `mesh.Mesh`:
   summed over the mesh (`Mesh.psum`).
 
 What differs from JAX: the shards and batches are lists, one entry a
-partition, and each step updates its shard in place. JAX's `pcast_varying`
+partition on its partition's device, and each step updates its shard in
+place. JAX's `pcast_varying`
 and its cache of built runners have no twin (nothing is traced or
 compiled).
 """
@@ -47,9 +48,11 @@ ENGINES = {
 }
 
 
-def make_mesh(n_devices: int, device=None) -> Mesh:
-    """A 1-D mesh of ``n_devices`` partitions on ``device`` (None = CUDA)."""
-    return Mesh((n_devices,), (SHARD_AXIS,), device)
+def make_mesh(n_devices: int, device=None, devices=None) -> Mesh:
+    """A 1-D mesh of ``n_devices`` partitions: one device a partition
+    (``devices``), all on ``device``, or (both None) over the visible
+    cards by `mesh.placement`."""
+    return Mesh((n_devices,), (SHARD_AXIS,), device, devices)
 
 
 def local_rows(n_global: int, n_shards: int) -> int:
@@ -145,10 +148,11 @@ def build_sharded_step(mesh: Mesh, n_shards: int, engine: str = "tatp"):
 def create_sharded_state(mesh: Mesh, n_shards: int, n_subscribers: int,
                          val_words: int = 10, **kw) -> list:
     """One empty TATP shard a partition at the shard-local table sizes,
-    each with storage of its own."""
+    each with storage of its own on its partition's device."""
     rows = local_rows(n_subscribers + 1, n_shards)
-    return [tatp.create(rows - 1, val_words=val_words, device=mesh.device,
-                        **kw) for _ in range(n_shards)]
+    return [tatp.create(rows - 1, val_words=val_words,
+                        device=mesh.device_of(d), **kw)
+            for d in range(n_shards)]
 
 
 def create_sharded_smallbank(mesh: Mesh, n_shards: int, n_accounts: int,
@@ -156,19 +160,21 @@ def create_sharded_smallbank(mesh: Mesh, n_shards: int, n_accounts: int,
     """One empty SmallBank shard a partition (the reference shards its 3
     servers identically, smallbank/caladan/client_ebpf_shard.cc:287-289)."""
     rows = local_rows(n_accounts, n_shards)
-    return [smallbank.create(rows, val_words=val_words, device=mesh.device,
-                             **kw) for _ in range(n_shards)]
+    return [smallbank.create(rows, val_words=val_words,
+                             device=mesh.device_of(d), **kw)
+            for d in range(n_shards)]
 
 
 def route_batches(ops, tbls, keys, vals, vers, n_shards: int, width: int,
-                  val_words: int, device=None):
+                  val_words: int, device=None, devices=None):
     """Host side: bucket flat request arrays by owner = key % n_shards into
     one [width] `Batch` a shard (the reference client's per-shard batches,
     smallbank/caladan/client_ebpf_shard.cc:287-289).
 
     A skewed batch SPILLS into further waves instead of failing: every
     request lands in exactly one wave, at most ``width`` a shard a wave.
-    Returns (waves: a list of waves, each a list of ``n_shards`` Batches on
+    Returns (waves: a list of waves, each a list of ``n_shards`` Batches,
+    shard d's on ``devices[d]`` when given (a mesh's ``devices``), else on
     ``device`` (None = CUDA), owner [n])."""
     owner = np.asarray(keys, np.int64) % n_shards
     per_dev = [np.nonzero(owner == d)[0] for d in range(n_shards)]
@@ -183,6 +189,6 @@ def route_batches(ops, tbls, keys, vals, vers, n_shards: int, width: int,
                 vals[idx] if vals is not None else None,
                 vers=vers[idx] if vers is not None else None,
                 tables=tbls[idx], width=width, val_words=val_words,
-                device=device))
+                device=device if devices is None else devices[d]))
         waves.append(parts)
     return waves, owner

@@ -37,8 +37,11 @@ What differs from JAX:
 * `recover_sb_shard` and `replay_sb_shard` rebuild one partition of the
   sharded SmallBank path (`parallel.dense_sharded_sb`) from any of the
   three rings that carry its stream; as in JAX they return its balance
-  array (numpy u32, and an int32 tensor on the ring's device), not a
-  state.
+  array (numpy u32, and an int32 tensor on the device of the lost
+  partition's base array), not a state.
+* A replay runs on the device of its base (db0, bal0): a lost partition
+  is rebuilt on its own card from a ring on another card, whose entries
+  and heads are copied there first.
 """
 from __future__ import annotations
 
@@ -261,10 +264,12 @@ def _replay_winners(rows: torch.Tensor, ver: torch.Tensor,
 
 def replay_tatp_dense(db0, entries: torch.Tensor, heads: torch.Tensor):
     """The torch twin of `recover_tatp_dense` on db0's device, over one
-    replica's ring view (`tables.log.replica_entries`) and the heads."""
+    replica's ring view (`tables.log.replica_entries`) and the heads, on
+    any device (copied to db0's)."""
     from .engines import tatp_dense as td
 
     dev = db0.meta.device
+    entries, heads = entries.to(dev), heads.to(dev)
     vw = db0.val_words
     live, flags, key_lo, ver, vals = _replay_columns(entries, heads, vw)
     is_del = (flags & 0xFF) != 0
@@ -285,9 +290,11 @@ def replay_tatp_dense(db0, entries: torch.Tensor, heads: torch.Tensor):
 
 
 def replay_smallbank_dense(db0, entries: torch.Tensor, heads: torch.Tensor):
-    """The torch twin of `recover_smallbank_dense` on db0's device: the
-    step resumes at the u32 ``max(live ver) + 2``, at least 2."""
+    """The torch twin of `recover_smallbank_dense` on db0's device (the
+    ring copied there): the step resumes at the u32 ``max(live ver) + 2``,
+    at least 2."""
     n = db0.n_accounts
+    entries, heads = entries.to(db0.bal.device), heads.to(db0.bal.device)
     live, flags, key_lo, ver, vals = _replay_columns(entries, heads, SB_VW)
     table = u32.shr(flags, 8).to(torch.int64)
     key = u32.to_u64(key_lo)
@@ -304,10 +311,12 @@ def replay_smallbank_dense(db0, entries: torch.Tensor, heads: torch.Tensor):
 def replay_sb_shard(bal0: torch.Tensor, entries: torch.Tensor,
                     heads: torch.Tensor, *, dead: int,
                     n_shards: int) -> torch.Tensor:
-    """The torch twin of `recover_sb_shard` on the ring's device: partition
-    ``dead``'s balances rebuilt from one ring that carries its stream over
-    ``bal0``, the init-balance local array (``m1_local`` words, sentinel
-    last), which is not written. Returns a fresh int32 tensor."""
+    """The torch twin of `recover_sb_shard` on ``bal0``'s device: partition
+    ``dead``'s balances rebuilt from one ring that carries its stream, on
+    any device (copied to ``bal0``'s), over ``bal0``, the init-balance
+    local array (``m1_local`` words, sentinel last), which is not written.
+    Returns a fresh int32 tensor."""
+    entries, heads = entries.to(bal0.device), heads.to(bal0.device)
     live, flags, key_lo, ver, vals = _replay_columns(entries, heads, SB_VW)
     table = u32.shr(flags, 8).to(torch.int64)
     acct = u32.to_u64(key_lo)

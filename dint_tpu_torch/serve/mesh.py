@@ -24,9 +24,12 @@ Under a VirtualClock the ServiceModel is the device (one block advances
 virtual time by cpb x service_us(w)), so two runs with the same schedule
 and draws give the same report. What differs from JAX is the base
 class's (`engine.py`): the draws (``draws=`` replays JAX's), the tables
-updated in place, ``device`` (None = CUDA) the mesh's device. On one card
-the mesh's partitions share it, so the overlap route reorders work and
-overlaps no link (`parallel/multihost_sb.py`).
+updated in place, and the placement: ``device`` None spreads the
+partitions over the visible cards (`parallel.mesh.placement`), a device
+puts them all on it. The engine draws and admits on the mesh's home
+device; the runner hands each partition its draws and occupancies on its
+own card. On one card the mesh's partitions share it, so the overlap
+route reorders work and overlaps no link (`parallel/multihost_sb.py`).
 """
 from __future__ import annotations
 
@@ -49,7 +52,9 @@ class MeshServeEngine(ServeEngine):
     route; both None = the plan's, else ON / OFF. ``size`` is the global
     number of accounts. ``draws`` (block_idx, w) -> the runner's
     ``run.run_draws`` draw arguments (bits [cpb, H*C, w, 5], ts_amt [cpb,
-    H*C, w]); for ``block_idx`` None, the drain's (none: ``()``)."""
+    H*C, w]); for ``block_idx`` None, the drain's (none: ``()``).
+    ``device``: the placement (None = the visible cards, one a partition
+    where there are enough); ``self.mesh.cards`` lists the cards used."""
 
     ENGINES = ("multihost_sb",)
 

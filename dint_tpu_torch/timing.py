@@ -1,6 +1,9 @@
 """Device timing of the port's kernels on the card, used by chip_smoke.py
 and the card tests: back-to-back time by CUDA events, and what one call
-puts on the stream, by torch.profiler and by a CUDA graph capture."""
+puts on the stream, by torch.profiler and by a CUDA graph capture. A
+mesh spread over several cards is synchronised, timed (`device_ms`) and
+has its peak memory read on every card it uses (``devices``:
+`parallel.mesh.Mesh.cards`)."""
 from __future__ import annotations
 
 import ctypes
@@ -12,26 +15,57 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 
-def device_ms(fn, n=20, groups=5):
+def synchronize(devices=None):
+    """``torch.cuda.synchronize`` on each of ``devices`` (None: the
+    current card)."""
+    for d in devices or (None,):
+        torch.cuda.synchronize(d)
+
+
+def peak_memory(devices) -> dict:
+    """``torch.cuda.max_memory_allocated`` of each of ``devices``, by its
+    name."""
+    return {str(d): torch.cuda.max_memory_allocated(d) for d in devices}
+
+
+def reset_peak_memory(devices):
+    for d in devices:
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def device_ms(fn, n=20, groups=5, devices=None):
     """Median over ``groups`` of the mean device time of ``n`` back-to-back
     calls of ``fn``, by CUDA events. Each group is queued behind a ~5 ms
     sleep kernel, so the host has enqueued all ``n`` calls before the card
     reaches the first event and the span holds no launch latency (a call
     that synchronises inside, as the plain versions do, is timed with its
-    host gaps, which are part of its cost)."""
+    host gaps, which are part of its cost). ``devices``: the cards ``fn``
+    works on (None: the current one); each gets its sleep and its two
+    events on its current stream, and a group's time is the longest of
+    their spans."""
+    cards = list(devices or (torch.device("cuda",
+                                          torch.cuda.current_device()),))
     fn()
-    torch.cuda.synchronize()
+    synchronize(cards)
     times = []
     for _ in range(groups):
-        torch.cuda._sleep(10_000_000)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
+        marks = []
+        for d in cards:
+            with torch.cuda.device(d):
+                torch.cuda._sleep(10_000_000)
+                a = torch.cuda.Event(enable_timing=True)
+                a.record()
+                marks.append(a)
         for _ in range(n):
             fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / n)
+        spans = []
+        for d, a in zip(cards, marks):
+            with torch.cuda.device(d):
+                b = torch.cuda.Event(enable_timing=True)
+                b.record()
+            b.synchronize()
+            spans.append(a.elapsed_time(b))
+        times.append(max(spans) / n)
     return float(np.median(times))
 
 

@@ -266,7 +266,8 @@ def test_mesh_leg_runs_at_quick_size_with_jax_keys(tmp_path, monkeypatch):
     """At DINT_BENCH_MESH=3x1 the multihost_sb leg runs on the one device:
     its hier and flat points carry the keys of exp.py's leg (run by hand
     as exp.py's run_all does, over 3 of the virtual devices), the mesh
-    and ``hierarchical``; both routes commit the same work."""
+    and ``hierarchical``, and the port's ``cards``; both routes commit the
+    same work."""
     monkeypatch.setenv("DINT_BENCH_MESH", "3x1")
     monkeypatch.setenv("DINT_PLAN_PATH", PLAN_H100)
     monkeypatch.setattr(jexp, "_PLAN_DOC", None)
@@ -290,6 +291,8 @@ def test_mesh_leg_runs_at_quick_size_with_jax_keys(tmp_path, monkeypatch):
     ref = json.loads(json.dumps(ref))
     for name in names:
         p, r = res[name], ref[name]
+        # the port's points also name the devices the mesh ran on
+        assert p.pop("cards") == ["cpu"], name
         assert _shape(p) == _shape(r), name
         assert {k: p[k] for k in ("n_shards", "mesh", "hierarchical",
                                   "mode", "width", "plan")} == \
