@@ -8,6 +8,10 @@
                                           # alone (the mesh over every
                                           # card), N spread/one-card
                                           # pairs a route in turns
+    python3 chip_smoke.py --mesh-procs [N]  # phase 1, then phase 25
+                                          # alone (the mesh across
+                                          # processes), N pairs of ranks
+                                          # and one-process runs in turns
     python3 chip_smoke.py --turns DIR     # this tree against the tree at
                                           # DIR (e.g. the parent commit's
                                           # `git archive`) on one card, in
@@ -150,7 +154,7 @@ mismatch or error:
    with the counters); one generic SmallBank block with the counters
    (n=64, w=128); the three trace clients and the log client: replies,
    tables, stats and counters bit-identical. Then, at exp.py sweep_micro's
-   settings, each microbenchmark for a 3 s window after a warm round:
+   settings, each microbenchmark for a 1.5 s window after a warm round:
    lock_2pl and lock_fasst (plain and attributed) over 2^26-slot tables
    (the reference's 36M locks rounded up to a power of two) on a
    20,000-txn trace of 5-10 keys among 4,800, cohort 512, width 8192;
@@ -184,8 +188,9 @@ mismatch or error:
    counters 0 on plain shards and consistent on attr shards; none of the
    nine kernels launched. Prints committed txn/s, the abort mix and ms a
    cohort.
-13. The serving plane. `ServeEngine` over tatp_dense (7,000,000
-   subscribers, VW=10), smallbank_dense (24,000,000 accounts) and the
+13. The serving plane. `ServeEngine` over tatp_dense (1,000,000
+   subscribers, VW=10; 7M in the bench's probe below and phase 16 (e),
+   (f)), smallbank_dense (24,000,000 accounts) and the
    store (24,000,000 keys, YCSB-E: 95% scans of 1-100 rows, scan_max 100,
    delta_cap 512), each with plan='auto' (PLAN.json's serve priors, which
    were calibrated for a TPU: the width menu 256-8192, the SLO and the
@@ -232,7 +237,7 @@ mismatch or error:
    its key, VAL with the magic word for a GET, ACK for a SET; replies the
    C++ ring shed (a 2 s timeout, no re-send) are counted; prints answered
    pkt/s, p50/p99 us and the losses. (d)
-   `exp.sweep_micro` in-process with 2 s windows and use_hotset=True over
+   `exp.sweep_micro` in-process with 1 s windows and use_hotset=True over
    store_zipf_w4096, store_scan_f95, lock_2pl, lock_fasst, log_server,
    store_wire, tatp_wire, tatp_wire_txn, tatp_colocate_c1 and
    store_cached_wb_bloom, launches counted from 0 around each point:
@@ -270,7 +275,7 @@ mismatch or error:
    windows and DINT_SCOPE=0, 1, 1, 0.
 16. The sweeps and the calibration plane (after phase 15). (a)
    `exp.sweep_pipeline` over TATP at 7,000,000 subscribers, 4 cohorts a
-   block, 2 s windows, the plan's route: closed w=8192, open at 0.5 and
+   block, 1 s windows, the plan's route: closed w=8192, open at 0.5 and
    0.9 of its peak, latency w=256; then a closed point under
    DINT_PLAN_OVERRIDE=1 DINT_USE_FUSED=1. Every point has exp.py's
    artifact keys, committed + aborts == attempted, magic_bad 0, and the
@@ -281,7 +286,8 @@ mismatch or error:
    (a)'s), then a 0.5 s closed point under DINT_EXP_TRACE_DIR: every
    device slice linked to its launch, every hand-kernel slice charged to
    a wave; the trace's size and parse time. (d) `exp.sweep_serve` over
-   tatp_dense at 7M, widths 256-8192, the _sat probe and rates 0.5 and
+   tatp_dense at 1M (7M's serving plane runs in phase 13, (e) and (f)),
+   widths 256-8192, the _sat probe and rates 0.5 and
    1.1 of it, 1.5 s windows: offered == admitted + shed, occupancy +
    padded lanes == width x serving steps, each point's peak memory. (e)
    `dintserve run --journal` at 7M, `dintcal audit` of its journal clean.
@@ -453,6 +459,21 @@ mismatch or error:
    TATP's install record across the cards beside the same hop on one
    card, and `can_device_access_peer` for every pair. On one card it
    prints "cards: 1; cross-card copies not exercised".
+25. The mesh across processes (after phase 24): 3 ranks, one a host,
+   spawned by `dint_tpu_torch.testing.procs` and joined by
+   `parallel.dist.initialize` (on one card gloo, every rank on cuda:0,
+   CUDA tensors staged through the host; on several cards NCCL, one rank
+   a card). In one launch each rank runs TATP `multihost` at 7,000,000
+   subscribers over 3 hosts (`populate_device`, seeds 0-2) and SmallBank
+   `multihost_sb` at 24,000,000 accounts over 3x2, hierarchical and flat,
+   w=8192 a partition, 4 cohorts/block, 3 blocks (the first warm) and the
+   drain on draws made on the host from a seed; then the one-process mesh
+   runs the same on cuda:0. Every rank's stats of every step and each
+   partition's digests (tables, backups, stamps, log rings and heads,
+   host ints) bit for bit the one-process run's; each rank launched its
+   route's kernels once a partition a step. One line a rank a run: the
+   backend, its cards and partitions, committed txn/s (the mesh's sum)
+   and the blocks' seconds. Any rank's failure fails the phase.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -501,7 +522,7 @@ GEN_LOG_LANES = 16
 GEN_LOG_CAP = 1 << 20
 GEN_LOG_VW = 10                  # 40-byte log values
 GEN_LOG_W = 8192
-GEN_WINDOW_S = 3.0               # each microbenchmark's window
+GEN_WINDOW_S = 1.5               # each microbenchmark's window
 GEN_N_SUB = 7_000_000
 GEN_SB_N = 24_000_000
 GEN_W = 4096                     # the generic runners' default width
@@ -3751,9 +3772,13 @@ def phase_coordinators(dev, card, shards, pop_s):
     return {"coordinators": launches}, replicas
 
 
+SV_TATP_N_SUB = 1_000_000        # tatp_dense's subscribers (a numpy
+                                 # populate: 7M ~35 s); 7M's serving plane
+                                 # runs in the bench's probe and 16 (e), (f)
 # per family: (size, engine kw, kernels a step, drain steps)
 SERVE_FAMILIES = {
-    "tatp_dense": (N_SUB, {"val_words": VW}, TATP_PER_STEP["default"], 2),
+    "tatp_dense": (SV_TATP_N_SUB, {"val_words": VW},
+                   TATP_PER_STEP["default"], 2),
     "smallbank_dense": (SB_N, {}, SB_PER_STEP["default"], 1),
     "store": (ST_N, {"val_words": VW, "runner_kw": SV_STORE_KW},
               {"scan_rows": 1}, 0),
@@ -3771,8 +3796,8 @@ SERVE_STAT_COUNTERS = {
 
 def phase_serve(dev, card):
     print(f"== phase 13: the serving plane: ServeEngine over tatp_dense "
-          f"({N_SUB:,} subscribers, VW={VW}), smallbank_dense ({SB_N:,} "
-          f"accounts) and the store ({ST_N:,} keys, YCSB-E scans), "
+          f"({SV_TATP_N_SUB:,} subscribers, VW={VW}), smallbank_dense "
+          f"({SB_N:,} accounts) and the store ({ST_N:,} keys, YCSB-E scans), "
           f"plan='auto', {SV_CPB} cohorts a block, a RealClock; then the "
           f"bench's serve probe")
     from dint_tpu_torch import bench, serve
@@ -3970,7 +3995,7 @@ WS_W = 4096
 WS_CLIENTS = 2
 WS_WINDOW_S = 3.0
 WS_TIMEOUT_MS = 2000         # a lost reply costs one exchange this much
-MICRO_WINDOW_S = 2.0         # (d): sweep_micro's window
+MICRO_WINDOW_S = 1.0         # (d): sweep_micro's window
 MICRO_POINTS = ("store_zipf_w4096", "store_scan_f95", "lock_2pl",
                 "lock_fasst", "log_server", "store_wire", "tatp_wire",
                 "tatp_wire_txn", "tatp_colocate_c1", "store_cached_wb_bloom")
@@ -4978,9 +5003,12 @@ def phase_observability(dev, card):
 # ------------------------------------------ the sweeps and the calibration
 
 P16_CPB = 4                      # exp.py's cohorts a block
-P16_WINDOW_S = 2.0               # (a), (b), (c): each pipeline window
+P16_WINDOW_S = 1.0               # (a), (b), (c): each pipeline window
 P16_PROF_WINDOW_S = 0.5          # (c): the profiled window
 P16_SERVE_WINDOW_S = 1.5         # (d): each rate point's schedule
+P16_SERVE_N_SUB = 1_000_000      # (d)'s subscribers: its three points each
+                                 # populate in numpy (7M: ~20 s a point);
+                                 # 7M's serving plane runs in 13, (e), (f)
 P16_SERVE_RATES = (0.5, 1.1)
 P16_CAL_WIDTHS = (256, 1024, 4096, 8192)   # ControllerCfg's width menu
 P16_CAL_WINDOW_S = 1.0
@@ -5432,14 +5460,15 @@ def phase_p16_serve(dev, card, out_dir):
 
     Recorded = _recorded(serve.ServeEngine)
     print(f"== phase 16 (d): exp.sweep_serve('serve_tatp', 'tatp_dense', "
-          f"{N_SUB:,}): widths (256, 1024, 4096, 8192), the _sat probe, "
+          f"{P16_SERVE_N_SUB:,}): widths (256, 1024, 4096, 8192), the _sat "
+          f"probe, "
           f"rates {P16_SERVE_RATES} of it, {P16_SERVE_WINDOW_S} s windows")
     t0 = time.perf_counter()
     res = PointSink()
     real = exp.ServeEngine
     exp.ServeEngine = Recorded
     try:
-        exp.sweep_serve("serve_tatp", "tatp_dense", N_SUB,
+        exp.sweep_serve("serve_tatp", "tatp_dense", P16_SERVE_N_SUB,
                         window_s=P16_SERVE_WINDOW_S,
                         open_rates=P16_SERVE_RATES, results=res, quick=False,
                         cpb=P16_CPB, device=dev)
@@ -6494,6 +6523,7 @@ MH_SERVE_WIDTHS = (256, 1024, 4096, 8192)
 MH_SERVE_WINDOW_S = 2.0
 MH_SERVE_LOADS = (0.5, 1.2)      # of (b)'s committed txn/s
 MH_EXP_RATES = (0.5,)            # (d)'s open-rate ladder: one rung
+MH_EXP_WINDOW_S = 2.0            # (d)'s windows
 MH_AB_BLOCKS = 4                 # (b)'s exchange A/B: timed blocks a turn
 
 
@@ -6777,9 +6807,9 @@ def phase_mh_sb_exp(dev, card):
     h, ci = MH_SHAPE
     print(f"== phase 19 (d): exp's mesh legs at DINT_BENCH_MESH={h}x{ci}, "
           f"{MESH_SB_N:,} accounts: sweep_multihost_sb (hier and flat, "
-          f"w={MESH_W}, {P16_WINDOW_S} s windows) and sweep_serve_mesh "
+          f"w={MESH_W}, {MH_EXP_WINDOW_S} s windows) and sweep_serve_mesh "
           f"(the _sat probe, rates {MH_EXP_RATES} of it, "
-          f"{P16_WINDOW_S} s windows)")
+          f"{MH_EXP_WINDOW_S} s windows)")
     t0 = time.perf_counter()
     paths, out = {}, {}
 
@@ -6791,10 +6821,10 @@ def phase_mh_sb_exp(dev, card):
         with _Env(DINT_BENCH_MESH=f"{h}x{ci}", DINT_SERVE_OVERLAP=None,
                   **P16_ENV):
             exp.sweep_multihost_sb(MESH_SB_N, width=MESH_W, cpb=P16_CPB,
-                                   window_s=P16_WINDOW_S, results=res,
+                                   window_s=MH_EXP_WINDOW_S, results=res,
                                    device=dev)
             exp.sweep_serve_mesh("serve_mesh", MESH_SB_N,
-                                 window_s=P16_WINDOW_S,
+                                 window_s=MH_EXP_WINDOW_S,
                                  open_rates=MH_EXP_RATES, results=res,
                                  quick=False, cpb=P16_CPB, device=dev)
     finally:
@@ -8288,6 +8318,226 @@ def phase_mesh_cards(dev, card, turns=1):
     return paths
 
 
+# ------------------------------------------- the mesh across processes
+
+P25_RANKS = 3                    # one process a host
+P25_BLOCKS = 3                   # a warm block and two timed, then the drain
+P25_PROFILED_BLOCKS = 4          # --mesh-procs: and one profiled
+P25_DEADLINE_S = 540             # the ranks are killed past this
+P25_TATP_SHAPE = (3, 1)          # TATP's multihost runner: 3 hosts
+
+
+def _p25_specs(profile=False) -> list:
+    """Phase 25's runs (`testing.procs` run specs, full size, draws made
+    on the host from a seed): TATP `multihost` at 7M over 3 hosts
+    (`populate_device` a partition, seeds 0-2), SmallBank `multihost_sb`
+    at 24M over 3x2, hierarchical and flat; each partition's tensors as
+    digests. ``profile``: the last block under torch.profiler."""
+    base = dict(w=MESH_W, cpb=MESH_CPB, outputs="digest", profile=profile,
+                blocks=P25_PROFILED_BLOCKS if profile else P25_BLOCKS)
+    sb = dict(base, engine="multihost_sb", shape=list(MH_SHAPE),
+              n=MESH_SB_N, log_cap=MESH_SB_LOG_CAP, draw_seed=2526)
+    return [dict(base, label="tatp multihost", engine="multihost",
+                 shape=list(P25_TATP_SHAPE), n=N_SUB, vw=VW, log_cap=None,
+                 state="device", seed=0, draw_seed=2525),
+            dict(sb, label="smallbank 3x2 hier",
+                 route={"hierarchical": True}),
+            dict(sb, label="smallbank 3x2 flat",
+                 route={"hierarchical": False})]
+
+
+def _p25_rate(spec, stats, block_s) -> float:
+    """Committed txn/s of a run's timed blocks (after the warm one): the
+    mesh's sum, as every rank sees it."""
+    from dint_tpu_torch.engines import tatp_dense as td
+    from dint_tpu_torch.parallel import multihost_sb as mhs
+    col = td.STAT_COMMITTED if spec["engine"] == "multihost" \
+        else mhs.STAT_COMMITTED
+    cpb = spec["cpb"]
+    timed = stats[cpb:cpb * len(block_s), col].astype(np.int64).sum()
+    return float(timed) / sum(block_s[1:])
+
+
+def _p25_idle(busy_by_proc, block_s) -> dict:
+    """Each card's share of a block: 1 minus the seconds its device
+    slices but NCCL's covered in the profiled block (summed over the
+    processes on the card) over the mean of the unprofiled timed blocks'
+    seconds (``idle``), and NCCL's kernels' seconds over the same
+    (``nccl``: waits for the peers and the transfers)."""
+    t = float(np.mean(block_s[1:]))
+    cards = {}
+    for busy in busy_by_proc:
+        for c, secs in (busy or {}).items():
+            acc = cards.setdefault(c, {"busy_s": 0.0, "nccl_s": 0.0})
+            for k in acc:
+                acc[k] += secs.get(k, 0.0)
+    return {c: {"idle": round(1 - v["busy_s"] / t, 6),
+                "nccl": round(v["nccl_s"] / t, 6)}
+            for c, v in sorted(cards.items())}
+
+
+def _p25_ranks(card, specs, turn=""):
+    """The runs of ``specs`` on P25_RANKS spawned ranks (one launch: each
+    rank runs them in turn). Prints each rank's line a run; returns the
+    ranks' (arrays, record) and the launch's seconds."""
+    from dint_tpu_torch.testing import procs
+    t0 = time.perf_counter()
+    outs = procs.launch("runs", {"runs": specs}, P25_RANKS,
+                        deadline_s=P25_DEADLINE_S)
+    secs = time.perf_counter() - t0
+    for i, spec in enumerate(specs):
+        for arrays, rec in outs:
+            r = rec["runs"][i]
+            print(f"  p25 {spec['label']}{turn}, rank {rec['rank']} "
+                  f"({rec['backend']}, cards {rec['cards']}, partitions "
+                  f"{r['local']}): committed txn/s "
+                  f"{_p25_rate(spec, arrays[f'{i}/stats'], r['block_s']):.1f}"
+                  f" (the mesh's sum); block s "
+                  f"{[round(b, 6) for b in r['block_s']]}  [{card}]")
+        if spec.get("profile"):
+            runs = [rec["runs"][i] for _, rec in outs]
+            idle = _p25_idle([r["busy_s"] for r in runs],
+                             runs[0]["block_s"])
+            print(f"  p25 {spec['label']}{turn}, ranks: each card's idle "
+                  f"share of a block, and NCCL's kernels' {idle}  [{card}]")
+    print(f"  p25 ranks{turn}: {P25_RANKS} processes, "
+          f"{len(specs)} runs in {secs:.3f} s (spawn, join and build "
+          f"included)")
+    return outs, secs
+
+
+def _p25_one_process(dev, card, spec, devices=None, turn=""):
+    """``spec``'s run on the one-process mesh (every partition on ``dev``,
+    or on ``devices``): (stats, {partition: digests}, record)."""
+    from dint_tpu_torch import timing
+    from dint_tpu_torch.testing import procs
+    where = "one card" if devices is None else "spread"
+    mesh = procs.make_mesh(spec["engine"], spec["shape"],
+                           **({"device": dev} if devices is None
+                              else {"devices": devices}))
+    states, stats, _, block_s, busy = procs.drive(
+        spec["engine"], mesh, spec, {},
+        sync=lambda: timing.synchronize(mesh.cards))
+    digests = {p: procs.state_digests(states[p]) for p in range(mesh.size)}
+    del states
+    rate = _p25_rate(spec, stats, block_s)
+    idle = None if busy is None else _p25_idle([busy], block_s)
+    print(f"  p25 {spec['label']}{turn}, one process ({where}, cards "
+          f"{[str(c) for c in mesh.cards]}): committed txn/s {rate:.1f}; "
+          f"block s {[round(b, 6) for b in block_s]}"
+          + ("" if idle is None else
+             f"; each card's idle share of a block, and NCCL's kernels' "
+             f"{idle}") + f"  [{card}]")
+    return stats, digests, {"txn_s": rate, "idle": idle,
+                            "cards": [str(c) for c in mesh.cards]}
+
+
+def _p25_same(spec, i, outs, stats, digests):
+    """Every rank's stats == the one-process run's, and each partition's
+    digests (tables, backups, stamps, log rings and heads, host ints) ==
+    the one-process run's, partition by partition."""
+    n = 0
+    for arrays, rec in outs:
+        check(np.array_equal(arrays[f"{i}/stats"], stats),
+              f"{spec['label']}: rank {rec['rank']}'s stats of "
+              f"{stats.shape[0]} steps == the one-process mesh's",
+              quiet=True)
+        for p in rec["runs"][i]["local"]:
+            check(list(arrays[f"{i}/p{p}/digest"]) == digests[p],
+                  f"{spec['label']}: partition {p}'s digests", quiet=True)
+            n += 1
+    check(n == len(digests),
+          f"p25 {spec['label']} bit for bit across {P25_RANKS} processes: "
+          f"the stats of {stats.shape[0]} steps on every rank and the "
+          f"digests of {sum(len(d) for d in digests.values())} tensors and "
+          f"host ints of {n} partitions (tables, backups, stamps, log rings "
+          f"and heads) == the one-process mesh's")
+
+
+def _p25_launches(spec, i, outs) -> dict:
+    """The run's kernel launches summed over the ranks; checks each rank
+    launched its route's kernels on its partitions every step."""
+    total = {}
+    for arrays, rec in outs:
+        got = rec["runs"][i]["launches"]
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        steps = arrays[f"{i}/stats"].shape[0]
+        want = ("gather_rows", "lock_arbitrate") \
+            if spec["engine"] == "multihost" else ("gather_rows",)
+        per = len(rec["runs"][i]["local"])
+        check(all(got[k] == steps * per for k in want),
+              f"p25 {spec['label']}: rank {rec['rank']} launched "
+              f"{[k for k in want]} once a partition a step ({got})",
+              quiet=rec["rank"] > 0)
+    return total
+
+
+def phase_mesh_procs(dev, card, turns=0):
+    """Phase 25: the mesh across processes (see the module docstring).
+    ``turns`` > 0 (``--mesh-procs``): that many pairs of the ranks and the
+    one-process mesh spread over the visible cards, in turns, with the
+    cards' idle share of a profiled block."""
+    n_cards = torch.cuda.device_count()
+    print(f"== phase 25: the mesh across processes: {P25_RANKS} ranks, one a "
+          f"host ({n_cards} card(s) visible: "
+          f"{'gloo through the host, every rank on cuda:0' if n_cards < P25_RANKS else 'NCCL, one rank a card'}"
+          f"); TATP multihost at {N_SUB:,} over "
+          f"{P25_TATP_SHAPE[0]}x{P25_TATP_SHAPE[1]}, SmallBank at "
+          f"{MESH_SB_N:,} over {MH_SHAPE[0]}x{MH_SHAPE[1]} (hierarchical, "
+          f"flat), w={MESH_W} a partition, {MESH_CPB} cohorts/block, "
+          f"{P25_BLOCKS} blocks (the first warm) and the drain on host-made "
+          f"draws, bit for bit with the one-process mesh")
+    t0 = time.perf_counter()
+    specs = _p25_specs(profile=turns > 0)
+    order = ["ranks", "one process"] if turns == 0 else [
+        w for k in range(turns)
+        for w in (("ranks", "one process") if k % 2 == 0
+                  else ("one process", "ranks"))]
+    rec = {"cards": n_cards, "runs": {s["label"]: {"ranks": [], "one": []}
+                                      for s in specs}}
+    launches, one = [], {}
+    for k, where in enumerate(order):
+        turn = "" if turns == 0 else f" (turn {k + 1})"
+        if where == "ranks":
+            outs, _ = _p25_ranks(card, specs, turn)
+            launches.append(outs)
+            for i, spec in enumerate(specs):
+                runs = [x["runs"][i] for _, x in outs]
+                rec["runs"][spec["label"]]["ranks"].append({
+                    "idle": spec["profile"] and _p25_idle(
+                        [r["busy_s"] for r in runs], runs[0]["block_s"]),
+                    "ranks": [{
+                        "rank": x["rank"], "backend": x["backend"],
+                        "cards": x["cards"],
+                        "txn_s": _p25_rate(spec, a[f"{i}/stats"],
+                                           x["runs"][i]["block_s"]),
+                        "launches": x["runs"][i]["launches"]}
+                        for a, x in outs]})
+            continue
+        devices = None if turns == 0 else _p24_spread
+        for spec in specs:
+            stats, digests, r = _p25_one_process(
+                dev, card, spec, devices and devices(tuple(spec["shape"])),
+                turn)
+            rec["runs"][spec["label"]]["one"].append(r)
+            first = one.setdefault(spec["label"], (stats, digests))
+            check(np.array_equal(first[0], stats) and first[1] == digests,
+                  f"p25 {spec['label']}: the one-process run == its first",
+                  quiet=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+    paths = {}
+    for i, spec in enumerate(specs):
+        for outs in launches:
+            _p25_same(spec, i, outs, *one[spec["label"]])
+        paths[f"p25 {spec['label']}"] = _p25_launches(spec, i, launches[0])
+    rec["seconds"] = time.perf_counter() - t0
+    print("  phase 25 record: " + json.dumps(rec, default=str))
+    print(f"  phase 25: {rec['seconds']:.3f} s  [{card}]")
+    return paths
+
+
 TURN_BLOCKS = 8                  # timed blocks a path a turn
 
 
@@ -8455,6 +8705,14 @@ def main(argv=None) -> int:
                          "alone after phase 1, in place of the smoke run; "
                          "TURNS spread and one-card pairs a route, in turns "
                          "(default 1)")
+    ap.add_argument("--mesh-procs", type=int, nargs="?", const=1,
+                    metavar="TURNS",
+                    help="run phase 25 (the mesh across processes: NCCL, "
+                         "one rank a card, on several cards; gloo through "
+                         "the host on one) alone after phase 1, in place of "
+                         "the smoke run; TURNS pairs of the ranks and the "
+                         "one-process mesh spread over the cards, in turns, "
+                         "each with a profiled block (default 1)")
     ap.add_argument("--turns", metavar="DIR",
                     help="time the one-card paths of `turn_paths` for this "
                          "tree against the tree at DIR, in turns, in place "
@@ -8485,6 +8743,9 @@ def main(argv=None) -> int:
         return calibrate_only(dev, card, args.calibrate)
     if args.mesh_cards:
         phase_mesh_cards(dev, card, args.mesh_cards)
+        return 0
+    if args.mesh_procs:
+        phase_mesh_procs(dev, card, args.mesh_procs)
         return 0
     rec = {**phase_kernels(dev), **phase_sb_kernels(dev)}
     tatp_rec = phase_tatp_kernels(dev)
@@ -8551,6 +8812,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     store_paths.update(phase_mesh_cards(dev, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    store_paths.update(phase_mesh_procs(dev, card))
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -8566,8 +8830,10 @@ def main(argv=None) -> int:
         # and dry runs, phase 18's sharded SmallBank runs and dry run, and
         # phase 19's 2-D mesh runs, serving windows and exp points,
         # phase 20's traced blocks, phase 21's full-width blocks (the
-        # footprint's and the profiled one), and phase 24's spread mesh
-        # runs, each counted from 0 just before its run
+        # footprint's and the profiled one), phase 24's spread mesh runs
+        # and phase 25's runs across processes (counted in each rank's
+        # process from 0 just before its run, summed over the ranks),
+        # each counted from 0 just before its run
         paths = {**{f"tatp {k}": v[name] for k, v in tatp.items()},
                  **{f"smallbank {k}": v[name] for k, v in sb.items()},
                  **{k: v[name] for k, v in store_paths.items()}}
@@ -8659,6 +8925,12 @@ def main(argv=None) -> int:
                   for r in ("hier", "flat")),
           "phase 24: the spread mesh's runs launched their routes' "
           "kernels on the partitions' cards")
+    check(all(by_name[k]["p25 tatp multihost"] > 0
+              for k in ("gather_rows", "lock_arbitrate"))
+          and all(by_name["gather_rows"][f"p25 smallbank 3x2 {r}"] > 0
+                  for r in ("hier", "flat")),
+          "phase 25: the ranks launched their routes' kernels on their "
+          "partitions")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -62,7 +62,9 @@ JAX's stacked over a leading [D]) travels as
 
 A mesh state's converters place each partition on its own device: the
 mesh's (``mesh=``, `parallel.mesh.Mesh.devices`), or one device for all
-(``device``, None = CUDA).
+(``device``, None = CUDA). Over a mesh that spans processes each rank
+places only its own partitions of JAX's state; the others' entries are
+None.
 """
 from __future__ import annotations
 
@@ -91,8 +93,9 @@ TATP_HOT_LEAVES = ("hot_meta", "hot_val")
 
 def partition_devices(n: int, device=None, mesh=None) -> list:
     """The device of each of ``n`` partitions: ``mesh.devices`` (the
-    mesh's size must be ``n``), else ``device`` (None = CUDA) for every
-    partition."""
+    mesh's size must be ``n``; None for a partition of another rank, which
+    the converters leave None: each rank places only its own), else
+    ``device`` (None = CUDA) for every partition."""
     if mesh is None:
         return [resolve_device(device)] * n
     if device is not None:
@@ -344,7 +347,8 @@ def tatp_sharded_from_numpy(arrays: dict, device=None, mesh=None) -> list:
     port's list of D shards, shard d on its device (`partition_devices`)."""
     n = len(arrays["sub.ver"])
     devs = partition_devices(n, device, mesh)
-    return [tatp_shard_from_numpy(_replica(arrays, i), devs[i])
+    return [None if devs[i] is None
+            else tatp_shard_from_numpy(_replica(arrays, i), devs[i])
             for i in range(n)]
 
 
@@ -354,7 +358,8 @@ def smallbank_sharded_from_numpy(arrays: dict, device=None,
     port's list of D shards, shard d on its device (`partition_devices`)."""
     n = len(arrays["sav.ver"])
     devs = partition_devices(n, device, mesh)
-    return [smallbank_shard_from_numpy(_replica(arrays, i), devs[i])
+    return [None if devs[i] is None
+            else smallbank_shard_from_numpy(_replica(arrays, i), devs[i])
             for i in range(n)]
 
 
@@ -375,6 +380,9 @@ def sharded_state_from_numpy(arrays: dict, device=None, mesh=None) -> list:
     out = []
     for i in range(n):
         a, dev = _replica(flat, i), devs[i]
+        if dev is None:
+            out.append(None)
+            continue
         out.append(ShardState(db=dense_db_from_numpy(_sub(a, "db"), dev),
                               bck_val=from_numpy(a["bck_val"], dev),
                               bck_meta=from_numpy(a["bck_meta"], dev)))
@@ -412,6 +420,9 @@ def sharded_sb_from_numpy(arrays: dict, device=None, mesh=None) -> list:
     out = []
     for i in range(n):
         a, dev = _replica(arrays, i), devs[i]
+        if dev is None:
+            out.append(None)
+            continue
         hot = {k: from_numpy(a[k], dev) for k in HOT_LEAVES
                if a.get(k) is not None}
         out.append(SBShard(

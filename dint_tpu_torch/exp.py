@@ -68,6 +68,20 @@ What differs from exp.py:
   (occupancy + padded == width * batches).
 * ``device`` (None = CUDA) places every table; ``device="cpu"`` runs the
   plain path.
+* Across processes (``python -m torch.distributed.run --standalone
+  --nproc-per-node H -m dint_tpu_torch.exp --only multihost_sb``; the
+  standalone rendezvous takes a free port): one rank a host, joined by
+  `parallel.dist.initialize` from torchrun's environment (the mesh
+  ``DINT_BENCH_MESH``, default H x 2, whose hosts the world size must
+  divide). Only that leg runs, through the same sweep: every rank draws
+  the same blocks, and `stats.run_window`'s window spans the ranks
+  (`parallel.dist.Window`: it starts and ends on a barrier, each rank
+  synchronising its own cards at the end, and closes at the first block
+  boundary where any rank's clock has passed it, one host all_reduce a
+  block while the block in flight runs). Rank 0 writes the artifacts,
+  whose extra records the ``processes``, the ``backend`` and each rank's
+  cards. DINT_MONITOR, DINT_TRACE, DINT_EXP_TRACE_DIR and ``--skip-done``
+  are refused there.
 """
 from __future__ import annotations
 
@@ -94,6 +108,7 @@ from .engines.types import Op
 from .monitor import attrib, profiler_session
 from .monitor import counters as mon
 from .monitor import txnevents as txe
+from .parallel import dist
 from .parallel import multihost_sb as mhs
 from .serve import ControllerCfg, MeshServeEngine, ServeEngine
 from .serve import arrivals as arr
@@ -220,15 +235,20 @@ def _wrap_trace(run, init, ring_ix: int):
 
 
 def pipeline_closed(run, carry, drain, n_stats, *, window_s, cpb, depth,
-                    magic_idx, key_seed=0, device=None):
+                    magic_idx, key_seed=0, device=None, group=None):
     """Closed-loop window over a pipelined runner: two warm blocks, the
     timed `stats.run_window`, the drain. Latency is cohort-granularity (a
     txn completes ``depth`` steps after its cohort's dispatch). The
     magic-word check covers the warm blocks, the window and the drain.
     ``DINT_EXP_TRACE_DIR`` brackets the window with a profiler session
-    there. Returns (totals [n_stats], dt, percentiles, host cores,
-    counters or None, dinttrace summary or None)."""
+    there. ``group`` (a `dist.Group` of several ranks, each running its
+    part of the mesh): every rank draws the same blocks and the window
+    spans the ranks (`dist.Window` over the rank's cards, ``run.cards``).
+    Returns (totals [n_stats], dt, percentiles, host cores, counters or
+    None, dinttrace summary or None)."""
     dev = resolve_device(device)
+    ranks = None if group is None or group.size == 1 else dist.Window(
+        group, getattr(run, "cards", ()))
     s0 = np.zeros(n_stats, np.int64)
     for warm in (999_999, 999_998):
         carry, s = run(carry, _gen(dev, key_seed, warm))
@@ -237,7 +257,7 @@ def pipeline_closed(run, carry, drain, n_stats, *, window_s, cpb, depth,
     with profiler_session(os.environ.get("DINT_EXP_TRACE_DIR")):
         carry, total, warm_t, dt, _blocks, block_s = st.run_window(
             run, carry, _gen(dev, key_seed, 0), window_s, n_stats,
-            warmup_blocks=0)
+            warmup_blocks=0, ranks=ranks)
     cores = cpu.cores()
     tail, counters, ring = _drain(drain, carry)
     total = total + tail.sum(axis=0)
@@ -404,7 +424,8 @@ def _metric_json(att, com, dt, p, extra, breakdown=None):
 
 def sweep_pipeline(name, runner_fn, extras_fn, n_stats, *, widths, cpb,
                    depth, magic_idx, window_s, open_rates, results,
-                   lat_widths=(), point_extra=None, geom=None, device=None):
+                   lat_widths=(), point_extra=None, geom=None, device=None,
+                   group=None):
     """The closed-loop width ladder, then open-loop points at
     ``open_rates`` fractions of the ladder's peak (read from ``results``,
     so points loaded under ``--skip-done`` anchor it too), at the peak's
@@ -413,7 +434,8 @@ def sweep_pipeline(name, runner_fn, extras_fn, n_stats, *, widths, cpb,
     ``runner_fn(w, cpb)`` -> (run, carry, drain), fresh state.
     ``point_extra`` is recorded in every point's extras; ``geom`` (k/l/vw)
     feeds the breakdown's bytes formulas under DINT_EXP_TRACE_DIR, whose
-    attribution raises when it fails."""
+    attribution raises when it fails. ``group``: the closed points' window
+    spans its ranks (`pipeline_closed`)."""
     dev = resolve_device(device)
 
     def _breakdown(w):
@@ -427,7 +449,7 @@ def sweep_pipeline(name, runner_fn, extras_fn, n_stats, *, widths, cpb,
             run, carry, drain = runner_fn(w, cpb)
             total, dt, p, cores, counters, trace_sum = pipeline_closed(
                 run, carry, drain, n_stats, window_s=window_s, cpb=cpb,
-                depth=depth, magic_idx=magic_idx, device=dev)
+                depth=depth, magic_idx=magic_idx, device=dev, group=group)
             del run, carry, drain
             att, com, extra = extras_fn(total)
             extra.update(cores)
@@ -588,18 +610,27 @@ def _mesh_shape_or_skip(name, dev):
     return None
 
 
-def _mh_sb_runner(n_acc, w, cpb, hierarchical, device=None, extra=None):
+def _mh_sb_runner(n_acc, w, cpb, hierarchical, device=None, extra=None,
+                  group=None, shape=None):
     """(run, carry, drain) of SmallBank over the ``DINT_BENCH_MESH`` mesh
-    at ``n_acc`` global accounts, the hierarchical or the flat exchange;
-    ``device`` None spreads the mesh over the visible cards, whose
-    distinct devices go to ``extra["cards"]``."""
-    mesh = mhs.make_mesh_2d(*mhs.mesh_shape_from_env(), device)
+    (or ``shape``) at ``n_acc`` global accounts, the hierarchical or the
+    flat exchange; ``device`` None spreads the mesh over the visible
+    cards (the rank's, over a ``group``), whose distinct devices go to
+    ``extra["cards"]`` (every rank's, and each rank's as
+    ``extra["rank_cards"]``, over a group of several)."""
+    mesh = mhs.make_mesh_2d(*(shape or mhs.mesh_shape_from_env()), device,
+                            group=group)
     if extra is not None:
         extra["cards"] = [str(d) for d in mesh.cards]
+        if group is not None and group.size > 1:
+            extra["rank_cards"] = dist.gather_objects(group, extra["cards"])
+            extra["cards"] = sorted({c for cs in extra["rank_cards"]
+                                     for c in cs})
     run, init, drain = mhs.build_multihost_sb_runner(
         mesh, n_acc, w=w, cohorts_per_block=cpb, hierarchical=hierarchical,
         monitor=_monitor_on(), trace=_trace_on())
     run = _wrap_trace(run, init, SB_RING)
+    run.cards = mesh.cards
     return run, init(mhs.create_multihost_sb(mesh, n_acc)), drain
 
 
@@ -609,31 +640,56 @@ def _mh_sb_extras(total):
     return att, com, extra
 
 
+def _group_mesh_shape(group):
+    """``DINT_BENCH_MESH``'s (hosts, chips) for the leg across the ranks of
+    ``group`` (default: a host a rank, 2 chips each), which raises where
+    the leg cannot run: under DINT_MONITOR, DINT_TRACE or
+    DINT_EXP_TRACE_DIR (a rank sees its own partitions only), or with
+    fewer than 3 hosts."""
+    if _monitor_on() or _trace_on() or os.environ.get("DINT_EXP_TRACE_DIR"):
+        raise ValueError("the multihost_sb leg across processes runs "
+                         "without DINT_MONITOR, DINT_TRACE and "
+                         "DINT_EXP_TRACE_DIR")
+    n_hosts, n_ici = mhs.mesh_shape_from_env(default=f"{group.size}x2")
+    if n_hosts < 3:
+        raise ValueError(f"{n_hosts}x{n_ici}: the replication needs >= 3 "
+                         f"hosts")
+    return n_hosts, n_ici
+
+
 def sweep_multihost_sb(n_acc, *, width, cpb, window_s, results,
-                       device=None):
+                       device=None, group=None):
     """exp.py's ``multihost_sb`` leg: the hierarchical-vs-flat exchange
     A/B over the ``DINT_BENCH_MESH`` mesh, one closed point each
     (``multihost_sb_{hier,flat}_closed_w{width}``), the same global
     geometry and outputs; the points carry the mesh, ``hierarchical`` and
-    the ``cards`` of the mesh their runner built."""
+    the ``cards`` of the mesh their runner built. ``group`` (a
+    `dist.Group` of several ranks): one rank a host, or a block of hosts
+    (`_group_mesh_shape`); the window spans the ranks and the points also
+    carry the ``processes``, the ``backend`` and ``rank_cards``."""
+    across = group is not None and group.size > 1
     dev = resolve_device(device)
-    shape = _mesh_shape_or_skip("multihost_sb", dev)
+    shape = _group_mesh_shape(group) if across else \
+        _mesh_shape_or_skip("multihost_sb", dev)
     if shape is None:
         return
     n_hosts, n_ici = shape
     mesh_extra = {"n_shards": n_hosts * n_ici,
                   "mesh": {"n_hosts": n_hosts, "n_ici": n_ici,
                            "axes": [mhs.DCN_AXIS, mhs.ICI_AXIS]}}
+    if across:
+        mesh_extra.update(processes=group.size, backend=group.backend)
     for tag, hier in (("hier", True), ("flat", False)):
         extra = dict(mesh_extra, hierarchical=hier)
         sweep_pipeline(
             f"multihost_sb_{tag}",
-            lambda w, b, h=hier, e=extra: _mh_sb_runner(n_acc, w, b, h,
-                                                        device, e),
+            lambda w, b, h=hier, e=extra: _mh_sb_runner(
+                n_acc, w, b, h, device, e, group=group, shape=shape),
             _mh_sb_extras, mhs.N_STATS, widths=[width], cpb=cpb, depth=2,
             magic_idx=mhs.STAT_MAGIC_BAD, window_s=window_s, open_rates=(),
             results=results, point_extra=extra,
-            geom={"l": 3, "vw": 2, "d": n_hosts * n_ici}, device=dev)
+            geom={"l": 3, "vw": 2, "d": n_hosts * n_ici}, device=dev,
+            group=group)
 
 
 def sweep_serve_mesh(name, n_acc, *, window_s, open_rates, results,
@@ -1152,16 +1208,28 @@ class _ResultSink(dict):
 def run(out: str, window_s: float = 10.0, quick: bool = False,
         only: str | None = None, skip_done: bool = False,
         hot_frac: float | None = None, hot_prob: float | None = None,
-        use_hotset=None, device=None) -> dict:
+        use_hotset=None, device=None, group=None) -> dict:
     """exp.py's `run_all`: the TATP and SmallBank pipeline legs, the mesh
     leg, the skew preset, the serve legs and the mesh serve leg, then
     `sweep_micro`,
     into ``out``; then ``out/summary.json``. ``only`` is a name substring
     filter both ways (``--only tatp`` runs tatp_closed_w256,
-    ``--only tatp_closed`` passes the coarse ``tatp`` gate)."""
+    ``--only tatp_closed`` passes the coarse ``tatp`` gate). ``group`` (a
+    `dist.Group` of several ranks): ``only`` must name the
+    ``multihost_sb`` leg, which runs across the ranks, and rank 0 writes
+    (``--skip-done`` is refused, since the ranks must run the same
+    points)."""
     dev = resolve_device(device)
-    os.makedirs(out, exist_ok=True)
-    results = _ResultSink(out, skip_done=skip_done)
+    across = group is not None and group.size > 1
+    if across and (only is None or "multihost_sb" not in only
+                   or skip_done):
+        raise ValueError("across processes exp runs the multihost_sb leg "
+                         "only, without --skip-done: pass --only "
+                         "multihost_sb")
+    writes = not across or group.rank == 0
+    if writes:
+        os.makedirs(out, exist_ok=True)
+    results = _ResultSink(out, skip_done=skip_done) if writes else {}
 
     # the reference's scale: 7M subscribers (tatp/caladan/tatp.h:28), 24M
     # accounts (smallbank.h:16); the peak width first, then the latency
@@ -1200,7 +1268,8 @@ def run(out: str, window_s: float = 10.0, quick: bool = False,
                        geom={"l": sd.L, "vw": sd.VW}, device=dev)
     if want("multihost_sb") and not skew_preset:
         sweep_multihost_sb(n_acc, width=256 if quick else 8192, cpb=cpb,
-                           window_s=window_s, results=results, device=dev)
+                           window_s=window_s, results=results, device=dev,
+                           group=group)
     if skew_preset:
         sweep_skew(n_acc, width=256 if quick else 8192, cpb=cpb,
                    window_s=window_s, results=results, hot_prob=hot_prob,
@@ -1224,8 +1293,11 @@ def run(out: str, window_s: float = 10.0, quick: bool = False,
                 device=dev)
     summary = {"configs": sorted(results), "window_s": window_s,
                "quick": quick}
-    with open(os.path.join(out, "summary.json"), "w") as f:
-        json.dump(summary, f, indent=1)
+    if across:
+        summary["processes"] = group.size
+    if writes:
+        with open(os.path.join(out, "summary.json"), "w") as f:
+            json.dump(summary, f, indent=1)
     return results
 
 
@@ -1244,12 +1316,22 @@ def main(argv=None) -> int:
     ap.add_argument("--hot-prob", type=float, default=None,
                     help="SmallBank hot-set probability (default: the "
                          "reference's 90%%)")
+    ap.add_argument("--device", default=None,
+                    help="cpu for the plain path (default: the card)")
     args = ap.parse_args(argv)
     if args.quick and args.window == 10.0:
         args.window = 1.0
-    results = run(args.out, window_s=args.window, quick=args.quick,
-                  only=args.only, skip_done=args.skip_done,
-                  hot_frac=args.hot_frac, hot_prob=args.hot_prob)
+    group = dist.initialize(device=args.device) if dist.from_env() else None
+    try:
+        results = run(args.out, window_s=args.window, quick=args.quick,
+                      only=args.only, skip_done=args.skip_done,
+                      hot_frac=args.hot_frac, hot_prob=args.hot_prob,
+                      device=args.device, group=group)
+    finally:
+        if group is not None:
+            dist.shutdown()
+    if group is not None and group.rank:
+        return 0
     for name in sorted(results):
         r = results[name]
         print(f"{name}: goodput={r['goodput']:.0f}/s "

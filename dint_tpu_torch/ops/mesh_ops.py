@@ -29,13 +29,30 @@ when every partition shared one device. An operator returns fresh
 tensors, never an alias of its input, so a ``ppermute`` copies the
 records it moves, on one card too. Arguments that do not fit the mesh
 raise; nothing falls back.
+
+A mesh across processes (`parallel.dist`, one rank a host) calls the same
+operators with the same schemas, holding only its own partitions'
+tensors (``Tensor[]`` has no None), inside `across`, which binds the
+call to the mesh's process group and its partitions' ranks. A move
+between two of the rank's partitions is a copy as above; what crosses
+ranks goes by point-to-point messages, one a pair of ranks a call (every
+tensor for that rank packed into one byte buffer, 16-byte aligned, and
+one ``batch_isend_irecv`` for all of the call's messages). A ``psum``
+sums the rank's partitions, then takes one ``all_reduce`` in their
+dtype. With gloo on CUDA tensors the buffers are staged through host
+memory. A receiver sizes a message from its own entry: across ranks a
+``ppermute``'s entries share their shapes and dtypes (every runner's do),
+and a rank whose own entries differ raises.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
+import threading
 
 import torch
+import torch.distributed as tdist
 
 NAMESPACE = "dint_mesh"
 
@@ -52,6 +69,52 @@ SCHEMAS = {
 }
 
 COLLECTIVES = frozenset(f"{NAMESPACE}::{n}" for n in SCHEMAS)
+
+
+class Across:
+    """What a mesh across processes binds its collective calls to: the
+    rank's `parallel.dist.Group`, the rank of each flat partition
+    (``rank_of``) and the partitions this rank holds (``local``, in flat
+    order: a call's ``xs`` holds theirs, partition-major)."""
+
+    def __init__(self, group, rank_of):
+        self.group = group
+        self.rank_of = tuple(int(r) for r in rank_of)
+        self.local = tuple(p for p, r in enumerate(self.rank_of)
+                           if r == group.rank)
+
+
+_BOUND = threading.local()
+
+
+@contextlib.contextmanager
+def across(binding: Across):
+    """Calls of the ``dint_mesh`` operators inside this block run across
+    the ranks of ``binding`` (this thread only)."""
+    stack = _BOUND.__dict__.setdefault("stack", [])
+    stack.append(binding)
+    try:
+        yield binding
+    finally:
+        stack.pop()
+
+
+def bound() -> Across | None:
+    """The binding of the innermost `across` block, None outside one (a
+    mesh in one process)."""
+    stack = _BOUND.__dict__.get("stack")
+    return stack[-1] if stack else None
+
+
+def entry_partitions(n_tensors: int, mesh_shape) -> list:
+    """The flat partition whose entry holds each of a call's
+    ``n_tensors`` tensors: every partition in one process, the rank's own
+    (`Across.local`) inside `across`."""
+    b = bound()
+    parts = b.local if b is not None else range(math.prod(
+        int(n) for n in mesh_shape))
+    per = n_tensors // max(len(parts), 1)
+    return [parts[k // per] for k in range(n_tensors)] if per else []
 
 
 def _coords(p: int, shape) -> list:
@@ -75,10 +138,12 @@ def _check(xs, mesh_shape, mesh_axes):
         raise ValueError(f"mesh shape {shape} and axes {tuple(mesh_axes)} "
                          "do not match")
     size = math.prod(shape)
-    if not xs or len(xs) % size:
-        raise ValueError(f"{len(xs)} tensors for {size} partitions")
-    leaves = len(xs) // size
-    for p in range(size):
+    b = bound()
+    entries = size if b is None else len(b.local)
+    if not xs or len(xs) % entries:
+        raise ValueError(f"{len(xs)} tensors for {entries} partitions")
+    leaves = len(xs) // entries
+    for p in range(entries):
         own = xs[p * leaves:(p + 1) * leaves]
         if any(x.device != own[0].device for x in own):
             raise ValueError(f"partition {p}'s tensors are on different "
@@ -135,6 +200,9 @@ def _ppermute(xs, axis, perm, mesh_shape, mesh_axes, make):
     """``make(sender's leaf, receiver's device)`` for every receiving
     partition's leaves, zeros on its own device for the others."""
     shape, size = _check(xs, mesh_shape, mesh_axes)
+    if bound() is not None:
+        return _ppermute_across(bound(), xs, axis, perm, shape, mesh_axes,
+                                make)
     leaves = len(xs) // size
     srcs = ppermute_sources(axis, perm, mesh_shape, mesh_axes)
     out = []
@@ -163,7 +231,8 @@ def _exchange_axis(axes, mesh_shape, mesh_axes):
 
 def _a2a_check(xs, axes, mesh_shape, mesh_axes):
     shape, size = _check(xs, mesh_shape, mesh_axes)
-    if len(xs) != size:
+    b = bound()
+    if len(xs) != (size if b is None else len(b.local)):
         raise ValueError(f"{len(xs)} tensors for {size} partitions")
     grid, i = _exchange_axis(axes, mesh_shape, mesh_axes)
     rows = xs[0].shape[0] if xs[0].dim() else 0
@@ -207,6 +276,8 @@ def _exchange_plan(devs, grid, i):
 
 def _all_to_all(xs, axes, mesh_shape, mesh_axes):
     grid, i, size = _a2a_check(xs, axes, mesh_shape, mesh_axes)
+    if bound() is not None:
+        return _all_to_all_across(bound(), xs, grid, i)
     n = grid[i]
     rows, *rest = xs[0].shape
     cap = rows // n
@@ -232,7 +303,9 @@ def _all_to_all_fake(xs, axes, mesh_shape, mesh_axes):
 
 def _psum_check(xs, axes, mesh_shape, mesh_axes):
     shape, size = _check(xs, mesh_shape, mesh_axes)
-    if len(xs) != size or tuple(axes) != tuple(mesh_axes):
+    b = bound()
+    if len(xs) != (size if b is None else len(b.local)) \
+            or tuple(axes) != tuple(mesh_axes):
         raise ValueError(f"psum takes one tensor a partition over every "
                          f"axis {tuple(mesh_axes)}; got {len(xs)} over "
                          f"{tuple(axes)}")
@@ -245,13 +318,183 @@ def _psum(xs, axes, mesh_shape, mesh_axes):
     _psum_check(xs, axes, mesh_shape, mesh_axes)
     home = xs[0].device
     # on the home device, in the partitions' dtype: int32 wraps, as JAX's
-    return torch.stack([x.to(home, non_blocking=True) for x in xs]).sum(
+    out = torch.stack([x.to(home, non_blocking=True) for x in xs]).sum(
         0, dtype=xs[0].dtype)
+    if bound() is not None:     # then over the ranks, in the same dtype
+        out = _all_reduce(bound().group, out)
+    return out
 
 
 def _psum_fake(xs, axes, mesh_shape, mesh_axes):
     _psum_check(xs, axes, mesh_shape, mesh_axes)
     return torch.empty_like(xs[0])
+
+
+# ------------------------------------------------------ across processes
+
+_ALIGN = 16      # bytes: every tensor of a message starts aligned
+
+
+def _nbytes(shape, dtype) -> int:
+    n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+    return n + (-n) % _ALIGN
+
+
+def _pack(group, ts) -> torch.Tensor:
+    """``ts`` as one uint8 buffer (each tensor's bytes padded to
+    ``_ALIGN``) on the wire device."""
+    wire = group.wire
+    parts = []
+    for t in ts:
+        b = t.contiguous().reshape(-1).view(torch.uint8)
+        parts.append(b)
+        if b.numel() % _ALIGN:
+            parts.append(torch.zeros((-b.numel()) % _ALIGN,
+                                     dtype=torch.uint8, device=b.device))
+    if not parts:
+        return torch.zeros(0, dtype=torch.uint8, device=wire)
+    if len({x.device for x in parts}) > 1:
+        parts = [x.to(wire) for x in parts]
+    buf = torch.cat(parts)      # one copy to the wire, where it is not there
+    return buf if buf.device == wire else buf.to(wire)
+
+
+def _unpack(buf, specs) -> list:
+    """The tensors of a received buffer, one (shape, dtype, device) a
+    tensor: views of the buffer copied to their device where it is not
+    there (one copy a device)."""
+    on = {}
+    out, off = [], 0
+    for shape, dtype, dev in specs:
+        n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        if dev not in on:
+            on[dev] = buf if buf.device == dev else buf.to(dev)
+        out.append(on[dev][off:off + n].view(dtype).reshape(shape))
+        off += n + (-n) % _ALIGN
+    return out
+
+
+def _p2p(group, sends: dict, recvs: dict):
+    """One ``batch_isend_irecv`` of every buffer of ``sends`` {rank:
+    tensor} and into every buffer of ``recvs`` {rank: tensor}, waited
+    on."""
+    ops = [tdist.P2POp(tdist.isend, buf, r, group.pg)
+           for r, buf in sorted(sends.items())]
+    ops += [tdist.P2POp(tdist.irecv, buf, r, group.pg)
+            for r, buf in sorted(recvs.items())]
+    if ops:
+        for work in tdist.batch_isend_irecv(ops):
+            work.wait()
+
+
+def _exchange(b: Across, sends: dict, recvs: dict) -> dict:
+    """Move ``sends`` {rank: [tensor]} to their ranks and receive
+    ``recvs`` {rank: [(shape, dtype, device)]} from theirs: one message a
+    pair of ranks. Returns {rank: [tensor]} in the order of ``recvs``."""
+    g = b.group
+    wire = g.wire
+    bufs = {r: torch.empty(sum(_nbytes(s, d) for s, d, _ in specs),
+                           dtype=torch.uint8, device=wire)
+            for r, specs in recvs.items()}
+    _p2p(g, {r: _pack(g, ts) for r, ts in sends.items()}, bufs)
+    return {r: _unpack(bufs[r], specs) for r, specs in recvs.items()}
+
+
+def _ppermute_across(b: Across, xs, axis, perm, shape, mesh_axes, make):
+    """`_ppermute` for the rank's own partitions: a sender on this rank
+    hands ``make(leaf, device)`` to its receiver, one on another rank
+    sends its leaves in the call's message to that rank; a receiver sizes
+    what it gets from its own leaves, so the rank's entries must share
+    their shapes and dtypes."""
+    nl = len(b.local)
+    leaves = len(xs) // nl
+    for k in range(leaves):
+        if any(xs[i * leaves + k].shape != xs[k].shape
+               or xs[i * leaves + k].dtype != xs[k].dtype
+               for i in range(1, nl)):
+            raise ValueError("across ranks a ppermute's entries share their "
+                             f"shapes and dtypes; leaf {k} differs")
+    pos = {p: i for i, p in enumerate(b.local)}
+    srcs = ppermute_sources(axis, perm, shape, mesh_axes)
+    me, fake = b.group.rank, make is not _moved
+    out = [None] * len(xs)
+    sends, recvs, slots = {}, {}, {}
+    for p, s in enumerate(srcs):
+        mine = p in pos
+        if mine:
+            base = pos[p] * leaves
+            dev = xs[base].device
+        if s < 0:
+            if mine:
+                for k in range(leaves):
+                    out[base + k] = torch.zeros_like(xs[base + k])
+            continue
+        if mine and s in pos:
+            for k in range(leaves):
+                out[base + k] = make(xs[pos[s] * leaves + k], dev)
+        elif s in pos and not fake:
+            sends.setdefault(b.rank_of[p], []).extend(
+                xs[pos[s] * leaves:(pos[s] + 1) * leaves])
+        elif mine:
+            if fake:
+                for k in range(leaves):
+                    out[base + k] = make(xs[base + k], dev)
+                continue
+            r = b.rank_of[s]
+            recvs.setdefault(r, []).extend(
+                (tuple(x.shape), x.dtype, dev)
+                for x in xs[base:base + leaves])
+            slots.setdefault(r, []).extend(range(base, base + leaves))
+    if not fake:
+        for r, got in _exchange(b, sends, recvs).items():
+            for i, t in zip(slots[r], got):
+                out[i] = t
+    return out
+
+
+def _all_to_all_across(b: Across, xs, grid, i):
+    """`_all_to_all` for the rank's own partitions: receiver q's slot j
+    is bucket q[i] of the sender at q's coordinates with j along the
+    axis; the buckets between two ranks travel in one message, those
+    within the rank are slices. Each receiver's slots are concatenated on
+    its device."""
+    n = grid[i]
+    rows, *rest = xs[0].shape
+    cap = rows // n
+    pos = {p: k for k, p in enumerate(b.local)}
+    pieces = {q: [None] * n for q in b.local}
+    sends, recvs, slots = {}, {}, {}
+    for q in range(len(b.rank_of)):
+        c = _coords(q, grid)
+        bucket = c[i]
+        for j in range(n):
+            s = _flat(c[:i] + [j] + c[i + 1:], grid)
+            if q in pos and s in pos:
+                piece = xs[pos[s]][bucket * cap:(bucket + 1) * cap]
+                dev = xs[pos[q]].device
+                pieces[q][j] = piece if piece.device == dev else \
+                    piece.to(dev, non_blocking=True)
+            elif s in pos:
+                sends.setdefault(b.rank_of[q], []).append(
+                    xs[pos[s]][bucket * cap:(bucket + 1) * cap])
+            elif q in pos:
+                r = b.rank_of[s]
+                recvs.setdefault(r, []).append(
+                    ((cap, *rest), xs[0].dtype, xs[pos[q]].device))
+                slots.setdefault(r, []).append((q, j))
+    for r, got in _exchange(b, sends, recvs).items():
+        for (q, j), t in zip(slots[r], got):
+            pieces[q][j] = t
+    return [torch.cat(pieces[q]) for q in b.local]
+
+
+def _all_reduce(group, x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group`` (one ``all_reduce``, in
+    ``x``'s dtype: int32 wraps whatever the order), on ``x``'s device."""
+    wire = group.wire
+    buf = x.to(wire) if x.device != wire else x
+    tdist.all_reduce(buf, op=tdist.ReduceOp.SUM, group=group.pg)
+    return buf if buf.device == x.device else buf.to(x.device)
 
 
 LIB = torch.library.Library(NAMESPACE, "DEF")

@@ -1,9 +1,14 @@
 """The multi-device paths of the port (the port of `dint_tpu.parallel`),
-on an in-process mesh (`mesh.Mesh`): the partitions are a list, each on
-its own device (the visible cards by `mesh.placement`, or one device for
-all), and `ppermute`, `all_to_all` and `psum` are `dint_mesh` operators
-over the whole list (ops/mesh_ops.py), one node a call in a trace, the
-only place one partition's data reaches another's card.
+on a mesh (`mesh.Mesh`): the partitions are a list, each on its own
+device (the visible cards by `mesh.placement`, or one device for all),
+driven by one process or by one process a host (`dist`, the counterpart
+of ``jax.distributed``: each rank holds a block of the list), and
+`ppermute`, `all_to_all` and `psum` are `dint_mesh` operators over the
+partitions' tensors (ops/mesh_ops.py), one node a call in a trace, the
+only place one partition's data reaches another's card or rank.
+
+* `dist` — the process group: `initialize` (torchrun's environment or
+  explicit arguments; gloo or NCCL by the placement), `shutdown`.
 
 * `sharded` — the generic engines over a partitioned keyspace with
   primary-backup replication (`build_sharded_step`, `route_batches`).
@@ -19,5 +24,5 @@ only place one partition's data reaches another's card.
   hierarchical or flat exchanges, the backups on the next two hosts, the
   serve and double-buffered (overlap) routes of the mesh serving plane.
 """
-from . import (dense_sharded, dense_sharded_sb, mesh, multihost,  # noqa: F401
-               multihost_sb, sharded)
+from . import (dense_sharded, dense_sharded_sb, dist, mesh,  # noqa: F401
+               multihost, multihost_sb, sharded)

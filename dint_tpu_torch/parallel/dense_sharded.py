@@ -22,9 +22,11 @@ sentinel row); locks are primary-side state only.
 
 The mesh is a list of shards, each on its partition's device (`mesh.py`:
 one card a shard, or several shards sharing one), driven phase by phase
-from one thread, so the order of work within a step is explicit: every
-shard's `pipe_step` first, then hop 1 applied on every shard, then hop 2,
-as JAX's program orders them on each device. A hop's record reaches its
+from one thread a process (over a process group, each rank drives its
+own shards, `Mesh.local`, and the others' entries are None), so the
+order of work within a step is explicit: every shard's `pipe_step`
+first, then hop 1 applied on every shard, then hop 2, as JAX's program
+orders them on each device. A hop's record reaches its
 receiver's card inside `Mesh.ppermute`; nothing else crosses cards. A
 shard's log sees its own append, the hop-1 record and then the hop-2
 record. The backup installs and the log appends are plain torch writes,
@@ -32,9 +34,10 @@ as JAX's are XLA scatters outside any Pallas kernel; each shard's
 `pipe_step` launches its route's kernels.
 
 What differs from JAX: the draws come in from outside (``run.run_draws``,
-on any device: partition p's slice is copied to its card), the states
-are updated in place, and the step counter is a host int a shard (all
-shards advance in lockstep).
+on any device: partition p's slice is copied to its card; across
+processes every rank takes the whole block and keeps its shards'
+slices), the states are updated in place, and the step counter is a
+host int a shard (all shards advance in lockstep).
 """
 from __future__ import annotations
 
@@ -77,36 +80,38 @@ def _with_backups(mesh: Mesh, axis: str, dbs: list) -> list:
     ``axis`` (its val and meta without the sentinel row, then one zero
     sentinel row), on p's device. The backups are fresh tensors, never
     views of a primary."""
-    vw = dbs[0].val_words
-    prims = [(db.val[:-vw], db.meta[:-1]) for db in dbs]
+    vw = dbs[mesh.local[0]].val_words
+    prims = [None if db is None else (db.val[:-vw], db.meta[:-1])
+             for db in dbs]
     srcs = {off: mesh.ppermute(prims, axis, off) for off in (1, 2)}
-    out = []
-    for p, db in enumerate(dbs):
+    out = [None] * mesh.size
+    for p in mesh.local:
+        db = dbs[p]
         zv = db.val.new_zeros(vw)
         zm = db.meta.new_zeros(1)
-        out.append(ShardState(
+        out[p] = ShardState(
             db=db,
             bck_val=torch.cat([srcs[1][p][0], zv, srcs[2][p][0], zv]),
-            bck_meta=torch.cat([srcs[1][p][1], zm, srcs[2][p][1], zm])))
+            bck_meta=torch.cat([srcs[1][p][1], zm, srcs[2][p][1], zm]))
     return out
 
 
 def create_sharded(mesh: Mesh, n_shards: int, n_sub_global: int,
                    val_words: int = 10, seed: int = 0, **kw) -> list:
-    """One `ShardState` a partition on its partition's device. Shard d's
+    """One `ShardState` a partition on its partition's device (over a
+    group, the rank's partitions only; None for the others'). Shard d's
     tables are `tatp_dense.populate(np.random.default_rng(seed + d),
     n_loc, log_replicas=1)`, bit-identical to JAX's (reference populate,
     client_ebpf_shard.cc:96-341); its backups start as its predecessors'
-    populated rows."""
+    populated rows (taken over the group)."""
     if n_shards != mesh.size:
         raise ValueError(f"n_shards={n_shards} on a mesh of {mesh.size}")
     n_loc = n_sub_local(n_sub_global, n_shards)
     # log_replicas=1: the 3 log copies live on 3 shards (each receiver
     # appends the forwarded installs), not packed a slot
-    dbs = [td.populate(np.random.default_rng(seed + d), n_loc,
-                       val_words=val_words, log_replicas=1,
-                       device=mesh.device_of(d), **kw)
-           for d in range(n_shards)]
+    dbs = mesh.map_local(lambda d: td.populate(
+        np.random.default_rng(seed + d), n_loc, val_words=val_words,
+        log_replicas=1, device=mesh.device_of(d), **kw))
     return _with_backups(mesh, SHARD_AXIS, dbs)
 
 
@@ -140,14 +145,14 @@ def _runner(mesh: Mesh, axis: str, n_sub_global: int, w: int,
     ``"dcn"``)."""
     if 2 * w > (1 << td.K_ARB):
         raise ValueError(f"w={w} exceeds the arb slot field")
-    home, devs = mesh.device, mesh.devices
+    home, devs, local = mesh.device, mesh.devices, mesh.local
     n_parts, cpb = mesh.size, cohorts_per_block
     n_loc = n_sub_local(n_sub_global, n_parts)
     n1 = td.n_rows(n_loc) + 1
     # the step's device constants, once a card
-    kws = [dict(w=w, n_sub=n_loc, val_words=val_words, mix=mix,
-                use_fused=use_fused, emit_installs=True, consts=c)
-           for c in mesh.per_partition(
+    kws = [None if c is None else dict(
+        w=w, n_sub=n_loc, val_words=val_words, mix=mix, use_fused=use_fused,
+        emit_installs=True, consts=c) for c in mesh.per_partition(
                lambda d: td.step_consts(n_loc, w, mix, d))]
 
     def step(carry, bits, payload, gen_new=True):
@@ -155,17 +160,13 @@ def _runner(mesh: Mesh, axis: str, n_sub_global: int, w: int,
         # a shard applies what its predecessors emitted THIS step
         states, c1s, c2s = carry[:3]
         cnts = carry[3] if monitor else [None] * n_parts
-        insts, stats, new_c1, new_c2 = [], [], [], []
-        for p in range(n_parts):
+        insts, stats, new_c1, new_c2 = ([None] * n_parts for _ in range(4))
+        for p in local:
             out = td.pipe_step(states[p].db, c1s[p], c2s[p],
                                mesh.to_partition(bits[p], p) if gen_new
                                else None, mesh.to_partition(payload[p], p),
                                gen_new=gen_new, counters=cnts[p], **kws[p])
-            _, new_ctx, c1, s, inst = out[:5]
-            new_c1.append(new_ctx)
-            new_c2.append(c1)
-            stats.append(s)
-            insts.append(inst)
+            _, new_c1[p], new_c2[p], stats[p], insts[p] = out[:5]
         # CommitBck + CommitLog fan-out: shard p applies the records of
         # p-1 (hop 1, backup slot 0) and p-2 (hop 2, slot 1) along axis
         with waves.scope("dense_sharded", "replicate"):
@@ -173,7 +174,7 @@ def _runner(mesh: Mesh, axis: str, n_sub_global: int, w: int,
                 fwd = mesh.ppermute(insts, axis, off)
                 hop = (mon.CTR_REPL_PUSH_HOP1 if off == 1
                        else mon.CTR_REPL_PUSH_HOP2)
-                for p in range(n_parts):
+                for p in local:
                     if monitor:
                         # replication pushes, counted where they are
                         # applied (the receiving backup)
@@ -189,9 +190,9 @@ def _runner(mesh: Mesh, axis: str, n_sub_global: int, w: int,
             raise ValueError(f"expected bits {list(want_b)} and payload "
                              f"{list(want_p)}, got {tuple(bits.shape)} and "
                              f"{tuple(payload.shape)}")
-        for st in carry[0]:
-            if st.db.step >= td.REBASE_AT:
-                td.rebase_stamps(st.db)
+        for p in local:
+            if carry[0][p].db.step >= td.REBASE_AT:
+                td.rebase_stamps(carry[0][p].db)
         stats = []
         for i in range(cpb):
             carry, s = step(carry, bits[i], payload[i])
@@ -213,14 +214,16 @@ def _runner(mesh: Mesh, axis: str, n_sub_global: int, w: int,
         if len(states) != n_parts:
             raise ValueError(f"{len(states)} states for {n_parts} "
                              f"partitions")
-        for p, st in enumerate(states):
-            if st.db.meta.device != devs[p]:
+        for p in local:
+            if states[p] is None or states[p].db.meta.device != devs[p]:
                 raise ValueError(f"partition {p}'s tables on "
-                                 f"{st.db.meta.device}, its mesh device "
-                                 f"{devs[p]}")
-        ctxs = [[td.empty_ctx(w, d) for d in devs] for _ in range(2)]
+                                 f"{states[p] and states[p].db.meta.device}"
+                                 f", its mesh device {devs[p]}")
+        ctxs = [mesh.map_local(lambda p: td.empty_ctx(w, devs[p]))
+                for _ in range(2)]
         return ((list(states), *ctxs)
-                + (([mon.create(d) for d in devs],) if monitor else ()))
+                + ((mesh.map_local(lambda p: mon.create(devs[p])),)
+                   if monitor else ()))
 
     def drain(carry, payload=None):
         if payload is None:

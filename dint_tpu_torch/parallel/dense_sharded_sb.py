@@ -53,9 +53,10 @@ The routing, the replies, the backups and the forwarded log appends are
 plain torch work on every route, as JAX's are XLA outside its kernels.
 
 The mesh is a list of partitions, each on its own device (`mesh.py`: one
-card a partition, or several sharing one), driven from one thread, so a
-step runs phase by phase over all partitions, never partition by
-partition (`_Phases`,
+card a partition, or several sharing one), driven from one thread a
+process (over a process group, each rank's phases loop over its own
+partitions, `Mesh.local`), so a step runs phase by phase over all
+partitions, never partition by partition (`_Phases`,
 which `multihost_sb` runs too, with its 2-D exchange and replication
 axis): every partition generates and routes, one `all_to_all`; every
 owner arbitrates and reads; the replies; every source classifies; every
@@ -161,13 +162,15 @@ def _check_mesh(mesh: Mesh, n_shards: int):
 
 
 def _check_placement(mesh: Mesh, states: list):
-    """Each partition's state on its own mesh device."""
+    """Each local partition's state on its own mesh device."""
     if len(states) != mesh.size:
         raise ValueError(f"{len(states)} states for {mesh.size} partitions")
-    for p, st in enumerate(states):
-        if st.bal.device != mesh.device_of(p):
-            raise ValueError(f"partition {p}'s tables on {st.bal.device}, "
-                             f"its mesh device {mesh.device_of(p)}")
+    for p in mesh.local:
+        st = states[p]
+        if st is None or st.bal.device != mesh.device_of(p):
+            raise ValueError(f"partition {p}'s tables on "
+                             f"{st and st.bal.device}, its mesh device "
+                             f"{mesh.device_of(p)}")
 
 
 def attach_hotset_sb(mesh: Mesh, states: list, hot_loc: int) -> list:
@@ -175,16 +178,17 @@ def attach_hotset_sb(mesh: Mesh, states: list, hot_loc: int) -> list:
     hot_loc)`` (clamped to [1, n_loc]) built from their current tables;
     the mirrors are fresh tensors, never views."""
     _check_mesh(mesh, len(states))
-    n_loc = states[0].bal.shape[0] // 2
+    n_loc = states[mesh.local[0]].bal.shape[0] // 2
     hot_loc = int(min(max(int(hot_loc), 1), n_loc))
-    out = []
-    for st in states:
+
+    def attach(p):
+        st = states[p]
         ar = torch.arange(hot_loc, device=st.bal.device)
         idx = torch.cat([ar, n_loc + ar])
-        out.append(dataclasses.replace(
+        return dataclasses.replace(
             st, hot_bal=st.bal[idx], hot_x=st.x_step[idx],
-            hot_s=st.s_step[idx], hot_loc=hot_loc))
-    return out
+            hot_s=st.s_step[idx], hot_loc=hot_loc)
+    return mesh.map_local(attach)
 
 
 def create_sharded_sb(mesh: Mesh, n_shards: int, n_accounts: int,
@@ -212,14 +216,20 @@ def create_sharded_sb(mesh: Mesh, n_shards: int, n_accounts: int,
             log=logring.create_rep(log_lanes, log_capacity, VW, replicas=1,
                                    device=dev))
 
-    return [one(mesh.device_of(p)) for p in range(n_shards)]
+    return mesh.map_local(lambda p: one(mesh.device_of(p)))
 
 
-def total_balance_global(states: list) -> int:
+def total_balance_global(states: list, mesh: Mesh | None = None) -> int:
     """The balance sum over every primary, sentinels excluded, as the
-    signed i32 that wraps mod 2^32 (STAT_BAL_DELTA's accounting)."""
-    return u32.i32_bits(sum(int(st.bal[:-1].sum(dtype=torch.int64))
-                            for st in states))
+    signed i32 that wraps mod 2^32 (STAT_BAL_DELTA's accounting). With
+    ``mesh``: each partition's int64 sum, then `Mesh.psum` (over the
+    group where the mesh spans processes: every rank gets the sum)."""
+    if mesh is None:
+        return u32.i32_bits(sum(int(st.bal[:-1].sum(dtype=torch.int64))
+                                for st in states))
+    return u32.i32_bits(int(mesh.psum([
+        None if st is None else st.bal[:-1].sum(dtype=torch.int64)
+        for st in states])))
 
 
 def _route(dest, pos, valid, cap: int, n_shards: int, fields) -> torch.Tensor:
@@ -337,12 +347,14 @@ class _Phases:
                      if v is not None}
         # device constants, made once a card (a host-to-device copy
         # synchronises), then listed a partition
-        self.thresh, self.lane_dc, self.lane_w, self.zero_ctx = map(
-            list, zip(*mesh.per_partition(lambda dv: (
-                mix_thresh(mix, dv),
-                torch.arange(self.dc, dtype=I32, device=dv),
-                torch.arange(w, dtype=torch.int64, device=dv),
-                torch.zeros((), dtype=I32, device=dv)))))
+        self.local = mesh.local
+        self.thresh = mesh.per_partition(lambda dv: mix_thresh(mix, dv))
+        self.lane_dc = mesh.per_partition(
+            lambda dv: torch.arange(self.dc, dtype=I32, device=dv))
+        self.lane_w = mesh.per_partition(
+            lambda dv: torch.arange(w, dtype=torch.int64, device=dv))
+        self.zero_ctx = mesh.per_partition(
+            lambda dv: torch.zeros((), dtype=I32, device=dv))
 
     def mirror_idx(self, rr, mask):
         """Local row -> hot mirror index (tbl * hot_loc + q), -1 when cold;
@@ -355,10 +367,11 @@ class _Phases:
     def step_consts(self, t: int):
         """The step's stamp column and zero column over the D*cap slots,
         one of each a partition on its device."""
-        stamps, zeros = zip(*self.mesh.per_partition(lambda dv: (
-            torch.full((self.dc,), u32.i32_bits(t), dtype=I32, device=dv),
-            torch.zeros((self.dc,), dtype=I32, device=dv))))
-        return list(stamps), list(zeros)
+        stamps = self.mesh.per_partition(lambda dv: torch.full(
+            (self.dc,), u32.i32_bits(t), dtype=I32, device=dv))
+        zeros = self.mesh.per_partition(
+            lambda dv: torch.zeros((self.dc,), dtype=I32, device=dv))
+        return stamps, zeros
 
     def gen(self, bits, ts_amt, gen_new: bool, t: int, occ=None) -> list:
         """Each partition's cohort from its draws (``bits[p]``,
@@ -366,10 +379,10 @@ class _Phases:
         slots of the lanes past partition p's ``occ[p]`` are zeroed after
         the full-width draw."""
         w = self.w
-        src = [{} for _ in range(self.d)]
+        src = self.mesh.map_local(lambda p: {})
         with waves.scope(self.engine, "gen"):
-            for p, s in enumerate(src):
-                dev = self.devs[p]
+            for p in self.local:
+                s, dev = src[p], self.devs[p]
                 if gen_new:
                     ttype, a1, a2 = gen_cohort_from_bits(
                         self.mesh.to_partition(bits[p], p), w,
@@ -390,7 +403,8 @@ class _Phases:
                                            self.lane_w[p])
         if occ is not None and gen_new:
             with waves.scope(self.engine, "serve"):
-                for p, s in enumerate(src):
+                for p in self.local:
+                    s = src[p]
                     lane_ok = self.lane_w[p] < occ[p]
                     s["l_op"] = torch.where(lane_ok[:, None], s["l_op"], 0)
         return src
@@ -411,14 +425,15 @@ class _Phases:
     def route(self, src: list) -> list:
         """Every partition's lock+read requests to their owners, one
         exchange; returns each owner's routed [D*cap, F] requests."""
-        sends = []
-        for s in src:
+        sends = [None] * self.d
+        for p in self.local:
+            s = src[p]
             self.plan_route(s)
             fields = [s["l_op"].reshape(-1), s["row_loc"]]
             if self.trace_on:
                 fields.append(s["txn_new"].repeat_interleave(L))
-            sends.append(_route(s["dest"], s["pos"], s["valid"], self.cap,
-                                self.d, fields))
+            sends[p] = _route(s["dest"], s["pos"], s["valid"], self.cap,
+                              self.d, fields)
         return self.exchange(sends)
 
     def arbitrate(self, states: list, recv: list, t: int) -> list:
@@ -426,8 +441,9 @@ class _Phases:
         eng, m1 = self.engine, self.m1
         use_hotset, use_fused = self.use_hotset, self.use_fused
         t_now, t_held = u32.i32_bits(t), u32.i32_bits(t - 1)
-        own = []
-        for p, (st, rv) in enumerate(zip(states, recv)):
+        own = [None] * self.d
+        for p in self.local:
+            st, rv = states[p], recv[p]
             dev, lane_dc = self.devs[p], self.lane_dc[p]
             r_op, r_row, *r_txn = _columns(rv)
             req = r_op != 0
@@ -476,12 +492,12 @@ class _Phases:
                     _stamp(st.hot_x, midx, grant_x & (midx >= 0), t_now)
                     _stamp(st.hot_s, midx, s_writer & (midx >= 0), t_now)
                 grant = grant_x | grant_s
-                own.append(dict(
+                own[p] = dict(
                     req=req, grant=grant, held=held_x | held_s, midx=midx,
                     r_txn=r_txn[0] if r_txn else None,
                     reply=torch.stack([grant.to(I32),
                                        torch.where(grant, raw_bal, 0)],
-                                      dim=1)))
+                                      dim=1))
         return own
 
     def reply(self, src: list, own: list, attempted: list) -> list:
@@ -489,9 +505,11 @@ class _Phases:
         classifies its cohort and runs `compute_phase`. Returns the
         cohorts' `SBCtx`, partition p's attempted count ``attempted[p]``."""
         w, cap = self.w, self.cap
-        replies = self.exchange([o["reply"] for o in own])
-        ctxs = []
-        for p, s in enumerate(src):
+        replies = self.exchange([None if o is None else o["reply"]
+                                 for o in own])
+        ctxs = [None] * self.d
+        for p in self.local:
+            s = src[p]
             l_op, valid = s["l_op"], s["valid"]
             back = torch.where(valid, s["dest"] * cap + s["pos"], 0)
             rep = replies[p][back.long()]
@@ -510,7 +528,7 @@ class _Phases:
             ab_lock_m = lock_rejected & lead
             s.update(lead=lead, commit=commit, committed=committed,
                      logic_abort=logic_abort, ab_lock_m=ab_lock_m)
-            ctxs.append(SBCtx(
+            ctxs[p] = SBCtx(
                 acc=s["l_ac"], tbl=s["l_tb"], do_write=do_write, nw=nw,
                 attempted=attempted[p],
                 committed=committed.sum(dtype=I32),
@@ -518,15 +536,16 @@ class _Phases:
                 ab_logic=logic_abort.sum(dtype=I32),
                 magic_bad=self.zero_ctx[p],
                 bal_delta=bal_delta,
-                overflow=(s["active"] & ~valid).sum(dtype=I32)))
+                overflow=(s["active"] & ~valid).sum(dtype=I32))
         return ctxs
 
     def install_route(self, c1s: list, src: list) -> list:
         """Every partition routes its previous cohort's installs to their
         owners, one exchange (``src[p]`` keeps ``wdest``/``wvalid``)."""
         d, n_loc, cap = self.d, self.n_loc, self.cap
-        isends = []
-        for p, c1 in enumerate(c1s):
+        isends = [None] * d
+        for p in self.local:
+            c1 = c1s[p]
             wmask = c1.do_write.reshape(-1)
             acc = c1.acc.reshape(-1)
             wdest = acc % d
@@ -538,7 +557,7 @@ class _Phases:
             if self.trace_on:
                 fields.append(src[p]["txn_c1"].repeat_interleave(L))
             src[p].update(wdest=wdest, wvalid=wvalid)
-            isends.append(_route(wdest, wpos, wvalid, cap, d, fields))
+            isends[p] = _route(wdest, wpos, wvalid, cap, d, fields)
         return self.exchange(isends)
 
     def install(self, states: list, own: list, inst: list, stepv,
@@ -547,8 +566,10 @@ class _Phases:
         at the primary); returns each owner's applied records. ``stepv``
         and ``zero``: `step_consts`, one a partition."""
         eng, use_hotset = self.engine, self.use_hotset
-        recs = []
-        for st, o, ins, sv, zv in zip(states, own, inst, stepv, zero):
+        recs = [None] * self.d
+        for p in self.local:
+            st, o, ins, sv, zv = states[p], own[p], inst[p], stepv[p], \
+                zero[p]
             i_m, i_row, i_bal, i_tbl, i_acc, *i_txn = _columns(ins)
             i_mask = i_m != 0
             newval = torch.stack([i_bal, zv], dim=1)
@@ -585,7 +606,7 @@ class _Phases:
                                        i_acc, sv, newval)
             i_txn = i_txn[0] if i_txn else None
             o.update(i_mask=i_mask, i_txn=i_txn, repl=[])
-            recs.append((i_mask, i_row, i_bal, i_tbl, i_acc, i_txn))
+            recs[p] = (i_mask, i_row, i_bal, i_tbl, i_acc, i_txn)
         return recs
 
     def replicate(self, states: list, own: list, recs: list, cnts: list,
@@ -597,7 +618,8 @@ class _Phases:
             fwd = mesh.ppermute(recs, axis, off)
             hop = (mon.CTR_REPL_PUSH_HOP1 if off == 1
                    else mon.CTR_REPL_PUSH_HOP2)
-            for p, (st, o) in enumerate(zip(states, own)):
+            for p in self.local:
+                st, o = states[p], own[p]
                 f_mask, f_row, f_bal, f_tbl, f_acc, f_txn = fwd[p]
                 zp = zero[p]
                 # counted where they are applied
@@ -625,8 +647,9 @@ class _Phases:
         and routing overflow at the source, lock arbitration and installs
         at the owner; the replication pushes are counted in `replicate`)."""
         use_hotset, dc, hot_loc = self.use_hotset, self.dc, self.hot_loc
-        out = []
-        for o, c1 in zip(own, c1s):
+        out = [None] * self.d
+        for p in self.local:
+            o, c1 = own[p], c1s[p]
             upd = {}
             if use_hotset:
                 # three partitioned gathers a step, each serving its hot
@@ -659,7 +682,7 @@ class _Phases:
                 mon.CTR_DISPATCH_PALLAS: 1,   # the kernel route
                 **({mon.CTR_FUSED_DISPATCH: 1} if self.use_fused else {}),
             })
-            out.append(upd)
+            out[p] = upd
         return out
 
     def trace(self, rings: list, cnts: list, tcfg, src: list, own: list,
@@ -670,7 +693,8 @@ class _Phases:
         destination, or ``route_aux(p, dest)``."""
         eng = self.engine
         with waves.scope(eng, "trace"):
-            for p, (s, o) in enumerate(zip(src, own)):
+            for p in self.local:
+                s, o = src[p], own[p]
                 lock_aux = (torch.where(o["grant"], txe.LOCK_GRANTED, 0)
                             | torch.where(o["held"], txe.LOCK_HELD, 0))
                 cause = torch.where(
@@ -751,7 +775,7 @@ def build_sharded_sb_runner(mesh: Mesh, n_shards: int, n_accounts: int,
     _check_mesh(mesh, n_shards)
     if w * L >= BIG:
         raise ValueError(f"w={w} exceeds the lane field of the scatter-mins")
-    home, devs = mesh.device, mesh.devices
+    home, devs, local = mesh.device, mesh.devices, mesh.local
     d, cpb = n_shards, cohorts_per_block
     trace_on = txe.trace_enabled(trace)
     ph = _Phases(mesh, n_accounts, w, engine=_ENGINE,
@@ -774,7 +798,7 @@ def build_sharded_sb_runner(mesh: Mesh, n_shards: int, n_accounts: int,
         states, c1s = carry[0], carry[1]
         rings = carry[2] if trace_on else [None] * d
         cnts = carry[-1] if monitor else [None] * d
-        t = states[0].step
+        t = states[local[0]].step
 
         # ---- wave 1: every partition generates its cohort and routes its
         # lock+read requests to their owners; every owner arbitrates and
@@ -795,19 +819,20 @@ def build_sharded_sb_runner(mesh: Mesh, n_shards: int, n_accounts: int,
         with waves.scope(_ENGINE, "replicate"):
             ph.replicate(states, own, recs, cnts, t, stepv, zero)
 
-        for st in states:
-            st.step = t + 1
+        for p in local:
+            states[p].step = t + 1
 
         if monitor:
-            for st, cnt, upd in zip(states, cnts, ph.counts(own, c1s)):
-                mon.bump(cnt, upd)
-                mon.gauge_max(cnt, {
-                    mon.CTR_RING_HWM: u32.to_u64(st.log.head).max()})
+            upds = ph.counts(own, c1s)
+            for p in local:
+                mon.bump(cnts[p], upds[p])
+                mon.gauge_max(cnts[p], {
+                    mon.CTR_RING_HWM: u32.to_u64(states[p].log.head).max()})
 
         if trace_on:
             ph.trace(rings, cnts, tcfg, src, own, t)
 
-        stats = mesh.psum([_stats_of(c) for c in c1s])
+        stats = mesh.psum([None if c is None else _stats_of(c) for c in c1s])
         return (states, ctxs) + tuple(carry[2:]), stats
 
     def run_draws(carry, bits, ts_amt):
@@ -817,8 +842,8 @@ def build_sharded_sb_runner(mesh: Mesh, n_shards: int, n_accounts: int,
                              f"{list(want_a)}, got {tuple(bits.shape)} and "
                              f"{tuple(ts_amt.shape)}")
         if trace_on:            # each drained window is self-contained
-            for r in carry[2]:
-                txe.reset(r)
+            for p in local:
+                txe.reset(carry[2][p])
         stats = []
         for i in range(cpb):
             carry, s = step(carry, bits[i], ts_amt[i])
@@ -837,19 +862,20 @@ def build_sharded_sb_runner(mesh: Mesh, n_shards: int, n_accounts: int,
             raise ValueError(f"{len(states)} states for {d} partitions")
         _check_placement(mesh, states)
         states = list(states)
-        if use_hotset and states[0].hot_loc == 0:
+        if use_hotset and states[local[0]].hot_loc == 0:
             states = attach_hotset_sb(mesh, states, ph.hot_loc)
-        return ((states, [_empty_sb_ctx(w, dv) for dv in devs])
-                + (([txe.create_ring(tcfg.cap, dv, spill=n_step)
-                     for dv in devs],) if trace_on else ())
-                + (([mon.create(dv) for dv in devs],) if monitor else ()))
+        return ((states, mesh.map_local(lambda p: _empty_sb_ctx(w, devs[p])))
+                + ((mesh.map_local(lambda p: txe.create_ring(
+                    tcfg.cap, devs[p], spill=n_step)),) if trace_on else ())
+                + ((mesh.map_local(lambda p: mon.create(devs[p])),)
+                   if monitor else ()))
 
     init.trace_cfg = tcfg
 
     def drain(carry):
         if trace_on:
-            for r in carry[2]:
-                txe.reset(r)
+            for p in local:
+                txe.reset(carry[2][p])
         carry, s = step(carry, None, None, gen_new=False)
         return (carry[0], s[None]) + tuple(carry[2:])
 

@@ -1,23 +1,34 @@
-"""An in-process device mesh: the counterpart of `jax.sharding.Mesh` plus
-the three collectives the sharded TATP and SmallBank paths use, for
-partitions kept as a Python list, one device a partition.
+"""A device mesh: the counterpart of `jax.sharding.Mesh` plus the three
+collectives the sharded TATP and SmallBank paths use, for partitions kept
+as a Python list, one device a partition.
 
-One process drives the whole mesh, as one JAX controller drives its
-devices: partition ``p`` of a mesh of shape ``(D,)`` or ``(H, C)`` is entry
-``p`` of a list, its flat index ``h * C + c`` (the order
+Partition ``p`` of a mesh of shape ``(D,)`` or ``(H, C)`` is entry ``p``
+of a list, its flat index ``h * C + c`` (the order
 `dint_tpu.parallel.multihost` derives a partition id in), and its tensors
 live on ``mesh.device_of(p)``. `placement` says which card that is when
 the caller names none (JAX's ``Mesh(np.array(jax.devices()[:n]))``, with
 blocks of partitions sharing a card where there are fewer cards than
 partitions); ``device=`` puts every partition on one device, so a run
 then measures the partitions' work and their replication and no link.
-NCCL's one rank a card is not used: a 3-partition mesh must also run on
-one card.
+
+One process may drive the whole mesh, as one JAX controller drives its
+devices (a world of one: a 3-partition mesh also runs on one card). Or
+the mesh spans processes, one a host, as JAX's does under
+``jax.distributed``: ``group=`` (`parallel.dist.initialize`) gives rank r
+of P ranks a contiguous block of the partitions (`Mesh.local`): on an
+(H, C) mesh the hosts ``[r*H/P, (r+1)*H/P)``, so "ici" never crosses
+ranks and only "dcn" does; on a 1-D mesh a block of shards. The lists
+stay ``mesh.size`` long, another rank's entries None, so the runners
+index partitions as in one process and loop over `Mesh.local`. The
+collectives cross ranks over the group's transport: NCCL where each rank
+has its cards, gloo (through host memory for CUDA tensors) where ranks
+share a card or run on the CPU.
 
 A collective is one call of a ``dint_mesh`` operator (ops/mesh_ops.py)
-over every partition's tensors, so a trace of a mesh step shows one node
-a collective, carrying its axis, its permutation and the mesh; it is the
-only place where one partition's data reaches another's card:
+over every local partition's tensors, so a trace of a mesh step shows one
+node a collective, carrying its axis, its permutation and the mesh; it is
+the only place where one partition's data reaches another's card or
+rank:
 
 * `Mesh.ppermute` moves each partition's entry along one axis (JAX's
   ``perm = [(i, (i + off) % n)]``): the receiver gets a fresh copy of the
@@ -26,15 +37,17 @@ only place where one partition's data reaches another's card:
   ``all_to_all(x.reshape(n, cap), axis, 0, 0, tiled=False)``), or along
   the tuple of every axis (the 1-D exchange over the flat index): bucket
   d of partition s lands in slot s of partition d, on d's device;
-* `Mesh.psum` sums equal-shape tensors over the whole list on the home
-  device, ``devices[0]``, where the runners also draw their random bits.
+* `Mesh.psum` sums equal-shape tensors over the whole mesh on the home
+  device, the first local partition's, where the runners also draw their
+  random bits; every rank gets the sum.
 
 The same code runs on the CPU, where the tests hold it against JAX's
-runners on virtual devices and audit that no operator but a collective
-takes tensors of two partitions.
+runners on virtual devices (and across gloo processes) and audit that no
+operator but a collective takes tensors of two partitions.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -81,14 +94,33 @@ def _card(device) -> torch.device:
     return dev
 
 
+def rank_blocks(shape, n_ranks: int) -> list:
+    """The rank of each flat partition of a mesh of ``shape`` over
+    ``n_ranks`` processes: contiguous blocks along the major axis (whole
+    hosts of an (H, C) mesh), which ``n_ranks`` must divide."""
+    shape = tuple(int(n) for n in shape)
+    if n_ranks < 1 or shape[0] % n_ranks:
+        raise ValueError(f"{n_ranks} processes do not divide the "
+                         f"{shape[0]} {'hosts' if len(shape) > 1 else 'shards'}"
+                         f" of a {'x'.join(map(str, shape))} mesh")
+    per = math.prod(shape) // n_ranks
+    return [p // per for p in range(math.prod(shape))]
+
+
 class Mesh:
     """``shape`` partitions named by ``axis_names`` (one name an axis).
-    ``devices``: one device a flat partition; else ``device``: every
-    partition on that one device; else (both None) the visible CUDA cards
-    by `placement`, which raises without a card (nothing falls back to
-    the CPU). ``device`` is the home device, ``devices[0]``."""
+    ``devices``: one device a flat partition (over a group, only the
+    local partitions' entries are read; the others may be None); else
+    ``device``: every local partition on that one device; else (both
+    None) `placement` over the cards the rank owns (the group's, or every
+    visible card in one process), which raises without a card (nothing
+    falls back to the CPU). ``group``: a `parallel.dist.Group`, this
+    process one rank of several (None: the whole mesh here). ``device``
+    is the home device, the first local partition's; another rank's
+    partitions have None in ``devices``."""
 
-    def __init__(self, shape, axis_names, device=None, devices=None):
+    def __init__(self, shape, axis_names, device=None, devices=None,
+                 group=None):
         self.shape = tuple(int(n) for n in shape)
         self.axis_names = tuple(axis_names)
         if len(self.shape) != len(self.axis_names) or \
@@ -97,41 +129,70 @@ class Mesh:
                              f"{self.axis_names} do not match")
         if devices is not None and device is not None:
             raise ValueError("give a mesh device= or devices=, not both")
+        self.group = group
+        self._ranks = tuple(rank_blocks(self.shape, 1 if group is None
+                                        else group.size))
+        me = 0 if group is None else group.rank
+        self.local = tuple(p for p, r in enumerate(self._ranks) if r == me)
         if devices is not None:
-            devs = [_card(d) for d in devices]
-            if len(devs) != self.size:
-                raise ValueError(f"{len(devs)} devices for {self.size} "
+            if len(devices) != self.size:
+                raise ValueError(f"{len(devices)} devices for {self.size} "
                                  f"partitions")
+            devs = {p: _card(devices[p]) for p in self.local}
         elif device is not None:
-            devs = [_card(device)] * self.size
+            devs = dict.fromkeys(self.local, _card(device))
         else:
             resolve_device(None)    # raises without a card
-            devs = placement(self.shape, [
+            cards = list(group.cards) if group is not None else [
                 torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())])
-        if len({d.type for d in devs}) != 1:
+                for i in range(torch.cuda.device_count())]
+            block = (len(self.local),) if len(self.shape) == 1 else \
+                (len(self.local) // self.shape[1],) + self.shape[1:]
+            devs = dict(zip(self.local, placement(block, cards)))
+        if len({d.type for d in devs.values()}) != 1:
             raise ValueError(f"a mesh's partitions share one device type, "
-                             f"got {sorted({str(d) for d in devs})}")
-        self.devices = tuple(devs)
-        self.device = self.devices[0]
-        self.cards = tuple(dict.fromkeys(self.devices))
+                             f"got {sorted({str(d) for d in devs.values()})}")
+        self.devices = tuple(devs.get(p) for p in range(self.size))
+        self.device = self.devices[self.local[0]]
+        self.cards = tuple(dict.fromkeys(devs.values()))
+        # what the collectives cross ranks with (None: one process)
+        self._across = None if group is None or group.size == 1 else \
+            mesh_ops.Across(group, self._ranks)
 
     def device_of(self, p: int) -> torch.device:
-        """The device partition ``p``'s tensors live on."""
+        """The device partition ``p``'s tensors live on (None: another
+        rank's)."""
         return self.devices[p]
 
+    def rank_of(self, p: int) -> int:
+        """The rank that holds partition ``p`` (0 in one process)."""
+        return self._ranks[p]
+
     def per_partition(self, make) -> list:
-        """``make(card)`` called once for each card of the mesh, listed by
-        partition (the partitions on one card share what it made): a
-        runner's device constants."""
+        """``make(card)`` called once for each card of the rank, listed by
+        partition (the partitions on one card share what it made; another
+        rank's entries None): a runner's device constants."""
         made = {d: make(d) for d in self.cards}
-        return [made[d] for d in self.devices]
+        return [None if d is None else made[d] for d in self.devices]
+
+    def map_local(self, make) -> list:
+        """``[make(p) for each local p]`` as a list a partition, another
+        rank's entries None."""
+        return [make(p) if d is not None else None
+                for p, d in enumerate(self.devices)]
 
     def to_partition(self, x: torch.Tensor, p: int) -> torch.Tensor:
         """``x`` on partition ``p``'s device: ``x`` itself where it is
         already there, else a copy. How a runner hands each partition its
         slice of draws made on the home device."""
         return x.to(self.devices[p], non_blocking=True)
+
+    def _bind(self):
+        """The collectives' binding: `mesh_ops.across` over the group, or
+        nothing in one process."""
+        if self._across is None:
+            return contextlib.nullcontext()
+        return mesh_ops.across(self._across)
 
     @property
     def size(self) -> int:
@@ -165,6 +226,9 @@ class Mesh:
     def _check(self, xs: list):
         if len(xs) != self.size:
             raise ValueError(f"{len(xs)} entries for {self.size} partitions")
+        if self._across is not None and any(
+                xs[p] is None for p in self.local):
+            raise ValueError("a local partition's entry is None")
 
     def ppermute(self, xs: list, axis: str, off: int) -> list:
         """``jax.lax.ppermute`` with ``perm = [(i, (i + off) % n)]`` along
@@ -175,9 +239,9 @@ class Mesh:
         partition. One ``dint_mesh::ppermute`` call moves every
         partition's tensors (fresh copies, on the receiver's device)."""
         self._check(xs)
-        flat = [leaves(x) for x in xs]
-        n_leaves = len(flat[0])
-        if any(len(f) != n_leaves for f in flat):
+        flat = {p: leaves(xs[p]) for p in self.local}
+        n_leaves = len(flat[self.local[0]])
+        if any(len(f) != n_leaves for f in flat.values()):
             raise ValueError("the partitions' entries hold different "
                              "numbers of tensors")
         n = self.shape[self.axis_names.index(axis)] \
@@ -185,14 +249,23 @@ class Mesh:
         pairs = [v for i in range(n) for v in (i, (i + off) % n)]
         srcs = mesh_ops.ppermute_sources(axis, pairs, self.shape,
                                          self.axis_names)
+        out = [None] * self.size
+        # another rank's sender: the receiver's own entry gives the
+        # structure and the host values (the entries share them)
+        like = {p: xs[s] if s in flat else xs[p]
+                for p, s in enumerate(srcs) if p in flat}
         if not n_leaves:            # no tensor to move: a host re-index
-            return [xs[s] for s in srcs]
-        moved = mesh_ops.op("ppermute")(
-            [t for f in flat for t in f], axis, pairs, list(self.shape),
-            list(self.axis_names))
-        return [rebuild(xs[s], iter(moved[p * n_leaves:
-                                           (p + 1) * n_leaves]))
-                for p, s in enumerate(srcs)]
+            for p in like:
+                out[p] = like[p]
+            return out
+        with self._bind():
+            moved = mesh_ops.op("ppermute")(
+                [t for p in self.local for t in flat[p]], axis, pairs,
+                list(self.shape), list(self.axis_names))
+        for i, p in enumerate(self.local):
+            out[p] = rebuild(like[p], iter(moved[i * n_leaves:
+                                                 (i + 1) * n_leaves]))
+        return out
 
     def all_to_all(self, xs: list, axis) -> list:
         """``jax.lax.all_to_all(x.reshape(n, cap, ...), axis, 0, 0,
@@ -210,16 +283,24 @@ class Mesh:
         whole exchange in those two)."""
         self._check(xs)
         axes = list(axis) if isinstance(axis, tuple) else [axis]
-        return mesh_ops.op("all_to_all")(list(xs), axes, list(self.shape),
-                                         list(self.axis_names))
+        with self._bind():
+            got = mesh_ops.op("all_to_all")(
+                [xs[p] for p in self.local], axes, list(self.shape),
+                list(self.axis_names))
+        out = [None] * self.size
+        for p, t in zip(self.local, got):
+            out[p] = t
+        return out
 
     def psum(self, xs: list) -> torch.Tensor:
         """``jax.lax.psum`` over every axis: the sum of the partitions'
         equal-shape tensors, in their dtype (int32 wraps, as JAX's), on
-        the home device."""
+        the home device of every rank."""
         self._check(xs)
-        return mesh_ops.op("psum")(list(xs), list(self.axis_names),
-                                   list(self.shape), list(self.axis_names))
+        with self._bind():
+            return mesh_ops.op("psum")(
+                [xs[p] for p in self.local], list(self.axis_names),
+                list(self.shape), list(self.axis_names))
 
 
 def leaves(obj) -> list:

@@ -20,7 +20,11 @@ the source host.
 The partitions sit one a card where there are cards enough, else a
 host's chips share one card (`mesh.placement`), so the "dcn" hops are the
 ones that cross cards; on one card (``device=``) a run measures the
-partitions' work and their replication, and no link between hosts.
+partitions' work and their replication, and no link between hosts. With
+``group=`` the hosts are processes (`dist`, as under
+``jax.distributed``: "the program is identical, only the transport
+changes"), and a lost host's partitions are rebuilt on their rank from
+the next host's ring (`rings_from`).
 """
 from __future__ import annotations
 
@@ -51,13 +55,27 @@ def mesh_shape_from_env(default: str = "4x2",
 
 
 def make_mesh_2d(n_hosts: int, chips_per_host: int, device=None,
-                 devices=None) -> Mesh:
+                 devices=None, group=None) -> Mesh:
     """A (host, chip) mesh of ``n_hosts * chips_per_host`` partitions,
     host-major, so "dcn" is the major axis: one device a partition
     (``devices``, flat order ``h * C + c``), all on ``device``, or (both
-    None) over the visible cards by `mesh.placement`."""
+    None) over the visible cards by `mesh.placement`. ``group`` (a
+    `dist.Group`): one process a host, or a block of hosts, as under
+    ``jax.distributed``; the group's size must divide ``n_hosts``."""
     return Mesh((n_hosts, chips_per_host), (DCN_AXIS, ICI_AXIS), device,
-                devices)
+                devices, group=group)
+
+
+def rings_from(mesh: Mesh, logs: list, off: int = 1) -> list:
+    """Each partition (h, c) gets a copy of the log ring of ((h + off) %
+    H, c), on its own device: one `Mesh.ppermute` along "dcn" (across
+    ranks where the hosts are processes). How a lost host's partitions are
+    rebuilt on their rank from a surviving host's ring
+    (`recovery.recover_tatp_dense` with ``key_hi_filter``,
+    `recovery.recover_sb_shard` with ``ring_owner``), JAX's fault-domain
+    story with the ring crossing a process. ``logs``: a `RepLog` a
+    partition (None for another rank's)."""
+    return mesh.ppermute(logs, DCN_AXIS, -off)
 
 
 def _check_hosts(mesh: Mesh):
@@ -70,18 +88,18 @@ def _check_hosts(mesh: Mesh):
 def create_multihost(mesh: Mesh, n_sub_global: int, val_words: int = 10,
                      seed: int = 0, **kw) -> list:
     """One `ShardState` a partition, in flat order, on its partition's
-    device: partition (h, c)'s range populated from
-    ``np.random.default_rng(seed + h * C + c)``, its backups copies of
-    hosts h-1 and h-2 at the same chip."""
+    device (over a group, the rank's hosts only; None for the others'):
+    partition (h, c)'s range populated from ``np.random.default_rng(seed
+    + h * C + c)``, its backups copies of hosts h-1 and h-2 at the same
+    chip."""
     n_hosts, _ = _check_hosts(mesh)
     if n_hosts < 3:
         raise ValueError("multihost replication needs >= 3 hosts "
                          "(reference topology: 3 server machines)")
     n_loc = n_sub_local(n_sub_global, mesh.size)
-    dbs = [td.populate(np.random.default_rng(seed + d), n_loc,
-                       val_words=val_words, log_replicas=1,
-                       device=mesh.device_of(d), **kw)
-           for d in range(mesh.size)]
+    dbs = mesh.map_local(lambda d: td.populate(
+        np.random.default_rng(seed + d), n_loc, val_words=val_words,
+        log_replicas=1, device=mesh.device_of(d), **kw))
     return _with_backups(mesh, DCN_AXIS, dbs)
 
 

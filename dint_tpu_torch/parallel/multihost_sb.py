@@ -47,7 +47,10 @@ installs and logs, hop 1, hop 2. JAX's runner has no ``use_hotset``,
 
 The partitions sit one a card where there are cards enough, else a
 host's chips share one card (`mesh.placement`): an "ici" exchange then
-stays on its card and the "dcn" hops are the copies between cards. On one
+stays on its card and the "dcn" hops are the copies between cards. Over
+a process group (`make_mesh_2d(..., group=)`, one rank a host, JAX's
+``jax.distributed`` form) the "ici" exchange stays in the rank and the
+"dcn" exchanges and hops are messages between ranks. On one
 card (``device=``) every exchange is a copy on one stream, so no byte
 crosses a link, the hierarchical route costs a second exchange, and the
 overlap route reorders work and overlaps nothing. Draws come in from
@@ -95,7 +98,8 @@ def create_multihost_sb(mesh: Mesh, n_accounts: int,
                         init_balance: int = 1000, log_lanes: int = 16,
                         log_capacity: int = 1 << 16) -> list:
     """One `SBShard` a partition, in flat order ``h * C + c``, on its
-    partition's device: partition (h, c) is primary for global shard
+    partition's device (over a group, the rank's hosts only; None for the
+    others'): partition (h, c) is primary for global shard
     h*C + c (the partition of `create_sharded_sb` at D = H*C); each has
     storage of its own, its backups a fresh copy of ``[bal, bal]``."""
     _mesh_hosts(mesh)
@@ -115,12 +119,12 @@ def exchange(mesh: Mesh, xs: list, cap: int, hierarchical: bool) -> list:
         return mesh.all_to_all(xs, (DCN_AXIS, ICI_AXIS))
     n_hosts, n_ici = mesh.shape
     d = mesh.size
-    rest = tuple(xs[0].shape[1:])
-    ys = [x.view(n_hosts, n_ici, cap, *rest).transpose(0, 1)
-          .reshape(d * cap, *rest) for x in xs]
+    rest = tuple(xs[mesh.local[0]].shape[1:])
+    ys = [None if x is None else x.view(n_hosts, n_ici, cap, *rest)
+          .transpose(0, 1).reshape(d * cap, *rest) for x in xs]
     ys = mesh.all_to_all(ys, ICI_AXIS)
-    ys = [y.view(n_ici, n_hosts, cap, *rest).transpose(0, 1)
-          .reshape(d * cap, *rest) for y in ys]
+    ys = [None if y is None else y.view(n_ici, n_hosts, cap, *rest)
+          .transpose(0, 1).reshape(d * cap, *rest) for y in ys]
     return mesh.all_to_all(ys, DCN_AXIS)
 
 
@@ -163,7 +167,7 @@ def build_multihost_sb_runner(mesh: Mesh, n_accounts: int, w: int = 2048,
         raise ValueError("overlap=True is incompatible with trace: the "
                          "txn ids are stamped with the generation step, "
                          "which the double buffer shifts by one")
-    home, devs = mesh.device, mesh.devices
+    home, devs, local = mesh.device, mesh.devices, mesh.local
     d, cpb = mesh.size, cohorts_per_block
     cap = 2 * ((w * L + d - 1) // d)
 
@@ -198,7 +202,7 @@ def build_multihost_sb_runner(mesh: Mesh, n_accounts: int, w: int = 2048,
         pf = carry[2] if overlap else None
         rings = carry[2 + int(overlap)] if trace_on else [None] * d
         cnts = carry[-1] if monitor else [None] * d
-        t = states[0].step
+        t = states[local[0]].step
 
         # ---- wave 1: generate + route the lock/read requests
         pf_next = p_valid = None
@@ -209,20 +213,21 @@ def build_multihost_sb_runner(mesh: Mesh, n_accounts: int, w: int = 2048,
                 nxt = ph.gen(bits, ts_amt, True, t, occ=occ)
                 with waves.scope(_ENGINE, "route_prefetch"):
                     routed = ph.route(nxt)
-                pf_next = [(mesh.to_partition(bits[p], p),
-                            mesh.to_partition(ts_amt[p], p), occ[p],
-                            routed[p]) for p in range(d)]
-                p_valid = [s["valid"] for s in nxt]
+                pf_next = mesh.map_local(lambda p: (
+                    mesh.to_partition(bits[p], p),
+                    mesh.to_partition(ts_amt[p], p), occ[p], routed[p]))
+                p_valid = [None if s is None else s["valid"] for s in nxt]
             else:
                 pf_next = empty_pf
             # the in-flight cohort's source-side locals, regenerated from
             # its carried draws: no exchange
-            src = ph.gen([f[0] for f in pf], [f[1] for f in pf], True, t,
-                         occ=[f[2] for f in pf])
-            for s in src:
-                ph.plan_route(s)
-            recv = [f[3] for f in pf]
-            attempted = [f[2] for f in pf]
+            src = ph.gen(*([None if f is None else f[k] for f in pf]
+                           for k in (0, 1)), True, t,
+                         occ=[None if f is None else f[2] for f in pf])
+            for p in local:
+                ph.plan_route(src[p])
+            recv = [None if f is None else f[3] for f in pf]
+            attempted = [None if f is None else f[2] for f in pf]
         else:
             src = ph.gen(bits, ts_amt, gen_new, t, occ=occ)
             with waves.scope(_ENGINE, "route"):
@@ -244,12 +249,13 @@ def build_multihost_sb_runner(mesh: Mesh, n_accounts: int, w: int = 2048,
         with waves.scope(_ENGINE, "replicate"):
             ph.replicate(states, own, recs, cnts, t, stepv, zero)
 
-        for st in states:
-            st.step = t + 1
+        for p in local:
+            states[p].step = t + 1
 
         if monitor:
-            for p, (st, cnt, upd) in enumerate(zip(states, cnts,
-                                                   ph.counts(own, c1s))):
+            upds = ph.counts(own, c1s)
+            for p in local:
+                st, cnt, upd = states[p], cnts[p], upds[p]
                 # a valid lane whose owner is on this host crosses only
                 # ICI, otherwise it pays the DCN hop (counted at the
                 # source)
@@ -277,15 +283,16 @@ def build_multihost_sb_runner(mesh: Mesh, n_accounts: int, w: int = 2048,
         if trace_on:
             ph.trace(rings, cnts, tcfg, src, own, t, route_aux)
 
-        stats = mesh.psum([_stats_of(c) for c in c1s])
+        stats = mesh.psum([None if c is None else _stats_of(c)
+                           for c in c1s])
         rest = tuple(carry[2 + int(overlap):])
         return ((states, ctxs) + ((pf_next,) if overlap else ()) + rest,
                 stats)
 
     def _reset_rings(carry):
         if trace_on:            # each drained window is self-contained
-            for r in carry[2 + int(overlap)]:
-                txe.reset(r)
+            for p in local:
+                txe.reset(carry[2 + int(overlap)][p])
 
     def run_draws(carry, bits, ts_amt, occ=None, shed=None):
         want_b, want_a = (cpb, d, w, 5), (cpb, d, w)
@@ -307,13 +314,14 @@ def build_multihost_sb_runner(mesh: Mesh, n_accounts: int, w: int = 2048,
             # p's [cpb] on its card
             occ = occ.to(I32, copy=True).reshape(d, cpb)
             shed = shed.to(I32, copy=True).reshape(d, cpb)
-            occ = [mesh.to_partition(occ[p], p) for p in range(d)]
-            shed = [mesh.to_partition(shed[p], p) for p in range(d)]
+            occ = mesh.map_local(lambda p: mesh.to_partition(occ[p], p))
+            shed = mesh.map_local(lambda p: mesh.to_partition(shed[p], p))
         _reset_rings(carry)
         stats = []
         for i in range(cpb):
             carry, s = step(carry, bits[i], ts_amt[i],
-                            *(([o[i] for o in occ], [h[i] for h in shed])
+                            *(([None if o is None else o[i] for o in occ],
+                               [None if h is None else h[i] for h in shed])
                               if serve else ()))
             stats.append(s)
         return carry, torch.stack(stats)
@@ -334,13 +342,14 @@ def build_multihost_sb_runner(mesh: Mesh, n_accounts: int, w: int = 2048,
             # one step early: the bootstrap step arbitrates the empty
             # prefetch, so cohort j is arbitrated at step 2+j and
             # installed at 3+j, as on the unoverlapped route
-            states = [dataclasses.replace(st, step=st.step - 1)
-                      for st in states]
-        return ((states, [_empty_sb_ctx(w, dv) for dv in devs])
+            states = mesh.map_local(lambda p: dataclasses.replace(
+                states[p], step=states[p].step - 1))
+        return ((states, mesh.map_local(lambda p: _empty_sb_ctx(w, devs[p])))
                 + ((list(empty_pf),) if overlap else ())
-                + (([txe.create_ring(tcfg.cap, dv, spill=n_step)
-                     for dv in devs],) if trace_on else ())
-                + (([mon.create(dv) for dv in devs],) if monitor else ()))
+                + ((mesh.map_local(lambda p: txe.create_ring(
+                    tcfg.cap, devs[p], spill=n_step)),) if trace_on else ())
+                + ((mesh.map_local(lambda p: mon.create(devs[p])),)
+                   if monitor else ()))
 
     init.trace_cfg = tcfg
 

@@ -19,8 +19,8 @@ the primary). Here the servers are the partitions of a `mesh.Mesh`:
   summed over the mesh (`Mesh.psum`).
 
 What differs from JAX: the shards and batches are lists, one entry a
-partition on its partition's device, and each step updates its shard in
-place. JAX's `pcast_varying`
+partition on its partition's device (across processes, another rank's
+entries None), and each step updates its shard in place. JAX's `pcast_varying`
 and its cache of built runners have no twin (nothing is traced or
 compiled).
 """
@@ -48,11 +48,13 @@ ENGINES = {
 }
 
 
-def make_mesh(n_devices: int, device=None, devices=None) -> Mesh:
+def make_mesh(n_devices: int, device=None, devices=None,
+              group=None) -> Mesh:
     """A 1-D mesh of ``n_devices`` partitions: one device a partition
     (``devices``), all on ``device``, or (both None) over the visible
-    cards by `mesh.placement`."""
-    return Mesh((n_devices,), (SHARD_AXIS,), device, devices)
+    cards by `mesh.placement`; ``group`` (a `dist.Group`): across
+    processes, rank r holding a contiguous block of the shards."""
+    return Mesh((n_devices,), (SHARD_AXIS,), device, devices, group=group)
 
 
 def local_rows(n_global: int, n_shards: int) -> int:
@@ -106,8 +108,8 @@ def replicated_step(mesh: Mesh, shards: list, batches: list, *,
     i32 [D], the psummed count of prim ops, the same in every entry)."""
     n = mesh.size
     fwd = {off: mesh.ppermute(batches, SHARD_AXIS, off) for off in (1, 2)}
-    replies, votes = [], []
-    for d in range(n):
+    replies, votes = [None] * n, [None] * n
+    for d in mesh.local:
         batch = batches[d]
         parts = [_remap_dense_keys(batch, n, 0, n_dense)]
         for off in (1, 2):
@@ -120,9 +122,9 @@ def replicated_step(mesh: Mesh, shards: list, batches: list, *,
                             for f in dataclasses.fields(Batch)})
         shards[d], rep = step_fn(shards[d], combined)
         w = batch.width
-        replies.append(Replies(rtype=rep.rtype[:w], val=rep.val[:w],
-                               ver=rep.ver[:w]))
-        votes.append(_is_prim(batch.op).sum(dtype=I32))
+        replies[d] = Replies(rtype=rep.rtype[:w], val=rep.val[:w],
+                             ver=rep.ver[:w])
+        votes[d] = _is_prim(batch.op).sum(dtype=I32)
     committed = mesh.psum(votes)
     return shards, replies, committed.expand(n).clone()
 
@@ -148,11 +150,11 @@ def build_sharded_step(mesh: Mesh, n_shards: int, engine: str = "tatp"):
 def create_sharded_state(mesh: Mesh, n_shards: int, n_subscribers: int,
                          val_words: int = 10, **kw) -> list:
     """One empty TATP shard a partition at the shard-local table sizes,
-    each with storage of its own on its partition's device."""
+    each with storage of its own on its partition's device (over a group,
+    the rank's shards only; None for the others')."""
     rows = local_rows(n_subscribers + 1, n_shards)
-    return [tatp.create(rows - 1, val_words=val_words,
-                        device=mesh.device_of(d), **kw)
-            for d in range(n_shards)]
+    return mesh.map_local(lambda d: tatp.create(
+        rows - 1, val_words=val_words, device=mesh.device_of(d), **kw))
 
 
 def create_sharded_smallbank(mesh: Mesh, n_shards: int, n_accounts: int,
@@ -160,9 +162,8 @@ def create_sharded_smallbank(mesh: Mesh, n_shards: int, n_accounts: int,
     """One empty SmallBank shard a partition (the reference shards its 3
     servers identically, smallbank/caladan/client_ebpf_shard.cc:287-289)."""
     rows = local_rows(n_accounts, n_shards)
-    return [smallbank.create(rows, val_words=val_words,
-                             device=mesh.device_of(d), **kw)
-            for d in range(n_shards)]
+    return mesh.map_local(lambda d: smallbank.create(
+        rows, val_words=val_words, device=mesh.device_of(d), **kw))
 
 
 def route_batches(ops, tbls, keys, vals, vers, n_shards: int, width: int,
@@ -174,8 +175,10 @@ def route_batches(ops, tbls, keys, vals, vers, n_shards: int, width: int,
     A skewed batch SPILLS into further waves instead of failing: every
     request lands in exactly one wave, at most ``width`` a shard a wave.
     Returns (waves: a list of waves, each a list of ``n_shards`` Batches,
-    shard d's on ``devices[d]`` when given (a mesh's ``devices``), else on
-    ``device`` (None = CUDA), owner [n])."""
+    shard d's on ``devices[d]`` when given (a mesh's ``devices``; over a
+    group every rank routes the whole request batch and keeps its own
+    shards' buckets, None for the others'), else on ``device`` (None =
+    CUDA), owner [n])."""
     owner = np.asarray(keys, np.int64) % n_shards
     per_dev = [np.nonzero(owner == d)[0] for d in range(n_shards)]
     n_waves = max(1, max((len(i) + width - 1) // width for i in per_dev))
@@ -183,6 +186,9 @@ def route_batches(ops, tbls, keys, vals, vers, n_shards: int, width: int,
     for wv in range(n_waves):
         parts = []
         for d in range(n_shards):
+            if devices is not None and devices[d] is None:
+                parts.append(None)      # another rank's shard
+                continue
             idx = per_dev[d][wv * width:(wv + 1) * width]
             parts.append(make_batch(
                 ops[idx], keys[idx].astype(np.uint64),

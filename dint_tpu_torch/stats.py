@@ -325,11 +325,17 @@ def run_latency_window(runner, state, gen, window_s: float, n_stats: int,
 
 
 def run_window(runner, state, gen, window_s: float, n_stats: int,
-               warmup_blocks: int = 1):
+               warmup_blocks: int = 1, ranks=None):
     """The bench's timed loop: ``warmup_blocks`` calls, then calls until
     ``window_s`` has passed, the fetch of block i-1's stats overlapping
     block i's device work. The window closes with the fetch of the last
     block's stats.
+
+    ``ranks`` (`parallel.dist.Window`): the runner spans processes; the
+    window starts with ``ranks.start()``, a block boundary asks
+    ``ranks.passed(flag)`` whether any rank's window has passed (while
+    the block in flight runs), and it ends with ``ranks.end()`` after the
+    last fetch.
 
     Returns (state, total [n_stats] i64 of the timed blocks, warm_total
     of the warm-up blocks, elapsed_s, blocks, block_s): ``block_s`` is the
@@ -342,11 +348,18 @@ def run_window(runner, state, gen, window_s: float, n_stats: int,
 
     total = np.zeros(n_stats, np.int64)
     block_s = []
+    if ranks is not None:
+        ranks.start()
     t0 = time.time()
+
+    def passed() -> bool:
+        flag = time.time() - t0 >= window_s
+        return flag if ranks is None else ranks.passed(flag)
+
     blocks = 0
     pending = None
     tprev = t0
-    while time.time() - t0 < window_s:
+    while not passed():
         state, stats = runner(state, gen)
         if pending is not None:
             total += fetch_stats(pending).sum(axis=0)
@@ -359,6 +372,8 @@ def run_window(runner, state, gen, window_s: float, n_stats: int,
         total += fetch_stats(pending).sum(axis=0)
         # the last fetch closes the last block's device time
         block_s[-1] = time.time() - tprev + block_s[-1]
+    if ranks is not None:
+        ranks.end()
     dt = time.time() - t0
     return state, total, warm_total, dt, blocks, block_s
 

@@ -30,10 +30,14 @@ a fake mode's devices).
         carry = init(states)
         carry, stats = run.run_draws(carry, bits, payload)
     audit.ops, audit.collectives        # what it checked
+
+Over a mesh that spans processes (`parallel.dist`), each rank audits its
+own partitions: ``PartitionAudit(local=mesh.local)``. A collective's
+entries are then the rank's partitions in flat order, and a tensor of a
+partition outside ``local`` (another rank's entry) raises wherever an
+operator meets it.
 """
 from __future__ import annotations
-
-import math
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -68,9 +72,10 @@ class PartitionAudit(TorchDispatchMode):
     module docstring). ``ops`` counts the operators it checked,
     ``collectives`` the collective calls."""
 
-    def __init__(self, transfers: bool = False):
+    def __init__(self, transfers: bool = False, local=None):
         super().__init__()
         self.transfers = transfers
+        self.local = None if local is None else frozenset(local)
         self.tags = WeakIdKeyDictionary()
         self.ops = 0
         self.collectives = 0
@@ -78,7 +83,7 @@ class PartitionAudit(TorchDispatchMode):
     def tag(self, obj, p: int):
         """Tag every tensor of ``obj`` as partition ``p``'s."""
         for t in leaves(obj):
-            self.tags[t] = p
+            self._set(t, p)
 
     def tag_partitions(self, entries):
         """Tag entry p of ``entries`` (a list a partition) as p's; a
@@ -90,7 +95,7 @@ class PartitionAudit(TorchDispatchMode):
                 owners.setdefault(id(t), (t, set()))[1].add(p)
         for t, ps in owners.values():
             if len(ps) == 1:
-                self.tags[t] = ps.pop()
+                self._set(t, ps.pop())
 
     def part(self, t):
         """The partition of tensor ``t``, None when untagged."""
@@ -100,19 +105,24 @@ class PartitionAudit(TorchDispatchMode):
         name = func.name().split("::")[-1].split(".")[0]
         xs = args[0]
         shape = args[3] if name == "ppermute" else args[2]
-        size = math.prod(int(n) for n in shape)
-        per = len(xs) // size
+        owner = mesh_ops.entry_partitions(len(xs), shape)
         for k, t in enumerate(xs):
             p = self.part(t)
-            if p is not None and p != k // per:
+            if p is not None and p != owner[k]:
                 raise CrossPartition(
-                    f"{func}: entry {k // per} carries partition {p}'s "
+                    f"{func}: entry {owner[k]} carries partition {p}'s "
                     f"tensor")
         self.collectives += 1
         if name == "psum":
             return
         for k, t in enumerate(out):
-            self.tags[t] = k // per
+            self._set(t, owner[k])
+
+    def _set(self, t, p):
+        if self.local is not None and p not in self.local:
+            raise CrossPartition(f"partition {p}'s tensor on a rank that "
+                                 f"holds {sorted(self.local)}")
+        self.tags[t] = p
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -132,5 +142,5 @@ class PartitionAudit(TorchDispatchMode):
         if parts:
             p = parts.pop()
             for t in leaves(out) + _written(func, args):
-                self.tags[t] = p
+                self._set(t, p)
         return out
