@@ -8,10 +8,12 @@
                                           # alone (the mesh over every
                                           # card), N spread/one-card
                                           # pairs a route in turns
-    python3 chip_smoke.py --mesh-procs [N]  # phase 1, then phase 25
-                                          # alone (the mesh across
+    python3 chip_smoke.py --mesh-procs [N]  # phase 1, then phases 25
+                                          # and 26 alone (the mesh and
+                                          # its serving plane across
                                           # processes), N pairs of ranks
                                           # and one-process runs in turns
+                                          # in phase 25
     python3 chip_smoke.py --turns DIR     # this tree against the tree at
                                           # DIR (e.g. the parent commit's
                                           # `git archive`) on one card, in
@@ -474,6 +476,26 @@ mismatch or error:
    route's kernels once a partition a step. One line a rank a run: the
    backend, its cards and partitions, committed txn/s (the mesh's sum)
    and the blocks' seconds. Any rank's failure fails the phase.
+26. The mesh serving plane across processes (after phase 25): 3 ranks,
+   one a host, run `MeshServeEngine(group=)` over 3x2 at 24,000,000
+   accounts, cpb 2, depth 2, monitor on, through `testing.procs`'
+   ``serve_mesh`` job (rank 0 admits and broadcasts each block's command;
+   on one card gloo, every rank on cuda:0; on several NCCL, one rank a
+   card). (a) A VirtualClock, widths (1024, 8192), a constant 1,000,000/s
+   for 12 ms then 4,000,000/s for 20 ms on draws made on the host from a
+   seed, which moves the controller from 1024 to 8192 (a drain on every
+   partition): every
+   rank's report before and after close (offered, admitted, shed, per
+   host, steps by width, the controller and its journal, the histograms,
+   the counters summed over the ranks), its stats and every partition's
+   digests (tables, backups, stamps, log rings and heads) bit for bit the
+   one-process engine's on the card. (b) The wall clock, widths 256 to
+   8192 (the full width), the plan's priors, warmed up: one 2 s Poisson
+   window at 0.5 of phase 19 (b)'s committed txn/s (with --mesh-procs,
+   phase 25's one-process hierarchical run's): the ledger closes on rank
+   0's report, every rank returns it and holds its stats, every rank
+   launched gather_rows; the achieved rate, queue and service p50/p99,
+   the shed share and the per-host split beside the card.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -6884,6 +6906,7 @@ def phase_mh_sb(dev, card):
     phase_mh_sb_cpu_vs_card(dev, card)
     with tempfile.TemporaryDirectory(prefix="dint_p19_") as tmp:
         paths, rec = phase_mh_sb_full(dev, card, tmp)
+    CLOSED_LOOP_RATE["mh_sb hier"] = rec["hier"]["txn_s"]
     serve_paths, rec["serve"] = phase_mh_sb_serve(dev, card,
                                                   rec["hier"]["txn_s"])
     paths.update(serve_paths)
@@ -8421,6 +8444,8 @@ def _p25_one_process(dev, card, spec, devices=None, turn=""):
     digests = {p: procs.state_digests(states[p]) for p in range(mesh.size)}
     del states
     rate = _p25_rate(spec, stats, block_s)
+    if spec["label"] == "smallbank 3x2 hier":
+        CLOSED_LOOP_RATE.setdefault("p25 hier", rate)
     idle = None if busy is None else _p25_idle([busy], block_s)
     print(f"  p25 {spec['label']}{turn}, one process ({where}, cards "
           f"{[str(c) for c in mesh.cards]}): committed txn/s {rate:.1f}; "
@@ -8535,6 +8560,175 @@ def phase_mesh_procs(dev, card, turns=0):
     rec["seconds"] = time.perf_counter() - t0
     print("  phase 25 record: " + json.dumps(rec, default=str))
     print(f"  phase 25: {rec['seconds']:.3f} s  [{card}]")
+    return paths
+
+
+# ------------------------------- the mesh serving plane across processes
+
+P26_RANKS = 3                    # one process a host
+P26_WIDTHS_A = (1024, 8192)      # (a): the menu, one switch between them
+P26_MODEL_A = (1000.0, 500.0)    # (a): the virtual device (base_us, ns)
+# (a): (arrivals a second, seconds) of virtual time: 1024 keeps up with
+# the first part, the second moves the controller to 8192
+P26_LOADS_A = ((1_000_000.0, 0.012), (4_000_000.0, 0.02))
+P26_DEADLINE_S = 300             # the ranks are killed past this
+P26_DRAW_SEED = 2626
+
+
+def _p26_specs(rate_b, spread):
+    """Phase 26's engines (`testing.procs.serve_engine` specs), full size:
+    (a) under a VirtualClock on host-made draws, a two-rate constant
+    schedule that moves the controller from 1024 to 8192 (a drain on
+    every partition);
+    (b) a wall-clock Poisson window at ``rate_b`` through the plan's
+    priors at MH_SERVE_WIDTHS, warmed up first. ``spread``: the
+    one-process engine over the visible cards (else on cuda:0)."""
+    from dint_tpu_torch.serve import constant_schedule, poisson_schedule
+    base = dict(n=MESH_SB_N, shape=list(MH_SHAPE), cpb=SV_CPB, depth=2,
+                seed=0, plan="auto", overlap=False, device=None)
+    a = dict(base, widths=list(P26_WIDTHS_A), model=list(P26_MODEL_A),
+             clock="virtual", draws="host", draw_seed=P26_DRAW_SEED,
+             schedule="a")
+    b = dict(base, widths=list(MH_SERVE_WIDTHS), clock="real",
+             warmup=True, schedule="b")
+    one_a = dict(a, device=None if spread else "cuda:0")
+    parts, t = [], 0.0
+    for rate, secs in P26_LOADS_A:
+        parts.append(t + constant_schedule(rate, secs))
+        t += secs
+    return [a, b], one_a, {
+        "a": np.concatenate(parts),
+        "b": poisson_schedule(rate_b, MH_SERVE_WINDOW_S, seed=26)}
+
+
+def _p26_strip(rep):
+    """A rank's report without the fields its group adds."""
+    return {k: v for k, v in rep.items()
+            if k not in ("processes", "backend", "rank_cards")}
+
+
+def phase_serve_procs(dev, card):
+    """Phase 26: the mesh serving plane across processes (see the module
+    docstring)."""
+    from dint_tpu_torch.testing import procs
+    n_cards = torch.cuda.device_count()
+    h, ci = MH_SHAPE
+    d = h * ci
+    rate_src = "phase 19 (b)" if "mh_sb hier" in CLOSED_LOOP_RATE \
+        else "phase 25's one-process hier run"
+    txn_s = CLOSED_LOOP_RATE.get("mh_sb hier",
+                                 CLOSED_LOOP_RATE.get("p25 hier"))
+    rate_b = 0.5 * txn_s
+    print(f"== phase 26: the mesh serving plane across processes: "
+          f"MeshServeEngine over {h}x{ci} on {P26_RANKS} ranks, one a host "
+          f"({n_cards} card(s) visible: "
+          f"{'gloo through the host, every rank on cuda:0' if n_cards < P26_RANKS else 'NCCL, one rank a card'}"
+          f"), {MESH_SB_N:,} accounts, cpb {SV_CPB}, depth 2, monitor; "
+          f"rank 0 admits and broadcasts each block's command. (a) a "
+          f"VirtualClock, widths {P26_WIDTHS_A}, (arrivals/s, s) "
+          f"{P26_LOADS_A} on host-made draws, bit for bit with the "
+          f"one-process engine; (b) the wall clock, widths "
+          f"{MH_SERVE_WIDTHS}, one {MH_SERVE_WINDOW_S} s Poisson window at "
+          f"0.5 of {rate_src}'s {txn_s:,.1f} committed txn/s")
+    t0 = time.perf_counter()
+    specs, one_a, inputs = _p26_specs(rate_b, spread=n_cards >= P26_RANKS)
+    t1 = time.perf_counter()
+    outs = procs.launch("serve_mesh", {"engines": specs}, P26_RANKS,
+                        inputs=inputs, deadline_s=P26_DEADLINE_S)
+    launch_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    ref_arrays, ref = procs.serve_mesh_run(one_a, inputs)
+    one_s = time.perf_counter() - t1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a): every rank's reports, stats and counters, every partition's
+    # digests == the one-process engine's
+    n_parts = 0
+    for arrays, rec in outs:
+        run = rec["runs"][0]
+        check(all(_p26_strip(run[k]) == ref[k] for k in ("report", "closed"))
+              and run["counters"] == ref["counters"]
+              and np.array_equal(arrays["0/stats"], ref_arrays["stats"]),
+              f"p26 (a): rank {rec['rank']}'s report (offered, admitted, "
+              f"shed, per host, steps by width, controller and journal, "
+              f"histograms, counters) before and after close, its stats "
+              f"and its summed counters == the one-process engine's",
+              quiet=True)
+        for p in run["local"]:
+            check(np.array_equal(arrays[f"0/p{p}/digest"],
+                                 ref_arrays[f"p{p}/digest"]),
+                  f"p26 (a): partition {p}'s digests", quiet=True)
+            n_parts += 1
+    rep_a = ref["closed"]
+    switches = rep_a["controller"]["switches"]
+    served = [w for w, n in rep_a["steps_by_width"].items() if n]
+    check(n_parts == d and len(served) >= 2 and rep_a["committed"] > 0,
+          f"p26 (a) bit for bit across {P26_RANKS} processes: every rank's "
+          f"report == the one-process engine's ({rep_a['blocks']} blocks, "
+          f"steps by width {rep_a['steps_by_width']}: a switch drained "
+          f"every partition; controller switches {switches}, offered {rep_a['offered']:,}, shed "
+          f"{rep_a['shed']:,}), stats, counters, and the digests of {d} "
+          f"partitions (tables, backups, stamps, log rings and heads)")
+    _mh_identities("p26 (a)", rep_a, d)
+
+    # (b): rank 0's report on every rank, every rank's stats equal it
+    rep_b = outs[0][1]["runs"][1]["closed"]
+    stats0 = outs[0][0]["1/stats"]
+    for arrays, rec in outs:
+        run = rec["runs"][1]
+        check(run["closed"] == rep_b and run["report"] ==
+              outs[0][1]["runs"][1]["report"]
+              and np.array_equal(arrays["1/stats"], stats0)
+              and run["launches"]["gather_rows"] > 0
+              and run["launches"]["gather_rows"] % len(run["local"]) == 0,
+              f"p26 (b): rank {rec['rank']} ({rec['backend']}, cards "
+              f"{rec['cards']}, partitions {run['local']}) returned rank "
+              f"0's report, its own stats equal it, gather_rows launched "
+              f"{run['launches']['gather_rows']} times on its partitions",
+              quiet=rec["rank"] > 0)
+    check(int(stats0[0]) == rep_b["attempted"]
+          and int(stats0[1]) == rep_b["committed"] > 0,
+          f"p26 (b): the report's attempted and committed "
+          f"({rep_b['attempted']:,}, {rep_b['committed']:,}) are the "
+          f"stats every rank holds")
+    _mh_identities("p26 (b)", rep_b, d)
+    q, sv = rep_b["queue"], rep_b["service"]
+    shed_share = rep_b["shed"] / max(rep_b["offered"], 1)
+    print(f"  p26 (b): offered {rep_b['offered']:,} at "
+          f"{rep_b['offered_rate']:,.1f}/s, achieved "
+          f"{rep_b['achieved_rate']:,.1f} committed/s; queue p50 "
+          f"{q['p50']:.1f} p99 {q['p99']:.1f} us, service p50 "
+          f"{sv['p50']:.1f} p99 {sv['p99']:.1f} us; shed share "
+          f"{shed_share:.6f}; per host "
+          f"{[(x['admitted'], x['shed']) for x in rep_b['per_host']]}; "
+          f"steps by width {rep_b['steps_by_width']}; slo met "
+          f"{rep_b['slo_met']}; backend {rep_b['backend']}, cards "
+          f"{rep_b['rank_cards']}  [{card}]")
+    paths = {}
+    for i, tag in enumerate(("a", "b")):
+        total = {}
+        for _, rec in outs:
+            for k, v in rec["runs"][i]["launches"].items():
+                total[k] = total.get(k, 0) + v
+        paths[f"p26 serve ranks ({tag})"] = total
+    secs = time.perf_counter() - t0
+    print("  phase 26 record: " + json.dumps({
+        "cards": n_cards, "launch_s": launch_s, "one_process_a_s": one_s,
+        "rank_run_s": [[r["seconds"] for r in rec["runs"]]
+                       for _, rec in outs],
+        "a": {"blocks": rep_a["blocks"], "switches": switches,
+              "steps_by_width": rep_a["steps_by_width"]},
+        "b": {"offered_rate": rep_b["offered_rate"],
+              "achieved_rate": rep_b["achieved_rate"],
+              "queue_p50_us": q["p50"], "queue_p99_us": q["p99"],
+              "service_p50_us": sv["p50"], "service_p99_us": sv["p99"],
+              "shed_share": shed_share, "per_host": rep_b["per_host"],
+              "steps_by_width": rep_b["steps_by_width"],
+              "slo_met": rep_b["slo_met"], "rate_source": rate_src,
+              "closed_txn_s": txn_s},
+        "launches": paths}, default=str))
+    print(f"  phase 26: {secs:.3f} s  [{card}]")
     return paths
 
 
@@ -8695,6 +8889,7 @@ def calibrate_only(dev, card, n):
 
 
 def main(argv=None) -> int:
+    t_run = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--calibrate", type=int, metavar="N",
                     help="run phase 22 (c) alone N times and print the "
@@ -8746,6 +8941,9 @@ def main(argv=None) -> int:
         return 0
     if args.mesh_procs:
         phase_mesh_procs(dev, card, args.mesh_procs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_serve_procs(dev, card)
         return 0
     rec = {**phase_kernels(dev), **phase_sb_kernels(dev)}
     tatp_rec = phase_tatp_kernels(dev)
@@ -8815,6 +9013,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     store_paths.update(phase_mesh_procs(dev, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    store_paths.update(phase_serve_procs(dev, card))
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -8831,8 +9032,9 @@ def main(argv=None) -> int:
         # phase 19's 2-D mesh runs, serving windows and exp points,
         # phase 20's traced blocks, phase 21's full-width blocks (the
         # footprint's and the profiled one), phase 24's spread mesh runs
-        # and phase 25's runs across processes (counted in each rank's
-        # process from 0 just before its run, summed over the ranks),
+        # and phase 25's runs and phase 26's serving runs across
+        # processes (counted in each rank's process from 0 just before
+        # its run, summed over the ranks),
         # each counted from 0 just before its run
         paths = {**{f"tatp {k}": v[name] for k, v in tatp.items()},
                  **{f"smallbank {k}": v[name] for k, v in sb.items()},
@@ -8931,6 +9133,12 @@ def main(argv=None) -> int:
                   for r in ("hier", "flat")),
           "phase 25: the ranks launched their routes' kernels on their "
           "partitions")
+    check(all(by_name["gather_rows"][f"p26 serve ranks ({t})"] > 0
+              for t in ("a", "b")),
+          "phase 26: the serving plane's ranks launched gather_rows on "
+          "their partitions")
+    print(f"chip_smoke: {time.perf_counter() - t_run:.3f} s, every phase  "
+          f"[{card}]")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

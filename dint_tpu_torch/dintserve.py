@@ -12,8 +12,13 @@ run       serve one open-loop arrival schedule end to end and print the
           it). --mesh HxC serves SmallBank over the whole 2-D (dcn x
           ici) mesh instead (`MeshServeEngine`: per-host admission, one
           global controller, width switches drained on every
-          partition); add --overlap for the double-buffered route. Exit
-          0 when the SLO is met (or --no-gate), 1 otherwise.
+          partition); add --overlap for the double-buffered route.
+          Under torchrun (``python -m torch.distributed.run
+          --standalone --nproc-per-node P -m dint_tpu_torch.dintserve
+          run --mesh HxC``) the mesh spans the P ranks, one a host or a
+          block of hosts: rank 0 admits and leads, every rank runs its
+          partitions, and rank 0 prints and writes --json/--journal.
+          Exit 0 when the SLO is met (or --no-gate), 1 otherwise.
 simulate  controller-only rehearsal: the width trajectory the controller
           would take for a schedule under the service-time model (flags,
           else `calib.resolve_service_model`: the port's calibration or
@@ -30,6 +35,9 @@ Examples
   python -m dint_tpu_torch.dintserve run --size 2000 --virtual \\
       --device cpu --json
   python -m dint_tpu_torch.dintserve run --mesh 3x2 --size 24000000 \\
+      --rate 400000 --window 2
+  python -m torch.distributed.run --standalone --nproc-per-node 3 \\
+      -m dint_tpu_torch.dintserve run --mesh 3x2 --size 24000000 \\
       --rate 400000 --window 2
   python -m dint_tpu_torch.dintserve simulate --rate 200000 --window 1
   python -m dint_tpu_torch.dintserve describe
@@ -96,6 +104,18 @@ def _flag_model(args):
 
 
 def cmd_run(args) -> int:
+    """``run``; under torchrun (`dist.from_env`) the ranks join a group
+    first, and leave it however the run ends."""
+    from .parallel import dist
+    group = dist.initialize(device=args.device) if dist.from_env() else None
+    try:
+        return _run(args, group)
+    finally:
+        if group is not None:
+            dist.shutdown()
+
+
+def _run(args, group) -> int:
     from .serve import (ControllerCfg, MeshServeEngine, ServeEngine,
                         VirtualClock)
     # flags win; left unset, the width menu, SLO and service prior come
@@ -112,7 +132,7 @@ def cmd_run(args) -> int:
                   plan=_plan_arg(args.plan), device=args.device)
     if args.mesh:
         eng = MeshServeEngine(args.size, mesh_shape=_mesh_shape(args.mesh),
-                              overlap=args.overlap, **common)
+                              overlap=args.overlap, group=group, **common)
         label = f"mesh {args.mesh} multihost_sb"
     else:
         if args.overlap:
@@ -124,10 +144,13 @@ def cmd_run(args) -> int:
         eng.warmup()          # build the kernels outside the window
     eng.run(_schedule(args))
     eng.close()
-    rep = eng.snapshot()
+    rep = eng.snapshot()          # across ranks: rank 0's, on every rank
     if args.mesh:
         # the placement: the distinct devices the partitions live on
-        rep["cards"] = [str(d) for d in eng.mesh.cards]
+        rep["cards"] = [str(d) for d in eng.mesh.cards] if group is None \
+            else sorted({c for cs in rep["rank_cards"] for c in cs})
+    if group is not None and group.rank:
+        return 0                  # rank 0 prints and writes
     if args.journal:
         from .monitor import calib as CAL
         CAL.dump_journal_jsonl(eng.ctl.journal_doc(), args.journal)
@@ -321,6 +344,10 @@ def main(argv=None) -> int:
     sub.add_parser("describe", help="serving-plane contract")
 
     args = ap.parse_args(argv)
+    from .parallel import dist
+    if dist.from_env() and not (args.cmd == "run" and args.mesh):
+        raise SystemExit("across processes dintserve runs only `run --mesh "
+                         "HxC` (the mesh serving plane over the ranks)")
     return {"run": cmd_run, "simulate": cmd_simulate,
             "describe": cmd_describe}[args.cmd](args)
 

@@ -69,19 +69,22 @@ What differs from exp.py:
 * ``device`` (None = CUDA) places every table; ``device="cpu"`` runs the
   plain path.
 * Across processes (``python -m torch.distributed.run --standalone
-  --nproc-per-node H -m dint_tpu_torch.exp --only multihost_sb``; the
-  standalone rendezvous takes a free port): one rank a host, joined by
-  `parallel.dist.initialize` from torchrun's environment (the mesh
-  ``DINT_BENCH_MESH``, default H x 2, whose hosts the world size must
-  divide). Only that leg runs, through the same sweep: every rank draws
-  the same blocks, and `stats.run_window`'s window spans the ranks
-  (`parallel.dist.Window`: it starts and ends on a barrier, each rank
-  synchronising its own cards at the end, and closes at the first block
-  boundary where any rank's clock has passed it, one host all_reduce a
-  block while the block in flight runs). Rank 0 writes the artifacts,
-  whose extra records the ``processes``, the ``backend`` and each rank's
-  cards. DINT_MONITOR, DINT_TRACE, DINT_EXP_TRACE_DIR and ``--skip-done``
-  are refused there.
+  --nproc-per-node H -m dint_tpu_torch.exp --only multihost_sb`` or
+  ``--only serve_mesh``; the standalone rendezvous takes a free port):
+  one rank a host, joined by `parallel.dist.initialize` from torchrun's
+  environment (the mesh ``DINT_BENCH_MESH``, default H x 2, whose hosts
+  the world size must divide). Only that leg runs, through the same
+  sweep. ``multihost_sb``: every rank draws the same blocks, and
+  `stats.run_window`'s window spans the ranks (`parallel.dist.Window`: it
+  starts and ends on a barrier, each rank synchronising its own cards at
+  the end, and closes at the first block boundary where any rank's clock
+  has passed it, one host all_reduce a block while the block in flight
+  runs); DINT_MONITOR's counters are summed over the ranks.
+  ``serve_mesh``: `MeshServeEngine` over the group (rank 0 admits and
+  leads), every rank running the same points, each point's rate from
+  rank 0's report. Rank 0 writes the artifacts, whose extra records the
+  ``processes``, the ``backend`` and each rank's cards. DINT_TRACE,
+  DINT_EXP_TRACE_DIR and ``--skip-done`` are refused there.
 """
 from __future__ import annotations
 
@@ -194,12 +197,14 @@ def _gen(dev, seed: int, i: int) -> torch.Generator:
     return g
 
 
-def _drain(drain, carry):
+def _drain(drain, carry, group=None):
     """Drain a runner built under the current flags. The port's drains
     return (db, stats) + ((ring,) if DINT_TRACE) + ((counters,) if
     DINT_MONITOR): unpacked by the flags, never by length. Returns
     (tail_stats [n, n_stats] i64, counter snapshot or None, ring or
-    None)."""
+    None). ``group`` (the process group of a mesh across ranks): the
+    snapshot covers this rank's partitions, so it is summed over the
+    ranks (`counters.sum_over`)."""
     out = drain(carry)
     rest = list(out[2:])
     if len(rest) != int(_trace_on()) + int(_monitor_on()):
@@ -207,7 +212,8 @@ def _drain(drain, carry):
                          f"and DINT_MONITOR account for 2 + "
                          f"{int(_trace_on()) + int(_monitor_on())}")
     ring = rest.pop(0) if _trace_on() else None
-    counters = mon.snapshot(rest.pop(0)) if _monitor_on() else None
+    counters = mon.sum_over(group, mon.snapshot(rest.pop(0))) \
+        if _monitor_on() else None
     return st.fetch_stats(out[1]), counters, ring
 
 
@@ -259,7 +265,7 @@ def pipeline_closed(run, carry, drain, n_stats, *, window_s, cpb, depth,
             run, carry, _gen(dev, key_seed, 0), window_s, n_stats,
             warmup_blocks=0, ranks=ranks)
     cores = cpu.cores()
-    tail, counters, ring = _drain(drain, carry)
+    tail, counters, ring = _drain(drain, carry, group)
     total = total + tail.sum(axis=0)
     if int(s0[magic_idx] + warm_t[magic_idx] + total[magic_idx]) != 0:
         raise RuntimeError("magic-byte integrity violated (incl. warmup)")
@@ -641,15 +647,15 @@ def _mh_sb_extras(total):
 
 
 def _group_mesh_shape(group):
-    """``DINT_BENCH_MESH``'s (hosts, chips) for the leg across the ranks of
-    ``group`` (default: a host a rank, 2 chips each), which raises where
-    the leg cannot run: under DINT_MONITOR, DINT_TRACE or
-    DINT_EXP_TRACE_DIR (a rank sees its own partitions only), or with
-    fewer than 3 hosts."""
-    if _monitor_on() or _trace_on() or os.environ.get("DINT_EXP_TRACE_DIR"):
-        raise ValueError("the multihost_sb leg across processes runs "
-                         "without DINT_MONITOR, DINT_TRACE and "
-                         "DINT_EXP_TRACE_DIR")
+    """``DINT_BENCH_MESH``'s (hosts, chips) for a mesh leg across the ranks
+    of ``group`` (default: a host a rank, 2 chips each), which raises
+    where the leg cannot run: under DINT_TRACE or DINT_EXP_TRACE_DIR (a
+    rank's ring and profile see its own partitions only; the counters of
+    DINT_MONITOR are summed over the ranks), or with fewer than 3
+    hosts."""
+    if _trace_on() or os.environ.get("DINT_EXP_TRACE_DIR"):
+        raise ValueError("a mesh leg across processes runs without "
+                         "DINT_TRACE and DINT_EXP_TRACE_DIR")
     n_hosts, n_ici = mhs.mesh_shape_from_env(default=f"{group.size}x2")
     if n_hosts < 3:
         raise ValueError(f"{n_hosts}x{n_ici}: the replication needs >= 3 "
@@ -693,7 +699,8 @@ def sweep_multihost_sb(n_acc, *, width, cpb, window_s, results,
 
 
 def sweep_serve_mesh(name, n_acc, *, window_s, open_rates, results,
-                     quick, cpb=4, depth=2, slo_us=5_000.0, device=None):
+                     quick, cpb=4, depth=2, slo_us=5_000.0, device=None,
+                     group=None):
     """The mesh serving plane's latency-vs-offered-load curve: the whole
     ``DINT_BENCH_MESH`` mesh served as one open-loop plane
     (`serve.mesh.MeshServeEngine`), the ladder of `sweep_serve` (a
@@ -701,9 +708,16 @@ def sweep_serve_mesh(name, n_acc, *, window_s, open_rates, results,
     it); each artifact also carries the mesh, the per-host admitted/shed
     split, ``route_prefetch_lanes`` and the ``cards`` the partitions sit
     on (``device`` None: the visible cards). ``DINT_SERVE_OVERLAP=1``
-    serves through the double-buffered route."""
+    serves through the double-buffered route. ``group`` (a `dist.Group`
+    of several ranks): the engine spans the ranks (rank 0 admits,
+    `_group_mesh_shape`'s mesh); every rank runs the same points, each
+    point's rate taken from rank 0's report, which every rank gets, and
+    the points also carry the ``processes``, the ``backend`` and
+    ``rank_cards``."""
     dev = resolve_device(device)
-    shape = _mesh_shape_or_skip(name, dev)
+    across = group is not None and group.size > 1
+    shape = _group_mesh_shape(group) if across else \
+        _mesh_shape_or_skip(name, dev)
     if shape is None:
         return
     n_hosts, n_ici = shape
@@ -717,18 +731,21 @@ def sweep_serve_mesh(name, n_acc, *, window_s, open_rates, results,
                 n_acc, mesh_shape=(n_hosts, n_ici),
                 cfg=ControllerCfg(widths=widths, slo_us=slo_us),
                 cohorts_per_block=cpb, depth=depth, monitor=True, seed=0,
-                overlap=overlap, device=device)
+                overlap=overlap, device=device, group=group)
             cards = [str(d) for d in eng.mesh.cards]
             eng.warmup()          # build the kernels outside the window
             eng.run(schedule_fn())
             eng.close()
-            rep = eng.snapshot()
-            p = {**eng.queue_hist.percentiles(),
-                 "hist": eng.queue_hist.to_dict()}
-            service = {**eng.service_hist.percentiles(),
-                       "hist": eng.service_hist.to_dict()}
+            rep = eng.snapshot()      # rank 0's, on every rank
+            # the queue and service blocks with their histograms
+            p, service = rep["queue"], rep["service"]
             del eng
             extra = dict(extra_static)
+            if across:
+                extra.update(processes=rep["processes"],
+                             backend=rep["backend"],
+                             rank_cards=rep["rank_cards"])
+                cards = sorted({c for cs in rep["rank_cards"] for c in cs})
             extra.update(
                 mode="serve_mesh", engine="multihost_sb",
                 widths=list(widths), mesh=rep["mesh"], cards=cards,
@@ -1216,16 +1233,17 @@ def run(out: str, window_s: float = 10.0, quick: bool = False,
     filter both ways (``--only tatp`` runs tatp_closed_w256,
     ``--only tatp_closed`` passes the coarse ``tatp`` gate). ``group`` (a
     `dist.Group` of several ranks): ``only`` must name the
-    ``multihost_sb`` leg, which runs across the ranks, and rank 0 writes
-    (``--skip-done`` is refused, since the ranks must run the same
-    points)."""
+    ``multihost_sb`` or the ``serve_mesh`` leg, which runs across the
+    ranks, and rank 0 writes (``--skip-done`` is refused, since the ranks
+    must run the same points)."""
     dev = resolve_device(device)
     across = group is not None and group.size > 1
-    if across and (only is None or "multihost_sb" not in only
-                   or skip_done):
-        raise ValueError("across processes exp runs the multihost_sb leg "
-                         "only, without --skip-done: pass --only "
-                         "multihost_sb")
+    if across and (only is None or skip_done or not (
+            "multihost_sb" in only or "serve_mesh" in only)):
+        raise ValueError("across processes exp runs one mesh leg, the "
+                         "multihost_sb leg only (--only multihost_sb) or "
+                         "the serve_mesh leg only (--only serve_mesh), "
+                         "without --skip-done")
     writes = not across or group.rank == 0
     if writes:
         os.makedirs(out, exist_ok=True)
@@ -1287,7 +1305,7 @@ def run(out: str, window_s: float = 10.0, quick: bool = False,
     if want("serve_mesh") and not skew_preset:
         sweep_serve_mesh("serve_mesh", n_acc, window_s=window_s,
                          open_rates=rates, results=results, quick=quick,
-                         cpb=cpb, device=dev)
+                         cpb=cpb, device=dev, group=group)
 
     sweep_micro(window_s, quick, results, want=want, use_hotset=use_hotset,
                 device=dev)

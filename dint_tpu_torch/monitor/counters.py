@@ -284,14 +284,16 @@ def reject_split(rejected: torch.Tensor, granted: torch.Tensor,
 
 
 def snapshot(counters) -> dict[str, int]:
-    """A `Counters`, a list of them (one a partition), or a raw buffer
-    (tensor or numpy, 1-D or stacked [D, N_COUNTERS]) as a {name: int}
-    dict; stacked rows are summed for flow counters and maxed for
-    gauges."""
+    """A `Counters`, a list of them (one a partition; over a process
+    group another rank's entries are None and skipped, so the dict covers
+    this rank's partitions: `sum_over` adds the other ranks'), or a raw
+    buffer (tensor or numpy, 1-D or stacked [D, N_COUNTERS]) as a
+    {name: int} dict; stacked rows are summed for flow counters and maxed
+    for gauges."""
     if isinstance(counters, (list, tuple)):
         # one a partition, each read from its own device
         counters = np.stack([c.buf.detach().cpu().numpy()
-                             for c in counters])
+                             for c in counters if c is not None])
     buf = counters.buf if isinstance(counters, Counters) else counters
     if isinstance(buf, torch.Tensor):
         buf = buf.detach().cpu().numpy()
@@ -305,6 +307,28 @@ def snapshot(counters) -> dict[str, int]:
         out[name] = int(col.max() if COUNTER_KINDS[name] == GAUGE
                         else col.sum())
     return out
+
+
+def sum_over(group, snap: dict[str, int]) -> dict[str, int]:
+    """One rank's `snapshot` combined over the ranks of ``group`` (a
+    `parallel.dist.Group`) by `snapshot`'s rule across partitions: flow
+    counters summed, gauges maxed, so every rank gets the whole mesh's
+    dict. Two all_reduces of int64 on the host's group; ``group`` None
+    or of one rank returns ``snap`` unchanged."""
+    if group is None or group.size == 1:
+        return snap
+    import torch.distributed as tdist
+    names = list(COUNTER_INDEX)
+    flows = [n for n in names if COUNTER_KINDS[n] != GAUGE]
+    gauges = [n for n in names if COUNTER_KINDS[n] == GAUGE]
+    out = {}
+    for keys, op in ((flows, tdist.ReduceOp.SUM),
+                     (gauges, tdist.ReduceOp.MAX)):
+        x = torch.tensor([int(snap.get(n, 0)) for n in keys],
+                         dtype=torch.int64)
+        tdist.all_reduce(x, op=op, group=group.host)
+        out.update(zip(keys, (int(v) for v in x.tolist())))
+    return {n: out[n] for n in names}
 
 
 def delta(cur: dict[str, int], prev: dict[str, int] | None) -> dict[str, int]:

@@ -8,7 +8,10 @@ partitions' tensors (ops/mesh_ops.py), one node a call in a trace, the
 only place one partition's data reaches another's card or rank.
 
 * `dist` — the process group: `initialize` (torchrun's environment or
-  explicit arguments; gloo or NCCL by the placement), `shutdown`.
+  explicit arguments; gloo or NCCL by the placement), the host's
+  agreements and rank 0's broadcasts (`broadcast_ints`,
+  `broadcast_object`: how the mesh serving plane's leader commands the
+  ranks), `shutdown`.
 
 * `sharded` — the generic engines over a partitioned keyspace with
   primary-backup replication (`build_sharded_step`, `route_batches`).

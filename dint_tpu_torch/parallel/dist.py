@@ -34,6 +34,7 @@ import dataclasses
 import datetime
 import os
 
+import numpy as np
 import torch
 import torch.distributed as tdist
 
@@ -194,6 +195,31 @@ def gather_objects(group: Group, obj) -> list:
     out = [None] * group.size
     tdist.all_gather_object(out, obj, group=group.host)
     return out
+
+
+def broadcast_ints(group: Group, arr, n: int) -> np.ndarray:
+    """Rank 0's int32 vector of ``n`` elements (``arr``; ignored on the
+    other ranks, which may pass None) on every rank: one broadcast on the
+    host's group, so it never waits on a card and ends within the
+    group's timeout where rank 0 is gone. How the leader of a serving
+    plane sends each step's command."""
+    if group.rank == 0:
+        x = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.int32))
+        if x.shape != (n,):
+            raise ValueError(f"broadcast of {tuple(x.shape)} ints, the "
+                             f"ranks expect ({n},)")
+    else:
+        x = torch.empty(n, dtype=torch.int32)
+    tdist.broadcast(x, src=0, group=group.host)
+    return x.numpy()
+
+
+def broadcast_object(group: Group, obj):
+    """Rank 0's ``obj`` (picklable) on every rank (the other ranks'
+    ``obj`` is ignored), over the host's group."""
+    box = [obj if group.rank == 0 else None]
+    tdist.broadcast_object_list(box, src=0, group=group.host)
+    return box[0]
 
 
 class Window:

@@ -339,11 +339,17 @@ class ServeEngine:
         db, tail = out[0], out[1]
         self._absorb_stats(tail.cpu().numpy().astype(np.int64))
         if self.monitor:
-            snap = mon.snapshot(out[-1])
+            snap = self._read_counters(out[-1])
             for k, v in snap.items():
                 self.counters_total[k] = self.counters_total.get(k, 0) + v
         self._db = db
         self._cur_w = None
+
+    def _read_counters(self, counters) -> dict[str, int]:
+        """The {name: int} dict of the runner's device counter ledger
+        (every read of it goes through here: the mesh plane across
+        processes sums it over the ranks)."""
+        return mon.snapshot(counters)
 
     def _absorb_stats(self, stats: np.ndarray) -> None:
         row = stats.astype(np.int64).sum(axis=0)
@@ -361,6 +367,10 @@ class ServeEngine:
         self.ctl.journal_hot_frac(
             self._hot_frac, self.counters_total.get("hot_hits", 0),
             self.counters_total.get("hot_cold_rows", 0), rec)
+        self._use_hot_frac(rec)
+
+    def _use_hot_frac(self, rec: float) -> None:
+        """Rebuild the width menu at hot_frac ``rec`` when it moved."""
         if rec == self._hot_frac:
             return
         self._hot_frac = rec
@@ -524,7 +534,7 @@ class ServeEngine:
         if self.monitor and self._carry is not None:
             # a peek at the live ledger (absorbed for real at the next
             # drain), so a snapshot reconciles mid-flight
-            for k, v in mon.snapshot(self._carry[-1]).items():
+            for k, v in self._read_counters(self._carry[-1]).items():
                 counters[k] = counters.get(k, 0) + v
         committed = attempted = 0
         if self.stats_total is not None:

@@ -30,6 +30,37 @@ puts them all on it. The engine draws and admits on the mesh's home
 device; the runner hands each partition its draws and occupancies on its
 own card. On one card the mesh's partitions share it, so the overlap
 route reorders work and overlaps no link (`parallel/multihost_sb.py`).
+
+**Across processes** (``group=``, a `parallel.dist.Group` of several
+ranks, one a host or a block of hosts: JAX's engine under
+``jax.distributed``, whose mesh spans the processes): every rank builds
+the engine with the same arguments over its part of the mesh, and rank 0
+leads. It alone owns the arrival stream, the clock, the per-host backlogs,
+the controller with its journal and the service-time observations. Before
+every runner call it broadcasts one int32 command (`dist.broadcast_ints`
+on the host's group) ``[op, w, block_idx, hot_frac (2 words), occ
+[H*C*cpb], shed [H*C*cpb]]``:
+
+* ``BLOCK``: every rank runs the block at width ``w`` on the same ``occ``
+  and ``shed`` and the same block index, so each draws the whole block
+  alike (or replays ``draws=``) and keeps its partitions' slices;
+* ``SWITCH``: every rank drains (`_detach`); rank 0 then makes the
+  hot_frac choice from the counters (summed over the ranks) and sends it
+  in a second ``SWITCH``, and every rank attaches at ``w``;
+* ``IDLE``: a heartbeat, at most one each ``idle_poll_us`` while rank 0
+  waits for arrivals, so a follower's wait, bounded by the group's
+  timeout, never expires on a quiet schedule;
+* ``STOP``: the end of ``run``.
+
+A follower's ``run`` executes these commands and nothing else: it never
+admits or serves on its own. Every rank retires its own blocks' stats,
+the mesh's psum, so ``stats_total`` is equal on every rank; every read
+of the counter ledger is summed over the ranks (`counters.sum_over`);
+``run`` and ``snapshot`` return rank 0's report on every rank, with the
+``processes``, the ``backend`` and each rank's cards (``rank_cards``).
+``warmup`` and ``close`` run on every rank. A rank that dies, or a
+command that never comes, makes the others raise within the group's
+timeout. ``group`` None (or of one rank) is the one-process engine.
 """
 from __future__ import annotations
 
@@ -38,9 +69,15 @@ import collections
 import numpy as np
 import torch
 
+from ..monitor import counters as mon
+from ..parallel import dist
 from .arrivals import ArrivalStream
 from .controller import ControllerCfg, ServiceModel, WidthController
 from .engine import ServeEngine, cached_runner
+
+# the leader's commands (module docstring)
+OP_BLOCK, OP_SWITCH, OP_IDLE, OP_STOP = 1, 2, 3, 4
+_HEAD = 5                       # op, w, block_idx, hot_frac as 2 words
 
 
 class MeshServeEngine(ServeEngine):
@@ -54,7 +91,10 @@ class MeshServeEngine(ServeEngine):
     ``run.run_draws`` draw arguments (bits [cpb, H*C, w, 5], ts_amt [cpb,
     H*C, w]); for ``block_idx`` None, the drain's (none: ``()``).
     ``device``: the placement (None = the visible cards, one a partition
-    where there are enough); ``self.mesh.cards`` lists the cards used."""
+    where there are enough; over a group the rank's cards);
+    ``self.mesh.cards`` lists the cards used. ``group``: a
+    `parallel.dist.Group`, this process one rank of several (the module
+    docstring); None: the whole mesh here."""
 
     ENGINES = ("multihost_sb",)
 
@@ -69,11 +109,19 @@ class MeshServeEngine(ServeEngine):
                  overlap: bool | None = None,
                  runner_kw: dict | None = None, plan="auto",
                  adapt_hot_frac: bool | None = None, draws=None,
-                 device=None):
+                 device=None, group=None):
         from ..parallel import multihost_sb as mhs
         self.n_hosts, self.n_ici = int(mesh_shape[0]), int(mesh_shape[1])
-        self.mesh = mhs.make_mesh_2d(self.n_hosts, self.n_ici, device)
+        self.mesh = mhs.make_mesh_2d(self.n_hosts, self.n_ici, device,
+                                     group=group)
         self.n_devices = self.n_hosts * self.n_ici
+        self.group = group
+        self._across = group is not None and group.size > 1
+        self._lead = not self._across or group.rank == 0
+        self._cmd_len = _HEAD + 2 * self.n_devices * cohorts_per_block
+        self._last_cmd = 0.0
+        self.rank_cards = None if not self._across else dist.gather_objects(
+            group, [str(c) for c in self.mesh.cards])
         self.hierarchical = hierarchical
         self.overlap = overlap
         super().__init__("multihost_sb", n_accounts, cfg=cfg, model=model,
@@ -138,7 +186,100 @@ class MeshServeEngine(ServeEngine):
     # -- the pump and per-host admission --------------------------------
 
     def _dispatch(self, occ: np.ndarray, shed: np.ndarray) -> None:
+        self._send(OP_BLOCK, self._cur_w, occ, shed)
         self._launch(occ, shed)
+
+    def _switch(self, w: int) -> None:
+        """The width switch: every partition drains first (the mesh-wide
+        barrier), then the hot_frac choice, then the attach at ``w``."""
+        self._send(OP_SWITCH, w)
+        if self._cur_w is not None:
+            self._detach()
+        self._maybe_rebuild_hot_frac()
+        self._send(OP_SWITCH, w, hot_frac=self._hot_frac)
+        self._attach(w)
+
+    def _retire_one(self) -> None:
+        if self._lead:
+            super()._retire_one()
+            return
+        # a follower keeps the stats; the service times are the leader's
+        stats, _, _ = self._pending.popleft()
+        self._absorb_stats(stats.cpu().numpy().astype(np.int64))
+
+    def _read_counters(self, counters) -> dict[str, int]:
+        return mon.sum_over(self.group, mon.snapshot(counters))
+
+    # -- the leader's commands ------------------------------------------
+
+    def _send(self, op: int, w: int = 0, occ=None, shed=None,
+              hot_frac=None) -> None:
+        """Rank 0: broadcast one command (nothing in one process)."""
+        if not self._across:
+            return
+        cmd = np.zeros(self._cmd_len, np.int32)
+        hf = np.nan if hot_frac is None else float(hot_frac)
+        cmd[:3] = [op, w, self._block_idx]
+        cmd[3:_HEAD] = np.array([hf], np.float64).view(np.int32)
+        n = self.n_devices * self.cpb
+        if occ is not None:
+            cmd[_HEAD:_HEAD + n] = np.asarray(occ, np.int32).reshape(-1)
+            cmd[_HEAD + n:] = np.asarray(shed, np.int32).reshape(-1)
+        dist.broadcast_ints(self.group, cmd, self._cmd_len)
+        self._last_cmd = self._rel_now()
+
+    def _recv(self):
+        """A follower: the next command as (op, w, block_idx, hot_frac,
+        occ [H, C, cpb], shed [H, C, cpb])."""
+        cmd = dist.broadcast_ints(self.group, None, self._cmd_len)
+        hf = float(cmd[3:_HEAD].copy().view(np.float64)[0])
+        n = self.n_devices * self.cpb
+        shape = (self.n_hosts, self.n_ici, self.cpb)
+        return (int(cmd[0]), int(cmd[1]), int(cmd[2]),
+                None if np.isnan(hf) else hf,
+                cmd[_HEAD:_HEAD + n].reshape(shape),
+                cmd[_HEAD + n:].reshape(shape))
+
+    def _heartbeat(self) -> None:
+        """Rank 0, idle: an IDLE command at most once each
+        ``idle_poll_us`` since the last command."""
+        if self._across and \
+                self._rel_now() - self._last_cmd >= self.idle_poll_us * 1e-6:
+            self._send(OP_IDLE)
+
+    def _follow(self) -> dict:
+        """A follower's ``run``: execute the leader's commands until
+        STOP, then retire its blocks and return the leader's report."""
+        if self._t0 is None:
+            self._t0 = self.clock.now()
+        while True:
+            op, w, idx, _, occ, shed = self._recv()
+            if op == OP_STOP:
+                break
+            if op == OP_IDLE:
+                continue
+            if op == OP_SWITCH:
+                if self._cur_w is not None:
+                    self._detach()
+                op2, w2, _, hot_frac, _, _ = self._recv()
+                if (op2, w2) != (OP_SWITCH, w):
+                    raise RuntimeError(f"rank {self.group.rank}: a switch "
+                                       f"to {w} answered by op {op2} at "
+                                       f"{w2}")
+                if hot_frac is not None:
+                    self._use_hot_frac(hot_frac)
+                self._attach(w)
+                continue
+            if op != OP_BLOCK or w != self._cur_w or \
+                    idx != self._block_idx:
+                raise RuntimeError(
+                    f"rank {self.group.rank} out of step: op {op} at width "
+                    f"{w}, block {idx}; this rank is at width "
+                    f"{self._cur_w}, block {self._block_idx}")
+            self._launch(occ, shed)
+        self._retire_all()
+        self._elapsed = self._rel_now()
+        return self.snapshot()
 
     def _ingest(self, stream: ArrivalStream, dt: float) -> None:
         got = stream.take_until(self._rel_now())
@@ -203,8 +344,13 @@ class MeshServeEngine(ServeEngine):
 
     # -- the serving loop -----------------------------------------------
 
-    def run(self, schedule: np.ndarray, *, max_blocks: int | None = None
-            ) -> dict:
+    def run(self, schedule: np.ndarray | None, *,
+            max_blocks: int | None = None) -> dict:
+        """Serve ``schedule`` (the base class's ``run``). Across
+        processes rank 0 serves its schedule and leads; a follower's
+        ``schedule`` and ``max_blocks`` are ignored."""
+        if not self._lead:
+            return self._follow()
         stream = ArrivalStream(schedule)
         if self._t0 is None:
             self._t0 = self.clock.now()
@@ -222,16 +368,12 @@ class MeshServeEngine(ServeEngine):
                 nxt = stream.peek() - self._rel_now()
                 self.clock.sleep(max(min(nxt, self.idle_poll_us * 1e-6),
                                      1e-9))
+                self._heartbeat()
                 continue
 
             w = self.ctl.width()
             if w != self._cur_w:
-                # the switch drains every partition first: the mesh-wide
-                # barrier
-                if self._cur_w is not None:
-                    self._detach()
-                self._maybe_rebuild_hot_frac()
-                self._attach(w)
+                self._switch(w)
 
             occ = self._fill_block(w)
             self._dispatch(occ, self._shed_mirror())
@@ -241,11 +383,16 @@ class MeshServeEngine(ServeEngine):
 
         self._retire_all()
         self._elapsed = self._rel_now()
+        self._send(OP_STOP)
         return self.snapshot()
 
     # -- reporting ------------------------------------------------------
 
     def snapshot(self) -> dict:
+        """The report (the base class's, with the mesh and the per-host
+        split). Across processes every rank calls it together (the live
+        counters are summed over the ranks) and gets rank 0's report, with
+        ``processes``, ``backend`` and ``rank_cards``."""
         rep = super().snapshot()
         rep["mesh"] = {"n_hosts": self.n_hosts, "n_ici": self.n_ici,
                        "hierarchical": self.hierarchical,
@@ -254,4 +401,9 @@ class MeshServeEngine(ServeEngine):
             {"host": h, "admitted": self.admitted_by_host[h],
              "shed": self.shed_by_host[h]}
             for h in range(self.n_hosts)]
+        if self._across:
+            rep = dist.broadcast_object(self.group, rep)
+            rep.update(processes=self.group.size,
+                       backend=self.group.backend,
+                       rank_cards=self.rank_cards)
         return rep

@@ -27,7 +27,11 @@ The jobs:
   a lost host rebuilt from the next host's ring and each rank's txn/s;
 * ``runs``: several ``run`` specs in turn in one launch (one spawn);
 * ``sharded_step``: the generic engines' `sharded.build_sharded_step` on
-  batches every rank routes alike.
+  batches every rank routes alike;
+* ``serve_mesh``: `serve.mesh.MeshServeEngine` over the ranks, a list of
+  engine specs in turn (`serve_mesh_run`, which also runs one spec in one
+  process): each rank's report, stats, counters (summed over the ranks)
+  and each local partition's digests (or tables) after ``close``.
 """
 from __future__ import annotations
 
@@ -500,6 +504,10 @@ def _run_job(group, spec, inputs):
                 arrays[f"p{p}/{k}"] = np.asarray(v)
         if cnts is not None:
             arrays[f"p{p}/counters"] = u32.to_numpy(cnts[p].buf)
+    if cnts is not None:
+        # the mesh's counters: this rank's partitions, summed over the ranks
+        from ..monitor import counters as mon
+        record["counters"] = mon.sum_over(group, mon.snapshot(cnts))
     for dead_h in spec.get("recover", ()):
         # the lost host's partitions rebuilt on their rank from the ring
         # of host dead_h + 1 (one ppermute along "dcn", across ranks)
@@ -630,5 +638,114 @@ def sharded_step_arrays(mesh, spec: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------- serving
+
+
+def serve_draws(spec: dict, inputs: dict):
+    """The engine's ``draws=`` for ``spec["draws"]``: None (the engine's
+    own generator), ``"host"`` (`host_draws` from ``spec["draw_seed"]``,
+    the block index and the width) or ``"inputs"`` (``bits<i>.<w>`` and
+    ``amt<i>.<w>``, e.g. JAX's draws)."""
+    how = spec.get("draws")
+    if how is None:
+        return None
+    h, c = spec["shape"]
+    cpb = spec["cpb"]
+
+    def draws(i, w):
+        if i is None:
+            return ()
+        if how == "host":
+            return host_draws("multihost_sb", spec.get("draw_seed", 0), i,
+                              cpb, h * c, w)
+        return (torch.from_numpy(inputs[f"bits{i}.{w}"]),
+                torch.from_numpy(inputs[f"amt{i}.{w}"]))
+    return draws
+
+
+def serve_engine(spec: dict, inputs: dict, group=None):
+    """The spec's `MeshServeEngine` (over ``group``, or in one process):
+    ``n`` accounts over ``shape``, the width menu ``widths`` (and
+    ``slo_us``), ``model`` (base_us, per_lane_ns) or the plan's,
+    ``cpb``, ``depth``, ``overlap``, ``hierarchical``, ``seed``,
+    ``idle_poll_us``, ``clock`` ("virtual" or "real"), ``plan`` ("auto", None or a plan
+    document), ``device`` and the draws of `serve_draws`."""
+    from ..serve import (ControllerCfg, MeshServeEngine, RealClock,
+                         ServiceModel, VirtualClock)
+    cfg = ControllerCfg(widths=tuple(spec["widths"]),
+                        **({"slo_us": spec["slo_us"]}
+                           if spec.get("slo_us") is not None else {}))
+    model = spec.get("model")
+    return MeshServeEngine(
+        spec["n"], mesh_shape=tuple(spec["shape"]), cfg=cfg,
+        model=None if model is None else ServiceModel(*model),
+        cohorts_per_block=spec["cpb"], depth=spec.get("depth", 2),
+        clock=VirtualClock() if spec.get("clock") == "virtual"
+        else RealClock(), monitor=spec.get("monitor", True),
+        seed=spec.get("seed", 0), overlap=spec.get("overlap", False),
+        idle_poll_us=spec.get("idle_poll_us", 50_000.0),
+        hierarchical=spec.get("hierarchical"), plan=spec.get("plan"),
+        draws=serve_draws(spec, inputs), device=spec.get("device"),
+        group=group)
+
+
+def serve_mesh_run(spec: dict, inputs: dict, group=None):
+    """One engine spec (`serve_engine`): warm up (``spec["warmup"]``),
+    serve the schedule ``inputs[spec["schedule"]]``, close. Returns
+    (arrays: ``stats`` (the summed stats) and each local partition's
+    ``p<p>/digest`` (`state_digests`) or, with ``outputs="arrays"``, its
+    `state_arrays`; record: ``report`` (``run``'s), ``closed`` (the
+    snapshot after ``close``), ``counters``, ``launches`` (counted from
+    0 just before ``run``), ``seconds`` of ``run`` and ``close``,
+    ``local``). ``spec["die"]`` = [rank, blocks]: that rank exits once it
+    has launched that many blocks (a rank lost mid-run)."""
+    from .. import timing
+    eng = serve_engine(spec, inputs, group)
+    if spec.get("warmup"):
+        eng.warmup()
+    die = spec.get("die")
+    if die is not None and group is not None and group.rank == die[0]:
+        launch = eng._launch
+
+        def launch_then_die(occ, shed):
+            launch(occ, shed)
+            if eng.blocks >= die[1]:
+                os._exit(0)
+        eng._launch = launch_then_die
+    sched = inputs[spec["schedule"]]
+    reset_launches()
+    t0 = time.perf_counter()
+    report = eng.run(sched)
+    eng.close()
+    if eng.dev.type == "cuda":
+        timing.synchronize(eng.mesh.cards)
+    secs = time.perf_counter() - t0
+    record = {"report": report, "closed": eng.snapshot(),
+              "counters": dict(eng.counters_total), "launches": launches(),
+              "seconds": secs, "local": list(eng.mesh.local)}
+    arrays = {"stats": np.asarray(eng.stats_total)}
+    for p in eng.mesh.local:
+        if spec.get("outputs") == "arrays":
+            for k, v in state_arrays("multihost_sb", eng._db[p]).items():
+                arrays[f"p{p}/{k}"] = np.asarray(v)
+        else:
+            arrays[f"p{p}/digest"] = np.array(state_digests(eng._db[p]),
+                                              dtype=np.int64)
+    del eng
+    return arrays, json.loads(json.dumps(record))
+
+
+def _serve_mesh_job(group, spec, inputs):
+    """``spec["engines"]`` in turn (`serve_mesh_run`); engine i's arrays
+    under ``<i>/`` and its record at ``runs[i]``."""
+    arrays, records = {}, []
+    for i, one in enumerate(spec["engines"]):
+        a, rec = serve_mesh_run(one, inputs, group)
+        arrays.update({f"{i}/{k}": v for k, v in a.items()})
+        records.append(rec)
+    return arrays, {"runs": records}
+
+
 JOBS = {"collectives": _collectives_job, "run": _run_job,
-        "runs": _runs_job, "sharded_step": _sharded_step_job}
+        "runs": _runs_job, "sharded_step": _sharded_step_job,
+        "serve_mesh": _serve_mesh_job}

@@ -253,9 +253,10 @@ def test_run_window_across_ranks_closes_on_the_agreement():
 
 def test_exp_across_processes_refuses_what_a_rank_cannot_run(monkeypatch,
                                                              tmp_path):
-    """Across ranks exp runs the multihost_sb leg only, without
-    --skip-done (the ranks must run the same points) and without the
-    planes a rank sees only its part of; it raises before it builds
+    """Across ranks exp runs one mesh leg (multihost_sb or serve_mesh),
+    without --skip-done (the ranks must run the same points) and without
+    the planes a rank sees only its part of (the counters of DINT_MONITOR
+    are summed over the ranks, so they run); it raises before it builds
     anything."""
     from dint_tpu_torch import exp
     g = _group(0, 3)
@@ -263,7 +264,7 @@ def test_exp_across_processes_refuses_what_a_rank_cannot_run(monkeypatch,
                {"only": "multihost_sb", "skip_done": True}):
         with pytest.raises(ValueError, match="multihost_sb leg only"):
             exp.run(str(tmp_path), quick=True, device="cpu", group=g, **kw)
-    for flag, value in (("DINT_MONITOR", "1"), ("DINT_TRACE", "1"),
+    for flag, value in (("DINT_TRACE", "1"),
                         ("DINT_EXP_TRACE_DIR", str(tmp_path))):
         with monkeypatch.context() as m:
             m.setenv(flag, value)
