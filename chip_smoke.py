@@ -312,7 +312,7 @@ mismatch or error:
    and the card from the same host-made draws: tables, backups, logs,
    heads and the stats of every step bit-identical. (b) Sharded TATP at
    7,000,000 subscribers over 3 shards (the reference's three servers),
-   w=8192 a shard, 4 cohorts/block, one warm and 8 timed blocks and the
+   w=8192 a shard, 4 cohorts/block, one warm and 2 timed blocks and the
    drain, on the default and fused routes, each from `populate_device`
    tables (seeds 0-2) and generator seed 1: committed txn/s summed over
    the shards, ms a step, the abort mix, peak memory; accounting closes,
@@ -322,7 +322,7 @@ mismatch or error:
    1 rebuilt from its own ring and from shard 2's (numpy
    `recover_tatp_dense`, key_hi filter); then one profiled block a route:
    device and host ms a step of the local waves and of `replicate`. (c)
-   The same over a 3x2 (host, chip) mesh (`build_multihost_runner`), 4 timed
+   The same over a 3x2 (host, chip) mesh (`build_multihost_runner`), 2 timed
    blocks: the three copies of every row on three hosts; partition (1, 0)
    rebuilt from host 2's ring. (d) `entry.dryrun_multichip(4)` on the
    card.
@@ -337,7 +337,7 @@ mismatch or error:
    scatter_rows_hot, gather_streams and scatter_streams against their
    plain versions inside the sharded step). (b) SmallBank at 24,000,000
    accounts over 3 partitions (the reference's three servers), w=8192 a
-   partition, 4 cohorts/block, 90/4 skew, one warm and 8 timed blocks and
+   partition, 4 cohorts/block, 90/4 skew, one warm and 2 timed blocks and
    the drain, on the default, hot and fused routes from one generator
    seed: committed txn/s summed, ms a step, the abort mix, overflow, peak
    memory; accounting closes, global balance conservation mod 2^32,
@@ -362,7 +362,7 @@ mismatch or error:
    every step, counters and event rings bit-identical. (b) SmallBank at
    24,000,000 accounts over 3 hosts x 2 chips (PLAN.json's
    multihost_3x2), w=8192 a partition, 4 cohorts/block, log 16 x 2^17 a
-   partition, monitored, one warm and 8 timed blocks and the drain on
+   partition, monitored, one warm and 2 timed blocks and the drain on
    the hierarchical and the flat exchange: committed txn/s summed, ms a
    step, the abort mix, overflow, peak memory, the ICI/DCN lane split;
    accounting closes, global conservation mod 2^32, overflow 0, no stamp
@@ -372,7 +372,7 @@ mismatch or error:
    step, the two routes' stats and tables identical; partition (1, 0)
    rebuilt from its own ring and host 2's; one profiled block a route:
    device and host ms a step of each `multihost_sb` wave; then the two
-   exchanges in turns (flat, hier, hier, flat), unmonitored, 1 warm + 4
+   exchanges in turns (flat, hier, hier, flat), unmonitored, 1 warm + 2
    timed blocks each: ms a step. (c) `MeshServeEngine` at the same size,
    widths 256/1024/4096/8192, cpb 2, depth 2, monitor, wall clock: 2 s
    Poisson windows at 0.5 and 1.2 of (b)'s committed txn/s, overlap off
@@ -445,8 +445,10 @@ mismatch or error:
    partition where there are enough, a host's chips sharing one where
    not; on a one-card machine every partition on cuda:0, given
    explicitly). TATP at 7,000,000 subscribers over 3 shards (default and
-   fused) and SmallBank at 24,000,000 accounts over 3x2 (hierarchical and
-   flat), w=8192 a partition, 4 cohorts/block, monitored, 1 warm + 2
+   fused), SmallBank at 24,000,000 accounts over 3x2 (hierarchical and
+   flat) and over 3 partitions (`dense_sharded_sb`: default, hotset and
+   fused, each route's kernels once a partition a step on its
+   partition's card), w=8192 a partition, 4 cohorts/block, monitored, 1 warm + 2
    timed blocks and the drain, each run twice: spread, then with every
    partition on cuda:0 from the same seeds and draws; the stats of every
    step, the counters and every partition's tables, backups, log rings
@@ -466,16 +468,30 @@ mismatch or error:
    `parallel.dist.initialize` (on one card gloo, every rank on cuda:0,
    CUDA tensors staged through the host; on several cards NCCL, one rank
    a card). In one launch each rank runs TATP `multihost` at 7,000,000
-   subscribers over 3 hosts (`populate_device`, seeds 0-2) and SmallBank
-   `multihost_sb` at 24,000,000 accounts over 3x2, hierarchical and flat,
-   w=8192 a partition, 4 cohorts/block, 3 blocks (the first warm) and the
-   drain on draws made on the host from a seed; then the one-process mesh
-   runs the same on cuda:0. Every rank's stats of every step and each
+   subscribers over 3 hosts and `dense_sharded` over 3 shards, default
+   and fused (`populate_device`, seeds 0-2; the ranks create the three
+   runs' partitions once, the backups moved between them, and each run
+   starts from its own clone), SmallBank `multihost_sb` at
+   24,000,000 accounts over 3x2, hierarchical and flat, and
+   `dense_sharded_sb` over 3 partitions, default, hotset and fused
+   (monitored), w=8192 a partition, 4 cohorts/block, 3 blocks (the first
+   warm) and the drain on draws made on the host from a seed; after the
+   TATP multihost and SmallBank hierarchical runs host 1's partitions
+   are rebuilt on their rank from host 2's ring (`multihost.rings_from`,
+   one ppermute along dcn across ranks); then the generic TATP step
+   (`sharded.build_sharded_step`, 3 shards of phase 11's 7,000,000
+   subscribers, w=4096) on three request draws that spill into further
+   waves. Then the one-process mesh runs the same on cuda:0. Every rank's
+   stats of every step, the counters summed over the ranks and each
    partition's digests (tables, backups, stamps, log rings and heads,
-   host ints) bit for bit the one-process run's; each rank launched its
-   route's kernels once a partition a step. One line a rank a run: the
-   backend, its cards and partitions, committed txn/s (the mesh's sum)
-   and the blocks' seconds. Any rank's failure fails the phase.
+   host ints) bit for bit the one-process run's; each rebuilt partition
+   == the one-process rebuild and the live tables it replaces; every
+   wave's replies and summed vote and each generic shard's digests ==
+   the one-process step's; each rank launched its route's kernels once a
+   partition a step and no other (B1-B7 among the runs; the generic step
+   none). One line a rank a run: the backend, its cards and partitions,
+   committed txn/s (the mesh's sum) and the blocks' seconds. Any rank's
+   failure fails the phase.
 26. The mesh serving plane across processes (after phase 25): 3 ranks,
    one a host, run `MeshServeEngine(group=)` over 3x2 at 24,000,000
    accounts, cpb 2, depth 2, monitor on, through `testing.procs`'
@@ -489,13 +505,17 @@ mismatch or error:
    host, steps by width, the controller and its journal, the histograms,
    the counters summed over the ranks), its stats and every partition's
    digests (tables, backups, stamps, log rings and heads) bit for bit the
-   one-process engine's on the card. (b) The wall clock, widths 256 to
+   one-process engine's on the card; the same with the overlap on (the
+   multihost_sb prefetch carry) against the one-process engine with the
+   overlap on, whose admissions, widths, ledger, stats and tables equal
+   the unoverlapped run's. (b) The wall clock, widths 256 to
    8192 (the full width), the plan's priors, warmed up: one 2 s Poisson
    window at 0.5 of phase 19 (b)'s committed txn/s (with --mesh-procs,
    phase 25's one-process hierarchical run's): the ledger closes on rank
    0's report, every rank returns it and holds its stats, every rank
    launched gather_rows; the achieved rate, queue and service p50/p99,
-   the shed share and the per-host split beside the card.
+   the shed share and the per-host split beside the card; with
+   --mesh-procs a second window with the overlap on, at the same rate.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -595,6 +615,16 @@ def check(cond, what, quiet=False):
         raise SmokeFailure(what)
     if not quiet:
         print(f"  ok: {what}")
+
+
+def check_launches(label, launches, per_step, steps, n_parts, quiet=False):
+    """A run's launches == ``per_step`` a partition a step over ``steps``
+    steps and ``n_parts`` partitions, every other kernel none."""
+    want = dict.fromkeys(launches, 0)
+    want.update({k: v * steps * n_parts for k, v in per_step.items()})
+    check(launches == want,
+          f"{label}: launches {launches} == {per_step} a partition a step "
+          f"over {steps} steps x {n_parts} partitions", quiet=quiet)
 
 
 def device_ms(fn, n=20, groups=5):
@@ -5683,8 +5713,8 @@ MESH_D = 3                       # the reference's three servers
 MESH_2D = (3, 2)                 # three hosts of two chips
 MESH_W = 8192                    # each shard's cohort width
 MESH_CPB = 4
-MESH_BLOCKS = 8                  # timed blocks after the warm one (1-D)
-MESH_2D_BLOCKS = 4               # (2-D)
+MESH_BLOCKS = 2                  # timed blocks after the warm one (1-D)
+MESH_2D_BLOCKS = 2               # (2-D)
 MESH_TEST = dict(n=4, n_sub=4 * 200, w=32, cpb=2, vw=4, log_cap=128)
 
 
@@ -5796,12 +5826,7 @@ def _mesh_check(label, mesh, axis, states, base, stats, launches, per_step,
     check(bumps > 0 and heads == 3 * bumps,
           f"{label}: log heads {heads} == 3 x {bumps} version bumps (each "
           f"write logged on three partitions)")
-    steps = stats.shape[0]
-    want = dict.fromkeys(launches, 0)
-    want.update({k: c * steps * mesh.size for k, c in per_step.items()})
-    check(launches == want,
-          f"{label}: launches {launches} == {per_step} a partition a step "
-          f"over {steps} steps x {mesh.size} partitions")
+    check_launches(label, launches, per_step, stats.shape[0], mesh.size)
 
 
 def _mesh_recover(dev, label, mesh, states, dead, sources, n_loc, seed0=0):
@@ -6055,7 +6080,7 @@ def phase_mesh(dev, card):
 # ------------------------------------------------- sharded SmallBank (mesh)
 
 MESH_SB_N = 24_000_000           # bench_smallbank.py:24-32's accounts
-MESH_SB_BLOCKS = 8               # timed blocks after the warm one
+MESH_SB_BLOCKS = 2               # timed blocks after the warm one
 # ring slots a lane: every ring gets every committed write of the mesh
 # (own installs and both hops), ~1,900 a lane a step at this size
 MESH_SB_LOG_CAP = 1 << 17
@@ -6277,12 +6302,7 @@ def _sb_mesh_check(label, mesh, states, base, stats, launches, per_step,
     check(hwm < states[0].log.capacity,
           f"{label}: head < capacity on every lane ({hwm} of "
           f"{states[0].log.capacity})")
-    steps = stats.shape[0]
-    want = dict.fromkeys(launches, 0)
-    want.update({k: v * steps * d for k, v in per_step.items()})
-    check(launches == want,
-          f"{label}: launches {launches} == {per_step} a partition a step "
-          f"over {steps} steps x {d} partitions")
+    check_launches(label, launches, per_step, stats.shape[0], d)
 
 
 def _sb_mesh_recover(dev, label, mesh, states, dead, axis="shard"):
@@ -6546,7 +6566,7 @@ MH_SERVE_WINDOW_S = 2.0
 MH_SERVE_LOADS = (0.5, 1.2)      # of (b)'s committed txn/s
 MH_EXP_RATES = (0.5,)            # (d)'s open-rate ladder: one rung
 MH_EXP_WINDOW_S = 2.0            # (d)'s windows
-MH_AB_BLOCKS = 4                 # (b)'s exchange A/B: timed blocks a turn
+MH_AB_BLOCKS = 2                 # (b)'s exchange A/B: timed blocks a turn
 
 
 def _mh_identities(label, rep, d):
@@ -8243,6 +8263,49 @@ def _p24_smallbank(dev, card, spread, turns, trace_dir):
     return paths, rec
 
 
+def _p24_sharded_sb(dev, card, spread, turns):
+    """SmallBank at 24M over 3 partitions (`dense_sharded_sb`), monitored,
+    on its default, hotset and fused routes: the spread mesh, then
+    ``device=dev``, the same draws (``turns`` pairs, `_p24_order`), every
+    run held against the route's first and launching SB_MESH_PER_STEP's
+    kernels once a partition a step, each on its partition's card."""
+    from dint_tpu_torch.engines.types import ROUTES
+    from dint_tpu_torch.parallel import dense_sharded_sb as dsb
+    paths, rec = {}, {}
+    for route in ("default", "hotset", "fused"):
+        hot, fused = ROUTES[route]
+        ref = None
+        rec[route] = {"spread": [], "one card": []}
+        for where in _p24_order(turns):
+            mesh = dsb.make_mesh(MESH_D, **({"devices": spread}
+                                            if where == "spread"
+                                            else {"device": dev}))
+            label = f"p24 smallbank sharded {route}, {where}"
+            states = dsb.create_sharded_sb(mesh, MESH_D, MESH_SB_N,
+                                           log_capacity=MESH_SB_LOG_CAP)
+            runner = dsb.build_sharded_sb_runner(
+                mesh, MESH_D, MESH_SB_N, w=MESH_W,
+                cohorts_per_block=MESH_CPB, use_hotset=hot,
+                use_fused=fused, monitor=True)
+            states, stats, cnt, launches, r = _p24_run(
+                card, label, mesh, runner, states, 18, dsb.STAT_COMMITTED)
+            del runner
+            rec[route][where].append(r)
+            check_launches(label, launches, SB_MESH_PER_STEP[route],
+                          stats.shape[0], MESH_D)
+            if ref is None:
+                paths[f"p24 smallbank sharded {route}"] = launches
+                ref = (states, stats, cnt)
+            else:
+                _p24_same(f"smallbank sharded {route}, {where} == spread",
+                          (states, stats, cnt), ref)
+            del states
+            gc.collect()
+            torch.cuda.empty_cache()
+        del ref
+    return paths, rec
+
+
 def _p24_dryrun(dev, card):
     """`entry.dryrun_multichip(3)` over the visible cards against
     ``device=dev``: the same line but for the cards and the wall time."""
@@ -8314,7 +8377,8 @@ def phase_mesh_cards(dev, card, turns=1):
     print(f"== phase 24: the mesh over the cards ({n_cards} visible): TATP "
           f"at {N_SUB:,} over {MESH_D} shards (default, fused) and "
           f"SmallBank at {MESH_SB_N:,} over {MH_SHAPE[0]}x{MH_SHAPE[1]} "
-          f"(hierarchical, flat), w={MESH_W} a partition, 1 warm + "
+          f"(hierarchical, flat) and over {MESH_D} partitions (default, "
+          f"hotset, fused), w={MESH_W} a partition, 1 warm + "
           f"{P24_BLOCKS} timed blocks and the drain each, spread by the "
           f"placement and then on one card, bit for bit; the dry run; a "
           f"lost partition from another card's ring; one hop timed")
@@ -8333,6 +8397,9 @@ def phase_mesh_cards(dev, card, turns=1):
         p, rec["smallbank"] = _p24_smallbank(
             dev, card, _p24_spread(MH_SHAPE), turns, tmp)
     paths.update(p)
+    p, rec["smallbank sharded"] = _p24_sharded_sb(
+        dev, card, _p24_spread((MESH_D,)), turns)
+    paths.update(p)
     _p24_dryrun(dev, card)
     rec["hop"] = _p24_hop(dev, card, _p24_spread((MESH_D,)))
     rec["seconds"] = time.perf_counter() - t0
@@ -8350,23 +8417,53 @@ P25_DEADLINE_S = 540             # the ranks are killed past this
 P25_TATP_SHAPE = (3, 1)          # TATP's multihost runner: 3 hosts
 
 
+P25_GEN_WAVES = (2 * GEN_W, 3 * GEN_W, 4 * GEN_W)   # the generic step's
+# request draws at phase 11's width: each spills over a shard's w lanes
+# into a second wave
+
+
 def _p25_specs(profile=False) -> list:
-    """Phase 25's runs (`testing.procs` run specs, full size, draws made
-    on the host from a seed): TATP `multihost` at 7M over 3 hosts
-    (`populate_device` a partition, seeds 0-2), SmallBank `multihost_sb`
-    at 24M over 3x2, hierarchical and flat; each partition's tensors as
-    digests. ``profile``: the last block under torch.profiler."""
+    """Phase 25's runs (`testing.procs` job specs, full size, draws made on
+    the host from a seed), each partition's tensors as digests:
+    TATP `multihost` at 7M over 3 hosts and `dense_sharded` at 7M over 3
+    shards, default and fused (`populate_device` a partition, seeds 0-2);
+    SmallBank `multihost_sb` at 24M over 3x2, hierarchical and flat, and
+    `dense_sharded_sb` at 24M over 3 partitions, default, hotset and
+    fused, monitored; host 1 lost and rebuilt on its rank from host 2's
+    ring (TATP multihost, SmallBank hier); and the generic TATP step
+    (`sharded.build_sharded_step`) at phase 11's sizes. The three TATP
+    runs lay their partitions out alike: the ranks create them once
+    (the backups moved between the ranks), each run from its own clone.
+    ``profile``: each run's last block under torch.profiler."""
     base = dict(w=MESH_W, cpb=MESH_CPB, outputs="digest", profile=profile,
                 blocks=P25_PROFILED_BLOCKS if profile else P25_BLOCKS)
-    sb = dict(base, engine="multihost_sb", shape=list(MH_SHAPE),
-              n=MESH_SB_N, log_cap=MESH_SB_LOG_CAP, draw_seed=2526)
-    return [dict(base, label="tatp multihost", engine="multihost",
-                 shape=list(P25_TATP_SHAPE), n=N_SUB, vw=VW, log_cap=None,
-                 state="device", seed=0, draw_seed=2525),
-            dict(sb, label="smallbank 3x2 hier",
-                 route={"hierarchical": True}),
-            dict(sb, label="smallbank 3x2 flat",
-                 route={"hierarchical": False})]
+    tatp = dict(base, n=N_SUB, vw=VW, log_cap=None, state="device", seed=0,
+                draw_seed=2525, share="tatp")
+    sb = dict(base, n=MESH_SB_N, log_cap=MESH_SB_LOG_CAP, draw_seed=2526)
+    mh_sb = dict(sb, engine="multihost_sb", shape=list(MH_SHAPE))
+    ds = dict(tatp, engine="dense_sharded", shape=[MESH_D])
+    ds_sb = dict(sb, engine="dense_sharded_sb", shape=[MESH_D])
+    return [dict(tatp, label="tatp multihost", engine="multihost",
+                 shape=list(P25_TATP_SHAPE), recover=[1]),
+            dict(ds, label="tatp sharded", route={"monitor": True}),
+            dict(ds, label="tatp sharded fused",
+                 route={"use_fused": True, "monitor": True}),
+            dict(mh_sb, label="smallbank 3x2 hier",
+                 route={"hierarchical": True}, recover=[1]),
+            dict(mh_sb, label="smallbank 3x2 flat",
+                 route={"hierarchical": False}),
+            dict(ds_sb, label="smallbank sharded", route={"monitor": True}),
+            dict(ds_sb, label="smallbank sharded hotset",
+                 route={"use_hotset": True, "monitor": True}),
+            dict(ds_sb, label="smallbank sharded fused",
+                 route={"use_fused": True, "monitor": True}),
+            dict(job="sharded_step", label="generic tatp sharded step",
+                 shards=MESH_D, n=GEN_N_SUB, w=GEN_W, vw=VW, log_cap=1 << 20,
+                 seed=2527, waves=list(P25_GEN_WAVES), outputs="digest")]
+
+
+def _p25_is_step(spec) -> bool:
+    return spec.get("job") == "sharded_step"
 
 
 def _p25_rate(spec, stats, block_s) -> float:
@@ -8374,7 +8471,8 @@ def _p25_rate(spec, stats, block_s) -> float:
     mesh's sum, as every rank sees it."""
     from dint_tpu_torch.engines import tatp_dense as td
     from dint_tpu_torch.parallel import multihost_sb as mhs
-    col = td.STAT_COMMITTED if spec["engine"] == "multihost" \
+    from dint_tpu_torch.testing import procs
+    col = td.STAT_COMMITTED if spec["engine"] in procs.TATP \
         else mhs.STAT_COMMITTED
     cpb = spec["cpb"]
     timed = stats[cpb:cpb * len(block_s), col].astype(np.int64).sum()
@@ -8411,12 +8509,21 @@ def _p25_ranks(card, specs, turn=""):
     for i, spec in enumerate(specs):
         for arrays, rec in outs:
             r = rec["runs"][i]
+            if _p25_is_step(spec):
+                print(f"  p25 {spec['label']}{turn}, rank {rec['rank']} "
+                      f"({rec['backend']}, cards {r['cards']}, shards "
+                      f"{r['local']}): {len(spec['waves'])} draws in "
+                      f"{r['seconds']:.3f} s (create, route, step, digests)"
+                      f"  [{card}]")
+                continue
             print(f"  p25 {spec['label']}{turn}, rank {rec['rank']} "
                   f"({rec['backend']}, cards {rec['cards']}, partitions "
                   f"{r['local']}): committed txn/s "
                   f"{_p25_rate(spec, arrays[f'{i}/stats'], r['block_s']):.1f}"
                   f" (the mesh's sum); block s "
-                  f"{[round(b, 6) for b in r['block_s']]}  [{card}]")
+                  f"{[round(b, 6) for b in r['block_s']]}; seconds "
+                  f"{ {k: round(v, 3) for k, v in r['seconds'].items()} }"
+                  f"  [{card}]")
         if spec.get("profile"):
             runs = [rec["runs"][i] for _, rec in outs]
             idle = _p25_idle([r["busy_s"] for r in runs],
@@ -8431,17 +8538,39 @@ def _p25_ranks(card, specs, turn=""):
 
 def _p25_one_process(dev, card, spec, devices=None, turn=""):
     """``spec``'s run on the one-process mesh (every partition on ``dev``,
-    or on ``devices``): (stats, {partition: digests}, record)."""
+    or on ``devices``): (reference, record). The reference holds the
+    stats, {partition: digests}, the recovered partitions' arrays and
+    the counters' snapshot (or None); for the generic step, its arrays."""
     from dint_tpu_torch import timing
+    from dint_tpu_torch.monitor import counters as mon
+    from dint_tpu_torch.parallel import sharded
     from dint_tpu_torch.testing import procs
     where = "one card" if devices is None else "spread"
-    mesh = procs.make_mesh(spec["engine"], spec["shape"],
-                           **({"device": dev} if devices is None
-                              else {"devices": devices}))
-    states, stats, _, block_s, busy = procs.drive(
+    place = {"device": dev} if devices is None else {"devices": devices}
+    t0 = time.perf_counter()
+    if _p25_is_step(spec):
+        mesh = sharded.make_mesh(spec["shards"], **place)
+        arrays = procs.sharded_step_arrays(mesh, spec)
+        timing.synchronize(mesh.cards)
+        secs = time.perf_counter() - t0
+        print(f"  p25 {spec['label']}{turn}, one process ({where}, cards "
+              f"{[str(c) for c in mesh.cards]}): {len(spec['waves'])} draws "
+              f"in {secs:.3f} s  [{card}]")
+        return {"arrays": arrays}, {"seconds": secs,
+                                    "cards": [str(c) for c in mesh.cards]}
+    mesh = procs.make_mesh(spec["engine"], spec["shape"], **place)
+    states, stats, cnts, block_s, busy = procs.drive(
         spec["engine"], mesh, spec, {},
         sync=lambda: timing.synchronize(mesh.cards))
-    digests = {p: procs.state_digests(states[p]) for p in range(mesh.size)}
+    ref = {"stats": stats,
+           "digests": {p: procs.state_digests(states[p])
+                       for p in range(mesh.size)},
+           "counters": None if cnts is None else json.loads(json.dumps(
+               mon.snapshot(cnts))),
+           "recover": {}}
+    for dead_h in spec.get("recover", ()):
+        ref["recover"].update(procs.recover(spec["engine"], mesh, spec,
+                                            states, dead_h))
     del states
     rate = _p25_rate(spec, stats, block_s)
     if spec["label"] == "smallbank 3x2 hier":
@@ -8453,48 +8582,108 @@ def _p25_one_process(dev, card, spec, devices=None, turn=""):
           + ("" if idle is None else
              f"; each card's idle share of a block, and NCCL's kernels' "
              f"{idle}") + f"  [{card}]")
-    return stats, digests, {"txn_s": rate, "idle": idle,
-                            "cards": [str(c) for c in mesh.cards]}
+    return ref, {"txn_s": rate, "idle": idle,
+                 "cards": [str(c) for c in mesh.cards]}
 
 
-def _p25_same(spec, i, outs, stats, digests):
-    """Every rank's stats == the one-process run's, and each partition's
-    digests (tables, backups, stamps, log rings and heads, host ints) ==
-    the one-process run's, partition by partition."""
-    n = 0
+def _p25_equal(a: dict, b: dict) -> bool:
+    """Two dicts of arrays (or values) equal key for key, bit for bit."""
+    return a.keys() == b.keys() and all(
+        np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in a)
+
+
+def _p25_same(spec, i, outs, ref):
+    """Every rank's outputs == the one-process run's: for a runner, its
+    stats, each partition's digests (tables, backups, stamps, log rings and
+    heads, host ints), the counters summed over the ranks and the lost
+    host's rebuilt partitions; for the generic step, every wave's replies
+    and vote and each shard's digests."""
+    label = f"p25 {spec['label']}"
+    if _p25_is_step(spec):
+        got = {}
+        for arrays, rec in outs:
+            mine = {k.split("/", 1)[1]: v for k, v in arrays.items()
+                    if k.startswith(f"{i}/")}
+            check(all(np.array_equal(v, ref["arrays"][k])
+                      for k, v in mine.items()),
+                  f"{label}: rank {rec['rank']}'s replies, votes and shard "
+                  f"digests", quiet=True)
+            got.update(mine)
+        n_waves = sum(1 for k in got if k.endswith("/committed"))
+        check(_p25_equal(got, ref["arrays"]) and n_waves > len(spec["waves"])
+              and any(int(v.sum()) for k, v in got.items()
+                      if k.endswith("/committed")),
+              f"{label} bit for bit across {P25_RANKS} processes: the "
+              f"replies and the summed vote of {n_waves} waves from "
+              f"{len(spec['waves'])} draws (a spill each) and the digests of "
+              f"{spec['shards']} shards == the one-process step's")
+        return
+    n, digests = 0, ref["digests"]
     for arrays, rec in outs:
-        check(np.array_equal(arrays[f"{i}/stats"], stats),
-              f"{spec['label']}: rank {rec['rank']}'s stats of "
-              f"{stats.shape[0]} steps == the one-process mesh's",
+        r = rec["runs"][i]
+        check(np.array_equal(arrays[f"{i}/stats"], ref["stats"]),
+              f"{label}: rank {rec['rank']}'s stats of "
+              f"{ref['stats'].shape[0]} steps == the one-process mesh's",
               quiet=True)
-        for p in rec["runs"][i]["local"]:
+        check(r.get("counters") == ref["counters"],
+              f"{label}: rank {rec['rank']}'s counters summed over the "
+              f"ranks == the one-process mesh's", quiet=True)
+        for p in r["local"]:
             check(list(arrays[f"{i}/p{p}/digest"]) == digests[p],
-                  f"{spec['label']}: partition {p}'s digests", quiet=True)
+                  f"{label}: partition {p}'s digests", quiet=True)
             n += 1
     check(n == len(digests),
-          f"p25 {spec['label']} bit for bit across {P25_RANKS} processes: "
-          f"the stats of {stats.shape[0]} steps on every rank and the "
-          f"digests of {sum(len(d) for d in digests.values())} tensors and "
-          f"host ints of {n} partitions (tables, backups, stamps, log rings "
-          f"and heads) == the one-process mesh's")
+          f"{label} bit for bit across {P25_RANKS} processes: the stats of "
+          f"{ref['stats'].shape[0]} steps on every rank"
+          + ("" if ref["counters"] is None else ", the summed counters")
+          + f" and the digests of "
+          f"{sum(len(d) for d in digests.values())} tensors and host ints of "
+          f"{n} partitions (tables, backups, stamps, log rings and heads) == "
+          f"the one-process mesh's")
+    if not spec.get("recover"):
+        return
+    got = {}
+    for arrays, _ in outs:
+        got.update({k.split("/", 1)[1]: v for k, v in arrays.items()
+                    if k.startswith(f"{i}/rec")})
+    dead = sorted({k.split("/")[0] for k in got})
+    check(_p25_equal(got, ref["recover"]) and len(dead) > 0
+          and all(bool(got[f"{d}/same"]) for d in dead),
+          f"{label}: lost host {spec['recover']}'s partitions "
+          f"{[int(d[3:]) for d in dead]} rebuilt on their rank from the next "
+          f"host's ring (one ppermute along dcn across ranks) == the "
+          f"one-process mesh's rebuild (digests) and == the live tables they "
+          f"replace")
+
+
+def _p25_per_step(spec) -> dict:
+    """The kernels ``spec``'s route launches a partition a step."""
+    from dint_tpu_torch.engines.types import ROUTES
+    from dint_tpu_torch.testing import procs
+    if _p25_is_step(spec):
+        return {}
+    r = spec.get("route", {})
+    route = {v: k for k, v in ROUTES.items()}[(r.get("use_hotset", False),
+                                               r.get("use_fused", False))]
+    return (TATP_PER_STEP if spec["engine"] in procs.TATP
+            else SB_MESH_PER_STEP)[route]
 
 
 def _p25_launches(spec, i, outs) -> dict:
     """The run's kernel launches summed over the ranks; checks each rank
-    launched its route's kernels on its partitions every step."""
+    launched its route's kernels once a partition a step and no other
+    (the generic step: none of the nine, as phase 11)."""
     total = {}
+    per_step = _p25_per_step(spec)
     for arrays, rec in outs:
-        got = rec["runs"][i]["launches"]
+        r = rec["runs"][i]
+        got = r["launches"]
         for k, v in got.items():
             total[k] = total.get(k, 0) + v
-        steps = arrays[f"{i}/stats"].shape[0]
-        want = ("gather_rows", "lock_arbitrate") \
-            if spec["engine"] == "multihost" else ("gather_rows",)
-        per = len(rec["runs"][i]["local"])
-        check(all(got[k] == steps * per for k in want),
-              f"p25 {spec['label']}: rank {rec['rank']} launched "
-              f"{[k for k in want]} once a partition a step ({got})",
-              quiet=rec["rank"] > 0)
+        steps = 0 if _p25_is_step(spec) else arrays[f"{i}/stats"].shape[0]
+        check_launches(f"p25 {spec['label']}: rank {rec['rank']}", got,
+                      per_step, steps, len(r["local"]),
+                      quiet=rec["rank"] > 0)
     return total
 
 
@@ -8507,12 +8696,15 @@ def phase_mesh_procs(dev, card, turns=0):
     print(f"== phase 25: the mesh across processes: {P25_RANKS} ranks, one a "
           f"host ({n_cards} card(s) visible: "
           f"{'gloo through the host, every rank on cuda:0' if n_cards < P25_RANKS else 'NCCL, one rank a card'}"
-          f"); TATP multihost at {N_SUB:,} over "
-          f"{P25_TATP_SHAPE[0]}x{P25_TATP_SHAPE[1]}, SmallBank at "
-          f"{MESH_SB_N:,} over {MH_SHAPE[0]}x{MH_SHAPE[1]} (hierarchical, "
-          f"flat), w={MESH_W} a partition, {MESH_CPB} cohorts/block, "
-          f"{P25_BLOCKS} blocks (the first warm) and the drain on host-made "
-          f"draws, bit for bit with the one-process mesh")
+          f"); TATP at {N_SUB:,} over {P25_TATP_SHAPE[0]}x"
+          f"{P25_TATP_SHAPE[1]} (multihost) and {MESH_D} shards (default, "
+          f"fused), SmallBank at {MESH_SB_N:,} over "
+          f"{MH_SHAPE[0]}x{MH_SHAPE[1]} (hierarchical, flat) and {MESH_D} "
+          f"partitions (default, hotset, fused), w={MESH_W} a partition, "
+          f"{MESH_CPB} cohorts/block, {P25_BLOCKS} blocks (the first warm) "
+          f"and the drain on host-made draws; host 1 rebuilt on its rank "
+          f"from host 2's ring; the generic TATP step at {GEN_N_SUB:,}, "
+          f"w={GEN_W}; bit for bit with the one-process mesh")
     t0 = time.perf_counter()
     specs = _p25_specs(profile=turns > 0)
     order = ["ranks", "one process"] if turns == 0 else [
@@ -8529,6 +8721,10 @@ def phase_mesh_procs(dev, card, turns=0):
             launches.append(outs)
             for i, spec in enumerate(specs):
                 runs = [x["runs"][i] for _, x in outs]
+                if _p25_is_step(spec):
+                    rec["runs"][spec["label"]]["ranks"].append(
+                        [r["seconds"] for r in runs])
+                    continue
                 rec["runs"][spec["label"]]["ranks"].append({
                     "idle": spec["profile"] and _p25_idle(
                         [r["busy_s"] for r in runs], runs[0]["block_s"]),
@@ -8540,22 +8736,29 @@ def phase_mesh_procs(dev, card, turns=0):
                         "launches": x["runs"][i]["launches"]}
                         for a, x in outs]})
             continue
-        devices = None if turns == 0 else _p24_spread
         for spec in specs:
-            stats, digests, r = _p25_one_process(
-                dev, card, spec, devices and devices(tuple(spec["shape"])),
+            shape = (spec["shards"],) if _p25_is_step(spec) \
+                else tuple(spec["shape"])
+            ref, r = _p25_one_process(
+                dev, card, spec, None if turns == 0 else _p24_spread(shape),
                 turn)
             rec["runs"][spec["label"]]["one"].append(r)
-            first = one.setdefault(spec["label"], (stats, digests))
-            check(np.array_equal(first[0], stats) and first[1] == digests,
+            first = one.setdefault(spec["label"], ref)
+            check(_p25_equal(first["arrays"], ref["arrays"])
+                  if _p25_is_step(spec) else
+                  (np.array_equal(first["stats"], ref["stats"])
+                   and first["digests"] == ref["digests"]
+                   and first["counters"] == ref["counters"]
+                   and _p25_equal(first["recover"], ref["recover"])),
                   f"p25 {spec['label']}: the one-process run == its first",
                   quiet=True)
+            del ref
             gc.collect()
             torch.cuda.empty_cache()
     paths = {}
     for i, spec in enumerate(specs):
         for outs in launches:
-            _p25_same(spec, i, outs, *one[spec["label"]])
+            _p25_same(spec, i, outs, one[spec["label"]])
         paths[f"p25 {spec['label']}"] = _p25_launches(spec, i, launches[0])
     rec["seconds"] = time.perf_counter() - t0
     print("  phase 25 record: " + json.dumps(rec, default=str))
@@ -8575,14 +8778,17 @@ P26_DEADLINE_S = 300             # the ranks are killed past this
 P26_DRAW_SEED = 2626
 
 
-def _p26_specs(rate_b, spread):
+def _p26_specs(rate_b, spread, overlap_b=False):
     """Phase 26's engines (`testing.procs.serve_engine` specs), full size:
     (a) under a VirtualClock on host-made draws, a two-rate constant
     schedule that moves the controller from 1024 to 8192 (a drain on
-    every partition);
+    every partition), the overlap off and then on;
     (b) a wall-clock Poisson window at ``rate_b`` through the plan's
-    priors at MH_SERVE_WIDTHS, warmed up first. ``spread``: the
-    one-process engine over the visible cards (else on cuda:0)."""
+    priors at MH_SERVE_WIDTHS, warmed up first, the overlap off (and on,
+    ``overlap_b``). ``spread``: the one-process engines over the visible
+    cards (else on cuda:0). Returns (the ranks' specs: (a), (b), (a) with
+    the overlap, then (b) with it; the one-process (a) specs, the overlap
+    off and on; the schedules)."""
     from dint_tpu_torch.serve import constant_schedule, poisson_schedule
     base = dict(n=MESH_SB_N, shape=list(MH_SHAPE), cpb=SV_CPB, depth=2,
                 seed=0, plan="auto", overlap=False, device=None)
@@ -8596,7 +8802,9 @@ def _p26_specs(rate_b, spread):
     for rate, secs in P26_LOADS_A:
         parts.append(t + constant_schedule(rate, secs))
         t += secs
-    return [a, b], one_a, {
+    specs = [a, b, dict(a, overlap=True)] + (
+        [dict(b, overlap=True)] if overlap_b else [])
+    return specs, (one_a, dict(one_a, overlap=True)), {
         "a": np.concatenate(parts),
         "b": poisson_schedule(rate_b, MH_SERVE_WINDOW_S, seed=26)}
 
@@ -8607,9 +8815,115 @@ def _p26_strip(rep):
             if k not in ("processes", "backend", "rank_cards")}
 
 
-def phase_serve_procs(dev, card):
+def _p26_virtual(tag, i, outs, ref_arrays, ref, d, overlap):
+    """(a) run ``i`` (the overlap ``overlap``): every rank's reports,
+    stats and counters, every partition's digests == the one-process
+    engine's; returns its report after close."""
+    n_parts = 0
+    for arrays, rec in outs:
+        run = rec["runs"][i]
+        check(all(_p26_strip(run[k]) == ref[k] for k in ("report", "closed"))
+              and run["counters"] == ref["counters"]
+              and np.array_equal(arrays[f"{i}/stats"], ref_arrays["stats"]),
+              f"p26 {tag}: rank {rec['rank']}'s report (offered, admitted, "
+              f"shed, per host, steps by width, controller and journal, "
+              f"histograms, counters) before and after close, its stats "
+              f"and its summed counters == the one-process engine's",
+              quiet=True)
+        for p in run["local"]:
+            check(np.array_equal(arrays[f"{i}/p{p}/digest"],
+                                 ref_arrays[f"p{p}/digest"]),
+                  f"p26 {tag}: partition {p}'s digests", quiet=True)
+            n_parts += 1
+    rep = ref["closed"]
+    switches = rep["controller"]["switches"]
+    served = [w for w, n in rep["steps_by_width"].items() if n]
+    check(n_parts == d and len(served) >= 2 and rep["committed"] > 0
+          and rep["mesh"]["overlap"] is overlap,
+          f"p26 {tag} bit for bit across {P26_RANKS} processes: every rank's "
+          f"report == the one-process engine's ({rep['blocks']} blocks, "
+          f"steps by width {rep['steps_by_width']}: a switch drained "
+          f"every partition; controller switches {switches}, offered "
+          f"{rep['offered']:,}, shed {rep['shed']:,}; overlap "
+          f"{rep['mesh']['overlap']}), stats, counters, and the digests of "
+          f"{d} partitions (tables, backups, stamps, log rings and heads)")
+    _mh_identities(f"p26 {tag}", rep, d)
+    return rep
+
+
+def _p26_window(tag, i, outs, card, d) -> dict:
+    """(b) run ``i``: rank 0's report on every rank, every rank's stats
+    equal it; prints and returns its rate, queue/service split and shed
+    share."""
+    rep = outs[0][1]["runs"][i]["closed"]
+    stats0 = outs[0][0][f"{i}/stats"]
+    for arrays, rec in outs:
+        run = rec["runs"][i]
+        check(run["closed"] == rep and run["report"] ==
+              outs[0][1]["runs"][i]["report"]
+              and np.array_equal(arrays[f"{i}/stats"], stats0)
+              and run["launches"]["gather_rows"] > 0
+              and run["launches"]["gather_rows"] % len(run["local"]) == 0,
+              f"p26 {tag}: rank {rec['rank']} ({rec['backend']}, cards "
+              f"{rec['cards']}, partitions {run['local']}) returned rank "
+              f"0's report, its own stats equal it, gather_rows launched "
+              f"{run['launches']['gather_rows']} times on its partitions",
+              quiet=rec["rank"] > 0)
+    check(int(stats0[0]) == rep["attempted"]
+          and int(stats0[1]) == rep["committed"] > 0,
+          f"p26 {tag}: the report's attempted and committed "
+          f"({rep['attempted']:,}, {rep['committed']:,}) are the "
+          f"stats every rank holds")
+    _mh_identities(f"p26 {tag}", rep, d)
+    q, sv = rep["queue"], rep["service"]
+    shed_share = rep["shed"] / max(rep["offered"], 1)
+    print(f"  p26 {tag}: offered {rep['offered']:,} at "
+          f"{rep['offered_rate']:,.1f}/s, achieved "
+          f"{rep['achieved_rate']:,.1f} committed/s; queue p50 "
+          f"{q['p50']:.1f} p99 {q['p99']:.1f} us, service p50 "
+          f"{sv['p50']:.1f} p99 {sv['p99']:.1f} us; shed share "
+          f"{shed_share:.6f}; per host "
+          f"{[(x['admitted'], x['shed']) for x in rep['per_host']]}; "
+          f"steps by width {rep['steps_by_width']}; slo met "
+          f"{rep['slo_met']}; overlap {rep['mesh']['overlap']}; backend "
+          f"{rep['backend']}, cards {rep['rank_cards']}  [{card}]")
+    return {"offered_rate": rep["offered_rate"],
+            "achieved_rate": rep["achieved_rate"],
+            "queue_p50_us": q["p50"], "queue_p99_us": q["p99"],
+            "service_p50_us": sv["p50"], "service_p99_us": sv["p99"],
+            "shed_share": shed_share, "per_host": rep["per_host"],
+            "steps_by_width": rep["steps_by_width"],
+            "slo_met": rep["slo_met"], "overlap": rep["mesh"]["overlap"]}
+
+
+def _p26_overlap_same(rep, rep_ov, arrays, arrays_ov):
+    """The one-process engine with the overlap on serves as with it off:
+    the same admissions, width trajectory, per-host split and ledger,
+    every prefetched lane counted, and the same tables after close."""
+    c, c_ov = rep["counters"], rep_ov["counters"]
+    keys = ("offered", "admitted", "shed", "attempted", "committed",
+            "blocks", "steps_by_width", "controller", "per_host")
+    ledger = ("lock_requests", "install_writes", "txn_committed",
+              "serve_occupancy_lanes", "serve_shed_lanes")
+    digests = [k for k in arrays if k.startswith("p")]
+    check(all(rep[k] == rep_ov[k] for k in keys)
+          and all(c[k] == c_ov[k] for k in ledger)
+          and c["route_prefetch_lanes"] == 0
+          and c_ov["route_prefetch_lanes"] == c_ov["lock_requests"] > 0
+          and np.array_equal(arrays["stats"], arrays_ov["stats"])
+          and arrays.keys() == arrays_ov.keys()
+          and all(np.array_equal(arrays[k], arrays_ov[k]) for k in digests),
+          f"p26 (a): the overlap on serves as with it off: {list(keys)}, "
+          f"the ledger {list(ledger)} and the stats equal; "
+          f"{c_ov['route_prefetch_lanes']:,} lanes prefetched (every lock "
+          f"request); the digests of {len(digests)} partitions' tables == "
+          f"the unoverlapped run's")
+
+
+def phase_serve_procs(dev, card, overlap_b=False):
     """Phase 26: the mesh serving plane across processes (see the module
-    docstring)."""
+    docstring); ``overlap_b`` (``--mesh-procs``): (b)'s window with the
+    overlap on as well."""
     from dint_tpu_torch.testing import procs
     n_cards = torch.cuda.device_count()
     h, ci = MH_SHAPE
@@ -8626,12 +8940,14 @@ def phase_serve_procs(dev, card):
           f"), {MESH_SB_N:,} accounts, cpb {SV_CPB}, depth 2, monitor; "
           f"rank 0 admits and broadcasts each block's command. (a) a "
           f"VirtualClock, widths {P26_WIDTHS_A}, (arrivals/s, s) "
-          f"{P26_LOADS_A} on host-made draws, bit for bit with the "
-          f"one-process engine; (b) the wall clock, widths "
+          f"{P26_LOADS_A} on host-made draws, the overlap off and on, bit "
+          f"for bit with the one-process engine; (b) the wall clock, widths "
           f"{MH_SERVE_WIDTHS}, one {MH_SERVE_WINDOW_S} s Poisson window at "
-          f"0.5 of {rate_src}'s {txn_s:,.1f} committed txn/s")
+          f"0.5 of {rate_src}'s {txn_s:,.1f} committed txn/s"
+          + (", the overlap off and then on" if overlap_b else ""))
     t0 = time.perf_counter()
-    specs, one_a, inputs = _p26_specs(rate_b, spread=n_cards >= P26_RANKS)
+    specs, (one_a, one_a_ov), inputs = _p26_specs(
+        rate_b, spread=n_cards >= P26_RANKS, overlap_b=overlap_b)
     t1 = time.perf_counter()
     outs = procs.launch("serve_mesh", {"engines": specs}, P26_RANKS,
                         inputs=inputs, deadline_s=P26_DEADLINE_S)
@@ -8641,72 +8957,21 @@ def phase_serve_procs(dev, card):
     one_s = time.perf_counter() - t1
     gc.collect()
     torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ov_arrays, ov = procs.serve_mesh_run(one_a_ov, inputs)
+    one_ov_s = time.perf_counter() - t1
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # (a): every rank's reports, stats and counters, every partition's
-    # digests == the one-process engine's
-    n_parts = 0
-    for arrays, rec in outs:
-        run = rec["runs"][0]
-        check(all(_p26_strip(run[k]) == ref[k] for k in ("report", "closed"))
-              and run["counters"] == ref["counters"]
-              and np.array_equal(arrays["0/stats"], ref_arrays["stats"]),
-              f"p26 (a): rank {rec['rank']}'s report (offered, admitted, "
-              f"shed, per host, steps by width, controller and journal, "
-              f"histograms, counters) before and after close, its stats "
-              f"and its summed counters == the one-process engine's",
-              quiet=True)
-        for p in run["local"]:
-            check(np.array_equal(arrays[f"0/p{p}/digest"],
-                                 ref_arrays[f"p{p}/digest"]),
-                  f"p26 (a): partition {p}'s digests", quiet=True)
-            n_parts += 1
-    rep_a = ref["closed"]
-    switches = rep_a["controller"]["switches"]
-    served = [w for w, n in rep_a["steps_by_width"].items() if n]
-    check(n_parts == d and len(served) >= 2 and rep_a["committed"] > 0,
-          f"p26 (a) bit for bit across {P26_RANKS} processes: every rank's "
-          f"report == the one-process engine's ({rep_a['blocks']} blocks, "
-          f"steps by width {rep_a['steps_by_width']}: a switch drained "
-          f"every partition; controller switches {switches}, offered {rep_a['offered']:,}, shed "
-          f"{rep_a['shed']:,}), stats, counters, and the digests of {d} "
-          f"partitions (tables, backups, stamps, log rings and heads)")
-    _mh_identities("p26 (a)", rep_a, d)
-
-    # (b): rank 0's report on every rank, every rank's stats equal it
-    rep_b = outs[0][1]["runs"][1]["closed"]
-    stats0 = outs[0][0]["1/stats"]
-    for arrays, rec in outs:
-        run = rec["runs"][1]
-        check(run["closed"] == rep_b and run["report"] ==
-              outs[0][1]["runs"][1]["report"]
-              and np.array_equal(arrays["1/stats"], stats0)
-              and run["launches"]["gather_rows"] > 0
-              and run["launches"]["gather_rows"] % len(run["local"]) == 0,
-              f"p26 (b): rank {rec['rank']} ({rec['backend']}, cards "
-              f"{rec['cards']}, partitions {run['local']}) returned rank "
-              f"0's report, its own stats equal it, gather_rows launched "
-              f"{run['launches']['gather_rows']} times on its partitions",
-              quiet=rec["rank"] > 0)
-    check(int(stats0[0]) == rep_b["attempted"]
-          and int(stats0[1]) == rep_b["committed"] > 0,
-          f"p26 (b): the report's attempted and committed "
-          f"({rep_b['attempted']:,}, {rep_b['committed']:,}) are the "
-          f"stats every rank holds")
-    _mh_identities("p26 (b)", rep_b, d)
-    q, sv = rep_b["queue"], rep_b["service"]
-    shed_share = rep_b["shed"] / max(rep_b["offered"], 1)
-    print(f"  p26 (b): offered {rep_b['offered']:,} at "
-          f"{rep_b['offered_rate']:,.1f}/s, achieved "
-          f"{rep_b['achieved_rate']:,.1f} committed/s; queue p50 "
-          f"{q['p50']:.1f} p99 {q['p99']:.1f} us, service p50 "
-          f"{sv['p50']:.1f} p99 {sv['p99']:.1f} us; shed share "
-          f"{shed_share:.6f}; per host "
-          f"{[(x['admitted'], x['shed']) for x in rep_b['per_host']]}; "
-          f"steps by width {rep_b['steps_by_width']}; slo met "
-          f"{rep_b['slo_met']}; backend {rep_b['backend']}, cards "
-          f"{rep_b['rank_cards']}  [{card}]")
+    rep_a = _p26_virtual("(a)", 0, outs, ref_arrays, ref, d, False)
+    rep_ov = _p26_virtual("(a) overlap", 2, outs, ov_arrays, ov, d, True)
+    _p26_overlap_same(rep_a, rep_ov, ref_arrays, ov_arrays)
+    b = _p26_window("(b)", 1, outs, card, d)
+    b_ov = _p26_window("(b) overlap", 3, outs, card, d) if overlap_b \
+        else None
     paths = {}
-    for i, tag in enumerate(("a", "b")):
+    for i, tag in enumerate(("a", "b", "a overlap", "b overlap")[
+            :len(specs)]):
         total = {}
         for _, rec in outs:
             for k, v in rec["runs"][i]["launches"].items():
@@ -8715,19 +8980,15 @@ def phase_serve_procs(dev, card):
     secs = time.perf_counter() - t0
     print("  phase 26 record: " + json.dumps({
         "cards": n_cards, "launch_s": launch_s, "one_process_a_s": one_s,
+        "one_process_a_overlap_s": one_ov_s,
         "rank_run_s": [[r["seconds"] for r in rec["runs"]]
                        for _, rec in outs],
-        "a": {"blocks": rep_a["blocks"], "switches": switches,
-              "steps_by_width": rep_a["steps_by_width"]},
-        "b": {"offered_rate": rep_b["offered_rate"],
-              "achieved_rate": rep_b["achieved_rate"],
-              "queue_p50_us": q["p50"], "queue_p99_us": q["p99"],
-              "service_p50_us": sv["p50"], "service_p99_us": sv["p99"],
-              "shed_share": shed_share, "per_host": rep_b["per_host"],
-              "steps_by_width": rep_b["steps_by_width"],
-              "slo_met": rep_b["slo_met"], "rate_source": rate_src,
-              "closed_txn_s": txn_s},
-        "launches": paths}, default=str))
+        "a": {"blocks": rep_a["blocks"],
+              "switches": rep_a["controller"]["switches"],
+              "steps_by_width": rep_a["steps_by_width"],
+              "prefetch_lanes": rep_ov["counters"]["route_prefetch_lanes"]},
+        "b": dict(b, rate_source=rate_src, closed_txn_s=txn_s),
+        "b_overlap": b_ov, "launches": paths}, default=str))
     print(f"  phase 26: {secs:.3f} s  [{card}]")
     return paths
 
@@ -8896,18 +9157,21 @@ def main(argv=None) -> int:
                          "fits' spread, in place of the smoke run")
     ap.add_argument("--mesh-cards", type=int, nargs="?", const=1,
                     metavar="TURNS",
-                    help="run phase 24 (the mesh over every visible card) "
-                         "alone after phase 1, in place of the smoke run; "
-                         "TURNS spread and one-card pairs a route, in turns "
-                         "(default 1)")
+                    help="run phase 24 (the mesh over every visible card: "
+                         "TATP over 3 shards, SmallBank over 3x2 and over 3 "
+                         "partitions on every route) alone after phase 1, "
+                         "in place of the smoke run; TURNS spread and "
+                         "one-card pairs a route, in turns (default 1)")
     ap.add_argument("--mesh-procs", type=int, nargs="?", const=1,
                     metavar="TURNS",
-                    help="run phase 25 (the mesh across processes: NCCL, "
-                         "one rank a card, on several cards; gloo through "
-                         "the host on one) alone after phase 1, in place of "
-                         "the smoke run; TURNS pairs of the ranks and the "
-                         "one-process mesh spread over the cards, in turns, "
-                         "each with a profiled block (default 1)")
+                    help="run phases 25 and 26 (the mesh and its serving "
+                         "plane across processes: NCCL, one rank a card, on "
+                         "several cards; gloo through the host on one) alone "
+                         "after phase 1, in place of the smoke run; TURNS "
+                         "pairs of the ranks and the one-process mesh spread "
+                         "over the cards, in turns, each with a profiled "
+                         "block (default 1); phase 26 (b) with the overlap "
+                         "off and on")
     ap.add_argument("--turns", metavar="DIR",
                     help="time the one-card paths of `turn_paths` for this "
                          "tree against the tree at DIR, in turns, in place "
@@ -8943,7 +9207,7 @@ def main(argv=None) -> int:
         phase_mesh_procs(dev, card, args.mesh_procs)
         gc.collect()
         torch.cuda.empty_cache()
-        phase_serve_procs(dev, card)
+        phase_serve_procs(dev, card, overlap_b=True)
         return 0
     rec = {**phase_kernels(dev), **phase_sb_kernels(dev)}
     tatp_rec = phase_tatp_kernels(dev)
@@ -9032,9 +9296,11 @@ def main(argv=None) -> int:
         # phase 19's 2-D mesh runs, serving windows and exp points,
         # phase 20's traced blocks, phase 21's full-width blocks (the
         # footprint's and the profiled one), phase 24's spread mesh runs
-        # and phase 25's runs and phase 26's serving runs across
-        # processes (counted in each rank's process from 0 just before
-        # its run, summed over the ranks),
+        # (sharded SmallBank's three routes among them) and phase 25's
+        # runs (every 1-D and 2-D runner's routes) and phase 26's serving
+        # runs (the overlap off and on) across processes (counted in each
+        # rank's process from 0 just before its run, summed over the
+        # ranks),
         # each counted from 0 just before its run
         paths = {**{f"tatp {k}": v[name] for k, v in tatp.items()},
                  **{f"smallbank {k}": v[name] for k, v in sb.items()},
@@ -9127,16 +9393,29 @@ def main(argv=None) -> int:
                   for r in ("hier", "flat")),
           "phase 24: the spread mesh's runs launched their routes' "
           "kernels on the partitions' cards")
-    check(all(by_name[k]["p25 tatp multihost"] > 0
-              for k in ("gather_rows", "lock_arbitrate"))
-          and all(by_name["gather_rows"][f"p25 smallbank 3x2 {r}"] > 0
-                  for r in ("hier", "flat")),
+    check(all(by_name[k][f"p24 smallbank sharded {r}"] > 0
+              for r, ks in SB_MESH_PER_STEP.items() if r != "fused+hotset"
+              for k in ks),
+          "phase 24: the spread sharded SmallBank runs launched "
+          "gather_rows (default), gather_rows_hot and scatter_rows_hot "
+          "(hotset), gather_streams and scatter_streams (fused) on the "
+          "partitions' cards")
+    p25 = {f"p25 {s['label']}": _p25_per_step(s) for s in _p25_specs()}
+    check(all(by_name[k][path] > 0 for path, ks in p25.items() for k in ks)
+          and all(by_name[k]["p25 generic tatp sharded step"] == 0
+                  for k in by_name)
+          and {k for ks in p25.values() for k in ks} == {
+              "gather_rows", "lock_arbitrate", "scatter_streams",
+              "lock_validate", "gather_streams", "gather_rows_hot",
+              "scatter_rows_hot"},
           "phase 25: the ranks launched their routes' kernels on their "
-          "partitions")
+          "partitions: gather_rows, lock_arbitrate, scatter_streams, "
+          "lock_validate, gather_streams, gather_rows_hot and "
+          "scatter_rows_hot; the generic step none")
     check(all(by_name["gather_rows"][f"p26 serve ranks ({t})"] > 0
-              for t in ("a", "b")),
+              for t in ("a", "b", "a overlap")),
           "phase 26: the serving plane's ranks launched gather_rows on "
-          "their partitions")
+          "their partitions, the overlap off and on")
     print(f"chip_smoke: {time.perf_counter() - t_run:.3f} s, every phase  "
           f"[{card}]")
     print(card)

@@ -12,7 +12,8 @@ every rank with a deadline, kills what overruns and raises `RankFailed`
 with each rank's error when any rank fails: a failing rank fails the
 caller, nothing is caught and carried on.
 
-The jobs:
+The jobs (each on the rank's card unless its spec says
+``device="cpu"``):
 
 * ``collectives``: `Mesh.ppermute` along every axis (offsets 1 and 2),
   `Mesh.all_to_all` along every axis and the tuple
@@ -25,7 +26,10 @@ The jobs:
   partition's state (as the `convert` dicts, or as digests of its tensors
   at full size) and counters, optionally the partition audit's counts,
   a lost host rebuilt from the next host's ring and each rank's txn/s;
-* ``runs``: several ``run`` specs in turn in one launch (one spawn);
+* ``runs``: several job specs in turn in one launch (one spawn): ``run``
+  specs, or another job's where the spec names it (``"job"``); runs
+  tagged alike (``"share"``) start from clones of the first one's
+  created state;
 * ``sharded_step``: the generic engines' `sharded.build_sharded_step` on
   batches every rank routes alike;
 * ``serve_mesh``: `serve.mesh.MeshServeEngine` over the ranks, a list of
@@ -276,42 +280,72 @@ def make_mesh(engine: str, shape, device=None, group=None, devices=None):
                 devices=devices, group=group)
 
 
+# the route keys of each engine's builder that `drive` runs (multihost_sb's
+# ``overlap`` needs the serve carry: `serve_engine` drives it); any other
+# key in a spec's ``route`` raises, so a spec cannot run the default route
+# unawares
+ROUTE_KEYS = {"dense_sharded": ("use_fused", "monitor"),
+              "multihost": (),
+              "dense_sharded_sb": ("use_hotset", "use_fused", "monitor"),
+              "multihost_sb": ("hierarchical", "monitor")}
+
+
 def build(engine: str, mesh, spec: dict):
     """(run, init, drain) of ``engine`` over ``mesh`` at the spec's sizes
-    and route."""
+    and route (``spec["route"]``: keyword arguments of the builder, only
+    those of `ROUTE_KEYS`)."""
     from ..parallel import dense_sharded as ds
     from ..parallel import dense_sharded_sb as dsb
     from ..parallel import multihost as mh
     from ..parallel import multihost_sb as mhs
-    route = spec.get("route", {})
+    route = dict(spec.get("route", {}))
+    extra = sorted(set(route) - set(ROUTE_KEYS[engine]))
+    if extra:
+        raise ValueError(f"the harness drives no route key {extra} of "
+                         f"{engine} (its keys: {list(ROUTE_KEYS[engine])})")
     n, w, cpb = spec["n"], spec["w"], spec["cpb"]
     if engine == "dense_sharded":
         return ds.build_sharded_pipelined_runner(
             mesh, mesh.size, n, w=w, val_words=spec["vw"],
-            cohorts_per_block=cpb, use_fused=route.get("use_fused", False),
-            monitor=route.get("monitor", False))
+            cohorts_per_block=cpb, **route)
     if engine == "multihost":
         return mh.build_multihost_runner(mesh, n, w=w, val_words=spec["vw"],
                                          cohorts_per_block=cpb)
     if engine == "dense_sharded_sb":
         return dsb.build_sharded_sb_runner(
-            mesh, mesh.size, n, w=w, cohorts_per_block=cpb,
-            use_hotset=route.get("use_hotset", False),
-            use_fused=route.get("use_fused", False),
-            monitor=route.get("monitor", False))
-    return mhs.build_multihost_sb_runner(
-        mesh, n, w=w, cohorts_per_block=cpb,
-        hierarchical=route.get("hierarchical", False),
-        monitor=route.get("monitor", False))
+            mesh, mesh.size, n, w=w, cohorts_per_block=cpb, **route)
+    return mhs.build_multihost_sb_runner(mesh, n, w=w, cohorts_per_block=cpb,
+                                         **route)
+
+
+def populate_partition(mesh, spec: dict, p: int, device=None):
+    """TATP partition ``p``'s populated tables as ``create`` made them, on
+    ``device`` (None: the partition's own): `populate_device` from
+    generator seed ``seed + p`` (``spec["state"] == "device"``), else the
+    numpy `populate` from ``default_rng(seed + p)``."""
+    from ..engines import tatp_dense as td
+    from ..parallel import dense_sharded as ds
+    seed = spec.get("seed", 0)
+    dev = mesh.device_of(p) if device is None else device
+    n_loc = ds.n_sub_local(spec["n"], mesh.size)
+    log_kw = {} if spec["log_cap"] is None else {
+        "log_capacity": spec["log_cap"]}
+    if spec.get("state") == "device":
+        return td.populate_device(
+            torch.Generator(device=dev).manual_seed(seed + p), n_loc,
+            val_words=spec["vw"], log_replicas=1, device=dev, **log_kw)
+    return td.populate(np.random.default_rng(seed + p), n_loc,
+                       val_words=spec["vw"], log_replicas=1, device=dev,
+                       **log_kw)
 
 
 def create(engine: str, mesh, spec: dict, inputs: dict) -> list:
     """The runner's starting state: JAX's (``inputs`` under ``state.``,
     each rank placing its own partitions), made on the device at full size
     (``spec["state"] == "device"``: TATP's `populate_device` a partition,
-    seeds ``seed + p``), or the module's own ``create_*``."""
+    seeds ``seed + p``, its backups moved by `_with_backups`' ppermute), or
+    the module's own ``create_*``."""
     from .. import convert
-    from ..engines import tatp_dense as td
     from ..parallel import dense_sharded as ds
     from ..parallel import dense_sharded_sb as dsb
     from ..parallel import multihost as mh
@@ -327,12 +361,7 @@ def create(engine: str, mesh, spec: dict, inputs: dict) -> list:
         return convert.sharded_sb_from_numpy(arrays, mesh=mesh)
     seed, log_cap = spec.get("seed", 0), spec["log_cap"]
     if engine in TATP and how == "device":
-        n_loc = ds.n_sub_local(spec["n"], mesh.size)
-        dbs = mesh.map_local(lambda p: td.populate_device(
-            torch.Generator(device=mesh.device_of(p)).manual_seed(seed + p),
-            n_loc, val_words=spec["vw"], log_replicas=1,
-            device=mesh.device_of(p),
-            **({} if log_cap is None else {"log_capacity": log_cap})))
+        dbs = mesh.map_local(lambda p: populate_partition(mesh, spec, p))
         axis = mh.DCN_AXIS if engine == "multihost" else ds.SHARD_AXIS
         return ds._with_backups(mesh, axis, dbs)
     if engine == "dense_sharded":
@@ -464,8 +493,27 @@ def drive(engine: str, mesh, spec: dict, inputs: dict, states=None,
     return out[0], stats, (out[-1] if monitor else None), block_s, busy
 
 
-def _run_job(group, spec, inputs):
-    """One runner over the ranks (the module docstring's ``run``)."""
+def _share_key(engine, spec) -> tuple:
+    """What a run's created state depends on: two runs with equal keys
+    start from the same tensors (TATP's `multihost` over H x 1 and
+    `dense_sharded` over H lay their partitions and backups out alike)."""
+    shape = spec["shape"]
+    return ((engine in TATP, shape[0], int(np.prod(shape[1:])))
+            + tuple(spec.get(k) for k in ("n", "vw", "log_cap", "seed",
+                                          "state", "device")))
+
+
+def _clones(states) -> list:
+    from ..parallel.mesh import leaves, rebuild
+    return [None if st is None else rebuild(
+        st, iter([t.clone() for t in leaves(st)])) for st in states]
+
+
+def _run_job(group, spec, inputs, made=None):
+    """One runner over the ranks (the module docstring's ``run``).
+    ``made`` (the ``runs`` job's): {share tag: (key, states)}; a run whose
+    ``spec["share"]`` is there starts from clones of those states, else
+    it creates its own and, tagged, leaves clones of them there."""
     from .. import timing
     from ..ops import u32
     from .partitions import PartitionAudit
@@ -476,9 +524,30 @@ def _run_job(group, spec, inputs):
         (lambda: timing.synchronize(mesh.cards))
     record, arrays = {"mesh_cards": [str(c) for c in mesh.cards],
                       "local": list(mesh.local)}, {}
+    # the run's seconds by part, each ending when this rank's cards are done
+    secs, t0 = {}, time.perf_counter()
+
+    def lap(part):
+        nonlocal t0
+        if sync is not None:
+            sync()
+        secs[part] = time.perf_counter() - t0
+        t0 = time.perf_counter()
     reset_launches()
-    if spec.get("audit"):
+    tag = spec.get("share")
+    key = _share_key(engine, spec)
+    if made is not None and tag in made:
+        if made[tag][0] != key:
+            raise ValueError(f"run {spec.get('label', engine)!r} shares "
+                             f"{tag!r} with a run of another state")
+        states = _clones(made[tag][1])
+        lap("clone")
+    else:
         states = create(engine, mesh, spec, inputs)
+        if made is not None and tag is not None:
+            made[tag] = (key, _clones(states))
+        lap("create")
+    if spec.get("audit"):
         audit = PartitionAudit(local=mesh.local)
         audit.tag_partitions(states)
         with audit:
@@ -487,8 +556,9 @@ def _run_job(group, spec, inputs):
         record.update(audit_ops=audit.ops,
                       audit_collectives=audit.collectives)
     else:
-        states, stats, cnts, block_s, busy = drive(engine, mesh, spec,
-                                                   inputs, sync=sync)
+        states, stats, cnts, block_s, busy = drive(
+            engine, mesh, spec, inputs, states=states, sync=sync)
+    lap("drive")
     arrays["stats"] = stats
     record.update(block_s=block_s, busy_s=busy, launches=launches())
     if engine not in TATP:
@@ -508,18 +578,28 @@ def _run_job(group, spec, inputs):
         # the mesh's counters: this rank's partitions, summed over the ranks
         from ..monitor import counters as mon
         record["counters"] = mon.sum_over(group, mon.snapshot(cnts))
+    lap("outputs")
     for dead_h in spec.get("recover", ()):
         # the lost host's partitions rebuilt on their rank from the ring
         # of host dead_h + 1 (one ppermute along "dcn", across ranks)
-        arrays.update(_recover(engine, mesh, spec, states, dead_h))
+        arrays.update(recover(engine, mesh, spec, states, dead_h))
+    lap("recover")
+    record["seconds"] = secs
     return arrays, record
 
 
-def _recover(engine, mesh, spec, states, dead_h) -> dict:
+def recover(engine, mesh, spec, states, dead_h) -> dict:
+    """Host ``dead_h``'s local partitions rebuilt from the rings of host
+    ``dead_h + 1`` (`multihost.rings_from`: one ppermute along "dcn", so
+    across ranks where the hosts are processes): TATP's tables from the
+    partition's populate (`populate_partition`) with
+    `recovery.recover_tatp_dense`, SmallBank's balances with
+    `recovery.recover_sb_shard`. As arrays ``rec<p>/val`` and ``/meta``
+    (TATP) or ``/bal``; with ``spec["outputs"] == "digest"`` (full size)
+    their digests ``rec<p>/digest`` and ``rec<p>/same``: whether they equal
+    the live tables, compared on the partition's device."""
     from .. import recovery
-    from ..engines import tatp_dense as td
     from ..ops import u32
-    from ..parallel import dense_sharded as ds
     from ..parallel import multihost as mh
     from ..tables import log as logring
     logs = [None if st is None else (st.db.log if engine in TATP
@@ -534,29 +614,41 @@ def _recover(engine, mesh, spec, states, dead_h) -> dict:
         log = rings[dead]
         holder = mesh.flat(((dead_h + 1) % n_hosts, c))
         if engine in TATP:
-            n_loc = ds.n_sub_local(spec["n"], mesh.size)
-            snap = td.populate(np.random.default_rng(
-                spec.get("seed", 0) + dead), n_loc, val_words=spec["vw"],
-                log_replicas=1, log_capacity=spec["log_cap"],
-                device=mesh.device_of(dead))
             rec = recovery.recover_tatp_dense(
-                snap, logring.replica_entries(log, 0), log.head,
+                populate_partition(mesh, spec, dead),
+                logring.replica_entries(log, 0), log.head,
                 key_hi_filter=dead + 1)
-            out[f"rec{dead}/val"] = u32.to_numpy(rec.val)
-            out[f"rec{dead}/meta"] = u32.to_numpy(rec.meta)
+            got = {"val": rec.val, "meta": rec.meta}
+            live = {"val": states[dead].db.val, "meta": states[dead].db.meta}
         else:
-            out[f"rec{dead}/bal"] = recovery.recover_sb_shard(
+            got = {"bal": u32.from_numpy(recovery.recover_sb_shard(
                 spec["n"], dead, mesh.size, logring.replica_entries(log, 0),
-                log.head, ring_owner=holder)
+                log.head, ring_owner=holder), mesh.device_of(dead))}
+            live = {"bal": states[dead].bal}
+        if spec.get("outputs") == "digest":
+            out[f"rec{dead}/digest"] = np.array(
+                [digest(t) for t in got.values()], dtype=np.int64)
+            out[f"rec{dead}/same"] = np.array(all(
+                torch.equal(t, live[k]) for k, t in got.items()))
+        else:
+            out.update({f"rec{dead}/{k}": u32.to_numpy(t)
+                        for k, t in got.items()})
     return out
 
 
 def _runs_job(group, spec, inputs):
-    """``spec["runs"]``: ``run`` specs in turn; run i's arrays under
-    ``<i>/`` and its record at ``runs[i]``."""
-    arrays, records = {}, []
+    """``spec["runs"]``: job specs in turn, each a ``run`` spec or, with
+    ``"job"`` naming another job (``sharded_step``, ``collectives``), that
+    job's; run i's arrays under ``<i>/`` and its record at ``runs[i]``.
+    Consecutive ``run`` specs with one ``share`` tag start from one
+    create (`_run_job`), kept until a run without that tag."""
+    arrays, records, made = {}, [], {}
     for i, one in enumerate(spec["runs"]):
-        a, rec = _run_job(group, one, inputs)
+        if one.get("share") not in made:
+            made.clear()
+        job = one.get("job", "run")
+        a, rec = (_run_job(group, one, inputs, made) if job == "run"
+                  else JOBS[job](group, one, inputs))
         arrays.update({f"{i}/{k}": v for k, v in a.items()})
         records.append(rec)
         del a
@@ -564,13 +656,15 @@ def _runs_job(group, spec, inputs):
 
 
 def _collectives_job(group, spec, inputs):
+    """The collective cases over the ranks, on ``spec["device"]`` (None:
+    the rank's card, as every job)."""
     from ..parallel.mesh import Mesh
-    dev = torch.device(spec.get("device") or "cpu")
     shape = tuple(spec["shape"])
-    mesh = Mesh(shape, tuple(spec["axes"]), device=dev, group=group)
+    mesh = Mesh(shape, tuple(spec["axes"]), device=spec.get("device"),
+                group=group)
     ins = collective_inputs(shape, spec["seed"])
-    return case_arrays(collective_cases(mesh, ins, dev), mesh.local), \
-        {"local": list(mesh.local)}
+    return case_arrays(collective_cases(mesh, ins, mesh.device),
+                       mesh.local), {"local": list(mesh.local)}
 
 
 def sharded_batches(spec: dict, devices):
@@ -608,22 +702,32 @@ def sharded_batches(spec: dict, devices):
 
 
 def _sharded_step_job(group, spec, inputs):
+    """The generic step over the ranks (`sharded_step_arrays`), on
+    ``spec["device"]`` (None: the rank's card); its launches counted from
+    0 just before it."""
     from ..parallel import sharded
-    mesh = sharded.make_mesh(spec["shards"],
-                             device=spec.get("device") or "cpu", group=group)
-    return sharded_step_arrays(mesh, spec), {"local": list(mesh.local)}
+    mesh = sharded.make_mesh(spec["shards"], device=spec.get("device"),
+                             group=group)
+    reset_launches()
+    t0 = time.perf_counter()
+    arrays = sharded_step_arrays(mesh, spec)
+    return arrays, {"local": list(mesh.local), "launches": launches(),
+                    "seconds": time.perf_counter() - t0,
+                    "cards": [str(c) for c in mesh.cards]}
 
 
 def sharded_step_arrays(mesh, spec: dict) -> dict:
     """The generic TATP step over ``mesh`` on `sharded_batches`: each local
     shard's replies and the vote a wave, and each local shard's final
     tensors (`leaves` order), as ``w<i>/<p>/<j>``, ``w<i>/committed`` and
-    ``s/<p>/<j>``."""
+    ``s/<p>/<j>`` (with ``spec["outputs"] == "digest"``, full size: their
+    `state_digests` as ``s/<p>/digest``). The CF table at `tatp.create`'s
+    size for the shard."""
     from ..parallel import sharded
     from ..parallel.mesh import leaves
     shards = sharded.create_sharded_state(
-        mesh, mesh.size, spec["n"], val_words=spec["vw"], cf_buckets=256,
-        cf_lock_slots=256, log_capacity=spec["log_cap"])
+        mesh, mesh.size, spec["n"], val_words=spec["vw"],
+        log_capacity=spec["log_cap"])
     step = sharded.build_sharded_step(mesh, mesh.size, "tatp")
     out = {}
     for i, wave in enumerate(sharded_batches(spec, mesh.devices)):
@@ -633,6 +737,10 @@ def sharded_step_arrays(mesh, spec: dict) -> dict:
                 out[f"w{i}/{p}/{j}"] = t.cpu().numpy()
         out[f"w{i}/committed"] = committed.cpu().numpy()
     for p in mesh.local:
+        if spec.get("outputs") == "digest":
+            out[f"s/{p}/digest"] = np.array(state_digests(shards[p]),
+                                            dtype=np.int64)
+            continue
         for j, t in enumerate(leaves(shards[p])):
             out[f"s/{p}/{j}"] = t.cpu().numpy()
     return out
